@@ -1,0 +1,118 @@
+"""Runtime flag registry — the ``FLAGS_serving_*`` subset the port reads.
+
+Counterpart of ``paddle_tpu/flags.py``: its ``define_flag`` / ``flag``
+helpers and the same names, defaults and ``FLAGS_<name>=value``
+environment override, limited to the serving knobs the ported engine
+resolves when a ``ServingConfig`` field is left unset.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict
+
+__all__ = ["define_flag", "flag"]
+
+
+@dataclass
+class _FlagDef:
+    name: str
+    default: Any
+    type: type
+    help: str
+    value: Any = None
+
+
+_registry: Dict[str, _FlagDef] = {}
+
+
+def _coerce(defn: _FlagDef, value: Any) -> Any:
+    if defn.type is bool:
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    return defn.type(value)
+
+
+def define_flag(name: str, default: Any, help: str = "",
+                type: type = None) -> None:
+    """Register a flag. Environment variable ``FLAGS_<name>`` overrides the
+    default."""
+    if not name.startswith("FLAGS_"):
+        name = "FLAGS_" + name
+    ftype = type if type is not None else default.__class__
+    defn = _FlagDef(name=name, default=default, type=ftype, help=help)
+    env = os.environ.get(name)
+    defn.value = _coerce(defn, env) if env is not None else default
+    _registry[name] = defn
+
+
+_MISSING = object()
+
+
+def flag(name: str, default: Any = _MISSING) -> Any:
+    """Fast read of a single flag value. With ``default``, an unknown flag
+    returns it instead of raising."""
+    if not name.startswith("FLAGS_"):
+        name = "FLAGS_" + name
+    d = _registry.get(name)
+    if d is None:
+        if default is not _MISSING:
+            return default
+        raise KeyError(name)
+    return d.value
+
+
+# ---------------------------------------------------------------------------
+# Serving engine defaults (ServingConfig resolves these when a field is left
+# unset; explicit ServingConfig values always win).
+# ---------------------------------------------------------------------------
+define_flag("FLAGS_serving_block_size", 16,
+            "Paged-KV-cache block size (tokens per physical block).", int)
+define_flag("FLAGS_serving_max_slots", 8,
+            "Decode slots in the continuous-batching step — the fixed batch "
+            "dimension of every decode dispatch.", int)
+define_flag("FLAGS_serving_max_model_len", 2048,
+            "Per-sequence KV capacity bound (prompt + generated - 1 KV "
+            "entries); sets the block-table width ceil(len / block_size).",
+            int)
+define_flag("FLAGS_serving_queue_depth", 128,
+            "Admission-queue bound: submits beyond this raise "
+            "ServingQueueFull.", int)
+define_flag("FLAGS_serving_decode_chunk", 8,
+            "Cap on decode iterations per dispatch when a live request can "
+            "retire early (EOS enabled), a prompt is mid-chunked-prefill, "
+            "or the caller streams token events.", int)
+define_flag("FLAGS_serving_prefix_cache", True,
+            "Automatic prefix caching over content-hashed full KV blocks.",
+            bool)
+define_flag("FLAGS_serving_prefill_chunk", 256,
+            "Chunked prefill: prompts longer than this prefill in chunks of "
+            "this many tokens. 0 disables.", int)
+define_flag("FLAGS_serving_mixed_batch", True,
+            "Stall-free mixed batching: mid-flight prefill chunks ride the "
+            "decode dispatch as extra query rows of one mixed step; False "
+            "restores the two-phase path.", bool)
+define_flag("FLAGS_serving_preempt", True,
+            "On-demand KV paging with preemption; False restores the "
+            "reservation-at-admission policy.", bool)
+define_flag("FLAGS_serving_paged_kernel", "auto",
+            "Decode attention path: 'auto' runs the CUDA paged-attention "
+            "kernel on a card and the gather + masked-softmax path on the "
+            "CPU; 'on' forces the kernel wrapper; 'off' forces the gather "
+            "path.", str)
+define_flag("FLAGS_serving_kv_quant", "",
+            "Paged KV-cache quantization: 'int8' stores K/V blocks as int8 "
+            "with per-token-per-head fp32 scales; '' = fp pool.", str)
+define_flag("FLAGS_serving_policy", "fifo",
+            "Default admission policy: fifo, priority, fair or edf.", str)
+define_flag("FLAGS_serving_ttft_slo_s", 0.0,
+            "Default time-to-first-token SLO (seconds) the EDF policy "
+            "assumes for requests without a deadline. 0 = none.", float)
+define_flag("FLAGS_serving_tenant_cache_quota", 0,
+            "Max prefix-cache blocks one tenant may keep registered. 0 = "
+            "unlimited.", int)
+define_flag("FLAGS_serving_retry_after_s", 1.0,
+            "Conservative retry-after hint (s) returned to shed clients "
+            "before two retirements make an interval measurable.", float)

@@ -1,0 +1,795 @@
+"""Continuous-batching serving engine over the paged KV cache.
+
+Counterpart of ``paddle_tpu/inference/serving/engine.py`` (``ServingConfig``
+and ``ServingEngine``), greedy decoding only. The host logic — admission,
+batched bucketed prefill, chunked prefill, prefix caching, on-demand block
+allocation with preemption, mixed prefill+decode batching, deadlines and
+cancellation — follows the JAX engine step for step, so both engines issue
+the same dispatches for the same trace (the parity tests compare their
+token streams and dispatch counters).
+
+What differs is the device side. PyTorch runs eagerly, so there are no
+compiled programs to share: each dispatch calls the paged entry points of
+:mod:`paddle_tpu_torch.models.generation` directly, and the decode burst —
+a ``lax.while_loop`` with a device-scalar bound in the JAX engine — is a
+host loop of :func:`~paddle_tpu_torch.models.generation.paged_decode_step`
+with the same ``limit`` and the same exit once no row is live. On a card
+the paged-attention CUDA kernel runs every decode and mixed dispatch
+(``paged_kernel="auto"``), and ``quantize="int8"`` routes every projection
+through the weight-only int8 kernel.
+
+Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
+item): sampling with ``temperature > 0``, speculative decoding, tensor
+parallelism, LoRA adapters, the embeddings endpoint, the request journal
+and the host offload tier.
+
+API::
+
+    engine = ServingEngine(params, model_cfg, ServingConfig(max_slots=8))
+    rid = engine.submit(prompt_ids, max_new_tokens=64)
+    while engine.pending:
+        for rid, toks in engine.step().items(): ...
+    # or: outs = engine.run(prompts, max_new_tokens=64)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...device import resolve_device, resolve_paged_kernel
+from ...flags import flag
+from ...models import generation as G
+from ...models.llama import (KV_QUANT_MODES, QUANTIZE_MODES,
+                             ensure_quantized, validate_quant_mode)
+from .paged_cache import PagedKVCache
+from .policies import resolve_policy
+from .scheduler import (CANCELLED, DEFAULT_TENANT, SHED, TIMED_OUT, Request,
+                        Scheduler, ServingQueueFull)
+
+__all__ = ["ServingConfig", "ServingEngine", "ServingQueueFull"]
+
+_UNSET = "unset"
+# the ROADMAP.md section A items that bring what this slice leaves out
+_LATER = {
+    "sampling": "temperature > 0 needs the threefry-exact sampler "
+                "(ROADMAP.md section A, next in the queue)",
+    "spec_decode": "speculative decoding is queued after the sampler "
+                   "(ROADMAP.md section A)",
+    "lora": "LoRA adapters are queued after speculative decoding "
+            "(ROADMAP.md section A)",
+    "tp": "tensor parallelism over NCCL is queued after LoRA "
+          "(ROADMAP.md section A)",
+    "robustness": "the offload tier, journal, supervisor, router and server "
+                  "are queued after TP (ROADMAP.md section A)",
+    "embed": "the embeddings endpoint comes with the BERT encoder "
+             "(ROADMAP.md section A)",
+}
+
+# weights the engine casts once to the activation dtype (every use casts
+# them to it anyway, so the result is the same and no dispatch pays the
+# cast again)
+_MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """Engine shape/capacity knobs. ``None`` fields resolve from the
+    ``FLAGS_serving_*`` registry at construction. The feature knobs use
+    the ``"unset"`` sentinel: left unset they resolve from their flag; an
+    EXPLICIT ``None`` (or ``False``/``0``) disables the feature."""
+
+    block_size: Optional[int] = None
+    max_slots: Optional[int] = None
+    max_model_len: Optional[int] = None
+    queue_depth: Optional[int] = None
+    decode_chunk: Optional[int] = None
+    num_blocks: int = 0              # 0 = auto (max_slots full sequences)
+    quantize: Optional[str] = None   # "int8" -> weight-only int8 kernel
+    cache_dtype: Any = None          # None -> model activation dtype
+    kv_quant: Any = _UNSET           # "int8" -> int8 KV pool + scales
+    paged_kernel: Any = _UNSET       # "auto" (kernel on a card) / on / off
+    prefix_cache: Any = _UNSET       # bool; None/False = off
+    prefill_chunk: Any = _UNSET      # tokens per chunk; None/0 = whole
+    preempt: Any = _UNSET            # bool; None/False = reservation
+    mixed_batch: Any = _UNSET        # bool; None/False = two-phase path
+    policy: Any = None               # AdmissionPolicy or a name
+    tenant_cache_quota: Any = _UNSET  # blocks per tenant; None/0 = off
+    # features of the JAX engine that later slices bring (must stay off)
+    spec_decode: int = 0
+    tp: int = 1
+    lora_slots: int = 0
+    offload: bool = False
+
+    def __post_init__(self):
+        if self.spec_decode:
+            raise NotImplementedError(_LATER["spec_decode"])
+        if self.lora_slots:
+            raise NotImplementedError(_LATER["lora"])
+        if int(self.tp) != 1:
+            raise NotImplementedError(_LATER["tp"])
+        if self.offload:
+            raise NotImplementedError(_LATER["robustness"])
+        for f, name in (("block_size", "FLAGS_serving_block_size"),
+                        ("max_slots", "FLAGS_serving_max_slots"),
+                        ("max_model_len", "FLAGS_serving_max_model_len"),
+                        ("queue_depth", "FLAGS_serving_queue_depth"),
+                        ("decode_chunk", "FLAGS_serving_decode_chunk")):
+            if getattr(self, f) is None:
+                setattr(self, f, int(flag(name)))
+        for f in ("prefix_cache", "preempt", "mixed_batch"):
+            if getattr(self, f) == _UNSET:
+                setattr(self, f, bool(flag(f"FLAGS_serving_{f}")))
+            else:
+                setattr(self, f, bool(getattr(self, f)))
+        if self.prefill_chunk == _UNSET:
+            self.prefill_chunk = int(flag("FLAGS_serving_prefill_chunk"))
+        self.prefill_chunk = (int(self.prefill_chunk)
+                              if self.prefill_chunk else None)
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1 or None/0 "
+                             f"(got {self.prefill_chunk})")
+        if self.tenant_cache_quota == _UNSET:
+            self.tenant_cache_quota = int(
+                flag("FLAGS_serving_tenant_cache_quota"))
+        self.tenant_cache_quota = (int(self.tenant_cache_quota)
+                                   if self.tenant_cache_quota else None)
+        if self.policy is None:
+            self.policy = str(flag("FLAGS_serving_policy"))
+        validate_quant_mode(self.quantize, QUANTIZE_MODES)
+        if self.kv_quant == _UNSET:
+            self.kv_quant = str(flag("FLAGS_serving_kv_quant"))
+        self.kv_quant = self.kv_quant or None      # ""/False -> fp pool
+        validate_quant_mode(self.kv_quant, KV_QUANT_MODES, "kv_quant")
+        if self.paged_kernel == _UNSET:
+            self.paged_kernel = str(flag("FLAGS_serving_paged_kernel"))
+        # validate now (structured error on bad knobs); the engine resolves
+        # "auto" against its device
+        resolve_paged_kernel(self.paged_kernel, torch.device("cpu"))
+
+
+class ServingEngine:
+    """Continuous-batching greedy decode service over a causal-LM
+    parameter dict, on ``device`` (CUDA unless ``device="cpu"``)."""
+
+    def __init__(self, params, model_config,
+                 serving_config: Optional[ServingConfig] = None,
+                 gen_config: Optional[G.GenerationConfig] = None,
+                 device=None, journal=None, embed_model=None):
+        if journal is not None:
+            raise NotImplementedError(_LATER["robustness"])
+        if embed_model is not None:
+            raise NotImplementedError(_LATER["embed"])
+        self.device = resolve_device(device)
+        self.config = serving_config or ServingConfig()
+        self._gen = gen_config or G.GenerationConfig()
+        if self._gen.temperature > 0:
+            raise NotImplementedError(_LATER["sampling"])
+        self._cfg = model_config
+        self._params = self._prepare_params(params)
+        self.cache = PagedKVCache(model_config, self.config.max_slots,
+                                  self.config.max_model_len,
+                                  self.config.block_size,
+                                  self.config.num_blocks,
+                                  dtype=self.config.cache_dtype,
+                                  prefix_cache=self.config.prefix_cache,
+                                  tenant_quota=self.config.tenant_cache_quota,
+                                  kv_quant=self.config.kv_quant,
+                                  device=self.device)
+        self._policy = resolve_policy(
+            self.config.policy,
+            ttft_slo_s=float(flag("FLAGS_serving_ttft_slo_s")))
+        self._sched = Scheduler(self.cache, self.config.max_slots,
+                                self.config.queue_depth,
+                                preempt=self.config.preempt,
+                                policy=self._policy)
+        self._use_kernel = resolve_paged_kernel(self.config.paged_kernel,
+                                                self.device)
+        M = self.config.max_slots
+        self._tokens = np.zeros((M,), np.int32)
+        self._seq_lens = np.zeros((M,), np.int32)
+        self._steps_left = np.zeros((M,), np.int32)
+        self._done = np.ones((M,), bool)          # empty slots are inactive
+        self._eos = np.full((M,), -1, np.int32)
+        # every mutation and snapshot read runs under this lock; reentrant
+        # because stream()'s GeneratorExit path cancels from inside a step
+        self._lock = threading.RLock()
+        self._out_width = int(self.config.max_model_len)
+        self._stats = {"chunks": 0, "steps": 0, "prefill_dispatches": 0,
+                       "decode_dispatches": 0, "mixed_dispatches": 0,
+                       "decode_iters": 0}
+        self._dispatch_s = {"prefill": 0.0, "decode": 0.0, "mixed": 0.0}
+        self._prefill_buckets: set = set()
+
+    def _prepare_params(self, params) -> Dict:
+        """Params on the engine's device, weight-only quantized when the
+        config asks, fp matmul weights and the embedding cast once to the
+        activation dtype."""
+        dev, dt = self.device, self._cfg.dtype
+
+        def move(tree):
+            return {k: move(v) if isinstance(v, dict) else v.to(dev)
+                    for k, v in tree.items()}
+
+        p = ensure_quantized(move(params), self.config.quantize)
+        p = dict(p)
+        layers = dict(p["layers"])
+        for name in _MATMUL_WEIGHTS:
+            if name in layers and layers[name].is_floating_point():
+                layers[name] = layers[name].to(dt)
+        p["layers"] = layers
+        p["embed"] = p["embed"].to(dt)
+        if "lm_head" in p and p["lm_head"].is_floating_point():
+            p["lm_head"] = p["lm_head"].to(dt)
+        return p
+
+    def _t(self, a) -> torch.Tensor:
+        """A host array as a tensor on the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        b = 8
+        while b < n:
+            b *= 2
+        return b
+
+    def _record_dispatch(self, kind: str, t0: float) -> None:
+        """Count + time ONE device dispatch by kind (``chunks`` is the
+        all-kinds total). Every dispatch ends in a device-to-host read of
+        its tokens, so the host clock spans the device work."""
+        self._stats["chunks"] += 1
+        self._stats[kind + "_dispatches"] += 1
+        self._dispatch_s[kind] += time.time() - t0
+
+    # ---- request lifecycle ------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: Optional[int] = None,
+               eos_token_id: Optional[int] = "unset",
+               timeout_s: Optional[float] = None,
+               deadline_s: Optional[float] = None,
+               tenant: Optional[str] = None, priority: int = 0,
+               temperature: Any = "unset", top_k: Any = "unset",
+               top_p: Any = "unset", seed: Any = "unset",
+               adapter_id: Optional[str] = None) -> int:
+        """Queue one prompt; returns the request id. ``eos_token_id``
+        defaults to the engine's GenerationConfig (``None`` disables EOS).
+        ``timeout_s`` / ``deadline_s`` bound the request's wall time
+        (queued expiry sheds it, running expiry times it out); ``tenant``
+        and ``priority`` feed the admission policy. Raises
+        :class:`ServingQueueFull` when the bounded queue is full, and
+        ``NotImplementedError`` for sampling (``temperature > 0``) and
+        LoRA adapters, which later slices bring."""
+        if adapter_id is not None:
+            raise NotImplementedError(_LATER["lora"])
+        deadline = deadline_s
+        if timeout_s is not None:
+            t = time.time() + float(timeout_s)
+            deadline = t if deadline is None else min(deadline, t)
+        g = G.GenerationConfig.resolve(
+            self._gen, max_new_tokens=max_new_tokens,
+            eos_token_id=eos_token_id, temperature=temperature,
+            top_k=top_k, top_p=top_p, seed=seed)
+        if g.temperature > 0:
+            raise NotImplementedError(_LATER["sampling"])
+        req = Request(
+            rid=-1, prompt=np.asarray(prompt, np.int32).reshape(-1),
+            max_new_tokens=int(g.max_new_tokens),
+            eos_token_id=g.eos_token_id,
+            tenant=str(tenant) if tenant is not None else DEFAULT_TENANT,
+            priority=int(priority),
+            deadline=float(deadline) if deadline is not None else None)
+        if req.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if req.prompt_len < 1:
+            raise ValueError("prompt must contain at least one token")
+        with self._lock:
+            return self._sched.submit(req)
+
+    def submit_embedding(self, *args, **kwargs) -> int:
+        raise NotImplementedError(_LATER["embed"])
+
+    def register_adapter(self, *args, **kwargs) -> None:
+        raise NotImplementedError(_LATER["lora"])
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a queued or running request, freeing its KV blocks at
+        once. True when it was live and is now ``cancelled``; False when
+        it already reached a terminal state (idempotent)."""
+        with self._lock:
+            req = self._sched.find(rid)
+            if req is None or self._retire_if_finished(req):
+                return False
+            self._terminate(req, CANCELLED)
+            return True
+
+    def cancel_all(self) -> int:
+        """Cancel every queued and running request; returns how many."""
+        with self._lock:
+            n = 0
+            for req in list(self._sched.queue) + self._sched.live:
+                if self._retire_if_finished(req):
+                    continue
+                self._terminate(req, CANCELLED)
+                n += 1
+            return n
+
+    def _retire_if_finished(self, req: Request) -> bool:
+        """A request can sit FINISHED in its slot until the next retire
+        sweep; a cancel or deadline racing that sweep retires it as the
+        completed work it is."""
+        if req.slot is None or not req.finished:
+            return False
+        m = req.slot
+        self._sched.finish(req)
+        self._clear_slot(m)
+        return True
+
+    def _clear_slot(self, m: int) -> None:
+        self._tokens[m] = 0
+        self._seq_lens[m] = 0
+        self._steps_left[m] = 0
+        self._done[m] = True
+        self._eos[m] = -1
+
+    def _terminate(self, req: Request, state: str) -> None:
+        m = req.slot
+        self._sched.terminate(req, state)
+        if m is not None:
+            self._clear_slot(m)
+
+    def _expire_deadlines(self, now: float) -> None:
+        """Queued requests past their deadline are SHED (TIMED_OUT when
+        they already ran); running ones TIME OUT mid-flight."""
+        if not self._sched.deadline_requests:
+            return
+        for req in [r for r in self._sched.queue
+                    if r.deadline is not None and r.deadline < now]:
+            self._terminate(req,
+                            SHED if not (req.preemptions or req.tokens)
+                            else TIMED_OUT)
+        for req in [r for r in self._sched.live
+                    if r.deadline is not None and r.deadline < now
+                    and not r.finished]:
+            self._terminate(req, TIMED_OUT)
+
+    def _chain_ids(self, req: Request, start: int, stop: int) -> np.ndarray:
+        """Token ids backing the KV entries ``[start, stop)`` of a running
+        request (prompt, then generated tokens)."""
+        pl = len(req.prompt)
+        if stop <= pl:
+            return req.prompt[start:stop]
+        gen = np.asarray(req.tokens[max(0, start - pl):stop - pl], np.int32)
+        if start >= pl:
+            return gen
+        return np.concatenate([req.prompt[start:], gen])
+
+    def _start_decode(self, req: Request) -> None:
+        """Move a request whose prefill just completed into the decode slot
+        arrays (fresh requests carry their first token already)."""
+        m = req.slot
+        self._tokens[m] = req.tokens[-1]
+        self._seq_lens[m] = req.prompt_len + len(req.tokens) - 1
+        self._steps_left[m] = req.max_new_tokens - len(req.tokens)
+        self._done[m] = False
+        self._eos[m] = -1 if req.eos_token_id is None else req.eos_token_id
+
+    def _emit_first(self, req: Request, tok0: int, now: float,
+                    emitted: Dict[int, List[int]]) -> None:
+        req.first_token_t = now
+        req.tokens.append(tok0)
+        emitted.setdefault(req.rid, []).append(tok0)
+        if req.eos_token_id is not None and tok0 == req.eos_token_id:
+            req.eos_seen = True
+        if req.finished:
+            self._sched.finish(req)
+        else:
+            self._start_decode(req)
+
+    def _register_decoded(self, req: Request) -> None:
+        """Register the prefix blocks a decode commit just filled (the
+        chain build is skipped unless a block actually filled)."""
+        bs = self.config.block_size
+        sl = int(self._seq_lens[req.slot])
+        base = req.reg_state[0] * bs
+        if self.config.prefix_cache and sl // bs > req.reg_state[0]:
+            req.reg_state = self.cache.register_prefix(
+                self._chain_ids(req, base, sl), req.blocks, sl,
+                req.reg_state, base=base, tenant=req.tenant)
+
+    # ---- prefill ----------------------------------------------------------
+
+    def _admit(self, emitted: Dict[int, List[int]]) -> None:
+        """Admit what fits, then run the BATCHED bucketed prefill over the
+        cold short prompts (one dispatch per power-of-2 length bucket,
+        batch padded to the power-of-2 bucket of the group); prefix hits,
+        long prompts and readmissions advance through the chunk path."""
+        admitted: List[Request] = []
+        while (req := self._sched.next_admission()) is not None:
+            admitted.append(req)
+        if not admitted:
+            return
+        chunk = self.config.prefill_chunk
+        fast = [r for r in admitted
+                if r.num_computed == 0 and not r.tokens
+                and (chunk is None or r.prompt_len <= chunk)]
+        M = self.config.max_slots
+        by_bucket: Dict[int, List[Request]] = {}
+        for req in fast:
+            by_bucket.setdefault(self._bucket(req.prompt_len), []).append(req)
+        for Sb, group in sorted(by_bucket.items()):
+            self._prefill_buckets.add(Sb)
+            Bb = 1
+            while Bb < len(group):
+                Bb *= 2
+            Bb = min(Bb, M)
+            ids = np.zeros((Bb, Sb), np.int32)
+            plens = np.ones((Bb,), np.int32)      # pad rows: harmless len 1
+            tables = np.zeros((Bb, self.cache.blocks_per_seq), np.int32)
+            act = np.zeros((Bb,), bool)
+            for r, req in enumerate(group):
+                ids[r, :req.prompt_len] = req.prompt
+                plens[r] = req.prompt_len
+                tables[r] = self.cache.tables[req.slot]
+                act[r] = True
+            t0 = time.time()
+            logits, self.cache.pool = G.paged_prefill(
+                self._params, self._cfg, self._t(ids), self._t(plens),
+                self._t(tables), self.cache.pool, self._t(act))
+            first = self._argmax(logits)
+            self._record_dispatch("prefill", t0)
+            now = time.time()
+            for r, req in enumerate(group):
+                req.num_computed = req.prompt_len
+                req.reg_state = self.cache.register_prefix(
+                    req.prompt, req.blocks, req.prompt_len, req.reg_state,
+                    tenant=req.tenant)
+                self._emit_first(req, int(first[r]), now, emitted)
+
+    @staticmethod
+    def _argmax(logits: torch.Tensor) -> np.ndarray:
+        """Greedy tokens on the host (first index among ties, as
+        ``np.argmax`` and ``jnp.argmax``)."""
+        return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+
+    def _advance_prefills(self, emitted: Dict[int, List[int]]) -> None:
+        """The two-phase path: one B=1 prefill chunk per mid-prefill slot,
+        before the decode dispatch."""
+        chunk = self.config.prefill_chunk
+        for req in [r for r in self._sched.live if r.prefilling]:
+            total = len(req.prefill_ids)
+            n = total - req.num_computed
+            if chunk is not None:
+                n = min(n, chunk)
+            Sb = self._bucket(n)
+            ids = np.zeros((1, Sb), np.int32)
+            ids[0, :n] = req.prefill_ids[req.num_computed:
+                                         req.num_computed + n]
+            t0 = time.time()
+            logits, self.cache.pool = G.paged_prefill_chunk(
+                self._params, self._cfg, self._t(ids), req.num_computed, n,
+                self._t(self.cache.tables[req.slot][None]), self.cache.pool)
+            first = self._argmax(logits)
+            self._record_dispatch("prefill", t0)
+            req.num_computed += n
+            req.reg_state = self.cache.register_prefix(
+                req.prefill_ids, req.blocks, req.num_computed,
+                req.reg_state, tenant=req.tenant)
+            if req.prefilling:
+                continue                          # more chunks to go
+            if req.tokens:                        # readmission: resume
+                self._start_decode(req)
+            else:
+                self._emit_first(req, int(first[0]), time.time(), emitted)
+
+    # ---- decode dispatch sizing -------------------------------------------
+
+    def _limit(self, decoding, max_iters: Optional[int]) -> int:
+        """Iterations for the next decode dispatch: to the FIRST budget
+        retirement while work waits, the whole tail otherwise; capped at
+        ``decode_chunk`` while a prompt is mid-prefill, a row can retire
+        early on EOS, or the caller streams."""
+        sl = [int(self._steps_left[r.slot]) for r in decoding]
+        prefilling = any(r.prefilling for r in self._sched.live)
+        waiting = bool(self._sched.queue) or prefilling
+        n = min(sl) if waiting else max(sl)
+        if prefilling or (max_iters is None and
+                          any(r.eos_token_id is not None
+                              for r in decoding)):
+            max_iters = min(max_iters or self.config.decode_chunk,
+                            self.config.decode_chunk)
+        if max_iters is not None:
+            n = min(n, int(max_iters))
+        return max(1, min(n, self._out_width))
+
+    def _ensure_blocks(self, want: int) -> int:
+        """Make the pool cover ``want`` decode iterations for every
+        decoding slot; returns the feasible iteration count, preempting the
+        newest-admitted request whenever even one iteration does not fit
+        (a sole survivor that still cannot get a block is truncated)."""
+        bf = self.cache.manager.blocks_for
+
+        while True:
+            decoding = self._sched.decoding
+            if not decoding:
+                return 0
+
+            def need(k: int) -> int:
+                tot = 0
+                for r in decoding:
+                    e = int(self._seq_lens[r.slot]) + \
+                        min(k, int(self._steps_left[r.slot]))
+                    tot += max(0, bf(e) - len(r.blocks))
+                return tot
+
+            avail = self.cache.free_blocks
+            if need(1) <= avail:
+                lo, hi = 1, max(1, want)
+                while lo < hi:                    # largest feasible k
+                    mid = (lo + hi + 1) // 2
+                    if need(mid) <= avail:
+                        lo = mid
+                    else:
+                        hi = mid - 1
+                for r in decoding:
+                    e = int(self._seq_lens[r.slot]) + \
+                        min(lo, int(self._steps_left[r.slot]))
+                    if self.cache.extend(r.slot, r.blocks, e) is None:
+                        break                     # raced an estimate; retry
+                else:
+                    return lo
+                continue
+            if not self._relieve_pressure(decoding):
+                return 0
+
+    def _relieve_pressure(self, decoding: List[Request]) -> bool:
+        """Preempt the newest-admitted live request and return True, or —
+        with nothing left to preempt — truncate the sole survivor and
+        return False."""
+        victim = self._sched.preempt_victim()
+        if victim is not None:
+            self._preempt(victim)
+            return True
+        r = decoding[0]
+        r.oom_truncated = True
+        self._sched.oom_truncated += 1
+        self._done[r.slot] = True
+        return False
+
+    def _preempt(self, req: Request) -> None:
+        m = req.slot
+        self._sched.preempt(req)
+        self._clear_slot(m)
+
+    # ---- dispatches ---------------------------------------------------------
+
+    def _decode_burst(self, limit: int):
+        """Up to ``limit`` decode iterations over every slot, stopping once
+        no row is live — the JAX engine's ``lax.while_loop`` as a host
+        loop. Returns (tokens, seq_lens, steps_left, done, out[M, limit])."""
+        tokens = self._tokens.copy()
+        seq_lens = self._seq_lens.copy()
+        steps_left = self._steps_left.copy()
+        done = self._done.copy()
+        out = np.zeros((self.config.max_slots, limit), np.int32)
+        tables = self._t(self.cache.tables)
+        i = 0
+        while i < limit:
+            active = (~done) & (steps_left > 0)
+            if not active.any():
+                break
+            logits, self.cache.pool = G.paged_decode_step(
+                self._params, self._cfg, self._t(tokens), self._t(seq_lens),
+                tables, self.cache.pool, self._t(active),
+                use_kernel=self._use_kernel)
+            nxt = np.where(active, self._argmax(logits), tokens)
+            done = done | (active & (nxt == self._eos))
+            seq_lens = seq_lens + active
+            steps_left = steps_left - active.astype(np.int32)
+            out[:, i] = nxt
+            tokens = nxt
+            i += 1
+        self._stats["decode_iters"] += i
+        return tokens, seq_lens, steps_left, done, out
+
+    def _mixed_dispatch(self, prefills: List[Request],
+                        include_decode: bool,
+                        emitted: Dict[int, List[int]]) -> None:
+        """ONE mixed prefill+decode dispatch: every mid-prefill slot adds
+        its next chunk as a ``q_len > 1`` row, every decoding slot a
+        ``q_len == 1`` row that takes its next token. A chunk that
+        completes its prompt yields the first token in this dispatch."""
+        chunk = self.config.prefill_chunk
+        M = self.config.max_slots
+        decode_rows = [r for r in self._sched.decoding
+                       if include_decode and not self._done[r.slot]
+                       and self._steps_left[r.slot] > 0]
+        plan: List[Tuple[Request, int]] = []
+        qmax = 1
+        for req in prefills:
+            n = len(req.prefill_ids) - req.num_computed
+            if chunk is not None:
+                n = min(n, chunk)
+            plan.append((req, n))
+            qmax = max(qmax, n)
+        Q = self._bucket(qmax)
+        toks = np.zeros((M, Q), np.int32)
+        starts = np.zeros((M,), np.int32)
+        qlens = np.ones((M,), np.int32)           # pad rows: harmless q=1
+        active = np.zeros((M,), bool)
+        for r in decode_rows:
+            m = r.slot
+            toks[m, :] = self._tokens[m]          # pad lanes: a real token
+            starts[m] = self._seq_lens[m]
+            active[m] = True
+        for req, n in plan:
+            m = req.slot
+            ids = req.prefill_ids[req.num_computed:req.num_computed + n]
+            toks[m, :n] = ids
+            toks[m, n:] = ids[-1]                 # pad lanes: a real token
+            starts[m] = req.num_computed
+            qlens[m] = n
+            active[m] = True
+        t0 = time.time()
+        logits, self.cache.pool = G.paged_mixed_step(
+            self._params, self._cfg, self._t(toks), self._t(starts),
+            self._t(qlens), self._t(self.cache.tables), self.cache.pool,
+            self._t(active), use_kernel=self._use_kernel)
+        nxt = self._argmax(logits)
+        self._record_dispatch("mixed", t0)
+        now = time.time()
+        for req, n in plan:                       # prefill rows first
+            m = req.slot
+            req.num_computed += n
+            req.reg_state = self.cache.register_prefix(
+                req.prefill_ids, req.blocks, req.num_computed,
+                req.reg_state, tenant=req.tenant)
+            if req.prefilling:
+                continue
+            if req.tokens:                        # readmission: resume
+                self._start_decode(req)
+            else:
+                self._emit_first(req, int(nxt[m]), now, emitted)
+        for req in decode_rows:                   # one decode iteration
+            m = req.slot
+            t = int(nxt[m])
+            req.tokens.append(t)
+            emitted.setdefault(req.rid, []).append(t)
+            self._tokens[m] = t
+            self._seq_lens[m] += 1
+            self._steps_left[m] -= 1
+            if req.eos_token_id is not None and t == req.eos_token_id:
+                self._done[m] = True
+                req.eos_seen = True
+            self._register_decoded(req)
+
+    # ---- the scheduler iteration ------------------------------------------
+
+    def step(self, max_iters: Optional[int] = None) -> Dict[int, List[int]]:
+        """One scheduler iteration: expire deadlines -> retire -> admit
+        (+ batched prefill) -> [two-phase: advance chunked prefills] ->
+        one mixed dispatch while a prompt is mid-prefill (mixed batching),
+        else extend/preempt for blocks and one decode burst of up to
+        ``_limit()`` iterations (``max_iters`` caps it). Returns
+        ``{rid: [tokens emitted]}``."""
+        with self._lock:
+            return self._step(max_iters)
+
+    def _step(self, max_iters: Optional[int]) -> Dict[int, List[int]]:
+        emitted: Dict[int, List[int]] = {}
+        self._expire_deadlines(time.time())
+        self._sched.retire_finished()
+        self._admit(emitted)
+        if not self.config.mixed_batch:
+            self._advance_prefills(emitted)
+        k = 0
+        decoding = self._sched.decoding
+        if self.config.mixed_batch and \
+                any(r.prefilling for r in self._sched.live):
+            kd = self._ensure_blocks(1) if decoding else 0
+            prefills = [r for r in self._sched.live if r.prefilling]
+            if prefills:
+                self._mixed_dispatch(prefills, kd >= 1, emitted)
+                self._sched.retire_finished()
+                self._stats["steps"] += 1
+                return emitted
+            decoding = self._sched.decoding
+        if decoding:
+            want = self._limit(decoding, max_iters)
+            k = self._ensure_blocks(want)
+            decoding = self._sched.decoding       # preemption may shrink it
+            if decoding and k >= 1:
+                k = min(k, self._limit(decoding, max_iters))
+        if decoding and k >= 1:
+            before = self._steps_left.copy()
+            t0 = time.time()
+            (self._tokens, self._seq_lens, self._steps_left, self._done,
+             toks) = self._decode_burst(k)
+            self._record_dispatch("decode", t0)
+            for req in decoding:
+                m = req.slot
+                n = int(before[m] - self._steps_left[m])
+                if n <= 0:
+                    continue
+                got = toks[m, :n].tolist()
+                req.tokens.extend(got)
+                if bool(self._done[m]):
+                    req.eos_seen = True
+                emitted.setdefault(req.rid, []).extend(got)
+                self._register_decoded(req)
+            self._sched.retire_finished()
+        self._stats["steps"] += 1
+        return emitted
+
+    def stream(self) -> Iterator[Tuple[int, int]]:
+        """Drain the engine, yielding ``(rid, token)`` events in emission
+        order, dispatches capped at ``decode_chunk``. Closing the
+        generator cancels every request still queued or running."""
+        try:
+            while self.pending:
+                for rid, toks in sorted(
+                        self.step(self.config.decode_chunk).items()):
+                    for t in toks:
+                        yield rid, int(t)
+        except GeneratorExit:
+            self.cancel_all()
+            raise
+
+    def run(self, prompts: Sequence, max_new_tokens=None,
+            eos_token_id="unset") -> List[np.ndarray]:
+        """Submit every prompt, drain, return outputs in submission order.
+        ``max_new_tokens`` may be one int or a per-prompt sequence."""
+        n = len(prompts)
+        mnt = ([max_new_tokens] * n
+               if max_new_tokens is None or np.isscalar(max_new_tokens)
+               else list(max_new_tokens))
+        if len(mnt) != n:
+            raise ValueError(f"max_new_tokens has {len(mnt)} entries for "
+                             f"{n} prompts")
+        rids = [self.submit(p, max_new_tokens=m, eos_token_id=eos_token_id)
+                for p, m in zip(prompts, mnt)]
+        while self.pending:
+            self.step()
+        return [self._sched.result(r) for r in rids]
+
+    # ---- introspection ----------------------------------------------------
+
+    @property
+    def pending(self) -> bool:
+        return self._sched.pending
+
+    def request(self, rid: int) -> Request:
+        """The finished request record (tokens, timestamps, counters)."""
+        with self._lock:
+            return self._sched.finished[rid]
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            s = self._sched
+            return {**self._stats,
+                    "dispatch_s": dict(self._dispatch_s),
+                    "prefill_buckets": len(self._prefill_buckets),
+                    "admitted": s.admitted, "retired": s.retired,
+                    "cancelled": s.cancelled, "timed_out": s.timed_out,
+                    "shed": s.shed, "queued": len(s.queue),
+                    "live_slots": len(s.live),
+                    "max_slots": self.config.max_slots,
+                    "policy": self._policy.name,
+                    "free_blocks": self.cache.free_blocks,
+                    "blocks_in_use": self.cache.manager.blocks_in_use,
+                    "prefix_hit_tokens": s.prefix_hit_tokens,
+                    "preemptions": s.preemptions,
+                    "recomputed_tokens": s.recomputed_tokens,
+                    "oom_truncated": s.oom_truncated,
+                    "cached_blocks": self.cache.manager.cached_blocks,
+                    "evictions": self.cache.manager.evictions,
+                    "usable_blocks": self.cache.manager.num_blocks - 1,
+                    "kv_quant": self.config.kv_quant,
+                    "paged_kernel": self._use_kernel,
+                    "kv_pool_bytes": self.cache.kv_bytes(),
+                    "device": str(self.device)}

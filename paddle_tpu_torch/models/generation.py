@@ -1,0 +1,431 @@
+"""Paged generation entry points — counterpart of ``paddle_tpu/models/generation.py``.
+
+Ported here: ``GenerationConfig``, the paged block pool
+(:func:`init_paged_pool`, :func:`paged_pool_block_bytes`), the KV store /
+gather helpers and the four paged forward entry points the serving engine
+drives — :func:`paged_prefill`, :func:`paged_prefill_chunk`,
+:func:`paged_decode_step` and :func:`paged_mixed_step` (the last over
+``_paged_multiquery_forward``). The dense ``generate`` path, the sampler
+and the speculative verify step wait for later slices.
+
+Differences from the JAX package, all deliberate:
+
+* ``lax.scan`` over layers is a Python loop over the stacked ``[L, ...]``
+  tensors.
+* The pool is updated IN PLACE: every entry point scatters the new K/V
+  into the tensors of the ``pool`` dict it was handed and returns that
+  same dict. JAX returns a new pool (buffer donation makes it in place on
+  device); here the in-place write saves one copy of the pool per
+  dispatch. Callers that need the old pool pass a clone.
+* Out-of-vocabulary token ids follow ``jnp.take``'s fill semantics (ids
+  in ``[-V, V)`` wrap like Python indices, anything else embeds as a NaN
+  row) through a clamped gather plus a select, so a poisoned id never
+  becomes an out-of-range device index (a device-side assert on CUDA).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from ..device import resolve_device
+from ..kernels.paged_attention import paged_attention
+from ..kernels.rope import rope_cos_sin
+from .llama import (KV_QUANT_MODES, LlamaConfig, _masked_sdpa, _mm,
+                    _rms_norm, _rope, validate_quant_mode)
+
+__all__ = ["GenerationConfig", "init_paged_pool", "paged_pool_block_bytes",
+           "paged_prefill", "paged_prefill_chunk", "paged_decode_step",
+           "paged_mixed_step"]
+
+
+@dataclasses.dataclass
+class GenerationConfig:
+    """Sampling knobs (the one struct every decode tier resolves)."""
+
+    max_new_tokens: int = 64
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    eos_token_id: Optional[int] = None
+    pad_token_id: int = 0
+    seed: int = 0
+
+    # knobs for which None is a VALUE (disable), not the unset spelling
+    _NONEABLE = frozenset({"top_k", "top_p", "eos_token_id"})
+
+    @classmethod
+    def resolve(cls, generation_config: Optional["GenerationConfig"] = None,
+                **overrides) -> "GenerationConfig":
+        """Merge a kwargs surface onto an optional base config. The string
+        ``"unset"`` always means "not given"; for ``top_k``/``top_p``/
+        ``eos_token_id`` ``None`` is a real override (disable), for every
+        other field ``None`` means "not given"."""
+        base = generation_config if generation_config is not None else cls()
+        updates = {k: v for k, v in overrides.items()
+                   if not (isinstance(v, str) and v == "unset")
+                   and not (v is None and k not in cls._NONEABLE)}
+        return dataclasses.replace(base, **updates) if updates else base
+
+
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
+
+def _embed(params: Dict, ids: torch.Tensor, dt) -> torch.Tensor:
+    """``jnp.take(embed, ids, axis=0)`` with its fill semantics."""
+    emb = params["embed"]
+    V = emb.shape[0]
+    ids = ids.long()
+    ok = (ids >= -V) & (ids < V)
+    x = emb[torch.where(ids < 0, ids + V, ids).clamp(0, V - 1)].to(dt)
+    return x.masked_fill(~ok[..., None], float("nan"))
+
+
+def _layer(params: Dict, l: int) -> Dict:
+    """Layer ``l``'s un-stacked weights (views)."""
+    return {name: w[l] for name, w in params["layers"].items()}
+
+
+def _pool_layer(pool: Dict, l: int) -> Dict:
+    """Layer ``l``'s pool slice (views: writes land in ``pool``)."""
+    return {name: a[l] for name, a in pool.items()}
+
+
+def _ffn_tail(lp: Dict, x, cfg: LlamaConfig):
+    """The post-attention half of a decoder block on ``x [B, T, E]``:
+    pre-norm + dense SwiGLU."""
+    dt = cfg.dtype
+    h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps, cfg.use_fused_norm)
+    g = torch.nn.functional.silu(_mm(h, lp, "w_gate", dt)) * \
+        _mm(h, lp, "w_up", dt)
+    return x + _mm(g, lp, "w_down", dt)
+
+
+def _lm_head(params: Dict, cfg: LlamaConfig, x):
+    """Final norm + LM head on the last-position hidden ``x [B, 1, E]`` ->
+    fp32 logits ``[B, V]``."""
+    return _lm_head_all(params, cfg, x)[:, 0]
+
+
+def _lm_head_all(params: Dict, cfg: LlamaConfig, x):
+    """Final norm + LM head over every position of ``x [B, T, E]`` -> fp32
+    logits ``[B, T, V]``."""
+    x = _rms_norm(x, params["ln_f"], cfg.rms_norm_eps, cfg.use_fused_norm)
+    if cfg.tie_word_embeddings:
+        logits = x @ params["embed"].T.to(cfg.dtype)
+    else:
+        logits = _mm(x, params, "lm_head", cfg.dtype)
+    return logits.to(torch.float32)
+
+
+def _row_tables(cfg: LlamaConfig, pos):
+    """Per-row RoPE tables for positions ``pos [B, T]`` -> cos/sin
+    ``[B, T, D]``."""
+    return rope_cos_sin(pos.shape[1], cfg.head_dim, cfg.rope_theta,
+                        position_ids=pos)
+
+
+def _local_heads(cfg: LlamaConfig, pool: Dict):
+    Hk = pool["k"].shape[3]
+    return Hk * (cfg.num_attention_heads // cfg.kv_heads), Hk
+
+
+def _merge_heads(o):
+    B, T = o.shape[:2]
+    return o.reshape(B, T, o.shape[2] * o.shape[3])
+
+
+# ---------------------------------------------------------------------------
+# the paged block pool
+# ---------------------------------------------------------------------------
+
+def init_paged_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
+                    dtype=None, kv_quant=None, device=None) -> Dict:
+    """Physical KV block pool ``{"k","v": [L, num_blocks, block_size, Hk,
+    D]}`` shared by every sequence of a serving engine; block 0 is the
+    NULL block (the scatter target of masked lanes, never allocated).
+    ``kv_quant="int8"`` stores K/V as int8 with per-token-per-head fp32
+    scales alongside (``"k_scale"``/``"v_scale" [L, N, bs, Hk]``)."""
+    validate_quant_mode(kv_quant, KV_QUANT_MODES, "kv_quant")
+    dev = resolve_device(device)
+    dt = dtype if dtype is not None else cfg.dtype
+    shape = (cfg.num_hidden_layers, num_blocks, block_size, cfg.kv_heads,
+             cfg.head_dim)
+    if kv_quant == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], device=dev),
+                "v_scale": torch.zeros(shape[:-1], device=dev)}
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def paged_pool_block_bytes(cfg: LlamaConfig, block_size: int, dtype=None,
+                           kv_quant=None) -> int:
+    """Bytes ONE physical block costs across all layers (K + V + scales)."""
+    L, bs = cfg.num_hidden_layers, int(block_size)
+    Hk, D = cfg.kv_heads, cfg.head_dim
+    if kv_quant == "int8":
+        return L * bs * Hk * (2 * D * 1 + 2 * 4)
+    dt = dtype if dtype is not None else cfg.dtype
+    return L * bs * Hk * 2 * D * torch.empty((), dtype=dt).element_size()
+
+
+def _kv_quantize(x):
+    """Symmetric per-token-per-head int8: ``x [..., Hk, D]`` -> ``(q int8
+    [..., Hk, D], scale fp32 [..., Hk])`` with ``x ~= q * scale``.
+    Non-finite inputs yield NaN scales, so poison is never laundered."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.maximum(amax, amax.new_tensor(1e-8)) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_store(p: Dict, phys, off, k, v):
+    """Scatter ``k``/``v [..., Hk, D]`` into one layer's pool slice at
+    ``(phys, off)`` in place (quantizing for int8 pools). Returns the
+    ATTEND view of the new entries — what later reads will observe: the
+    values themselves for fp pools, the int8 round trip for quantized
+    ones."""
+    phys, off = phys.long(), off.long()
+    if "k_scale" in p:
+        qk, sk = _kv_quantize(k)
+        qv, sv = _kv_quantize(v)
+        p["k"][phys, off] = qk
+        p["v"][phys, off] = qv
+        p["k_scale"][phys, off] = sk
+        p["v_scale"][phys, off] = sv
+        return qk.to(torch.float32) * sk[..., None], \
+            qv.to(torch.float32) * sv[..., None]
+    p["k"][phys, off] = k.to(p["k"].dtype)
+    p["v"][phys, off] = v.to(p["v"].dtype)
+    return k, v
+
+
+def _kv_gather(p: Dict, block_tables, B: int, C: int, Hk: int, D: int):
+    """Gather one layer's pool through the block tables into logical order
+    ``[B, C, Hk, D]``, dequantizing int8 pools after the gather — the
+    gather path (``_masked_sdpa`` consumes the result)."""
+    tbl = block_tables.long()
+    kk = p["k"][tbl].reshape(B, C, Hk, D)
+    vv = p["v"][tbl].reshape(B, C, Hk, D)
+    if "k_scale" in p:
+        ks = p["k_scale"][tbl].reshape(B, C, Hk)
+        vs = p["v_scale"][tbl].reshape(B, C, Hk)
+        kk = kk.to(torch.float32) * ks[..., None]
+        vv = vv.to(torch.float32) * vs[..., None]
+    return kk, vv
+
+
+def _qkv(lp: Dict, h, cfg: LlamaConfig, B: int, T: int, H: int, Hk: int):
+    """Pre-norm + the three projections, reshaped to heads."""
+    dt, D = cfg.dtype, cfg.head_dim
+    hh = _rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps, cfg.use_fused_norm)
+    q = _mm(hh, lp, "wq", dt).reshape(B, T, H, D)
+    k = _mm(hh, lp, "wk", dt).reshape(B, T, Hk, D)
+    v = _mm(hh, lp, "wv", dt).reshape(B, T, Hk, D)
+    return q, k, v
+
+
+def _attn_out(lp: Dict, h, o, cfg: LlamaConfig):
+    """Residual add of the output projection, then the FFN half."""
+    dt = cfg.dtype
+    h = h + _mm(_merge_heads(o).to(dt), lp, "wo", dt)
+    return _ffn_tail(lp, h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# paged entry points
+# ---------------------------------------------------------------------------
+
+def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
+                  block_tables, pool: Dict, active):
+    """Prefill a BATCH of admitted sequences into the paged pool.
+
+    ``ids [B, Sb]`` right-padded; ``prompt_lens [B]``; ``block_tables
+    [B, W]``; ``active [B]`` bool (inactive pad rows and pad positions
+    scatter into the null block). On int8 pools the attention reads the
+    quantized round trip of this batch's K/V, exactly what later dispatches
+    gather back. Returns (next-token logits ``[B, V]`` read at each row's
+    ``prompt_len - 1``, pool)."""
+    B, Sb = ids.shape
+    H, Hk = _local_heads(cfg, pool)
+    D = cfg.head_dim
+    bs = pool["k"].shape[2]
+    W = block_tables.shape[1]
+    dev = ids.device
+    cos, sin = rope_cos_sin(Sb, D, cfg.rope_theta, device=dev)
+    j = torch.arange(Sb, device=dev)
+    valid = (j[None, :] < prompt_lens[:, None]) & active[:, None]   # [B, Sb]
+    phys = torch.where(valid, block_tables[:, torch.clamp(j // bs, max=W - 1)],
+                       torch.zeros((), dtype=block_tables.dtype, device=dev))
+    off = (j % bs).expand(B, Sb)
+    kv_mask = (j[None, :] <= j[:, None])[None].expand(B, Sb, Sb)
+
+    x = _embed(params, ids, cfg.dtype)
+    for l in range(cfg.num_hidden_layers):
+        lp, pz = _layer(params, l), _pool_layer(pool, l)
+        q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk)
+        q = _rope(q, cos, sin)
+        k = _rope(k, cos, sin)
+        ka, va = _kv_store(pz, phys, off, k, v)
+        x = _attn_out(lp, x, _masked_sdpa(q, ka, va, kv_mask), cfg)
+    idx = torch.clamp(prompt_lens.long() - 1, min=0)
+    last = x[torch.arange(B, device=dev), idx][:, None]       # [B, 1, E]
+    return _lm_head(params, cfg, last), pool
+
+
+def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
+                        chunk_len, block_tables, pool: Dict):
+    """Prefill-from-offset: one sequence's chunk ``ids [1, Sb]`` (real
+    length ``chunk_len``) at positions ``[start, start + chunk_len)``
+    against the pool — the entry point behind chunked prefill and
+    prefix-cache hits. Queries RoPE at their absolute positions, scatter
+    their K/V, then attend the gathered pool under ``j <= start + i``.
+    Returns (next-token logits ``[1, V]`` at position ``start + chunk_len -
+    1``, pool)."""
+    B, Sb = ids.shape
+    H, Hk = _local_heads(cfg, pool)
+    D = cfg.head_dim
+    bs = pool["k"].shape[2]
+    W = block_tables.shape[1]
+    C = W * bs
+    dev = ids.device
+    start, chunk_len = int(start), int(chunk_len)
+    j = torch.arange(Sb, device=dev)
+    pos = (start + j)[None, :]                                # [1, Sb]
+    cos, sin = _row_tables(cfg, pos)
+    valid = j[None, :] < chunk_len
+    phys = torch.where(valid,
+                       block_tables[:, torch.clamp(pos[0] // bs, max=W - 1)],
+                       torch.zeros((), dtype=block_tables.dtype, device=dev))
+    off = pos % bs
+    jg = torch.arange(C, device=dev)[None, None, :]
+    kv_mask = jg <= pos[:, :, None]                           # [1, Sb, C]
+
+    x = _embed(params, ids, cfg.dtype)
+    for l in range(cfg.num_hidden_layers):
+        lp, pz = _layer(params, l), _pool_layer(pool, l)
+        q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk)
+        q = _rope(q, cos, sin)
+        k = _rope(k, cos, sin)
+        _kv_store(pz, phys, off, k, v)
+        kk, vv = _kv_gather(pz, block_tables, B, C, Hk, D)
+        x = _attn_out(lp, x, _masked_sdpa(q, kk, vv, kv_mask), cfg)
+    last = x[:, max(chunk_len - 1, 0)][:, None]               # [1, 1, E]
+    return _lm_head(params, cfg, last), pool
+
+
+def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
+                      block_tables, pool: Dict, active,
+                      use_kernel: bool = False):
+    """One decode iteration over ``M`` serving slots against the pool.
+
+    ``tokens [M]`` the last token per slot; ``seq_lens [M]`` int32 the KV
+    entries already written (= the new token's position); ``block_tables
+    [M, W]`` int32; ``active [M]`` bool (inactive slots scatter into the
+    null block). Attention runs either through the gather path
+    (``use_kernel=False``: ``_kv_gather`` + ``_masked_sdpa``) or through
+    ``kernels.paged_attention`` (``use_kernel=True``: the CUDA kernel on a
+    card — no gather is built). Returns (logits ``[M, V]``, pool)."""
+    M = tokens.shape[0]
+    H, Hk = _local_heads(cfg, pool)
+    D = cfg.head_dim
+    bs = pool["k"].shape[2]
+    W = block_tables.shape[1]
+    C = W * bs
+    dev = tokens.device
+    cos, sin = _row_tables(cfg, seq_lens[:, None])           # [M, 1, D]
+    widx = torch.clamp(seq_lens.long() // bs, max=W - 1)
+    phys = torch.where(active, block_tables.gather(1, widx[:, None])[:, 0],
+                       torch.zeros((), dtype=block_tables.dtype, device=dev))
+    off = seq_lens % bs
+    jj = torch.arange(C, device=dev)[None, :]
+    kv_mask = (jj <= seq_lens[:, None])[:, None, :]          # [M, 1, C]
+
+    x = _embed(params, tokens[:, None], cfg.dtype)
+    for l in range(cfg.num_hidden_layers):
+        lp, pz = _layer(params, l), _pool_layer(pool, l)
+        q, k, v = _qkv(lp, x, cfg, M, 1, H, Hk)
+        q = _rope(q, cos, sin)
+        k = _rope(k, cos, sin)
+        _kv_store(pz, phys, off, k[:, 0], v[:, 0])
+        if use_kernel:
+            o = paged_attention(q[:, 0].contiguous(), pz["k"], pz["v"],
+                                block_tables, seq_lens,
+                                k_scale=pz.get("k_scale"),
+                                v_scale=pz.get("v_scale"))[:, None]
+        else:
+            kk, vv = _kv_gather(pz, block_tables, M, C, Hk, D)
+            o = _masked_sdpa(q, kk, vv, kv_mask)
+        x = _attn_out(lp, x, o, cfg)
+    return _lm_head(params, cfg, x), pool
+
+
+def paged_mixed_step(params: Dict, cfg: LlamaConfig, tokens, starts,
+                     q_lens, block_tables, pool: Dict, active,
+                     use_kernel: bool = False):
+    """ONE mixed prefill+decode iteration over ``M`` slots: row ``m`` of
+    ``tokens [M, Q]`` holds ``q_lens[m]`` real tokens written from
+    position ``starts[m]`` — a decode slot is the ``q_len == 1`` case, a
+    prefill chunk a ``q_len == n`` row attending ``j <= start + q``. The
+    ``draft_lens = q_lens - 1`` case of :func:`_paged_multiquery_forward`.
+    Returns ``(logits [M, V], pool)`` — logits after each row's LAST real
+    token."""
+    draft_lens = torch.clamp(q_lens - 1, min=0)
+    x, pool = _paged_multiquery_forward(params, cfg, tokens, starts,
+                                        draft_lens, block_tables, pool,
+                                        active, use_kernel)
+    M = tokens.shape[0]
+    last = x[torch.arange(M, device=x.device), draft_lens.long()][:, None]
+    return _lm_head(params, cfg, last), pool
+
+
+def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
+                              seq_lens, draft_lens, block_tables,
+                              pool: Dict, active, use_kernel: bool):
+    """Embed ``tokens [M, Q]``, write K/V for every valid query position
+    ``seq_lens + q`` (``q <= draft_lens``), attend ``j <= seq_lens +
+    min(q, draft_lens)``, and return the hidden states ``[M, Q, E]`` and
+    the pool. ``use_kernel`` runs the kernel's multi-query entry point."""
+    M, Q = tokens.shape
+    H, Hk = _local_heads(cfg, pool)
+    D = cfg.head_dim
+    bs = pool["k"].shape[2]
+    W = block_tables.shape[1]
+    C = W * bs
+    dev = tokens.device
+    qi = torch.arange(Q, device=dev)
+    pos = seq_lens[:, None] + qi[None, :]                    # [M, Q]
+    cos, sin = _row_tables(cfg, pos)
+    valid_q = (qi[None, :] <= draft_lens[:, None]) & active[:, None]
+    widx = torch.clamp(pos.long() // bs, max=W - 1)
+    phys = torch.where(valid_q, block_tables.gather(1, widx),
+                       torch.zeros((), dtype=block_tables.dtype, device=dev))
+    off = pos % bs
+    jj = torch.arange(C, device=dev)[None, None, :]
+    qcap = torch.minimum(qi[None, :], draft_lens[:, None])   # [M, Q]
+    kv_mask = jj <= (seq_lens[:, None] + qcap)[:, :, None]  # [M, Q, C]
+
+    x = _embed(params, tokens, cfg.dtype)
+    for l in range(cfg.num_hidden_layers):
+        lp, pz = _layer(params, l), _pool_layer(pool, l)
+        q, k, v = _qkv(lp, x, cfg, M, Q, H, Hk)
+        q = _rope(q, cos, sin)
+        k = _rope(k, cos, sin)
+        _kv_store(pz, phys, off, k, v)
+        if use_kernel:
+            o = paged_attention(q.contiguous(), pz["k"], pz["v"],
+                                block_tables, seq_lens,
+                                draft_lens=draft_lens,
+                                k_scale=pz.get("k_scale"),
+                                v_scale=pz.get("v_scale"))
+        else:
+            kk, vv = _kv_gather(pz, block_tables, M, C, Hk, D)
+            o = _masked_sdpa(q, kk, vv, kv_mask)
+        x = _attn_out(lp, x, o, cfg)
+    return x, pool
