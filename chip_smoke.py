@@ -10,9 +10,10 @@ Phases (each fails the run on any error; none catches and carries on):
 1. Environment: torch / CUDA versions and the card's name and power limit.
 2. Build: compile every kernel of ``paddle_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once).
-3. Kernel checks: each hand-written kernel against its plain PyTorch
-   version at the shapes the serving path gives it, with kernel, plain and
-   library-call times and the least time the card could take (bound).
+3. Serving kernel checks: paged attention and the int8 matmul against
+   their plain PyTorch versions at the shapes the serving path gives them,
+   with kernel, plain and library-call times and the least time the card
+   could take (bound).
 4. Serving engine at full width (the 12-layer, hidden-2048 LLaMA the
    repository's TPU benchmark serves; random weights from a seed), bf16,
    default ServingConfig: ~24 greedy requests, half sharing a 64-token
@@ -20,13 +21,31 @@ Phases (each fails the run on any error; none catches and carries on):
 5. The same trace with ``quantize="int8"`` and ``kv_quant="int8"``.
 6. Parity at fp32 on a shortened trace: the kernel engine against the
    ``paged_kernel="off"`` (gather) engine, token streams equal.
-7. The kernels JSON line, the card line, then the result line.
+7. Flash-attention kernel checks at bf16 on four cases (the training
+   step's B 8 x S 2048 x 16 heads x D 128 causal; GQA 32/8 heads; 4
+   packed segments per row; causal with Sq 1024 < Sk 2048): the public
+   ``flash_attention_with_lse`` and its gradient against the plain
+   forward and backward (norm-relative error over the whole tensor and
+   per row), then the forward, backward dq and backward dk/dv kernels
+   timed alone beside their plain versions, ``scaled_dot_product_attention``
+   and the bound.
+8. Training at full width, bf16: the same model with ``use_kernels`` and
+   full remat, B 8 x S 2048, AdamW at lr 1e-4: one warm-up step, then
+   timed steps (step time, tokens/s, MFU, peak memory, launches per step)
+   and one profiled step (device busy share, top kernels).
+9. Training parity at fp32 on the card (hidden 512, 8 heads, 4 kv heads,
+   4 layers, B 2 x S 512): the flash kernels against the plain attention
+   on the loss, every gradient leaf and 3 AdamW steps' losses.
 
-Phases 4 and 5 each serve one short warm-up request first (first-call
-set-up stays out of the numbers). Kernel launch counters are then set to
-0 just before the trace and read just after it: paged attention must have launched on both entry
-points in phase 4, the int8 matmul and the int8-pool attention in phase 5.
-The kernels line reports the launches of the two phases together.
+Then the kernels JSON line, the card line and the result line. Phases 4
+and 5 each serve one short warm-up request first (first-call set-up stays
+out of the numbers). Kernel launch counters are set to 0 just before each
+main-path run and read just after it: paged attention must have launched
+on both entry points in phase 4, the int8 matmul and the int8-pool
+attention in phase 5, the three flash kernels in every timed step of
+phase 8 (24 forward, 12 dq, 12 dk/dv per step: the forward runs again in
+each layer's recompute). The kernels line reports the serving launches of
+phases 4 and 5 together and the flash launches of phase 8.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -87,14 +106,19 @@ def cuda_ms(fn, iters=10, warmup=2):
 _COUNTS = (("paged_attention", "launches"),
            ("paged_attention", "launches_multiquery"),
            ("paged_attention", "launches_int8"),
-           ("weight_only_matmul", "launches"))
+           ("weight_only_matmul", "launches"),
+           ("flash_attention", "launches"),
+           ("flash_attention", "launches_bwd_dq"),
+           ("flash_attention", "launches_bwd_dkv"))
 
 
 def _count_owners():
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
     from paddle_tpu_torch.kernels.paged_attention import paged_attention
     from paddle_tpu_torch.kernels.quant_matmul import weight_only_matmul
     return {"paged_attention": paged_attention,
-            "weight_only_matmul": weight_only_matmul}
+            "weight_only_matmul": weight_only_matmul,
+            "flash_attention": flash_attention}
 
 
 def reset_counts():
@@ -280,6 +304,375 @@ def summarize(name, source, replaces, rows, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+FLASH_KERNELS = (("fwd", "flash_attention_fwd", ":67"),
+                 ("dq", "flash_attention_bwd_dq", ":204"),
+                 ("dkv", "flash_attention_bwd_dkv", ":259"))
+
+
+def packed_ids(rng, B, S, n):
+    """[B, S] int32 ids of ``n`` packed segments per row (random cuts)."""
+    cuts = np.sort(np.stack([rng.choice(np.arange(1, S), n - 1,
+                                        replace=False) for _ in range(B)]),
+                   axis=1)
+    return (np.arange(S)[None, :, None] >= cuts[:, None, :]).sum(-1) \
+        .astype(np.int32)
+
+
+# bf16 limits of rel_errors: measured readings (PERF.md) sit below a third
+# of them; one key tile dropped from the long rows, or the causal diagonal
+# moved by one, reads above them (case (a) checks that on every run)
+BF16_FRO, BF16_ROW = 1e-2, 3e-2
+
+
+def rel_errors(got, want):
+    """(||got - want||_F / ||want||_F, the worst row's ||got_r - want_r|| /
+    max(||want_r||, 0.1 * the RMS row norm)), a row being one vector of
+    the last dim. The floor keeps rows whose exact value is ~0 (row 0's
+    dq under causal: dS = p (dp - delta) cancels) from reading as 1."""
+    import torch
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    d = g - w
+    rows = w.norm(dim=1)
+    floor = 0.1 * w.norm() / rows.numel() ** 0.5
+    return ((d.norm() / w.norm()).item(),
+            (d.norm(dim=1) / torch.clamp(rows, min=floor)).max().item())
+
+
+def visible(Sq, Sk, causal, seg, device):
+    """[B|1, 1, Sq, Sk] bool: query i sees key j (causal bottom-right
+    aligned; within its packed segment)."""
+    import torch
+    i = torch.arange(Sq, device=device)[:, None]
+    j = torch.arange(Sk, device=device)[None, :]
+    mask = (j <= i + (Sk - Sq)) if causal else torch.ones(
+        (Sq, Sk), dtype=torch.bool, device=device)
+    mask = mask[None]
+    if seg is not None:
+        mask = mask & (seg[:, :, None] == seg[:, None, :])
+    return mask[:, None]
+
+
+def masked_out(q, k, v, mask, scale):
+    """Plain MHA forward under an arbitrary ``mask`` (the probe's mutants)."""
+    import torch
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
+               probe=False):
+    """One bf16 case: the public ``flash_attention_with_lse`` (its
+    autograd Function, forward and ``torch.autograd.grad``) against the
+    plain forward and backward on out, lse, dq, dk and dv; then each
+    kernel timed alone through its launcher beside its plain version and
+    SDPA. ``probe``: also show that the rule rejects a forward that drops
+    one key tile from the long rows and one whose causal diagonal is off
+    by one. Returns {"fwd"|"dq"|"dkv": row}, rows as attention_case gives
+    them."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    # the module (the package's ``flash_attention`` attribute is the
+    # function it exports)
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16)
+                   for shape in ((B, Sq, H, D), (B, Sk, Hk, D),
+                                 (B, Sk, Hk, D), (B, Sq, H, D)))
+    seg = None
+    if n_segs:
+        seg = torch.from_numpy(packed_ids(np.random.default_rng(seed), B,
+                                          Sq, n_segs)).to(dev)
+    scale = 1.0 / D ** 0.5
+    mask = visible(Sq, Sk, causal, seg, dev)                  # [B|1,1,Sq,Sk]
+    pairs = int(mask.sum().item()) * H * (B if mask.shape[0] == 1 else 1)
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out, lse = FA.flash_attention_with_lse(qg, kg, vg, causal=causal,
+                                           segment_ids=seg)
+    dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), do)
+    out = out.detach()
+    torch.cuda.synchronize()
+    check(out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+          and lse.dtype == torch.float32, f"{name}: output dtypes "
+          f"{out.dtype} {lse.dtype} {dq.dtype} {dk.dtype} {dv.dtype}")
+    ref_out, ref_lse = FA.flash_attention_fwd_plain(q, k, v, seg, seg, scale,
+                                                    causal)
+    # the backward's inputs are the Function's saved out and lse: delta =
+    # rowsum(dO * O) comes from the bf16-rounded out, and in short causal
+    # rows dq moves with that rounding by more than the kernels' own
+    # error (the plain backward on its own out as much), so the plain
+    # backward gets the same saved tensors
+    ref = dict(zip(("dq", "dk", "dv"), FA.flash_attention_bwd_plain(
+        q, k, v, seg, seg, out, lse, do, scale, causal)))
+
+    # bf16 outputs round once more than their fp32 reference; the
+    # tensor-core products round p and ds to bf16 first
+    errs = {}
+    for which, got, want in (("fwd", out, ref_out), ("dq", dq, ref["dq"]),
+                             ("dk", dk, ref["dk"]), ("dv", dv, ref["dv"])):
+        check(torch.isfinite(got.float()).all().item(),
+              f"{name} {which}: non-finite output")
+        fro, row = rel_errors(got, want)
+        errs[which] = {"max_abs_err": (got.float() - want.float()).abs()
+                       .max().item(), "rel_fro": fro, "rel_row": row}
+        check(fro <= BF16_FRO and row <= BF16_ROW,
+              f"{name} {which}: kernel vs plain rel_fro {fro:.3g} (limit "
+              f"{BF16_FRO}), rel_row {row:.3g} (limit {BF16_ROW})")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(lse_err <= 1e-3, f"{name}: lse max error {lse_err} > 1e-3")
+    log(f"  {name}: lse max_abs_err {lse_err:.3g}, visible pairs {pairs}; "
+        + "; ".join(f"{w} rel_fro {e['rel_fro']:.3g} rel_row "
+                    f"{e['rel_row']:.3g}" for w, e in errs.items()))
+    if probe:
+        i = torch.arange(Sq, device=dev)[:, None]
+        j = torch.arange(Sk, device=dev)[None, :]
+        mutants = {"one key tile dropped from rows >= 1024":
+                   mask & ~((i >= 1024) & (j >= 512) & (j < 544)),
+                   "causal diagonal off by one": j <= i + 1}
+        for what, m in mutants.items():
+            fro, row = rel_errors(masked_out(q, k, v, m, scale), ref_out)
+            log(f"  probe, {what}: rel_fro {fro:.3g} rel_row {row:.3g}")
+            check(fro > BF16_FRO or row > BF16_ROW,
+                  f"the bf16 rule would pass a forward with {what}")
+    del ref_out, ref_lse, ref, qg, kg, vg
+
+    # the library yardstick: SDPA, timed, never called by the port
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa_kw = {"enable_gqa": Hk != H}
+    if causal and Sq == Sk and seg is None:
+        sdpa_kw["is_causal"] = True
+    elif causal or seg is not None:
+        sdpa_kw["attn_mask"] = mask
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
+    dos = do.transpose(1, 2)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), dos,
+                                   retain_graph=True)
+
+    # each kernel alone, through its launcher (the Function's own calls)
+    saved = (q, k, v, seg, seg, out, lse, do, scale, causal)
+    ops = FA._bwd_operands(q, k, v, seg, seg, out, lse, do)
+    heavy = Sq * Sk * H * B > 2 ** 28
+    it_plain = 3 if heavy else 5
+    times = {
+        "fwd": (cuda_ms(lambda: FA._fwd_cuda(q, k, v, seg, seg, scale,
+                                             causal)),
+                cuda_ms(lambda: FA.flash_attention_fwd_plain(
+                    q, k, v, seg, seg, scale, causal), iters=it_plain),
+                cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, **sdpa_kw))),
+        "dq": (cuda_ms(lambda: FA._dq_cuda(ops, scale, causal)),
+               cuda_ms(lambda: FA.flash_attention_bwd_dq_plain(*saved),
+                       iters=it_plain),
+               None),
+        "dkv": (cuda_ms(lambda: FA._dkv_cuda(ops, scale, causal)),
+                cuda_ms(lambda: FA.flash_attention_bwd_dkv_plain(*saved),
+                        iters=it_plain),
+                None),
+    }
+    # SDPA's backward computes dq, dk and dv in one call: its time stands
+    # beside both backward kernels
+    lib_bwd_ms = cuda_ms(lib_bwd)
+    # bytes each kernel must move: every input read once, every output
+    # written once. The backward kernels read lse and delta = rowsum(dO *
+    # O) ([B, H, Sq] fp32 each), not o.
+    item = q.element_size()
+    qkv = (q.numel() + k.numel() + v.numel()) * item
+    segs = 0 if seg is None else 2 * seg.numel() * 4
+    stats = lse.numel() * 4
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}
+    nbytes = {"fwd": qkv + segs + out.numel() * item + stats,
+              "dq": qkv + segs + do.numel() * item + 2 * stats
+              + q.numel() * item,
+              "dkv": qkv + segs + do.numel() * item + 2 * stats
+              + (k.numel() + v.numel()) * item}
+    errs["dkv"] = {key: max(errs["dk"][key], errs["dv"][key])
+                   for key in errs["dk"]}
+    rows = {}
+    for which, _, _ in FLASH_KERNELS:
+        ms, plain_ms, lib_ms = times[which]
+        if lib_ms is None:
+            lib_ms = lib_bwd_ms
+        b_ms, b_by = bound(nbytes[which], flops[which] * D * pairs, "bf16")
+        rows[which] = {"case": name, **errs[which], "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "visible_pairs": pairs}
+        log(f"  {name} {which}: rel_fro {errs[which]['rel_fro']:.3g}  "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+            f"{'bwd ' if which != 'fwd' else ''}{lib_ms:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: the training step
+# ---------------------------------------------------------------------------
+
+PEAK_BF16 = PEAK_FLOPS["bf16"]
+
+
+def train_flops_per_step(cfg, batch, seq):
+    """``bench.py:_train_flops_per_step``: 6 N per token plus the causal
+    attention term 6 L E S."""
+    from paddle_tpu_torch.models.llama import num_params
+    return batch * seq * (6 * num_params(cfg)
+                          + 6 * cfg.num_hidden_layers * cfg.hidden_size * seq)
+
+
+def profile_device(run, label, top=6):
+    """Run ``run()`` under ``torch.profiler``: the wall time, the device
+    time of every kernel (CUPTI) and its share of the wall time, and the
+    kernels that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key
+            for short in ("paged_attention_kernel",
+                          "weight_only_matmul_kernel", "flash_fwd_kernel",
+                          "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+                if short in name:
+                    name = short
+            # summed by the printed (60-character) name: instantiations of
+            # one PyTorch kernel template share it
+            name = name[:60]
+            kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total
+    busy_ms = sum(kernels.values()) / 1e3
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
+               kernels.items(), key=lambda kv: -kv[1])[:top]}}
+    if busy_ms == 0:
+        out = {"wall_ms": wall_ms, "device_busy_ms": "not measured "
+               "(the profiler saw no device events)"}
+    log(f"  profiled {label}: {json.dumps(out)}")
+    return out
+
+
+def train_config(dtype, **kw):
+    """The phase 4 model (``bench.py:_presets("tpu")``, lines 68-74) as
+    the repository's TPU training benchmark runs it: flash kernels, full
+    remat, fp32 params."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    import torch
+    base = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                num_hidden_layers=12, num_attention_heads=16,
+                num_key_value_heads=16, max_position_embeddings=2048,
+                use_kernels=True, remat=True, dtype=dtype,
+                param_dtype=torch.float32)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def train_phase(steps=4, batch=8, seq=2048):
+    """Phase 8: one warm-up step, ``steps`` timed steps with the launch
+    counters set to 0 just before them, one profiled step."""
+    import torch
+    from paddle_tpu_torch.models.llama import init_params, make_train_step
+    cfg = train_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    init_opt, step = make_train_step(cfg, lr=1e-4)
+    opt = init_opt(params)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    params, opt, loss = step(params, opt, ids, ids)
+    losses = [loss.item()]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt, loss = step(params, opt, ids, ids)
+        losses.append(loss.item())
+        times.append(time.time() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times))
+    flops = train_flops_per_step(cfg, batch, seq)
+    per_step = {k: counts[f"flash_attention{k}"] / steps
+                for k in ("", "_bwd_dq", "_bwd_dkv")}
+    L = cfg.num_hidden_layers
+    m = {"step_ms": step_s * 1e3, "step_ms_each": [t * 1e3 for t in times],
+         "tokens_per_s": batch * seq / step_s,
+         "mfu": flops / step_s / PEAK_BF16, "flops_per_step": flops,
+         "max_memory_allocated_gb": peak / 2 ** 30, "losses": losses,
+         "flash_launches_per_step": per_step}
+    log(f"  {json.dumps(m)}")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for k, want in (("", 2 * L), ("_bwd_dq", L), ("_bwd_dkv", L)):
+        check(per_step[k] == want,
+              f"flash_attention{k}: {per_step[k]} launches per step, "
+              f"expected {want}")
+    prof = profile_device(lambda: step(params, opt, ids, ids),
+                          "training step", top=10)
+    m["profile"] = prof
+    return m, counts
+
+
+def parity_phase():
+    """Phase 9: fp32, the flash kernels against the plain attention."""
+    import torch
+    from paddle_tpu_torch.models.llama import (_leaves, init_params,
+                                               loss_fn, make_train_step)
+    cfg = {use: train_config(torch.float32, hidden_size=512,
+                             intermediate_size=1376, num_hidden_layers=4,
+                             num_attention_heads=8, num_key_value_heads=4,
+                             use_kernels=use)
+           for use in (True, False)}
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 32000, (2, 512))).cuda()
+    res = {}
+    for use in (True, False):
+        params = init_params(cfg[use], seed=SEED + 2, device="cuda")
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, ids, ids, cfg[use])
+        grads = torch.autograd.grad(loss, leaves)
+        init_opt, step = make_train_step(cfg[use], lr=1e-3)
+        opt = init_opt(params)
+        traj = []
+        for _ in range(3):
+            params, opt, l_ = step(params, opt, ids, ids)
+            traj.append(l_.item())
+        res[use] = (loss.item(), grads, traj)
+    (lk, gk, tk), (lp, gp, tp) = res[True], res[False]
+    rel = abs(lk - lp) / abs(lp)
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(gk, gp))
+    traj_rel = max(abs(a - b) / abs(b) for a, b in zip(tk, tp))
+    log(f"  loss kernel {lk:.8f} plain {lp:.8f} (rel {rel:.3g}); worst "
+        f"gradient leaf max|diff|/max|g| {worst:.3g}; 3-step losses kernel "
+        f"{tk} plain {tp} (max rel {traj_rel:.3g})")
+    check(rel <= 1e-5, f"fp32 loss kernel vs plain rel {rel}")
+    check(worst <= 1e-4, f"fp32 gradient kernel vs plain {worst}")
+    check(traj_rel <= 1e-4, f"fp32 3-step losses rel {traj_rel}")
+    return {"loss_rel": rel, "grad_worst": worst, "traj_rel": traj_rel}
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the serving engine
 # ---------------------------------------------------------------------------
 
@@ -354,41 +747,16 @@ def drive(engine, prompts, news):
     return [np.asarray(r.tokens) for r in reqs], metrics
 
 
-def profile_drain(engine, prompts, news, top=6):
-    """Drain a short trace under ``torch.profiler``: the wall time, the
-    device time of every kernel (CUPTI) and its share of the wall time,
-    and the kernels that took the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_drain(engine, prompts, news):
+    """Drain a short trace under ``torch.profiler`` (``profile_device``)."""
     for p, m in zip(prompts, news):
         engine.submit(p, max_new_tokens=m, eos_token_id=None)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
+
+    def drain():
         while engine.pending:
             engine.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            name = e.key
-            for short in ("paged_attention_kernel", "weight_only_matmul_kernel"):
-                if short in name:
-                    name = short
-            kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total
-    busy_ms = sum(kernels.values()) / 1e3
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_busy_share": busy_ms / wall_ms,
-           "top_kernels_ms": {k[:60]: v / 1e3 for k, v in sorted(
-               kernels.items(), key=lambda kv: -kv[1])[:top]}}
-    if busy_ms == 0:
-        out = {"wall_ms": wall_ms, "device_busy_ms": "not measured "
-               "(the profiler saw no device events)"}
-    log(f"  profiled drain of {len(prompts)} requests: {json.dumps(out)}")
-    return out
+
+    return profile_device(drain, f"drain of {len(prompts)} requests")
 
 
 def main() -> int:
@@ -530,6 +898,27 @@ def main() -> int:
     log(f"  {len(sp)} fp32 streams equal between the kernel and gather "
         f"engines")
 
+    del params
+    torch.cuda.empty_cache()
+
+    log("== phase 7: flash-attention kernels against their plain versions")
+    fl = [flash_case("(a) B=8 S=2048 H=Hk=16 D=128 causal", 8, 2048, 2048,
+                     16, 16, 128, True, seed=21, probe=True),
+          flash_case("(b) GQA B=2 S=2048 H=32 Hk=8 D=128 causal", 2, 2048,
+                     2048, 32, 8, 128, True, seed=22),
+          flash_case("(c) packed B=4 S=2048 H=Hk=16 D=128 causal 4 segments",
+                     4, 2048, 2048, 16, 16, 128, True, n_segs=4, seed=23),
+          flash_case("(d) B=8 Sq=1024 Sk=2048 H=Hk=16 D=128 causal", 8,
+                     1024, 2048, 16, 16, 128, True, seed=24)]
+    torch.cuda.empty_cache()
+
+    log("== phase 8: training, full width, bf16, use_kernels + full remat")
+    m8, c8 = train_phase()
+    torch.cuda.empty_cache()
+
+    log("== phase 9: fp32 training parity, flash kernels vs plain attention")
+    parity_phase()
+
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [
         summarize("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -539,6 +928,16 @@ def main() -> int:
                   "paddle_tpu/kernels/quant_matmul.py:47", mm,
                   launches["weight_only_matmul"]),
     ]
+    for which, name, line in FLASH_KERNELS:
+        counter = {"fwd": "", "dq": "_bwd_dq", "dkv": "_bwd_dkv"}[which]
+        entry = summarize(name, "paddle_tpu_torch/csrc/flash_attention.cu",
+                          "paddle_tpu/kernels/flash_attention.py" + line,
+                          [rows[which] for rows in fl],
+                          c8["flash_attention" + counter])
+        if which != "fwd":
+            entry["library_note"] = ("scaled_dot_product_attention backward "
+                                     "(dq, dk and dv in one call)")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,3 +2,10 @@
 wrapped beside its plain PyTorch version (counterpart of
 ``paddle_tpu/kernels``). Importing this package builds nothing; a kernel
 is compiled at its first launch (``build.py``)."""
+
+from .flash_attention import flash_attention, flash_attention_with_lse
+from .paged_attention import paged_attention
+from .quant_matmul import weight_only_matmul
+
+__all__ = ["flash_attention", "flash_attention_with_lse", "paged_attention",
+           "weight_only_matmul"]

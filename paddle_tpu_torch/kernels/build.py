@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "load", "build_all", "check"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("paged_attention", "quant_matmul")
+SOURCES = ("paged_attention", "quant_matmul", "flash_attention")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,0 +1,341 @@
+"""Flash attention, forward and backward — counterpart of ``paddle_tpu/kernels/flash_attention.py``.
+
+:func:`flash_attention_with_lse` computes what the Pallas kernels compute
+(``flash_attention.py:67-392``) on the ``[B, S, H, D]`` layout: causal
+(bottom-right aligned: query ``i`` sees key ``j`` iff ``j <= i + Sk - Sq``)
+or not, GQA (query head ``h`` reads kv head ``h // (H // Hk)``), packed
+``segment_ids``, masked scores at -1e30, ``p`` forced to 0 where the score
+is <= -5e29, rows with no visible key output 0 with ``lse = -1e30``. It
+returns ``out`` in q's dtype and ``lse [B, H, Sq]`` in fp32; the gradient
+recomputes ``p`` from ``lse`` (``delta = rowsum(dO * out)`` from the saved
+``out`` in its own dtype), ``dq`` in q's dtype, ``dk``/``dv`` accumulated
+in fp32, folded over the GQA group and cast to k's / v's dtype.
+
+On CUDA tensors the :class:`torch.autograd.Function` launches the three
+hand-written kernels of ``csrc/flash_attention.cu`` (forward, backward dq,
+backward dk/dv; fp32 or bf16, head_dim 64 or 128; anything else raises).
+On CPU tensors it runs :func:`flash_attention_fwd_plain` and
+:func:`flash_attention_bwd_plain`: the same formulas on whole ``[B, H, Sq,
+Sk]`` score matrices, the backward an explicit formula from the saved
+``lse`` (not autograd through the plain forward), so the CPU tests hold the
+same Function, saved tensors, GQA fold and casts as the card runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import build
+
+__all__ = ["flash_attention", "flash_attention_with_lse",
+           "flash_attention_fwd_plain", "flash_attention_bwd_plain",
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain"]
+
+_NEG_INF = -1e30
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)          # csrc/flash_attention.cu dispatch
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _visible(Sq, Sk, causal, seg_q, seg_k, device):
+    """``[B or 1, 1, Sq, Sk]`` bool: query ``i`` may attend key ``j``."""
+    i = torch.arange(Sq, device=device)[:, None]
+    j = torch.arange(Sk, device=device)[None, :]
+    if causal:
+        mask = j <= i + (Sk - Sq)
+    else:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    mask = mask[None]
+    if seg_q is not None:
+        mask = mask & (seg_q[:, :, None] == seg_k[:, None, :])
+    return mask[:, None]
+
+
+def _expand(t, G):
+    """``[B, S, Hk, D]`` -> fp32 ``[B, S, Hk * G, D]``: kv head ``h // G``
+    for query head ``h``."""
+    t = t.float()
+    return t.repeat_interleave(G, dim=2) if G > 1 else t
+
+
+def _probs(q, k, seg_q, seg_k, scale, causal, lse=None):
+    """Masked fp32 scores ``s [B, H, Sq, Sk]`` and, when ``lse`` is given,
+    ``p = exp(s - lse)`` with masked entries exactly 0."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    mask = _visible(Sq, Sk, causal, seg_q, seg_k, q.device)
+    kf = _expand(k, q.shape[2] // k.shape[2])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    s = s.masked_fill(~mask, _NEG_INF)
+    if lse is None:
+        return s
+    return torch.exp(s - lse[..., None]).masked_fill(s <= _NEG_INF / 2, 0.0)
+
+
+def flash_attention_fwd_plain(q, k, v, seg_q, seg_k, scale, causal):
+    """(out ``[B, Sq, H, D]`` in q's dtype, lse ``[B, H, Sq]`` fp32): one
+    masked fp32 softmax over the whole score matrix."""
+    s = _probs(q, k, seg_q, seg_k, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(s <= _NEG_INF / 2, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    vf = _expand(v, q.shape[2] // v.shape[2])
+    o = torch.einsum("bhqk,bkhd->bhqd", p, vf) / safe
+    return o.transpose(1, 2).to(q.dtype), (m + torch.log(safe))[..., 0]
+
+
+def _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal):
+    """(p, ds) of the backward, both fp32 ``[B, H, Sq, Sk]``."""
+    p = _probs(q, k, seg_q, seg_k, scale, causal, lse)
+    dof = dout.float()
+    delta = (dof * out.float()).sum(dim=-1).transpose(1, 2)     # [B, H, Sq]
+    vf = _expand(v, q.shape[2] // v.shape[2])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def _dq_plain(q, k, ds):
+    kf = _expand(k, q.shape[2] // k.shape[2])
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
+
+
+def _dkv_plain(q, k, v, p, ds, dout):
+    B, Sk, Hk, D = k.shape
+    G = q.shape[2] // Hk
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    if G > 1:       # GQA: fold the query heads of each kv head
+        dk = dk.reshape(B, Sk, Hk, G, D).sum(dim=3)
+        dv = dv.reshape(B, Sk, Hk, G, D).sum(dim=3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, seg_q, seg_k, out, lse, dout, scale,
+                              causal):
+    """(dq, dk, dv) from the saved forward: ``p`` recomputed from ``lse``,
+    ``delta = rowsum(dout * out)``, ``ds = p * (dp - delta) * scale``."""
+    p, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal)
+    return (_dq_plain(q, k, ds),) + _dkv_plain(q, k, v, p, ds, dout)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, seg_q, seg_k, out, lse, dout,
+                                 scale, causal):
+    """dq alone (what the dq kernel computes)."""
+    _, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal)
+    return _dq_plain(q, k, ds)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, seg_q, seg_k, out, lse, dout,
+                                  scale, causal):
+    """(dk, dv) alone (what the dk/dv kernel computes)."""
+    p, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal)
+    return _dkv_plain(q, k, v, p, ds, dout)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _cuda_operands(q, k, v, seg_q, seg_k):
+    """Check what the kernels take; returns (q, k, v, seg_q, seg_k)
+    contiguous (segments as int32)."""
+    B, Sq, H, D = q.shape
+    if k.dim() != 4 or v.shape != k.shape or k.shape[0] != B \
+            or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)} (head_dim, "
+                         f"batch, or query heads not divisible by kv heads)")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: the CUDA kernels take head_dim "
+                         f"in {_HEAD_DIMS}, got {D}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: the CUDA kernels take q, k, v "
+                         f"all float32 or all bfloat16, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    for name, t in (("k", k), ("v", v), ("segment_ids", seg_q),
+                    ("kv_segment_ids", seg_k)):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+    if seg_q is not None:
+        seg_q = seg_q.to(torch.int32).contiguous()
+        seg_k = seg_k.to(torch.int32).contiguous()
+    return q.contiguous(), k.contiguous(), v.contiguous(), seg_q, seg_k
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _entry(name, n_ptrs):
+    lib = build.load("flash_attention")
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + \
+        [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    return lib, fn
+
+
+def _fwd_cuda(q, k, v, seg_q, seg_k, scale, causal):
+    q, k, v, seg_q, seg_k = _cuda_operands(q, k, v, seg_q, seg_k)
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib, fn = _entry("flash_fwd_launch", 7)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg_q),
+             _ptr(seg_k), out.data_ptr(), lse.data_ptr(), B, H, Hk, Sq, Sk,
+             D, scale, int(causal), _DTYPE_CODE[q.dtype], stream)
+    build.check(lib, err, "flash_attention forward")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _bwd_operands(q, k, v, seg_q, seg_k, out, lse, dout):
+    """The backward kernels' operands: contiguous tensors and ``delta =
+    rowsum(dO * O) [B, H, Sq]`` fp32, computed outside the kernels as in
+    the TPU version (from the saved ``out`` in its own dtype)."""
+    q, k, v, seg_q, seg_k = _cuda_operands(q, k, v, seg_q, seg_k)
+    dout = dout.to(q.dtype).contiguous()
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2) \
+        .contiguous()
+    return q, k, v, seg_q, seg_k, dout, lse.contiguous(), delta
+
+
+def _bwd_args(ops, scale, causal):
+    """(pointer arguments, trailing arguments) of the backward launches."""
+    q, k, v, seg_q, seg_k, dout, lse, delta = ops
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), _ptr(seg_q), _ptr(seg_k)),
+            (B, H, Hk, Sq, Sk, D, scale, int(causal), _DTYPE_CODE[q.dtype],
+             stream))
+
+
+def _dq_cuda(ops, scale, causal):
+    """Launch the dq kernel on :func:`_bwd_operands`' result."""
+    dq = torch.empty_like(ops[0])
+    ptrs, tail = _bwd_args(ops, scale, causal)
+    lib, fn = _entry("flash_bwd_dq_launch", 9)
+    build.check(lib, fn(*ptrs, dq.data_ptr(), *tail),
+                "flash_attention backward dq")
+    flash_attention.launches_bwd_dq += 1
+    return dq
+
+
+def _dkv_cuda(ops, scale, causal):
+    """Launch the dk/dv kernel on :func:`_bwd_operands`' result."""
+    dk = torch.empty_like(ops[1])
+    dv = torch.empty_like(ops[2])
+    ptrs, tail = _bwd_args(ops, scale, causal)
+    lib, fn = _entry("flash_bwd_dkv_launch", 10)
+    build.check(lib, fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *tail),
+                "flash_attention backward dk/dv")
+    flash_attention.launches_bwd_dkv += 1
+    return dk, dv
+
+
+def _bwd_cuda(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal):
+    ops = _bwd_operands(q, k, v, seg_q, seg_k, out, lse, dout)
+    return (_dq_cuda(ops, scale, causal),) + _dkv_cuda(ops, scale, causal)
+
+
+def _on_cuda(q):
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return True
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``(q, k, v, seg_q, seg_k) -> (out, lse)``; the forward saves
+    ``(q, k, v, seg_q, seg_k, out, lse)`` and nothing else (it holds no
+    state between calls, so activation checkpointing may re-run it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_k, scale, causal):
+        fwd = _fwd_cuda if _on_cuda(q) else flash_attention_fwd_plain
+        out, lse = fwd(q, k, v, seg_q, seg_k, scale, causal)
+        ctx.save_for_backward(q, k, v, seg_q, seg_k, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, seg_q, seg_k, out, lse = ctx.saved_tensors
+        bwd = _bwd_cuda if _on_cuda(q) else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, seg_q, seg_k, out, lse, dout, ctx.scale,
+                         ctx.causal)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = False,
+                             scale: Optional[float] = None,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None,
+                             segment_ids=None, kv_segment_ids=None):
+    """``[B, S, H, D]`` flash attention returning ``(out, lse [B, H, Sq])``.
+
+    The arguments and errors are the JAX function's: ``block_q``/``block_k``
+    are only checked to divide the sequence lengths (the kernels' tiles are
+    their own and take any length); causal with ``Sq > Sk`` raises;
+    ``segment_ids [B, Sq]`` enables packed-sequence masking, with
+    ``kv_segment_ids`` defaulting to it and required when ``Sq != Sk``.
+
+    CUDA tensors launch the kernels: each forward adds one to
+    ``flash_attention.launches``, each backward one to
+    ``flash_attention.launches_bwd_dq`` and ``.launches_bwd_dkv``. CPU
+    tensors run the plain versions.
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    block_q = min(block_q or Sq, Sq)
+    block_k = min(block_k or Sk, Sk)
+    if Sq % block_q or Sk % block_k:
+        raise ValueError(f"flash_attention: seq lens ({Sq},{Sk}) must divide "
+                         f"block sizes ({block_q},{block_k})")
+    if causal and Sq > Sk:
+        raise ValueError(f"flash_attention: causal with Sq ({Sq}) > Sk ({Sk}) "
+                         f"has fully-masked query rows; mask them explicitly "
+                         f"or pad keys")
+    if segment_ids is not None and kv_segment_ids is None:
+        if Sq != Sk:
+            raise ValueError("flash_attention: kv_segment_ids required when "
+                             "Sq != Sk")
+        kv_segment_ids = segment_ids
+    seg_q = seg_k = None
+    if segment_ids is not None:
+        seg_q = torch.as_tensor(segment_ids, device=q.device)
+        seg_k = torch.as_tensor(kv_segment_ids, device=q.device)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    return _FlashAttention.apply(q, k, v, seg_q, seg_k, scale, bool(causal))
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    segment_ids=None, kv_segment_ids=None):
+    """``[B, S, H, D]`` flash attention (``segment_ids`` = packed mode);
+    :func:`flash_attention_with_lse` without the lse."""
+    out, _ = flash_attention_with_lse(q, k, v, causal, scale, block_q,
+                                      block_k, segment_ids, kv_segment_ids)
+    return out
+
+
+flash_attention.launches = 0
+flash_attention.launches_bwd_dq = 0
+flash_attention.launches_bwd_dkv = 0

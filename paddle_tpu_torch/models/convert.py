@@ -3,7 +3,9 @@
 The one way the tests hand the JAX package and the port the same weights:
 the JAX side converts its pytree with ``jax.tree_util.tree_map(np.asarray,
 params)`` and the port takes the numpy tree from there. Both fp trees and
-weight-only-int8 trees (with ``*_s`` scale leaves) convert leaf by leaf.
+weight-only-int8 trees (with ``*_s`` scale leaves) convert leaf by leaf;
+so does the AdamW state (:func:`opt_state_from_jax`). :func:`to_numpy`
+goes back, for comparisons.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 from ..device import resolve_device
 from .llama import LlamaConfig
 
-__all__ = ["params_from_jax", "config_from_jax"]
+__all__ = ["params_from_jax", "config_from_jax", "opt_state_from_jax",
+           "to_numpy"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
@@ -47,9 +50,45 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
             else _leaf(v, dev) for k, v in tree.items()}
 
 
+def opt_state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX AdamW state ``{"m": tree, "v": tree, "step": int32 scalar}``
+    (numpy-convertible) -> the port's, as ``llama._adamw_init`` lays it
+    out."""
+    dev = resolve_device(device)
+    return {"m": params_from_jax(state["m"], dev),
+            "v": params_from_jax(state["v"], dev),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def to_numpy(tree):
+    """A (nested dict) tree of tensors -> the same tree of numpy arrays on
+    the host (bf16 as fp32: numpy has no bf16)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+# JAX config fields whose feature the port does not run, with the value
+# that means "off"
+_UNPORTED = {"moe_num_experts": 0, "sep_axis": None, "ep_axis": None,
+             "tp_axis": None}
+
+
 def config_from_jax(cfg) -> LlamaConfig:
     """The port's :class:`LlamaConfig` for a JAX ``LlamaConfig`` (read by
-    attribute; dtypes mapped through numpy)."""
+    attribute; dtypes mapped through numpy). Raises ``ValueError`` naming
+    the field when the JAX config turns on a feature the port does not
+    run (MoE, context, expert or tensor parallelism), rather than
+    returning a config that computes something else."""
+    for name, off in _UNPORTED.items():
+        value = getattr(cfg, name, off)
+        if value != off:
+            raise ValueError(f"config_from_jax: {name}={value!r} is not "
+                             f"supported by the port (only {name}={off!r})")
     return LlamaConfig(
         vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
         intermediate_size=cfg.intermediate_size,
@@ -59,6 +98,8 @@ def config_from_jax(cfg) -> LlamaConfig:
         max_position_embeddings=cfg.max_position_embeddings,
         rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
         tie_word_embeddings=cfg.tie_word_embeddings,
-        use_fused_norm=cfg.use_fused_norm,
+        use_kernels=cfg.use_kernels, use_fused_norm=cfg.use_fused_norm,
         dtype=_torch_dtype(cfg.dtype),
-        param_dtype=_torch_dtype(cfg.param_dtype))
+        param_dtype=_torch_dtype(cfg.param_dtype),
+        remat=cfg.remat, remat_policy=cfg.remat_policy,
+        ce_chunks=cfg.ce_chunks)

@@ -33,8 +33,8 @@ import torch
 from ..device import resolve_device
 from ..kernels.paged_attention import paged_attention
 from ..kernels.rope import rope_cos_sin
-from .llama import (KV_QUANT_MODES, LlamaConfig, _masked_sdpa, _mm,
-                    _rms_norm, _rope, validate_quant_mode)
+from .llama import (KV_QUANT_MODES, LlamaConfig, _embed, _ffn_tail,
+                    _masked_sdpa, _mm, _rms_norm, _rope, validate_quant_mode)
 
 __all__ = ["GenerationConfig", "init_paged_pool", "paged_pool_block_bytes",
            "paged_prefill", "paged_prefill_chunk", "paged_decode_step",
@@ -74,16 +74,6 @@ class GenerationConfig:
 # shared pieces
 # ---------------------------------------------------------------------------
 
-def _embed(params: Dict, ids: torch.Tensor, dt) -> torch.Tensor:
-    """``jnp.take(embed, ids, axis=0)`` with its fill semantics."""
-    emb = params["embed"]
-    V = emb.shape[0]
-    ids = ids.long()
-    ok = (ids >= -V) & (ids < V)
-    x = emb[torch.where(ids < 0, ids + V, ids).clamp(0, V - 1)].to(dt)
-    return x.masked_fill(~ok[..., None], float("nan"))
-
-
 def _layer(params: Dict, l: int) -> Dict:
     """Layer ``l``'s un-stacked weights (views)."""
     return {name: w[l] for name, w in params["layers"].items()}
@@ -92,16 +82,6 @@ def _layer(params: Dict, l: int) -> Dict:
 def _pool_layer(pool: Dict, l: int) -> Dict:
     """Layer ``l``'s pool slice (views: writes land in ``pool``)."""
     return {name: a[l] for name, a in pool.items()}
-
-
-def _ffn_tail(lp: Dict, x, cfg: LlamaConfig):
-    """The post-attention half of a decoder block on ``x [B, T, E]``:
-    pre-norm + dense SwiGLU."""
-    dt = cfg.dtype
-    h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps, cfg.use_fused_norm)
-    g = torch.nn.functional.silu(_mm(h, lp, "w_gate", dt)) * \
-        _mm(h, lp, "w_up", dt)
-    return x + _mm(g, lp, "w_down", dt)
 
 
 def _lm_head(params: Dict, cfg: LlamaConfig, x):

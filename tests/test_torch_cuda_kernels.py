@@ -131,3 +131,123 @@ def test_engine_kernel_path_matches_gather_path(dev):
         assert eng.stats()["mixed_dispatches"] >= 1
     for a, b in zip(outs["on"], outs["off"]):
         np.testing.assert_array_equal(a, b)
+
+
+def _flash_case(rng, dev, dtype, B, Sq, Sk, H, Hk, D, segs):
+    """q, k, v, dout on the card, and segment ids: None, "packed" (3
+    segments per row, Sq == Sk) or "cross" (a query segment with no key)."""
+    t = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+         .to(dtype).to(dev)
+         for s in ((B, Sq, H, D), (B, Sk, Hk, D), (B, Sk, Hk, D),
+                   (B, Sq, H, D))]
+    seg_q = seg_k = None
+    if segs == "packed":
+        cuts = np.sort(rng.choice(np.arange(1, Sq), (B, 2)), axis=1)
+        seg_q = (np.arange(Sq)[None, :, None] >= cuts[:, None, :]).sum(-1)
+        seg_k = seg_q
+    elif segs == "cross":
+        seg_q = np.where(np.arange(Sq)[None] < Sq // 3, 9, 1) * np.ones(
+            (B, 1), np.int64)
+        seg_k = (np.arange(Sk)[None] >= Sk // 2) * np.ones((B, 1), np.int64)
+    if seg_q is not None:
+        seg_q = torch.from_numpy(seg_q.astype(np.int32)).to(dev)
+        seg_k = torch.from_numpy(seg_k.astype(np.int32)).to(dev)
+    return t, seg_q, seg_k
+
+
+def _rel_errors(got, want):
+    """(||got - want||_F / ||want||_F, the worst row's ||got_r - want_r|| /
+    max(||want_r||, 0.1 * the RMS row norm)) over vectors of the last dim:
+    the rule ``chip_smoke.py`` phase 7 holds the flash kernels to. The
+    floor keeps rows whose exact value is ~0 from reading as 1."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    d = g - w
+    rows = w.norm(dim=1)
+    floor = 0.1 * w.norm() / rows.numel() ** 0.5
+    return ((d.norm() / w.norm()).item(),
+            (d.norm(dim=1) / torch.clamp(rows, min=floor)).max().item())
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,B,Sq,Sk,H,Hk,segs", [
+    (True, 2, 100, 100, 4, 4, None),       # ragged tiles
+    (False, 2, 64, 130, 4, 2, None),       # cross lengths, GQA
+    (True, 1, 70, 150, 8, 2, None),        # bottom-right causal, Sq < Sk
+    (True, 2, 128, 128, 4, 2, "packed"),
+    (False, 2, 48, 96, 4, 2, "cross"),     # fully masked query rows
+])
+def test_flash_attention_matches_plain(dev, dtype, D, causal, B, Sq, Sk, H,
+                                       Hk, segs):
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_fwd_plain,
+        flash_attention_with_lse)
+    rng = np.random.default_rng(Sq * Sk + H + D)
+    (q, k, v, do), seg_q, seg_k = _flash_case(rng, dev, dtype, B, Sq, Sk, H,
+                                              Hk, D, segs)
+    scale = 1.0 / D ** 0.5
+    n0 = (flash_attention.launches, flash_attention.launches_bwd_dq,
+          flash_attention.launches_bwd_dkv)
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out, lse = flash_attention_with_lse(qq, kk, vv, causal=causal,
+                                        segment_ids=seg_q,
+                                        kv_segment_ids=seg_k)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_bwd_dq,
+            flash_attention.launches_bwd_dkv) == tuple(n + 1 for n in n0)
+    ref_out, ref_lse = flash_attention_fwd_plain(q, k, v, seg_q, seg_k, scale,
+                                                 causal)
+    # the backward on the Function's saved out and lse (delta = rowsum(dO
+    # * O) moves with out's bf16 rounding in short causal rows)
+    ref_grads = flash_attention_bwd_plain(q, k, v, seg_q, seg_k,
+                                          out.detach(), lse, do, scale,
+                                          causal)
+    assert out.dtype == qq.grad.dtype == kk.grad.dtype == dtype
+    assert lse.dtype == torch.float32
+    # fp32: the same fp32 sums in another order; bf16: one more rounding of
+    # each output, and p / ds rounded to bf16 before their tensor-core
+    # products (the limits of chip_smoke.py phase 7)
+    fro_tol, row_tol = (1e-2, 3e-2) if dtype == torch.bfloat16 else (1e-5,
+                                                                     1e-4)
+    for got, want in ((out, ref_out), (qq.grad, ref_grads[0]),
+                      (kk.grad, ref_grads[1]), (vv.grad, ref_grads[2])):
+        assert torch.isfinite(got.float()).all()
+        fro, row = _rel_errors(got, want)
+        assert fro <= fro_tol and row <= row_tol, (fro, row)
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= (1e-3 if dtype == torch.bfloat16 else 1e-4), lse_err
+
+
+def test_flash_attention_refuses_what_the_kernels_do_not_take(dev):
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros((1, 8, 2, 96), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q, q, q)
+
+
+def test_training_kernel_path_matches_plain_path(dev):
+    from paddle_tpu_torch.models.llama import (LlamaConfig, init_params,
+                                               loss_fn)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, remat=True)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 96))).to(dev)
+    out = {}
+    for use in (True, False):
+        params = init_params(cfg, seed=1, device=dev)
+        leaves = [params["embed"], params["layers"]["wq"]]
+        for p in leaves:
+            p.requires_grad_(True)
+        c = LlamaConfig(**{**cfg.__dict__, "use_kernels": use})
+        loss = loss_fn(params, ids, ids, c)
+        out[use] = (loss.item(), torch.autograd.grad(loss, leaves))
+    assert abs(out[True][0] - out[False][0]) <= 1e-5 * abs(out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
