@@ -36,16 +36,38 @@ Phases (each fails the run on any error; none catches and carries on):
 9. Training parity at fp32 on the card (hidden 512, 8 heads, 4 kv heads,
    4 layers, B 2 x S 512): the flash kernels against the plain attention
    on the loss, every gradient leaf and 3 AdamW steps' losses.
+10. RMSNorm and RoPE kernel checks at the training step's shapes: the
+    public ``rms_norm`` Function and its gradient at n = 8 x 2048 rows of
+    2048 (bf16 x with an fp32 weight, and all fp32), its forward at the
+    decode shape (8 rows, bf16), ``apply_rope`` and its gradient on q
+    [8, 2048, 16, 128] and a GQA k [2, 2048, 8, 128] (bf16, fp32 tables),
+    each against its plain version (bf16 within one bf16 step, fp32
+    ``out``/``dx`` within 1e-5 x max|ref|, ``dw`` within 1e-4 x max|dw|,
+    ``dw`` the same bits on two runs), then timed beside the plain version,
+    ``torch.nn.functional.rms_norm`` and the bound.
+11. Phase 8 with ``use_fused_norm=True``: every norm through the RMSNorm
+    kernels and the q/k RoPE through the RoPE kernel; the same metrics,
+    printed beside phase 8's.
+12. Parity at fp32 with ``use_fused_norm`` on against off: phase 9's
+    training config (loss, every gradient leaf, 3 AdamW steps' losses)
+    and phase 6's serving model (one ``paged_prefill`` plus one
+    ``paged_decode_step``, logits within 1e-3; the fused run must launch
+    the RMSNorm forward kernel).
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
 out of the numbers). Kernel launch counters are set to 0 just before each
 main-path run and read just after it: paged attention must have launched
 on both entry points in phase 4, the int8 matmul and the int8-pool
-attention in phase 5, the three flash kernels in every timed step of
-phase 8 (24 forward, 12 dq, 12 dk/dv per step: the forward runs again in
-each layer's recompute). The kernels line reports the serving launches of
-phases 4 and 5 together and the flash launches of phase 8.
+attention in phase 5. Every timed training step must launch exactly
+what ``expected_launches`` derives: in phase 8 the flash kernels (24
+forward, 12 dq, 12 dk/dv per step: the forward runs again in each
+layer's recompute) and nothing else; in phase 11 also 49 RMSNorm
+forwards (2 per layer, twice, plus the final norm), 25 RMSNorm
+backwards, 48 RoPE forwards (q and k, twice) and 24 RoPE backwards. The
+kernels line reports the serving launches of phases 4 and 5 together,
+the flash launches of phase 8 and the RMSNorm and RoPE launches of
+phase 11 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -109,16 +131,23 @@ _COUNTS = (("paged_attention", "launches"),
            ("weight_only_matmul", "launches"),
            ("flash_attention", "launches"),
            ("flash_attention", "launches_bwd_dq"),
-           ("flash_attention", "launches_bwd_dkv"))
+           ("flash_attention", "launches_bwd_dkv"),
+           ("rms_norm", "launches"),
+           ("rms_norm", "launches_bwd"),
+           ("apply_rope", "launches"),
+           ("apply_rope", "launches_bwd"))
 
 
 def _count_owners():
     from paddle_tpu_torch.kernels.flash_attention import flash_attention
     from paddle_tpu_torch.kernels.paged_attention import paged_attention
     from paddle_tpu_torch.kernels.quant_matmul import weight_only_matmul
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.kernels.rope import apply_rope
     return {"paged_attention": paged_attention,
             "weight_only_matmul": weight_only_matmul,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "rms_norm": rms_norm,
+            "apply_rope": apply_rope}
 
 
 def reset_counts():
@@ -288,10 +317,12 @@ def matmul_case(M, K, N, seed=0):
 
 
 def summarize(name, source, replaces, rows, launches):
-    """One kernels-line entry: times summed over the checked shapes."""
+    """One kernels-line entry: times summed over the checked shapes
+    (``library_ms`` null where no single PyTorch call computes it)."""
     by = {}
     for r in rows:
         by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+    lib = [r["library_ms"] for r in rows]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -299,7 +330,7 @@ def summarize(name, source, replaces, rows, launches):
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": max(by, key=by.get),
-            "library_ms": sum(r["library_ms"] for r in rows),
+            "library_ms": None if None in lib else sum(lib),
             "cases": rows}
 
 
@@ -516,7 +547,141 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: the training step
+# phase 10: the RMSNorm and RoPE kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def bf16_steps(got, ref):
+    """The largest |got - ref| in bf16 steps of the reference (2**-7 of
+    it), the step taken at the larger of |ref| and 1e-3 of ref's RMS: where
+    a value cancels to ~0 (dx = rstd * (wg - xhat * m)) the two fp32
+    reduction orders differ by ~1e-7 of the terms, many steps of the tiny
+    result. <= 1 is "within one bf16 step"."""
+    import torch
+    g, r = got.float(), ref.float()
+    floor = 1e-3 * r.pow(2).mean().sqrt()
+    return ((g - r).abs() / (2.0 ** -7 * torch.clamp(r.abs(), min=floor))) \
+        .max().item()
+
+
+def hold(name, got, ref, fp32_rel):
+    """Hold one output to its plain version: bf16 within one bf16 step,
+    fp32 within ``fp32_rel`` x max|ref|. Returns the max abs error."""
+    import torch
+    check(torch.isfinite(got.float()).all().item(), f"{name}: non-finite")
+    err = (got.float() - ref.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        steps = bf16_steps(got, ref)
+        check(steps <= 1, f"{name}: {steps:.3g} bf16 steps from plain")
+    else:
+        lim = fp32_rel * ref.float().abs().max().item()
+        check(err <= lim, f"{name}: max error {err} > {lim}")
+    return err
+
+
+def norm_case(name, n, d, x_dtype, w_dtype, backward, seed):
+    """One RMSNorm case: the public ``rms_norm`` Function (and its
+    gradient) against the plain forward (and backward), then the kernels
+    timed alone beside the plain versions and
+    ``torch.nn.functional.rms_norm`` (its autograd backward for the
+    backward; the weight cast to x's dtype first, which that call needs).
+    Returns {"fwd": row[, "bwd": row]}."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    RN = importlib.import_module("paddle_tpu_torch.kernels.rms_norm")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device=dev).to(x_dtype)
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(w_dtype)
+    gout = torch.randn((n, d), generator=gen, device=dev).to(x_dtype)
+    eps = 1e-6
+    xx, ww = (t.clone().requires_grad_(backward) for t in (x, w))
+    out = RN.rms_norm(xx, ww, eps)
+    ref_out, rstd = RN.rms_norm_fwd_plain(x, w, eps)
+    errs = {"fwd": hold(f"{name} out", out, ref_out, 1e-5)}
+    if backward:
+        out.backward(gout)
+        ref_dx, ref_dw = RN.rms_norm_bwd_plain(x, w, rstd, gout)
+        errs["bwd"] = max(hold(f"{name} dx", xx.grad, ref_dx, 1e-5),
+                          hold(f"{name} dw", ww.grad, ref_dw, 1e-4))
+        check(torch.equal(RN._bwd_cuda(x, w, rstd, gout)[1],
+                          RN._bwd_cuda(x, w, rstd, gout)[1]),
+              f"{name}: dw differs between two runs")
+    torch.cuda.synchronize()
+    wl = w.to(x_dtype)
+    xl, wlg = (t.detach().requires_grad_(True) for t in (x, wl))
+    lib_out = F.rms_norm(xl, (d,), wlg, eps)
+    ix, iw = x.element_size(), w.element_size()
+    # bytes: every input read once, every output written once; operations:
+    # fp32, 4 per element forward (x*x, its sum, *rstd, *w), 9 backward
+    work = {"fwd": (2 * n * d * ix + d * iw + n * 4, 4 * n * d,
+                    lambda: RN._fwd_cuda(x, w, eps),
+                    lambda: RN.rms_norm_fwd_plain(x, w, eps),
+                    lambda: F.rms_norm(x, (d,), wl, eps)),
+            "bwd": (3 * n * d * ix + n * 4 + 2 * d * iw, 9 * n * d,
+                    lambda: RN._bwd_cuda(x, w, rstd, gout),
+                    lambda: RN.rms_norm_bwd_plain(x, w, rstd, gout),
+                    lambda: torch.autograd.grad(lib_out, (xl, wlg), gout,
+                                                retain_graph=True))}
+    rows = {}
+    for which in errs:
+        nbytes, flops, kern, plain, lib = work[which]
+        b_ms, b_by = bound(nbytes, flops, "fp32")
+        rows[which] = {"case": name, "max_abs_err": errs[which],
+                       "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                       "library_ms": cuda_ms(lib), "bound_ms": b_ms,
+                       "bound_by": b_by}
+        r = rows[which]
+        log(f"  {name} {which}: max_abs_err {r['max_abs_err']:.3g}  kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  F.rms_norm "
+            f"{r['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+def rope_case(name, B, S, H, D, seed):
+    """One bf16 RoPE case: the public ``apply_rope`` Function and its
+    gradient against the plain rotation by theta and by -theta, then the
+    kernel timed alone in both directions beside the plain version. No
+    single PyTorch call applies rotate-half RoPE: no library time."""
+    import importlib
+    import torch
+    RP = importlib.import_module("paddle_tpu_torch.kernels.rope")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, gout = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(2))
+    cos, sin = RP.rope_cos_sin(S, D, device=dev)
+    neg = -sin
+    xx = x.clone().requires_grad_(True)
+    out = RP.apply_rope(xx, cos, sin)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    errs = {"fwd": hold(f"{name} out", out, RP.apply_rope_plain(x, cos, sin),
+                        1e-5),
+            "bwd": hold(f"{name} dx", xx.grad,
+                        RP.apply_rope_plain(gout, cos, neg), 1e-5)}
+    # bytes: x read, out written, the two fp32 tables read; 3 fp32
+    # operations per element
+    nbytes = 2 * x.numel() * x.element_size() + 2 * S * D * 4
+    b_ms, b_by = bound(nbytes, 3 * x.numel(), "fp32")
+    work = {"fwd": (lambda: RP._rope_cuda(x, cos, sin, 1.0),
+                    lambda: RP.apply_rope_plain(x, cos, sin)),
+            "bwd": (lambda: RP._rope_cuda(gout, cos, sin, -1.0),
+                    lambda: RP.apply_rope_plain(gout, cos, neg))}
+    rows = []
+    for which, (kern, plain) in work.items():
+        r = {"case": f"{name} {which}", "max_abs_err": errs[which],
+             "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  {r['case']}: max_abs_err {r['max_abs_err']:.3g}  kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        rows.append(r)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9 and 11-12: the training step
 # ---------------------------------------------------------------------------
 
 PEAK_BF16 = PEAK_FLOPS["bf16"]
@@ -530,10 +695,18 @@ def train_flops_per_step(cfg, batch, seq):
                           + 6 * cfg.num_hidden_layers * cfg.hidden_size * seq)
 
 
+# the port's kernels by the names the profiler prints
+PORT_KERNELS = ("paged_attention_kernel", "weight_only_matmul_kernel",
+                "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel", "rms_norm_fwd_kernel",
+                "rms_norm_bwd_kernel", "rms_norm_dw_kernel", "rope_kernel")
+
+
 def profile_device(run, label, top=6):
     """Run ``run()`` under ``torch.profiler``: the wall time, the device
-    time of every kernel (CUPTI) and its share of the wall time, and the
-    kernels that took the most device time."""
+    time of every kernel (CUPTI) and its share of the wall time, the time
+    of PyTorch's elementwise kernels and of each of the port's kernels,
+    and the kernels that took the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -548,9 +721,7 @@ def profile_device(run, label, top=6):
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             name = e.key
-            for short in ("paged_attention_kernel",
-                          "weight_only_matmul_kernel", "flash_fwd_kernel",
-                          "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+            for short in PORT_KERNELS:
                 if short in name:
                     name = short
             # summed by the printed (60-character) name: instantiations of
@@ -558,8 +729,15 @@ def profile_device(run, label, top=6):
             name = name[:60]
             kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total
     busy_ms = sum(kernels.values()) / 1e3
+    # PyTorch's own elementwise kernels (casts, norms and RoPE on the plain
+    # route, SiLU, AdamW's passes, the CE), summed
+    elementwise_ms = sum(v for k, v in kernels.items()
+                         if "elementwise_kernel" in k) / 1e3
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms,
+           "elementwise_ms": elementwise_ms,
+           "port_kernels_ms": {k: kernels[k] / 1e3 for k in PORT_KERNELS
+                               if k in kernels},
            "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
                kernels.items(), key=lambda kv: -kv[1])[:top]}}
     if busy_ms == 0:
@@ -584,12 +762,25 @@ def train_config(dtype, **kw):
     return LlamaConfig(**base)
 
 
-def train_phase(steps=4, batch=8, seq=2048):
-    """Phase 8: one warm-up step, ``steps`` timed steps with the launch
-    counters set to 0 just before them, one profiled step."""
+def expected_launches(cfg):
+    """Kernel launches per training step with full non-reentrant remat:
+    every layer's forward runs twice (the forward, then its recompute just
+    before its backward), the final norm once, each backward once."""
+    L = cfg.num_hidden_layers
+    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    if cfg.use_fused_norm:
+        want.update({"rms_norm": 2 * (2 * L) + 1, "rms_norm_bwd": 2 * L + 1,
+                     "apply_rope": 2 * (2 * L), "apply_rope_bwd": 2 * L})
+    return want
+
+
+def train_phase(steps=4, batch=8, seq=2048, **cfg_kw):
+    """Phases 8 and 11: one warm-up step, ``steps`` timed steps with the
+    launch counters set to 0 just before them, one profiled step."""
     import torch
     from paddle_tpu_torch.models.llama import init_params, make_train_step
-    cfg = train_config(torch.bfloat16)
+    cfg = train_config(torch.bfloat16, **cfg_kw)
     params = init_params(cfg, seed=SEED, device="cuda")
     init_opt, step = make_train_step(cfg, lr=1e-4)
     opt = init_opt(params)
@@ -610,40 +801,39 @@ def train_phase(steps=4, batch=8, seq=2048):
     peak = torch.cuda.max_memory_allocated()
     step_s = float(np.median(times))
     flops = train_flops_per_step(cfg, batch, seq)
-    per_step = {k: counts[f"flash_attention{k}"] / steps
-                for k in ("", "_bwd_dq", "_bwd_dkv")}
-    L = cfg.num_hidden_layers
+    per_step = {k: v / steps for k, v in counts.items() if v}
     m = {"step_ms": step_s * 1e3, "step_ms_each": [t * 1e3 for t in times],
          "tokens_per_s": batch * seq / step_s,
          "mfu": flops / step_s / PEAK_BF16, "flops_per_step": flops,
          "max_memory_allocated_gb": peak / 2 ** 30, "losses": losses,
-         "flash_launches_per_step": per_step}
+         "launches_per_step": per_step}
     log(f"  {json.dumps(m)}")
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for k, want in (("", 2 * L), ("_bwd_dq", L), ("_bwd_dkv", L)):
-        check(per_step[k] == want,
-              f"flash_attention{k}: {per_step[k]} launches per step, "
-              f"expected {want}")
+    want = expected_launches(cfg)
+    check(per_step == want, f"launches per step {per_step}, expected {want}")
     prof = profile_device(lambda: step(params, opt, ids, ids),
                           "training step", top=10)
     m["profile"] = prof
     return m, counts
 
 
-def parity_phase():
-    """Phase 9: fp32, the flash kernels against the plain attention."""
+def parity_phase(knob):
+    """Phases 9 and 12: fp32, the path with ``knob`` (``use_kernels``: the
+    flash kernels; ``use_fused_norm``: the fused norm and RoPE kernels) on
+    against the same path with it off."""
     import torch
     from paddle_tpu_torch.models.llama import (_leaves, init_params,
                                                loss_fn, make_train_step)
     cfg = {use: train_config(torch.float32, hidden_size=512,
                              intermediate_size=1376, num_hidden_layers=4,
                              num_attention_heads=8, num_key_value_heads=4,
-                             use_kernels=use)
+                             **{knob: use})
            for use in (True, False)}
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, 32000, (2, 512))).cuda()
     res = {}
+    reset_counts()
     for use in (True, False):
         params = init_params(cfg[use], seed=SEED + 2, device="cuda")
         leaves = _leaves(params)
@@ -663,20 +853,21 @@ def parity_phase():
     worst = max(((a - b).abs().max() / b.abs().max()).item()
                 for a, b in zip(gk, gp))
     traj_rel = max(abs(a - b) / abs(b) for a, b in zip(tk, tp))
-    log(f"  loss kernel {lk:.8f} plain {lp:.8f} (rel {rel:.3g}); worst "
-        f"gradient leaf max|diff|/max|g| {worst:.3g}; 3-step losses kernel "
-        f"{tk} plain {tp} (max rel {traj_rel:.3g})")
-    check(rel <= 1e-5, f"fp32 loss kernel vs plain rel {rel}")
-    check(worst <= 1e-4, f"fp32 gradient kernel vs plain {worst}")
+    log(f"  {knob} on/off: loss {lk:.8f} / {lp:.8f} (rel {rel:.3g}); worst "
+        f"gradient leaf max|diff|/max|g| {worst:.3g}; 3-step losses "
+        f"{tk} / {tp} (max rel {traj_rel:.3g})")
+    check(rel <= 1e-5, f"fp32 loss {knob} on vs off rel {rel}")
+    check(worst <= 1e-4, f"fp32 gradient {knob} on vs off {worst}")
     check(traj_rel <= 1e-4, f"fp32 3-step losses rel {traj_rel}")
-    return {"loss_rel": rel, "grad_worst": worst, "traj_rel": traj_rel}
+    return {"loss_rel": rel, "grad_worst": worst, "traj_rel": traj_rel,
+            "launches": read_counts()}
 
 
 # ---------------------------------------------------------------------------
 # phases 4-6: the serving engine
 # ---------------------------------------------------------------------------
 
-def model_config(dtype):
+def model_config(dtype, **kw):
     """``bench.py:_presets("tpu")`` (lines 68-74): the model the repo's
     own TPU benchmark serves."""
     from paddle_tpu_torch.models.llama import LlamaConfig
@@ -685,7 +876,27 @@ def model_config(dtype):
                        intermediate_size=5504, num_hidden_layers=12,
                        num_attention_heads=16, num_key_value_heads=16,
                        max_position_embeddings=2048, dtype=dtype,
-                       param_dtype=torch.float32)
+                       param_dtype=torch.float32, **kw)
+
+
+def first_dispatch(params, cfg, prompts, B=4, W=16):
+    """One batched ``paged_prefill`` of the first ``B`` prompts (cut to 120
+    tokens) into a fresh pool: (logits, pool, greedy tokens, the decode
+    operands ``(seq_lens, tables, active)``)."""
+    import torch
+    from paddle_tpu_torch.models import generation as G
+    pool = G.init_paged_pool(cfg, 1 + B * W, 16, device="cuda")
+    ids = np.zeros((B, 128), np.int32)
+    plens = np.array([len(p[:120]) for p in prompts[:B]], np.int32)
+    for b in range(B):
+        ids[b, :plens[b]] = prompts[b][:120]
+    tbl = torch.arange(1, 1 + B * W, dtype=torch.int32,
+                       device="cuda").reshape(B, W)
+    act = torch.ones(B, dtype=torch.bool, device="cuda")
+    sl = torch.from_numpy(plens).cuda()
+    logits, pool = G.paged_prefill(params, cfg, torch.from_numpy(ids).cuda(),
+                                   sl, tbl, pool, act)
+    return logits, pool, logits.argmax(-1).to(torch.int32), (sl, tbl, act)
 
 
 def make_trace(n, vocab, seed, long_len=600, lens=(32, 200), outs=(16, 64)):
@@ -861,22 +1072,10 @@ def main() -> int:
                         lens=(20, 120), outs=(8, 12))
     # first-dispatch logits: one batched prefill, then one decode step
     # through each attention path on copies of the same pool
-    B, W = 4, 16
-    pool = G.init_paged_pool(cfg32, 1 + B * W, 16, device="cuda")
-    ids = np.zeros((B, 128), np.int32)
-    plens = np.array([len(p[:120]) for p in sp[:B]], np.int32)
-    for b in range(B):
-        ids[b, :plens[b]] = sp[b][:120]
-    tbl = torch.arange(1, 1 + B * W, dtype=torch.int32,
-                       device="cuda").reshape(B, W)
-    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
-    act = torch.ones(B, dtype=torch.bool, device="cuda")
-    logits, pool = G.paged_prefill(params, cfg32, t(ids), t(plens), tbl,
-                                   pool, act)
-    tok = logits.argmax(-1).to(torch.int32)
+    _, pool, tok, (sl, tbl, act) = first_dispatch(params, cfg32, sp)
     out = {}
     for use in (True, False):
-        lg, _ = G.paged_decode_step(params, cfg32, tok, t(plens), tbl,
+        lg, _ = G.paged_decode_step(params, cfg32, tok, sl, tbl,
                                     {k: v.clone() for k, v in pool.items()},
                                     act, use_kernel=use)
         out[use] = lg
@@ -917,7 +1116,60 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== phase 9: fp32 training parity, flash kernels vs plain attention")
-    parity_phase()
+    parity_phase("use_kernels")
+
+    log("== phase 10: RMSNorm and RoPE kernels against their plain versions")
+    bf, f32 = torch.bfloat16, torch.float32
+    norms = [norm_case("(a) bf16 x, fp32 w, n=16384 d=2048", 16384, 2048, bf,
+                       f32, True, seed=31),
+             norm_case("(b) fp32 n=16384 d=2048", 16384, 2048, f32, f32, True,
+                       seed=32),
+             norm_case("(c) decode bf16 x, fp32 w, n=8 d=2048", 8, 2048, bf,
+                       f32, False, seed=33)]
+    ropes = (rope_case("q bf16 [8,2048,16,128]", 8, 2048, 16, 128, seed=34)
+             + rope_case("GQA k bf16 [2,2048,8,128]", 2, 2048, 8, 128,
+                         seed=35))
+    torch.cuda.empty_cache()
+
+    log("== phase 11: training, full width, bf16, use_kernels + full remat "
+        "+ use_fused_norm")
+    m11, c11 = train_phase(use_fused_norm=True)
+    p8, p11 = m8["profile"], m11["profile"]
+    log(f"  phase 8 -> phase 11: step {m8['step_ms']:.1f} -> "
+        f"{m11['step_ms']:.1f} ms, tokens/s {m8['tokens_per_s']:.0f} -> "
+        f"{m11['tokens_per_s']:.0f}, MFU {m8['mfu']:.4f} -> "
+        f"{m11['mfu']:.4f}, peak {m8['max_memory_allocated_gb']:.2f} -> "
+        f"{m11['max_memory_allocated_gb']:.2f} GB, busy "
+        f"{p8.get('device_busy_share')} -> {p11.get('device_busy_share')}, "
+        f"PyTorch elementwise {p8.get('elementwise_ms')} -> "
+        f"{p11.get('elementwise_ms')} ms")
+    torch.cuda.empty_cache()
+
+    log("== phase 12: fp32 parity, fused norm + RoPE kernels vs plain")
+    par = parity_phase("use_fused_norm")
+    check(par["launches"]["rms_norm_bwd"] > 0
+          and par["launches"]["apply_rope_bwd"] > 0,
+          f"fused training never launched its kernels: {par['launches']}")
+    params = init_params(cfg32, seed=SEED + 1, device="cuda")
+    serve = {}
+    for fused in (True, False):
+        c = model_config(torch.float32, use_fused_norm=fused)
+        reset_counts()
+        pre, pool, tok, (sl, tbl, act) = first_dispatch(params, c, sp)
+        dec, _ = G.paged_decode_step(params, c, tok, sl, tbl, pool, act,
+                                     use_kernel=True)
+        serve[fused] = (pre, dec, read_counts()["rms_norm"])
+        del pool
+    errs = [(serve[True][i] - serve[False][i]).abs().max().item()
+            for i in (0, 1)]
+    log(f"  serving first-dispatch logits, fused vs plain norm: prefill max "
+        f"abs err {errs[0]:.3g}, decode {errs[1]:.3g}; rms_norm forward "
+        f"launches {serve[True][2]} (plain run: {serve[False][2]})")
+    check(max(errs) <= 1e-3, f"fp32 serving logits fused vs plain {errs}")
+    check(serve[True][2] > 0 and serve[False][2] == 0,
+          f"rms_norm forward launches {serve[True][2]} / {serve[False][2]}")
+    del params, serve
+    torch.cuda.empty_cache()
 
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [
@@ -938,6 +1190,27 @@ def main() -> int:
             entry["library_note"] = ("scaled_dot_product_attention backward "
                                      "(dq, dk and dv in one call)")
         kernels.append(entry)
+    csrc = "paddle_tpu_torch/csrc/"
+    kernels += [
+        summarize("rms_norm_fwd", csrc + "rms_norm.cu",
+                  "paddle_tpu/kernels/rms_norm.py:27",
+                  [r["fwd"] for r in norms], c11["rms_norm"]),
+        summarize("rms_norm_bwd", csrc + "rms_norm.cu",
+                  "paddle_tpu/kernels/rms_norm.py:35",
+                  [r["bwd"] for r in norms if "bwd" in r],
+                  c11["rms_norm_bwd"]),
+        summarize("apply_rope", csrc + "rope.cu",
+                  "paddle_tpu/kernels/rope.py:25", ropes,
+                  c11["apply_rope"] + c11["apply_rope_bwd"]),
+    ]
+    kernels[-1]["launches_fwd_bwd"] = [c11["apply_rope"],
+                                       c11["apply_rope_bwd"]]
+    kernels[-1]["library_note"] = ("no single PyTorch call applies "
+                                   "rotate-half RoPE")
+    kernels[-3]["library_note"] = ("torch.nn.functional.rms_norm, the "
+                                   "weight cast to x's dtype")
+    kernels[-2]["library_note"] = ("the autograd backward of "
+                                   "torch.nn.functional.rms_norm")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,10 +16,21 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["resolve_device", "resolve_paged_kernel"]
+__all__ = ["on_cuda", "resolve_device", "resolve_paged_kernel"]
 
 _ON = (True, 1, "on", "1", "true", "yes")
 _OFF = (None, False, 0, "off", "0", "false", "no", "none", "")
+
+
+def on_cuda(t: torch.Tensor, what: str) -> bool:
+    """The kernel gate: ``True`` for a tensor on a CUDA device (launch the
+    kernel), ``False`` for one on the CPU (run the plain version); any
+    other device raises naming the wrapper ``what``."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

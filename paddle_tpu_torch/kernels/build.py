@@ -32,7 +32,8 @@ __all__ = ["SOURCES", "load", "build_all", "check"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("paged_attention", "quant_matmul", "flash_attention")
+SOURCES = ("paged_attention", "quant_matmul", "flash_attention", "rms_norm",
+           "rope")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

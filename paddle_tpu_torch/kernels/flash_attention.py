@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..device import on_cuda
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
@@ -251,14 +252,6 @@ def _bwd_cuda(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal):
     return (_dq_cuda(ops, scale, causal),) + _dkv_cuda(ops, scale, causal)
 
 
-def _on_cuda(q):
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return True
-
-
 class _FlashAttention(torch.autograd.Function):
     """``(q, k, v, seg_q, seg_k) -> (out, lse)``; the forward saves
     ``(q, k, v, seg_q, seg_k, out, lse)`` and nothing else (it holds no
@@ -266,7 +259,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, scale, causal):
-        fwd = _fwd_cuda if _on_cuda(q) else flash_attention_fwd_plain
+        fwd = (_fwd_cuda if on_cuda(q, "flash_attention")
+               else flash_attention_fwd_plain)
         out, lse = fwd(q, k, v, seg_q, seg_k, scale, causal)
         ctx.save_for_backward(q, k, v, seg_q, seg_k, out, lse)
         ctx.scale, ctx.causal = scale, causal
@@ -276,7 +270,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, seg_q, seg_k, out, lse = ctx.saved_tensors
-        bwd = _bwd_cuda if _on_cuda(q) else flash_attention_bwd_plain
+        bwd = (_bwd_cuda if on_cuda(q, "flash_attention")
+               else flash_attention_bwd_plain)
         dq, dk, dv = bwd(q, k, v, seg_q, seg_k, out, lse, dout, ctx.scale,
                          ctx.causal)
         return dq, dk, dv, None, None, None, None

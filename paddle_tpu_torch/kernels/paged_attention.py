@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..device import on_cuda
 from . import build
 
 __all__ = ["paged_attention", "paged_attention_plain"]
@@ -111,12 +112,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens,
     ``launches_int8`` for those variants). CPU tensors run the plain
     version.
     """
-    if q.device.type == "cpu":
+    if not on_cuda(q, "paged_attention"):
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
                                      seq_lens, draft_lens, k_scale, v_scale,
                                      scale, out_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention: unsupported device {q.device}")
     multi, qq = _entry(q, draft_lens)
     M, Q, H, D = qq.shape
     if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:

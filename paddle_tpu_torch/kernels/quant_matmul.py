@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from ..device import on_cuda
 from . import build
 
 __all__ = ["quantize_weights", "weight_only_matmul",
@@ -59,10 +60,8 @@ def weight_only_matmul(x: torch.Tensor, w_q: torch.Tensor,
     in ``out_dtype``. CUDA tensors launch the kernel (one count on
     ``weight_only_matmul.launches`` per launch); CPU tensors run the plain
     version."""
-    if x.device.type == "cpu":
+    if not on_cuda(x, "weight_only_matmul"):
         return weight_only_matmul_plain(x, w_q, scale, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"weight_only_matmul: unsupported device {x.device}")
     if x.dim() != 2 or w_q.dim() != 2 or scale.dim() != 1:
         raise ValueError(f"weight_only_matmul: want x [M, K], w [K, N], "
                          f"scale [N]; got {tuple(x.shape)}, "

@@ -6,7 +6,10 @@ gather helpers and the four paged forward entry points the serving engine
 drives — :func:`paged_prefill`, :func:`paged_prefill_chunk`,
 :func:`paged_decode_step` and :func:`paged_mixed_step` (the last over
 ``_paged_multiquery_forward``). The dense ``generate`` path, the sampler
-and the speculative verify step wait for later slices.
+and the speculative verify step wait for later slices. As in the JAX
+package, every norm goes through ``_rms_norm(..., cfg.use_fused_norm)``
+(the fused kernel when the flag is set) and RoPE always takes the plain
+route (``_rope(..., False)``).
 
 Differences from the JAX package, all deliberate:
 
@@ -250,8 +253,8 @@ def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
         q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk)
-        q = _rope(q, cos, sin)
-        k = _rope(k, cos, sin)
+        q = _rope(q, cos, sin, False)
+        k = _rope(k, cos, sin, False)
         ka, va = _kv_store(pz, phys, off, k, v)
         x = _attn_out(lp, x, _masked_sdpa(q, ka, va, kv_mask), cfg)
     idx = torch.clamp(prompt_lens.long() - 1, min=0)
@@ -291,8 +294,8 @@ def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
         q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk)
-        q = _rope(q, cos, sin)
-        k = _rope(k, cos, sin)
+        q = _rope(q, cos, sin, False)
+        k = _rope(k, cos, sin, False)
         _kv_store(pz, phys, off, k, v)
         kk, vv = _kv_gather(pz, block_tables, B, C, Hk, D)
         x = _attn_out(lp, x, _masked_sdpa(q, kk, vv, kv_mask), cfg)
@@ -331,8 +334,8 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
         q, k, v = _qkv(lp, x, cfg, M, 1, H, Hk)
-        q = _rope(q, cos, sin)
-        k = _rope(k, cos, sin)
+        q = _rope(q, cos, sin, False)
+        k = _rope(k, cos, sin, False)
         _kv_store(pz, phys, off, k[:, 0], v[:, 0])
         if use_kernel:
             o = paged_attention(q[:, 0].contiguous(), pz["k"], pz["v"],
@@ -395,8 +398,8 @@ def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
         q, k, v = _qkv(lp, x, cfg, M, Q, H, Hk)
-        q = _rope(q, cos, sin)
-        k = _rope(k, cos, sin)
+        q = _rope(q, cos, sin, False)
+        k = _rope(k, cos, sin, False)
         _kv_store(pz, phys, off, k, v)
         if use_kernel:
             o = paged_attention(q.contiguous(), pz["k"], pz["v"],

@@ -9,11 +9,13 @@ helpers, ``_mm`` with the weight-only int8 route, the quantization
 helpers, and the dense training path: ``decoder_layer``, ``forward``,
 ``loss_fn`` (with token-chunked cross-entropy), the AdamW update and
 ``make_train_step``. ``cfg.use_kernels`` sends attention to the flash
-kernels (``kernels.flash_attention``); ``cfg.remat`` checkpoints each
-layer. Not ported yet, and raising ``NotImplementedError`` naming the
-ROADMAP.md item that brings them: the fused-norm kernels
-(``use_fused_norm``), the named remat policies, the health sentinel, MoE
-and context parallelism (``sep_axis``).
+kernels (``kernels.flash_attention``); ``cfg.use_fused_norm`` sends every
+RMSNorm to the fused kernels (``kernels.rms_norm``) and the training
+forward's RoPE with shared ``[S, D]`` tables to ``kernels.rope.apply_rope``;
+``cfg.remat`` checkpoints each layer. Not ported yet, and raising
+``NotImplementedError`` naming the ROADMAP.md item that brings them: the
+named remat policies, the health sentinel, MoE and context parallelism
+(``sep_axis``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention
 from ..kernels.quant_matmul import quantize_weights, weight_only_matmul
-from ..kernels.rope import rope_cos_sin
+from ..kernels.rms_norm import rms_norm
+from ..kernels.rope import apply_rope, rope_cos_sin
 
 __all__ = ["LlamaConfig", "init_params", "num_params", "forward", "loss_fn",
            "make_train_step", "quantize_params", "validate_quant_mode",
@@ -48,8 +51,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     use_kernels: bool = False        # attention through the flash kernels
-    use_fused_norm: bool = False     # the fused rms_norm / rope kernels: the
-    #                                  next slice (raises here when set)
+    use_fused_norm: bool = False     # the fused rms_norm / rope kernels
     dtype: Any = torch.float32       # activation/compute dtype
     param_dtype: Any = torch.float32  # storage dtype
     remat: bool = False              # checkpoint each decoder layer
@@ -136,18 +138,19 @@ def _embed(params: Dict, ids: torch.Tensor, dt) -> torch.Tensor:
 
 def _rms_norm(x, w, eps, use_kernels):
     if use_kernels:
-        raise NotImplementedError(
-            "use_fused_norm: the fused rms_norm / apply_rope kernels are the "
-            "next slice of the port (ROADMAP.md section A, training queue "
-            "item (i))")
+        return rms_norm(x, w, eps)
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (y * w.to(torch.float32)).to(x.dtype)
 
 
-def _rope(x, cos, sin):
+def _rope(x, cos, sin, use_kernels=False):
     """Rotate-half RoPE on ``x [B, S, H, D]`` with ``cos``/``sin`` ``[S, D]``
-    or per-row ``[B, S, D]``."""
+    or per-row ``[B, S, D]``. ``use_kernels`` with ``[S, D]`` tables runs
+    ``kernels.rope.apply_rope`` (fp32 arithmetic); otherwise the tables are
+    cast to x's dtype and applied with plain tensor ops."""
+    if use_kernels and cos.dim() == 2:
+        return apply_rope(x, cos, sin)
     d = x.shape[-1]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     rot = torch.cat([-x2, x1], dim=-1)
@@ -264,7 +267,7 @@ def _remat_policy(name: Optional[str]) -> None:
                          f"options: {sorted(_REMAT_POLICIES)} or None")
     raise NotImplementedError(
         f"remat_policy {name!r}: the named remat policies are not ported yet "
-        f"(ROADMAP.md section A, training queue item (ii)); use None (full "
+        f"(ROADMAP.md section A, training queue item (i)); use None (full "
         f"remat)")
 
 
@@ -272,11 +275,11 @@ def _check_training_config(cfg: LlamaConfig) -> None:
     if cfg.moe_num_experts:
         raise NotImplementedError(
             "moe_num_experts > 0: the MoE FFN is not ported yet (ROADMAP.md "
-            "section A, training queue item (iii))")
+            "section A, training queue item (ii))")
     if cfg.sep_axis is not None:
         raise NotImplementedError(
             "sep_axis: context-parallel (ring) attention is not ported yet "
-            "(ROADMAP.md section A, training queue item (iv))")
+            "(ROADMAP.md section A, training queue item (iii))")
 
 
 def _attention(q, k, v, cfg: LlamaConfig, segment_ids=None):
@@ -324,8 +327,10 @@ def decoder_layer(lp: Dict, x, cos, sin, cfg: LlamaConfig, segment_ids=None):
     H, Hk, D = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
     dt = cfg.dtype
     h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps, cfg.use_fused_norm)
-    q = _rope(_mm(h, lp, "wq", dt).reshape(B, S, H, D), cos, sin)
-    k = _rope(_mm(h, lp, "wk", dt).reshape(B, S, Hk, D), cos, sin)
+    q = _rope(_mm(h, lp, "wq", dt).reshape(B, S, H, D), cos, sin,
+              cfg.use_fused_norm)
+    k = _rope(_mm(h, lp, "wk", dt).reshape(B, S, Hk, D), cos, sin,
+              cfg.use_fused_norm)
     v = _mm(h, lp, "wv", dt).reshape(B, S, Hk, D)
     o = _attention(q, k, v, cfg, segment_ids).reshape(B, S, H * D)
     return _ffn_tail(lp, x + _mm(o, lp, "wo", dt), cfg)
@@ -515,7 +520,7 @@ def make_train_step(cfg: LlamaConfig, lr: float = 3e-4, beta1=0.9,
     if sentinel:
         raise NotImplementedError(
             "sentinel=True: the health sentinel is not ported yet "
-            "(ROADMAP.md section A, training queue item (ii))")
+            "(ROADMAP.md section A, training queue item (i))")
 
     def init_opt_state(params):
         return _adamw_init(params, opt_dtype)

@@ -251,3 +251,147 @@ def test_training_kernel_path_matches_plain_path(dev):
     assert abs(out[True][0] - out[False][0]) <= 1e-5 * abs(out[False][0])
     for a, b in zip(out[True][1], out[False][1]):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def _bf16_steps(got, ref):
+    """The largest |got - ref| in bf16 steps of the reference, a step taken
+    at the larger of |ref| and 1e-3 of ref's RMS (where a value cancels to
+    ~0 the two fp32 reduction orders differ by ~1e-7 of the terms, which is
+    many steps of the tiny result): <= 1 is "within one bf16 step"."""
+    g, r = got.float(), ref.float()
+    floor = 1e-3 * r.pow(2).mean().sqrt()
+    return ((g - r).abs() / (2.0 ** -7 * torch.clamp(r.abs(), min=floor))) \
+        .max().item()
+
+
+def _rel_max(got, ref):
+    """max |got - ref| over max |ref|."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("n,d", [(333, 1030), (333, 2048), (8, 2048),
+                                 (5, 24)])
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+def test_rms_norm_matches_plain(dev, n, d, x_dtype, w_dtype):
+    from paddle_tpu_torch.kernels.rms_norm import (
+        rms_norm, rms_norm_bwd_plain, rms_norm_fwd_plain)
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(d).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((d, n)).astype(np.float32))
+    x, w = x.to(x_dtype).to(dev), w.to(w_dtype).to(dev)
+    g = g.to(x_dtype).to(dev).t()          # a non-contiguous grad_output
+    n0 = (rms_norm.launches, rms_norm.launches_bwd)
+    xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = rms_norm(xx, ww, 1e-6)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (rms_norm.launches, rms_norm.launches_bwd) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    ref_out, rstd = rms_norm_fwd_plain(x, w, 1e-6)
+    ref_dx, ref_dw = rms_norm_bwd_plain(x, w, rstd, g)
+    assert (out.dtype, xx.grad.dtype, ww.grad.dtype) == (x_dtype, x_dtype,
+                                                         w_dtype)
+    for got, ref in ((out, ref_out), (xx.grad, ref_dx)):
+        assert torch.isfinite(got.float()).all()
+        if x_dtype == torch.bfloat16:
+            assert _bf16_steps(got, ref) <= 1
+        else:
+            assert _rel_max(got, ref) <= 1e-5
+    if w_dtype == torch.bfloat16:
+        assert _bf16_steps(ww.grad, ref_dw) <= 1
+    else:
+        assert _rel_max(ww.grad, ref_dw) <= 1e-4
+    # dw is summed in a fixed order: the same bits on every run
+    from paddle_tpu_torch.kernels.rms_norm import _bwd_cuda
+    assert torch.equal(_bwd_cuda(x, w, rstd, g)[1],
+                       _bwd_cuda(x, w, rstd, g)[1])
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H", [(2, 37, 3), (1, 128, 8)])
+def test_apply_rope_matches_plain(dev, D, dtype, B, S, H):
+    from paddle_tpu_torch.kernels.rope import (apply_rope, apply_rope_plain,
+                                               rope_cos_sin)
+    rng = np.random.default_rng(B * S + H + D)
+    x = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to(dtype).to(dev)
+    g = torch.from_numpy(rng.standard_normal((B, S, D, H)).astype(
+        np.float32)).to(dtype).to(dev).transpose(2, 3)   # non-contiguous
+    cos, sin = rope_cos_sin(S, D, device=dev)
+    n0 = (apply_rope.launches, apply_rope.launches_bwd)
+    xx = x.clone().requires_grad_(True)
+    out = apply_rope(xx, cos, sin)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (apply_rope.launches, apply_rope.launches_bwd) == (n0[0] + 1,
+                                                              n0[1] + 1)
+    # the kernel rounds each product and the sum one at a time, in the
+    # plain formula's order: the same fp32 result
+    assert torch.equal(out, apply_rope_plain(x, cos, sin))
+    assert torch.equal(xx.grad, apply_rope_plain(g, cos, -sin))
+
+
+def test_rms_norm_and_rope_refuse_what_the_kernels_do_not_take(dev):
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.kernels.rope import apply_rope, rope_cos_sin
+    cos, sin = rope_cos_sin(4, 8, device=dev)
+    with pytest.raises(ValueError, match="D even"):
+        apply_rope(torch.zeros((1, 4, 2, 7), device=dev), cos[:, :7],
+                   sin[:, :7])
+    with pytest.raises(ValueError, match="S, D"):
+        apply_rope(torch.zeros((1, 6, 2, 8), device=dev), cos, sin)
+    with pytest.raises(ValueError, match="bfloat16"):
+        apply_rope(torch.zeros((1, 4, 2, 8), device=dev,
+                               dtype=torch.float16), cos, sin)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rms_norm(torch.zeros((3, 8), device=dev, dtype=torch.float16),
+                 torch.ones(8, device=dev))
+    with pytest.raises(ValueError, match="does not match"):
+        rms_norm(torch.zeros((3, 8), device=dev), torch.ones(7, device=dev))
+
+
+def test_fused_norm_training_matches_plain_path(dev):
+    """fp32, fused norms and RoPE against the plain ones: the loss and every
+    gradient leaf, then 3 AdamW steps' losses (chip_smoke.py phase 12's
+    limits)."""
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.kernels.rope import apply_rope
+    from paddle_tpu_torch.models.llama import (LlamaConfig, _leaves,
+                                               init_params, loss_fn,
+                                               make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, use_kernels=True, remat=True)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 96))).to(dev)
+    out = {}
+    for fused in (True, False):
+        cfg = LlamaConfig(**base, use_fused_norm=fused)
+        params = init_params(cfg, seed=2, device=dev)
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        n0 = (rms_norm.launches_bwd, apply_rope.launches_bwd)
+        loss = loss_fn(params, ids, ids, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        launched = (rms_norm.launches_bwd - n0[0],
+                    apply_rope.launches_bwd - n0[1])
+        assert launched == ((5, 4) if fused else (0, 0))
+        init_opt, step = make_train_step(cfg, lr=1e-3)
+        opt = init_opt(params)
+        traj = []
+        for _ in range(3):
+            params, opt, l_ = step(params, opt, ids, ids)
+            traj.append(l_.item())
+        out[fused] = (loss.item(), grads, traj)
+    (lf, gf, tf), (lp, gp, tp) = out[True], out[False]
+    assert abs(lf - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gf, gp):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    assert max(abs(a - b) / abs(b) for a, b in zip(tf, tp)) <= 1e-4

@@ -7,7 +7,10 @@ The config is ``tests/test_llama.py``'s ``tiny_cfg`` (vocab 97, hidden 32,
 ``init_params`` through ``models.convert.params_from_jax``, ids and labels
 from numpy with a seed. With ``use_kernels`` the JAX side runs its Pallas
 flash kernels in interpret mode and the port its flash Function's plain
-CPU path. Tolerances: logits atol 2e-5, loss 1e-5 and every gradient leaf
+CPU path; with ``use_fused_norm`` the JAX side runs its Pallas rms_norm
+and rope kernels in interpret mode and the port its rms_norm and
+apply_rope Functions' plain paths (packed batches with per-row positions
+keep the plain RoPE route on both sides). Tolerances: logits atol 2e-5, loss 1e-5 and every gradient leaf
 atol 1e-5 (the same fp32 arithmetic, summed in other orders); the AdamW
 update on given identical gradients rtol 1e-6, taken of each leaf's
 largest magnitude (where ``p - lr * u`` cancels to near 0 both sides keep
@@ -95,8 +98,12 @@ def test_forward_logits_match_jax(use_kernels):
     (False, 4, False, True),
 ])
 def test_loss_and_grads_match_jax(use_kernels, ce_chunks, remat, packed):
-    jcfg, tcfg, jp, tp = _setup(2, use_kernels=use_kernels,
-                                ce_chunks=ce_chunks, remat=remat)
+    _check_loss_and_grads(use_kernels=use_kernels, ce_chunks=ce_chunks,
+                          remat=remat, packed=packed)
+
+
+def _check_loss_and_grads(packed, **kw):
+    jcfg, tcfg, jp, tp = _setup(2, **kw)
     ids, labels, seg, pos = _batch(2, packed)
     jl, jg = jax.value_and_grad(JL.loss_fn)(
         jp, jnp.asarray(ids), jnp.asarray(labels), jcfg,
@@ -116,6 +123,35 @@ def test_loss_and_grads_match_jax(use_kernels, ce_chunks, remat, packed):
     for name in want:
         np.testing.assert_allclose(got[name], want[name], atol=1e-5,
                                    rtol=0, err_msg=name)
+
+
+# the fused-norm path (``use_fused_norm=True``): every RMSNorm through the
+# rms_norm Function, RoPE through apply_rope where the tables are [S, D];
+# the JAX side runs its Pallas rms_norm / rope kernels in interpret mode
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_fused_norm_forward_logits_match_jax(use_kernels):
+    jcfg, tcfg, jp, tp = _setup(1, use_kernels=use_kernels,
+                                use_fused_norm=True)
+    ids, *_ = _batch(1)
+    want = np.asarray(JL.forward(jp, jnp.asarray(ids), jcfg))
+    with torch.no_grad():
+        got = TL.forward(tp, torch.from_numpy(ids), tcfg).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+# packed: 2-D position_ids give [B, S, D] tables, the plain RoPE route with
+# the fused norms
+@pytest.mark.parametrize("use_kernels,ce_chunks,remat,packed", [
+    (True, 1, True, False),
+    (True, 4, True, True),
+    (False, 1, False, False),
+])
+def test_fused_norm_loss_and_grads_match_jax(use_kernels, ce_chunks, remat,
+                                             packed):
+    _check_loss_and_grads(use_kernels=use_kernels, ce_chunks=ce_chunks,
+                          remat=remat, packed=packed, use_fused_norm=True)
 
 
 def _opt_case(seed, opt_dtype):
@@ -189,7 +225,11 @@ def test_adamw_apply_without_skip_matches_jax():
 
 
 def test_loss_trajectory_matches_jax():
-    jcfg, tcfg, jp, tp = _setup(6, use_kernels=True, remat=True)
+    _check_trajectory()
+
+
+def _check_trajectory(**kw):
+    jcfg, tcfg, jp, tp = _setup(6, use_kernels=True, remat=True, **kw)
     ids, labels, *_ = _batch(6)
     j_init, j_step = JL.make_train_step(jcfg, lr=1e-2, weight_decay=0.01)
     t_init, t_step = TL.make_train_step(tcfg, lr=1e-2, weight_decay=0.01)
@@ -204,6 +244,10 @@ def test_loss_trajectory_matches_jax():
         tl.append(loss.item())
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     assert int(to["step"]) == 4
+
+
+def test_fused_norm_loss_trajectory_matches_jax():
+    _check_trajectory(use_fused_norm=True)
 
 
 def _train(tcfg, tp, steps, **kw):
@@ -233,6 +277,16 @@ def test_bf16_grads_and_moments_train():
     assert np.isfinite(losses).all()
     assert losses[-1] < losses[0] * 0.8, losses
     assert opt["m"]["embed"].dtype == torch.bfloat16
+
+
+def test_fused_norm_bf16_train_step_decreases_loss():
+    # bf16 activations, fp32 params: the rms_norm Function's dx in bf16,
+    # dw in fp32, under checkpoint recompute
+    cfg = config_from_jax(tiny_cfg(use_kernels=True, remat=True,
+                                   use_fused_norm=True, dtype=jnp.bfloat16))
+    losses, _ = _train(cfg, TL.init_params(cfg, seed=4, device="cpu"), 8)
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0] * 0.8, losses
 
 
 def test_num_params_matches_leaves():
@@ -290,7 +344,6 @@ def test_config_from_jax_refuses_unported_fields(field, value):
     (dict(remat=True, remat_policy="save_flash"), "remat_policy"),
     (dict(moe_num_experts=4), "moe_num_experts"),
     (dict(sep_axis="sep"), "sep_axis"),
-    (dict(use_fused_norm=True), "use_fused_norm"),
 ])
 def test_unported_paths_raise(change, what):
     _, tcfg, _, tp = _setup(0)

@@ -61,6 +61,10 @@ COMBOS = {
     "gqa-int8w": dict(kv_heads=2, kv_quant=None, quantize=True),
     "gqa-int8pool-int8w": dict(kv_heads=2, kv_quant="int8", quantize=True),
     "mha-fp": dict(kv_heads=4, kv_quant=None, quantize=False),
+    # every norm through the fused rms_norm (Pallas in interpret mode on the
+    # JAX side, the rms_norm Function's plain path in the port)
+    "gqa-fp-fusednorm": dict(kv_heads=2, kv_quant=None, quantize=False,
+                             use_fused_norm=True),
 }
 STEPS = ("prefill", "chunk", "mixed", "decode")
 
@@ -169,7 +173,8 @@ def _jax_model(combo):
     c = COMBOS[combo]
     cfg = JL.LlamaConfig(vocab_size=V, hidden_size=64, intermediate_size=128,
                          num_hidden_layers=2, num_attention_heads=4,
-                         num_key_value_heads=c["kv_heads"])
+                         num_key_value_heads=c["kv_heads"],
+                         use_fused_norm=c.get("use_fused_norm", False))
     params = JL.init_params(cfg, jax.random.PRNGKey(11))
     if c["quantize"]:
         params = JL.quantize_params(params)

@@ -1,0 +1,199 @@
+"""The port's fused RMSNorm and RoPE (``paddle_tpu_torch.kernels.rms_norm``,
+``.rope``) against the JAX package's (``paddle_tpu.kernels.rms_norm``,
+``.rope``, their Pallas kernels run in interpret mode on the CPU as
+tests/test_kernels.py runs them). On CPU tensors the port's autograd
+Functions run their plain versions: the RMSNorm backward is the explicit
+formula of the Pallas backward kernel, the RoPE backward the rotation by
+``-theta`` (the JAX custom vjp); the CUDA kernels are held to those plain
+versions on the card (tests/test_torch_cuda_kernels.py).
+
+Inputs, weights and cotangents come from numpy with a seed; the RoPE
+tables from each side's ``rope_cos_sin``. Tolerances: at fp32, RMSNorm
+out, rstd, dx and dw atol 1e-5 (the same fp32 formulas, the row sums
+taken in other orders); RoPE out and its gradient atol 1e-6 (elementwise
+arithmetic on tables that agree to 6e-8). At bf16 the forwards must agree
+within one bf16 step, ``|got - ref| <= 2**-7 * |ref|`` elementwise: both
+compute in fp32 and round once. Rounding the RoPE tables to bf16 first,
+as ``models.llama._rope``'s plain route does, fails that rule.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels.rms_norm import (rms_norm, rms_norm_bwd_plain,
+                                               rms_norm_fwd_plain)
+from paddle_tpu_torch.kernels.rope import (apply_rope, apply_rope_plain,
+                                           rope_cos_sin)
+from paddle_tpu_torch.models.llama import _rope
+
+# the modules (the JAX package's kernels/__init__ exports the functions
+# under the modules' names)
+JR = importlib.import_module("paddle_tpu.kernels.rms_norm")
+JRope = importlib.import_module("paddle_tpu.kernels.rope")
+
+torch.set_num_threads(2)
+
+EPS = 1e-6
+
+
+def _rms_inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    return x, w, g
+
+
+def _within_bf16_step(got, ref):
+    return np.all(np.abs(got - ref) <= 2.0 ** -7 * np.abs(ref))
+
+
+# row counts not divisible by 8 (21 and 15: the JAX wrapper falls back to
+# 1-row blocks) and a multiple of 8
+@pytest.mark.parametrize("shape", [(3, 7, 40), (15, 24), (2, 8, 64)])
+def test_rms_norm_forward_and_rstd_match_jax(shape):
+    x, w, _ = _rms_inputs(sum(shape), shape)
+    want_out, want_rstd = JR._fwd(jnp.asarray(x), jnp.asarray(w), EPS)
+    out = rms_norm(torch.from_numpy(x), torch.from_numpy(w), EPS)
+    _, rstd = rms_norm_fwd_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                 EPS)
+    assert out.shape == x.shape and rstd.shape == want_rstd.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(want_rstd),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 40), (15, 24)])
+def test_rms_norm_grads_match_jax(shape):
+    x, w, g = _rms_inputs(sum(shape) + 1, shape)
+    _, vjp = jax.vjp(lambda a, b: JR.rms_norm(a, b, EPS), jnp.asarray(x),
+                     jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    rms_norm(tx, tw, EPS).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want_dw),
+                               atol=1e-5, rtol=0)
+
+
+def test_rms_norm_bf16_forward_within_one_bf16_step():
+    x, w, _ = _rms_inputs(5, (4, 9, 64))
+    want = np.asarray(JR.rms_norm(jnp.asarray(x, jnp.bfloat16),
+                                  jnp.asarray(w), EPS).astype(jnp.float32))
+    got = rms_norm(torch.from_numpy(x).to(torch.bfloat16),
+                   torch.from_numpy(w), EPS)
+    assert got.dtype == torch.bfloat16
+    assert _within_bf16_step(got.float().numpy(), want)
+
+
+def test_rms_norm_mixed_dtypes_keep_each_dtype():
+    # training: bf16 activations, fp32 weight -> dx bf16, dw fp32
+    x, w, g = _rms_inputs(6, (5, 32))
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    out = rms_norm(tx, tw, EPS)
+    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    assert (out.dtype, tx.grad.dtype, tw.grad.dtype) == (
+        torch.bfloat16, torch.bfloat16, torch.float32)
+
+
+def test_rms_norm_plain_backward_is_the_functions_backward():
+    x, w, g = (torch.from_numpy(a) for a in _rms_inputs(7, (6, 16)))
+    out, rstd = rms_norm_fwd_plain(x, w, EPS)
+    want_dx, want_dw = rms_norm_bwd_plain(x, w, rstd, g)
+    tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    got = rms_norm(tx, tw, EPS)
+    got.backward(g)
+    assert torch.equal(got, out)
+    assert torch.equal(tx.grad, want_dx) and torch.equal(tw.grad, want_dw)
+
+
+def _rope_case(seed, B, S, H, D):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    g = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    return x, g
+
+
+# q-like and GQA k-like head counts, head_dim 16 and 32
+@pytest.mark.parametrize("B,S,H,D", [(2, 8, 4, 16), (2, 8, 2, 16),
+                                     (1, 12, 3, 32)])
+def test_apply_rope_forward_and_grad_match_jax(B, S, H, D):
+    x, g = _rope_case(B * S + H + D, B, S, H, D)
+    jc, js = JRope.rope_cos_sin(S, D)
+    want, vjp = jax.vjp(lambda a: JRope.apply_rope(a, jc, js),
+                        jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(g))
+    tc, ts = rope_cos_sin(S, D)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = apply_rope(tx, tc, ts)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx),
+                               atol=1e-6, rtol=0)
+
+
+def test_apply_rope_bf16_forward_within_one_bf16_step():
+    x, _ = _rope_case(9, 2, 8, 4, 16)
+    jc, js = JRope.rope_cos_sin(8, 16)
+    want = np.asarray(JRope.apply_rope(jnp.asarray(x, jnp.bfloat16), jc,
+                                       js).astype(jnp.float32))
+    tc, ts = rope_cos_sin(8, 16)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = apply_rope(xb, tc, ts)
+    assert got.dtype == torch.bfloat16
+    assert _within_bf16_step(got.float().numpy(), want)
+    # the rule's power: the plain route (tables rounded to bf16, bf16
+    # arithmetic) breaks it on these inputs
+    assert not _within_bf16_step(_rope(xb, tc, ts).float().numpy(), want)
+
+
+def test_apply_rope_backward_is_rotation_by_minus_theta():
+    x, g = (torch.from_numpy(a) for a in _rope_case(10, 1, 6, 2, 8))
+    tc, ts = rope_cos_sin(6, 8)
+    tx = x.clone().requires_grad_(True)
+    apply_rope(tx, tc, ts).backward(g)
+    assert torch.equal(tx.grad, apply_rope_plain(g, tc, -ts))
+    # and it undoes the forward
+    back = apply_rope_plain(apply_rope_plain(x, tc, ts), tc, -ts)
+    torch.testing.assert_close(back, x, atol=1e-6, rtol=0)
+
+
+def test_cpu_path_launches_no_kernel():
+    counts = (rms_norm.launches, rms_norm.launches_bwd, apply_rope.launches,
+              apply_rope.launches_bwd)
+    x, w, g = (torch.from_numpy(a) for a in _rms_inputs(11, (4, 16)))
+    tx = x.clone().requires_grad_(True)
+    rms_norm(tx, w.clone().requires_grad_(True), EPS).backward(g)
+    q = torch.from_numpy(_rope_case(12, 1, 4, 2, 8)[0]).requires_grad_(True)
+    tc, ts = rope_cos_sin(4, 8)
+    apply_rope(q, tc, ts).sum().backward()
+    assert (rms_norm.launches, rms_norm.launches_bwd, apply_rope.launches,
+            apply_rope.launches_bwd) == counts
+
+
+@pytest.mark.parametrize("what,call", [
+    ("D even", lambda c, s: apply_rope(torch.zeros(1, 4, 2, 7), c[:, :7],
+                                       s[:, :7])),
+    ("shape \\[S, D\\]", lambda c, s: apply_rope(torch.zeros(1, 5, 2, 8), c,
+                                                 s)),
+    ("shape \\[S, D\\]", lambda c, s: apply_rope(torch.zeros(1, 4, 2, 8), c,
+                                                 s[:, :4])),
+    ("x \\[B, S, H, D\\]", lambda c, s: apply_rope(torch.zeros(4, 2, 8), c,
+                                                   s)),
+    ("does not match", lambda c, s: rms_norm(torch.zeros(3, 8),
+                                             torch.ones(7))),
+])
+def test_wrappers_refuse_shapes_the_kernels_do_not_take(what, call):
+    tc, ts = rope_cos_sin(4, 8)
+    with pytest.raises(ValueError, match=what):
+        call(tc, ts)
