@@ -68,12 +68,12 @@
 //  * Not yet: wgmma and TMA, a warp-specialised producer, 32 rows per warp
 //    (each K/V fragment feeding two products). Every warp re-reads the K/V
 //    tile it shares with the block's other warps from shared memory.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+//  * The bf16 forms, ldmatrix, cp.async and the quad reductions live in
+//    mma_common.cuh, shared with paged_attention.cu and quant_matmul.cu.
 
 #include <climits>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -84,7 +84,6 @@ constexpr int kKeys = 32;           // keys per tile (fwd, dq)
 constexpr int kQTile = 32;          // query rows per tile (dkv)
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskedBelow = -5e29f;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // shared-memory row stride in elements: D plus 16 bytes
@@ -117,88 +116,6 @@ __device__ __forceinline__ float exp_of<__nv_bfloat16>(float x) {
   return exp2f(x * kLog2e);
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives, of matrix i, row l / 4, columns 2 (l % 4) + {0, 1}
-// (with .trans: rows 2 (l % 4) + {0, 1}, column l / 4) in r[i].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared without passing through registers; zero-fill
-// when !valid (src is then only a placeholder and is not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// acc[16 x 8NT] += A[16 x K] . B[8NT x K]^T; A and B row-major, K-contiguous.
-// NT is even.
-template <int NT, int K>
-__device__ __forceinline__ void gemm_abt(float (&acc)[NT][4],
-                                         const __nv_bfloat16* A, int lda,
-                                         const __nv_bfloat16* Bm, int ldb) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* a_row = A + (lane & 15) * lda + (lane >> 4) * 8;
-  const __nv_bfloat16* b_row =
-      Bm + ((lane & 7) + (lane >> 4) * 8) * ldb + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_row + kk);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_row + nt * 8 * ldb + kk);
-      mma_bf16(acc[nt], a[0], a[1], a[2], a[3], b[0], b[1]);
-      mma_bf16(acc[nt + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
-    }
-  }
-}
-
 template <int NT, int K>
 __device__ __forceinline__ void gemm_abt(float (&acc)[NT][4], const float* A,
                                          int lda, const float* Bm, int ldb) {
@@ -214,31 +131,6 @@ __device__ __forceinline__ void gemm_abt(float (&acc)[NT][4], const float* A,
       acc[nt][1] = fmaf(a0, b1, acc[nt][1]);
       acc[nt][2] = fmaf(a1, b0, acc[nt][2]);
       acc[nt][3] = fmaf(a1, b1, acc[nt][3]);
-    }
-  }
-}
-
-// acc[16 x 8NT] += P[16 x 8KT] . B[8KT x 8NT]; P in accumulator layout, B
-// row-major, N-contiguous. KT and NT are even.
-template <int KT, int NT>
-__device__ __forceinline__ void gemm_pb(float (&acc)[NT][4],
-                                        const float (&p)[KT][4],
-                                        const __nv_bfloat16* Bm, int ldb) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* b_row =
-      Bm + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb + (lane >> 4) * 8;
-#pragma unroll
-  for (int kc = 0; kc < KT / 2; ++kc) {
-    const uint32_t a0 = pack(p[2 * kc][0], p[2 * kc][1]);
-    const uint32_t a1 = pack(p[2 * kc][2], p[2 * kc][3]);
-    const uint32_t a2 = pack(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-    const uint32_t a3 = pack(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, b_row + 16 * kc * ldb + nt * 8);
-      mma_bf16(acc[nt], a0, a1, a2, a3, b[0], b[1]);
-      mma_bf16(acc[nt + 1], a0, a1, a2, a3, b[2], b[3]);
     }
   }
 }
@@ -264,32 +156,6 @@ __device__ __forceinline__ void gemm_pb(float (&acc)[NT][4],
       acc[nt][3] = fmaf(p1, b1, acc[nt][3]);
     }
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  return v + __shfl_xor_sync(kFull, v, 2);
-}
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<uint32_t*>(p) = pack(x, y);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int d = 0; d < N; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
 }
 
 // Starts the copy of rows [row0, row0 + R) of an operand whose row r

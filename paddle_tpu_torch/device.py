@@ -12,11 +12,12 @@ an error — never a quiet CPU run — when no card is present.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
 
-__all__ = ["on_cuda", "resolve_device", "resolve_paged_kernel"]
+__all__ = ["on_cuda", "resolve_device", "resolve_paged_kernel", "sm_count"]
 
 _ON = (True, 1, "on", "1", "true", "yes")
 _OFF = (None, False, 0, "off", "0", "false", "no", "none", "")
@@ -31,6 +32,13 @@ def on_cuda(t: torch.Tensor, what: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {t.device}")
     return True
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA ``device``: the kernels'
+    plans size their grids (splits over K or KV) to fill them."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

@@ -7,8 +7,9 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled on its own with
 
 into a shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). The library name carries
-a hash of its source, so an edited source is never served by a stale
-build. Builds happen at first use — never at import — and
+a hash of its source and of the ``csrc`` headers it includes
+(``mma_common.cuh``), so an edited source or header is never served by
+a stale build. Builds happen at first use — never at import — and
 :func:`build_all` starts every ``nvcc`` at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,11 +55,34 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes with
+    quotes, directly or through another header."""
+    found: List[str] = []
+    todo = [os.path.join(_CSRC, name + ".cu")]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                todo.append(os.path.join(os.path.dirname(path),
+                                         inc.decode()))
+    return found
+
+
 def _target(name: str) -> str:
-    src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(_BUILD, f"lib{name}-{digest}.so")
+    """The library's path; its name carries a hash of the source and of
+    the headers it includes, so an edit to either forces a rebuild."""
+    h = hashlib.sha256()
+    for path in _sources(name):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _command(name: str, out: str) -> List[str]:

@@ -15,22 +15,62 @@ in the output dtype; the kernel applies the scale after an fp32
 accumulation, as the TPU kernel did. The two therefore differ by the
 rounding of the dequantized weight in bf16: at bf16 they agree to a
 relative error of 1e-2 of the output's max-abs, at fp32 to 1e-4.
+
+:func:`_plan` picks the kernel's route from x's dtype and M (fp32 x:
+the fp32 FMA kernel; bf16 x: tensor-core tiles of 16, 64 or 128 rows)
+and, below 128 rows, a split of K into spans of whole 64-row steps that
+fills the card. :func:`weight_only_matmul_split_plain` is that split's
+arithmetic in plain PyTorch (fp32 partial sums per span, added in span
+order, then the scale), for the CPU tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
-from ..device import on_cuda
+from ..device import on_cuda, sm_count
 from . import build
 
 __all__ = ["quantize_weights", "weight_only_matmul",
-           "weight_only_matmul_plain"]
+           "weight_only_matmul_plain", "weight_only_matmul_split_plain"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# routes of csrc/quant_matmul.cu's C entry, and the M rows of each route's
+# tensor-core tile
+FP32, TC16, TC64, TC128 = 0, 1, 2, 3
+_TILE_M = {TC16: 16, TC64: 64, TC128: 128}
+_TILE_N = 128
+_STEP = 64            # K rows per kernel step: spans are whole steps
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(M: int, K: int, N: int, fp32_x: bool, sms: int):
+    """``(route, splits, span)`` for the kernel: fp32 x takes the fp32
+    FMA route; bf16 x takes tensor-core tiles of 16 rows at M <= 16
+    (decode), of 64 rows to M = 64 and of 128 rows above. Below 128 rows
+    the product is bound by the weight bytes and N / 128 tiles leave
+    most SMs idle, so K is split into spans of whole 64-row steps until
+    the grid reaches 2 blocks per SM (the last span may be shorter)."""
+    if fp32_x:
+        return FP32, 1, K
+    route = TC16 if M <= 16 else TC64 if M <= 64 else TC128
+    span = _cdiv(max(K, 1), _STEP) * _STEP
+    if route == TC128:
+        return route, 1, span
+    tiles = _cdiv(N, _TILE_N) * _cdiv(M, _TILE_M[route])
+    want = min(_cdiv(2 * sms, tiles), K // _STEP)
+    if want > 1:
+        span = K // want // _STEP * _STEP
+    return route, max(1, _cdiv(K, span)), span
 
 
 def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,6 +91,34 @@ def weight_only_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     matmul (``llama._mm``'s off-TPU formula)."""
     w = w_q.to(out_dtype) * scale.to(out_dtype)[None, :]
     return (x.to(out_dtype) @ w).to(out_dtype)
+
+
+def weight_only_matmul_split_plain(x: torch.Tensor, w_q: torch.Tensor,
+                                   scale: torch.Tensor, span: int,
+                                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The split-K routes' arithmetic in plain PyTorch, for the tests: K
+    cut into spans of ``span`` rows (the last may be shorter), each
+    span's fp32 sum of x times the int8 values, the partials added in
+    span order, then the per-column scale."""
+    K = x.shape[1]
+    xf, wf = x.float(), w_q.float()
+    total = None
+    for k0 in range(0, K, span):
+        p = xf[:, k0:k0 + span] @ wf[k0:k0 + span]
+        total = p if total is None else total + p
+    return (total * scale[None, :]).to(out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """(library, C entry) of the kernel, bound once: the decode step calls
+    the wrapper 85 times, and its host time is the step's."""
+    lib = build.load("quant_matmul")
+    fn = lib.weight_only_matmul_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return lib, fn
 
 
 def weight_only_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -85,14 +153,16 @@ def weight_only_matmul(x: torch.Tensor, w_q: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"weight_only_matmul: {name} is not contiguous")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    lib = build.load("quant_matmul")
-    fn = lib.weight_only_matmul_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
+    route, splits, span = _plan(M, K, N, x.dtype == torch.float32,
+                                sm_count(x.device))
+    part = (torch.empty((splits, M, N), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    lib, fn = _launcher()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             M, K, N, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], stream)
+             M, K, N, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+             None if part is None else part.data_ptr(), route, splits, span,
+             stream)
     build.check(lib, err, "weight_only_matmul")
     weight_only_matmul.launches += 1
     return out

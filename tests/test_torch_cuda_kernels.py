@@ -57,7 +57,8 @@ def _pool_case(rng, dev, M, H, Hk, D, bs, W, dtype, quant, Q=None):
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
                                          (torch.bfloat16, False),
                                          (torch.bfloat16, True)])
-@pytest.mark.parametrize("G,Q", [(1, None), (4, None), (1, 8), (2, 40)])
+@pytest.mark.parametrize("G,Q", [(1, None), (4, None), (1, 8), (2, 40),
+                                 (3, 5), (1, 16)])
 def test_paged_attention_matches_plain(dev, dtype, quant, G, Q, bs, D):
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_attention, paged_attention_plain)
@@ -78,6 +79,44 @@ def test_paged_attention_matches_plain(dev, dtype, quant, G, Q, bs, D):
     assert err <= tol * max(1.0, ref.float().abs().max().item()), err
 
 
+@pytest.mark.parametrize("x_dtype,quant", [(torch.bfloat16, False),
+                                           (torch.bfloat16, True)])
+@pytest.mark.parametrize("G,Q", [(1, None), (4, None), (1, 8), (3, 5)])
+@pytest.mark.parametrize("bs", [16, 12])
+def test_paged_attention_split_windows(dev, x_dtype, quant, G, Q, bs):
+    """Windows of up to 2048+ keys on the split route (Q * G < 16): the
+    kernel against the plain version and against the split emulation,
+    one empty window (seq_len -1: its rows output 0), and the same bits
+    on a second call (the splits merge in a fixed order)."""
+    import importlib
+    from paddle_tpu_torch.device import sm_count
+    # the module (the package's ``paged_attention`` is the function)
+    PA = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
+    rng = np.random.default_rng(7 * G + (Q or 0) + bs)
+    W = -(-2100 // bs)
+    q, k, v, tbl, sl, dl, extra = _pool_case(rng, dev, 4, 4 * G, 4, 128,
+                                             bs, W, x_dtype, quant, Q)
+    sl[1] = -1
+    if dl is not None:
+        dl[1] = 0
+    route, splits, _ = PA._plan(4, (Q or 1) * G, 4, W * bs, True,
+                                sm_count(dev))
+    assert route == PA.SPLIT and splits > 1
+    out = PA.paged_attention(q, k, v, tbl, sl, draft_lens=dl, **extra)
+    again = PA.paged_attention(q, k, v, tbl, sl, draft_lens=dl, **extra)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = PA.paged_attention_plain(q, k, v, tbl, sl, draft_lens=dl, **extra)
+    emu = PA.paged_attention_split_plain(q, k, v, tbl, sl, draft_lens=dl,
+                                         splits=splits, **extra)
+    assert torch.isfinite(out.float()).all()
+    assert (out[1] == 0).all()
+    tol = 2e-2 if out.dtype == torch.bfloat16 else 1e-4
+    for want in (ref, emu):
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(1, 40, 70), (8, 128, 200),
                                    (33, 300, 129), (130, 64, 64)])
@@ -96,6 +135,41 @@ def test_weight_only_matmul_matches_plain(dev, x_dtype, M, K, N):
     tol = 1e-2 if x_dtype == torch.bfloat16 else 1e-4
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(300, 129), (5504, 129), (300, 32000),
+                                 (5504, 32000)])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 65, 2048])
+def test_weight_only_matmul_routes(dev, x_dtype, M, K, N):
+    """Every route of the plan (fp32; bf16 streaming at M <= 8, 64-row
+    tiles to 64, 128-row tiles above) at ragged K and N: the kernel
+    against the plain version by max error and, at bf16, by the
+    norm-relative rule of chip_smoke.py (a dropped K tile can pass a
+    max-error rule); the split routes give the same bits twice."""
+    from paddle_tpu_torch.device import sm_count
+    from paddle_tpu_torch.kernels import quant_matmul as QM
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev).to(x_dtype)
+    wq, s = QM.quantize_weights(torch.randn((K, N), generator=g, device=dev)
+                                / K ** 0.5)
+    out = QM.weight_only_matmul(x, wq, s, out_dtype=x_dtype)
+    torch.cuda.synchronize()
+    ref = QM.weight_only_matmul_plain(x, wq, s, out_dtype=x_dtype)
+    tol = 1e-2 if x_dtype == torch.bfloat16 else 1e-4
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+    if x_dtype == torch.bfloat16:
+        fro, row = _rel_errors(out, ref)
+        assert fro <= 1e-2 and row <= 3e-2, (fro, row)
+        _, splits, span = QM._plan(M, K, N, False, sm_count(dev))
+        if splits > 1:
+            assert torch.equal(out, QM.weight_only_matmul(x, wq, s,
+                                                          out_dtype=x_dtype))
+            emu = QM.weight_only_matmul_split_plain(x, wq, s, span,
+                                                    out_dtype=torch.float32)
+            assert (out.float() - emu).abs().max().item() <= \
+                tol * emu.abs().max().item()
 
 
 def test_kernel_wrappers_refuse_bad_operands(dev):

@@ -5,11 +5,17 @@ runs it). On CPU tensors the port's wrapper runs its plain PyTorch version;
 the CUDA kernel is held to that plain version on the card
 (tests/test_torch_cuda_kernels.py).
 
+The CUDA kernel's split over KV (flash-decoding) is held to JAX through
+its plain emulation ``paged_attention_split_plain``, with the same
+tolerances.
+
 Inputs come from numpy with a seed. Tolerances: fp32 pools rtol = atol =
 3e-5 (the JAX suite's own kernel-vs-gather tolerance: both reduce in fp32,
 in different orders); int8 pools atol 1e-4 (the same int8 values and
 scales dequantize identically, the fp32 reductions differ in order).
 """
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +25,9 @@ import torch
 from paddle_tpu.kernels.paged_attention import paged_attention as jax_pa
 from paddle_tpu.models.generation import _kv_quantize as jax_quantize
 from paddle_tpu_torch.kernels.paged_attention import paged_attention
+
+# the module (the package's ``paged_attention`` is the function)
+PA = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
 
 torch.set_num_threads(2)
 
@@ -146,3 +155,53 @@ def test_entry_point_errors():
         paged_attention(q4, pool, pool, tbl, sl)
     with pytest.raises(ValueError, match="single-token"):
         paged_attention(q3, pool, pool, tbl, sl, draft_lens=sl)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("quant,poison", [(False, False), (False, True),
+                                          (True, True)],
+                         ids=["fp32", "fp32-poison", "int8-poison"])
+@pytest.mark.parametrize("multi", [False, True], ids=["decode", "multiquery"])
+def test_split_emulation_vs_jax_kernel(multi, quant, poison, splits):
+    """The split route's arithmetic (per-split m, l and value sums merged in
+    split order) against the JAX kernel. 4-key tiles make several splits
+    of these short windows; later splits of a short window hold no key of
+    it, and slot 0's empty window (seq_len -1) has l == 0: output 0. NaN
+    in every free block stays out. Tolerances as above."""
+    seed = 3000 + 10 * splits + 4 * multi + 2 * quant + poison
+    q, pool, tbl, sl, dl = _case(seed, multi, quant, poison, G=2, bs=4)
+    sl = sl.copy()
+    sl[0] = -1
+    if dl is not None:
+        dl = dl.copy()
+        dl[0] = 0
+    want = _run_jax(q, pool, tbl, sl, dl)
+    t = torch.from_numpy
+    kw = {"draft_lens": t(dl)} if dl is not None else {}
+    if quant:
+        kw.update(k_scale=t(pool["k_scale"]), v_scale=t(pool["v_scale"]))
+    got = PA.paged_attention_split_plain(
+        t(q), t(pool["k"]), t(pool["v"]), t(tbl), t(sl), splits=splits,
+        tile=4, **kw).numpy()
+    assert np.all(got[0] == 0)
+    _assert_close(got, want, quant)
+
+
+@pytest.mark.parametrize("M,QG,Hk,C", [(8, 1, 16, 2048), (8, 4, 8, 2048),
+                                       (8, 8, 16, 2048), (8, 15, 16, 64),
+                                       (8, 16, 16, 2048), (8, 256, 16, 2048)])
+def test_plan_routes(M, QG, Hk, C):
+    """Q * G < 16 takes the split route with spans of whole 64-key tiles
+    covering the capacity once, and at the serving path's decode shape
+    (8 slots, 16 kv heads, 2048 keys) at least 2 blocks per SM of a
+    132-SM H100; Q * G >= 16 takes the 64-row tiles; fp32 the FMA
+    kernel."""
+    route, splits, span = PA._plan(M, QG, Hk, C, True, 132)
+    if QG >= 16:
+        assert (route, splits) == (PA.MULTI_QUERY, 1)
+    else:
+        assert route == PA.SPLIT and span % 64 == 0
+        assert (splits - 1) * span < C <= splits * span
+        if C >= 2048:
+            assert splits * Hk * M >= 2 * 132
+    assert PA._plan(M, QG, Hk, C, False, 132)[0] == PA.FMA

@@ -6,6 +6,9 @@
 * the plain ``weight_only_matmul`` and ``llama._mm`` against JAX ``_mm``
   off the TPU (``h @ (w * s)``) at fp32, rtol 1e-5: the same products,
   summed in another order.
+* the CUDA kernel's split-K arithmetic (``weight_only_matmul_split_plain``)
+  against the JAX Pallas kernel in interpret mode at ragged K, rtol 1e-5,
+  and the kernel's plan at the serving path's shapes.
 
 Inputs come from numpy with a seed.
 """
@@ -17,10 +20,12 @@ import pytest
 import torch
 
 from paddle_tpu.kernels.quant_matmul import quantize_weights as jax_qw
+from paddle_tpu.kernels.quant_matmul import weight_only_matmul as jax_wom
 from paddle_tpu.models import generation as JG
 from paddle_tpu.models import llama as JL
-from paddle_tpu_torch.kernels.quant_matmul import (quantize_weights,
-                                                   weight_only_matmul)
+from paddle_tpu_torch.kernels import quant_matmul as QM
+from paddle_tpu_torch.kernels.quant_matmul import (
+    quantize_weights, weight_only_matmul, weight_only_matmul_split_plain)
 from paddle_tpu_torch.models import generation as TG
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models.convert import params_from_jax
@@ -120,3 +125,43 @@ def test_quant_mode_validation():
     q = {"layers": {"wq": torch.zeros(1, 4, 4, dtype=torch.int8),
                     "wq_s": torch.ones(1, 4)}}
     assert TL.ensure_quantized(q, "int8") is q
+
+
+@pytest.mark.parametrize("M,K,N,block_k,span", [
+    (8, 300, 129, 100, 64),      # ragged K: 4 spans of 64 + one of 44
+    (8, 300, 129, 100, 112),
+    (16, 600, 72, 200, 256),
+    (8, 300, 40, 300, 320),      # one span over all of K
+])
+def test_split_k_emulation_vs_jax_kernel(M, K, N, block_k, span):
+    """The split-K routes' arithmetic (fp32 partial sums per span, added
+    in span order, then the scale) against the JAX Pallas kernel run in
+    interpret mode, at fp32 out: the same exact products (bf16 x times
+    int8 values), summed in another order (rtol 1e-5)."""
+    rng = np.random.default_rng(M + K + N + span)
+    x = np.asarray(jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+                   .astype(jnp.float32))              # bf16-exact values
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    wq, s = (np.array(a) for a in jax_qw(jnp.asarray(w)))
+    want = np.asarray(jax_wom(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s),
+                              block_k=block_k, out_dtype=jnp.float32))
+    t = torch.from_numpy
+    got = weight_only_matmul_split_plain(t(x), t(wq), t(s), span,
+                                         out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 5504), (5504, 2048),
+                                 (2048, 32000)])
+def test_plan_fills_the_card_at_decode(K, N):
+    """At the serving path's decode shapes (M = 8) the plan takes 16-row
+    tiles with at least 2 blocks per SM of a 132-SM H100, in spans of
+    whole 64-row steps that cover K exactly once; the mixed dispatch
+    (M = 2048) takes 128-row tiles unsplit."""
+    route, splits, span = QM._plan(8, K, N, False, 132)
+    assert route == QM.TC16 and span % 64 == 0
+    assert (splits - 1) * span < K <= splits * span
+    assert -(-N // 128) * splits >= 2 * 132
+    assert QM._plan(2048, K, N, False, 132)[:2] == (QM.TC128, 1)
+    assert QM._plan(8, K, N, True, 132)[0] == QM.FP32
