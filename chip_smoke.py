@@ -28,9 +28,10 @@ Phases (each fails the run on any error; none catches and carries on):
    packed segments per row; causal with Sq 1024 < Sk 2048): the public
    ``flash_attention_with_lse`` and its gradient against the plain
    forward and backward (norm-relative error over the whole tensor and
-   per row), then the forward, backward dq and backward dk/dv kernels
-   timed alone beside their plain versions, ``scaled_dot_product_attention``
-   and the bound.
+   per row), dk/dv the same bits on two runs, then the forward, backward
+   dq and backward dk/dv kernels timed alone beside their plain versions,
+   ``scaled_dot_product_attention`` and the bound, with the TFLOP/s each
+   reached and its share of the bound.
 8. Training at full width, bf16: the same model with ``use_kernels`` and
    full remat, B 8 x S 2048, AdamW at lr 1e-4: one warm-up step, then
    timed steps (step time, tokens/s, MFU, peak memory, launches per step)
@@ -548,20 +549,31 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
               + (k.numel() + v.numel()) * item}
     errs["dkv"] = {key: max(errs["dk"][key], errs["dv"][key])
                    for key in errs["dk"]}
+    # dk/dv sum the GQA group in registers in a fixed order: the same bits
+    # on two runs
+    dkv1, dkv2 = FA._dkv_cuda(ops, scale, causal), FA._dkv_cuda(ops, scale,
+                                                                 causal)
+    check(all(torch.equal(a, b) for a, b in zip(dkv1, dkv2)),
+          f"{name}: dk/dv differ between two runs")
+    del dkv1, dkv2
     rows = {}
     for which, _, _ in FLASH_KERNELS:
         ms, plain_ms, lib_ms = times[which]
         if lib_ms is None:
             lib_ms = lib_bwd_ms
-        b_ms, b_by = bound(nbytes[which], flops[which] * D * pairs, "bf16")
+        work = flops[which] * D * pairs
+        b_ms, b_by = bound(nbytes[which], work, "bf16")
         rows[which] = {"case": name, **errs[which], "ms": ms,
                        "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by,
-                       "visible_pairs": pairs}
+                       "tflops": work / ms / 1e9,
+                       "bound_share": b_ms / ms, "visible_pairs": pairs}
         log(f"  {name} {which}: rel_fro {errs[which]['rel_fro']:.3g}  "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-            f"{'bwd ' if which != 'fwd' else ''}{lib_ms:.4f} ms  bound "
+            f"kernel {ms:.4f} ms ({work / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * b_ms / ms:.1f} % of bound)  plain {plain_ms:.4f} ms  "
+            f"sdpa {'bwd ' if which != 'fwd' else ''}{lib_ms:.4f} ms  bound "
             f"{b_ms:.4f} ms ({b_by})")
+    log(f"  {name}: dk/dv the same bits on two runs")
     return rows
 
 

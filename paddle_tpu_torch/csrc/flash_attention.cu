@@ -13,7 +13,7 @@
 //     head h / (H / Hk);
 //   * forward: online softmax in fp32; p is forced to exactly 0 where
 //     s <= -5e29 (a row with no visible key yet would otherwise weigh masked
-//     keys 1); a row whose sum l is 0 outputs 0 with lse = m + log(1);
+//     keys 1); a row whose sum l is 0 outputs 0 with lse = -1e30;
 //   * dq:  p = exp(s - lse) (0 where s <= -5e29), dp = dO . v,
 //          ds = p * (dp - delta) * scale, dq = sum_k ds . k, in q's dtype;
 //   * dkv: dv = sum_q p^T . dO and dk = sum_q ds^T . q in fp32, summed over
@@ -23,57 +23,65 @@
 // (B 8, S 2048, H 16, D 128, causal) the forward does 4*D flops per visible
 // (query, key) pair, dq 6*D, dk/dv 8*D, on ~1.5 MB of q/k/v per (b, h) read
 // once: hundreds of flops per byte, far above the card's ~295 flops/byte
-// bf16 ridge. So the products have to run on the tensor cores.
+// bf16 ridge. So the products have to run on the tensor cores at wgmma's
+// rate, and the softmax's scalar work (an exp per score) has to hide behind
+// them.
 //
-// Design (simple first; not yet fast):
-//  * The TPU grid's sequential kv (or q) dimension becomes a loop inside one
-//    thread block of 4 warps. Forward and dq: one block per (64-row query
-//    tile, head, batch), walking 32-key tiles up to the causal limit (small
-//    tiles keep the double-buffered shared memory at 52 KB (forward) and
-//    70 KB (dq) for D 128 bf16, so three blocks share an SM). dk/dv:
-//    one block per (64-key tile, kv head, batch), looping over the G query
-//    heads of the group and over 32-row query tiles from the first row that
-//    can see the tile; the GQA fold happens in registers, so the [B, H, Sk,
-//    D] fp32 temporary of the TPU version never exists.
-//  * Each warp owns 16 rows. Every product is one of two warp-level forms on
-//    tiles in shared memory, and both keep the result in the register layout
-//    of mma.sync's m16n8 accumulator (row g = lane/4 and g + 8, columns
-//    2*(lane%4) + {0, 1} of each 8-wide tile):
+// Three routes:
+//  * bf16 forward and dk/dv (flash_fwd_kernel, flash_bwd_dkv_kernel): wgmma
+//    fed by TMA through an mbarrier ring, the helpers in sm90_common.cuh.
+//    A block is three warpgroups: one producer warp issues every TMA load
+//    (128-byte swizzle, rows past S zero-filled by TMA) into a ring of
+//    stages, each with a "full" barrier (transaction bytes) and an "empty"
+//    one (one arrival per consumer warp), and writes beside each stage the
+//    tile's start (-1: no more tiles) after the causal limit and the
+//    segment skip, so consumers never recompute the sequence; two consumer
+//    warpgroups run the products.
+//      Forward: 128 query rows per block, 64 per consumer; 128-key K/V
+//    stages (2; 3 at D 64), each taken as two 64-key sub-tiles, so s (32 registers)
+//    sits beside o (64) and no wgmma chain is serialised: with 128-key
+//    products ptxas, which holds a 384-thread block to 168 registers a
+//    thread, serialised every wgmma. s = q . k^T from shared memory (both
+//    K-major), o += p . v with p from registers (bf16, the accumulator
+//    layout) and V MN-major. Online softmax in log2 units (scale folded
+//    into one FFMA per score, ex2.approx.ftz), partial max/sum chains kept
+//    short. Query tiles are
+//    the fastest grid dimension, heaviest first within a head, so the
+//    blocks in flight share few heads' K/V in L2.
+//      dk/dv: 64 keys per block, K and V loaded once; 64-row (Q, dO) tiles
+//    of every query head of the group from the first row that sees the
+//    block, 3 stages, lse and delta loaded by the producer one step ahead.
+//    dk and dv (64 x D fp32 each) cannot share a thread's registers with
+//    the score tiles, so the two consumers split by output: the dV
+//    warpgroup computes s^T = k . q^T, p^T, hands p^T (fp32) to the other
+//    through shared memory (named barriers), and sums dv += p^T . dO; the
+//    dK warpgroup computes dp^T = v . dO^T, ds^T, and sums dk += ds^T . q.
+//    GQA is folded in registers and no atomics are used: dk and dv are the
+//    same bits on every run. Key blocks are the fastest grid dimension.
+//  * fp32 forward and dk/dv (flash_fwd_fp32_kernel, flash_bwd_dkv_fp32_
+//    kernel): the full-fp32 parity paths, FMA loops (wgmma on fp32 would
+//    be TF32).
+//  * dq, both dtypes (flash_bwd_dq_kernel), and the fp32 kernels: one
+//    block of 4 warps per 64-row tile walking 32-key (32-row) tiles
+//    double-buffered with cp.async; each warp owns 16 rows and every
+//    product is one of two warp-level forms in mma.sync's m16n8
+//    accumulator layout (row g = lane/4 and g + 8, columns 2*(lane%4) +
+//    {0, 1} of each 8-wide tile):
 //      gemm_abt: acc[16 x N] += A[16 x K] . B[N x K]^T  (both K-contiguous),
 //      gemm_pb:  acc[16 x N] += P[16 x K] . B[K x N]    (P in accumulator
 //                registers, B N-contiguous),
-//    so the masking, online softmax and row reductions (quad shuffles) are
-//    written once. For bf16 both forms are mma.sync.m16n8k16 bf16 with fp32
-//    accumulation; gemm_pb re-packs the fp32 accumulator tiles as the A
-//    operand, so P and dS round to bf16 before their products, as on the
-//    tensor cores of any flash kernel. For fp32 inputs both forms are fp32
-//    FMA loops on the same layout (gemm_pb fetches P with shuffles inside
-//    the quad): full fp32, no TF32.
-//  * Tiles move global -> shared with cp.async (16-byte pieces, rows past S
-//    zero-filled), double-buffered: the next visible K/V tile (Q/dO tile in
-//    dk/dv) is in flight while the current one is used, with one barrier
-//    before and one after the use. Shared rows are padded by 16 bytes, so
-//    the 8 rows of every 8x8 ldmatrix fall in distinct banks. bf16
-//    operands reach mma.sync through ldmatrix (.trans for the
-//    N-contiguous operand of gemm_pb).
-//  * The kernels mask ragged edges themselves and take any S; a tile that
-//    is wholly visible (inside the causal limit, no ragged edge, no
-//    segments) skips the per-element mask.
-//  * With segments on, a key (or query) tile whose id range cannot meet the
-//    other tile's is never loaded: the next visible tile is found by a warp
-//    reduction over its ids; this changes no output (the TPU version's
-//    _seg_overlap gate).
-//  * Scores are exponentiated with exp2 for bf16 inputs (exp_of): per score
-//    the softmax's scalar work competes with the products for issue slots.
-//  * Not yet: wgmma and TMA, a warp-specialised producer, 32 rows per warp
-//    (each K/V fragment feeding two products). Every warp re-reads the K/V
-//    tile it shares with the block's other warps from shared memory.
-//  * The bf16 forms, ldmatrix, cp.async and the quad reductions live in
-//    mma_common.cuh, shared with paged_attention.cu and quant_matmul.cu.
+//    mma.sync.m16n8k16 for bf16 (mma_common.cuh), fp32 FMA loops for fp32.
+//    Shared rows are padded by 16 bytes so ldmatrix rows fall in distinct
+//    banks.
+// Every route masks ragged edges itself and takes any S; a tile wholly
+// visible (inside the causal limit, no ragged edge, no segments) skips the
+// per-element mask; with segments on, a tile whose id range cannot meet
+// the other side's is never loaded (the TPU version's _seg_overlap gate).
 
 #include <climits>
 
 #include "mma_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -248,8 +256,9 @@ constexpr size_t fwd_smem() {
          2 * kKeys * sizeof(int);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_fp32_kernel(const Args a) {
+  using T = float;
   constexpr int LD = row_ld<T, D>();
   constexpr int NT = kKeys / 8, DT = D / 8;
   constexpr int kTile = kKeys * LD;
@@ -485,8 +494,9 @@ constexpr size_t dkv_smem() {
          2 * 3 * kQTile * sizeof(float);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fp32_kernel(const Args a) {
+  using T = float;
   constexpr int LD = row_ld<T, D>();
   constexpr int NQ = kQTile / 8, DT = D / 8;
   constexpr int kTile = kQTile * LD;
@@ -620,25 +630,656 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward and dk/dv: wgmma fed by TMA through an mbarrier ring
+// ---------------------------------------------------------------------------
+
+constexpr int kWg = 128;                  // threads of a warpgroup
+constexpr int kTmaThreads = 3 * kWg;      // producer + two consumer warpgroups
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg
+constexpr int kBlockRows = 128;           // query rows a forward block owns
+constexpr int kFwdKeys = 128;             // keys per forward tile (stage)
+constexpr int kFwdSub = 64;               // keys per forward product
+constexpr int kDkvKeys = 64;              // keys a dk/dv block owns
+constexpr int kDkvRows = 64;              // query rows per dk/dv tile
+// named barriers (0 is __syncthreads): the dk/dv kernel's p^T buffers
+constexpr int kPReady = 1, kPFree = 3;
+constexpr int kHalfRow = 128;             // bytes of one row of a 64-column half
+constexpr uint32_t kSbo = 8 * kHalfRow;   // 8-row swizzle atom
+
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  alignas(1024) __nv_bfloat16 q[kBlockRows * D];
+  alignas(1024) __nv_bfloat16 k[kStages][kFwdKeys * D];
+  alignas(1024) __nv_bfloat16 v[kStages][kFwdKeys * D];
+  int segk[kStages][kFwdKeys];
+  int kstart[kStages];  // the stage's first key, -1: no more tiles
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kStages = 3;
+  alignas(1024) __nv_bfloat16 k[kDkvKeys * D];
+  alignas(1024) __nv_bfloat16 v[kDkvKeys * D];
+  alignas(1024) __nv_bfloat16 q[kStages][kDkvRows * D];
+  alignas(1024) __nv_bfloat16 dout[kStages][kDkvRows * D];
+  // p^T of a tile from the dV warpgroup to the dK one, fp32 in the
+  // accumulator layout: thread t's tile n as a float4 at [n * 128 + t]
+  alignas(16) float p[2][kDkvKeys * kDkvRows];
+  float lse2[kStages][kDkvRows];  // lse in log2 units
+  float delta[kStages][kDkvRows];
+  int segq[kStages][kDkvRows];
+  int istart[kStages];  // the stage's first query row, -1: no more tiles
+  uint64_t kv_full, full[kStages], empty[kStages];
+};
+
+template <typename S>
+__device__ __forceinline__ S& smem_as() {
+  extern __shared__ unsigned char smem_raw[];
+  const uintptr_t p = (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023);
+  return *reinterpret_cast<S*>(p);
+}
+
+// [lo, hi] of ids[0, n) (n > 0) by a warp reduction, in every lane
+__device__ __forceinline__ void warp_id_range(const int* ids, int n, int& lo,
+                                              int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    lo = min(lo, ids[i]);
+    hi = max(hi, ids[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(kFull, lo, o));
+    hi = max(hi, __shfl_xor_sync(kFull, hi, o));
+  }
+}
+
+// Loads `halves` 64-column boxes of one tile (rows from `row`) into dst.
+template <int Halves>
+__device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, int rows,
+                                         const CUtensorMap* map, uint64_t* bar,
+                                         int head, int row, int b) {
+#pragma unroll
+  for (int hf = 0; hf < Halves; ++hf)
+    tma_load_4d(dst + hf * rows * 64, map, bar, hf * 64, head, row, b);
+}
+
+// The forward's producer (one warp): Q once, then every key tile the block
+// can see, in order, each into the next free stage with its start (and its
+// keys' segment ids) beside it; then a stage whose start is -1.
+template <int D>
+__device__ __forceinline__ void fwd_producer(FwdSmem<D>& sm, const Args& a,
+                                             const CUtensorMap* tq,
+                                             const CUtensorMap* tk,
+                                             const CUtensorMap* tv, int b,
+                                             int h, int q0) {
+  using S = FwdSmem<D>;
+  constexpr int kH = D / 64;
+  constexpr uint32_t kTileBytes = kFwdKeys * D * 2;
+  const int lane = threadIdx.x & 31;
+  const int kh = h / (a.H / a.Hk);
+  const int last = min(q0 + kBlockRows, a.Sq);
+  const bool seg = a.seg_q != nullptr;
+  if (lane == 0) {
+    tma_prefetch_map(tk);
+    tma_prefetch_map(tv);
+    mbar_expect_tx(&sm.q_full, kBlockRows * D * 2);
+    tma_tile<kH>(sm.q, kBlockRows, tq, &sm.q_full, h, q0, b);
+  }
+  int qlo = 0, qhi = 0;
+  const int* segk = seg ? a.seg_k + static_cast<size_t>(b) * a.Sk : nullptr;
+  if (seg) warp_id_range(a.seg_q + static_cast<size_t>(b) * a.Sq + q0, last - q0, qlo, qhi);
+  const int k_end = a.causal ? min(a.Sk, last + a.Sk - a.Sq) : a.Sk;
+  int k0 = seg ? next_tile<kFwdKeys>(segk, a.Sk, 0, k_end, qlo, qhi) : 0;
+  for (int stage = 0, phase = 0;;) {
+    const bool done = k0 >= k_end;
+    mbar_wait(&sm.empty[stage], phase ^ 1);
+    if (!done && seg)
+      for (int j = lane; j < kFwdKeys; j += 32)
+        sm.segk[stage][j] = k0 + j < a.Sk ? segk[k0 + j] : 0;
+    if (lane == 0) {
+      sm.kstart[stage] = done ? -1 : k0;
+      if (done) {
+        mbar_arrive(&sm.full[stage]);
+      } else {
+        mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
+        tma_tile<kH>(sm.k[stage], kFwdKeys, tk, &sm.full[stage], kh, k0, b);
+        tma_tile<kH>(sm.v[stage], kFwdKeys, tv, &sm.full[stage], kh, k0, b);
+      }
+    } else {
+      mbar_arrive(&sm.full[stage]);
+    }
+    if (done) break;
+    k0 = seg ? next_tile<kFwdKeys>(segk, a.Sk, k0 + kFwdKeys, k_end, qlo, qhi)
+             : k0 + kFwdKeys;
+    if (++stage == S::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, denormals flushed
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Sets the accumulator-layout scores of invisible pairs to -1e30 (rows r of
+// this thread see columns [lo[r], hi[r]] of the segment seg_row[r]; columns
+// from col0 on, their ids seg_col in shared memory, used when `seg`).
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&s)[N][4], int col0,
+                                          const int (&lo)[2], const int (&hi)[2],
+                                          bool seg, const int (&seg_row)[2],
+                                          const int* seg_col) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int cl = n * 8 + 2 * t + (e & 1), c = col0 + cl, r = e >> 1;
+      const bool vis = (c >= lo[r]) & (c <= hi[r]) &
+                       (!seg | (seg_row[r] == seg_col[cl]));
+      s[n][e] = vis ? s[n][e] : kNegInf;
+    }
+}
+
+// One forward tile's online softmax on raw scores s (q . k, masked to
+// -1e30): the running max m (raw units) and sum l updated, s replaced by
+// p = 2^((s - m) scale2), alpha the factor the output so far is to be
+// scaled by. Masked scores give p = 0 exactly (`masked`: the tile may hold
+// some).
+template <int NT>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2],
+                                               float scale2, bool masked) {
+  // four independent partial maxima / sums per row: short dependency
+  // chains, since one warp per scheduler leaves little latency hidden
+  float pm[2][4], ps[2][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    pm[0][j] = pm[1][j] = kNegInf;
+    ps[0][j] = ps[1][j] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pm[e >> 1][(n & 1) * 2 + (e & 1)] = fmaxf(pm[e >> 1][(n & 1) * 2 + (e & 1)], s[n][e]);
+  float mx[2], base[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(fmaxf(fmaxf(pm[i][0], pm[i][1]), fmaxf(pm[i][2], pm[i][3])), m[i]);
+    mx[i] = quad_max(mx[i]);
+    alpha[i] = ex2((m[i] - mx[i]) * scale2);
+    base[i] = mx[i] * scale2;
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(s[n][e], scale2, -base[e >> 1]));
+      if (masked) p = s[n][e] <= kMaskedBelow ? 0.f : p;
+      s[n][e] = p;
+      ps[e >> 1][(n & 1) * 2 + (e & 1)] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    l[i] = l[i] * alpha[i] + quad_sum((ps[i][0] + ps[i][1]) + (ps[i][2] + ps[i][3]));
+}
+
+// A forward consumer warpgroup: 64 query rows (c = 0 or 1 of the block),
+// online softmax over the producer's key tiles, each as two 64-key
+// sub-tiles: s takes 32 registers beside o's 64, which keeps every wgmma
+// chain within the registers ptxas allots (at 128 keys it serialises them).
+// The two consumers are not synchronised with each other, so one's softmax
+// overlaps the other's products.
+template <int D>
+__device__ __forceinline__ void fwd_consumer(FwdSmem<D>& sm, const Args& a,
+                                             int b, int h, int q0, int c) {
+  using S = FwdSmem<D>;
+  constexpr int NT = kFwdSub / 8, DT = D / 8;
+  constexpr uint32_t kQHalf = kBlockRows * kHalfRow, kKHalf = kFwdKeys * kHalfRow;
+  const int tid = threadIdx.x % kWg, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = a.Sk - a.Sq;
+  const bool seg = a.seg_q != nullptr;
+  const int r0 = q0 + 64 * c;                       // this warpgroup's first row
+  const int r_last = min(r0 + 64, a.Sq) - 1;        // < r0: no row here
+  const int row[2] = {r0 + 16 * w + g, r0 + 16 * w + g + 8};
+  // keys row r may see: [0, hi[r]] (hi < 0: a row past Sq sees none)
+  int sq[2] = {0, 0}, lo[2] = {0, 0}, hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    hi[i] = row[i] >= a.Sq ? -1 : a.causal ? min(a.Sk - 1, row[i] + off) : a.Sk - 1;
+    if (seg && row[i] < a.Sq) sq[i] = a.seg_q[static_cast<size_t>(b) * a.Sq + row[i]];
+  }
+  const float scale2 = a.scale * kLog2e;            // exponents in log2 units
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DT][4];
+  zero(o);
+  uint32_t pa[NT / 2][4];                           // p of the pending sub-tile
+
+  const uint32_t q_at = smem_addr(sm.q) + 64 * c * kHalfRow;
+  mbar_wait(&sm.q_full, 0);
+  int pending = -1;                   // sub-tile (stage * 2 + half) whose p . v is due
+  bool first = true;
+  for (int stage = 0, phase = 0, half = 0;;) {
+    if (pending >= 0) {
+      // o += p . v: A = p (bf16, registers), B = the V sub-tile, MN-major
+      const uint32_t v_at = smem_addr(sm.v[pending >> 1]) + (pending & 1) * kFwdSub * kHalfRow;
+      fence_acc(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc)
+        wgmma_rs<1>(o, pa[kc], wgmma_desc(v_at + kc * 16 * kHalfRow, kKHalf, kSbo));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+    }
+    if (half == 0 && !first) {
+      // the previous stage is through (its last p . v is done): release it
+      const int prev = stage == 0 ? S::kStages - 1 : stage - 1;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[prev]);
+    }
+    first = false;
+    pending = -1;
+    if (half == 0) mbar_wait(&sm.full[stage], phase);
+    const int kstart = sm.kstart[stage];
+    const int k0 = kstart < 0 ? -1 : kstart + half * kFwdSub;
+    if (k0 < 0) break;
+    if (k0 < a.Sk && r_last >= r0 && (!a.causal || k0 <= r_last + off)) {
+      // s = q . k^T: A = this warpgroup's 64 rows of Q, B = the key
+      // sub-tile, both K-major
+      float s[NT][4];
+      const uint32_t k_at = smem_addr(sm.k[stage]) + half * kFwdSub * kHalfRow;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = (kk >> 2) * kQHalf + (kk & 3) * 32;
+        const uint32_t bt = (kk >> 2) * kKHalf + (kk & 3) * 32;
+        wgmma_ss<0>(s, wgmma_desc(q_at + at, 16, kSbo),
+                    wgmma_desc(k_at + bt, 16, kSbo), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+
+      const bool interior = !seg && r0 + 64 <= a.Sq && k0 + kFwdSub <= a.Sk &&
+                            (!a.causal || k0 + kFwdSub - 1 <= r0 + off);
+      if (!interior) mask_tile(s, k0, lo, hi, seg, sq, sm.segk[stage] + half * kFwdSub);
+      float alpha[2];
+      online_softmax(s, m, l, alpha, scale2, !interior);
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[d][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) pack_a(pa[kc], s, kc);
+      pending = stage * 2 + half;
+    }
+    if (++half == 2) {
+      half = 0;
+      if (++stage == S::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+
+  const size_t q_rs = static_cast<size_t>(a.H) * D;
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) +
+                      static_cast<size_t>(b) * a.Sq * q_rs + h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= a.Sq) continue;
+    const float safe = l[i] == 0.f ? 1.f : l[i];
+    __nv_bfloat16* orow = ob + row[i] * q_rs + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      store2(orow + d * 8, o[d][2 * i] / safe, o[d][2 * i + 1] / safe);
+    // l == 0: every score masked, m is still -1e30
+    if (t == 0)
+      a.lse_out[(static_cast<size_t>(b) * a.H + h) * a.Sq + row[i]] =
+          l[i] == 0.f ? kNegInf : m[i] * a.scale + logf(l[i]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_fwd_kernel(const Args a, const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv) {
+  using S = FwdSmem<D>;
+  S& sm = smem_as<S>();
+  // query tiles fastest, so the blocks in flight share few heads' K/V (in
+  // L2); within a head, heaviest (last) tile first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&sm.full[s], 32);      // the producer warp's lanes
+      mbar_init(&sm.empty[s], 8);      // the consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // roles by warpgroup, warp-uniform to the compiler (a shuffle)
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / kWg, 0);
+  if (wg == 0) {
+    reg_dealloc<kProducerRegs>();
+    if (__shfl_sync(kFull, static_cast<int>(threadIdx.x) / 32, 0) == 0)
+      fwd_producer<D>(sm, a, &tq, &tk, &tv, b, h, q0);
+  } else {
+    reg_alloc<kConsumerRegs>();
+    fwd_consumer<D>(sm, a, b, h, q0, wg - 1);
+  }
+}
+
+// The dk/dv producer (one warp): K and V of the block's 64 keys once, then
+// the (query head, 64-row query tile) steps that can see them, each step's
+// Q and dO tiles into the next free stage with its first row, lse (log2
+// units), delta and query segment ids beside it; then a stage whose start
+// is -1.
+template <int D>
+__device__ __forceinline__ void dkv_producer(DkvSmem<D>& sm, const Args& a,
+                                             const CUtensorMap* tq,
+                                             const CUtensorMap* tk,
+                                             const CUtensorMap* tv,
+                                             const CUtensorMap* tdo, int b,
+                                             int kh, int k0) {
+  using S = DkvSmem<D>;
+  constexpr int kH = D / 64;
+  constexpr uint32_t kTileBytes = kDkvRows * D * 2;
+  const int lane = threadIdx.x & 31;
+  const int G = a.H / a.Hk;
+  const int off = a.Sk - a.Sq;
+  const bool seg = a.seg_q != nullptr;
+  if (lane == 0) {
+    tma_prefetch_map(tq);
+    tma_prefetch_map(tdo);
+    mbar_expect_tx(&sm.kv_full, 2 * kDkvKeys * D * 2);
+    tma_tile<kH>(sm.k, kDkvKeys, tk, &sm.kv_full, kh, k0, b);
+    tma_tile<kH>(sm.v, kDkvKeys, tv, &sm.kv_full, kh, k0, b);
+  }
+  const int* segq = seg ? a.seg_q + static_cast<size_t>(b) * a.Sq : nullptr;
+  int klo = 0, khi = 0;
+  if (seg)
+    warp_id_range(a.seg_k + static_cast<size_t>(b) * a.Sk + k0,
+                  min(k0 + kDkvKeys, a.Sk) - k0, klo, khi);
+  // steps n = 0 .. G * nq - 1 walk the G query heads of kv head kh (n / nq)
+  // and, for each, the query tiles from the first row that sees any key of
+  // the block (i_first + (n % nq) * 64)
+  const int i_first = (a.causal ? max(0, k0 - off) : 0) / kDkvRows * kDkvRows;
+  const int nq = (a.Sq - i_first + kDkvRows - 1) / kDkvRows;
+  const int n_end = G * nq;
+  const int first_hit =
+      seg ? next_tile<kDkvRows>(segq, a.Sq, i_first, a.Sq, klo, khi) : i_first;
+  auto next_step = [&](int n) {
+    if (!seg || n >= n_end) return n;
+    const int tile = i_first + (n % nq) * kDkvRows;
+    const int hit = next_tile<kDkvRows>(segq, a.Sq, tile, a.Sq, klo, khi);
+    if (hit < a.Sq) return n + (hit - tile) / kDkvRows;
+    const int head_next = (n / nq + 1) * nq;
+    if (head_next >= n_end || first_hit >= a.Sq) return n_end;
+    return head_next + (first_hit - i_first) / kDkvRows;
+  };
+  // each lane's rows lane and lane + 32 of a step's lse, delta and segment
+  // ids, loaded one step ahead so their latency overlaps the wait for a
+  // free stage
+  constexpr int kPer = kDkvRows / 32;
+  float lse_n[kPer], delta_n[kPer];
+  int seg_n[kPer];
+  auto fetch = [&](int n) {
+    const int h = kh * G + n / nq, i0 = i_first + (n % nq) * kDkvRows;
+    const size_t stat = (static_cast<size_t>(b) * a.H + h) * a.Sq;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = i0 + lane + 32 * r;
+      const bool in = n < n_end && i < a.Sq;
+      lse_n[r] = in ? a.lse[stat + i] * kLog2e : 0.f;
+      delta_n[r] = in ? a.delta[stat + i] : 0.f;
+      seg_n[r] = seg && in ? segq[i] : 0;
+    }
+  };
+  int n = next_step(0);
+  fetch(n);
+  for (int stage = 0, phase = 0;;) {
+    const bool done = n >= n_end;
+    mbar_wait(&sm.empty[stage], phase ^ 1);
+    const int h = kh * G + n / nq, i0 = i_first + (n % nq) * kDkvRows;
+    if (!done) {
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        sm.lse2[stage][lane + 32 * r] = lse_n[r];
+        sm.delta[stage][lane + 32 * r] = delta_n[r];
+        sm.segq[stage][lane + 32 * r] = seg_n[r];
+      }
+    }
+    if (lane == 0) {
+      sm.istart[stage] = done ? -1 : i0;
+      if (done) {
+        mbar_arrive(&sm.full[stage]);
+      } else {
+        mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
+        tma_tile<kH>(sm.q[stage], kDkvRows, tq, &sm.full[stage], h, i0, b);
+        tma_tile<kH>(sm.dout[stage], kDkvRows, tdo, &sm.full[stage], h, i0, b);
+      }
+    } else {
+      mbar_arrive(&sm.full[stage]);
+    }
+    if (done) break;
+    n = next_step(n + 1);
+    fetch(n);
+    if (++stage == S::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// The dk/dv consumers, both over the block's 64 keys and the producer's
+// steps. The dV warpgroup (c = 0): s^T = k . q^T, p^T = exp(s^T - lse),
+// handed to the other warpgroup through shared memory, dv += p^T . dO. The
+// dK warpgroup (c = 1): dp^T = v . dO^T, ds^T = p^T (dp^T - delta) scale,
+// dk += ds^T . q. Each holds one 64 x D fp32 accumulator for the whole
+// loop (summed over the G query heads) beside one 64 x 64 score tile.
+template <int D>
+__device__ __forceinline__ void dkv_consumer(DkvSmem<D>& sm, const Args& a,
+                                             int b, int kh, int k0, int c) {
+  using S = DkvSmem<D>;
+  constexpr int NQ = kDkvRows / 8, DT = D / 8;
+  constexpr uint32_t kKHalf = kDkvKeys * kHalfRow, kQHalf = kDkvRows * kHalfRow;
+  const int tid = threadIdx.x % kWg, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = a.Sk - a.Sq;
+  const bool seg = a.seg_q != nullptr;
+  const bool dv_group = c == 0;
+  const int k_last = min(k0 + kDkvKeys, a.Sk) - 1;
+  const int key[2] = {k0 + 16 * w + g, k0 + 16 * w + g + 8};
+  // query rows key r is seen by: [lo[r], Sq - 1] (none for a key past Sk)
+  int sk[2] = {0, 0}, lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lo[i] = a.causal ? max(0, key[i] - off) : 0;
+    hi[i] = key[i] < a.Sk ? a.Sq - 1 : -1;
+    if (seg && key[i] < a.Sk) sk[i] = a.seg_k[static_cast<size_t>(b) * a.Sk + key[i]];
+  }
+  const float scale2 = a.scale * kLog2e;
+  float acc[DT][4];  // dv (c = 0) or dk (c = 1)
+  zero(acc);
+  // A of the score product: K (dV warpgroup) or V; B: Q or dO
+  const uint32_t a_at = smem_addr(dv_group ? sm.k : sm.v);
+  int np = 0;  // tiles handed over so far (p buffer np % 2)
+  mbar_wait(&sm.kv_full, 0);
+  for (int stage = 0, phase = 0;;) {
+    mbar_wait(&sm.full[stage], phase);
+    const int i0 = sm.istart[stage];
+    if (i0 < 0) break;
+    if (!a.causal || i0 + kDkvRows - 1 + off >= k0) {
+      const uint32_t q_at = smem_addr(sm.q[stage]), do_at = smem_addr(sm.dout[stage]);
+      const uint32_t b_at = dv_group ? q_at : do_at;
+      float s[NQ][4];  // s^T (then p^T) or dp^T (then ds^T)
+      // this thread's 16 query columns of lse2 (dV group) or delta (dK
+      // group), read while the product runs
+      float stat[NQ][2];
+      const float* stat_s = dv_group ? sm.lse2[stage] : sm.delta[stage];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) stat[n][e] = stat_s[n * 8 + 2 * t + e];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = (kk >> 2) * kKHalf + (kk & 3) * 32;
+        const uint32_t bt = (kk >> 2) * kQHalf + (kk & 3) * 32;
+        wgmma_ss<0>(s, wgmma_desc(a_at + at, 16, kSbo),
+                    wgmma_desc(b_at + bt, 16, kSbo), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+
+      const int buf = np & 1;
+      float* pbuf = sm.p[buf];
+      if (dv_group) {
+        // p^T = 2^(s^T scale2 - lse2): raw scores, lse in log2 units
+        const bool interior = !seg && i0 + kDkvRows <= a.Sq && k0 + kDkvKeys <= a.Sk &&
+                              (!a.causal || k0 + kDkvKeys - 1 <= i0 + off);
+        if (interior) {
+#pragma unroll
+          for (int n = 0; n < NQ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[n][e] = ex2(fmaf(s[n][e], scale2, -stat[n][e & 1]));
+        } else {
+          mask_tile(s, i0, lo, hi, seg, sk, sm.segq[stage]);
+#pragma unroll
+          for (int n = 0; n < NQ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p = ex2(fmaf(s[n][e], scale2, -stat[n][e & 1]));
+              s[n][e] = s[n][e] <= kMaskedBelow ? 0.f : p;
+            }
+        }
+        if (np >= 2) named_sync(kPFree + buf, 2 * kWg);  // the dK group read it
+        float4* p4 = reinterpret_cast<float4*>(pbuf);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+          p4[n * kWg + tid] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        named_arrive(kPReady + buf, 2 * kWg);
+      } else {
+        named_sync(kPReady + buf, 2 * kWg);
+        const float4* p4 = reinterpret_cast<const float4*>(pbuf);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          const float4 p = p4[n * kWg + tid];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = pv[e] * (s[n][e] - stat[n][e & 1]) * a.scale;
+        }
+        named_arrive(kPFree + buf, 2 * kWg);
+      }
+      ++np;
+
+      // dv += p^T . dO or dk += ds^T . q: A from registers, B MN-major
+      uint32_t pa[NQ / 2][4];
+#pragma unroll
+      for (int kc = 0; kc < NQ / 2; ++kc) pack_a(pa[kc], s, kc);
+      const uint32_t v_at = dv_group ? do_at : q_at;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < NQ / 2; ++kc)
+        wgmma_rs<1>(acc, pa[kc], wgmma_desc(v_at + kc * 16 * kHalfRow, kQHalf, kSbo));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    if (++stage == S::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  // the dK group's last arrival on each p buffer used is matched by a wait
+  if (dv_group)
+    for (int i = 0; i < min(np, 2); ++i) named_sync(kPFree + i, 2 * kWg);
+
+  const size_t kv_rs = static_cast<size_t>(a.Hk) * D;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dv_group ? a.dv : a.dk) +
+                       static_cast<size_t>(b) * a.Sk * kv_rs + kh * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] > k_last) continue;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      store2(out + key[i] * kv_rs + d * 8 + 2 * t, acc[d][2 * i], acc[d][2 * i + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_bwd_dkv_kernel(const Args a, const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo) {
+  using S = DkvSmem<D>;
+  S& sm = smem_as<S>();
+  // key blocks fastest (the blocks in flight share few heads' Q/dO in L2);
+  // causal: the first key blocks see the most query rows, and go first
+  const int kh = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kDkvKeys;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&sm.full[s], 32);
+      mbar_init(&sm.empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / kWg, 0);
+  if (wg == 0) {
+    reg_dealloc<kProducerRegs>();
+    if (__shfl_sync(kFull, static_cast<int>(threadIdx.x) / 32, 0) == 0)
+      dkv_producer<D>(sm, a, &tq, &tk, &tv, &tdo, b, kh, k0);
+  } else {
+    reg_alloc<kConsumerRegs>();
+    dkv_consumer<D>(sm, a, b, kh, k0, wg - 1);
+  }
+}
+
 enum Which { kFwd, kDq, kDkv };
 
+// the cp.async + mma.sync / FMA kernels: fp32 forward and dk/dv, and dq
 template <typename T, int D>
-int launch(Which which, const Args& a, cudaStream_t stream) {
+int launch_mma(Which which, const Args& a, cudaStream_t stream) {
   const dim3 block(kThreads);
   void (*kernel)(const Args);
   size_t smem;
   dim3 grid;
   if (which == kFwd) {
-    kernel = flash_fwd_kernel<T, D>;
-    smem = fwd_smem<T, D>();
+    kernel = flash_fwd_fp32_kernel<D>;
+    smem = fwd_smem<float, D>();
     grid = dim3((a.Sq + kRows - 1) / kRows, a.H, a.B);
   } else if (which == kDq) {
     kernel = flash_bwd_dq_kernel<T, D>;
     smem = dq_smem<T, D>();
     grid = dim3((a.Sq + kRows - 1) / kRows, a.H, a.B);
   } else {
-    kernel = flash_bwd_dkv_kernel<T, D>;
-    smem = dkv_smem<T, D>();
+    kernel = flash_bwd_dkv_fp32_kernel<D>;
+    smem = dkv_smem<float, D>();
     grid = dim3((a.Sk + kRows - 1) / kRows, a.Hk, a.B);
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -648,15 +1289,58 @@ int launch(Which which, const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// shared memory the launch asks for: the storage plus room to align it
+template <typename S>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(S) + 1024);
+}
+static_assert(smem_bytes<FwdSmem<128>>() <= 232448 && smem_bytes<DkvSmem<128>>() <= 232448,
+              "over the 227 KB of shared memory a block may have");
+
+// the bf16 forward and dk/dv: tensor maps built here, one block of three
+// warpgroups per 128 query rows (forward) or 64 keys (dk/dv)
+template <int D>
+int launch_tma(Which which, const Args& a, cudaStream_t stream) {
+  if (a.Sq == 0 || a.Sk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, tdo;
+  const int rows_q = which == kFwd ? kBlockRows : kDkvRows;
+  const int rows_kv = which == kFwd ? kFwdKeys : kDkvKeys;
+  int err = make_map(&tq, a.q, a.B, a.Sq, a.H, D, rows_q);
+  if (err == 0) err = make_map(&tk, a.k, a.B, a.Sk, a.Hk, D, rows_kv);
+  if (err == 0) err = make_map(&tv, a.v, a.B, a.Sk, a.Hk, D, rows_kv);
+  if (err == 0 && which == kDkv) err = make_map(&tdo, a.dout, a.B, a.Sq, a.H, D, rows_q);
+  if (err != 0) return err;
+  const dim3 block(kTmaThreads);
+  if (which == kFwd) {
+    const int smem = smem_bytes<FwdSmem<D>>();
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.Sq + kBlockRows - 1) / kBlockRows, a.H, a.B);
+    flash_fwd_kernel<D><<<grid, block, smem, stream>>>(a, tq, tk, tv);
+  } else {
+    const int smem = smem_bytes<DkvSmem<D>>();
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.Sk + kDkvKeys - 1) / kDkvKeys, a.Hk, a.B);
+    flash_bwd_dkv_kernel<D><<<grid, block, smem, stream>>>(a, tq, tk, tv, tdo);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int dispatch(Which which, const Args& a, int D, int dtype, void* stream) {
   if (a.B <= 0 || a.Hk <= 0 || a.H % a.Hk != 0 || a.Sq < 0 || a.Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((which == kDkv ? a.Sk : a.Sq) == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<float, 64>(which, a, s);
-  if (dtype == 0 && D == 128) return launch<float, 128>(which, a, s);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(which, a, s);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(which, a, s);
+  const bool tma = dtype == 1 && which != kDq;
+  if (tma && D == 64) return launch_tma<64>(which, a, s);
+  if (tma && D == 128) return launch_tma<128>(which, a, s);
+  if (dtype == 0 && D == 64) return launch_mma<float, 64>(which, a, s);
+  if (dtype == 0 && D == 128) return launch_mma<float, 128>(which, a, s);
+  if (dtype == 1 && D == 64) return launch_mma<__nv_bfloat16, 64>(which, a, s);
+  if (dtype == 1 && D == 128) return launch_mma<__nv_bfloat16, 128>(which, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,9 +8,12 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled on its own with
 into a shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). The library name carries
 a hash of its source and of the ``csrc`` headers it includes
-(``mma_common.cuh``), so an edited source or header is never served by
-a stale build. Builds happen at first use — never at import — and
-:func:`build_all` starts every ``nvcc`` at once.
+(``mma_common.cuh``, ``sm90_common.cuh``), so an edited source or header
+is never served by a stale build. No library links ``libcuda``: the
+flash kernels' TMA tensor maps are encoded through the driver entry
+point the CUDA runtime hands out (``cudaGetDriverEntryPoint``). Builds
+happen at first use — never at import — and :func:`build_all` starts
+every ``nvcc`` at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when it is not 0 (a launch the card refuses never

@@ -34,11 +34,17 @@ from . import build
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain"]
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain",
+           "flash_attention_fwd_tiled", "flash_attention_bwd_dkv_tiled"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)          # csrc/flash_attention.cu dispatch
+# the bf16 kernels' tiles (csrc/flash_attention.cu kBlockRows, kFwdKeys,
+# kFwdSub, kDkvKeys, kDkvRows): forward blocks of 128 query rows walk
+# 128-key tiles as 64-key sub-tiles; dk/dv blocks of 64 keys walk 64-row
+# query tiles
+_FWD_ROWS, _FWD_KEYS, _FWD_SUB, _DKV_KEYS, _DKV_ROWS = 128, 128, 64, 64, 64
 
 
 # ---------------------------------------------------------------------------
@@ -141,12 +147,154 @@ def flash_attention_bwd_dkv_plain(q, k, v, seg_q, seg_k, out, lse, dout,
 
 
 # ---------------------------------------------------------------------------
+# CPU emulations of the bf16 kernels' tilings
+# ---------------------------------------------------------------------------
+
+def _tiles_meeting(ids, starts, width, lo, hi):
+    """The tile starts whose ids ``[t, t + width)`` can meet ``[lo, hi]``:
+    the kernels' segment skip (``next_tile``), the TPU version's
+    ``_seg_overlap``."""
+    return [t for t in starts
+            if ids[t:t + width].max() >= lo and ids[t:t + width].min() <= hi]
+
+
+def _fwd_key_tiles(Sq, Sk, q0, causal, seg_q_row, seg_k_row):
+    """The forward producer's key-tile starts for the block of query rows
+    from ``q0``: up to the causal limit of its last row, tiles whose
+    segments cannot meet the block's skipped."""
+    last = min(q0 + _FWD_ROWS, Sq)
+    k_end = min(Sk, last + Sk - Sq) if causal else Sk
+    starts = range(0, k_end, _FWD_KEYS)
+    if seg_q_row is None:
+        return list(starts)
+    ids = seg_q_row[q0:last]
+    return _tiles_meeting(seg_k_row, starts, _FWD_KEYS, ids.min(), ids.max())
+
+
+def _dkv_query_steps(Sq, Sk, k0, G, causal, seg_q_row, seg_k_row):
+    """The dk/dv producer's steps ``(head in the group, first row)`` for the
+    block of keys from ``k0``: for each of the G query heads, the 64-row
+    tiles from the first row that sees any of its keys, segment-skipped."""
+    first = (max(0, k0 - (Sk - Sq)) if causal else 0) // _DKV_ROWS * _DKV_ROWS
+    starts = range(first, Sq, _DKV_ROWS)
+    if seg_q_row is not None:
+        ids = seg_k_row[k0:min(k0 + _DKV_KEYS, Sk)]
+        starts = _tiles_meeting(seg_q_row, starts, _DKV_ROWS, ids.min(),
+                                ids.max())
+    return [(g, i0) for g in range(G) for i0 in starts]
+
+
+def _tile_visible(i, j, off, causal, seg_q_row, seg_k_row):
+    """[len(i), len(j)] bool for query rows ``i`` and keys ``j``."""
+    vis = torch.ones((len(i), len(j)), dtype=torch.bool)
+    if causal:
+        vis &= j[None, :] <= i[:, None] + off
+    if seg_q_row is not None:
+        vis &= seg_q_row[i][:, None] == seg_k_row[j][None, :]
+    return vis
+
+
+def flash_attention_fwd_tiled(q, k, v, seg_q, seg_k, scale, causal):
+    """What the bf16 forward kernel computes, tile by tile, on the CPU: blocks
+    of 128 query rows (heaviest first), each over the producer's key tiles
+    (:func:`_fwd_key_tiles`) taken as 64-key sub-tiles, with an fp32 online
+    softmax per sub-tile; ``p`` is rounded to the inputs' dtype before
+    ``p . v``. Returns (out in q's dtype, lse
+    ``[B, H, Sq]`` fp32), as :func:`flash_attention_fwd_plain`."""
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G, off = H // Hk, Sk - Sq
+    out = torch.zeros((B, Sq, H, D))
+    lse = torch.zeros((B, H, Sq))
+    for q0 in reversed(range(0, Sq, _FWD_ROWS)):
+        i = torch.arange(q0, min(q0 + _FWD_ROWS, Sq))
+        for b in range(B):
+            sq_row = None if seg_q is None else seg_q[b]
+            sk_row = None if seg_k is None else seg_k[b]
+            qt = q[b, i].float().transpose(0, 1)                  # [H, r, D]
+            m = torch.full((H, len(i)), _NEG_INF)
+            l = torch.zeros((H, len(i)))
+            acc = torch.zeros((H, len(i), D))
+            subs = [k1 for k0 in _fwd_key_tiles(Sq, Sk, q0, causal, sq_row,
+                                                sk_row)
+                    for k1 in range(k0, min(k0 + _FWD_KEYS, Sk), _FWD_SUB)]
+            for k1 in subs:
+                j = torch.arange(k1, min(k1 + _FWD_SUB, Sk))
+                kt, vt = (_expand(x[b:b + 1, j], G)[0].transpose(0, 1)
+                          for x in (k, v))                        # [H, c, D]
+                s = (qt @ kt.transpose(1, 2)) * scale
+                s = s.masked_fill(~_tile_visible(i, j, off, causal, sq_row,
+                                                 sk_row), _NEG_INF)
+                mx = torch.maximum(m, s.amax(dim=-1))
+                alpha = torch.exp(m - mx)
+                p = torch.exp(s - mx[..., None]).masked_fill(
+                    s <= _NEG_INF / 2, 0.0)
+                l = l * alpha + p.sum(dim=-1)
+                m = mx
+                acc = acc * alpha[..., None] + p.to(q.dtype).float() @ vt
+            safe = torch.where(l == 0, torch.ones_like(l), l)
+            out[b, i] = (acc / safe[..., None]).transpose(0, 1)
+            lse[b, :, i] = torch.where(l == 0, m, m + torch.log(safe))
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_dkv_tiled(q, k, v, seg_q, seg_k, out, lse, dout,
+                                  scale, causal):
+    """What the bf16 dk/dv kernel computes, tile by tile, on the CPU: blocks
+    of 64 keys, each over the producer's steps (:func:`_dkv_query_steps`:
+    G heads x 64-row query tiles), ``p^T`` from ``lse``, ``ds^T = p^T (dp^T
+    - delta) scale``, both rounded to the inputs' dtype before their
+    products, dk and dv summed in fp32 over the steps. Returns (dk, dv), as
+    :func:`flash_attention_bwd_dkv_plain`."""
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G, off = H // Hk, Sk - Sq
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    dk = torch.zeros((B, Sk, Hk, D))
+    dv = torch.zeros((B, Sk, Hk, D))
+    for b in range(B):
+        sq_row = None if seg_q is None else seg_q[b]
+        sk_row = None if seg_k is None else seg_k[b]
+        for k0 in range(0, Sk, _DKV_KEYS):
+            j = torch.arange(k0, min(k0 + _DKV_KEYS, Sk))
+            kt, vt = (x[b, j].float().transpose(0, 1) for x in (k, v))
+            dk_acc = torch.zeros((Hk, len(j), D))
+            dv_acc = torch.zeros((Hk, len(j), D))
+            for g, i0 in _dkv_query_steps(Sq, Sk, k0, G, causal, sq_row,
+                                          sk_row):
+                i = torch.arange(i0, min(i0 + _DKV_ROWS, Sq))
+                heads = torch.arange(Hk) * G + g
+                qt, dot = (x[b, i][:, heads].float().transpose(0, 1)
+                           for x in (q, dout))                    # [Hk, r, D]
+                st = (kt @ qt.transpose(1, 2)) * scale            # [Hk, c, r]
+                vis = _tile_visible(i, j, off, causal, sq_row, sk_row).T
+                st = st.masked_fill(~vis, _NEG_INF)
+                pt = torch.exp(st - lse[b][heads][:, i][:, None, :]) \
+                    .masked_fill(st <= _NEG_INF / 2, 0.0)
+                dpt = vt @ dot.transpose(1, 2)
+                dst = pt * (dpt - delta[b][heads][:, i][:, None, :]) * scale
+                dv_acc += pt.to(q.dtype).float() @ dot
+                dk_acc += dst.to(q.dtype).float() @ qt
+            dk[b, j] = dk_acc.transpose(0, 1)
+            dv[b, j] = dv_acc.transpose(0, 1)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
+def _aligned(t):
+    """``t`` contiguous with its data on a 16-byte boundary, as TMA reads
+    it: a view that starts off the boundary (a storage offset) is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _cuda_operands(q, k, v, seg_q, seg_k):
     """Check what the kernels take; returns (q, k, v, seg_q, seg_k)
-    contiguous (segments as int32)."""
+    contiguous, q/k/v 16-byte aligned (:func:`_aligned`), segments as
+    int32."""
     B, Sq, H, D = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != B \
             or k.shape[3] != D or H % k.shape[2]:
@@ -169,7 +317,7 @@ def _cuda_operands(q, k, v, seg_q, seg_k):
     if seg_q is not None:
         seg_q = seg_q.to(torch.int32).contiguous()
         seg_k = seg_k.to(torch.int32).contiguous()
-    return q.contiguous(), k.contiguous(), v.contiguous(), seg_q, seg_k
+    return _aligned(q), _aligned(k), _aligned(v), seg_q, seg_k
 
 
 def _ptr(t):
@@ -206,7 +354,7 @@ def _bwd_operands(q, k, v, seg_q, seg_k, out, lse, dout):
     rowsum(dO * O) [B, H, Sq]`` fp32, computed outside the kernels as in
     the TPU version (from the saved ``out`` in its own dtype)."""
     q, k, v, seg_q, seg_k = _cuda_operands(q, k, v, seg_q, seg_k)
-    dout = dout.to(q.dtype).contiguous()
+    dout = _aligned(dout.to(q.dtype))
     delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2) \
         .contiguous()
     return q, k, v, seg_q, seg_k, dout, lse.contiguous(), delta

@@ -209,15 +209,27 @@ def test_engine_kernel_path_matches_gather_path(dev):
 
 def _flash_case(rng, dev, dtype, B, Sq, Sk, H, Hk, D, segs):
     """q, k, v, dout on the card, and segment ids: None, "packed" (3
-    segments per row, Sq == Sk) or "cross" (a query segment with no key)."""
+    segments per row, Sq == Sk), "edges" (3 segments cut on 128-key tile
+    edges), "cross" (a query segment with no key) or "offset" (no segments;
+    q, k and v views whose data start one element past a 16-byte
+    boundary)."""
     t = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
          .to(dtype).to(dev)
          for s in ((B, Sq, H, D), (B, Sk, Hk, D), (B, Sk, Hk, D),
                    (B, Sq, H, D))]
+    if segs == "offset":
+        for i in range(3):
+            buf = torch.empty(t[i].numel() + 1, dtype=dtype, device=dev)
+            buf[1:].copy_(t[i].flatten())
+            t[i] = buf[1:].view(t[i].shape)
+            assert t[i].data_ptr() % 16 != 0
     seg_q = seg_k = None
     if segs == "packed":
         cuts = np.sort(rng.choice(np.arange(1, Sq), (B, 2)), axis=1)
         seg_q = (np.arange(Sq)[None, :, None] >= cuts[:, None, :]).sum(-1)
+        seg_k = seg_q
+    elif segs == "edges":
+        seg_q = np.arange(Sq)[None] // 128 * np.ones((B, 1), np.int64)
         seg_k = seg_q
     elif segs == "cross":
         seg_q = np.where(np.arange(Sq)[None] < Sq // 3, 9, 1) * np.ones(
@@ -251,6 +263,9 @@ def _rel_errors(got, want):
     (True, 1, 70, 150, 8, 2, None),        # bottom-right causal, Sq < Sk
     (True, 2, 128, 128, 4, 2, "packed"),
     (False, 2, 48, 96, 4, 2, "cross"),     # fully masked query rows
+    (True, 1, 200, 333, 8, 2, None),       # several ragged tiles, GQA 8/2
+    (True, 1, 384, 384, 4, 2, "edges"),    # segments cut on tile edges
+    (True, 1, 130, 130, 4, 2, "offset"),   # operands off 16-byte alignment
 ])
 def test_flash_attention_matches_plain(dev, dtype, D, causal, B, Sq, Sk, H,
                                        Hk, segs):
@@ -263,7 +278,8 @@ def test_flash_attention_matches_plain(dev, dtype, D, causal, B, Sq, Sk, H,
     scale = 1.0 / D ** 0.5
     n0 = (flash_attention.launches, flash_attention.launches_bwd_dq,
           flash_attention.launches_bwd_dkv)
-    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    # (detach keeps an "offset" view where it starts)
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
     out, lse = flash_attention_with_lse(qq, kk, vv, causal=causal,
                                         segment_ids=seg_q,
                                         kv_segment_ids=seg_k)
@@ -292,6 +308,24 @@ def test_flash_attention_matches_plain(dev, dtype, D, causal, B, Sq, Sk, H,
         assert fro <= fro_tol and row <= row_tol, (fro, row)
     lse_err = (lse - ref_lse).abs().max().item()
     assert lse_err <= (1e-3 if dtype == torch.bfloat16 else 1e-4), lse_err
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dkv_same_bits_twice(dev, D):
+    # dk/dv: GQA summed in registers in a fixed order, no atomics
+    import importlib
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    rng = np.random.default_rng(D)
+    (q, k, v, do), seg, _ = _flash_case(rng, dev, torch.bfloat16, 2, 300, 300,
+                                        8, 2, D, "packed")
+    scale = 1.0 / D ** 0.5
+    out, lse = FA._fwd_cuda(q, k, v, seg, seg, scale, True)
+    ops = FA._bwd_operands(q, k, v, seg, seg, out, lse, do)
+    first = FA._dkv_cuda(ops, scale, True)
+    second = FA._dkv_cuda(ops, scale, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
 
 
 def test_flash_attention_refuses_what_the_kernels_do_not_take(dev):

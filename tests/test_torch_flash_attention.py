@@ -12,7 +12,16 @@ reduce in fp32 in different orders, so at fp32: out and lse atol = rtol =
 sides). The bf16 case checks dtypes (out and dq bf16, dk / dv the input
 dtype, lse fp32) and values at 3e-2: both round every output to bf16 once,
 after fp32 arithmetic in different orders.
+
+The CPU emulations of the bf16 kernels' tilings (``flash_attention_fwd_tiled``,
+``flash_attention_bwd_dkv_tiled``: the producers' tile sequences with the
+causal limit and the segment skip, online softmax per key tile) are held to
+the JAX kernels at fp32, atol = rtol = 1e-5, on ragged lengths, GQA, packed
+segments cut inside and on tile edges, and query segments with no key.
 """
+
+import importlib
+
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +32,8 @@ import torch
 from paddle_tpu.kernels.flash_attention import \
     flash_attention_with_lse as jax_flash
 from paddle_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd_plain, flash_attention_fwd_plain,
+    flash_attention, flash_attention_bwd_dkv_tiled, flash_attention_bwd_plain,
+    flash_attention_fwd_plain, flash_attention_fwd_tiled,
     flash_attention_with_lse)
 
 torch.set_num_threads(2)
@@ -176,3 +186,82 @@ def test_errors_match_jax(Sq, Sk, kw):
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         **tkw))
     assert got == want
+
+
+def _segs(lens_per_row, ids_per_row=None):
+    """[B, S] int32 ids: row b has segments of the given lengths."""
+    rows = []
+    for n, lens in enumerate(lens_per_row):
+        ids = ids_per_row[n] if ids_per_row else range(len(lens))
+        rows.append(np.repeat(np.asarray(list(ids)), lens))
+    return np.asarray(rows, np.int32)
+
+
+# tiles: forward 128 query rows x 128 keys, dk/dv 64 keys x 64 query rows
+TILED_CASES = {
+    # ragged lengths (no multiple of either tile), GQA, causal Sq < Sk
+    "ragged-gqa": dict(B=2, Sq=200, Sk=333, H=4, Hk=2, causal=True),
+    # packed, cuts on tile edges (128, 256, 320) and inside (200, 300)
+    "packed-edges": dict(B=2, Sq=384, Sk=384, H=4, Hk=2, causal=True,
+                         seg=_segs([[128, 72, 120, 64], [64, 192, 44, 84]])),
+    # query segment 7 has no key; key blocks whose ids meet no query tile
+    "no-visible-key": dict(B=2, Sq=192, Sk=320, H=4, Hk=4, causal=False,
+                           seg=_segs([[64, 64, 64], [100, 92]],
+                                     [[0, 7, 1], [1, 7]]),
+                           kv_seg=_segs([[100, 220], [320]], [[0, 1], [1]])),
+}
+
+
+@pytest.mark.parametrize("name", list(TILED_CASES))
+def test_tiled_emulations_match_jax(name):
+    c = dict(TILED_CASES[name])
+    seg, kv_seg = c.pop("seg", None), c.pop("kv_seg", None)
+    B, Sq, Sk, H, Hk, causal = (c[n] for n in ("B", "Sq", "Sk", "H", "Hk",
+                                                "causal"))
+    q, k, v, do = _inputs(Sq + Sk, B, Sq, Sk, H, Hk, 16)
+
+    def f(q, k, v):
+        o, lse = jax_flash(q, k, v, causal=causal, block_q=Sq, block_k=Sk,
+                           segment_ids=seg, kv_segment_ids=kv_seg)
+        return (o * do).sum(), (o, lse)
+
+    (_, (o, lse)), (_, dk, dv) = jax.value_and_grad(
+        f, argnums=(0, 1, 2), has_aux=True)(*map(jnp.asarray, (q, k, v)))
+
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    sq = None if seg is None else torch.from_numpy(seg)
+    sk = sq if kv_seg is None else torch.from_numpy(kv_seg)
+    scale = 1.0 / 4.0
+    got_o, got_lse = flash_attention_fwd_tiled(tq, tk, tv, sq, sk, scale,
+                                               causal)
+    got_dk, got_dv = flash_attention_bwd_dkv_tiled(
+        tq, tk, tv, sq, sk, got_o, got_lse, tdo, scale, causal)
+    for got, want in ((got_o, o), (got_lse, lse), (got_dk, dk),
+                      (got_dv, dv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+    if name == "no-visible-key":
+        masked = seg == 7
+        assert (got_o.numpy()[masked] == 0).all()
+        assert (got_lse.numpy().transpose(0, 2, 1)[masked]
+                == np.float32(-1e30)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_operands_copy_misaligned_views(dtype):
+    # TMA reads each operand from a 16-byte boundary: a view whose storage
+    # offset puts it off the boundary is copied, an aligned one is not
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    shape = (1, 8, 2, 64)
+    n = int(np.prod(shape))
+    buf = torch.randn(n + 8).to(dtype)
+    aligned, off = buf[:n].view(shape), buf[1:n + 1].view(shape)
+    assert aligned.data_ptr() % 16 == 0 and off.data_ptr() % 16 != 0
+    q, k, v, _, _ = FA._cuda_operands(off, aligned, off, None, None)
+    assert q.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+    assert torch.equal(q, off) and torch.equal(v, off)
+    assert k.data_ptr() == aligned.data_ptr()
+    lse = torch.zeros((1, 2, 8))
+    ops = FA._bwd_operands(aligned, aligned, aligned, None, None, aligned,
+                           lse, off)
+    assert ops[5].data_ptr() % 16 == 0 and torch.equal(ops[5], off)
