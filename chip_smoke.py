@@ -28,14 +28,17 @@ Phases (each fails the run on any error; none catches and carries on):
    packed segments per row; causal with Sq 1024 < Sk 2048): the public
    ``flash_attention_with_lse`` and its gradient against the plain
    forward and backward (norm-relative error over the whole tensor and
-   per row), dk/dv the same bits on two runs, then the forward, backward
-   dq and backward dk/dv kernels timed alone beside their plain versions,
-   ``scaled_dot_product_attention`` and the bound, with the TFLOP/s each
-   reached and its share of the bound.
+   per row), dq and dk/dv each the same bits on two runs, the route one
+   dq launch took by the C launcher's counts (``wgmma``: the bf16
+   kernel; ``fma``: the fp32 one; every case here must take ``wgmma``),
+   then the forward, backward dq and backward dk/dv kernels timed alone
+   beside their plain versions, ``scaled_dot_product_attention`` and the
+   bound, with the TFLOP/s each reached and its share of the bound.
 8. Training at full width, bf16: the same model with ``use_kernels`` and
    full remat, B 8 x S 2048, AdamW at lr 1e-4: one warm-up step, then
    timed steps (step time, tokens/s, MFU, peak memory, launches per step)
-   and one profiled step (device busy share, top kernels).
+   and one profiled step (device busy share, top kernels, and the device
+   ms of each port kernel, ``flash_bwd_dq`` among them).
 9. Training parity at fp32 on the card (hidden 512, 8 heads, 4 kv heads,
    4 layers, B 2 x S 512): the flash kernels against the plain attention
    on the loss, every gradient leaf and 3 AdamW steps' losses.
@@ -47,10 +50,13 @@ Phases (each fails the run on any error; none catches and carries on):
     each against its plain version (bf16 within one bf16 step, fp32
     ``out``/``dx`` within 1e-5 x max|ref|, ``dw`` within 1e-4 x max|dw|,
     ``dw`` the same bits on two runs), then timed beside the plain version,
-    ``torch.nn.functional.rms_norm`` and the bound.
+    ``torch.nn.functional.rms_norm`` and the bound. Each RMSNorm forward
+    prints the route its launch took by the C launcher's counts
+    (``registers`` or ``two_pass``); (a) and (c) must take ``registers``,
+    and (c) is timed with each row over 1, 2, 4 and 8 warps.
 11. Phase 8 with ``use_fused_norm=True``: every norm through the RMSNorm
-    kernels and the q/k RoPE through the RoPE kernel; the same metrics,
-    printed beside phase 8's.
+    kernels and the q/k RoPE through the RoPE kernel; the same metrics
+    (``rms_norm_fwd`` device ms among them), printed beside phase 8's.
 12. Parity at fp32 with ``use_fused_norm`` on against off: phase 9's
     training config (loss, every gradient leaf, 3 AdamW steps' losses)
     and phase 6's serving model (one ``paged_prefill`` plus one
@@ -165,6 +171,19 @@ def read_counts():
     owners = _count_owners()
     return {name + attr[len("launches"):]: getattr(owners[name], attr)
             for name, attr in _COUNTS}
+
+
+def route_taken(counts, fn):
+    """The route whose launch count ``counts()`` ({route: launches}, as a
+    kernel wrapper counts them) one call of ``fn`` raised; None unless
+    exactly one did."""
+    import torch
+    before = dict(counts())
+    fn()
+    torch.cuda.synchronize()
+    after = counts()
+    moved = [r for r in after if after[r] != before[r]]
+    return moved[0] if len(moved) == 1 else None
 
 
 def bound(nbytes, flops, kind):
@@ -549,13 +568,22 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
               + (k.numel() + v.numel()) * item}
     errs["dkv"] = {key: max(errs["dk"][key], errs["dv"][key])
                    for key in errs["dk"]}
-    # dk/dv sum the GQA group in registers in a fixed order: the same bits
-    # on two runs
+    # dk/dv sum the GQA group in registers in a fixed order, and each dq
+    # block owns its rows: the same bits on two runs
     dkv1, dkv2 = FA._dkv_cuda(ops, scale, causal), FA._dkv_cuda(ops, scale,
                                                                  causal)
     check(all(torch.equal(a, b) for a, b in zip(dkv1, dkv2)),
           f"{name}: dk/dv differ between two runs")
+    check(torch.equal(FA._dq_cuda(ops, scale, causal),
+                      FA._dq_cuda(ops, scale, causal)),
+          f"{name}: dq differs between two runs")
     del dkv1, dkv2
+    dq_route = route_taken(lambda: FA.flash_attention
+                           .launches_bwd_dq_by_route,
+                           lambda: FA._dq_cuda(ops, scale, causal))
+    log(f"  {name}: dq route {dq_route}")
+    check(dq_route == "wgmma", f"{name}: bf16 dq took route {dq_route}, "
+          f"not wgmma")
     rows = {}
     for which, _, _ in FLASH_KERNELS:
         ms, plain_ms, lib_ms = times[which]
@@ -564,6 +592,7 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
         work = flops[which] * D * pairs
         b_ms, b_by = bound(nbytes[which], work, "bf16")
         rows[which] = {"case": name, **errs[which], "ms": ms,
+                       **({"route": dq_route} if which == "dq" else {}),
                        "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "tflops": work / ms / 1e9,
@@ -573,7 +602,7 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
             f"{100 * b_ms / ms:.1f} % of bound)  plain {plain_ms:.4f} ms  "
             f"sdpa {'bwd ' if which != 'fwd' else ''}{lib_ms:.4f} ms  bound "
             f"{b_ms:.4f} ms ({b_by})")
-    log(f"  {name}: dk/dv the same bits on two runs")
+    log(f"  {name}: dq and dk/dv each the same bits on two runs")
     return rows
 
 
@@ -611,14 +640,17 @@ def hold(name, got, ref, fp32_rel):
 
 def norm_case(name, n, d, x_dtype, w_dtype, backward, seed):
     """One RMSNorm case: the public ``rms_norm`` Function (and its
-    gradient) against the plain forward (and backward), then the kernels
-    timed alone beside the plain versions and
+    gradient) against the plain forward (and backward), the forward's
+    route, then the kernels timed alone beside the plain versions and
     ``torch.nn.functional.rms_norm`` (its autograd backward for the
     backward; the weight cast to x's dtype first, which that call needs).
-    Returns {"fwd": row[, "bwd": row]}."""
+    Where the plan takes the register route, the two-pass kernel is held
+    to the plain forward on the same input and timed beside it. Returns
+    {"fwd": row[, "bwd": row]}."""
     import importlib
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.device import sm_count
     RN = importlib.import_module("paddle_tpu_torch.kernels.rms_norm")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -642,6 +674,12 @@ def norm_case(name, n, d, x_dtype, w_dtype, backward, seed):
     wl = w.to(x_dtype)
     xl, wlg = (t.detach().requires_grad_(True) for t in (x, wl))
     lib_out = F.rms_norm(xl, (d,), wlg, eps)
+    route = route_taken(lambda: RN.rms_norm.launches_by_route,
+                        lambda: RN._fwd_cuda(x, w, eps))
+    plan = RN._fwd_plan(n, d, x_dtype, True, sm_count(dev))
+    check(route == plan.route, f"{name}: forward took route {route}, its "
+          f"plan {plan}")
+    log(f"  {name} fwd: route {route} {plan}")
     ix, iw = x.element_size(), w.element_size()
     # bytes: every input read once, every output written once; operations:
     # fp32, 4 per element forward (x*x, its sum, *rstd, *w), 9 backward
@@ -666,6 +704,25 @@ def norm_case(name, n, d, x_dtype, w_dtype, backward, seed):
         log(f"  {name} {which}: max_abs_err {r['max_abs_err']:.3g}  kernel "
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  F.rms_norm "
             f"{r['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    rows["fwd"]["route"] = route
+    # a practical floor beside the bound: PyTorch's copy of x, the bytes of
+    # x read and out written
+    rows["fwd"]["copy_ms"] = cuda_ms(lambda: x.clone())
+    log(f"  {name} fwd: x.clone() {rows['fwd']['copy_ms']:.4f} ms")
+    # both forward routes' rstd, and the two-pass kernel (the route of
+    # other row lengths and alignments) on this input, held and timed
+    alts = {route: None}
+    if route == "registers":
+        alts["two_pass"] = RN._FwdPlan("two_pass", vec=True)
+    for alt_route, alt in alts.items():
+        got, got_rstd = RN._fwd_cuda(x, w, eps, alt)
+        hold(f"{name} {alt_route} out", got, ref_out, 1e-5)
+        hold(f"{name} {alt_route} rstd", got_rstd, rstd, 1e-5)
+    if route == "registers":
+        rows["fwd"]["two_pass_ms"] = cuda_ms(
+            lambda: RN._fwd_cuda(x, w, eps, alts["two_pass"]))
+        log(f"  {name} fwd: two-pass kernel {rows['fwd']['two_pass_ms']:.4f}"
+            f" ms, held to plain")
     return rows
 
 
@@ -726,11 +783,11 @@ def train_flops_per_step(cfg, batch, seq):
                           + 6 * cfg.num_hidden_layers * cfg.hidden_size * seq)
 
 
-# the port's kernels by the names the profiler prints
-# (paged attention and the int8 matmul: every route's kernels summed)
+# the port's kernels by the names the profiler prints (paged attention, the
+# int8 matmul, dq and the RMSNorm forward: every route's kernels summed)
 PORT_KERNELS = ("paged_attention", "weight_only_matmul",
-                "flash_fwd_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel", "rms_norm_fwd_kernel",
+                "flash_fwd_kernel", "flash_bwd_dq",
+                "flash_bwd_dkv_kernel", "rms_norm_fwd",
                 "rms_norm_bwd_kernel", "rms_norm_dw_kernel", "rope_kernel")
 
 
@@ -847,6 +904,10 @@ def train_phase(steps=4, batch=8, seq=2048, **cfg_kw):
     prof = profile_device(lambda: step(params, opt, ids, ids),
                           "training step", top=10)
     m["profile"] = prof
+    port = prof.get("port_kernels_ms", {})
+    log(f"  device ms in the profiled step: flash_bwd_dq "
+        f"{port.get('flash_bwd_dq')}, rms_norm_fwd "
+        f"{port.get('rms_norm_fwd')}")
     return m, counts
 
 
@@ -1158,6 +1219,9 @@ def main() -> int:
                        seed=32),
              norm_case("(c) decode bf16 x, fp32 w, n=8 d=2048", 8, 2048, bf,
                        f32, False, seed=33)]
+    for i in (0, 2):
+        check(norms[i]["fwd"]["route"] == "registers",
+              f"RMSNorm forward case {i}: route {norms[i]['fwd']['route']}")
     ropes = (rope_case("q bf16 [8,2048,16,128]", 8, 2048, 16, 128, seed=34)
              + rope_case("GQA k bf16 [2,2048,8,128]", 2, 2048, 8, 128,
                          seed=35))

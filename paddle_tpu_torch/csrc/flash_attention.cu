@@ -27,16 +27,16 @@
 // rate, and the softmax's scalar work (an exp per score) has to hide behind
 // them.
 //
-// Three routes:
-//  * bf16 forward and dk/dv (flash_fwd_kernel, flash_bwd_dkv_kernel): wgmma
-//    fed by TMA through an mbarrier ring, the helpers in sm90_common.cuh.
-//    A block is three warpgroups: one producer warp issues every TMA load
-//    (128-byte swizzle, rows past S zero-filled by TMA) into a ring of
-//    stages, each with a "full" barrier (transaction bytes) and an "empty"
-//    one (one arrival per consumer warp), and writes beside each stage the
-//    tile's start (-1: no more tiles) after the causal limit and the
-//    segment skip, so consumers never recompute the sequence; two consumer
-//    warpgroups run the products.
+// Two routes:
+//  * bf16 (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
+//    wgmma fed by TMA through an mbarrier ring, the helpers in
+//    sm90_common.cuh. A block is three warpgroups: one producer warp issues
+//    every TMA load (128-byte swizzle, rows past S zero-filled by TMA) into a
+//    ring of stages, each with a "full" barrier (transaction bytes) and an
+//    "empty" one (one arrival per consumer warp), and writes beside each
+//    stage the tile's start (-1: no more tiles) after the causal limit and
+//    the segment skip, so consumers never recompute the sequence; two
+//    consumer warpgroups run the products.
 //      Forward: 128 query rows per block, 64 per consumer; 128-key K/V
 //    stages (2; 3 at D 64), each taken as two 64-key sub-tiles, so s (32 registers)
 //    sits beside o (64) and no wgmma chain is serialised: with 128-key
@@ -48,6 +48,15 @@
 //    short. Query tiles are
 //    the fastest grid dimension, heaviest first within a head, so the
 //    blocks in flight share few heads' K/V in L2.
+//      dq: the forward's block, grid and key-tile sequence (the same
+//    producer), with dO loaded once beside Q. Per 64-key sub-tile a
+//    consumer computes s = q . k^T and dp = dO . v^T (two commit groups, so
+//    p is computed while dp's products run), p = 2^(s scale log2e - lse
+//    log2e), ds = p (dp - delta) in registers, and dq += ds . k with ds from
+//    registers (bf16) and K read MN-major from the same stage, as the
+//    forward reads V. s, dp (32 registers each) and dq (64 at D 128) fit the
+//    168. scale multiplies dq once, in the epilogue. Each block owns its dq
+//    rows: no atomics, the same bits on every run.
 //      dk/dv: 64 keys per block, K and V loaded once; 64-row (Q, dO) tiles
 //    of every query head of the group from the first row that sees the
 //    block, 3 stages, lse and delta loaded by the producer one step ahead.
@@ -58,21 +67,17 @@
 //    dK warpgroup computes dp^T = v . dO^T, ds^T, and sums dk += ds^T . q.
 //    GQA is folded in registers and no atomics are used: dk and dv are the
 //    same bits on every run. Key blocks are the fastest grid dimension.
-//  * fp32 forward and dk/dv (flash_fwd_fp32_kernel, flash_bwd_dkv_fp32_
-//    kernel): the full-fp32 parity paths, FMA loops (wgmma on fp32 would
-//    be TF32).
-//  * dq, both dtypes (flash_bwd_dq_kernel), and the fp32 kernels: one
-//    block of 4 warps per 64-row tile walking 32-key (32-row) tiles
-//    double-buffered with cp.async; each warp owns 16 rows and every
-//    product is one of two warp-level forms in mma.sync's m16n8
-//    accumulator layout (row g = lane/4 and g + 8, columns 2*(lane%4) +
-//    {0, 1} of each 8-wide tile):
+//  * fp32 (flash_fwd_fp32_kernel, flash_bwd_dq_fp32_kernel,
+//    flash_bwd_dkv_fp32_kernel): the full-fp32 parity paths (wgmma on fp32
+//    would be TF32). One block of 4 warps per 64-row (fwd, dq) or 64-key
+//    (dk/dv) tile walks 32-row tiles of the other side double-buffered with
+//    cp.async; each warp owns 16 rows and every product is one of two
+//    warp-level FMA forms in mma.sync's m16n8 accumulator layout (row g =
+//    lane/4 and g + 8, columns 2*(lane%4) + {0, 1} of each 8-wide tile):
 //      gemm_abt: acc[16 x N] += A[16 x K] . B[N x K]^T  (both K-contiguous),
 //      gemm_pb:  acc[16 x N] += P[16 x K] . B[K x N]    (P in accumulator
-//                registers, B N-contiguous),
-//    mma.sync.m16n8k16 for bf16 (mma_common.cuh), fp32 FMA loops for fp32.
-//    Shared rows are padded by 16 bytes so ldmatrix rows fall in distinct
-//    banks.
+//                registers, B N-contiguous).
+//    Shared rows are padded by 16 bytes.
 // Every route masks ragged edges itself and takes any S; a tile wholly
 // visible (inside the causal limit, no ragged edge, no segments) skips the
 // per-element mask; with segments on, a tile whose id range cannot meet
@@ -110,19 +115,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-// e^x. For bf16 inputs through exp2f (a multiply, then the
-// special-function unit): the accurate expf takes several more
-// instructions per score, and its extra accuracy is far below bf16's
-// rounding. fp32 inputs keep expf, as the plain versions do.
-template <typename T>
-__device__ __forceinline__ float exp_of(float x);
-template <>
-__device__ __forceinline__ float exp_of<float>(float x) { return expf(x); }
-template <>
-__device__ __forceinline__ float exp_of<__nv_bfloat16>(float x) {
-  return exp2f(x * kLog2e);
-}
 
 template <int NT, int K>
 __device__ __forceinline__ void gemm_abt(float (&acc)[NT][4], const float* A,
@@ -339,13 +331,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fp32_kernel(const Args a) 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = quad_max(mx[i]);
-      alpha[i] = exp_of<T>(m[i] - mx[i]);
+      alpha[i] = expf(m[i] - mx[i]);
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = s[n][e] <= kMaskedBelow ? 0.f : exp_of<T>(s[n][e] - mx[e >> 1]);
+        const float p = s[n][e] <= kMaskedBelow ? 0.f : expf(s[n][e] - mx[e >> 1]);
         s[n][e] = p;
         rsum[e >> 1] += p;
       }
@@ -385,8 +377,9 @@ constexpr size_t dq_smem() {
          2 * kKeys * sizeof(int);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_fp32_kernel(const Args a) {
+  using T = float;
   constexpr int LD = row_ld<T, D>();
   constexpr int NT = kKeys / 8, DT = D / 8;
   constexpr int kTile = kKeys * LD;
@@ -469,7 +462,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = s[n][e] <= kMaskedBelow ? 0.f : exp_of<T>(s[n][e] - lse[e >> 1]);
+        const float p = s[n][e] <= kMaskedBelow ? 0.f : expf(s[n][e] - lse[e >> 1]);
         s[n][e] = p * (dp[n][e] - delta[e >> 1]) * a.scale;  // ds
       }
     gemm_pb<NT, DT>(dq, s, k_s, LD);
@@ -599,7 +592,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fp32_kernel(const Args
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int il = nn * 8 + 2 * t + (e & 1);
-        s[nn][e] = s[nn][e] <= kMaskedBelow ? 0.f : exp_of<T>(s[nn][e] - lse_s[il]);  // p^T
+        s[nn][e] = s[nn][e] <= kMaskedBelow ? 0.f : expf(s[nn][e] - lse_s[il]);  // p^T
       }
     gemm_pb<NQ, DT>(dv, s, do_s, LD);                         // dv += p^T . dO
     gemm_abt<NQ, D>(dp, v_s + warp * 16 * LD, LD, do_s, LD);  // dp^T = v . dO^T
@@ -651,7 +644,23 @@ constexpr uint32_t kSbo = 8 * kHalfRow;   // 8-row swizzle atom
 template <int D>
 struct FwdSmem {
   static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr bool kDout = false;  // no dO tile beside Q
   alignas(1024) __nv_bfloat16 q[kBlockRows * D];
+  alignas(1024) __nv_bfloat16 k[kStages][kFwdKeys * D];
+  alignas(1024) __nv_bfloat16 v[kStages][kFwdKeys * D];
+  int segk[kStages][kFwdKeys];
+  int kstart[kStages];  // the stage's first key, -1: no more tiles
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+
+// dq: the forward's ring with dO beside Q. At D 128: Q 32 KB + dO 32 KB +
+// 2 stages x (K 32 + V 32) KB = 192 KB.
+template <int D>
+struct DqSmem {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr bool kDout = true;
+  alignas(1024) __nv_bfloat16 q[kBlockRows * D];
+  alignas(1024) __nv_bfloat16 dout[kBlockRows * D];
   alignas(1024) __nv_bfloat16 k[kStages][kFwdKeys * D];
   alignas(1024) __nv_bfloat16 v[kStages][kFwdKeys * D];
   int segk[kStages][kFwdKeys];
@@ -709,18 +718,20 @@ __device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, int rows,
     tma_load_4d(dst + hf * rows * 64, map, bar, hf * 64, head, row, b);
 }
 
-// The forward's producer (one warp): Q once, then every key tile the block
-// can see, in order, each into the next free stage with its start (and its
-// keys' segment ids) beside it; then a stage whose start is -1.
-template <int D>
-__device__ __forceinline__ void fwd_producer(FwdSmem<D>& sm, const Args& a,
+// The producer of the forward and dq blocks (one warp): Q (and dO, for
+// dq) once, then every key tile the block can see, in order, each into the
+// next free stage with its start (and its keys' segment ids) beside it;
+// then a stage whose start is -1.
+template <typename S, int D>
+__device__ __forceinline__ void key_producer(S& sm, const Args& a,
                                              const CUtensorMap* tq,
+                                             const CUtensorMap* tdo,
                                              const CUtensorMap* tk,
                                              const CUtensorMap* tv, int b,
                                              int h, int q0) {
-  using S = FwdSmem<D>;
   constexpr int kH = D / 64;
   constexpr uint32_t kTileBytes = kFwdKeys * D * 2;
+  constexpr uint32_t kRowBytes = kBlockRows * D * 2;
   const int lane = threadIdx.x & 31;
   const int kh = h / (a.H / a.Hk);
   const int last = min(q0 + kBlockRows, a.Sq);
@@ -728,8 +739,9 @@ __device__ __forceinline__ void fwd_producer(FwdSmem<D>& sm, const Args& a,
   if (lane == 0) {
     tma_prefetch_map(tk);
     tma_prefetch_map(tv);
-    mbar_expect_tx(&sm.q_full, kBlockRows * D * 2);
+    mbar_expect_tx(&sm.q_full, (S::kDout ? 2 : 1) * kRowBytes);
     tma_tile<kH>(sm.q, kBlockRows, tq, &sm.q_full, h, q0, b);
+    if constexpr (S::kDout) tma_tile<kH>(sm.dout, kBlockRows, tdo, &sm.q_full, h, q0, b);
   }
   int qlo = 0, qhi = 0;
   const int* segk = seg ? a.seg_k + static_cast<size_t>(b) * a.Sk : nullptr;
@@ -762,6 +774,20 @@ __device__ __forceinline__ void fwd_producer(FwdSmem<D>& sm, const Args& a,
       phase ^= 1;
     }
   }
+}
+
+// The barriers of a forward or dq block's ring, before any thread uses them
+template <typename S>
+__device__ __forceinline__ void init_key_ring(S& sm) {
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&sm.full[s], 32);      // the producer warp's lanes
+      mbar_init(&sm.empty[s], 8);      // the consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 }
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x, denormals flushed
@@ -964,24 +990,164 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   // L2); within a head, heaviest (last) tile first
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
-  if (threadIdx.x == 0) {
-    mbar_init(&sm.q_full, 1);
-    for (int s = 0; s < S::kStages; ++s) {
-      mbar_init(&sm.full[s], 32);      // the producer warp's lanes
-      mbar_init(&sm.empty[s], 8);      // the consumer warps
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
+  init_key_ring(sm);
   // roles by warpgroup, warp-uniform to the compiler (a shuffle)
   const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / kWg, 0);
   if (wg == 0) {
     reg_dealloc<kProducerRegs>();
     if (__shfl_sync(kFull, static_cast<int>(threadIdx.x) / 32, 0) == 0)
-      fwd_producer<D>(sm, a, &tq, &tk, &tv, b, h, q0);
+      key_producer<S, D>(sm, a, &tq, nullptr, &tk, &tv, b, h, q0);
   } else {
     reg_alloc<kConsumerRegs>();
     fwd_consumer<D>(sm, a, b, h, q0, wg - 1);
+  }
+}
+
+// A dq consumer warpgroup: 64 query rows (c = 0 or 1 of the block) over
+// the producer's key tiles, each as two 64-key sub-tiles. Per sub-tile:
+// s = q . k^T and dp = dO . v^T from shared memory (both K-major), p =
+// 2^(s scale2 - lse2) (0 where masked), ds = p (dp - delta), dq += ds . k
+// with ds from registers (bf16) and the K sub-tile MN-major. dq holds the
+// sum of ds . k; scale multiplies it once, at the end.
+template <int D>
+__device__ __forceinline__ void dq_consumer(DqSmem<D>& sm, const Args& a,
+                                            int b, int h, int q0, int c) {
+  using S = DqSmem<D>;
+  constexpr int NT = kFwdSub / 8, DT = D / 8;
+  constexpr uint32_t kQHalf = kBlockRows * kHalfRow, kKHalf = kFwdKeys * kHalfRow;
+  const int tid = threadIdx.x % kWg, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = a.Sk - a.Sq;
+  const bool seg = a.seg_q != nullptr;
+  const int r0 = q0 + 64 * c;                       // this warpgroup's first row
+  const int r_last = min(r0 + 64, a.Sq) - 1;        // < r0: no row here
+  const int row[2] = {r0 + 16 * w + g, r0 + 16 * w + g + 8};
+  const size_t stat = (static_cast<size_t>(b) * a.H + h) * a.Sq;
+  // keys row r may see: [0, hi[r]] (hi < 0: a row past Sq sees none); its
+  // lse in log2 units and delta
+  int sq[2] = {0, 0}, lo[2] = {0, 0}, hi[2];
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row[i] < a.Sq;
+    hi[i] = !in ? -1 : a.causal ? min(a.Sk - 1, row[i] + off) : a.Sk - 1;
+    if (seg && in) sq[i] = a.seg_q[static_cast<size_t>(b) * a.Sq + row[i]];
+    lse2[i] = in ? a.lse[stat + row[i]] * kLog2e : 0.f;
+    delta[i] = in ? a.delta[stat + row[i]] : 0.f;
+  }
+  const float scale2 = a.scale * kLog2e;
+  float dq[DT][4];
+  zero(dq);
+
+  const uint32_t q_at = smem_addr(sm.q) + 64 * c * kHalfRow;
+  const uint32_t do_at = smem_addr(sm.dout) + 64 * c * kHalfRow;
+  mbar_wait(&sm.q_full, 0);
+  for (int stage = 0, phase = 0;;) {
+    mbar_wait(&sm.full[stage], phase);
+    const int kstart = sm.kstart[stage];
+    if (kstart < 0) break;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = kstart + half * kFwdSub;
+      if (k0 >= a.Sk || r_last < r0 || (a.causal && k0 > r_last + off)) continue;
+      const uint32_t k_at = smem_addr(sm.k[stage]) + half * kFwdSub * kHalfRow;
+      const uint32_t v_at = smem_addr(sm.v[stage]) + half * kFwdSub * kHalfRow;
+      // s = q . k^T, then dp = dO . v^T: A = this warpgroup's 64 rows, B
+      // the key sub-tile, both K-major; one commit group each
+      float s[NT][4], dp[NT][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = (kk >> 2) * kQHalf + (kk & 3) * 32;
+        const uint32_t bt = (kk >> 2) * kKHalf + (kk & 3) * 32;
+        wgmma_ss<0>(s, wgmma_desc(q_at + at, 16, kSbo),
+                    wgmma_desc(k_at + bt, 16, kSbo), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = (kk >> 2) * kQHalf + (kk & 3) * 32;
+        const uint32_t bt = (kk >> 2) * kKHalf + (kk & 3) * 32;
+        wgmma_ss<0>(dp, wgmma_desc(do_at + at, 16, kSbo),
+                    wgmma_desc(v_at + bt, 16, kSbo), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // s is in; dp's products still run
+      fence_acc(s);
+
+      const bool interior = !seg && r0 + 64 <= a.Sq && k0 + kFwdSub <= a.Sk &&
+                            (!a.causal || k0 + kFwdSub - 1 <= r0 + off);
+      if (!interior) mask_tile(s, k0, lo, hi, seg, sq, sm.segk[stage] + half * kFwdSub);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[n][e], scale2, -lse2[e >> 1]));
+          // a row with no visible key has lse -1e30: its masked scores
+          // would give 2^+huge
+          s[n][e] = !interior && s[n][e] <= kMaskedBelow ? 0.f : p;
+        }
+      wgmma_wait<0>();
+      fence_acc(dp);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - delta[e >> 1];  // ds
+
+      // dq += ds . k: A = ds (bf16, registers), B = the key sub-tile MN-major
+      uint32_t pa[NT / 2][4];
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) pack_a(pa[kc], s, kc);
+      fence_acc(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc)
+        wgmma_rs<1>(dq, pa[kc], wgmma_desc(k_at + kc * 16 * kHalfRow, kKHalf, kSbo));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    if (++stage == S::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const size_t q_rs = static_cast<size_t>(a.H) * D;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.dq) +
+                       static_cast<size_t>(b) * a.Sq * q_rs + h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= a.Sq) continue;
+    __nv_bfloat16* orow = out + row[i] * q_rs + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      store2(orow + d * 8, dq[d][2 * i] * a.scale, dq[d][2 * i + 1] * a.scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_bwd_dq_kernel(const Args a, const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo) {
+  using S = DqSmem<D>;
+  S& sm = smem_as<S>();
+  // the forward's order: query tiles fastest, heaviest first within a head
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  init_key_ring(sm);
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / kWg, 0);
+  if (wg == 0) {
+    reg_dealloc<kProducerRegs>();
+    if (__shfl_sync(kFull, static_cast<int>(threadIdx.x) / 32, 0) == 0)
+      key_producer<S, D>(sm, a, &tq, &tdo, &tk, &tv, b, h, q0);
+  } else {
+    reg_alloc<kConsumerRegs>();
+    dq_consumer<D>(sm, a, b, h, q0, wg - 1);
   }
 }
 
@@ -1262,9 +1428,9 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
 enum Which { kFwd, kDq, kDkv };
 
-// the cp.async + mma.sync / FMA kernels: fp32 forward and dk/dv, and dq
-template <typename T, int D>
-int launch_mma(Which which, const Args& a, cudaStream_t stream) {
+// the cp.async + FMA kernels: fp32 forward, dq and dk/dv
+template <int D>
+int launch_fp32(Which which, const Args& a, cudaStream_t stream) {
   const dim3 block(kThreads);
   void (*kernel)(const Args);
   size_t smem;
@@ -1274,8 +1440,8 @@ int launch_mma(Which which, const Args& a, cudaStream_t stream) {
     smem = fwd_smem<float, D>();
     grid = dim3((a.Sq + kRows - 1) / kRows, a.H, a.B);
   } else if (which == kDq) {
-    kernel = flash_bwd_dq_kernel<T, D>;
-    smem = dq_smem<T, D>();
+    kernel = flash_bwd_dq_fp32_kernel<D>;
+    smem = dq_smem<float, D>();
     grid = dim3((a.Sq + kRows - 1) / kRows, a.H, a.B);
   } else {
     kernel = flash_bwd_dkv_fp32_kernel<D>;
@@ -1294,38 +1460,46 @@ template <typename S>
 constexpr int smem_bytes() {
   return static_cast<int>(sizeof(S) + 1024);
 }
-static_assert(smem_bytes<FwdSmem<128>>() <= 232448 && smem_bytes<DkvSmem<128>>() <= 232448,
+static_assert(smem_bytes<FwdSmem<128>>() <= 232448 && smem_bytes<DqSmem<128>>() <= 232448 &&
+                  smem_bytes<DkvSmem<128>>() <= 232448,
               "over the 227 KB of shared memory a block may have");
 
-// the bf16 forward and dk/dv: tensor maps built here, one block of three
-// warpgroups per 128 query rows (forward) or 64 keys (dk/dv)
+// the bf16 kernels: tensor maps built here, one block of three warpgroups
+// per 128 query rows (forward, dq) or 64 keys (dk/dv)
 template <int D>
 int launch_tma(Which which, const Args& a, cudaStream_t stream) {
   if (a.Sq == 0 || a.Sk == 0) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tdo;
-  const int rows_q = which == kFwd ? kBlockRows : kDkvRows;
-  const int rows_kv = which == kFwd ? kFwdKeys : kDkvKeys;
+  const int rows_q = which == kDkv ? kDkvRows : kBlockRows;
+  const int rows_kv = which == kDkv ? kDkvKeys : kFwdKeys;
   int err = make_map(&tq, a.q, a.B, a.Sq, a.H, D, rows_q);
   if (err == 0) err = make_map(&tk, a.k, a.B, a.Sk, a.Hk, D, rows_kv);
   if (err == 0) err = make_map(&tv, a.v, a.B, a.Sk, a.Hk, D, rows_kv);
-  if (err == 0 && which == kDkv) err = make_map(&tdo, a.dout, a.B, a.Sq, a.H, D, rows_q);
+  if (err == 0 && which != kFwd) err = make_map(&tdo, a.dout, a.B, a.Sq, a.H, D, rows_q);
   if (err != 0) return err;
   const dim3 block(kTmaThreads);
+  const dim3 q_grid((a.Sq + kBlockRows - 1) / kBlockRows, a.H, a.B);
+  cudaError_t e;
   if (which == kFwd) {
     const int smem = smem_bytes<FwdSmem<D>>();
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((a.Sq + kBlockRows - 1) / kBlockRows, a.H, a.B);
-    flash_fwd_kernel<D><<<grid, block, smem, stream>>>(a, tq, tk, tv);
+    e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) flash_fwd_kernel<D><<<q_grid, block, smem, stream>>>(a, tq, tk, tv);
+  } else if (which == kDq) {
+    const int smem = smem_bytes<DqSmem<D>>();
+    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      flash_bwd_dq_kernel<D><<<q_grid, block, smem, stream>>>(a, tq, tk, tv, tdo);
   } else {
     const int smem = smem_bytes<DkvSmem<D>>();
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     const dim3 grid((a.Sk + kDkvKeys - 1) / kDkvKeys, a.Hk, a.B);
-    flash_bwd_dkv_kernel<D><<<grid, block, smem, stream>>>(a, tq, tk, tv, tdo);
+    if (e == cudaSuccess)
+      flash_bwd_dkv_kernel<D><<<grid, block, smem, stream>>>(a, tq, tk, tv, tdo);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1334,13 +1508,10 @@ int dispatch(Which which, const Args& a, int D, int dtype, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   if ((which == kDkv ? a.Sk : a.Sq) == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tma = dtype == 1 && which != kDq;
-  if (tma && D == 64) return launch_tma<64>(which, a, s);
-  if (tma && D == 128) return launch_tma<128>(which, a, s);
-  if (dtype == 0 && D == 64) return launch_mma<float, 64>(which, a, s);
-  if (dtype == 0 && D == 128) return launch_mma<float, 128>(which, a, s);
-  if (dtype == 1 && D == 64) return launch_mma<__nv_bfloat16, 64>(which, a, s);
-  if (dtype == 1 && D == 128) return launch_mma<__nv_bfloat16, 128>(which, a, s);
+  if (dtype == 1 && D == 64) return launch_tma<64>(which, a, s);
+  if (dtype == 1 && D == 128) return launch_tma<128>(which, a, s);
+  if (dtype == 0 && D == 64) return launch_fp32<64>(which, a, s);
+  if (dtype == 0 && D == 128) return launch_fp32<128>(which, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

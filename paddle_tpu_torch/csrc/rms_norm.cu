@@ -17,11 +17,27 @@
 // What bounds it on the H100: bytes. A row is read and written once with ~4
 // (forward) or ~10 (backward) fp32 operations per element, far below the
 // ~20 operations per byte where fp32 arithmetic would take over. So the
-// design reads every element with 16-byte loads where the row length and the
-// pointers allow it (a scalar path takes any other d), and keeps the second
-// read of a row (after its reduction) in L1/L2 rather than device memory:
-// one warp owns one row, so the row a warp re-reads is the one it just read.
-// The dw pass re-reads its block's rows from L2 in the column direction.
+// time is set by how many bytes are in flight, and how often.
+//
+// Forward, two routes, picked by the wrapper from the shape and the
+// pointers' alignment (kernels/rms_norm.py _fwd_plan):
+//  * registers (rms_norm_fwd_reg_kernel), for rows of d = 32 V VPL WPR
+//    elements (V per 16-byte vector, VPL <= 8 vectors per lane, WPR warps
+//    per row) on 16-byte-aligned pointers: each lane issues all VPL loads of
+//    its part of the row before any arithmetic, sums squares in VPL
+//    independent partials, and writes out from the same registers, so x is
+//    read from device memory once with a whole row in flight per warp. A
+//    persistent grid (as many blocks as fit on the card) walks the rows, and
+//    each warp keeps its slice of w in registers across them.
+//  * two passes (rms_norm_fwd_kernel), any d: one warp per row reads it
+//    for the sum of squares, then again (from L1/L2) for the output, with
+//    16-byte loads where d and the pointers allow it, else scalar ones.
+// Backward: the two-pass shape, the second read of a row (after its
+// reduction) kept in L1/L2 rather than device memory: one warp owns one
+// row, so the row a warp re-reads is the one it just read. The dw pass
+// re-reads its block's rows from L2 in the column direction.
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,6 +123,72 @@ rms_norm_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     store<TX, V>(orow + c, o);
   }
   if (lane == 0) rstd[row] = r;
+}
+
+// The register route: WPR warps (a group) own a row of d = 32 V VPL WPR
+// elements; lane l of warp k in the group holds the vectors at elements
+// ((j WPR + k) 32 + l) V, j < VPL, so each j is one contiguous span of the
+// row across the group. The group's partial sums meet in shared memory
+// under a named barrier per group (double-buffered by the row's parity,
+// so one barrier per row suffices), added in warp order: every warp of the
+// group gets the same bits. Products round one at a time, as in the
+// two-pass kernel.
+template <typename TX, typename TW, int VPL>
+__global__ void __launch_bounds__(kThreads)
+rms_norm_fwd_reg_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                        TX* __restrict__ out, float* __restrict__ rstd, int n,
+                        int wpr, float eps) {
+  constexpr int V = 16 / sizeof(TX);
+  __shared__ float part[2][kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = kWarps / wpr, grp = warp / wpr, k = warp % wpr;
+  const int d = 32 * V * VPL * wpr;
+  int col[VPL];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) col[j] = ((j * wpr + k) * 32 + lane) * V;
+  float wv[VPL][V];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) load<TW, V>(w + col[j], wv[j]);
+  int parity = 0;
+  for (int row = blockIdx.x * groups + grp; row < n;
+       row += gridDim.x * groups, parity ^= 1) {
+    const TX* xr = x + static_cast<size_t>(row) * d;
+    Pack<TX, V> raw[VPL];
+#pragma unroll
+    for (int j = 0; j < VPL; ++j)
+      raw[j] = *reinterpret_cast<const Pack<TX, V>*>(xr + col[j]);
+    float ss[VPL];
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      ss[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float v = to_f(raw[j].e[i]);
+        ss[j] = __fadd_rn(ss[j], __fmul_rn(v, v));
+      }
+    }
+#pragma unroll
+    for (int st = 1; st < VPL; st *= 2)
+#pragma unroll
+      for (int j = 0; j + st < VPL; j += 2 * st) ss[j] = __fadd_rn(ss[j], ss[j + st]);
+    float sum = warp_sum(ss[0]);
+    if (wpr > 1) {
+      if (lane == 0) part[parity][warp] = sum;
+      asm volatile("bar.sync %0, %1;" :: "r"(1 + grp), "r"(32 * wpr) : "memory");
+      sum = 0.f;
+      for (int i = 0; i < wpr; ++i) sum = __fadd_rn(sum, part[parity][grp * wpr + i]);
+    }
+    const float r = rsqrtf(__fadd_rn(__fdiv_rn(sum, static_cast<float>(d)), eps));
+    TX* orow = out + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      float o[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) o[i] = __fmul_rn(__fmul_rn(to_f(raw[j].e[i]), r), wv[j][i]);
+      store<TX, V>(orow + col[j], o);
+    }
+    if (k == 0 && lane == 0) rstd[row] = r;
+  }
 }
 
 // Block b owns rows [b * rows_per_block, ...): dx one warp per row, then the
@@ -210,6 +292,42 @@ int fwd(const void* x, const void* w, void* out, float* rstd, int n, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TX, typename TW, int VPL>
+int fwd_reg(const void* x, const void* w, void* out, float* rstd, int n,
+            int wpr, int sms, float eps, cudaStream_t st) {
+  const auto kernel = rms_norm_fwd_reg_kernel<TX, TW, VPL>;
+  // the persistent grid: at most as many blocks as fit on the card's `sms`
+  // SMs at once, the occupancy asked once per instantiation
+  static const int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, rms_norm_fwd_reg_kernel<TX, TW, VPL>,
+                                                  kThreads, 0);
+    return std::max(b, 1);
+  }();
+  const int groups = kWarps / wpr;
+  const int blocks = std::min((n + groups - 1) / groups, sms * per_sm);
+  kernel<<<blocks, kThreads, 0, st>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TX*>(out),
+      rstd, n, wpr, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX, typename TW>
+int fwd_reg(const void* x, const void* w, void* out, float* rstd, int n,
+            int vpl, int wpr, int sms, float eps, cudaStream_t st) {
+  switch (vpl) {
+    case 1: return fwd_reg<TX, TW, 1>(x, w, out, rstd, n, wpr, sms, eps, st);
+    case 2: return fwd_reg<TX, TW, 2>(x, w, out, rstd, n, wpr, sms, eps, st);
+    case 3: return fwd_reg<TX, TW, 3>(x, w, out, rstd, n, wpr, sms, eps, st);
+    case 4: return fwd_reg<TX, TW, 4>(x, w, out, rstd, n, wpr, sms, eps, st);
+    case 5: return fwd_reg<TX, TW, 5>(x, w, out, rstd, n, wpr, sms, eps, st);
+    case 6: return fwd_reg<TX, TW, 6>(x, w, out, rstd, n, wpr, sms, eps, st);
+    case 7: return fwd_reg<TX, TW, 7>(x, w, out, rstd, n, wpr, sms, eps, st);
+    case 8: return fwd_reg<TX, TW, 8>(x, w, out, rstd, n, wpr, sms, eps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename TX, typename TW>
 int bwd(const void* x, const void* w, const float* rstd, const void* g,
         void* dx, float* dw_part, void* dw, int n, int d, int rows_per_block,
@@ -240,6 +358,7 @@ int bwd(const void* x, const void* w, const float* rstd, const void* g,
 // x, out, g, dx [n, d]; w, dw [d]; rstd [n] fp32; dw_part [n_blocks, d] fp32
 // scratch with n_blocks = ceil(n / rows_per_block). vec != 0 selects 16-byte
 // loads of x (the caller checks d and the pointers' alignment).
+// rms_norm_fwd_launch is the two-pass forward.
 extern "C" int rms_norm_fwd_launch(const void* x, const void* w, void* out,
                                    void* rstd, int n, int d, float eps,
                                    int x_dtype, int w_dtype, int vec,
@@ -255,6 +374,31 @@ extern "C" int rms_norm_fwd_launch(const void* x, const void* w, void* out,
     return fwd<__nv_bfloat16, float>(x, w, out, r, n, d, eps, vec, st);
   if (x_dtype == 1 && w_dtype == 1)
     return fwd<__nv_bfloat16, __nv_bfloat16>(x, w, out, r, n, d, eps, vec, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The register route: rows of d = 32 * (16 / sizeof(x)) * vpl * wpr
+// elements, 1 <= vpl <= 8, wpr in {1, 2, 4, 8}; x, w and out aligned to 16
+// bytes of x's elements (the caller checks both); sms the card's SM count.
+extern "C" int rms_norm_fwd_reg_launch(const void* x, const void* w, void* out,
+                                       void* rstd, int n, int d, float eps,
+                                       int x_dtype, int w_dtype, int vpl,
+                                       int wpr, int sms, void* stream) {
+  if (n == 0) return 0;
+  const int v = x_dtype == 0 ? 4 : 8;
+  if (vpl < 1 || vpl > 8 || wpr < 1 || wpr > kWarps || kWarps % wpr != 0 ||
+      d != 32 * v * vpl * wpr || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* r = static_cast<float*>(rstd);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0 && w_dtype == 0)
+    return fwd_reg<float, float>(x, w, out, r, n, vpl, wpr, sms, eps, st);
+  if (x_dtype == 0 && w_dtype == 1)
+    return fwd_reg<float, __nv_bfloat16>(x, w, out, r, n, vpl, wpr, sms, eps, st);
+  if (x_dtype == 1 && w_dtype == 0)
+    return fwd_reg<__nv_bfloat16, float>(x, w, out, r, n, vpl, wpr, sms, eps, st);
+  if (x_dtype == 1 && w_dtype == 1)
+    return fwd_reg<__nv_bfloat16, __nv_bfloat16>(x, w, out, r, n, vpl, wpr, sms, eps, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

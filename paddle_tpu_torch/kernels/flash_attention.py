@@ -35,15 +35,16 @@ from . import build
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain",
-           "flash_attention_fwd_tiled", "flash_attention_bwd_dkv_tiled"]
+           "flash_attention_fwd_tiled", "flash_attention_bwd_dq_tiled",
+           "flash_attention_bwd_dkv_tiled"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)          # csrc/flash_attention.cu dispatch
 # the bf16 kernels' tiles (csrc/flash_attention.cu kBlockRows, kFwdKeys,
-# kFwdSub, kDkvKeys, kDkvRows): forward blocks of 128 query rows walk
-# 128-key tiles as 64-key sub-tiles; dk/dv blocks of 64 keys walk 64-row
-# query tiles
+# kFwdSub, kDkvKeys, kDkvRows): forward and dq blocks of 128 query rows
+# walk 128-key tiles as 64-key sub-tiles; dk/dv blocks of 64 keys walk
+# 64-row query tiles
 _FWD_ROWS, _FWD_KEYS, _FWD_SUB, _DKV_KEYS, _DKV_ROWS = 128, 128, 64, 64, 64
 
 
@@ -238,6 +239,46 @@ def flash_attention_fwd_tiled(q, k, v, seg_q, seg_k, scale, causal):
     return out.to(q.dtype), lse
 
 
+def flash_attention_bwd_dq_tiled(q, k, v, seg_q, seg_k, out, lse, dout,
+                                 scale, causal):
+    """What the bf16 dq kernel computes, tile by tile, on the CPU: the
+    forward's blocks of 128 query rows over the forward producer's key
+    tiles (:func:`_fwd_key_tiles`) taken as 64-key sub-tiles; ``p`` from
+    ``lse``, ``ds = p (dp - delta)`` rounded to the inputs' dtype before
+    ``ds . k``, summed in fp32 over the sub-tiles and multiplied by
+    ``scale`` once at the end. Returns dq in q's dtype, as
+    :func:`flash_attention_bwd_dq_plain`."""
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G, off = H // Hk, Sk - Sq
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    dq = torch.zeros((B, Sq, H, D))
+    for q0 in range(0, Sq, _FWD_ROWS):
+        i = torch.arange(q0, min(q0 + _FWD_ROWS, Sq))
+        for b in range(B):
+            sq_row = None if seg_q is None else seg_q[b]
+            sk_row = None if seg_k is None else seg_k[b]
+            qt, dot = (x[b, i].float().transpose(0, 1)
+                       for x in (q, dout))                        # [H, r, D]
+            lse_t, delta_t = lse[b][:, i, None], delta[b][:, i, None]
+            acc = torch.zeros((H, len(i), D))
+            subs = [k1 for k0 in _fwd_key_tiles(Sq, Sk, q0, causal, sq_row,
+                                                sk_row)
+                    for k1 in range(k0, min(k0 + _FWD_KEYS, Sk), _FWD_SUB)]
+            for k1 in subs:
+                j = torch.arange(k1, min(k1 + _FWD_SUB, Sk))
+                kt, vt = (_expand(x[b:b + 1, j], G)[0].transpose(0, 1)
+                          for x in (k, v))                        # [H, c, D]
+                s = (qt @ kt.transpose(1, 2)) * scale
+                s = s.masked_fill(~_tile_visible(i, j, off, causal, sq_row,
+                                                 sk_row), _NEG_INF)
+                p = torch.exp(s - lse_t).masked_fill(s <= _NEG_INF / 2, 0.0)
+                ds = p * (dot @ vt.transpose(1, 2) - delta_t)
+                acc += ds.to(q.dtype).float() @ kt
+            dq[b, i] = (acc * scale).transpose(0, 1)
+    return dq.to(q.dtype)
+
+
 def flash_attention_bwd_dkv_tiled(q, k, v, seg_q, seg_k, out, lse, dout,
                                   scale, causal):
     """What the bf16 dk/dv kernel computes, tile by tile, on the CPU: blocks
@@ -333,6 +374,11 @@ def _entry(name, n_ptrs):
     return lib, fn
 
 
+# csrc/flash_attention.cu's dq route by dtype: the FMA kernel for fp32, the
+# wgmma + TMA kernel for bf16
+_DQ_ROUTE = {torch.float32: "fma", torch.bfloat16: "wgmma"}
+
+
 def _fwd_cuda(q, k, v, seg_q, seg_k, scale, causal):
     q, k, v, seg_q, seg_k = _cuda_operands(q, k, v, seg_q, seg_k)
     B, Sq, H, D = q.shape
@@ -380,6 +426,7 @@ def _dq_cuda(ops, scale, causal):
     build.check(lib, fn(*ptrs, dq.data_ptr(), *tail),
                 "flash_attention backward dq")
     flash_attention.launches_bwd_dq += 1
+    flash_attention.launches_bwd_dq_by_route[_DQ_ROUTE[dq.dtype]] += 1
     return dq
 
 
@@ -440,8 +487,9 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
 
     CUDA tensors launch the kernels: each forward adds one to
     ``flash_attention.launches``, each backward one to
-    ``flash_attention.launches_bwd_dq`` and ``.launches_bwd_dkv``. CPU
-    tensors run the plain versions.
+    ``flash_attention.launches_bwd_dq`` (and to its route's count in
+    ``.launches_bwd_dq_by_route``) and ``.launches_bwd_dkv``. CPU tensors
+    run the plain versions.
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -481,4 +529,5 @@ def flash_attention(q, k, v, causal: bool = False,
 
 flash_attention.launches = 0
 flash_attention.launches_bwd_dq = 0
+flash_attention.launches_bwd_dq_by_route = {"fma": 0, "wgmma": 0}
 flash_attention.launches_bwd_dkv = 0

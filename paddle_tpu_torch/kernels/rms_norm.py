@@ -13,6 +13,12 @@ On CUDA tensors it launches the hand-written kernels of
 ``csrc/rms_norm.cu`` (replacing ``_fwd_kernel`` at ``rms_norm.py:27``,
 call ``:77``, and ``_bwd_kernel`` at ``:35``, call ``:110``): x fp32 or
 bf16, w fp32 or bf16, any row length and row count; anything else raises.
+:func:`_fwd_plan` picks the forward's route from the shape and the
+pointers' alignment before the launch: the register route (the row read
+once into registers, w kept in registers by a persistent grid) where the
+row is a whole number of 16-byte vectors per lane of one to eight warps
+(more warps a row when the rows are too few to give every SM one), the
+two-pass kernel for every other row length or alignment.
 On CPU tensors it runs :func:`rms_norm_fwd_plain` and
 :func:`rms_norm_bwd_plain`: the explicit formulas of the two Pallas
 kernels (the backward is not autograd through the forward), so the CPU
@@ -22,10 +28,12 @@ tests hold the same Function, saved tensors and casts as the card runs.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-from ..device import on_cuda
+from ..device import on_cuda, sm_count
 from . import build
 
 __all__ = ["rms_norm", "rms_norm_fwd_plain", "rms_norm_bwd_plain"]
@@ -69,30 +77,86 @@ def _operands(x, w):
     return x.reshape(-1, d).contiguous(), w.contiguous()
 
 
+def _aligned(x2, *others):
+    """Every pointer on a boundary of one 16-byte chunk of x's elements,
+    counted in its own dtype (32 bytes for an fp32 weight beside bf16 x)."""
+    v = 16 // x2.element_size()
+    return all(t.data_ptr() % (v * t.element_size()) == 0
+               for t in (x2, *others))
+
+
 def _vec(x2, *others):
     """16-byte chunks of x fit when the row length is a whole number of
     chunks and every pointer is aligned to a chunk of its own dtype."""
-    v = 16 // x2.element_size()
-    return x2.shape[1] % v == 0 and all(
-        t.data_ptr() % (v * t.element_size()) == 0 for t in (x2, *others))
+    return x2.shape[1] % (16 // x2.element_size()) == 0 and \
+        _aligned(x2, *others)
 
 
-def _fwd_cuda(x, w, eps):
+# csrc/rms_norm.cu: warps of a block, and the 16-byte vectors of x a lane of
+# the register route holds (32 registers)
+_WARPS, _VPL_MAX = 8, 8
+
+
+class _FwdPlan(NamedTuple):
+    """The forward's route: ``"registers"`` (``vpl`` vectors per lane,
+    ``wpr`` warps per row) or ``"two_pass"`` (16-byte loads when ``vec``)."""
+    route: str
+    vec: bool = False
+    vpl: int = 0
+    wpr: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(n: int, d: int, x_dtype: torch.dtype, aligned: bool,
+              sms: int) -> _FwdPlan:
+    """The register route where the row splits into whole 16-byte vectors
+    of x over the lanes of the fewest warps (1, 2, 4 or 8) that keep each
+    lane at most 8 vectors (bf16 x: d a multiple of 256 up to 16384; fp32
+    x: of 128 up to 8192) and every pointer is aligned (:func:`_aligned`);
+    the two-pass kernel otherwise. While the rows' warps number fewer than
+    the card's ``sms`` (decode: 8 rows), each row spreads over twice the
+    warps, halving the vectors a lane waits for (PERF.md gives the decode
+    shape's times on 1, 2, 4 and 8 warps a row)."""
+    v = 16 // x_dtype.itemsize
+    if aligned and d > 0 and d % (32 * v) == 0:
+        steps = d // (32 * v)           # vectors per lane for one warp
+        wpr = 1
+        while wpr < _WARPS and (steps > wpr * _VPL_MAX or steps % wpr):
+            wpr *= 2
+        if steps % wpr == 0 and steps // wpr <= _VPL_MAX:
+            while wpr < _WARPS and (steps // wpr) % 2 == 0 and n * wpr < sms:
+                wpr *= 2
+            return _FwdPlan("registers", vpl=steps // wpr, wpr=wpr)
+    return _FwdPlan("two_pass", aligned and d % v == 0)
+
+
+def _fwd_cuda(x, w, eps, plan=None):
+    """The forward kernel on x's rows; ``plan`` (a :class:`_FwdPlan`)
+    overrides :func:`_fwd_plan`'s route, for timing one against another."""
     x2, w = _operands(x, w)
     n, d = x2.shape
     out = torch.empty_like(x2)
     rstd = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    sms = sm_count(x.device)
+    if plan is None:
+        plan = _fwd_plan(n, d, x2.dtype, _aligned(x2, w, out), sms)
     lib = build.load("rms_norm")
-    fn = lib.rms_norm_fwd_launch
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x2.data_ptr(), w.data_ptr(), out.data_ptr(), rstd.data_ptr(), n,
+            d, eps, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[w.dtype])
+    if plan.route == "registers":
+        fn = lib.rms_norm_fwd_reg_launch
+        tail = (plan.vpl, plan.wpr, sms)
+    else:
+        fn = lib.rms_norm_fwd_launch
+        tail = (int(plan.vec),)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
-        [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x2.data_ptr(), w.data_ptr(), out.data_ptr(), rstd.data_ptr(), n,
-             d, eps, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[w.dtype],
-             int(_vec(x2, w, out)), stream)
-    build.check(lib, err, "rms_norm forward")
+        [ctypes.c_float] + [ctypes.c_int] * (2 + len(tail)) + \
+        [ctypes.c_void_p]
+    build.check(lib, fn(*args, *tail, stream), "rms_norm forward")
     rms_norm.launches += 1
+    rms_norm.launches_by_route[plan.route] += 1
     return out.reshape(x.shape), rstd
 
 
@@ -149,7 +213,8 @@ class _RMSNorm(torch.autograd.Function):
 def rms_norm(x, weight, eps: float = 1e-6):
     """RMSNorm over the last axis: ``x * rsqrt(mean(x^2) + eps) * weight``
     (``weight [d]``). CUDA tensors launch the kernels: each forward adds one
-    to ``rms_norm.launches``, each backward (its row kernel and the dw
+    to ``rms_norm.launches`` and to its route's count in
+    ``rms_norm.launches_by_route``, each backward (its row kernel and the dw
     reduction) one to ``rms_norm.launches_bwd``. CPU tensors run the plain
     versions."""
     if weight.shape != x.shape[-1:]:
@@ -159,4 +224,5 @@ def rms_norm(x, weight, eps: float = 1e-6):
 
 
 rms_norm.launches = 0
+rms_norm.launches_by_route = {"two_pass": 0, "registers": 0}
 rms_norm.launches_bwd = 0

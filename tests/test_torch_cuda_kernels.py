@@ -311,6 +311,24 @@ def test_flash_attention_matches_plain(dev, dtype, D, causal, B, Sq, Sk, H,
 
 
 @pytest.mark.parametrize("D", [64, 128])
+def test_flash_dq_same_bits_twice(dev, D):
+    # dq: each block owns its rows and sums its key tiles in order, no
+    # atomics
+    import importlib
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    rng = np.random.default_rng(D + 1)
+    (q, k, v, do), seg, _ = _flash_case(rng, dev, torch.bfloat16, 2, 300, 300,
+                                        8, 2, D, "packed")
+    scale = 1.0 / D ** 0.5
+    out, lse = FA._fwd_cuda(q, k, v, seg, seg, scale, True)
+    ops = FA._bwd_operands(q, k, v, seg, seg, out, lse, do)
+    first = FA._dq_cuda(ops, scale, True)
+    second = FA._dq_cuda(ops, scale, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("D", [64, 128])
 def test_flash_dkv_same_bits_twice(dev, D):
     # dk/dv: GQA summed in registers in a fixed order, no atomics
     import importlib
@@ -378,14 +396,21 @@ def _rel_max(got, ref):
             / ref.float().abs().max()).item()
 
 
+# routes (kernels/rms_norm.py _fwd_plan): d = 1030 and 24 take the
+# two-pass kernel; 2048 (one warp per row at bf16, two at fp32), 4096 and
+# 8192 (two to eight warps per row) the register route, the few rows of
+# n = 8 and 40 spread over more warps
 @pytest.mark.parametrize("n,d", [(333, 1030), (333, 2048), (8, 2048),
-                                 (5, 24)])
+                                 (5, 24), (8, 4096), (40, 8192)])
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
 def test_rms_norm_matches_plain(dev, n, d, x_dtype, w_dtype):
+    from paddle_tpu_torch.device import sm_count
     from paddle_tpu_torch.kernels.rms_norm import (
-        rms_norm, rms_norm_bwd_plain, rms_norm_fwd_plain)
+        _fwd_plan, rms_norm, rms_norm_bwd_plain, rms_norm_fwd_plain)
+    route = _fwd_plan(n, d, x_dtype, True, sm_count(dev)).route
+    assert route == ("two_pass" if d in (1030, 24) else "registers")
     rng = np.random.default_rng(n + d)
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
     w = torch.from_numpy(1 + 0.1 * rng.standard_normal(d).astype(np.float32))
@@ -417,6 +442,37 @@ def test_rms_norm_matches_plain(dev, n, d, x_dtype, w_dtype):
     from paddle_tpu_torch.kernels.rms_norm import _bwd_cuda
     assert torch.equal(_bwd_cuda(x, w, rstd, g)[1],
                        _bwd_cuda(x, w, rstd, g)[1])
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_forward_routes_agree(dev, x_dtype):
+    # one aligned input through the register route and through the two-pass
+    # kernel (with and without 16-byte loads), and a view off the 16-byte
+    # boundary, which the plan sends to the two-pass kernel: each within
+    # the rule of test_rms_norm_matches_plain
+    from paddle_tpu_torch.kernels.rms_norm import (
+        _FwdPlan, _aligned, _fwd_cuda, _fwd_plan, rms_norm_fwd_plain)
+    rng = np.random.default_rng(7)
+    n, d = 96, 2048
+    buf = torch.from_numpy(rng.standard_normal(n * d + 1).astype(
+        np.float32)).to(x_dtype).to(dev)
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(d).astype(
+        np.float32)).to(dev)
+    aligned, off = buf[:-1].view(n, d), buf[1:].view(n, d)
+    from paddle_tpu_torch.device import sm_count
+    assert _fwd_plan(n, d, x_dtype, _aligned(off, w),
+                     sm_count(dev)).route == "two_pass"
+    cases = [(aligned, None), (aligned, _FwdPlan("two_pass", vec=True)),
+             (aligned, _FwdPlan("two_pass", vec=False)), (off, None)]
+    for x, plan in cases:
+        out, rstd = _fwd_cuda(x, w, 1e-6, plan)
+        ref, ref_rstd = rms_norm_fwd_plain(x, w, 1e-6)
+        torch.cuda.synchronize()
+        assert _rel_max(rstd, ref_rstd) <= 1e-5
+        if x_dtype == torch.bfloat16:
+            assert _bf16_steps(out, ref) <= 1
+        else:
+            assert _rel_max(out, ref) <= 1e-5
 
 
 @pytest.mark.parametrize("D", [64, 128])

@@ -14,10 +14,14 @@ dtype, lse fp32) and values at 3e-2: both round every output to bf16 once,
 after fp32 arithmetic in different orders.
 
 The CPU emulations of the bf16 kernels' tilings (``flash_attention_fwd_tiled``,
-``flash_attention_bwd_dkv_tiled``: the producers' tile sequences with the
-causal limit and the segment skip, online softmax per key tile) are held to
-the JAX kernels at fp32, atol = rtol = 1e-5, on ragged lengths, GQA, packed
-segments cut inside and on tile edges, and query segments with no key.
+``flash_attention_bwd_dq_tiled``, ``flash_attention_bwd_dkv_tiled``: the
+producers' tile sequences with the causal limit and the segment skip,
+online softmax per key tile, dq scaled once at the end) are held to the JAX
+kernels at fp32, atol = rtol = 1e-5, on dense rows, ragged lengths, GQA,
+causal Sq < Sk, packed segments cut inside and on tile edges, and query
+segments with no key: at fp32 the emulations round nothing the JAX kernels
+keep, so the two differ only by the order of fp32 sums (and dq by where the
+scale multiplies, ~1e-7 relative), far inside 1e-5.
 """
 
 import importlib
@@ -32,7 +36,8 @@ import torch
 from paddle_tpu.kernels.flash_attention import \
     flash_attention_with_lse as jax_flash
 from paddle_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd_dkv_tiled, flash_attention_bwd_plain,
+    flash_attention, flash_attention_bwd_dkv_tiled,
+    flash_attention_bwd_dq_tiled, flash_attention_bwd_plain,
     flash_attention_fwd_plain, flash_attention_fwd_tiled,
     flash_attention_with_lse)
 
@@ -197,7 +202,8 @@ def _segs(lens_per_row, ids_per_row=None):
     return np.asarray(rows, np.int32)
 
 
-# tiles: forward 128 query rows x 128 keys, dk/dv 64 keys x 64 query rows
+# tiles: forward and dq 128 query rows x 128 keys, dk/dv 64 keys x 64 query
+# rows
 TILED_CASES = {
     # ragged lengths (no multiple of either tile), GQA, causal Sq < Sk
     "ragged-gqa": dict(B=2, Sq=200, Sk=333, H=4, Hk=2, causal=True),
@@ -209,6 +215,8 @@ TILED_CASES = {
                            seg=_segs([[64, 64, 64], [100, 92]],
                                      [[0, 7, 1], [1, 7]]),
                            kv_seg=_segs([[100, 220], [320]], [[0, 1], [1]])),
+    # dense: whole tiles, every key of every row visible
+    "dense": dict(B=2, Sq=256, Sk=256, H=2, Hk=2, causal=False),
 }
 
 
@@ -225,7 +233,7 @@ def test_tiled_emulations_match_jax(name):
                            segment_ids=seg, kv_segment_ids=kv_seg)
         return (o * do).sum(), (o, lse)
 
-    (_, (o, lse)), (_, dk, dv) = jax.value_and_grad(
+    (_, (o, lse)), (dq, dk, dv) = jax.value_and_grad(
         f, argnums=(0, 1, 2), has_aux=True)(*map(jnp.asarray, (q, k, v)))
 
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
@@ -234,10 +242,12 @@ def test_tiled_emulations_match_jax(name):
     scale = 1.0 / 4.0
     got_o, got_lse = flash_attention_fwd_tiled(tq, tk, tv, sq, sk, scale,
                                                causal)
+    got_dq = flash_attention_bwd_dq_tiled(tq, tk, tv, sq, sk, got_o,
+                                          got_lse, tdo, scale, causal)
     got_dk, got_dv = flash_attention_bwd_dkv_tiled(
         tq, tk, tv, sq, sk, got_o, got_lse, tdo, scale, causal)
-    for got, want in ((got_o, o), (got_lse, lse), (got_dk, dk),
-                      (got_dv, dv)):
+    for got, want in ((got_o, o), (got_lse, lse), (got_dq, dq),
+                      (got_dk, dk), (got_dv, dv)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                    rtol=1e-5)
     if name == "no-visible-key":

@@ -34,6 +34,7 @@ from paddle_tpu_torch.models.llama import _rope
 # the modules (the JAX package's kernels/__init__ exports the functions
 # under the modules' names)
 JR = importlib.import_module("paddle_tpu.kernels.rms_norm")
+RN = importlib.import_module("paddle_tpu_torch.kernels.rms_norm")
 JRope = importlib.import_module("paddle_tpu.kernels.rope")
 
 torch.set_num_threads(2)
@@ -197,3 +198,39 @@ def test_wrappers_refuse_shapes_the_kernels_do_not_take(what, call):
     tc, ts = rope_cos_sin(4, 8)
     with pytest.raises(ValueError, match=what):
         call(tc, ts)
+
+
+@pytest.mark.parametrize("d", [2048, 4096, 8192])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_fwd_plan_takes_the_register_route(d, x_dtype):
+    # aligned rows of the model's widths on a 132-SM H100: each lane holds
+    # at most 8 16-byte vectors of x and the lanes of the row's warps (at
+    # most a block's 8) cover it exactly once; the training step's 16384
+    # rows take the fewest warps that allows, the decode shape's 8 rows
+    # spread over more warps (and no fewer than at 16384 rows)
+    v = 16 // x_dtype.itemsize
+    plans = {n: RN._fwd_plan(n, d, x_dtype, True, 132) for n in (16384, 8)}
+    for plan in plans.values():
+        assert plan.route == "registers", plan
+        assert 1 <= plan.vpl <= 8 and plan.wpr in (1, 2, 4, 8)
+        assert 32 * v * plan.vpl * plan.wpr == d
+    train, decode = plans[16384], plans[8]
+    assert train.vpl == 8 or train.wpr == 1
+    assert decode.wpr == 8 or decode.vpl % 2 == 1
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_fwd_plan_keeps_the_two_pass_route(x_dtype):
+    # d = 1000 is no whole number of 16-byte vectors per lane: the two-pass
+    # kernel, with 16-byte loads (1000 elements are whole vectors)
+    assert RN._fwd_plan(16384, 1000, x_dtype, True, 132) == \
+        RN._FwdPlan("two_pass", vec=True)
+    # a view one element off the buffer's start: the two-pass kernel with
+    # scalar loads
+    buf = torch.zeros(8 * 2048 + 1, dtype=x_dtype)
+    w = torch.ones(2048)
+    view = buf[1:].view(8, 2048)
+    assert RN._aligned(buf[:-1].view(8, 2048), w)
+    assert not RN._aligned(view, w)
+    assert RN._fwd_plan(8, 2048, x_dtype, RN._aligned(view, w), 132) == \
+        RN._FwdPlan("two_pass", vec=False)
