@@ -50,13 +50,19 @@ Phases (each fails the run on any error; none catches and carries on):
     each against its plain version (bf16 within one bf16 step, fp32
     ``out``/``dx`` within 1e-5 x max|ref|, ``dw`` within 1e-4 x max|dw|,
     ``dw`` the same bits on two runs), then timed beside the plain version,
-    ``torch.nn.functional.rms_norm`` and the bound. Each RMSNorm forward
-    prints the route its launch took by the C launcher's counts
-    (``registers`` or ``two_pass``); (a) and (c) must take ``registers``,
-    and (c) is timed with each row over 1, 2, 4 and 8 warps.
+    ``torch.nn.functional.rms_norm`` and the bound, and beside PyTorch
+    calls that move the same bytes: ``x.clone()`` for each forward and
+    RoPE case, ``torch.add(x, g, out=buf)`` for each backward. Each
+    RMSNorm forward and backward prints the route its launch took by the
+    wrapper's counts (``registers`` or ``two_pass``), which must be its
+    plan's; the forward at (a) and (c) and the backward at (a) and (b)
+    must take ``registers``. Beside each of those, the two-pass kernel is
+    held to the plain version and timed on the same input (and the
+    backward on each other split of the row that its registers allow).
 11. Phase 8 with ``use_fused_norm=True``: every norm through the RMSNorm
     kernels and the q/k RoPE through the RoPE kernel; the same metrics
-    (``rms_norm_fwd`` device ms among them), printed beside phase 8's.
+    (``rms_norm_fwd`` and ``rms_norm_bwd`` device ms among them, each
+    summed over its routes' kernels), printed beside phase 8's.
 12. Parity at fp32 with ``use_fused_norm`` on against off: phase 9's
     training config (loss, every gradient leaf, 3 AdamW steps' losses)
     and phase 6's serving model (one ``paged_prefill`` plus one
@@ -680,6 +686,13 @@ def norm_case(name, n, d, x_dtype, w_dtype, backward, seed):
     check(route == plan.route, f"{name}: forward took route {route}, its "
           f"plan {plan}")
     log(f"  {name} fwd: route {route} {plan}")
+    if backward:
+        bwd_route = route_taken(lambda: RN.rms_norm.launches_bwd_by_route,
+                                lambda: RN._bwd_cuda(x, w, rstd, gout))
+        bwd_plan = RN._bwd_plan(n, d, x_dtype, True, sm_count(dev))
+        check(bwd_route == bwd_plan.route, f"{name}: backward took route "
+              f"{bwd_route}, its plan {bwd_plan}")
+        log(f"  {name} bwd: route {bwd_route} {bwd_plan}")
     ix, iw = x.element_size(), w.element_size()
     # bytes: every input read once, every output written once; operations:
     # fp32, 4 per element forward (x*x, its sum, *rstd, *w), 9 backward
@@ -705,10 +718,20 @@ def norm_case(name, n, d, x_dtype, w_dtype, backward, seed):
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  F.rms_norm "
             f"{r['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
     rows["fwd"]["route"] = route
-    # a practical floor beside the bound: PyTorch's copy of x, the bytes of
-    # x read and out written
+    # practical floors beside the bounds, PyTorch calls that move the same
+    # bytes: a copy of x (x read, out written) for the forward, x + g into
+    # a buffer (x and g read, dx written) for the backward
     rows["fwd"]["copy_ms"] = cuda_ms(lambda: x.clone())
     log(f"  {name} fwd: x.clone() {rows['fwd']['copy_ms']:.4f} ms")
+    if backward:
+        buf = torch.empty_like(x)
+        rows["bwd"]["route"] = bwd_route
+        rows["bwd"]["add_ms"] = cuda_ms(lambda: torch.add(x, gout, out=buf))
+        log(f"  {name} bwd: torch.add(x, g, out=buf) "
+            f"{rows['bwd']['add_ms']:.4f} ms")
+        if bwd_route == "registers":
+            bwd_alts(name, rows["bwd"], x, w, rstd, gout, ref_dx, ref_dw,
+                     bwd_plan)
     # both forward routes' rstd, and the two-pass kernel (the route of
     # other row lengths and alignments) on this input, held and timed
     alts = {route: None}
@@ -724,6 +747,34 @@ def norm_case(name, n, d, x_dtype, w_dtype, backward, seed):
         log(f"  {name} fwd: two-pass kernel {rows['fwd']['two_pass_ms']:.4f}"
             f" ms, held to plain")
     return rows
+
+
+def bwd_alts(name, row, x, w, rstd, gout, ref_dx, ref_dw, plan):
+    """Beside a backward on the register route: the two-pass kernel (the
+    route of other row lengths and alignments) and the register route on
+    each other split of the row its registers allow, each held to the
+    plain backward and timed on the same input."""
+    import importlib
+    RN = importlib.import_module("paddle_tpu_torch.kernels.rms_norm")
+    v = 16 // x.element_size()
+    steps = plan.vpl * plan.wpr
+    alts = {"two_pass": RN._BwdPlan("two_pass", vec=True)}
+    for wpr in (1, 2, 4, 8):
+        vpl = steps // wpr
+        if steps % wpr == 0 and vpl * (8 + 2 * v) <= max(RN._BWD_REGS) \
+                and wpr != plan.wpr:
+            alts[f"registers {vpl}x{wpr}"] = RN._BwdPlan("registers", vpl=vpl,
+                                                         wpr=wpr)
+    row["alt_ms"] = {}
+    for label, alt in alts.items():
+        dx, dw = RN._bwd_cuda(x, w, rstd, gout, alt)
+        hold(f"{name} {label} dx", dx, ref_dx, 1e-5)
+        hold(f"{name} {label} dw", dw, ref_dw, 1e-4)
+        row["alt_ms"][label] = cuda_ms(
+            lambda: RN._bwd_cuda(x, w, rstd, gout, alt))
+        log(f"  {name} bwd: {label} (vectors x warps a row) "
+            f"{row['alt_ms'][label]:.4f} ms, held to plain")
+    row["two_pass_ms"] = row["alt_ms"]["two_pass"]
 
 
 def rope_case(name, B, S, H, D, seed):
@@ -765,6 +816,12 @@ def rope_case(name, B, S, H, D, seed):
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
             f"{b_ms:.4f} ms ({b_by})")
         rows.append(r)
+    # a practical floor: PyTorch's copy of x, the bytes of x read and out
+    # written (the tables are small beside them)
+    copy_ms = cuda_ms(lambda: x.clone())
+    for r in rows:
+        r["copy_ms"] = copy_ms
+    log(f"  {name}: x.clone() {copy_ms:.4f} ms")
     return rows
 
 
@@ -784,11 +841,12 @@ def train_flops_per_step(cfg, batch, seq):
 
 
 # the port's kernels by the names the profiler prints (paged attention, the
-# int8 matmul, dq and the RMSNorm forward: every route's kernels summed)
+# int8 matmul, dq and the RMSNorm forward and backward: every route's
+# kernels summed)
 PORT_KERNELS = ("paged_attention", "weight_only_matmul",
                 "flash_fwd_kernel", "flash_bwd_dq",
                 "flash_bwd_dkv_kernel", "rms_norm_fwd",
-                "rms_norm_bwd_kernel", "rms_norm_dw_kernel", "rope_kernel")
+                "rms_norm_bwd", "rms_norm_dw_kernel", "rope_kernel")
 
 
 def profile_device(run, label, top=6):
@@ -907,7 +965,9 @@ def train_phase(steps=4, batch=8, seq=2048, **cfg_kw):
     port = prof.get("port_kernels_ms", {})
     log(f"  device ms in the profiled step: flash_bwd_dq "
         f"{port.get('flash_bwd_dq')}, rms_norm_fwd "
-        f"{port.get('rms_norm_fwd')}")
+        f"{port.get('rms_norm_fwd')}, rms_norm_bwd "
+        f"{port.get('rms_norm_bwd')}, rms_norm_dw_kernel "
+        f"{port.get('rms_norm_dw_kernel')}")
     return m, counts
 
 
@@ -1222,6 +1282,9 @@ def main() -> int:
     for i in (0, 2):
         check(norms[i]["fwd"]["route"] == "registers",
               f"RMSNorm forward case {i}: route {norms[i]['fwd']['route']}")
+    for i in (0, 1):
+        check(norms[i]["bwd"]["route"] == "registers",
+              f"RMSNorm backward case {i}: route {norms[i]['bwd']['route']}")
     ropes = (rope_case("q bf16 [8,2048,16,128]", 8, 2048, 16, 128, seed=34)
              + rope_case("GQA k bf16 [2,2048,8,128]", 2, 2048, 8, 128,
                          seed=35))

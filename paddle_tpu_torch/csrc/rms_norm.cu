@@ -32,10 +32,22 @@
 //  * two passes (rms_norm_fwd_kernel), any d: one warp per row reads it
 //    for the sum of squares, then again (from L1/L2) for the output, with
 //    16-byte loads where d and the pointers allow it, else scalar ones.
-// Backward: the two-pass shape, the second read of a row (after its
-// reduction) kept in L1/L2 rather than device memory: one warp owns one
-// row, so the row a warp re-reads is the one it just read. The dw pass
-// re-reads its block's rows from L2 in the column direction.
+// Backward, two routes, picked the same way (_bwd_plan):
+//  * registers (rms_norm_bwd_reg_kernel), the forward's layout and grid:
+//    each lane issues all VPL loads of x and of g before any arithmetic,
+//    computes the row sum and then dx from the same registers, and adds
+//    g * xhat into an fp32 dw partial that stays in its registers for the
+//    whole walk (its columns are fixed). So x and g are read from device
+//    memory once and dx written once, the backward's least traffic; the
+//    partials meet in shared memory at the end, one row of dw_part per
+//    block. A lane holds x, g (packed), w and dw (fp32): the plan keeps
+//    that within 64 registers (else kBwdRegs) by spreading a row over
+//    more warps.
+//  * two passes (rms_norm_bwd_kernel), any d: one warp owns one row and
+//    reads it twice (the reduction, then dx; the second read from L1/L2),
+//    and the dw pass re-reads its block's rows in the column direction.
+// Both end in rms_norm_dw_kernel, which sums the blocks' partials in a
+// fixed order: dw is the same bits on every run, with no atomics.
 
 #include <algorithm>
 
@@ -91,6 +103,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlices = 8;  // row slices of the dw reduction
+
+// The backward's register route: the most registers a lane's data may
+// take (the plan keeps to 64 where 8 warps a row allow it). Each 16-byte
+// vector of x costs 4 registers packed, and as many of g; its V columns
+// cost V fp32 registers of w and V of the dw partial.
+constexpr int kBwdRegs = 128;
+template <typename TX>
+constexpr int bwd_vpl_max() {
+  return kBwdRegs / (8 + 2 * (16 / static_cast<int>(sizeof(TX))));
+}
 
 // One warp per row. The products round one at a time (__fmul_rn), in the
 // order of the plain formula, so the kernel and its plain version differ
@@ -251,6 +273,110 @@ rms_norm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
+// The backward's register route, on rms_norm_fwd_reg_kernel's layout: a
+// group of wpr warps owns a row of d = 32 V VPL wpr elements, lane l of
+// warp k holding the vectors at ((j wpr + k) 32 + l) V; group grp of block
+// b walks rows b groups + grp + t gridDim.x groups, t = 0, 1, ... Per row:
+// all loads of x and g first, the row sum of (g w) (x rstd) in VPL
+// independent partials (the group's warps meet as in the forward), then dx
+// and dw's partial from the same registers. When the walk ends the groups
+// add their partials in group order through shared memory ([d] floats,
+// dynamic, when there is more than one group) and the block writes row
+// blockIdx.x of dw_part. Products round one at a time, in the plain
+// formula's order, as in the two-pass kernel. The launch bounds' minimum
+// of one block an SM keeps ptxas from capping registers at an occupancy
+// step and spilling (it did at 64, 80 and 128 registers without it).
+template <typename TX, typename TW, int VPL>
+__global__ void __launch_bounds__(kThreads, 1)
+rms_norm_bwd_reg_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                        const float* __restrict__ rstd, const TX* __restrict__ g,
+                        TX* __restrict__ dx, float* __restrict__ dw_part, int n,
+                        int wpr) {
+  constexpr int V = 16 / sizeof(TX);
+  __shared__ float part[2][kWarps];
+  extern __shared__ float dw_meet[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = kWarps / wpr, grp = warp / wpr, k = warp % wpr;
+  const int d = 32 * V * VPL * wpr;
+  int col[VPL];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) col[j] = ((j * wpr + k) * 32 + lane) * V;
+  float wv[VPL][V], dw[VPL][V];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    load<TW, V>(w + col[j], wv[j]);
+#pragma unroll
+    for (int i = 0; i < V; ++i) dw[j][i] = 0.f;
+  }
+  int parity = 0;
+  for (int row = blockIdx.x * groups + grp; row < n;
+       row += gridDim.x * groups, parity ^= 1) {
+    const size_t base = static_cast<size_t>(row) * d;
+    Pack<TX, V> rx[VPL], rg[VPL];
+#pragma unroll
+    for (int j = 0; j < VPL; ++j)
+      rx[j] = *reinterpret_cast<const Pack<TX, V>*>(x + base + col[j]);
+#pragma unroll
+    for (int j = 0; j < VPL; ++j)
+      rg[j] = *reinterpret_cast<const Pack<TX, V>*>(g + base + col[j]);
+    const float r = rstd[row];
+    float acc[VPL];
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      acc[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(__fmul_rn(to_f(rg[j].e[i]), wv[j][i]),
+                                             __fmul_rn(to_f(rx[j].e[i]), r)));
+    }
+#pragma unroll
+    for (int st = 1; st < VPL; st *= 2)
+#pragma unroll
+      for (int j = 0; j + st < VPL; j += 2 * st) acc[j] = __fadd_rn(acc[j], acc[j + st]);
+    float sum = warp_sum(acc[0]);
+    if (wpr > 1) {
+      if (lane == 0) part[parity][warp] = sum;
+      asm volatile("bar.sync %0, %1;" :: "r"(1 + grp), "r"(32 * wpr) : "memory");
+      sum = 0.f;
+      for (int i = 0; i < wpr; ++i) sum = __fadd_rn(sum, part[parity][grp * wpr + i]);
+    }
+    const float m = __fdiv_rn(sum, static_cast<float>(d));
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      float o[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float gv = to_f(rg[j].e[i]);
+        const float xhat = __fmul_rn(to_f(rx[j].e[i]), r);
+        o[i] = __fmul_rn(r, __fsub_rn(__fmul_rn(gv, wv[j][i]), __fmul_rn(xhat, m)));
+        dw[j][i] = __fadd_rn(dw[j][i], __fmul_rn(gv, xhat));
+      }
+      store<TX, V>(dx + base + col[j], o);
+    }
+  }
+  // ((group 0 + group 1) + group 2) + ...: each group in turn adds the sum
+  // so far to its partial, the last writes the block's row
+  for (int q = 0; q + 1 < groups; ++q) {
+    if (grp == q)
+#pragma unroll
+      for (int j = 0; j < VPL; ++j)
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          dw_meet[col[j] + i] = q == 0 ? dw[j][i] : __fadd_rn(dw_meet[col[j] + i], dw[j][i]);
+    __syncthreads();
+  }
+  if (grp == groups - 1) {
+    float* out = dw_part + static_cast<size_t>(blockIdx.x) * d;
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      if (groups > 1)
+#pragma unroll
+        for (int i = 0; i < V; ++i) dw[j][i] = __fadd_rn(dw_meet[col[j] + i], dw[j][i]);
+      store<float, V>(out + col[j], dw[j]);
+    }
+  }
+}
+
 // dw[col] = sum over the n_blocks partials, in a fixed order: 32 columns per
 // block, kSlices warps each summing every kSlices-th partial, then slice 0
 // adds the slices in order.
@@ -352,6 +478,72 @@ int bwd(const void* x, const void* w, const float* rstd, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward register route's operands, down the dispatch over VPL.
+// blocks_out non-null: only ask the grid's size and write it there.
+struct BwdRegArgs {
+  const void* x;
+  const void* w;
+  const float* rstd;
+  const void* g;
+  void* dx;
+  float* dw_part;
+  void* dw;
+  int n, wpr, sms, blocks;
+  int* blocks_out;
+  cudaStream_t st;
+};
+
+template <typename TX, typename TW, int VPL>
+int bwd_reg_run(const BwdRegArgs& a) {
+  const auto kernel = rms_norm_bwd_reg_kernel<TX, TW, VPL>;
+  const int d = 32 * (16 / sizeof(TX)) * VPL * a.wpr;
+  const int groups = kWarps / a.wpr;
+  const size_t meet = groups > 1 ? d * sizeof(float) : 0;
+  if (a.blocks_out) {
+    // the persistent grid: at most as many blocks as fit on the card's
+    // `sms` SMs at once, and no block without a row
+    int per_sm = 0;
+    const int err = static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, meet));
+    if (err) return err;
+    *a.blocks_out = std::min((a.n + groups - 1) / groups, a.sms * std::max(per_sm, 1));
+    return 0;
+  }
+  if (a.n > 0) {
+    kernel<<<a.blocks, kThreads, meet, a.st>>>(
+        static_cast<const TX*>(a.x), static_cast<const TW*>(a.w), a.rstd,
+        static_cast<const TX*>(a.g), static_cast<TX*>(a.dx), a.dw_part, a.n, a.wpr);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+  }
+  rms_norm_dw_kernel<TW><<<(d + 31) / 32, 32 * kSlices, 0, a.st>>>(
+      a.dw_part, a.n > 0 ? a.blocks : 0, d, static_cast<TW*>(a.dw));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX, typename TW, int VPL = 1>
+int bwd_reg(int vpl, const BwdRegArgs& a) {
+  if constexpr (VPL > bwd_vpl_max<TX>()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (vpl == VPL) return bwd_reg_run<TX, TW, VPL>(a);
+    return bwd_reg<TX, TW, VPL + 1>(vpl, a);
+  }
+}
+
+int bwd_reg_any(int x_dtype, int w_dtype, int d, int vpl, const BwdRegArgs& a) {
+  const int v = x_dtype == 0 ? 4 : 8;
+  const int vpl_max = x_dtype == 0 ? bwd_vpl_max<float>() : bwd_vpl_max<__nv_bfloat16>();
+  if (vpl < 1 || vpl > vpl_max || a.wpr < 1 || a.wpr > kWarps || kWarps % a.wpr != 0 ||
+      d != 32 * v * vpl * a.wpr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == 0 && w_dtype == 0) return bwd_reg<float, float>(vpl, a);
+  if (x_dtype == 0 && w_dtype == 1) return bwd_reg<float, __nv_bfloat16>(vpl, a);
+  if (x_dtype == 1 && w_dtype == 0) return bwd_reg<__nv_bfloat16, float>(vpl, a);
+  if (x_dtype == 1 && w_dtype == 1) return bwd_reg<__nv_bfloat16, __nv_bfloat16>(vpl, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. All operands contiguous row-major:
@@ -426,6 +618,36 @@ extern "C" int rms_norm_bwd_launch(const void* x, const void* w,
                                              rows_per_block, n_blocks, vec,
                                              st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward's register route: rows of d = 32 * (16 / sizeof(x)) * vpl *
+// wpr elements, wpr in {1, 2, 4, 8}, 1 <= vpl <= bwd_vpl_max (5 for bf16
+// x, 8 for fp32); x, w, g and dx aligned to 16 bytes of x's elements (the
+// caller checks both); sms the card's SM count. rms_norm_bwd_reg_blocks
+// writes the persistent grid's size to *blocks; rms_norm_bwd_reg_launch
+// takes it, with dw_part [blocks, d] fp32 scratch.
+extern "C" int rms_norm_bwd_reg_blocks(int n, int d, int x_dtype, int w_dtype,
+                                       int vpl, int wpr, int sms, int* blocks) {
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  BwdRegArgs a{};
+  a.n = n;
+  a.wpr = wpr;
+  a.sms = sms;
+  a.blocks_out = blocks;
+  return bwd_reg_any(x_dtype, w_dtype, d, vpl, a);
+}
+
+extern "C" int rms_norm_bwd_reg_launch(const void* x, const void* w,
+                                       const void* rstd, const void* g,
+                                       void* dx, void* dw_part, void* dw,
+                                       int n, int d, int x_dtype, int w_dtype,
+                                       int vpl, int wpr, int blocks,
+                                       void* stream) {
+  if (n > 0 && blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  BwdRegArgs a{x, w, static_cast<const float*>(rstd), g, dx,
+               static_cast<float*>(dw_part), dw, n, wpr, 0, blocks, nullptr,
+               static_cast<cudaStream_t>(stream)};
+  return bwd_reg_any(x_dtype, w_dtype, d, vpl, a);
 }
 
 extern "C" const char* ptt_error_string(int err) {

@@ -396,10 +396,10 @@ def _rel_max(got, ref):
             / ref.float().abs().max()).item()
 
 
-# routes (kernels/rms_norm.py _fwd_plan): d = 1030 and 24 take the
-# two-pass kernel; 2048 (one warp per row at bf16, two at fp32), 4096 and
-# 8192 (two to eight warps per row) the register route, the few rows of
-# n = 8 and 40 spread over more warps
+# routes (kernels/rms_norm.py _fwd_plan, _bwd_plan): d = 1030 and 24 take
+# the two-pass kernels; 2048, 4096 and 8192 the register routes (the
+# forward on one warp per row at bf16 2048, two at fp32; the backward on
+# two or more), the few rows of n = 8 and 40 spread over more warps
 @pytest.mark.parametrize("n,d", [(333, 1030), (333, 2048), (8, 2048),
                                  (5, 24), (8, 4096), (40, 8192)])
 @pytest.mark.parametrize("x_dtype,w_dtype", [
@@ -408,9 +408,11 @@ def _rel_max(got, ref):
 def test_rms_norm_matches_plain(dev, n, d, x_dtype, w_dtype):
     from paddle_tpu_torch.device import sm_count
     from paddle_tpu_torch.kernels.rms_norm import (
-        _fwd_plan, rms_norm, rms_norm_bwd_plain, rms_norm_fwd_plain)
+        _bwd_plan, _fwd_plan, rms_norm, rms_norm_bwd_plain,
+        rms_norm_fwd_plain)
     route = _fwd_plan(n, d, x_dtype, True, sm_count(dev)).route
     assert route == ("two_pass" if d in (1030, 24) else "registers")
+    assert _bwd_plan(n, d, x_dtype, True, sm_count(dev)).route == route
     rng = np.random.default_rng(n + d)
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
     w = torch.from_numpy(1 + 0.1 * rng.standard_normal(d).astype(np.float32))
@@ -418,12 +420,14 @@ def test_rms_norm_matches_plain(dev, n, d, x_dtype, w_dtype):
     x, w = x.to(x_dtype).to(dev), w.to(w_dtype).to(dev)
     g = g.to(x_dtype).to(dev).t()          # a non-contiguous grad_output
     n0 = (rms_norm.launches, rms_norm.launches_bwd)
+    b0 = rms_norm.launches_bwd_by_route[route]
     xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     out = rms_norm(xx, ww, 1e-6)
     out.backward(g)
     torch.cuda.synchronize()
     assert (rms_norm.launches, rms_norm.launches_bwd) == (n0[0] + 1,
                                                           n0[1] + 1)
+    assert rms_norm.launches_bwd_by_route[route] == b0 + 1
     ref_out, rstd = rms_norm_fwd_plain(x, w, 1e-6)
     ref_dx, ref_dw = rms_norm_bwd_plain(x, w, rstd, g)
     assert (out.dtype, xx.grad.dtype, ww.grad.dtype) == (x_dtype, x_dtype,
@@ -473,6 +477,70 @@ def test_rms_norm_forward_routes_agree(dev, x_dtype):
             assert _bf16_steps(out, ref) <= 1
         else:
             assert _rel_max(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_backward_routes_agree(dev, x_dtype):
+    # one aligned input through the register route and through the two-pass
+    # kernel (with and without 16-byte loads), and x or g off the 16-byte
+    # boundary, which the plan sends to the two-pass kernel: each within
+    # the limits of test_rms_norm_matches_plain, dw the same bits twice
+    from paddle_tpu_torch.device import sm_count
+    from paddle_tpu_torch.kernels.rms_norm import (
+        _BwdPlan, _aligned, _bwd_cuda, _bwd_plan, rms_norm_bwd_plain,
+        rms_norm_fwd_plain)
+    rng = np.random.default_rng(8)
+    n, d = 96, 2048
+    bufs = [torch.from_numpy(rng.standard_normal(n * d + 1).astype(
+        np.float32)).to(x_dtype).to(dev) for _ in range(2)]
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(d).astype(
+        np.float32)).to(dev)
+    (x, x_off), (g, g_off) = ((b[:-1].view(n, d), b[1:].view(n, d))
+                              for b in bufs)
+    for xo, go in ((x_off, g), (x, g_off)):
+        assert _bwd_plan(n, d, x_dtype, _aligned(xo, w, go),
+                         sm_count(dev)).route == "two_pass"
+    cases = [(x, g, None), (x, g, _BwdPlan("two_pass", vec=True)),
+             (x, g, _BwdPlan("two_pass", vec=False)), (x_off, g, None),
+             (x, g_off, None)]
+    for xc, gc, plan in cases:
+        _, rstd = rms_norm_fwd_plain(xc, w, 1e-6)
+        dx, dw = _bwd_cuda(xc, w, rstd, gc, plan)
+        ref_dx, ref_dw = rms_norm_bwd_plain(xc, w, rstd, gc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(dx.float()).all()
+        if x_dtype == torch.bfloat16:
+            assert _bf16_steps(dx, ref_dx) <= 1
+        else:
+            assert _rel_max(dx, ref_dx) <= 1e-5
+        assert _rel_max(dw, ref_dw) <= 1e-4
+        assert torch.equal(dw, _bwd_cuda(xc, w, rstd, gc, plan)[1])
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(333, 2048), (40, 4096)])
+def test_rms_norm_backward_register_route_is_its_emulation(dev, x_dtype, n,
+                                                           d):
+    # the kernel rounds every product and sum where rms_norm_bwd_tiled
+    # does, in the same order over the same grid: the same bits
+    from paddle_tpu_torch.device import sm_count
+    from paddle_tpu_torch.kernels.rms_norm import (
+        _DTYPE_CODE, _bwd_cuda, _bwd_plan, _bwd_reg_blocks,
+        rms_norm_bwd_tiled, rms_norm_fwd_plain)
+    rng = np.random.default_rng(n + d)
+    x, g = (torch.from_numpy(rng.standard_normal((n, d)).astype(
+        np.float32)).to(x_dtype).to(dev) for _ in range(2))
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(d).astype(
+        np.float32)).to(dev)
+    _, rstd = rms_norm_fwd_plain(x, w, 1e-6)
+    plan = _bwd_plan(n, d, x_dtype, True, sm_count(dev))
+    assert plan.route == "registers"
+    blocks = _bwd_reg_blocks(n, d, _DTYPE_CODE[x_dtype], 0, plan.vpl,
+                             plan.wpr, sm_count(dev))
+    dx, dw = _bwd_cuda(x, w, rstd, g)
+    want_dx, want_dw = rms_norm_bwd_tiled(x, w, rstd, g, plan, blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
 
 
 @pytest.mark.parametrize("D", [64, 128])

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels.rms_norm import (rms_norm, rms_norm_bwd_plain,
+                                               rms_norm_bwd_tiled,
                                                rms_norm_fwd_plain)
 from paddle_tpu_torch.kernels.rope import (apply_rope, apply_rope_plain,
                                            rope_cos_sin)
@@ -83,6 +84,35 @@ def test_rms_norm_grads_match_jax(shape):
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want_dw),
                                atol=1e-5, rtol=0)
+
+
+# the backward's register route as its CPU emulation runs it (the rows each
+# group walks, each lane's columns, the order of the dw sums) against the
+# JAX backward, at fp32 with atol 1e-5 (the same formulas, the sums in
+# other orders). Rows not divisible by the grid's groups: 21 rows over 2
+# blocks of 8 groups (16 a step) and over 3 (24 groups, 3 without a row);
+# 45 over 5 blocks of 4 groups, 3 of 2, 2 of 4 and 4 of 1; one to eight
+# warps a row, one to eight vectors a lane. The rows stay few: fp32 dw
+# summed over n rows in two orders differs by ~1e-7 n (at 333 rows the
+# plain formula and the JAX kernel differ by 3e-5 in dw).
+@pytest.mark.parametrize("n,d,vpl,wpr,grid", [
+    (21, 256, 2, 1, 2), (21, 1024, 8, 1, 3), (45, 256, 1, 2, 5),
+    (45, 512, 1, 4, 3), (45, 1024, 4, 2, 2), (45, 1024, 1, 8, 4)])
+def test_rms_norm_bwd_tiled_matches_jax(n, d, vpl, wpr, grid):
+    x, w, g = _rms_inputs(n + d + vpl, (n, d))
+    _, vjp = jax.vjp(lambda a, b: JR.rms_norm(a, b, EPS), jnp.asarray(x),
+                     jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    tx, tw, tg = (torch.from_numpy(a) for a in (x, w, g))
+    _, rstd = rms_norm_fwd_plain(tx, tw, EPS)
+    dx, dw = rms_norm_bwd_tiled(tx, tw, rstd, tg,
+                                RN._BwdPlan("registers", vpl=vpl, wpr=wpr),
+                                grid)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), atol=1e-5,
+                               rtol=0)
 
 
 def test_rms_norm_bf16_forward_within_one_bf16_step():
@@ -170,7 +200,8 @@ def test_apply_rope_backward_is_rotation_by_minus_theta():
 
 
 def test_cpu_path_launches_no_kernel():
-    counts = (rms_norm.launches, rms_norm.launches_bwd, apply_rope.launches,
+    counts = (rms_norm.launches, rms_norm.launches_bwd,
+              dict(rms_norm.launches_bwd_by_route), apply_rope.launches,
               apply_rope.launches_bwd)
     x, w, g = (torch.from_numpy(a) for a in _rms_inputs(11, (4, 16)))
     tx = x.clone().requires_grad_(True)
@@ -178,7 +209,8 @@ def test_cpu_path_launches_no_kernel():
     q = torch.from_numpy(_rope_case(12, 1, 4, 2, 8)[0]).requires_grad_(True)
     tc, ts = rope_cos_sin(4, 8)
     apply_rope(q, tc, ts).sum().backward()
-    assert (rms_norm.launches, rms_norm.launches_bwd, apply_rope.launches,
+    assert (rms_norm.launches, rms_norm.launches_bwd,
+            rms_norm.launches_bwd_by_route, apply_rope.launches,
             apply_rope.launches_bwd) == counts
 
 
@@ -234,3 +266,46 @@ def test_fwd_plan_keeps_the_two_pass_route(x_dtype):
     assert not RN._aligned(view, w)
     assert RN._fwd_plan(8, 2048, x_dtype, RN._aligned(view, w), 132) == \
         RN._FwdPlan("two_pass", vec=False)
+
+
+@pytest.mark.parametrize("d", [2048, 4096, 8192])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_bwd_plan_takes_the_register_route(d, x_dtype):
+    # aligned rows of the model's widths on a 132-SM H100, at the training
+    # step's 16384 rows and at 8: the lanes of the row's warps cover it
+    # exactly once, and a lane's x and g (4 registers a 16-byte vector
+    # each) and w and dw (V fp32 registers each) stay within 64 registers,
+    # or within 128 where 8 warps a row cannot keep them to 64; the
+    # training rows take the fewest warps that allows
+    v = 16 // x_dtype.itemsize
+    cost = 8 + 2 * v                    # registers of one vector a lane
+    for n in (16384, 8):
+        plan = RN._bwd_plan(n, d, x_dtype, True, 132)
+        assert plan.route == "registers", plan
+        assert plan.vpl >= 1 and plan.wpr in (1, 2, 4, 8)
+        assert 32 * v * plan.vpl * plan.wpr == d
+        assert plan.vpl * cost <= 64 or (plan.wpr == 8
+                                         and plan.vpl * cost <= 128)
+    train = RN._bwd_plan(16384, d, x_dtype, True, 132)
+    budget = 64 if train.vpl * cost <= 64 else 128
+    assert train.wpr == 1 or 2 * train.vpl * cost > budget
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_bwd_plan_keeps_the_two_pass_route(x_dtype):
+    # d = 1000 is no whole number of 16-byte vectors per lane, and a lane
+    # of d = 16384 would hold more than 128 registers of data on 8 warps:
+    # the two-pass kernel, with 16-byte loads
+    for d in (1000, 16384):
+        assert RN._bwd_plan(16384, d, x_dtype, True, 132) == \
+            RN._BwdPlan("two_pass", vec=True)
+    # x, g or dx one element off the buffer's start: the two-pass kernel
+    # with scalar loads
+    buf = torch.zeros(8 * 2048 + 1, dtype=x_dtype)
+    w = torch.ones(2048)
+    view, good = buf[1:].view(8, 2048), buf[:-1].view(8, 2048)
+    assert RN._aligned(good, w, good, good)
+    for x2, g2 in ((view, good), (good, view)):
+        assert not RN._aligned(x2, w, g2, good)
+    assert RN._bwd_plan(8, 2048, x_dtype, False, 132) == \
+        RN._BwdPlan("two_pass", vec=False)
