@@ -15,7 +15,10 @@ Phases (each fails the run on any error; none catches and carries on):
    with kernel, plain and library-call times and the least time the card
    could take (bound); each case names the route its plan took (and its
    splits). The matmul is held to 1e-2 x max|ref| and to phase 7's
-   norm-relative rule (a dropped K tile can pass a max-abs rule).
+   norm-relative rule (a dropped K tile can pass a max-abs rule). Three of
+   the attention cases are the speculative verify's shape (Q = 5,
+   draft_lens taking every value 0..4): bf16 and int8 pools at 16/16
+   heads (the split route) and GQA 32/8 (the multi-query route).
 4. Serving engine at full width (the 12-layer, hidden-2048 LLaMA the
    repository's TPU benchmark serves; random weights from a seed), bf16,
    default ServingConfig: ~24 greedy requests, half sharing a 64-token
@@ -68,19 +71,49 @@ Phases (each fails the run on any error; none catches and carries on):
     and phase 6's serving model (one ``paged_prefill`` plus one
     ``paged_decode_step``, logits within 1e-3; the fused run must launch
     the RMSNorm forward kernel).
+13. Sampled serving at full width, bf16: phase 4's model and trace with
+    every request at temperature 0.8, top_k 50, top_p 0.95, seed i.
+    Every request ends with its ``max_new_tokens``, no block leaks, a
+    second drain on a fresh engine repeats every stream, and at most half
+    the streams equal phase 4's greedy ones; greedy and sampled drains run
+    in turns (greedy, sampled, sampled, greedy). Then the sampler alone at
+    [8, 32000] and [40, 32000] beside the ``argmax`` it replaces (its
+    kernels' device time and its CUDA-event and wall time), and a
+    profiled sampled drain of phase 4's 8-request profiling trace.
+14. Speculative serving at full width, bf16, ``spec_decode=4,
+    spec_ngram=2``: 24 prompts, half a random segment repeated 2-3 times
+    whose first token is the model's own next token after the prompt
+    (``quoting_prompts``), half a random base plus the model's own greedy
+    stream; outputs of 32-64, stepped at ``decode_chunk`` iterations (a
+    streaming client), beside the same trace with speculation off. At
+    least one verify fires, the multi-query kernel launches at least 12
+    times per verify (one per layer), every request completes, no block
+    leaks; acceptance and the share of equal streams are reported. Where
+    a stream parts between spec on and off, the fp32 logit gap of the two
+    tokens at the first difference must lie within twice the bf16
+    rounding of that row's logits. A drain of 8 of its requests is
+    profiled.
+15. Parity at fp32 on phase 6's model: sampled streams equal between the
+    kernel and gather engines on phase 6's trace; on eight self-quoting
+    prompts, speculation on and off give equal streams, greedy (with at
+    least one verify and one accepted draft) and sampled; then the
+    sampled verify again with drafts that replay the spec-off stream,
+    which must verify, accept every draft and give the same streams.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
 out of the numbers). Kernel launch counters are set to 0 just before each
 main-path run and read just after it: paged attention must have launched
 on both entry points in phase 4, the int8 matmul and the int8-pool
-attention in phase 5. Every timed training step must launch exactly
+attention in phase 5, both attention entry points in phase 13. Every
+timed training step must launch exactly
 what ``expected_launches`` derives: in phase 8 the flash kernels (24
 forward, 12 dq, 12 dk/dv per step: the forward runs again in each
 layer's recompute) and nothing else; in phase 11 also 49 RMSNorm
 forwards (2 per layer, twice, plus the final norm), 25 RMSNorm
 backwards, 48 RoPE forwards (q and k, twice) and 24 RoPE backwards. The
-kernels line reports the serving launches of phases 4 and 5 together,
+kernels line reports the serving launches of phases 4, 5, 13 and 14
+(speculation on) together,
 the flash launches of phase 8 and the RMSNorm and RoPE launches of
 phase 11 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -203,7 +236,11 @@ def bound(nbytes, flops, kind):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def attention_case(name, M, H, Hk, D, bs, W, quant, Q=None, seed=0):
+def attention_case(name, M, H, Hk, D, bs, W, quant, Q=None, seed=0,
+                   every_draft_len=False):
+    """One paged-attention case against its plain version, timed beside
+    SDPA and the bound. ``every_draft_len``: draft_lens cycle through
+    0..Q-1 over the rows (the verify shape), else random."""
     import importlib
     import torch
     import torch.nn.functional as F
@@ -226,8 +263,12 @@ def attention_case(name, M, H, Hk, D, bs, W, quant, Q=None, seed=0):
                            .reshape(M, W).astype(np.int32)).to(dev)
     qspan = 1 if Q is None else Q
     sl_np = rng.integers(0, W * bs - qspan + 1, size=M).astype(np.int32)
-    dl_np = (None if Q is None
-             else rng.integers(0, Q, size=M).astype(np.int32))
+    if Q is None:
+        dl_np = None
+    elif every_draft_len:
+        dl_np = (np.arange(M) % Q).astype(np.int32)
+    else:
+        dl_np = rng.integers(0, Q, size=M).astype(np.int32)
     sl = torch.from_numpy(sl_np).to(dev)
     dl = None if dl_np is None else torch.from_numpy(dl_np).to(dev)
     if quant:
@@ -853,7 +894,9 @@ def profile_device(run, label, top=6):
     """Run ``run()`` under ``torch.profiler``: the wall time, the device
     time of every kernel (CUPTI) and its share of the wall time, the time
     of PyTorch's elementwise kernels and of each of the port's kernels,
-    and the kernels that took the most device time."""
+    the kernels that took the most device time, and the host ops that
+    took the most self CPU time (ms and calls; the profiler's own cost
+    included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -875,6 +918,10 @@ def profile_device(run, label, top=6):
             # one PyTorch kernel template share it
             name = name[:60]
             kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda r: -r[1])[:top]
     busy_ms = sum(kernels.values()) / 1e3
     # PyTorch's own elementwise kernels (casts, norms and RoPE on the plain
     # route, SiLU, AdamW's passes, the CE), summed
@@ -886,7 +933,8 @@ def profile_device(run, label, top=6):
            "port_kernels_ms": {k: kernels[k] / 1e3 for k in PORT_KERNELS
                                if k in kernels},
            "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
-               kernels.items(), key=lambda kv: -kv[1])[:top]}}
+               kernels.items(), key=lambda kv: -kv[1])[:top]},
+           "top_host_ops_ms_calls": {k: [ms, n] for k, ms, n in host}}
     if busy_ms == 0:
         out = {"wall_ms": wall_ms, "device_busy_ms": "not measured "
                "(the profiler saw no device events)"}
@@ -1071,22 +1119,26 @@ def make_trace(n, vocab, seed, long_len=600, lens=(32, 200), outs=(16, 64)):
 
 
 _DRIVE_COUNTERS = ("prefill_dispatches", "decode_dispatches",
-                   "mixed_dispatches", "decode_iters", "chunks", "steps",
-                   "prefix_hit_tokens", "preemptions")
+                   "mixed_dispatches", "spec_dispatches", "decode_iters",
+                   "chunks", "steps", "prefix_hit_tokens", "preemptions",
+                   "spec_drafted", "spec_accepted")
 
 
-def drive(engine, prompts, news):
-    """Submit the whole trace, drain it, return (outputs, metrics). The
-    counters and dispatch times are this drain's alone (the engine may
-    have served a warm-up before)."""
+def drive(engine, prompts, news, knobs=None, max_iters=None):
+    """Submit the whole trace (request i with the submit arguments
+    ``knobs[i]``: sampling knobs and seed), drain it with
+    ``step(max_iters)``, return (outputs, metrics). The counters and
+    dispatch times are this drain's alone (the engine may have served a
+    warm-up before)."""
     import torch
+    knobs = knobs or [{}] * len(prompts)
     st0 = engine.stats()
     torch.cuda.synchronize()
     t0 = time.time()
-    rids = [engine.submit(p, max_new_tokens=m, eos_token_id=None)
-            for p, m in zip(prompts, news)]
+    rids = [engine.submit(p, max_new_tokens=m, eos_token_id=None, **k)
+            for p, m, k in zip(prompts, news, knobs)]
     while engine.pending:
-        engine.step()
+        engine.step(max_iters)
     torch.cuda.synchronize()
     wall = time.time() - t0
     reqs = [engine.request(r) for r in rids]
@@ -1107,20 +1159,368 @@ def drive(engine, prompts, news):
                                       / max(1, d["decode_iters"])),
                "ms_per_mixed_dispatch": (secs["mixed"] * 1e3
                                          / max(1, d["mixed_dispatches"])),
+               "ms_per_spec_dispatch": (secs["spec"] * 1e3
+                                        / max(1, d["spec_dispatches"])),
+               "acceptance": d["spec_accepted"] / max(1, d["spec_drafted"]),
                **d}
     return [np.asarray(r.tokens) for r in reqs], metrics
 
 
-def profile_drain(engine, prompts, news):
-    """Drain a short trace under ``torch.profiler`` (``profile_device``)."""
-    for p, m in zip(prompts, news):
-        engine.submit(p, max_new_tokens=m, eos_token_id=None)
+def profile_drain(engine, prompts, news, knobs=None, max_iters=None):
+    """Drain a short trace under ``torch.profiler`` (``profile_device``),
+    with ``drive``'s ``knobs`` and ``max_iters``."""
+    for p, m, k in zip(prompts, news, knobs or [{}] * len(prompts)):
+        engine.submit(p, max_new_tokens=m, eos_token_id=None, **k)
 
     def drain():
         while engine.pending:
-            engine.step()
+            engine.step(max_iters)
 
     return profile_device(drain, f"drain of {len(prompts)} requests")
+
+
+# ---------------------------------------------------------------------------
+# phases 13-15: sampled and speculative serving
+# ---------------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def sampled_knobs(n):
+    """Request i samples with ``SAMPLED`` and ``seed=i``."""
+    return [dict(SAMPLED, seed=i) for i in range(n)]
+
+
+def sampler_case(B, V, seed):
+    """The per-row sampler at ``[B, V]`` (phase 13's knobs, keys folded
+    on the host beforehand) beside the greedy ``argmax`` it replaces, per
+    call: CUDA-event ms (``cuda_ms``; the sampler's ~200 launches outlast
+    the spin before it, so this includes the host's enqueue), the
+    host's wall ms (enqueue to synchronize, what a decode iteration waits
+    for), and the device time of its kernels alone (CUPTI, summed over 20
+    profiled calls)."""
+    import torch
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.models import generation as G
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lg = torch.randn((B, V), generator=g, device=dev) * 2
+    keys = prng.fold_in(torch.stack([G.seed_key(i) for i in range(B)]),
+                        5).to(dev)
+    temp = torch.full((B,), SAMPLED["temperature"], device=dev)
+    topk = torch.full((B,), SAMPLED["top_k"], dtype=torch.int32, device=dev)
+    topp = torch.full((B,), SAMPLED["top_p"], device=dev)
+
+    def sample():
+        return G.sample_tokens(lg, keys, temp, topk, topp)
+
+    def argmax():
+        return torch.argmax(lg, dim=-1)
+
+    row = {"rows": B, "vocab": V,
+           "sample_event_ms": cuda_ms(sample, iters=20),
+           "argmax_event_ms": cuda_ms(argmax, iters=20)}
+    for name, fn in (("sample_wall_ms", sample), ("argmax_wall_ms", argmax)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn().cpu()
+        row[name] = (time.perf_counter() - t0) * 1e3 / 20
+    for name, fn in (("sample_kernel_ms", sample), ("argmax_kernel_ms",
+                                                    argmax)):
+        prof = profile_device(lambda: [fn() for _ in range(20)],
+                              f"20 calls of {name[:-10]} [{B}, {V}]", top=3)
+        row[name] = prof["device_busy_ms"] / 20
+    log(f"  sampler [{B}, {V}] per call: kernels {row['sample_kernel_ms']:.4f}"
+        f" ms, CUDA events (host enqueue included) "
+        f"{row['sample_event_ms']:.4f} ms, wall {row['sample_wall_ms']:.4f}"
+        f" ms; argmax kernels {row['argmax_kernel_ms']:.4f} ms, events "
+        f"{row['argmax_event_ms']:.4f} ms, wall {row['argmax_wall_ms']:.4f}"
+        f" ms")
+    return row
+
+
+def quoting_prompts(new_engine, vocab, seed, n, tries=8):
+    """``n`` prompts, each a random 24-96-token segment repeated 2-3 times
+    (a prompt that quotes itself, the traffic prompt-lookup decoding
+    serves), whose segment starts with the model's greedy next token
+    after the whole prompt: the model's first token continues the quote,
+    so with ``spec_ngram`` 2 the drafter proposes at the first decode step
+    (random weights do not copy by themselves). Found by a fixed-point
+    search: set the segment's first token to the greedy next token of the
+    prompt and ask again (``new_engine()``: a fresh engine, speculation
+    off), until it stays or ``tries`` run out. Returns (prompts, how many
+    reached their fixed point)."""
+    rng = np.random.default_rng(seed)
+    segs = [rng.integers(0, vocab, size=int(rng.integers(24, 97)))
+            for _ in range(n)]
+    reps = [int(rng.integers(2, 4)) for _ in range(n)]
+    fixed = [False] * n
+    for _ in range(tries):
+        prompts = [np.tile(sg, r).astype(np.int32)
+                   for sg, r in zip(segs, reps)]
+        firsts = new_engine().run(prompts, max_new_tokens=1,
+                                  eos_token_id=None)
+        fixed = [int(sg[0]) == int(f[0]) for sg, f in zip(segs, firsts)]
+        if all(fixed):
+            break
+        for sg, f in zip(segs, firsts):
+            sg[0] = int(f[0])
+    return prompts, sum(fixed)
+
+
+def spec_trace(params, cfg, vocab, seed, n=24):
+    """Phase 14's trace: half self-quoting prompts (``quoting_prompts``),
+    half self-continuation prompts (a random 16-32-token base plus the
+    model's own greedy stream of 32 tokens, computed first with
+    speculation off), interleaved; outputs of 32-64 tokens."""
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+
+    def new_engine():
+        return ServingEngine(params, cfg, ServingConfig(), device="cuda")
+
+    rng = np.random.default_rng(seed)
+    quoting, fixed = quoting_prompts(new_engine, vocab, seed + 1, n // 2)
+    bases = [rng.integers(0, vocab, size=int(rng.integers(16, 33)))
+             .astype(np.int32) for _ in range(n - n // 2)]
+    streams = new_engine().run(bases, max_new_tokens=32, eos_token_id=None)
+    cont = [np.concatenate([b, s]).astype(np.int32)
+            for b, s in zip(bases, streams)]
+    prompts = [p for pair in zip(quoting, cont) for p in pair]
+    news = [int(rng.integers(32, 65)) for _ in prompts]
+    log(f"  trace: {len(quoting)} self-quoting prompts ({fixed} at their "
+        f"fixed point), {len(cont)} self-continuation prompts, prompt "
+        f"lengths {min(map(len, prompts))}-{max(map(len, prompts))}, "
+        f"outputs {min(news)}-{max(news)}")
+    return prompts, news
+
+
+def sampled_phase(params, cfg, prompts, news, greedy):
+    """Phase 13: phase 4's trace drained greedy, sampled, sampled, greedy,
+    each on a fresh engine after phase 4's warm-up request, then a
+    profiled sampled drain of phase 4's profiling trace. Returns (the
+    first sampled drain's metrics, with every drain's tokens/s and ms per
+    decode iteration in turn, the sampler's times and the profile; its
+    launches)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    knobs = sampled_knobs(len(prompts))
+    sampled, turns = [], []
+    for kind in ("greedy", "sampled", "sampled", "greedy"):
+        engine = ServingEngine(params, cfg, ServingConfig(), device="cuda")
+        engine.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+        reset_counts()
+        out, m = drive(engine, prompts, news,
+                       knobs if kind == "sampled" else None)
+        turns.append([kind, m["tok_s"], m["ms_per_decode_step"],
+                      m["ms_per_mixed_dispatch"]])
+        if kind == "sampled":
+            if not sampled:
+                counts, metrics = read_counts(), m
+            sampled.append(out)
+        del engine
+        torch.cuda.empty_cache()
+    check(counts["paged_attention"] - counts["paged_attention_multiquery"] > 0
+          and counts["paged_attention_multiquery"] > 0,
+          f"sampled drain launches {counts}")
+    for i, (a, b) in enumerate(zip(*sampled)):
+        check(np.array_equal(a, b), f"request {i}: sampled stream {a} "
+              f"not repeated on a fresh engine ({b})")
+    same = sum(np.array_equal(a, b) for a, b in zip(sampled[0], greedy))
+    check(same <= len(prompts) // 2,
+          f"{same} of {len(prompts)} sampled streams equal the greedy ones")
+    log(f"  {json.dumps(metrics)}")
+    log(f"  launches: {json.dumps(counts)}")
+    log(f"  streams repeated on a fresh engine; {same} of {len(prompts)} "
+        f"equal to phase 4's greedy streams")
+    log("  in turns [kind, tok/s, ms per decode iteration, ms per mixed "
+        f"dispatch]: {json.dumps(turns)}")
+    metrics["turns"] = turns
+    metrics["sampler"] = [sampler_case(8, cfg.vocab_size, 51),
+                          sampler_case(40, cfg.vocab_size, 52)]
+    engine = ServingEngine(params, cfg, ServingConfig(), device="cuda")
+    engine.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+    fresh = make_trace(8, cfg.vocab_size, SEED + 2)
+    metrics["profile"] = profile_drain(engine, *fresh,
+                                       knobs=sampled_knobs(8))
+    del engine
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
+def divergence_margins(params, cfg, prompts, off, on):
+    """Where bf16 streams with speculation on and off part: for each such
+    stream, the first position j where they differ, the two tokens a
+    (off) and b (on), and at their shared context (prompt + off[:j]) the
+    plain bf16 forward's last logits beside an fp32 forward's on the same
+    bf16-rounded weights. eps = max |l16 - l32| over that row is what
+    bf16 rounding moves a logit there; two routes that each round within
+    eps can pick a over b and b over a only if |l32[a] - l32[b]| <= 2 eps.
+    A larger gap fails the run: it is a fault of the verify or decode
+    route, not rounding. Returns [j, a, b, l32[a] - l32[b], eps, the bf16
+    top-2 gap] per diverging stream."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.models.llama import forward
+    c16 = dataclasses.replace(cfg, use_kernels=False, use_fused_norm=False)
+    c32 = dataclasses.replace(c16, dtype=torch.float32)
+
+    def rounded(t):
+        if isinstance(t, dict):
+            return {k: rounded(v) for k, v in t.items()}
+        return t.to(torch.bfloat16).to(torch.float32)
+
+    p32 = rounded(params)
+    rows = []
+    for p, a_s, b_s in zip(prompts, off, on):
+        if np.array_equal(a_s, b_s):
+            continue
+        j = int(np.argmax(a_s != b_s))
+        ctx = torch.from_numpy(np.concatenate([p, a_s[:j]]).astype(np.int64)
+                               )[None].cuda()
+        with torch.no_grad():
+            l16 = forward(params, ctx, c16)[0, -1].float()
+            l32 = forward(p32, ctx, c32)[0, -1].float()
+        a, b = int(a_s[j]), int(b_s[j])
+        top2 = torch.topk(l16, 2).values
+        rows.append([j, a, b, float(l32[a] - l32[b]),
+                     float((l16 - l32).abs().max()),
+                     float(top2[0] - top2[1])])
+    del p32
+    torch.cuda.empty_cache()
+    log("  diverging streams [first position, token off, token on, fp32 "
+        f"logit gap off - on, bf16 rounding eps, bf16 top-2 gap]: "
+        f"{json.dumps(rows)}")
+    for j, a, b, gap, eps, _ in rows:
+        check(abs(gap) <= 2 * eps, f"spec on/off part at position {j} "
+              f"({a} vs {b}) with fp32 logit gap {gap} > 2 x bf16 eps {eps}")
+    return rows
+
+
+def spec_phase(params, cfg):
+    """Phase 14: ``spec_trace`` with speculation off, then on, each on a
+    fresh engine after one warm-up request, stepped at ``decode_chunk``
+    iterations; every stream where the two part is held to bf16 rounding
+    (``divergence_margins``). Returns ({0: metrics, 4: metrics,
+    "equal_streams": n, "divergences": rows}, the speculative drain's
+    launches)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    prompts, news = spec_trace(params, cfg, cfg.vocab_size, SEED + 14)
+    cadence = ServingConfig().decode_chunk      # a streaming client's steps
+    metrics, outs = {}, {}
+    for spec in (0, 4):
+        engine = ServingEngine(params, cfg, ServingConfig(
+            spec_decode=spec, spec_ngram=2), device="cuda")
+        engine.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+        reset_counts()
+        outs[spec], metrics[spec] = drive(engine, prompts, news,
+                                          max_iters=cadence)
+        metrics[spec]["launches"] = read_counts()
+        del engine
+        torch.cuda.empty_cache()
+    counts = metrics[4]["launches"]
+    check(metrics[4]["spec_dispatches"] > 0, "no verify dispatch fired")
+    check(counts["paged_attention_multiquery"]
+          >= cfg.num_hidden_layers * metrics[4]["spec_dispatches"],
+          f"{counts['paged_attention_multiquery']} multi-query launches for "
+          f"{metrics[4]['spec_dispatches']} verify dispatches (one a layer)")
+    equal = sum(np.array_equal(a, b) for a, b in zip(outs[0], outs[4]))
+    for spec in (0, 4):
+        log(f"  spec_decode={spec}: {json.dumps(metrics[spec])}")
+    log(f"  {equal} of {len(prompts)} streams equal between spec on and off")
+    metrics["equal_streams"] = equal
+    metrics["divergences"] = divergence_margins(params, cfg, prompts,
+                                                outs[0], outs[4])
+    engine = ServingEngine(params, cfg, ServingConfig(
+        spec_decode=4, spec_ngram=2), device="cuda")
+    engine.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+    metrics["profile"] = profile_drain(engine, prompts[:8], news[:8],
+                                       max_iters=cadence)
+    del engine
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
+def sampled_spec_parity_phase(params, cfg, prompts, news):
+    """Phase 15 at fp32: sampled streams equal between the kernel and
+    gather engines; speculation on and off equal, greedy and sampled, on
+    self-quoting prompts (the greedy run verifies and accepts at least
+    once). Sampling breaks the quotes the n-gram drafter feeds on, so the
+    sampled verify is also driven by a drafter that proposes the spec-off
+    stream's own continuation: it must verify, accept every draft and
+    give the spec-off streams, which holds only when verify position q
+    draws with the key of index ``len(req.tokens) + q``."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    knobs = sampled_knobs(len(prompts))
+    streams = {}
+    for knob in ("on", "off"):
+        eng = ServingEngine(params, cfg, ServingConfig(paged_kernel=knob),
+                            device="cuda")
+        streams[knob], _ = drive(eng, prompts, news, knobs)
+        del eng
+        torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(streams["on"], streams["off"])):
+        check(np.array_equal(a, b), f"request {i}: sampled kernel stream "
+              f"{a} != gather stream {b}")
+    log(f"  {len(prompts)} sampled fp32 streams equal between the kernel and "
+        f"gather engines")
+    qp, fixed = quoting_prompts(
+        lambda: ServingEngine(params, cfg, ServingConfig(), device="cuda"),
+        cfg.vocab_size, SEED + 15, 8)
+    qn = [16] * len(qp)
+    cadence = ServingConfig().decode_chunk
+    for name, kn in (("greedy", None), ("sampled", sampled_knobs(len(qp)))):
+        got = {}
+        for spec in (0, 4):
+            eng = ServingEngine(params, cfg, ServingConfig(
+                spec_decode=spec, spec_ngram=2), device="cuda")
+            got[spec] = drive(eng, qp, qn, kn, max_iters=cadence)
+            del eng
+            torch.cuda.empty_cache()
+        for i, (a, b) in enumerate(zip(got[0][0], got[4][0])):
+            check(np.array_equal(a, b), f"{name} request {i}: spec stream "
+                  f"{b} != non-spec stream {a}")
+        m = got[4][1]
+        if name == "greedy":
+            check(m["spec_dispatches"] > 0 and m["spec_accepted"] > 0,
+                  f"fp32 greedy: {m['spec_dispatches']} verifies, "
+                  f"{m['spec_accepted']} accepted")
+        log(f"  {name}: {len(qp)} streams equal with spec on and off "
+            f"({fixed} of {len(qp)} prompts at their fixed point); verify "
+            f"dispatches {m['spec_dispatches']}, drafted "
+            f"{m['spec_drafted']}, accepted {m['spec_accepted']}")
+    off = {np.asarray(p, np.int32).tobytes(): s
+           for p, s in zip(qp, got[0][0])}
+    eng = ServingEngine(params, cfg, ServingConfig(spec_decode=4,
+                                                   spec_ngram=2),
+                        device="cuda")
+
+    def oracle(req):
+        k = min(4, int(eng._steps_left[req.slot]) - 1)
+        t = len(req.tokens)
+        stream = off[np.asarray(req.prompt, np.int32).tobytes()]
+        return [int(x) for x in stream[t:t + k]] if k > 0 else []
+
+    eng._draft_tokens = oracle
+    outs, m = drive(eng, qp, qn, kn, max_iters=cadence)
+    del eng
+    torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(got[0][0], outs)):
+        check(np.array_equal(a, b), f"sampled request {i}: oracle-drafted "
+              f"spec stream {b} != non-spec stream {a}")
+    check(m["spec_dispatches"] > 0
+          and m["spec_accepted"] == m["spec_drafted"] > 0,
+          f"fp32 sampled, oracle drafts: {m['spec_dispatches']} verifies, "
+          f"{m['spec_drafted']} drafted, {m['spec_accepted']} accepted")
+    log(f"  sampled, drafts replaying the spec-off stream: {len(qp)} streams "
+        f"equal; verify dispatches {m['spec_dispatches']}, drafted "
+        f"{m['spec_drafted']}, accepted {m['spec_accepted']}")
 
 
 def main() -> int:
@@ -1172,6 +1572,14 @@ def main() -> int:
     att.append(attention_case(
         "multi-query int8 Q=256 M=8 H=16 Hk=16 D=128 bs=16 W=128",
         8, 16, 16, 128, 16, 128, True, Q=256, seed=4))
+    # the speculative verify (spec_decode 4): draft_lens 0..4 on the rows
+    for name, H, Hk, quant in (("bf16", 16, 16, False),
+                               ("int8", 16, 16, True),
+                               ("GQA bf16", 32, 8, False)):
+        att.append(attention_case(
+            f"verify {name} Q=5 M=8 H={H} Hk={Hk} D=128 bs=16 W=128 "
+            f"draft_lens 0..4", 8, H, Hk, 128, 16, 128, quant, Q=5,
+            seed=40 + H + Hk + quant, every_draft_len=True))
     mm = [matmul_case(M, K, N, seed=M + K + N)
           for M in (8, 2048)
           for K, N in ((2048, 2048), (2048, 5504), (5504, 2048),
@@ -1187,7 +1595,7 @@ def main() -> int:
     check(st["paged_kernel"] is True, "paged kernel not resolved on")
     engine.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
     reset_counts()
-    _, m4 = drive(engine, prompts, news)
+    greedy4, m4 = drive(engine, prompts, news)
     c4 = read_counts()
     check(c4["paged_attention"] - c4["paged_attention_multiquery"] > 0,
           "decode entry point never launched")
@@ -1329,6 +1737,24 @@ def main() -> int:
           f"rms_norm forward launches {serve[True][2]} / {serve[False][2]}")
     del params, serve
     torch.cuda.empty_cache()
+
+    log("== phase 13: sampled serving, full width, bf16")
+    params = init_params(cfg, seed=SEED, device="cuda")
+    _, c13 = sampled_phase(params, cfg, prompts, news, greedy4)
+
+    log("== phase 14: speculative serving, full width, bf16, spec_decode=4 "
+        "spec_ngram=2")
+    _, c14 = spec_phase(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+    log("== phase 15: fp32 parity, sampled and speculative")
+    params = init_params(cfg32, seed=SEED + 1, device="cuda")
+    sampled_spec_parity_phase(params, cfg32, sp, sn)
+    del params
+    torch.cuda.empty_cache()
+    for c in (c13, c14):
+        launches = {k: launches[k] + c[k] for k in launches}
 
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [

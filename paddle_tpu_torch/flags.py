@@ -105,6 +105,21 @@ define_flag("FLAGS_serving_paged_kernel", "auto",
 define_flag("FLAGS_serving_kv_quant", "",
             "Paged KV-cache quantization: 'int8' stores K/V blocks as int8 "
             "with per-token-per-head fp32 scales; '' = fp pool.", str)
+define_flag("FLAGS_serving_spec_decode", 0,
+            "Speculative decoding (ServingConfig.spec_decode): tokens "
+            "drafted per verify dispatch by n-gram prompt lookup over the "
+            "request's own prompt + generated context. Each verify runs one "
+            "multi-query dispatch over the drafts and emits every accepted "
+            "token plus the next one. Each position is drawn with the key "
+            "of its own token index, so greedy and sampled streams equal "
+            "non-speculative decode where the verify and decode routes "
+            "round alike (fp32); at bf16 they may part where two candidates "
+            "lie within rounding. 0 disables.", int)
+define_flag("FLAGS_serving_spec_ngram", 3,
+            "n-gram length the prompt-lookup drafter matches: a draft is "
+            "proposed when the last n tokens reoccur earlier in the "
+            "request's context, continuing from the most recent prior "
+            "occurrence.", int)
 define_flag("FLAGS_serving_policy", "fifo",
             "Default admission policy: fifo, priority, fair or edf.", str)
 define_flag("FLAGS_serving_ttft_slo_s", 0.0,

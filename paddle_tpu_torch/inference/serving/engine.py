@@ -1,9 +1,10 @@
 """Continuous-batching serving engine over the paged KV cache.
 
 Counterpart of ``paddle_tpu/inference/serving/engine.py`` (``ServingConfig``
-and ``ServingEngine``), greedy decoding only. The host logic — admission,
-batched bucketed prefill, chunked prefill, prefix caching, on-demand block
-allocation with preemption, mixed prefill+decode batching, deadlines and
+and ``ServingEngine``). The host logic — admission, batched bucketed
+prefill, chunked prefill, prefix caching, on-demand block allocation with
+preemption, mixed prefill+decode batching, seeded per-request sampling,
+n-gram speculative decoding with host-side rollback, deadlines and
 cancellation — follows the JAX engine step for step, so both engines issue
 the same dispatches for the same trace (the parity tests compare their
 token streams and dispatch counters).
@@ -15,13 +16,20 @@ a ``lax.while_loop`` with a device-scalar bound in the JAX engine — is a
 host loop of :func:`~paddle_tpu_torch.models.generation.paged_decode_step`
 with the same ``limit`` and the same exit once no row is live. On a card
 the paged-attention CUDA kernel runs every decode and mixed dispatch
-(``paged_kernel="auto"``), and ``quantize="int8"`` routes every projection
-through the weight-only int8 kernel.
+(``paged_kernel="auto"``), the speculative verify included, and
+``quantize="int8"`` routes every projection through the weight-only int8
+kernel.
+
+Sampling: token ``t`` of a request is drawn with the key
+``fold_in(seed_key(seed), t)``. The keys of a dispatch are a pure function
+of ``(seed, t)``, so the host folds them (CPU tensors, microseconds) and
+only the ``[rows, V]`` random bits are drawn on the engine's device. A
+dispatch whose rows are all greedy (decided on the host from the slot
+table) takes the literal argmax and never runs the sampler.
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-item): sampling with ``temperature > 0``, speculative decoding, tensor
-parallelism, LoRA adapters, the embeddings endpoint, the request journal
-and the host offload tier.
+item): tensor parallelism, LoRA adapters, the embeddings endpoint, the
+request journal and the host offload tier.
 
 API::
 
@@ -42,6 +50,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ... import prng
 from ...device import resolve_device, resolve_paged_kernel
 from ...flags import flag
 from ...models import generation as G
@@ -57,11 +66,7 @@ __all__ = ["ServingConfig", "ServingEngine", "ServingQueueFull"]
 _UNSET = "unset"
 # the ROADMAP.md section A items that bring what this slice leaves out
 _LATER = {
-    "sampling": "temperature > 0 needs the threefry-exact sampler "
-                "(ROADMAP.md section A, next in the queue)",
-    "spec_decode": "speculative decoding is queued after the sampler "
-                   "(ROADMAP.md section A)",
-    "lora": "LoRA adapters are queued after speculative decoding "
+    "lora": "LoRA adapters are queued after the training items "
             "(ROADMAP.md section A)",
     "tp": "tensor parallelism over NCCL is queued after LoRA "
           "(ROADMAP.md section A)",
@@ -100,15 +105,14 @@ class ServingConfig:
     mixed_batch: Any = _UNSET        # bool; None/False = two-phase path
     policy: Any = None               # AdmissionPolicy or a name
     tenant_cache_quota: Any = _UNSET  # blocks per tenant; None/0 = off
+    spec_decode: Any = _UNSET        # drafts per verify; None/0 = off
+    spec_ngram: Any = _UNSET         # n-gram the drafter matches
     # features of the JAX engine that later slices bring (must stay off)
-    spec_decode: int = 0
     tp: int = 1
     lora_slots: int = 0
     offload: bool = False
 
     def __post_init__(self):
-        if self.spec_decode:
-            raise NotImplementedError(_LATER["spec_decode"])
         if self.lora_slots:
             raise NotImplementedError(_LATER["lora"])
         if int(self.tp) != 1:
@@ -134,6 +138,18 @@ class ServingConfig:
         if self.prefill_chunk is not None and self.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1 or None/0 "
                              f"(got {self.prefill_chunk})")
+        if self.spec_decode == _UNSET:
+            self.spec_decode = int(flag("FLAGS_serving_spec_decode"))
+        self.spec_decode = int(self.spec_decode) if self.spec_decode else 0
+        if self.spec_decode < 0:
+            raise ValueError(f"spec_decode must be >= 0 (draft tokens per "
+                             f"verify; 0 = off), got {self.spec_decode}")
+        if self.spec_ngram in (_UNSET, None):
+            self.spec_ngram = int(flag("FLAGS_serving_spec_ngram"))
+        self.spec_ngram = int(self.spec_ngram)
+        if self.spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, "
+                             f"got {self.spec_ngram}")
         if self.tenant_cache_quota == _UNSET:
             self.tenant_cache_quota = int(
                 flag("FLAGS_serving_tenant_cache_quota"))
@@ -154,8 +170,8 @@ class ServingConfig:
 
 
 class ServingEngine:
-    """Continuous-batching greedy decode service over a causal-LM
-    parameter dict, on ``device`` (CUDA unless ``device="cpu"``)."""
+    """Continuous-batching decode service over a causal-LM parameter dict,
+    on ``device`` (CUDA unless ``device="cpu"``)."""
 
     def __init__(self, params, model_config,
                  serving_config: Optional[ServingConfig] = None,
@@ -168,8 +184,6 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.config = serving_config or ServingConfig()
         self._gen = gen_config or G.GenerationConfig()
-        if self._gen.temperature > 0:
-            raise NotImplementedError(_LATER["sampling"])
         self._cfg = model_config
         self._params = self._prepare_params(params)
         self.cache = PagedKVCache(model_config, self.config.max_slots,
@@ -196,14 +210,25 @@ class ServingEngine:
         self._steps_left = np.zeros((M,), np.int32)
         self._done = np.ones((M,), bool)          # empty slots are inactive
         self._eos = np.full((M,), -1, np.int32)
+        # per-slot sampling knobs and each request's base key (int64
+        # holding uint32 values); the index a token is drawn at (fold_in's
+        # datum) is the count of tokens its request already holds
+        self._temp = np.zeros((M,), np.float32)
+        self._topk = np.zeros((M,), np.int32)     # 0 = disabled
+        self._topp = np.ones((M,), np.float32)    # 1.0 = disabled
+        self._keys = np.zeros((M, 2), np.int64)
+        self._spec_k = int(self.config.spec_decode)
+        self._spec_n = int(self.config.spec_ngram)
         # every mutation and snapshot read runs under this lock; reentrant
         # because stream()'s GeneratorExit path cancels from inside a step
         self._lock = threading.RLock()
         self._out_width = int(self.config.max_model_len)
         self._stats = {"chunks": 0, "steps": 0, "prefill_dispatches": 0,
                        "decode_dispatches": 0, "mixed_dispatches": 0,
+                       "spec_dispatches": 0, "spec_steps": 0,
                        "decode_iters": 0}
-        self._dispatch_s = {"prefill": 0.0, "decode": 0.0, "mixed": 0.0}
+        self._dispatch_s = {"prefill": 0.0, "decode": 0.0, "mixed": 0.0,
+                            "spec": 0.0}
         self._prefill_buckets: set = set()
 
     def _prepare_params(self, params) -> Dict:
@@ -261,10 +286,14 @@ class ServingEngine:
         defaults to the engine's GenerationConfig (``None`` disables EOS).
         ``timeout_s`` / ``deadline_s`` bound the request's wall time
         (queued expiry sheds it, running expiry times it out); ``tenant``
-        and ``priority`` feed the admission policy. Raises
-        :class:`ServingQueueFull` when the bounded queue is full, and
-        ``NotImplementedError`` for sampling (``temperature > 0``) and
-        LoRA adapters, which later slices bring."""
+        and ``priority`` feed the admission policy. The sampling knobs
+        resolve through the engine's GenerationConfig (``None`` disables
+        ``top_k``/``top_p``): ``temperature`` 0 is the greedy argmax;
+        above 0 the stream is drawn with keys derived from ``seed``, the
+        same for the same ``(request, seed)``. Unsupported knobs raise
+        ``ValueError``. Raises :class:`ServingQueueFull` when the bounded
+        queue is full, and ``NotImplementedError`` for LoRA adapters,
+        which a later slice brings."""
         if adapter_id is not None:
             raise NotImplementedError(_LATER["lora"])
         deadline = deadline_s
@@ -275,12 +304,15 @@ class ServingEngine:
             self._gen, max_new_tokens=max_new_tokens,
             eos_token_id=eos_token_id, temperature=temperature,
             top_k=top_k, top_p=top_p, seed=seed)
-        if g.temperature > 0:
-            raise NotImplementedError(_LATER["sampling"])
+        G.validate_sampling(g)
         req = Request(
             rid=-1, prompt=np.asarray(prompt, np.int32).reshape(-1),
             max_new_tokens=int(g.max_new_tokens),
             eos_token_id=g.eos_token_id,
+            temperature=float(g.temperature),
+            top_k=int(g.top_k) if g.top_k is not None else None,
+            top_p=float(g.top_p) if g.top_p is not None else None,
+            seed=int(g.seed),
             tenant=str(tenant) if tenant is not None else DEFAULT_TENANT,
             priority=int(priority),
             deadline=float(deadline) if deadline is not None else None)
@@ -336,6 +368,10 @@ class ServingEngine:
         self._steps_left[m] = 0
         self._done[m] = True
         self._eos[m] = -1
+        self._temp[m] = 0.0
+        self._topk[m] = 0
+        self._topp[m] = 1.0
+        self._keys[m] = 0
 
     def _terminate(self, req: Request, state: str) -> None:
         m = req.slot
@@ -371,13 +407,25 @@ class ServingEngine:
 
     def _start_decode(self, req: Request) -> None:
         """Move a request whose prefill just completed into the decode slot
-        arrays (fresh requests carry their first token already)."""
+        arrays (fresh requests carry their first token already; readmitted
+        ones resume from their last token, and draw the next at index
+        ``len(req.tokens)`` as every decoding request does)."""
         m = req.slot
         self._tokens[m] = req.tokens[-1]
         self._seq_lens[m] = req.prompt_len + len(req.tokens) - 1
         self._steps_left[m] = req.max_new_tokens - len(req.tokens)
         self._done[m] = False
         self._eos[m] = -1 if req.eos_token_id is None else req.eos_token_id
+        (self._keys[m], self._temp[m], self._topk[m],
+         self._topp[m]) = self._knobs(req)
+
+    @staticmethod
+    def _knobs(req: Request):
+        """A request's slot-table sampling values: (base key, temperature,
+        top_k with 0 = off, top_p with 1.0 = off)."""
+        return (G.seed_key(req.seed).numpy(), req.temperature,
+                req.top_k if req.top_k is not None else 0,
+                req.top_p if req.top_p is not None else 1.0)
 
     def _emit_first(self, req: Request, tok0: int, now: float,
                     emitted: Dict[int, List[int]]) -> None:
@@ -441,7 +489,7 @@ class ServingEngine:
             logits, self.cache.pool = G.paged_prefill(
                 self._params, self._cfg, self._t(ids), self._t(plens),
                 self._t(tables), self.cache.pool, self._t(act))
-            first = self._argmax(logits)
+            first = self._first_tokens(logits, group, Bb)
             self._record_dispatch("prefill", t0)
             now = time.time()
             for r, req in enumerate(group):
@@ -456,6 +504,48 @@ class ServingEngine:
         """Greedy tokens on the host (first index among ties, as
         ``np.argmax`` and ``jnp.argmax``)."""
         return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+
+    def _sample_index(self, decoding: List[Request]) -> np.ndarray:
+        """``[M]`` sample indices of the next token: ``len(req.tokens)``
+        on each decoding request's slot, 0 elsewhere."""
+        idx = np.zeros((self.config.max_slots,), np.int64)
+        for req in decoding:
+            idx[req.slot] = len(req.tokens)
+        return idx
+
+    @staticmethod
+    def _row_keys(keys: np.ndarray, idx: np.ndarray) -> torch.Tensor:
+        """Per-row PRNG keys folded to their sample indices, on the host:
+        ``keys [M, 2]`` base keys, ``idx [M]`` or ``[M, Q]`` indices ->
+        ``[M, 2]`` or ``[M, Q, 2]`` int64 CPU keys."""
+        k = torch.from_numpy(keys)
+        idx = torch.from_numpy(np.asarray(idx, np.int64))
+        return prng.fold_in(k if idx.dim() == 1 else k[:, None], idx)
+
+    def _sample(self, logits: torch.Tensor, keys: torch.Tensor, temp,
+                topk, topp) -> np.ndarray:
+        """Tokens of ``logits [B, V]`` on the host through the per-row
+        sampler (``keys [B, 2]`` already folded to each row's index)."""
+        return G.sample_tokens(
+            logits, keys, self._t(np.asarray(temp, np.float32)),
+            self._t(np.asarray(topk, np.int32)),
+            self._t(np.asarray(topp, np.float32))).cpu().numpy()
+
+    def _first_tokens(self, logits: torch.Tensor, group: List[Request],
+                      Bb: int) -> np.ndarray:
+        """Each admitted request's FIRST token (sample index 0) from its
+        prefill logits: the literal argmax for an all-greedy wave, else
+        the per-row sampler (greedy rows inside it still argmax)."""
+        if all(r.temperature == 0.0 for r in group):
+            return self._argmax(logits)
+        keys = np.zeros((Bb, 2), np.int64)
+        temp = np.zeros((Bb,), np.float32)
+        topk = np.zeros((Bb,), np.int32)
+        topp = np.ones((Bb,), np.float32)
+        for r, req in enumerate(group):
+            keys[r], temp[r], topk[r], topp[r] = self._knobs(req)
+        return self._sample(logits, self._row_keys(keys, np.zeros(Bb)),
+                            temp, topk, topp)
 
     def _advance_prefills(self, emitted: Dict[int, List[int]]) -> None:
         """The two-phase path: one B=1 prefill chunk per mid-prefill slot,
@@ -474,7 +564,6 @@ class ServingEngine:
             logits, self.cache.pool = G.paged_prefill_chunk(
                 self._params, self._cfg, self._t(ids), req.num_computed, n,
                 self._t(self.cache.tables[req.slot][None]), self.cache.pool)
-            first = self._argmax(logits)
             self._record_dispatch("prefill", t0)
             req.num_computed += n
             req.reg_state = self.cache.register_prefix(
@@ -485,7 +574,8 @@ class ServingEngine:
             if req.tokens:                        # readmission: resume
                 self._start_decode(req)
             else:
-                self._emit_first(req, int(first[0]), time.time(), emitted)
+                tok0 = int(self._first_tokens(logits, [req], 1)[0])
+                self._emit_first(req, tok0, time.time(), emitted)
 
     # ---- decode dispatch sizing -------------------------------------------
 
@@ -566,6 +656,172 @@ class ServingEngine:
         self._sched.preempt(req)
         self._clear_slot(m)
 
+    # ---- speculative decoding ---------------------------------------------
+
+    def _ctx_at(self, req: Request, i: int) -> int:
+        """Token backing context position ``i`` (prompt, then generated)."""
+        pl = req.prompt_len
+        return int(req.prompt[i]) if i < pl else int(req.tokens[i - pl])
+
+    def _draft_tokens(self, req: Request) -> List[int]:
+        """n-gram prompt-lookup drafting: when the last ``spec_ngram``
+        tokens of the request's context reoccur earlier, propose the
+        continuation of the most recent PRIOR occurrence, preferring one
+        with a full ``spec_decode`` window of continuation. At most
+        ``steps_left - 1`` tokens (the verify emits ``accepted + 1``).
+        An incremental n-gram presence index makes a miss cost O(ngram);
+        the O(context) scan runs only when a draft will be proposed.
+        Returns [] when nothing matches."""
+        k = min(self._spec_k, int(self._steps_left[req.slot]) - 1)
+        if k < 1:
+            return []
+        n = self._spec_n
+        L = req.prompt_len + len(req.tokens)
+        if L <= n:
+            return []
+        st = req.spec_index
+        if st is None:
+            st = req.spec_index = {"end": n - 1, "seen": set()}
+        # index every n-gram ENDING at positions (end, L-1]
+        for e in range(st["end"] + 1, L):
+            st["seen"].add(tuple(self._ctx_at(req, e - n + j)
+                                 for j in range(n)))
+        st["end"] = L - 1
+        tail = tuple(self._ctx_at(req, L - n + j) for j in range(n))
+        if tail not in st["seen"]:
+            return []
+        ctx = np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
+        win = np.lib.stride_tricks.sliding_window_view(ctx[:-1], n)
+        hits = np.nonzero((win == ctx[-n:]).all(axis=1))[0]
+        # the most recent occurrence with k tokens of continuation inside
+        # the context, else the most recent one at all
+        full = hits[hits + n + k <= len(ctx)]
+        j = int(full[-1]) if full.size else int(hits[-1])
+        return [int(t) for t in ctx[j + n:j + n + k]]
+
+    def _ensure_blocks_spec(self, drafts: Dict[int, List[int]]
+                            ) -> List[Request]:
+        """Blocks for one verify: every decoding slot needs ``seq_len +
+        draft_len + 1`` KV entries. When the pool cannot cover the drafts
+        they are DROPPED (the step falls through to the decode loop)
+        before any preemption; then the shared preempt/truncate ladder.
+        Returns the decoding set (empty = nothing to do)."""
+        bf = self.cache.manager.blocks_for
+
+        while True:
+            decoding = self._sched.decoding
+            if not decoding:
+                return []
+
+            def need(with_drafts: bool) -> int:
+                tot = 0
+                for r in decoding:
+                    dl = len(drafts.get(r.rid, ())) if with_drafts else 0
+                    e = int(self._seq_lens[r.slot]) + dl + 1
+                    tot += max(0, bf(e) - len(r.blocks))
+                return tot
+
+            avail = self.cache.free_blocks
+            if need(True) <= avail:
+                with_drafts = True
+            elif need(False) <= avail:
+                with_drafts = False
+                drafts.clear()         # pool-pressure fallback: no drafts
+            elif self._relieve_pressure(decoding):
+                continue
+            else:
+                return []
+            for r in decoding:
+                dl = len(drafts.get(r.rid, ())) if with_drafts else 0
+                e = int(self._seq_lens[r.slot]) + dl + 1
+                if self.cache.extend(r.slot, r.blocks, e) is None:
+                    break                     # raced an estimate; retry
+            else:
+                return decoding
+
+    def _rollback_blocks(self, req: Request) -> None:
+        """Free the blocks past ``blocks_for(seq_len)`` that a verify's
+        rejected tail left behind (never a registered one: registration
+        stops at the last committed full block). Stale entries inside the
+        kept tail block are overwritten by the next write at ``seq_len``
+        or hidden by the ``j <= seq_len`` mask."""
+        keep = self.cache.manager.blocks_for(int(self._seq_lens[req.slot]))
+        tail = req.blocks[keep:]
+        if not tail:
+            return
+        self.cache.manager.free(tail)
+        del req.blocks[keep:]
+        self.cache.tables[req.slot, keep:] = 0
+
+    def _spec_dispatch(self, decoding: List[Request],
+                       drafts: Dict[int, List[int]],
+                       emitted: Dict[int, List[int]]) -> None:
+        """One speculative verify: the ``[M, Q]`` token matrix (last token
+        + drafts, pad lanes repeat the last token) through
+        ``paged_spec_step``; position ``q`` of a row is drawn with the key
+        of index ``len(req.tokens) + q``. Commits ``accepted + 1`` tokens per
+        slot (EOS truncates), registers filled prefix blocks and rolls the
+        rejected tail's blocks back."""
+        Q = self._spec_k + 1
+        M = self.config.max_slots
+        toks = np.zeros((M, Q), np.int32)
+        dl = np.zeros((M,), np.int32)
+        for req in decoding:
+            m = req.slot
+            d = drafts.get(req.rid, [])
+            toks[m, 0] = self._tokens[m]
+            toks[m, 1:1 + len(d)] = d
+            toks[m, 1 + len(d):] = self._tokens[m]   # pad: a real token
+            dl[m] = len(d)
+        active = (~self._done) & (self._steps_left > 0)
+        t0 = time.time()
+        logits, self.cache.pool = G.paged_spec_step(
+            self._params, self._cfg, self._t(toks), self._t(self._seq_lens),
+            self._t(dl), self._t(self.cache.tables), self.cache.pool,
+            self._t(active), use_kernel=self._use_kernel)
+        V = logits.shape[-1]
+        if (self._temp[active] > 0).any():
+            keys = self._row_keys(self._keys, self._sample_index(decoding)
+                                  [:, None] + np.arange(Q))
+            cand = self._sample(logits.reshape(M * Q, V),
+                                keys.reshape(M * Q, 2),
+                                np.repeat(self._temp, Q),
+                                np.repeat(self._topk, Q),
+                                np.repeat(self._topp, Q)).reshape(M, Q)
+        else:
+            cand = self._argmax(logits)
+        self._record_dispatch("spec", t0)
+        # accepted = the leading run of drafts the chain reproduces
+        # (cand[q] is the token after tokens[:q+1], checked against draft
+        # tokens[q+1])
+        ok = (cand[:, :-1] == toks[:, 1:]) & \
+            (np.arange(Q - 1)[None, :] < dl[:, None])
+        acc = np.cumprod(ok, axis=1).sum(axis=1)
+        for req in decoding:
+            m = req.slot
+            if self._done[m] or self._steps_left[m] <= 0:
+                continue
+            got = [int(t) for t in cand[m, :int(acc[m]) + 1]]
+            eos = req.eos_token_id
+            if eos is not None and eos in got:
+                got = got[:got.index(eos) + 1]
+                self._done[m] = True
+                req.eos_seen = True
+            e = len(got)
+            req.tokens.extend(got)
+            emitted.setdefault(req.rid, []).extend(got)
+            req.spec_drafted += int(dl[m])
+            req.spec_accepted += e - 1
+            self._sched.spec_drafted += int(dl[m])
+            self._sched.spec_accepted += e - 1
+            self._tokens[m] = got[-1]
+            self._seq_lens[m] += e
+            self._steps_left[m] -= e
+            self._register_decoded(req)
+            if not req.finished:
+                self._rollback_blocks(req)
+        self._stats["spec_steps"] += 1
+
     # ---- dispatches ---------------------------------------------------------
 
     def _decode_burst(self, limit: int):
@@ -578,6 +834,18 @@ class ServingEngine:
         done = self._done.copy()
         out = np.zeros((self.config.max_slots, limit), np.int32)
         tables = self._t(self.cache.tables)
+        # a row live at iteration i was live at every earlier one, so its
+        # sample index there is len(req.tokens) + i: fold every iteration's
+        # keys at once, and only when a live row samples
+        active = (~done) & (steps_left > 0)
+        sampled = bool((self._temp[active] > 0).any())
+        if sampled:
+            keys = self._row_keys(self._keys,
+                                  self._sample_index(self._sched.decoding)
+                                  [:, None] + np.arange(limit)
+                                  ).to(self.device)
+            knobs = (self._t(self._temp), self._t(self._topk),
+                     self._t(self._topp))
         i = 0
         while i < limit:
             active = (~done) & (steps_left > 0)
@@ -587,7 +855,9 @@ class ServingEngine:
                 self._params, self._cfg, self._t(tokens), self._t(seq_lens),
                 tables, self.cache.pool, self._t(active),
                 use_kernel=self._use_kernel)
-            nxt = np.where(active, self._argmax(logits), tokens)
+            nxt = (G.sample_tokens(logits, keys[:, i], *knobs).cpu().numpy()
+                   if sampled else self._argmax(logits))
+            nxt = np.where(active, nxt, tokens)
             done = done | (active & (nxt == self._eos))
             seq_lens = seq_lens + active
             steps_left = steps_left - active.astype(np.int32)
@@ -622,11 +892,21 @@ class ServingEngine:
         starts = np.zeros((M,), np.int32)
         qlens = np.ones((M,), np.int32)           # pad rows: harmless q=1
         active = np.zeros((M,), bool)
+        keys = np.zeros((M, 2), np.int64)
+        sidx = np.zeros((M,), np.int32)
+        temp = np.zeros((M,), np.float32)
+        topk = np.zeros((M,), np.int32)
+        topp = np.ones((M,), np.float32)
         for r in decode_rows:
             m = r.slot
             toks[m, :] = self._tokens[m]          # pad lanes: a real token
             starts[m] = self._seq_lens[m]
             active[m] = True
+            keys[m] = self._keys[m]
+            sidx[m] = len(r.tokens)
+            temp[m] = self._temp[m]
+            topk[m] = self._topk[m]
+            topp[m] = self._topp[m]
         for req, n in plan:
             m = req.slot
             ids = req.prefill_ids[req.num_computed:req.num_computed + n]
@@ -635,12 +915,17 @@ class ServingEngine:
             starts[m] = req.num_computed
             qlens[m] = n
             active[m] = True
+            # a completing chunk's token IS the prompt's first token: the
+            # same (seed, index 0) key _first_tokens uses
+            keys[m], temp[m], topk[m], topp[m] = self._knobs(req)
         t0 = time.time()
         logits, self.cache.pool = G.paged_mixed_step(
             self._params, self._cfg, self._t(toks), self._t(starts),
             self._t(qlens), self._t(self.cache.tables), self.cache.pool,
             self._t(active), use_kernel=self._use_kernel)
-        nxt = self._argmax(logits)
+        nxt = (self._sample(logits, self._row_keys(keys, sidx), temp, topk,
+                            topp)
+               if (temp > 0).any() else self._argmax(logits))
         self._record_dispatch("mixed", t0)
         now = time.time()
         for req, n in plan:                       # prefill rows first
@@ -673,7 +958,8 @@ class ServingEngine:
     def step(self, max_iters: Optional[int] = None) -> Dict[int, List[int]]:
         """One scheduler iteration: expire deadlines -> retire -> admit
         (+ batched prefill) -> [two-phase: advance chunked prefills] ->
-        one mixed dispatch while a prompt is mid-prefill (mixed batching),
+        one speculative verify when any decoding slot drafts, else one
+        mixed dispatch while a prompt is mid-prefill (mixed batching),
         else extend/preempt for blocks and one decode burst of up to
         ``_limit()`` iterations (``max_iters`` caps it). Returns
         ``{rid: [tokens emitted]}``."""
@@ -689,6 +975,19 @@ class ServingEngine:
             self._advance_prefills(emitted)
         k = 0
         decoding = self._sched.decoding
+        if decoding and self._spec_k:
+            # any draft -> ONE verify dispatch this step; none (or drafts
+            # dropped under pool pressure) falls through to mixed/decode,
+            # which batch far more cheaply than an all-pad verify
+            drafts = {r.rid: self._draft_tokens(r) for r in decoding}
+            if any(drafts.values()):
+                decoding = self._ensure_blocks_spec(drafts)
+                if decoding and any(drafts.values()):
+                    self._spec_dispatch(decoding, drafts, emitted)
+                    self._sched.retire_finished()
+                    self._stats["steps"] += 1
+                    return emitted
+            decoding = self._sched.decoding
         if self.config.mixed_batch and \
                 any(r.prefilling for r in self._sched.live):
             kd = self._ensure_blocks(1) if decoding else 0
@@ -791,5 +1090,8 @@ class ServingEngine:
                     "usable_blocks": self.cache.manager.num_blocks - 1,
                     "kv_quant": self.config.kv_quant,
                     "paged_kernel": self._use_kernel,
+                    "spec_decode": self.config.spec_decode,
+                    "spec_drafted": s.spec_drafted,
+                    "spec_accepted": s.spec_accepted,
                     "kv_pool_bytes": self.cache.kv_bytes(),
                     "device": str(self.device)}

@@ -71,6 +71,14 @@ class Request:
     prompt: np.ndarray                 # [S] int32
     max_new_tokens: int
     eos_token_id: Optional[int] = None
+    # sampling knobs, resolved at submit: temperature 0 = greedy argmax;
+    # top_k/top_p None = disabled. Token t is drawn with the key
+    # fold_in(seed_key(seed), t), so a stream is a function of (request,
+    # seed) across preemption and speculative verify
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    seed: int = 0
     tenant: str = DEFAULT_TENANT
     priority: int = 0
     deadline: Optional[float] = None   # absolute time.time()
@@ -92,6 +100,13 @@ class Request:
     prefix_hit_tokens: int = 0
     preemptions: int = 0
     recomputed_tokens: int = 0
+    spec_drafted: int = 0              # draft tokens verified for this
+    spec_accepted: int = 0             # ... and how many were emitted
+    # the prompt-lookup drafter's incremental n-gram presence index
+    # (engine-owned): {"end": last position indexed, "seen": n-grams
+    # ending there or before}; survives preemption (the context it
+    # indexes never shrinks)
+    spec_index: Optional[Dict] = None
     computed_hwm: int = 0              # most KV entries ever written
     oom_truncated: bool = False        # pool exhausted, retired early
 
@@ -179,6 +194,9 @@ class Scheduler:
         self.prefix_hit_tokens = 0
         self.recomputed_tokens = 0
         self.oom_truncated = 0
+        # speculative decoding: drafts verified vs drafts emitted
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self.cancelled = 0
         self.timed_out = 0
         self.shed = 0

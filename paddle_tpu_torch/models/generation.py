@@ -5,11 +5,15 @@ Ported here: ``GenerationConfig``, the paged block pool
 gather helpers and the four paged forward entry points the serving engine
 drives — :func:`paged_prefill`, :func:`paged_prefill_chunk`,
 :func:`paged_decode_step` and :func:`paged_mixed_step` (the last over
-``_paged_multiquery_forward``). The dense ``generate`` path, the sampler
-and the speculative verify step wait for later slices. As in the JAX
-package, every norm goes through ``_rms_norm(..., cfg.use_fused_norm)``
-(the fused kernel when the flag is set) and RoPE always takes the plain
-route (``_rope(..., False)``).
+``_paged_multiquery_forward``), the speculative verify step
+:func:`paged_spec_step`, and the samplers: :func:`seed_key`,
+:func:`validate_sampling`, the per-row serving sampler
+:func:`sample_tokens` and the static-knob :func:`_sample`, whose draws
+equal ``jax.random``'s (:mod:`paddle_tpu_torch.prng`). The dense
+``generate`` path waits for a later slice. As in the JAX package, every
+norm goes through ``_rms_norm(..., cfg.use_fused_norm)`` (the fused kernel
+when the flag is set) and RoPE always takes the plain route (``_rope(...,
+False)``).
 
 Differences from the JAX package, all deliberate:
 
@@ -29,10 +33,12 @@ Differences from the JAX package, all deliberate:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import torch
 
+from .. import prng
 from ..device import resolve_device
 from ..kernels.paged_attention import paged_attention
 from ..kernels.rope import rope_cos_sin
@@ -41,7 +47,8 @@ from .llama import (KV_QUANT_MODES, LlamaConfig, _embed, _ffn_tail,
 
 __all__ = ["GenerationConfig", "init_paged_pool", "paged_pool_block_bytes",
            "paged_prefill", "paged_prefill_chunk", "paged_decode_step",
-           "paged_mixed_step"]
+           "paged_mixed_step", "paged_spec_step", "seed_key",
+           "validate_sampling", "sample_tokens"]
 
 
 @dataclasses.dataclass
@@ -71,6 +78,109 @@ class GenerationConfig:
                    if not (isinstance(v, str) and v == "unset")
                    and not (v is None and k not in cls._NONEABLE)}
         return dataclasses.replace(base, **updates) if updates else base
+
+
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+def _sample(logits, key, temperature: float, top_k: Optional[int],
+            top_p: Optional[float]):
+    """Greedy when ``temperature == 0``; else temperature/top-k/top-p
+    sampling with static knobs, every row drawn with the ONE raw key
+    ``key [2]`` over the whole ``[B, V]`` block (the dense tier's
+    spelling). Its caller, the dense ``generate``, is not ported yet;
+    the serving engine samples through ``sample_tokens``."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    # a device tensor, not a Python scalar: CUDA divides by a host scalar
+    # as a multiply by its reciprocal, which can move the last bit
+    logits = logits / torch.full((), temperature, dtype=logits.dtype,
+                                 device=logits.device)
+    if top_k is not None:
+        top_k = min(top_k, logits.shape[-1])
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, -math.inf, logits)
+    if top_p is not None:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep the smallest prefix with cumulative mass >= top_p (the
+        # token that crosses the threshold stays in)
+        keep = cum - probs < top_p
+        cutoff = torch.where(keep, srt, math.inf).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < cutoff, -math.inf, logits)
+    return prng.categorical(key.to(logits.device), logits)
+
+
+def seed_key(seed: int) -> torch.Tensor:
+    """The raw PRNG base key of one seed, ``[seed >> 32, seed &
+    0xffffffff]`` as an int64 CPU tensor of uint32 values — host
+    arithmetic, no dispatch. The key of sample index ``t`` is
+    ``prng.fold_in(seed_key(seed), t)``, a pure function of ``(seed,
+    t)``: what keeps a sampled stream the same across preemption and
+    speculative verify."""
+    s = int(seed)
+    return torch.tensor([(s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF],
+                        dtype=torch.int64)
+
+
+def validate_sampling(g: "GenerationConfig") -> None:
+    """Reject the sampling knobs a serving submit does not support, naming
+    the supported surface."""
+    ok = True
+    t = g.temperature
+    if t is None or not math.isfinite(float(t)) or float(t) < 0:
+        ok = False
+    if g.top_k is not None and int(g.top_k) < 1:
+        ok = False
+    if g.top_p is not None and not (0.0 < float(g.top_p) <= 1.0):
+        ok = False
+    if not ok:
+        raise ValueError(
+            f"unsupported sampling config (temperature={g.temperature!r}, "
+            f"top_k={g.top_k!r}, top_p={g.top_p!r}); supported knobs: "
+            f"temperature >= 0 (0 = greedy argmax), top_k >= 1 or None "
+            f"(disabled), top_p in (0, 1] or None (disabled), integer "
+            f"seed")
+
+
+def sample_tokens(logits, keys, temperature, top_k, top_p):
+    """Per-row sampling with tensor knobs — the serving tier's sampler.
+
+    ``logits [B, V]`` fp32; ``keys [B, 2]`` int64 raw keys, already folded
+    to each row's sample index; ``temperature [B]`` fp32; ``top_k [B]``
+    int (0 disables); ``top_p [B]`` fp32 (1.0 disables and keeps every
+    token). Everything runs on ``logits``'s device. Rows with
+    ``temperature == 0`` return ``argmax(logits)`` through a ``where``,
+    the same bits as the greedy path. Top-k is a VALUE threshold at the
+    k-th sorted value (ties at rank k survive); top-p then runs over the
+    top-k survivors and keeps the smallest prefix of the sorted
+    distribution whose mass reaches ``p`` (the crossing token stays in).
+    Returns int32 ``[B]``."""
+    dev = logits.device
+    temperature = temperature.to(dev)
+    V = logits.shape[-1]
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    # greedy rows run the sampling math on a safe temperature and are
+    # overridden by the final where
+    t = torch.clamp(temperature, min=1e-6)[:, None]
+    scaled = logits.float() / t
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    top_k = top_k.to(dev)
+    k = torch.where(top_k > 0, torch.clamp(top_k, max=V),
+                    torch.full_like(top_k, V))
+    kth = torch.gather(srt, -1, (k - 1).long()[:, None])
+    masked = torch.where(scaled < kth, -math.inf, scaled)
+    srt = torch.where(srt >= kth, srt, -math.inf)
+    probs = torch.softmax(srt, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    p = torch.clamp(top_p.to(dev), 0.0, 1.0)[:, None]
+    keep = cum - probs < p
+    cutoff = torch.where(keep, srt, math.inf).amin(dim=-1, keepdim=True)
+    masked = torch.where(masked < cutoff, -math.inf, masked)
+    sampled = prng.categorical(keys.to(dev), masked)
+    return torch.where(temperature <= 0.0, greedy, sampled.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +476,26 @@ def paged_mixed_step(params: Dict, cfg: LlamaConfig, tokens, starts,
     M = tokens.shape[0]
     last = x[torch.arange(M, device=x.device), draft_lens.long()][:, None]
     return _lm_head(params, cfg, last), pool
+
+
+def paged_spec_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
+                    draft_lens, block_tables, pool: Dict, active,
+                    use_kernel: bool = False):
+    """Speculative VERIFY over ``M`` slots: one multi-query decode
+    iteration per slot against the pool. Row ``m`` of ``tokens [M, Q]``
+    is the slot's last token followed by ``draft_lens[m] <= Q - 1``
+    drafts (pad lanes repeat a real token); ``seq_lens [M]`` are the KV
+    entries already committed. K/V are written for positions ``seq_lens +
+    q``, ``q <= draft_lens``, and ``logits[m, q]`` is the next-token
+    distribution after ``tokens[m, :q+1]`` — query ``q`` attends ``j <=
+    seq_lens + min(q, draft_lens)``, what the sequential step at that
+    position sees. The engine rolls rejected drafts back on the host.
+    ``use_kernel`` runs the paged-attention kernel's multi-query entry
+    point. Returns (logits ``[M, Q, V]``, pool)."""
+    x, pool = _paged_multiquery_forward(params, cfg, tokens, seq_lens,
+                                        draft_lens, block_tables, pool,
+                                        active, use_kernel)
+    return _lm_head_all(params, cfg, x), pool
 
 
 def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,

@@ -117,6 +117,66 @@ def test_paged_attention_split_windows(dev, x_dtype, quant, G, Q, bs):
         assert err <= tol * max(1.0, want.float().abs().max().item()), err
 
 
+@pytest.mark.parametrize("H,Hk,quant", [(16, 16, False), (16, 16, True),
+                                        (32, 8, False)],
+                         ids=["bf16", "int8-pool", "gqa"])
+def test_paged_attention_verify_shapes(dev, H, Hk, quant):
+    """The speculative verify's shape (spec_decode 4: Q 5) at D 128, bs 16,
+    draft_lens taking every value 0..4: Q·G 5 takes the split route, GQA
+    32/8 (Q·G 20) the multi-query route."""
+    import importlib
+    from paddle_tpu_torch.device import sm_count
+    PA = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
+    M, Q, D, bs, W = 8, 5, 128, 16, 64
+    rng = np.random.default_rng(H + Hk + quant)
+    q, k, v, tbl, sl, _, extra = _pool_case(rng, dev, M, H, Hk, D, bs, W,
+                                            torch.bfloat16, quant, Q)
+    dl = torch.arange(M, dtype=torch.int32, device=dev) % Q
+    route = PA._plan(M, Q * (H // Hk), Hk, W * bs, True, sm_count(dev))[0]
+    assert route == (PA.SPLIT if H == Hk else PA.MULTI_QUERY)
+    n0 = PA.paged_attention.launches_multiquery
+    out = PA.paged_attention(q, k, v, tbl, sl, draft_lens=dl, **extra)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches_multiquery == n0 + 1
+    ref = PA.paged_attention_plain(q, k, v, tbl, sl, draft_lens=dl, **extra)
+    assert out.shape == ref.shape == (M, Q, H, D)
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * max(1.0, ref.float().abs().max().item()), err
+
+
+def test_sample_tokens_on_the_card_matches_the_cpu(dev):
+    """The sampler on CUDA tensors stays on the card, draws the CPU's bits
+    and uniforms bit for bit, and picks the CPU's tokens except where the
+    two candidates lie within 4e-6 in gumbel + logits / t."""
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.models.generation import sample_tokens, seed_key
+    rng = np.random.default_rng(0)
+    B, V = 40, 32000
+    lg = torch.from_numpy((rng.standard_normal((B, V)) * 2)
+                          .astype(np.float32))
+    keys = prng.fold_in(torch.stack([seed_key(s) for s in range(B)]), 7)
+    temp = torch.tensor(np.tile([0.0, 0.8, 1.3, 0.7], B // 4),
+                        dtype=torch.float32)
+    topk = torch.tensor(np.tile([0, 50, 0, 5], B // 4), dtype=torch.int32)
+    topp = torch.tensor(np.tile([1.0, 0.95, 0.9, 1.0], B // 4),
+                        dtype=torch.float32)
+    for fn in (prng.random_bits32, prng.uniform):
+        cpu_draw = fn(keys, (V,))
+        card_draw = fn(keys.to(dev), (V,))
+        assert card_draw.device.type == "cuda"
+        assert torch.equal(card_draw.cpu(), cpu_draw)
+    want = sample_tokens(lg, keys, temp, topk, topp).numpy()
+    got = sample_tokens(lg.to(dev), keys.to(dev), temp.to(dev),
+                        topk.to(dev), topp.to(dev))
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    got = got.cpu().numpy()
+    noise = prng.gumbel(keys, (V,)).double()
+    z = noise + lg.double() / torch.clamp(temp, min=1e-6).double()[:, None]
+    for r in np.nonzero(got != want)[0]:
+        assert abs(z[r, got[r]] - z[r, want[r]]).item() < 4e-6, r
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(1, 40, 70), (8, 128, 200),
                                    (33, 300, 129), (130, 64, 64)])

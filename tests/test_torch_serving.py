@@ -234,13 +234,10 @@ def test_engine_stream_and_cancel(model):
 
 def test_unported_features_raise(model):
     _, _, tcfg, tparams, _ = model
-    for kw in (dict(spec_decode=2), dict(tp=2), dict(lora_slots=1),
-               dict(offload=True)):
+    for kw in (dict(tp=2), dict(lora_slots=1), dict(offload=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TConfig(**kw)
     eng = TEngine(tparams, tcfg, TConfig(**_BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit([1, 2, 3], max_new_tokens=2, temperature=0.7)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.submit([1, 2, 3], max_new_tokens=2, adapter_id="a")
     for kw in (dict(journal="/nonexistent"), dict(embed_model=object())):
@@ -277,7 +274,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
 _FLAGS = ("block_size", "max_slots", "max_model_len", "queue_depth",
           "decode_chunk", "prefix_cache", "prefill_chunk", "mixed_batch",
           "preempt", "paged_kernel", "kv_quant", "policy", "ttft_slo_s",
-          "tenant_cache_quota", "retry_after_s")
+          "tenant_cache_quota", "retry_after_s", "spec_decode",
+          "spec_ngram")
 
 
 def test_serving_flags_match_jax():
