@@ -99,6 +99,44 @@ Phases (each fails the run on any error; none catches and carries on):
     least one verify and one accepted draft) and sampled; then the
     sampled verify again with drafts that replay the spec-off stream,
     which must verify, accept every draft and give the same streams.
+16. Remat policies on phase 8's step (bf16, ``use_kernels``, B 8 x S
+    2048, 12 layers, lr 1e-4): each of the nine ``remat_policy`` values
+    (``None``, ``"nothing"`` and the seven names) from the same
+    parameters, one warm-up step and 2 timed ones (step ms, peak memory,
+    launches and dense GEMMs per step by weight name, counted by
+    wrapping ``llama._mm``). The flash forwards a step must be 24 (12
+    under the three ``save_flash*``) and the q/k/v projections as the
+    JAX policy schedules them (12 each under ``save_flash``); every
+    policy's loss after one update within 1e-3 relative of full
+    remat's (bit equality reported); then full remat and ``save_flash``
+    timed in turns (None, save_flash, save_flash, None); then at fp32 on
+    phase 9's config every policy's gradient leaves within 1e-6 x
+    max|g| of full remat's. Last, phase 11's step (``use_fused_norm``)
+    under ``save_flash``: phase 8's metrics and a profiled step, with
+    12 flash forwards, 49 / 25 RMSNorm and 24 / 24 RoPE launches a step.
+17. The JAX package's tuned training step (``bench.py``'s
+    ``bench_tuned`` row: ``save_flash``, ``ce_chunks=16``, bf16 moments
+    and gradients) beside the same step with ``sentinel=True``: one
+    clean step of each from the same parameters must give the same loss
+    bits; then interleaved blocks of 2 steps, 4 rounds, the least time
+    a step of each (``bench.py``'s estimator), MFU and the sentinel's
+    overhead; one profiled unguarded step; then NaN-poisoned parameters:
+    the guarded step must report bad, keep the step count and leave
+    every moment finite.
+18. MoE serving: phase 4's model, config and trace with 8 experts,
+    top-2, capacity factor 1.25 (bf16, random weights from the seed):
+    every request completes, no block leaks, 12 paged-attention
+    launches per decode iteration and per mixed dispatch; tokens/s,
+    TTFT and ms per decode iteration; the drop counts of one direct
+    ``paged_prefill`` and ``paged_decode_step``. Then at fp32 on phase
+    6's trace: one decode dispatch's logits, kernel against gather,
+    within 1e-3, and the kernel and gather engines' greedy and sampled
+    streams equal, at capacity factors 1.25 (drops) and 4 (capacity =
+    T, nothing drops).
+19. MoE training: phase 8's width and batch with 8 experts, top-2, 4
+    layers (full remat): phase 8's metrics, falling finite losses and
+    the derived flash launches; then phase 9's fp32 parity (flash
+    kernels against the plain attention) with 4 experts.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -958,15 +996,21 @@ def train_config(dtype, **kw):
 
 
 def expected_launches(cfg):
-    """Kernel launches per training step with full non-reentrant remat:
-    every layer's forward runs twice (the forward, then its recompute just
-    before its backward), the final norm once, each backward once."""
+    """Kernel launches per training step. Full non-reentrant remat: every
+    layer's forward runs twice (the forward, then its recompute just
+    before its backward), the final norm once, each backward once. Under
+    ``"save_flash"`` the flash forward and the q/k RoPE run once (their
+    outputs are kept); the backward still runs both of a layer's norms
+    again (the attention norm for the projections' gradients, the MLP
+    norm in the tail's recompute)."""
     L = cfg.num_hidden_layers
-    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L}
+    once = cfg.remat_policy == "save_flash"
+    want = {"flash_attention": (1 if once else 2) * L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
     if cfg.use_fused_norm:
         want.update({"rms_norm": 2 * (2 * L) + 1, "rms_norm_bwd": 2 * L + 1,
-                     "apply_rope": 2 * (2 * L), "apply_rope_bwd": 2 * L})
+                     "apply_rope": (1 if once else 2) * (2 * L),
+                     "apply_rope_bwd": 2 * L})
     return want
 
 
@@ -1019,17 +1063,18 @@ def train_phase(steps=4, batch=8, seq=2048, **cfg_kw):
     return m, counts
 
 
-def parity_phase(knob):
-    """Phases 9 and 12: fp32, the path with ``knob`` (``use_kernels``: the
-    flash kernels; ``use_fused_norm``: the fused norm and RoPE kernels) on
-    against the same path with it off."""
+def parity_phase(knob, **kw):
+    """Phases 9, 12 and 19: fp32, the path with ``knob`` (``use_kernels``:
+    the flash kernels; ``use_fused_norm``: the fused norm and RoPE
+    kernels) on against the same path with it off; ``kw`` changes the
+    config further (phase 19: MoE)."""
     import torch
     from paddle_tpu_torch.models.llama import (_leaves, init_params,
                                                loss_fn, make_train_step)
     cfg = {use: train_config(torch.float32, hidden_size=512,
                              intermediate_size=1376, num_hidden_layers=4,
                              num_attention_heads=8, num_key_value_heads=4,
-                             **{knob: use})
+                             **{knob: use}, **kw)
            for use in (True, False)}
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, 32000, (2, 512))).cuda()
@@ -1083,7 +1128,7 @@ def model_config(dtype, **kw):
 def first_dispatch(params, cfg, prompts, B=4, W=16):
     """One batched ``paged_prefill`` of the first ``B`` prompts (cut to 120
     tokens) into a fresh pool: (logits, pool, greedy tokens, the decode
-    operands ``(seq_lens, tables, active)``)."""
+    operands ``(seq_lens, tables, active)``, the MoE drop count)."""
     import torch
     from paddle_tpu_torch.models import generation as G
     pool = G.init_paged_pool(cfg, 1 + B * W, 16, device="cuda")
@@ -1095,9 +1140,11 @@ def first_dispatch(params, cfg, prompts, B=4, W=16):
                        device="cuda").reshape(B, W)
     act = torch.ones(B, dtype=torch.bool, device="cuda")
     sl = torch.from_numpy(plens).cuda()
-    logits, pool = G.paged_prefill(params, cfg, torch.from_numpy(ids).cuda(),
-                                   sl, tbl, pool, act)
-    return logits, pool, logits.argmax(-1).to(torch.int32), (sl, tbl, act)
+    logits, pool, drops = G.paged_prefill(params, cfg,
+                                          torch.from_numpy(ids).cuda(), sl,
+                                          tbl, pool, act)
+    return (logits, pool, logits.argmax(-1).to(torch.int32), (sl, tbl, act),
+            drops)
 
 
 def make_trace(n, vocab, seed, long_len=600, lens=(32, 200), outs=(16, 64)):
@@ -1523,6 +1570,299 @@ def sampled_spec_parity_phase(params, cfg, prompts, news):
         f"{m['spec_drafted']}, accepted {m['spec_accepted']}")
 
 
+# ---------------------------------------------------------------------------
+# phases 16-19: remat policies, the guarded step, MoE
+# ---------------------------------------------------------------------------
+
+POLICIES = (None, "nothing", "dots", "dots_saveable", "save_attn",
+            "save_qkv_attn", "save_flash", "save_flash_qk",
+            "save_flash_only")
+# per layer and step, read from the JAX source with use_kernels: (flash
+# forwards, wq, wk, wv runs); 2 = the backward runs it again
+POLICY_COUNTS = {
+    None: (2, 2, 2, 2), "nothing": (2, 2, 2, 2), "dots": (2, 1, 1, 1),
+    "dots_saveable": (2, 1, 1, 1), "save_attn": (2, 2, 2, 2),
+    "save_qkv_attn": (2, 1, 1, 1), "save_flash": (1, 1, 1, 1),
+    "save_flash_qk": (1, 1, 1, 2), "save_flash_only": (1, 2, 2, 2)}
+
+
+class CountGemms:
+    """Counts ``llama._mm`` calls by weight name while active: the dense
+    GEMMs a training step runs, its recompute included."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.models import llama
+        self.llama, self.orig, self.calls = llama, llama._mm, {}
+        orig, calls = self.orig, self.calls
+
+        def counted(h, lp, name, dt):
+            calls[name] = calls.get(name, 0) + 1
+            return orig(h, lp, name, dt)
+        llama._mm = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.llama._mm = self.orig
+
+
+def policy_run(cfg, ids, steps=2, **step_kw):
+    """From the seed's parameters: one warm-up step, then ``steps`` timed
+    steps with the launch counters and the GEMM counts set to 0 just
+    before them. Returns the metrics (losses: the warm-up step's first)."""
+    import torch
+    from paddle_tpu_torch.models.llama import init_params, make_train_step
+    params = init_params(cfg, seed=SEED, device="cuda")
+    init_opt, step = make_train_step(cfg, lr=1e-4, **step_kw)
+    opt = init_opt(params)
+    params, opt, loss = step(params, opt, ids, ids)
+    losses = [loss.item()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    with CountGemms() as g:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            params, opt, loss = step(params, opt, ids, ids)
+            losses.append(loss.item())
+            times.append(time.time() - t0)
+    counts = read_counts()
+    m = {"step_ms": float(np.median(times)) * 1e3,
+         "step_ms_each": [t * 1e3 for t in times],
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+         / 2 ** 30, "losses": losses,
+         "launches_per_step": {k: v / steps for k, v in counts.items() if v},
+         "gemms_per_step": {k: v / steps for k, v in g.calls.items()}}
+    del params, opt
+    torch.cuda.empty_cache()
+    return m
+
+
+def remat_phase():
+    """Phase 16: the nine remat policy values on phase 8's step."""
+    import torch
+    from paddle_tpu_torch.models.llama import (_leaves, init_params,
+                                               loss_fn)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 32000, (8, 2048))).cuda()
+    L = 12
+    res = {}
+    for pol in POLICIES:
+        m = policy_run(train_config(torch.bfloat16, remat_policy=pol), ids)
+        res[pol] = m
+        flash, wq, wk, wv = POLICY_COUNTS[pol]
+        lp, g = m["launches_per_step"], m["gemms_per_step"]
+        log(f"  {pol}: step {m['step_ms']:.1f} ms, peak "
+            f"{m['max_memory_allocated_gb']:.2f} GB, launches/step "
+            f"{json.dumps(lp)}, GEMMs/step {json.dumps(g)}, losses "
+            f"{m['losses']}")
+        want = {"flash_attention": flash * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L}
+        check(lp == want, f"{pol}: launches per step {lp}, expected {want}")
+        got_qkv = (g.get("wq"), g.get("wk"), g.get("wv"))
+        check(got_qkv == (wq * L, wk * L, wv * L),
+              f"{pol}: q/k/v projections per step {got_qkv}")
+        check(all(np.isfinite(m["losses"])), f"{pol}: losses {m['losses']}")
+    base = res[None]["losses"][1]
+    rels = {}
+    for pol in POLICIES:
+        got = res[pol]["losses"][1]
+        rels[str(pol)] = [abs(got - base) / abs(base), got == base]
+        check(rels[str(pol)][0] <= 1e-3,
+              f"{pol}: loss after one update {got} vs full remat {base}")
+    log(f"  loss after one update vs full remat (rel, bits equal): "
+        f"{json.dumps(rels)}")
+    turns = []
+    for pol in (None, "save_flash", "save_flash", None):
+        m = policy_run(train_config(torch.bfloat16, remat_policy=pol), ids)
+        turns.append([str(pol), m["step_ms"], m["max_memory_allocated_gb"]])
+    log(f"  in turns (policy, step ms, peak GB): {json.dumps(turns)}")
+    # fp32 gradients on phase 9's config: every policy against full remat
+    small = dict(hidden_size=512, intermediate_size=1376,
+                 num_hidden_layers=4, num_attention_heads=8,
+                 num_key_value_heads=4)
+    sids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 32000, (2, 512))).cuda()
+    grads = {}
+    for pol in POLICIES:
+        cfg = train_config(torch.float32, remat_policy=pol, **small)
+        params = init_params(cfg, seed=SEED + 2, device="cuda")
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        grads[pol] = torch.autograd.grad(loss_fn(params, sids, sids, cfg),
+                                         leaves)
+    worst = {}
+    for pol in POLICIES:
+        worst[str(pol)] = max(((a - b).abs().max() / b.abs().max()).item()
+                              for a, b in zip(grads[pol], grads[None]))
+        check(worst[str(pol)] <= 1e-6,
+              f"fp32 gradients {pol} vs full remat {worst[str(pol)]}")
+    log(f"  fp32 worst gradient leaf max|diff|/max|g| against full remat: "
+        f"{json.dumps(worst)}")
+    return res, turns
+
+
+def tuned_phase():
+    """Phase 17: ``bench.py``'s tuned step (save_flash, ce_chunks 16, bf16
+    moments and gradients) with and without the sentinel, in interleaved
+    blocks, and the NaN-containment probe."""
+    import torch
+    from paddle_tpu_torch.health import sentinel_init, unpack_health
+    from paddle_tpu_torch.models.llama import (_leaves, _tree_map,
+                                               init_params, make_train_step)
+    bf = torch.bfloat16
+    cfg = train_config(bf, remat_policy="save_flash", ce_chunks=16)
+    kw = dict(lr=1e-4, opt_dtype=bf, grad_dtype=bf)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 32000, (8, 2048))).cuda()
+    pa = init_params(cfg, seed=SEED, device="cuda")
+    pb = _tree_map(lambda t: t.clone(), pa)
+    init_opt, step = make_train_step(cfg, **kw)
+    _, gstep = make_train_step(cfg, sentinel=True, **kw)
+    oa, ob = init_opt(pa), init_opt(pb)
+    sent = sentinel_init(device="cuda")
+    pa, oa, la = step(pa, oa, ids, ids)
+    pb, ob, sent, h = gstep(pb, ob, sent, ids, ids)
+    loss_a = la.item()
+    loss_b, bad, _ = unpack_health(h)
+    same_params = all(torch.equal(x, y)
+                      for x, y in zip(_leaves(pa), _leaves(pb)))
+    log(f"  clean step: unguarded loss {loss_a!r}, guarded {loss_b!r} (bad "
+        f"{bad}); parameters bit-equal after it: {same_params}")
+    check(not bad and loss_a == loss_b,
+          f"clean guarded step loss {loss_b} != unguarded {loss_a}")
+    state = {"a": (pa, oa), "b": (pb, ob, sent)}
+
+    def block(which, n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            if which == "a":
+                p, o = state["a"]
+                p, o, out = step(p, o, ids, ids)
+                state["a"] = (p, o)
+            else:
+                p, o, s = state["b"]
+                p, o, s, out = gstep(p, o, s, ids, ids)
+                state["b"] = (p, o, s)
+        out.cpu()
+        return (time.time() - t0) / n
+
+    base_s = guard_s = float("inf")
+    for _ in range(4):
+        base_s = min(base_s, block("a", 2))
+        guard_s = min(guard_s, block("b", 2))
+    flops = train_flops_per_step(cfg, 8, 2048)
+    overhead = 100.0 * (guard_s - base_s) / base_s
+    prof = profile_device(lambda: block("a", 1), "tuned step", top=10)
+    pb, ob, sent = state["b"]
+    # containment: NaN-poisoned parameters (bench.py's probe)
+    with torch.no_grad():
+        for p in _leaves(pb):
+            p.mul_(float("nan"))
+    step_before = int(ob["step"])
+    pb, ob, sent, h2 = gstep(pb, ob, sent, ids, ids)
+    _, bad2, _ = unpack_health(h2)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in _leaves(ob["m"]) + _leaves(ob["v"]))
+    m = {"base_step_ms": base_s * 1e3, "sentinel_step_ms": guard_s * 1e3,
+         "overhead_pct": overhead, "mfu": flops / base_s / PEAK_BF16,
+         "sentinel_mfu": flops / guard_s / PEAK_BF16,
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+         / 2 ** 30, "nan_step_flagged": bad2,
+         "step_count_kept": int(ob["step"]) == step_before,
+         "moments_finite": finite, "profile": prof}
+    log(f"  {json.dumps({k: v for k, v in m.items() if k != 'profile'})}")
+    check(bad2 and int(ob["step"]) == step_before and finite,
+          f"NaN step not contained: {m}")
+    return m
+
+
+def moe_serving_phase(prompts, news, sp, sn):
+    """Phase 18: phase 4's model and trace with 8 experts, top-2, then
+    fp32 kernel-vs-gather parity on phase 6's shortened trace."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.models.llama import init_params
+    moe = dict(moe_num_experts=8, moe_top_k=2)
+    cfg = model_config(torch.bfloat16, **moe)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    engine = ServingEngine(params, cfg, ServingConfig(), device="cuda")
+    engine.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+    reset_counts()
+    _, m = drive(engine, prompts, news)
+    c = read_counts()
+    dec = c["paged_attention"] - c["paged_attention_multiquery"]
+    log(f"  {json.dumps(m)}")
+    log(f"  launches: {json.dumps(c)}")
+    check(dec == 12 * m["decode_iters"],
+          f"paged attention launches {dec} for {m['decode_iters']} decode "
+          f"iterations")
+    check(c["paged_attention_multiquery"] == 12 * m["mixed_dispatches"],
+          f"multi-query launches {c['paged_attention_multiquery']} for "
+          f"{m['mixed_dispatches']} mixed dispatches")
+    del engine
+    torch.cuda.empty_cache()
+    _, pool, tok, (sl, tbl, act), pre_drops = first_dispatch(params, cfg,
+                                                             prompts)
+    _, _, dec_drops = G.paged_decode_step(params, cfg, tok, sl, tbl, pool,
+                                          act, use_kernel=True)
+    drops = {"paged_prefill": float(pre_drops),
+             "paged_decode_step": float(dec_drops)}
+    log(f"  dropped (token, choice) pairs of one direct call: "
+        f"{json.dumps(drops)}")
+    del params, pool
+    torch.cuda.empty_cache()
+    # fp32 parity: the kernel and gather engines give equal streams,
+    # greedy and sampled, at the default capacity factor 1.25 (drops) and
+    # at E / top_k = 4 (capacity = T, nothing drops). Which pairs a
+    # capacity drops depends on every row of a dispatch, freed slots and
+    # padding included, and those rows attend the null block they all
+    # write: generation._write_src makes what it holds a function of the
+    # inputs, where the card's scatter would keep an unspecified row.
+    params = init_params(model_config(torch.float32, **moe), seed=SEED + 1,
+                         device="cuda")
+    equal = {}
+    for cf in (1.25, 4.0):
+        cfg32 = model_config(torch.float32, moe_capacity_factor=cf, **moe)
+        _, pool, tok, (sl, tbl, act), _ = first_dispatch(params, cfg32, sp)
+        lg = {use: G.paged_decode_step(
+            params, cfg32, tok, sl, tbl,
+            {k: v.clone() for k, v in pool.items()}, act,
+            use_kernel=use)[0] for use in (True, False)}
+        err = (lg[True] - lg[False]).abs().max().item()
+        log(f"  fp32 MoE, capacity factor {cf}: first decode dispatch "
+            f"logits, kernel vs gather: max abs err {err:.3g}")
+        check(err <= 1e-3, f"fp32 MoE logit error {err} at capacity "
+              f"factor {cf}")
+        del pool
+        for kind, knobs in (("greedy", None),
+                            ("sampled", sampled_knobs(len(sp)))):
+            streams = {}
+            for knob in ("on", "off"):
+                eng = ServingEngine(params, cfg32,
+                                    ServingConfig(paged_kernel=knob),
+                                    device="cuda")
+                streams[knob], _ = drive(eng, sp, sn, knobs)
+                del eng
+            same = [bool(np.array_equal(a, b))
+                    for a, b in zip(streams["on"], streams["off"])]
+            equal[f"{kind} cf {cf}"] = f"{sum(same)} of {len(same)}"
+            for i, ok in enumerate(same):
+                check(ok, f"MoE fp32 {kind} request {i} at capacity factor "
+                      f"{cf}: kernel stream {streams['on'][i]} != gather "
+                      f"stream {streams['off'][i]}")
+    log(f"  fp32 MoE streams equal between the kernel and gather engines: "
+        f"{json.dumps(equal)}")
+    del params
+    torch.cuda.empty_cache()
+    return m, c, drops
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1633,12 +1973,12 @@ def main() -> int:
                         lens=(20, 120), outs=(8, 12))
     # first-dispatch logits: one batched prefill, then one decode step
     # through each attention path on copies of the same pool
-    _, pool, tok, (sl, tbl, act) = first_dispatch(params, cfg32, sp)
+    _, pool, tok, (sl, tbl, act), _ = first_dispatch(params, cfg32, sp)
     out = {}
     for use in (True, False):
-        lg, _ = G.paged_decode_step(params, cfg32, tok, sl, tbl,
-                                    {k: v.clone() for k, v in pool.items()},
-                                    act, use_kernel=use)
+        lg, _, _ = G.paged_decode_step(
+            params, cfg32, tok, sl, tbl,
+            {k: v.clone() for k, v in pool.items()}, act, use_kernel=use)
         out[use] = lg
     logit_err = (out[True] - out[False]).abs().max().item()
     log(f"  first decode dispatch logits, kernel vs gather: max abs err "
@@ -1722,9 +2062,9 @@ def main() -> int:
     for fused in (True, False):
         c = model_config(torch.float32, use_fused_norm=fused)
         reset_counts()
-        pre, pool, tok, (sl, tbl, act) = first_dispatch(params, c, sp)
-        dec, _ = G.paged_decode_step(params, c, tok, sl, tbl, pool, act,
-                                     use_kernel=True)
+        pre, pool, tok, (sl, tbl, act), _ = first_dispatch(params, c, sp)
+        dec, _, _ = G.paged_decode_step(params, c, tok, sl, tbl, pool, act,
+                                        use_kernel=True)
         serve[fused] = (pre, dec, read_counts()["rms_norm"])
         del pool
     errs = [(serve[True][i] - serve[False][i]).abs().max().item()
@@ -1755,6 +2095,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     for c in (c13, c14):
         launches = {k: launches[k] + c[k] for k in launches}
+
+    log("== phase 16: remat policies, full width, bf16, use_kernels, phase "
+        "8's step")
+    remat_phase()
+    torch.cuda.empty_cache()
+    log("  F (phase 11's step) with remat_policy=\"save_flash\":")
+    m16, _ = train_phase(steps=2, use_fused_norm=True,
+                         remat_policy="save_flash")
+    log(f"  phase 11 -> F with save_flash: step {m11['step_ms']:.1f} -> "
+        f"{m16['step_ms']:.1f} ms, MFU {m11['mfu']:.4f} -> "
+        f"{m16['mfu']:.4f}, peak {m11['max_memory_allocated_gb']:.2f} -> "
+        f"{m16['max_memory_allocated_gb']:.2f} GB (not in turns)")
+    torch.cuda.empty_cache()
+
+    log("== phase 17: the tuned step (save_flash, ce_chunks 16, bf16 moments "
+        "and gradients) with and without the health sentinel")
+    tuned_phase()
+    torch.cuda.empty_cache()
+
+    log("== phase 18: MoE serving, full width, bf16, 8 experts top-2")
+    moe_serving_phase(prompts, news, sp, sn)
+
+    log("== phase 19: MoE training, full width, bf16, 8 experts top-2, 4 "
+        "layers")
+    train_phase(steps=3, num_hidden_layers=4, moe_num_experts=8,
+                moe_top_k=2)
+    torch.cuda.empty_cache()
+    par = parity_phase("use_kernels", moe_num_experts=4, moe_top_k=2)
+    check(par["launches"]["flash_attention"] > 0,
+          f"MoE parity never launched the flash kernels: {par['launches']}")
 
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [

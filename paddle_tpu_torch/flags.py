@@ -1,9 +1,11 @@
-"""Runtime flag registry — the ``FLAGS_serving_*`` subset the port reads.
+"""Runtime flag registry — the ``FLAGS_serving_*`` and health subset the
+port reads.
 
 Counterpart of ``paddle_tpu/flags.py``: its ``define_flag`` / ``flag``
 helpers and the same names, defaults and ``FLAGS_<name>=value``
 environment override, limited to the serving knobs the ported engine
-resolves when a ``ServingConfig`` field is left unset.
+resolves when a ``ServingConfig`` field is left unset and the two
+loss-spike knobs of the health sentinel.
 """
 
 from __future__ import annotations
@@ -131,3 +133,16 @@ define_flag("FLAGS_serving_tenant_cache_quota", 0,
 define_flag("FLAGS_serving_retry_after_s", 1.0,
             "Conservative retry-after hint (s) returned to shed clients "
             "before two retirements make an interval measurable.", float)
+
+# ---------------------------------------------------------------------------
+# Run-health sentinel (paddle_tpu_torch.health): the two knobs
+# sentinel_check reads when its caller leaves them unset.
+# ---------------------------------------------------------------------------
+define_flag("FLAGS_health_spike_factor", 0.0,
+            "Loss-spike threshold: a step is bad when loss > factor * |EMA| "
+            "(after FLAGS_health_spike_warmup good steps). 0 disables the "
+            "spike test; NaN/Inf detection is always on when the sentinel "
+            "is.", float)
+define_flag("FLAGS_health_spike_warmup", 20,
+            "Good steps required to seed the loss EMA before the spike test "
+            "arms (early-training loss is legitimately volatile).", int)

@@ -486,7 +486,7 @@ class ServingEngine:
                 tables[r] = self.cache.tables[req.slot]
                 act[r] = True
             t0 = time.time()
-            logits, self.cache.pool = G.paged_prefill(
+            logits, self.cache.pool, _ = G.paged_prefill(
                 self._params, self._cfg, self._t(ids), self._t(plens),
                 self._t(tables), self.cache.pool, self._t(act))
             first = self._first_tokens(logits, group, Bb)
@@ -561,7 +561,7 @@ class ServingEngine:
             ids[0, :n] = req.prefill_ids[req.num_computed:
                                          req.num_computed + n]
             t0 = time.time()
-            logits, self.cache.pool = G.paged_prefill_chunk(
+            logits, self.cache.pool, _ = G.paged_prefill_chunk(
                 self._params, self._cfg, self._t(ids), req.num_computed, n,
                 self._t(self.cache.tables[req.slot][None]), self.cache.pool)
             self._record_dispatch("prefill", t0)
@@ -775,7 +775,7 @@ class ServingEngine:
             dl[m] = len(d)
         active = (~self._done) & (self._steps_left > 0)
         t0 = time.time()
-        logits, self.cache.pool = G.paged_spec_step(
+        logits, self.cache.pool, _ = G.paged_spec_step(
             self._params, self._cfg, self._t(toks), self._t(self._seq_lens),
             self._t(dl), self._t(self.cache.tables), self.cache.pool,
             self._t(active), use_kernel=self._use_kernel)
@@ -851,7 +851,7 @@ class ServingEngine:
             active = (~done) & (steps_left > 0)
             if not active.any():
                 break
-            logits, self.cache.pool = G.paged_decode_step(
+            logits, self.cache.pool, _ = G.paged_decode_step(
                 self._params, self._cfg, self._t(tokens), self._t(seq_lens),
                 tables, self.cache.pool, self._t(active),
                 use_kernel=self._use_kernel)
@@ -919,7 +919,7 @@ class ServingEngine:
             # same (seed, index 0) key _first_tokens uses
             keys[m], temp[m], topk[m], topp[m] = self._knobs(req)
         t0 = time.time()
-        logits, self.cache.pool = G.paged_mixed_step(
+        logits, self.cache.pool, _ = G.paged_mixed_step(
             self._params, self._cfg, self._t(toks), self._t(starts),
             self._t(qlens), self._t(self.cache.tables), self.cache.pool,
             self._t(active), use_kernel=self._use_kernel)

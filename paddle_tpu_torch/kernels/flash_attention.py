@@ -450,33 +450,47 @@ def _bwd_cuda(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal):
 class _FlashAttention(torch.autograd.Function):
     """``(q, k, v, seg_q, seg_k) -> (out, lse)``; the forward saves
     ``(q, k, v, seg_q, seg_k, out, lse)`` and nothing else (it holds no
-    state between calls, so activation checkpointing may re-run it)."""
+    state between calls, so activation checkpointing may re-run it).
+
+    With ``regen`` (a callable returning ``(q, k, v)``) the forward keeps
+    only ``seg_q, seg_k, out, lse``, the residuals the JAX kernel's VJP
+    names ``flash_out`` and ``flash_lse``, and the backward calls ``regen``
+    for the inputs: what a remat policy that keeps the flash residuals but
+    not (all of) q/k/v needs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_k, scale, causal):
+    def forward(ctx, q, k, v, seg_q, seg_k, scale, causal, regen):
         fwd = (_fwd_cuda if on_cuda(q, "flash_attention")
                else flash_attention_fwd_plain)
         out, lse = fwd(q, k, v, seg_q, seg_k, scale, causal)
-        ctx.save_for_backward(q, k, v, seg_q, seg_k, out, lse)
-        ctx.scale, ctx.causal = scale, causal
+        if regen is None:
+            ctx.save_for_backward(q, k, v, seg_q, seg_k, out, lse)
+        else:
+            ctx.save_for_backward(seg_q, seg_k, out, lse)
+        ctx.scale, ctx.causal, ctx.regen = scale, causal, regen
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, seg_q, seg_k, out, lse = ctx.saved_tensors
+        if ctx.regen is None:
+            q, k, v, seg_q, seg_k, out, lse = ctx.saved_tensors
+        else:
+            seg_q, seg_k, out, lse = ctx.saved_tensors
+            q, k, v = ctx.regen()
         bwd = (_bwd_cuda if on_cuda(q, "flash_attention")
                else flash_attention_bwd_plain)
         dq, dk, dv = bwd(q, k, v, seg_q, seg_k, out, lse, dout, ctx.scale,
                          ctx.causal)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = False,
                              scale: Optional[float] = None,
                              block_q: Optional[int] = None,
                              block_k: Optional[int] = None,
-                             segment_ids=None, kv_segment_ids=None):
+                             segment_ids=None, kv_segment_ids=None,
+                             regen_inputs=None):
     """``[B, S, H, D]`` flash attention returning ``(out, lse [B, H, Sq])``.
 
     The arguments and errors are the JAX function's: ``block_q``/``block_k``
@@ -484,6 +498,10 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
     their own and take any length); causal with ``Sq > Sk`` raises;
     ``segment_ids [B, Sq]`` enables packed-sequence masking, with
     ``kv_segment_ids`` defaulting to it and required when ``Sq != Sk``.
+    ``regen_inputs`` (a callable returning ``(q, k, v)``, run under no
+    grad) keeps ``q``/``k``/``v`` out of the saved residuals: the backward
+    rebuilds them with it (the remat policies that keep only the flash
+    residuals and part of q/k/v).
 
     CUDA tensors launch the kernels: each forward adds one to
     ``flash_attention.launches``, each backward one to
@@ -512,7 +530,8 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
         seg_q = torch.as_tensor(segment_ids, device=q.device)
         seg_k = torch.as_tensor(kv_segment_ids, device=q.device)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    return _FlashAttention.apply(q, k, v, seg_q, seg_k, scale, bool(causal))
+    return _FlashAttention.apply(q, k, v, seg_q, seg_k, scale, bool(causal),
+                                 regen_inputs)
 
 
 def flash_attention(q, k, v, causal: bool = False,

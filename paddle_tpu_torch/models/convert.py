@@ -74,16 +74,15 @@ def to_numpy(tree):
 
 # JAX config fields whose feature the port does not run, with the value
 # that means "off"
-_UNPORTED = {"moe_num_experts": 0, "sep_axis": None, "ep_axis": None,
-             "tp_axis": None}
+_UNPORTED = {"sep_axis": None, "ep_axis": None, "tp_axis": None}
 
 
 def config_from_jax(cfg) -> LlamaConfig:
     """The port's :class:`LlamaConfig` for a JAX ``LlamaConfig`` (read by
     attribute; dtypes mapped through numpy). Raises ``ValueError`` naming
     the field when the JAX config turns on a feature the port does not
-    run (MoE, context, expert or tensor parallelism), rather than
-    returning a config that computes something else."""
+    run (context, expert or tensor parallelism), rather than returning a
+    config that computes something else."""
     for name, off in _UNPORTED.items():
         value = getattr(cfg, name, off)
         if value != off:
@@ -102,4 +101,6 @@ def config_from_jax(cfg) -> LlamaConfig:
         dtype=_torch_dtype(cfg.dtype),
         param_dtype=_torch_dtype(cfg.param_dtype),
         remat=cfg.remat, remat_policy=cfg.remat_policy,
-        ce_chunks=cfg.ce_chunks)
+        moe_num_experts=cfg.moe_num_experts, moe_top_k=cfg.moe_top_k,
+        moe_capacity_factor=cfg.moe_capacity_factor,
+        moe_aux_weight=cfg.moe_aux_weight, ce_chunks=cfg.ce_chunks)

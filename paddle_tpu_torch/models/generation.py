@@ -6,7 +6,9 @@ gather helpers and the four paged forward entry points the serving engine
 drives — :func:`paged_prefill`, :func:`paged_prefill_chunk`,
 :func:`paged_decode_step` and :func:`paged_mixed_step` (the last over
 ``_paged_multiquery_forward``), the speculative verify step
-:func:`paged_spec_step`, and the samplers: :func:`seed_key`,
+:func:`paged_spec_step` (each returns the JAX triple ``(logits, pool,
+dropped_tokens)``: the tokens an MoE FFN dropped at capacity, summed over
+the layers, ``0.0`` for a dense model), and the samplers: :func:`seed_key`,
 :func:`validate_sampling`, the per-row serving sampler
 :func:`sample_tokens` and the static-knob :func:`_sample`, whose draws
 equal ``jax.random``'s (:mod:`paddle_tpu_torch.prng`). The dense
@@ -278,25 +280,59 @@ def _kv_quantize(x):
     return q.to(torch.int8), scale
 
 
-def _kv_store(p: Dict, phys, off, k, v):
+def _write_src(cfg: LlamaConfig, phys, off, bs: int):
+    """Under MoE, for each row of a dispatch's K/V write list (``phys``,
+    ``off`` flattened), the row whose values it stores: the LAST row that
+    writes the same pool cell, the value XLA's CPU scatter keeps. ``None``
+    for a dense model.
+
+    Inactive slots and padding positions all write into the null block,
+    so several rows can write one cell, and a CUDA ``index_put_`` keeps an
+    unspecified one of them. Under MoE that value reaches real rows:
+    inactive and padding rows attend the null block, and their hidden
+    states take places in the experts' capacity queues, which decide what
+    real tokens drop. With every duplicate storing the last row's value
+    the pool is a function of the inputs. In a dense model no real row
+    reads the null block, so its write stays as it is."""
+    if not cfg.moe_num_experts:
+        return None
+    key = (phys.long() * bs + off.long()).reshape(-1)
+    n = key.numel()
+    skey, order = torch.sort(key, stable=True)
+    pos = torch.arange(n, device=key.device)
+    # each sorted position's group end: the stable sort puts a cell's
+    # last writer at the end of its group
+    end = torch.where(torch.cat([skey[1:] != skey[:-1],
+                                 skey.new_ones(1, dtype=torch.bool)]),
+                      pos, n)
+    end = end.flip(0).cummin(0).values.flip(0)
+    src = torch.empty_like(order)
+    src[order] = order[end]
+    return src
+
+
+def _kv_store(p: Dict, phys, off, k, v, src=None):
     """Scatter ``k``/``v [..., Hk, D]`` into one layer's pool slice at
-    ``(phys, off)`` in place (quantizing for int8 pools). Returns the
-    ATTEND view of the new entries — what later reads will observe: the
-    values themselves for fp pools, the int8 round trip for quantized
-    ones."""
+    ``(phys, off)`` in place (quantizing for int8 pools); ``src`` (from
+    :func:`_write_src`) makes each row store its cell's last writer's
+    values. Returns the ATTEND view of the row's own new entries — what
+    later reads of it observe: the values themselves for fp pools, the
+    int8 round trip for quantized ones."""
     phys, off = phys.long(), off.long()
     if "k_scale" in p:
         qk, sk = _kv_quantize(k)
         qv, sv = _kv_quantize(v)
-        p["k"][phys, off] = qk
-        p["v"][phys, off] = qv
-        p["k_scale"][phys, off] = sk
-        p["v_scale"][phys, off] = sv
-        return qk.to(torch.float32) * sk[..., None], \
-            qv.to(torch.float32) * sv[..., None]
-    p["k"][phys, off] = k.to(p["k"].dtype)
-    p["v"][phys, off] = v.to(p["v"].dtype)
-    return k, v
+        vals = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+        view = (qk.to(torch.float32) * sk[..., None],
+                qv.to(torch.float32) * sv[..., None])
+    else:
+        vals = {"k": k.to(p["k"].dtype), "v": v.to(p["v"].dtype)}
+        view = (k, v)
+    for name, t in vals.items():
+        if src is not None:
+            t = t.flatten(0, phys.dim() - 1)[src].reshape(t.shape)
+        p[name][phys, off] = t
+    return view
 
 
 def _kv_gather(p: Dict, block_tables, B: int, C: int, Hk: int, D: int):
@@ -325,10 +361,24 @@ def _qkv(lp: Dict, h, cfg: LlamaConfig, B: int, T: int, H: int, Hk: int):
 
 
 def _attn_out(lp: Dict, h, o, cfg: LlamaConfig):
-    """Residual add of the output projection, then the FFN half."""
+    """Residual add of the output projection, then the FFN half: ``(block
+    output, kept)``, ``kept`` the (token, choice) pairs the MoE FFN took
+    (``0.0`` for a dense FFN)."""
     dt = cfg.dtype
     h = h + _mm(_merge_heads(o).to(dt), lp, "wo", dt)
-    return _ffn_tail(lp, h, cfg)
+    out, _, kept = _ffn_tail(lp, h, cfg)
+    return out, kept
+
+
+def _dropped(cfg: LlamaConfig, T: int, kept):
+    """The (token, choice) pairs a dispatch of ``T`` tokens dropped at
+    capacity over its layers: ``L * T * top_k`` less the layers' ``kept``
+    counts, subtracted once (each count is a whole number, exact in fp32,
+    so this equals JAX's sum of per-layer drops). ``0.0`` for a dense
+    model."""
+    if not cfg.moe_num_experts:
+        return 0.0
+    return float(len(kept) * T * cfg.moe_top_k) - torch.stack(kept).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +394,7 @@ def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
     scatter into the null block). On int8 pools the attention reads the
     quantized round trip of this batch's K/V, exactly what later dispatches
     gather back. Returns (next-token logits ``[B, V]`` read at each row's
-    ``prompt_len - 1``, pool)."""
+    ``prompt_len - 1``, pool, dropped tokens)."""
     B, Sb = ids.shape
     H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
@@ -360,16 +410,20 @@ def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
     kv_mask = (j[None, :] <= j[:, None])[None].expand(B, Sb, Sb)
 
     x = _embed(params, ids, cfg.dtype)
+    src = _write_src(cfg, phys, off, bs)
+    kept = []
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
         q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk)
         q = _rope(q, cos, sin, False)
         k = _rope(k, cos, sin, False)
-        ka, va = _kv_store(pz, phys, off, k, v)
-        x = _attn_out(lp, x, _masked_sdpa(q, ka, va, kv_mask), cfg)
+        ka, va = _kv_store(pz, phys, off, k, v, src)
+        x, n = _attn_out(lp, x, _masked_sdpa(q, ka, va, kv_mask), cfg)
+        kept.append(n)
     idx = torch.clamp(prompt_lens.long() - 1, min=0)
     last = x[torch.arange(B, device=dev), idx][:, None]       # [B, 1, E]
-    return _lm_head(params, cfg, last), pool
+    return (_lm_head(params, cfg, last), pool,
+            _dropped(cfg, B * Sb, kept))
 
 
 def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
@@ -380,7 +434,7 @@ def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
     prefix-cache hits. Queries RoPE at their absolute positions, scatter
     their K/V, then attend the gathered pool under ``j <= start + i``.
     Returns (next-token logits ``[1, V]`` at position ``start + chunk_len -
-    1``, pool)."""
+    1``, pool, dropped tokens)."""
     B, Sb = ids.shape
     H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
@@ -401,16 +455,20 @@ def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
     kv_mask = jg <= pos[:, :, None]                           # [1, Sb, C]
 
     x = _embed(params, ids, cfg.dtype)
+    src = _write_src(cfg, phys, off, bs)
+    kept = []
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
         q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk)
         q = _rope(q, cos, sin, False)
         k = _rope(k, cos, sin, False)
-        _kv_store(pz, phys, off, k, v)
+        _kv_store(pz, phys, off, k, v, src)
         kk, vv = _kv_gather(pz, block_tables, B, C, Hk, D)
-        x = _attn_out(lp, x, _masked_sdpa(q, kk, vv, kv_mask), cfg)
+        x, n = _attn_out(lp, x, _masked_sdpa(q, kk, vv, kv_mask), cfg)
+        kept.append(n)
     last = x[:, max(chunk_len - 1, 0)][:, None]               # [1, 1, E]
-    return _lm_head(params, cfg, last), pool
+    return (_lm_head(params, cfg, last), pool,
+            _dropped(cfg, B * Sb, kept))
 
 
 def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
@@ -424,7 +482,8 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     null block). Attention runs either through the gather path
     (``use_kernel=False``: ``_kv_gather`` + ``_masked_sdpa``) or through
     ``kernels.paged_attention`` (``use_kernel=True``: the CUDA kernel on a
-    card — no gather is built). Returns (logits ``[M, V]``, pool)."""
+    card — no gather is built). Returns (logits ``[M, V]``, pool, dropped
+    tokens)."""
     M = tokens.shape[0]
     H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
@@ -441,12 +500,14 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     kv_mask = (jj <= seq_lens[:, None])[:, None, :]          # [M, 1, C]
 
     x = _embed(params, tokens[:, None], cfg.dtype)
+    src = _write_src(cfg, phys, off, bs)
+    kept = []
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
         q, k, v = _qkv(lp, x, cfg, M, 1, H, Hk)
         q = _rope(q, cos, sin, False)
         k = _rope(k, cos, sin, False)
-        _kv_store(pz, phys, off, k[:, 0], v[:, 0])
+        _kv_store(pz, phys, off, k[:, 0], v[:, 0], src)
         if use_kernel:
             o = paged_attention(q[:, 0].contiguous(), pz["k"], pz["v"],
                                 block_tables, seq_lens,
@@ -455,8 +516,9 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
         else:
             kk, vv = _kv_gather(pz, block_tables, M, C, Hk, D)
             o = _masked_sdpa(q, kk, vv, kv_mask)
-        x = _attn_out(lp, x, o, cfg)
-    return _lm_head(params, cfg, x), pool
+        x, n = _attn_out(lp, x, o, cfg)
+        kept.append(n)
+    return _lm_head(params, cfg, x), pool, _dropped(cfg, M, kept)
 
 
 def paged_mixed_step(params: Dict, cfg: LlamaConfig, tokens, starts,
@@ -467,15 +529,15 @@ def paged_mixed_step(params: Dict, cfg: LlamaConfig, tokens, starts,
     position ``starts[m]`` — a decode slot is the ``q_len == 1`` case, a
     prefill chunk a ``q_len == n`` row attending ``j <= start + q``. The
     ``draft_lens = q_lens - 1`` case of :func:`_paged_multiquery_forward`.
-    Returns ``(logits [M, V], pool)`` — logits after each row's LAST real
-    token."""
+    Returns ``(logits [M, V], pool, dropped tokens)`` — logits after each
+    row's LAST real token."""
     draft_lens = torch.clamp(q_lens - 1, min=0)
-    x, pool = _paged_multiquery_forward(params, cfg, tokens, starts,
-                                        draft_lens, block_tables, pool,
-                                        active, use_kernel)
+    x, pool, drops = _paged_multiquery_forward(params, cfg, tokens, starts,
+                                               draft_lens, block_tables,
+                                               pool, active, use_kernel)
     M = tokens.shape[0]
     last = x[torch.arange(M, device=x.device), draft_lens.long()][:, None]
-    return _lm_head(params, cfg, last), pool
+    return _lm_head(params, cfg, last), pool, drops
 
 
 def paged_spec_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
@@ -491,11 +553,12 @@ def paged_spec_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     seq_lens + min(q, draft_lens)``, what the sequential step at that
     position sees. The engine rolls rejected drafts back on the host.
     ``use_kernel`` runs the paged-attention kernel's multi-query entry
-    point. Returns (logits ``[M, Q, V]``, pool)."""
-    x, pool = _paged_multiquery_forward(params, cfg, tokens, seq_lens,
-                                        draft_lens, block_tables, pool,
-                                        active, use_kernel)
-    return _lm_head_all(params, cfg, x), pool
+    point. Returns (logits ``[M, Q, V]``, pool, dropped tokens)."""
+    x, pool, drops = _paged_multiquery_forward(params, cfg, tokens,
+                                               seq_lens, draft_lens,
+                                               block_tables, pool, active,
+                                               use_kernel)
+    return _lm_head_all(params, cfg, x), pool, drops
 
 
 def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
@@ -503,8 +566,9 @@ def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
                               pool: Dict, active, use_kernel: bool):
     """Embed ``tokens [M, Q]``, write K/V for every valid query position
     ``seq_lens + q`` (``q <= draft_lens``), attend ``j <= seq_lens +
-    min(q, draft_lens)``, and return the hidden states ``[M, Q, E]`` and
-    the pool. ``use_kernel`` runs the kernel's multi-query entry point."""
+    min(q, draft_lens)``, and return the hidden states ``[M, Q, E]``, the
+    pool and the MoE drops. ``use_kernel`` runs the kernel's multi-query
+    entry point."""
     M, Q = tokens.shape
     H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
@@ -525,12 +589,14 @@ def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
     kv_mask = jj <= (seq_lens[:, None] + qcap)[:, :, None]  # [M, Q, C]
 
     x = _embed(params, tokens, cfg.dtype)
+    src = _write_src(cfg, phys, off, bs)
+    kept = []
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
         q, k, v = _qkv(lp, x, cfg, M, Q, H, Hk)
         q = _rope(q, cos, sin, False)
         k = _rope(k, cos, sin, False)
-        _kv_store(pz, phys, off, k, v)
+        _kv_store(pz, phys, off, k, v, src)
         if use_kernel:
             o = paged_attention(q.contiguous(), pz["k"], pz["v"],
                                 block_tables, seq_lens,
@@ -540,5 +606,6 @@ def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
         else:
             kk, vv = _kv_gather(pz, block_tables, M, C, Hk, D)
             o = _masked_sdpa(q, kk, vv, kv_mask)
-        x = _attn_out(lp, x, o, cfg)
-    return x, pool
+        x, n = _attn_out(lp, x, o, cfg)
+        kept.append(n)
+    return x, pool, _dropped(cfg, M * Q, kept)

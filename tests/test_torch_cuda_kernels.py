@@ -687,3 +687,88 @@ def test_fused_norm_training_matches_plain_path(dev):
     for a, b in zip(gf, gp):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
     assert max(abs(a - b) / abs(b) for a, b in zip(tf, tp)) <= 1e-4
+
+
+@pytest.mark.parametrize("policy,flash", [("save_flash", 1),
+                                          ("save_flash_only", 1),
+                                          ("save_qkv_attn", 2)])
+def test_remat_policy_launches_and_gradients(dev, policy, flash):
+    """fp32 on the card: a named remat policy launches the flash forward
+    ``flash`` times a layer (once where it keeps the flash residuals, the
+    backward then feeding the saved out/lse and, under
+    ``save_flash_only``, q/k/v rebuilt by ``regen_inputs``), and its loss
+    equals full remat's within 1e-6 relative and its gradient leaves
+    within 1e-5 x max|g| (the projections' input gradient is summed in
+    another order; chip_smoke.py phase 16 holds its larger config to
+    1e-6)."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.models.llama import (LlamaConfig, _leaves,
+                                               init_params, loss_fn)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, use_kernels=True, remat=True)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 96))).to(dev)
+    out = {}
+    for pol in (None, policy):
+        cfg = LlamaConfig(**base, remat_policy=pol)
+        params = init_params(cfg, seed=4, device=dev)
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        n0 = (flash_attention.launches, flash_attention.launches_bwd_dq)
+        loss = loss_fn(params, ids, ids, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        out[pol] = (loss.item(), grads,
+                    (flash_attention.launches - n0[0],
+                     flash_attention.launches_bwd_dq - n0[1]))
+    (l0, g0, n0), (l1, g1, n1) = out[None], out[policy]
+    assert n0 == (4, 2) and n1 == (2 * flash, 2)
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    for a, b in zip(g1, g0):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["gather", "kernel"])
+def test_moe_decode_with_freed_slots_sharing_the_null_block(dev, use_kernel):
+    """fp32 MoE decode at a capacity that drops, with twelve freed slots
+    (distinct tokens, so distinct K/V) all writing the null block's cell
+    (0, 0) ahead of four live slots in the experts' queues: eight runs on
+    the card give the same bits, and every row's logits (atol 1e-4) and
+    the drop count equal the CPU's. A row's 512 K values fill one block of
+    the scatter, so without ``generation._write_src`` the cell would hold
+    whichever of the twelve rows' blocks wrote last, run by run."""
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.models.llama import (LlamaConfig, _tree_map,
+                                               init_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=256,
+                      num_hidden_layers=3, num_attention_heads=4,
+                      moe_num_experts=4, moe_top_k=2,
+                      moe_capacity_factor=0.5)
+    rng = np.random.default_rng(8)
+    M, bs, W = 16, 16, 4
+    toks = torch.from_numpy(rng.permutation(256)[:M].astype(np.int32))
+    lens = torch.tensor([0] * 12 + [5, 17, 30, 9], dtype=torch.int32)
+    tables = torch.zeros((M, W), dtype=torch.int32)
+    tables[12:] = torch.arange(1, 1 + 4 * W, dtype=torch.int32).view(4, W)
+    act = lens > 0
+    params = init_params(cfg, seed=5, device="cpu")
+    pool = G.init_paged_pool(cfg, 1 + 4 * W, bs, device="cpu")
+    for t in pool.values():
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(
+            np.float32)))
+
+    def run(d):
+        cast = (lambda t: t.to(d))
+        return G.paged_decode_step(
+            _tree_map(cast, params), cfg, toks.to(d), lens.to(d),
+            tables.to(d), {k: v.to(d) for k, v in pool.items()}, act.to(d),
+            use_kernel=use_kernel and d != "cpu")
+    want, _, want_drops = run("cpu")
+    runs = [run(dev) for _ in range(8)]
+    for lg, _, drops in runs:
+        assert torch.equal(lg, runs[0][0])
+        assert float(drops) == float(want_drops) > 0
+    assert (runs[0][0].cpu() - want).abs().max() <= 1e-4

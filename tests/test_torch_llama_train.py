@@ -290,16 +290,13 @@ def test_fused_norm_bf16_train_step_decreases_loss():
 
 
 def test_num_params_matches_leaves():
-    for kw in (dict(), dict(tie_word_embeddings=True)):
+    for kw in (dict(), dict(tie_word_embeddings=True),
+               dict(moe_num_experts=4)):
         jcfg = tiny_cfg(**kw)
         cfg = config_from_jax(jcfg)
         n = sum(p.numel() for p in TL._leaves(
             TL.init_params(cfg, device="cpu")))
         assert n == TL.num_params(cfg) == JL.num_params(jcfg)
-    # init_params builds no experts: an MoE count would describe a model
-    # the port does not make
-    with pytest.raises(NotImplementedError, match="moe_num_experts"):
-        TL.num_params(dataclasses.replace(cfg, moe_num_experts=4))
 
 
 def test_row_position_tables_match_jax():
@@ -330,8 +327,7 @@ def test_config_from_jax_carries_training_fields():
             cfg.dtype) == (True, True, "nothing", 4, torch.bfloat16)
 
 
-@pytest.mark.parametrize("field,value", [("moe_num_experts", 4),
-                                         ("sep_axis", "sep"),
+@pytest.mark.parametrize("field,value", [("sep_axis", "sep"),
                                          ("ep_axis", "ep"),
                                          ("tp_axis", "tp")])
 def test_config_from_jax_refuses_unported_fields(field, value):
@@ -340,9 +336,6 @@ def test_config_from_jax_refuses_unported_fields(field, value):
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(remat=True, remat_policy="dots"), "remat_policy"),
-    (dict(remat=True, remat_policy="save_flash"), "remat_policy"),
-    (dict(moe_num_experts=4), "moe_num_experts"),
     (dict(sep_axis="sep"), "sep_axis"),
 ])
 def test_unported_paths_raise(change, what):
@@ -356,8 +349,11 @@ def test_unported_paths_raise(change, what):
 def test_unknown_remat_policy_and_sentinel():
     _, tcfg, _, tp = _setup(0)
     ids, labels, *_ = _batch(0)
-    with pytest.raises(ValueError, match="unknown remat_policy"):
+    with pytest.raises(ValueError, match="unknown remat_policy") as got:
         TL.forward(tp, torch.from_numpy(ids),
                    dataclasses.replace(tcfg, remat=True, remat_policy="x"))
-    with pytest.raises(NotImplementedError, match="sentinel"):
-        TL.make_train_step(tcfg, sentinel=True)
+    with pytest.raises(ValueError) as want:
+        JL._remat_policy("x")
+    assert str(got.value) == str(want.value)
+    init_opt, step = TL.make_train_step(tcfg, sentinel=True)
+    assert step.__name__ == "train_step_sentinel"

@@ -157,8 +157,9 @@ def test_paged_spec_step_matches_jax(model, kv_quant):
         jnp.asarray(act), use_kernel=False)
     T = torch.from_numpy
     tpool = {k: T(v.copy()) for k, v in pool.items()}
-    lg, tpool = TG.paged_spec_step(tparams, tcfg, T(toks), T(sl), T(dl),
-                                   T(tbl), tpool, T(act), use_kernel=False)
+    lg, tpool, _ = TG.paged_spec_step(tparams, tcfg, T(toks), T(sl), T(dl),
+                                      T(tbl), tpool, T(act),
+                                      use_kernel=False)
     assert lg.shape == (4, 5, VOCAB) and lg.dtype == torch.float32
     np.testing.assert_allclose(lg.numpy()[act], np.asarray(want_lg)[act],
                                rtol=0, atol=1e-4)
