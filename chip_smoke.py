@@ -137,6 +137,38 @@ Phases (each fails the run on any error; none catches and carries on):
     layers (full remat): phase 8's metrics, falling finite losses and
     the derived flash launches; then phase 9's fp32 parity (flash
     kernels against the plain attention) with 4 experts.
+20. Multi-adapter LoRA serving at full width, bf16: phase 4's model and
+    trace through an engine with ``lora_rank=16, lora_slots=4,
+    lora_pool=8`` and 8 registered adapters (``lora_init_params(cfg, 16,
+    seed=i)``), every third request base and the rest cycling over the
+    adapters, in turns with phase 4's LoRA-less engine (A, LoRA, LoRA,
+    A): tokens/s, TTFT p50 and max, ms per decode iteration. Every
+    request completes, no block leaks, no pin is left, at least 8 loads
+    and 4 evictions, 12 paged-attention launches per decode iteration
+    and per mixed dispatch. Base traffic through a LoRA engine holding
+    the 8 adapters gives phase 4's streams and, with ``quantize="int8",
+    kv_quant="int8"``, phase 5's, bit for bit (the int8 run must launch
+    the int8 matmul). One decode iteration (8 rows) without and with the
+    LoRA operand: kernel launches and device ms from the profiler, and
+    one layer's four deltas timed alone; a profiled drain of 8 requests.
+21. LoRA parity at fp32 on phase 6's model and trace, five adapters on
+    two slots: a mixed wave (base, a1, a2, a1, a4, a5) where each stream
+    equals its oracle (the LoRA-less engine on the base weights or on
+    ``merge_lora(params, adapter)``, the request alone) or parts from it
+    where the fp32 logits of the two tokens lie within 1e-4 x max|logit|
+    of that row; at least one adapter stream differs from base; the
+    kernel and gather engines give equal streams, greedy and sampled; an
+    adapter's stream after eviction and reload equals its first, with
+    every pool leaf's storage unchanged.
+22. The dense tier: ``generate`` at full width, bf16, B 8 with prompts
+    of 64-128 and 64 new tokens, in turns without and with an EOS id
+    that never fires (the cost of the per-token read of the done mask);
+    ``GenerationPredictor(quantize="int8")`` launching
+    ``weight_only_matmul`` 85 times a forward (12 layers x 7 projections
+    and the LM head); then at fp32 on phase 6's model and trace:
+    ``generate`` equals the serving engine, ``DecodeSession``'s argmax
+    stream equals ``generate``, and a sampled ``generate`` repeats with
+    its seed.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -150,8 +182,9 @@ forward, 12 dq, 12 dk/dv per step: the forward runs again in each
 layer's recompute) and nothing else; in phase 11 also 49 RMSNorm
 forwards (2 per layer, twice, plus the final norm), 25 RMSNorm
 backwards, 48 RoPE forwards (q and k, twice) and 24 RoPE backwards. The
-kernels line reports the serving launches of phases 4, 5, 13 and 14
-(speculation on) together,
+kernels line reports the serving launches of phases 4, 5, 13, 14
+(speculation on) and 20 (the LoRA drain and both base-traffic runs)
+together,
 the flash launches of phase 8 and the RMSNorm and RoPE launches of
 phase 11 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -1202,6 +1235,7 @@ def drive(engine, prompts, news, knobs=None, max_iters=None):
     metrics = {"wall_s": wall, "tokens": gen, "tok_s": gen / wall,
                "ttft_p50_s": float(np.percentile(ttft, 50)),
                "ttft_p99_s": float(np.percentile(ttft, 99)),
+               "ttft_max_s": float(max(ttft)),
                "ms_per_decode_step": (secs["decode"] * 1e3
                                       / max(1, d["decode_iters"])),
                "ms_per_mixed_dispatch": (secs["mixed"] * 1e3
@@ -1862,6 +1896,414 @@ def moe_serving_phase(prompts, news, sp, sn):
     torch.cuda.empty_cache()
     return m, c, drops
 
+# ---------------------------------------------------------------------------
+# phases 20-22: multi-adapter LoRA serving and the dense generation tier
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 16
+
+
+def adapter_ids(n, names):
+    """Request i: base when ``i % 3 == 0``, else the next of ``names`` in
+    turn."""
+    out, k = [], 0
+    for i in range(n):
+        if i % 3 == 0:
+            out.append(None)
+        else:
+            out.append(names[k % len(names)])
+            k += 1
+    return out
+
+
+def lora_engine(params, cfg, adapters, slots, pool=8, **kw):
+    """A LoRA serving engine on the card with ``adapters`` registered."""
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    eng = ServingEngine(params, cfg, ServingConfig(
+        lora_rank=LORA_RANK, lora_slots=slots, lora_pool=pool, **kw),
+        device="cuda")
+    for name, ap in adapters.items():
+        eng.register_adapter(name, ap)
+    return eng
+
+
+def kernel_window(run, iters):
+    """Kernel launches and device ms per call of ``run`` over ``iters``
+    calls under ``torch.profiler``, with the device ms by kernel name;
+    None where the profiler saw no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    by, n = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by[e.key[:60]] = by.get(e.key[:60], 0.0) + \
+                e.self_device_time_total / 1e3 / iters
+            n += e.count
+    if not n:
+        return None
+    return {"launches": n / iters, "device_ms": sum(by.values()),
+            "by_kernel": by}
+
+
+def lora_decode_windows(params, cfg, prompts, adapters):
+    """One decode iteration at the engine's shape (8 rows, phase 4's
+    first prompts) without and with a LoRA operand (rows on slots 0-4 of
+    a 4-slot pool): kernel launches and device ms per iteration from 10
+    profiled iterations each, what the operand added by kernel, and the
+    four deltas of one layer (q, k, v, o at [8, 1, 2048], rank 16) timed
+    alone with CUDA events."""
+    import torch
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.models.lora import (AdapterPool, gather_adapters,
+                                              gathered_delta)
+    ap = AdapterPool(cfg, LORA_RANK, 4, 8, device="cuda")
+    for name in list(adapters)[:4]:
+        ap.register(name, adapters[name])
+        ap.acquire(name)
+    _, pool, tok, (sl, tbl, act), _ = first_dispatch(params, cfg, prompts,
+                                                     B=8)
+    ids = torch.tensor([0, 1, 2, 3, 4, 0, 1, 2], dtype=torch.int32,
+                       device="cuda")
+    out = {}
+    for kind, op in (("base", None),
+                     ("lora", {"ids": ids, "layers": ap.layers})):
+        def step(op=op):
+            G.paged_decode_step(params, cfg, tok, sl, tbl, pool, act,
+                                use_kernel=True, lora=op)
+        step()
+        out[kind] = kernel_window(step, 10)
+    g = gather_adapters(ap.layers, ids, cfg.dtype)
+    x = torch.randn((8, 1, cfg.hidden_size), device="cuda").to(cfg.dtype)
+
+    def deltas():
+        for a, b in (("qA", "qB"), ("kA", "kB"), ("vA", "vB"), ("oA", "oB")):
+            gathered_delta(x, g[a][0], g[b][0])
+
+    row = {"lora_deltas_one_layer_event_ms": cuda_ms(deltas, iters=20)}
+    if out["base"] and out["lora"]:
+        added = {k: v - out["base"]["by_kernel"].get(k, 0.0)
+                 for k, v in out["lora"]["by_kernel"].items()}
+        row.update({
+            "launches_per_decode_iteration_base_lora": [
+                out["base"]["launches"], out["lora"]["launches"]],
+            "device_ms_per_decode_iteration_base_lora": [
+                out["base"]["device_ms"], out["lora"]["device_ms"]],
+            "lora_added_device_ms_by_kernel": dict(sorted(
+                added.items(), key=lambda kv: -kv[1])[:6])})
+    else:
+        row["launches_per_decode_iteration_base_lora"] = (
+            "not measured (the profiler saw no device events)")
+    log(f"  one decode iteration, 8 rows, without / with the LoRA operand: "
+        f"{json.dumps(row)}")
+    del pool, ap
+    torch.cuda.empty_cache()
+    return row
+
+
+def lora_serving_phase(prompts, news, greedy4, greedy5):
+    """Phase 20: phase 4's model and trace through a LoRA engine (rank 16,
+    4 slots, 8 registered adapters; every third request base, the rest
+    cycling over the adapters), in turns with phase 4's LoRA-less engine;
+    base traffic through a LoRA engine against phases 4 and 5; the decode
+    iteration's launches; a profiled drain."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.models.lora import lora_init_params
+    cfg = model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    names = [f"a{i}" for i in range(1, 9)]
+    adapters = {n: lora_init_params(cfg, LORA_RANK, seed=i)
+                for i, n in enumerate(names, 1)}
+    knobs = [{"adapter_id": a} for a in adapter_ids(len(prompts), names)]
+    warm = prompts[0][:40]
+
+    def fresh(lora, **kw):
+        eng = (lora_engine(params, cfg, adapters, 4, **kw) if lora else
+               ServingEngine(params, cfg, ServingConfig(**kw),
+                             device="cuda"))
+        eng.run([warm], max_new_tokens=4, eos_token_id=None)
+        return eng
+
+    turns, main = [], None
+    for kind in ("A", "LoRA", "LoRA", "A"):
+        eng = fresh(kind == "LoRA")
+        reset_counts()
+        _, m = drive(eng, prompts, news, knobs if kind == "LoRA" else None)
+        c = read_counts()
+        turns.append({"run": kind, "tok_s": m["tok_s"],
+                      "ttft_p50_s": m["ttft_p50_s"],
+                      "ttft_max_s": m["ttft_max_s"],
+                      "ms_per_decode_step": m["ms_per_decode_step"]})
+        if kind == "LoRA" and main is None:
+            st = eng.stats()["lora"]
+            dec = c["paged_attention"] - c["paged_attention_multiquery"]
+            main = (m, c, st)
+            log(f"  LoRA drain: {json.dumps(m)}")
+            log(f"  launches: {json.dumps(c)}; adapter pool: "
+                f"{json.dumps(st)}")
+            check(st["adapter_pins"] == 0, f"{st['adapter_pins']} adapter "
+                  f"pins left after the drain")
+            check(st["adapter_loads"] >= 8 and st["adapter_evictions"] >= 4,
+                  f"adapter pool churn {st}")
+            check(dec == 12 * m["decode_iters"],
+                  f"paged attention launches {dec} for {m['decode_iters']} "
+                  f"decode iterations")
+            check(c["paged_attention_multiquery"] == 12 * m[
+                "mixed_dispatches"], f"multi-query launches "
+                  f"{c['paged_attention_multiquery']} for "
+                  f"{m['mixed_dispatches']} mixed dispatches")
+        del eng
+        torch.cuda.empty_cache()
+    log(f"  in turns (A, LoRA, LoRA, A): {json.dumps(turns)}")
+    launches = main[1]
+    # base traffic through a LoRA engine holding all 8 adapters equals the
+    # LoRA-less engine's streams, bf16 (phase 4) and int8 (phase 5)
+    for label, want, kw in (("bf16", greedy4, {}),
+                            ("int8", greedy5, dict(quantize="int8",
+                                                   kv_quant="int8"))):
+        eng = fresh(True, **kw)
+        reset_counts()
+        got, _ = drive(eng, prompts, news)
+        c = read_counts()
+        same = sum(np.array_equal(a, b) for a, b in zip(got, want))
+        log(f"  base traffic through the LoRA engine, {label}: {same} of "
+            f"{len(want)} streams equal to the LoRA-less engine's; "
+            f"launches {json.dumps(c)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(np.array_equal(a, b), f"{label} base request {i} through "
+                  f"the LoRA engine: {a} != {b}")
+        if label == "int8":
+            check(c["weight_only_matmul"] > 0 and c["paged_attention_int8"]
+                  > 0, f"int8 LoRA engine launches {c}")
+        launches = {k: launches[k] + c[k] for k in launches}
+        del eng
+        torch.cuda.empty_cache()
+    window = lora_decode_windows(params, cfg, prompts, adapters)
+    eng = fresh(True)
+    fresh8 = make_trace(8, cfg.vocab_size, SEED + 2)
+    prof = profile_drain(eng, *fresh8, knobs=[
+        {"adapter_id": a} for a in adapter_ids(8, names)])
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"metrics": main[0], "turns": turns, "pool": main[2],
+            "window": window, "profile": prof}, launches
+
+
+def stream_gap(params, cfg, prompt, stream, j, a, b):
+    """|l[a] - l[b]| over max|l| of the fp32 full forward's last logits at
+    ``prompt + stream[:j]``."""
+    import torch
+    from paddle_tpu_torch.models.llama import forward
+    ctx = torch.from_numpy(np.concatenate([prompt, stream[:j]]).astype(
+        np.int64))[None].cuda()
+    with torch.no_grad():
+        lg = forward(params, ctx, cfg)[0, -1].float()
+    return float((lg[a] - lg[b]).abs() / lg.abs().max())
+
+
+def lora_parity_phase(sp, sn):
+    """Phase 21: fp32, phase 6's model and trace, five adapters on two
+    slots."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.models.lora import lora_init_params, merge_lora
+    cfg32 = model_config(torch.float32)
+    params = init_params(cfg32, seed=SEED + 1, device="cuda")
+    adapters = {f"a{i}": lora_init_params(cfg32, LORA_RANK, seed=100 + i)
+                for i in range(1, 6)}
+    ids = [None, "a1", "a2", "a1", "a4", "a5"][:len(sp)]
+    knobs = [{"adapter_id": a} for a in ids]
+    sampled = [dict(k, **SAMPLED, seed=i) for i, k in enumerate(knobs)]
+    streams = {}
+    for knob in ("on", "off"):
+        eng = lora_engine(params, cfg32, adapters, 2, paged_kernel=knob)
+        streams[knob], _ = drive(eng, sp, sn, knobs)
+        streams[knob + " sampled"], _ = drive(eng, sp, sn, sampled)
+        check(eng.stats()["lora"]["adapter_pins"] == 0, "pins left")
+        del eng
+    # (c) the kernel and gather engines agree, greedy and sampled
+    for kind in ("", " sampled"):
+        for i, (a, b) in enumerate(zip(streams["on" + kind],
+                                       streams["off" + kind])):
+            check(np.array_equal(a, b), f"LoRA{kind} request {i}: kernel "
+                  f"stream {a} != gather stream {b}")
+    # (a) each request against its own oracle: the LoRA-less engine on the
+    # base or the merged weights, the request alone
+    gaps, equal, base_streams = [], 0, {}
+    for name in [None] + sorted({a for a in ids if a is not None}):
+        p = params if name is None else merge_lora(params, adapters[name])
+        eng = ServingEngine(p, cfg32, ServingConfig(), device="cuda")
+        for i, a in enumerate(ids):
+            if name is None:
+                base_streams[i] = eng.run([sp[i]], max_new_tokens=sn[i],
+                                          eos_token_id=None)[0]
+            if a != name:
+                continue
+            want = (base_streams[i] if name is None else
+                    eng.run([sp[i]], max_new_tokens=sn[i],
+                            eos_token_id=None)[0])
+            got = streams["on"][i]
+            if np.array_equal(got, want):
+                equal += 1
+                continue
+            j = int(np.argmax(got != want))
+            gap = stream_gap(p, cfg32, sp[i], want, j, int(want[j]),
+                             int(got[j]))
+            gaps.append([i, name, j, int(want[j]), int(got[j]), gap])
+            check(gap <= 1e-4, f"request {i} ({name}) parts from its "
+                  f"oracle at {j} with fp32 logit gap {gap} x max|logit| "
+                  f"> 1e-4")
+        del eng, p
+        torch.cuda.empty_cache()
+    log(f"  mixed wave: {equal} of {len(ids)} streams equal to their "
+        f"oracles; partings [request, adapter, position, oracle token, "
+        f"token, fp32 gap / max|logit|]: {json.dumps(gaps)}")
+    # (b) the adapters move the streams
+    moved = sum(not np.array_equal(streams["on"][i], base_streams[i])
+                for i, a in enumerate(ids) if a is not None)
+    log(f"  {moved} of {sum(a is not None for a in ids)} adapter streams "
+        f"differ from base")
+    check(moved >= 1, "no adapter stream differs from base")
+    # (d) eviction and reload: a1's stream again after a3, a4, a5 pushed
+    # it out of the 2-slot pool, the pool's storage in place throughout
+    # (no prefix cache: both a1 runs take the same dispatches)
+    eng = lora_engine(params, cfg32, adapters, 2, prefix_cache=None)
+    ptrs = {k: v.data_ptr() for k, v in eng._lora.layers.items()}
+    first, _ = drive(eng, sp[1:2], sn[1:2], [{"adapter_id": "a1"}])
+    for name in ("a3", "a4", "a5"):
+        drive(eng, sp[1:2], [2], [{"adapter_id": name}])
+    check("a1" in eng.adapter_partition()["evicted"], "a1 not evicted")
+    again, _ = drive(eng, sp[1:2], sn[1:2], [{"adapter_id": "a1"}])
+    check(np.array_equal(first[0], again[0]), f"a1 after reload "
+          f"{again[0]} != before {first[0]}")
+    check({k: v.data_ptr() for k, v in eng._lora.layers.items()} == ptrs,
+          "the adapter pool's storage moved")
+    log(f"  evict + reload: a1's stream equal, pool storage fixed, "
+        f"{json.dumps(eng.stats()['lora'])}")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def dense_phase(sp, sn):
+    """Phase 22: the dense tier. ``generate`` at full width, bf16 (B 8,
+    prompts 64-128, 64 new tokens, greedy): tokens/s and the cost of the
+    per-token done read, in turns; the int8 predictor's matmul launches;
+    then fp32 parity on phase 6's model and trace."""
+    import torch
+    from paddle_tpu_torch.inference import (GenerationConfig,
+                                            GenerationPredictor)
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.models.llama import init_params
+    cfg = model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 22)
+    B, S, N = 8, 128, 64
+    lens = rng.integers(64, S + 1, B).astype(np.int32)
+    ids = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    G.generate(params, ids, cfg, max_new_tokens=2, prompt_lens=lens)
+    runs, outs = [], {}
+    # eos None: the loop reads nothing back until the end; eos = vocab
+    # size (an id the model never emits): one read of the done mask a
+    # step. ABBA twice
+    for eos in (None, cfg.vocab_size, cfg.vocab_size, None) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = G.generate(params, ids, cfg, max_new_tokens=N,
+                         prompt_lens=lens, eos_token_id=eos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append({"eos": eos, "wall_s": wall, "tok_s": B * N / wall})
+        outs.setdefault(eos, out.cpu().numpy())
+    o = outs[None]
+    check(o.shape == (B, N) and (o >= 0).all() and (o < cfg.vocab_size).all(),
+          f"generate output {o.shape}")
+    check(np.array_equal(o, outs[cfg.vocab_size]),
+          "generate streams differ with an EOS that never fires")
+    walls = {e: [r["wall_s"] for r in runs if r["eos"] == e]
+             for e in (None, cfg.vocab_size)}
+    sync_ms = (np.mean(walls[cfg.vocab_size]) - np.mean(walls[None])) \
+        * 1e3 / (N - 1)
+    spread_ms = max(max(w) - min(w) for w in walls.values()) * 1e3 / (N - 1)
+    log(f"  generate B {B}, prompts {lens.min()}-{lens.max()}, {N} new "
+        f"tokens, bf16, in turns: {json.dumps(runs)}; the done read costs "
+        f"{sync_ms:.4f} ms a token (mean of 4 against 4; the runs of one "
+        f"kind spread by {spread_ms:.4f} ms a token)")
+    pred = GenerationPredictor(params, cfg, GenerationConfig(
+        max_new_tokens=8), quantize="int8")
+    pred.generate(ids, prompt_lens=lens)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = pred.generate(ids, prompt_lens=lens)
+    int8_s = time.perf_counter() - t0
+    c = read_counts()
+    log(f"  int8 predictor, 8 new tokens: {B * 8 / int8_s:.1f} tok/s; "
+        f"launches {json.dumps(c)}")
+    check(q.shape == (B, 8), f"int8 predictor output {q.shape}")
+    check(c["weight_only_matmul"] == 85 * 8, f"weight_only_matmul "
+          f"launches {c['weight_only_matmul']} for a prefill and 7 decode "
+          f"steps (85 each)")
+    del pred, params
+    torch.cuda.empty_cache()
+    # fp32: generate equals the serving engine and DecodeSession; a
+    # sampled generate repeats with its seed
+    cfg32 = model_config(torch.float32)
+    params = init_params(cfg32, seed=SEED + 1, device="cuda")
+    Sx = max(len(p) for p in sp)
+    ids32 = np.zeros((len(sp), Sx), np.int32)
+    for i, p in enumerate(sp):
+        ids32[i, :len(p)] = p
+    plens = np.array([len(p) for p in sp], np.int32)
+    n = max(sn)
+    dense = G.generate(params, ids32, cfg32, max_new_tokens=n,
+                       prompt_lens=plens).cpu().numpy()
+    eng = ServingEngine(params, cfg32, ServingConfig(), device="cuda")
+    served = eng.run(sp, max_new_tokens=sn, eos_token_id=None)
+    del eng
+    for i, s in enumerate(served):
+        if not np.array_equal(s, dense[i, :sn[i]]):
+            j = int(np.argmax(s != dense[i, :sn[i]]))
+            gap = stream_gap(params, cfg32, sp[i], dense[i], j,
+                             int(dense[i, j]), int(s[j]))
+            check(False, f"request {i}: engine {s} != generate "
+                  f"{dense[i, :sn[i]]} (fp32 gap {gap} x max|logit|)")
+    sess = G.DecodeSession(params, cfg32, capacity=Sx + n)
+    logits = sess.prefill(ids32, plens)
+    toks = []
+    for t in range(n):
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        if t < n - 1:
+            logits = sess.step(tok)
+    sess_out = torch.stack(toks, 1).cpu().numpy()
+    check(np.array_equal(sess_out, dense), "DecodeSession != generate")
+    kw = dict(max_new_tokens=n, prompt_lens=plens, seed=7, **SAMPLED)
+    s1 = G.generate(params, ids32, cfg32, **kw).cpu().numpy()
+    s2 = G.generate(params, ids32, cfg32, **kw).cpu().numpy()
+    check(np.array_equal(s1, s2), "sampled generate does not repeat")
+    log(f"  fp32: generate == serving engine ({len(sp)} requests), "
+        f"DecodeSession == generate, sampled generate repeats with its seed "
+        f"({int((s1 != dense).any(axis=1).sum())} of {len(sp)} rows differ "
+        f"from greedy)")
+    del params, sess
+    torch.cuda.empty_cache()
+    return {"runs": runs, "sync_ms_per_token": sync_ms,
+            "sync_spread_ms": spread_ms, "int8_tok_s": B * 8 / int8_s}
+
 
 def main() -> int:
     import torch
@@ -1954,7 +2396,7 @@ def main() -> int:
         quantize="int8", kv_quant="int8"), device="cuda")
     engine.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
     reset_counts()
-    _, m5 = drive(engine, prompts, news)
+    greedy5, m5 = drive(engine, prompts, news)
     c5 = read_counts()
     check(c5["weight_only_matmul"] > 0, "weight_only_matmul never launched")
     check(c5["paged_attention_int8"] > 0,
@@ -2125,6 +2567,18 @@ def main() -> int:
     par = parity_phase("use_kernels", moe_num_experts=4, moe_top_k=2)
     check(par["launches"]["flash_attention"] > 0,
           f"MoE parity never launched the flash kernels: {par['launches']}")
+
+    log("== phase 20: LoRA serving, full width, bf16, rank 16, 4 slots, 8 "
+        "adapters")
+    _, c20 = lora_serving_phase(prompts, news, greedy4, greedy5)
+    launches = {k: launches[k] + c20[k] for k in launches}
+
+    log("== phase 21: fp32 LoRA parity, 5 adapters on 2 slots")
+    lora_parity_phase(sp, sn)
+
+    log("== phase 22: the dense tier (generate, DecodeSession, "
+        "GenerationPredictor)")
+    dense_phase(sp, sn)
 
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [

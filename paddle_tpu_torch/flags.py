@@ -133,6 +133,27 @@ define_flag("FLAGS_serving_tenant_cache_quota", 0,
 define_flag("FLAGS_serving_retry_after_s", 1.0,
             "Conservative retry-after hint (s) returned to shed clients "
             "before two retirements make an interval measurable.", float)
+define_flag("FLAGS_serving_lora_rank", 8,
+            "LoRA rank r of the device-resident adapter pool: every "
+            "registered adapter's per-projection A/B factors are stored "
+            "at this fixed rank so one stacked [L, slots, ...] pool serves "
+            "every adapter. Registering an adapter with a different rank is "
+            "a structured error naming this flag.", int)
+define_flag("FLAGS_serving_lora_slots", 0,
+            "Device-resident adapter slots of the paged adapter pool "
+            "(slot 0 is the reserved zeroed BASE adapter and is not "
+            "counted). 0 disables multi-adapter serving entirely — the "
+            "engine runs exactly the base computation and base traffic is "
+            "bit-identical to a LoRA-less build. With N slots, up to N "
+            "distinct adapters decode concurrently; colder adapters "
+            "LRU-evict to the host registry and reload on demand (counted "
+            "as adapter_loads).", int)
+define_flag("FLAGS_serving_lora_pool", 16,
+            "Host-side adapter registry capacity — the most adapters "
+            "register() accepts (resident + evicted; the zeroed base "
+            "adapter is free). Registration past the bound is a structured "
+            "error naming this flag. Must be >= FLAGS_serving_lora_slots.",
+            int)
 
 # ---------------------------------------------------------------------------
 # Run-health sentinel (paddle_tpu_torch.health): the two knobs

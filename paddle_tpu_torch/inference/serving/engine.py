@@ -5,9 +5,11 @@ and ``ServingEngine``). The host logic — admission, batched bucketed
 prefill, chunked prefill, prefix caching, on-demand block allocation with
 preemption, mixed prefill+decode batching, seeded per-request sampling,
 n-gram speculative decoding with host-side rollback, deadlines and
-cancellation — follows the JAX engine step for step, so both engines issue
-the same dispatches for the same trace (the parity tests compare their
-token streams and dispatch counters).
+cancellation, multi-adapter LoRA serving (an adapter pool with an LRU
+host registry, pinned by running requests through an admission gate,
+adapter-namespaced prefix caching) — follows the JAX engine step for
+step, so both engines issue the same dispatches for the same trace (the
+parity tests compare their token streams and dispatch counters).
 
 What differs is the device side. PyTorch runs eagerly, so there are no
 compiled programs to share: each dispatch calls the paged entry points of
@@ -28,8 +30,8 @@ dispatch whose rows are all greedy (decided on the host from the slot
 table) takes the literal argmax and never runs the sampler.
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-item): tensor parallelism, LoRA adapters, the embeddings endpoint, the
-request journal and the host offload tier.
+item): tensor parallelism, the embeddings endpoint, the request journal
+and the host offload tier.
 
 API::
 
@@ -56,6 +58,7 @@ from ...flags import flag
 from ...models import generation as G
 from ...models.llama import (KV_QUANT_MODES, QUANTIZE_MODES,
                              ensure_quantized, validate_quant_mode)
+from ...models.lora import AdapterPool
 from .paged_cache import PagedKVCache
 from .policies import resolve_policy
 from .scheduler import (CANCELLED, DEFAULT_TENANT, SHED, TIMED_OUT, Request,
@@ -66,10 +69,8 @@ __all__ = ["ServingConfig", "ServingEngine", "ServingQueueFull"]
 _UNSET = "unset"
 # the ROADMAP.md section A items that bring what this slice leaves out
 _LATER = {
-    "lora": "LoRA adapters are queued after the training items "
-            "(ROADMAP.md section A)",
-    "tp": "tensor parallelism over NCCL is queued after LoRA "
-          "(ROADMAP.md section A)",
+    "tp": "tensor parallelism over NCCL is the next item of ROADMAP.md "
+          "section A",
     "robustness": "the offload tier, journal, supervisor, router and server "
                   "are queued after TP (ROADMAP.md section A)",
     "embed": "the embeddings endpoint comes with the BERT encoder "
@@ -107,14 +108,15 @@ class ServingConfig:
     tenant_cache_quota: Any = _UNSET  # blocks per tenant; None/0 = off
     spec_decode: Any = _UNSET        # drafts per verify; None/0 = off
     spec_ngram: Any = _UNSET         # n-gram the drafter matches
+    lora_rank: Optional[int] = None  # adapter rank r (fixed pool-wide)
+    lora_slots: Optional[int] = None  # device adapter-pool slots on top of
+    #                                   the zeroed base slot 0; 0 = off
+    lora_pool: Optional[int] = None  # host-registry capacity (>= slots)
     # features of the JAX engine that later slices bring (must stay off)
     tp: int = 1
-    lora_slots: int = 0
     offload: bool = False
 
     def __post_init__(self):
-        if self.lora_slots:
-            raise NotImplementedError(_LATER["lora"])
         if int(self.tp) != 1:
             raise NotImplementedError(_LATER["tp"])
         if self.offload:
@@ -123,9 +125,24 @@ class ServingConfig:
                         ("max_slots", "FLAGS_serving_max_slots"),
                         ("max_model_len", "FLAGS_serving_max_model_len"),
                         ("queue_depth", "FLAGS_serving_queue_depth"),
-                        ("decode_chunk", "FLAGS_serving_decode_chunk")):
+                        ("decode_chunk", "FLAGS_serving_decode_chunk"),
+                        ("lora_rank", "FLAGS_serving_lora_rank"),
+                        ("lora_slots", "FLAGS_serving_lora_slots"),
+                        ("lora_pool", "FLAGS_serving_lora_pool")):
             if getattr(self, f) is None:
                 setattr(self, f, int(flag(name)))
+        self.lora_rank = int(self.lora_rank)
+        self.lora_slots = int(self.lora_slots)
+        self.lora_pool = int(self.lora_pool)
+        if self.lora_slots < 0:
+            raise ValueError(f"lora_slots must be >= 0 (0 = multi-adapter "
+                             f"serving off), got {self.lora_slots}")
+        if self.lora_slots and self.lora_pool < self.lora_slots:
+            raise ValueError(
+                f"lora_pool ({self.lora_pool}) must be >= lora_slots "
+                f"({self.lora_slots}): the host registry backs every "
+                f"device-resident adapter (FLAGS_serving_lora_pool / "
+                f"FLAGS_serving_lora_slots)")
         for f in ("prefix_cache", "preempt", "mixed_batch"):
             if getattr(self, f) == _UNSET:
                 setattr(self, f, bool(flag(f"FLAGS_serving_{f}")))
@@ -219,6 +236,16 @@ class ServingEngine:
         self._keys = np.zeros((M, 2), np.int64)
         self._spec_k = int(self.config.spec_decode)
         self._spec_n = int(self.config.spec_ngram)
+        # multi-adapter LoRA: the device adapter pool, the per-slot
+        # adapter-row operand of every dispatch (0 = the zeroed base
+        # adapter) and the rid -> adapter pins the admission gate keeps
+        # (held across preemption, released at a terminal state)
+        self._lora = (AdapterPool(model_config, self.config.lora_rank,
+                                  self.config.lora_slots,
+                                  self.config.lora_pool, device=self.device)
+                      if self.config.lora_slots else None)
+        self._adapters = np.zeros((M,), np.int32)
+        self._lora_pinned: Dict[int, str] = {}
         # every mutation and snapshot read runs under this lock; reentrant
         # because stream()'s GeneratorExit path cancels from inside a step
         self._lock = threading.RLock()
@@ -264,6 +291,14 @@ class ServingEngine:
             b *= 2
         return b
 
+    def _lora_operand(self, ids) -> Optional[Dict[str, Any]]:
+        """The LoRA operand of a dispatch: per-row adapter pool slots and
+        the stacked pool, or None with multi-adapter serving off."""
+        if self._lora is None:
+            return None
+        return {"ids": self._t(np.asarray(ids, np.int32)),
+                "layers": self._lora.layers}
+
     def _record_dispatch(self, kind: str, t0: float) -> None:
         """Count + time ONE device dispatch by kind (``chunks`` is the
         all-kinds total). Every dispatch ends in a device-to-host read of
@@ -291,11 +326,11 @@ class ServingEngine:
         ``top_k``/``top_p``): ``temperature`` 0 is the greedy argmax;
         above 0 the stream is drawn with keys derived from ``seed``, the
         same for the same ``(request, seed)``. Unsupported knobs raise
-        ``ValueError``. Raises :class:`ServingQueueFull` when the bounded
-        queue is full, and ``NotImplementedError`` for LoRA adapters,
-        which a later slice brings."""
-        if adapter_id is not None:
-            raise NotImplementedError(_LATER["lora"])
+        ``ValueError``. ``adapter_id`` selects a registered LoRA adapter
+        (None = base traffic through the zeroed slot 0); admission pins it
+        device-resident for the request's whole lifetime, preemption
+        included. Raises :class:`ServingQueueFull` when the bounded queue
+        is full."""
         deadline = deadline_s
         if timeout_s is not None:
             t = time.time() + float(timeout_s)
@@ -320,14 +355,100 @@ class ServingEngine:
             raise ValueError("max_new_tokens must be >= 1")
         if req.prompt_len < 1:
             raise ValueError("prompt must contain at least one token")
+        if adapter_id is not None:
+            if self._lora is None:
+                raise ValueError(
+                    "adapter_id requires multi-adapter serving: set "
+                    "ServingConfig.lora_slots / FLAGS_serving_lora_slots "
+                    "> 0")
+            if not self._lora.is_registered(adapter_id):
+                raise ValueError(
+                    f"adapter {adapter_id!r} is not registered on this "
+                    f"engine (register_adapter() first; registered: "
+                    f"{self._lora.registered()})")
+            req.adapter_id = str(adapter_id)
         with self._lock:
             return self._sched.submit(req)
 
     def submit_embedding(self, *args, **kwargs) -> int:
         raise NotImplementedError(_LATER["embed"])
 
-    def register_adapter(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_LATER["lora"])
+    # ---- multi-adapter LoRA ------------------------------------------------
+
+    def register_adapter(self, name: str, adapter_params) -> None:
+        """Accept one LoRA adapter (host-side checksummed copy; its rank
+        must be ``lora_rank``) so requests may select it via
+        ``submit(adapter_id=name)``. Re-registering an unpinned adapter
+        replaces its weights; a pinned one refuses."""
+        with self._lock:
+            if self._lora is None:
+                raise ValueError(
+                    "multi-adapter serving is off: set ServingConfig."
+                    "lora_slots / FLAGS_serving_lora_slots > 0")
+            self._lora.register(name, adapter_params)
+
+    def adapter_registered(self, name: str) -> bool:
+        with self._lock:
+            return self._lora is not None and \
+                self._lora.is_registered(name)
+
+    def adapter_resident(self, name: str) -> bool:
+        """Whether ``name`` is loaded in the device pool right now."""
+        with self._lock:
+            return self._lora is not None and \
+                self._lora.slot_of(name) is not None
+
+    def adapter_partition(self) -> Optional[Dict[str, Any]]:
+        """A consistent view of the adapter pool under the engine lock:
+        registered, resident, evicted, pinned, and each running adapter
+        request's (adapter, slot). None with multi-adapter serving off."""
+        with self._lock:
+            if self._lora is None:
+                return None
+            running = {r.rid: (r.adapter_id, int(r.adapter_slot))
+                       for r in self._sched.live
+                       if r.adapter_id is not None}
+            return {"registered": self._lora.registered(),
+                    "resident": self._lora.resident(),
+                    "evicted": self._lora.evicted(),
+                    "pinned": self._lora.pinned(),
+                    "running": running}
+
+    def _lora_gate(self, req: Request) -> bool:
+        """The scheduler's admission gate: pin the pick's adapter resident
+        (loading it over the LRU unpinned victim when cold) and stamp its
+        pool slot on the request. False (skip this pick) when every slot
+        is pinned by other running requests. Idempotent per request: a
+        pick that pinned but then waited for blocks, or was preempted,
+        keeps its pin and slot."""
+        if req.adapter_id is None:
+            req.adapter_slot = 0
+            return True
+        if req.rid in self._lora_pinned:
+            return True
+        slot = self._lora.acquire(req.adapter_id)
+        if slot is None:
+            return False
+        self._lora_pinned[req.rid] = req.adapter_id
+        req.adapter_slot = slot
+        return True
+
+    def _lora_release(self, req: Request) -> None:
+        """Drop a terminal request's adapter pin (the adapter stays
+        resident until the LRU needs its slot)."""
+        if self._lora is None:
+            return
+        name = self._lora_pinned.pop(req.rid, None)
+        if name is not None:
+            self._lora.release(name)
+
+    def _lora_sweep(self) -> None:
+        """Release the pins of requests the retire sweep finished."""
+        if self._lora is None or not self._lora_pinned:
+            return
+        fin = self._sched.finished
+        for rid in [r for r in self._lora_pinned if r in fin]:
+            self._lora.release(self._lora_pinned.pop(rid))
 
     def cancel(self, rid: int) -> bool:
         """Cancel a queued or running request, freeing its KV blocks at
@@ -360,6 +481,7 @@ class ServingEngine:
         m = req.slot
         self._sched.finish(req)
         self._clear_slot(m)
+        self._lora_release(req)
         return True
 
     def _clear_slot(self, m: int) -> None:
@@ -372,12 +494,14 @@ class ServingEngine:
         self._topk[m] = 0
         self._topp[m] = 1.0
         self._keys[m] = 0
+        self._adapters[m] = 0
 
     def _terminate(self, req: Request, state: str) -> None:
         m = req.slot
         self._sched.terminate(req, state)
         if m is not None:
             self._clear_slot(m)
+        self._lora_release(req)
 
     def _expire_deadlines(self, now: float) -> None:
         """Queued requests past their deadline are SHED (TIMED_OUT when
@@ -418,6 +542,7 @@ class ServingEngine:
         self._eos[m] = -1 if req.eos_token_id is None else req.eos_token_id
         (self._keys[m], self._temp[m], self._topk[m],
          self._topp[m]) = self._knobs(req)
+        self._adapters[m] = req.adapter_slot
 
     @staticmethod
     def _knobs(req: Request):
@@ -448,7 +573,8 @@ class ServingEngine:
         if self.config.prefix_cache and sl // bs > req.reg_state[0]:
             req.reg_state = self.cache.register_prefix(
                 self._chain_ids(req, base, sl), req.blocks, sl,
-                req.reg_state, base=base, tenant=req.tenant)
+                req.reg_state, base=base, tenant=req.tenant,
+                namespace=req.adapter_id)
 
     # ---- prefill ----------------------------------------------------------
 
@@ -457,8 +583,9 @@ class ServingEngine:
         cold short prompts (one dispatch per power-of-2 length bucket,
         batch padded to the power-of-2 bucket of the group); prefix hits,
         long prompts and readmissions advance through the chunk path."""
+        gate = self._lora_gate if self._lora is not None else None
         admitted: List[Request] = []
-        while (req := self._sched.next_admission()) is not None:
+        while (req := self._sched.next_admission(gate=gate)) is not None:
             admitted.append(req)
         if not admitted:
             return
@@ -480,15 +607,18 @@ class ServingEngine:
             plens = np.ones((Bb,), np.int32)      # pad rows: harmless len 1
             tables = np.zeros((Bb, self.cache.blocks_per_seq), np.int32)
             act = np.zeros((Bb,), bool)
+            aids = np.zeros((Bb,), np.int32)      # pad rows: base adapter
             for r, req in enumerate(group):
                 ids[r, :req.prompt_len] = req.prompt
                 plens[r] = req.prompt_len
                 tables[r] = self.cache.tables[req.slot]
                 act[r] = True
+                aids[r] = req.adapter_slot
             t0 = time.time()
             logits, self.cache.pool, _ = G.paged_prefill(
                 self._params, self._cfg, self._t(ids), self._t(plens),
-                self._t(tables), self.cache.pool, self._t(act))
+                self._t(tables), self.cache.pool, self._t(act),
+                lora=self._lora_operand(aids))
             first = self._first_tokens(logits, group, Bb)
             self._record_dispatch("prefill", t0)
             now = time.time()
@@ -496,7 +626,7 @@ class ServingEngine:
                 req.num_computed = req.prompt_len
                 req.reg_state = self.cache.register_prefix(
                     req.prompt, req.blocks, req.prompt_len, req.reg_state,
-                    tenant=req.tenant)
+                    tenant=req.tenant, namespace=req.adapter_id)
                 self._emit_first(req, int(first[r]), now, emitted)
 
     @staticmethod
@@ -563,12 +693,13 @@ class ServingEngine:
             t0 = time.time()
             logits, self.cache.pool, _ = G.paged_prefill_chunk(
                 self._params, self._cfg, self._t(ids), req.num_computed, n,
-                self._t(self.cache.tables[req.slot][None]), self.cache.pool)
+                self._t(self.cache.tables[req.slot][None]), self.cache.pool,
+                lora=self._lora_operand([req.adapter_slot]))
             self._record_dispatch("prefill", t0)
             req.num_computed += n
             req.reg_state = self.cache.register_prefix(
                 req.prefill_ids, req.blocks, req.num_computed,
-                req.reg_state, tenant=req.tenant)
+                req.reg_state, tenant=req.tenant, namespace=req.adapter_id)
             if req.prefilling:
                 continue                          # more chunks to go
             if req.tokens:                        # readmission: resume
@@ -778,7 +909,8 @@ class ServingEngine:
         logits, self.cache.pool, _ = G.paged_spec_step(
             self._params, self._cfg, self._t(toks), self._t(self._seq_lens),
             self._t(dl), self._t(self.cache.tables), self.cache.pool,
-            self._t(active), use_kernel=self._use_kernel)
+            self._t(active), use_kernel=self._use_kernel,
+            lora=self._lora_operand(self._adapters))
         V = logits.shape[-1]
         if (self._temp[active] > 0).any():
             keys = self._row_keys(self._keys, self._sample_index(decoding)
@@ -834,6 +966,7 @@ class ServingEngine:
         done = self._done.copy()
         out = np.zeros((self.config.max_slots, limit), np.int32)
         tables = self._t(self.cache.tables)
+        lora = self._lora_operand(self._adapters)
         # a row live at iteration i was live at every earlier one, so its
         # sample index there is len(req.tokens) + i: fold every iteration's
         # keys at once, and only when a live row samples
@@ -854,7 +987,7 @@ class ServingEngine:
             logits, self.cache.pool, _ = G.paged_decode_step(
                 self._params, self._cfg, self._t(tokens), self._t(seq_lens),
                 tables, self.cache.pool, self._t(active),
-                use_kernel=self._use_kernel)
+                use_kernel=self._use_kernel, lora=lora)
             nxt = (G.sample_tokens(logits, keys[:, i], *knobs).cpu().numpy()
                    if sampled else self._argmax(logits))
             nxt = np.where(active, nxt, tokens)
@@ -897,6 +1030,7 @@ class ServingEngine:
         temp = np.zeros((M,), np.float32)
         topk = np.zeros((M,), np.int32)
         topp = np.ones((M,), np.float32)
+        adapters = self._adapters.copy()
         for r in decode_rows:
             m = r.slot
             toks[m, :] = self._tokens[m]          # pad lanes: a real token
@@ -918,11 +1052,13 @@ class ServingEngine:
             # a completing chunk's token IS the prompt's first token: the
             # same (seed, index 0) key _first_tokens uses
             keys[m], temp[m], topk[m], topp[m] = self._knobs(req)
+            adapters[m] = req.adapter_slot
         t0 = time.time()
         logits, self.cache.pool, _ = G.paged_mixed_step(
             self._params, self._cfg, self._t(toks), self._t(starts),
             self._t(qlens), self._t(self.cache.tables), self.cache.pool,
-            self._t(active), use_kernel=self._use_kernel)
+            self._t(active), use_kernel=self._use_kernel,
+            lora=self._lora_operand(adapters))
         nxt = (self._sample(logits, self._row_keys(keys, sidx), temp, topk,
                             topp)
                if (temp > 0).any() else self._argmax(logits))
@@ -933,7 +1069,7 @@ class ServingEngine:
             req.num_computed += n
             req.reg_state = self.cache.register_prefix(
                 req.prefill_ids, req.blocks, req.num_computed,
-                req.reg_state, tenant=req.tenant)
+                req.reg_state, tenant=req.tenant, namespace=req.adapter_id)
             if req.prefilling:
                 continue
             if req.tokens:                        # readmission: resume
@@ -964,7 +1100,9 @@ class ServingEngine:
         ``_limit()`` iterations (``max_iters`` caps it). Returns
         ``{rid: [tokens emitted]}``."""
         with self._lock:
-            return self._step(max_iters)
+            emitted = self._step(max_iters)
+            self._lora_sweep()
+            return emitted
 
     def _step(self, max_iters: Optional[int]) -> Dict[int, List[int]]:
         emitted: Dict[int, List[int]] = {}
@@ -1094,4 +1232,6 @@ class ServingEngine:
                     "spec_drafted": s.spec_drafted,
                     "spec_accepted": s.spec_accepted,
                     "kv_pool_bytes": self.cache.kv_bytes(),
+                    "lora": (self._lora.stats()
+                             if self._lora is not None else None),
                     "device": str(self.device)}

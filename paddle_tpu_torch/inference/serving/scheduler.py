@@ -109,6 +109,13 @@ class Request:
     spec_index: Optional[Dict] = None
     computed_hwm: int = 0              # most KV entries ever written
     oom_truncated: bool = False        # pool exhausted, retired early
+    # multi-adapter LoRA: the adapter this request decodes under (None =
+    # base traffic) and the device pool slot the engine's admission gate
+    # pinned for it (0 = the zeroed base adapter). The pin, and with it
+    # the slot, survives preemption: it is released only at a terminal
+    # state
+    adapter_id: Optional[str] = None
+    adapter_slot: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -287,23 +294,36 @@ class Scheduler:
         self.queue.append(req)
         return req.rid
 
-    def next_admission(self) -> Optional[Request]:
+    def next_admission(self, gate=None) -> Optional[Request]:
         """Pop the policy's pick into a free slot if its blocks fit; None
         when nothing can be admitted this iteration. A preempted request
         re-queued at the front outranks the policy; when the pick's blocks
-        do not fit, admission waits (head-of-line per the policy)."""
-        if not self.queue:
+        do not fit, admission waits (head-of-line per the policy).
+
+        ``gate`` is the engine's adapter-pool hook: called with the pick
+        before any block is allocated, False when its adapter has no free
+        pool slot right now. A gated-out pick is skipped for this
+        iteration only (the policy re-selects among the rest, so one
+        starved adapter never blocks base traffic or other adapters) and
+        stays queued."""
+        candidates = list(self.queue)
+        while candidates:
+            if not [m for m, r in enumerate(self.slots) if r is None]:
+                return None
+            if candidates[0] is self.queue[0] and self.queue[0].preemptions:
+                req = candidates[0]
+            else:
+                req = self.policy.select(candidates, self, time.time())
+            if gate is None or gate(req):
+                break
+            candidates.remove(req)
+        else:
             return None
         free = [m for m, r in enumerate(self.slots) if r is None]
-        if not free:
-            return None
-        if self.queue[0].preemptions:
-            req = self.queue[0]
-        else:
-            req = self.policy.select(list(self.queue), self, time.time())
         ids = req.build_prefill_ids()
         res = self.cache.admit(
-            ids, reserve_kv=None if self.preempt_enabled else req.kv_tokens)
+            ids, reserve_kv=None if self.preempt_enabled else req.kv_tokens,
+            namespace=req.adapter_id)
         if res is None:
             return None                       # the pick waits for blocks
         blocks, hit, reg_state = res

@@ -1,31 +1,46 @@
-"""Paged generation entry points — counterpart of ``paddle_tpu/models/generation.py``.
+"""Generation entry points — counterpart of
+``paddle_tpu/models/generation.py``.
 
-Ported here: ``GenerationConfig``, the paged block pool
-(:func:`init_paged_pool`, :func:`paged_pool_block_bytes`), the KV store /
-gather helpers and the four paged forward entry points the serving engine
-drives — :func:`paged_prefill`, :func:`paged_prefill_chunk`,
+Ported here: ``GenerationConfig``; the dense-cache tier (:func:`init_cache`,
+:func:`left_align`, :func:`prefill`, :func:`decode_step`,
+:func:`make_generate_fn`, :func:`generate` and the streaming
+:class:`DecodeSession`); the paged block pool (:func:`init_paged_pool`,
+:func:`paged_pool_block_bytes`), the KV store / gather helpers and the
+paged forward entry points the serving engine drives —
+:func:`paged_prefill`, :func:`paged_prefill_chunk`,
 :func:`paged_decode_step` and :func:`paged_mixed_step` (the last over
 ``_paged_multiquery_forward``), the speculative verify step
 :func:`paged_spec_step` (each returns the JAX triple ``(logits, pool,
 dropped_tokens)``: the tokens an MoE FFN dropped at capacity, summed over
-the layers, ``0.0`` for a dense model), and the samplers: :func:`seed_key`,
+the layers, ``0.0`` for a dense model; each takes the multi-adapter LoRA
+operand ``lora={"ids": [B] slots, "layers": adapter pool}``, see
+:mod:`paddle_tpu_torch.models.lora`), and the samplers: :func:`seed_key`,
 :func:`validate_sampling`, the per-row serving sampler
-:func:`sample_tokens` and the static-knob :func:`_sample`, whose draws
-equal ``jax.random``'s (:mod:`paddle_tpu_torch.prng`). The dense
-``generate`` path waits for a later slice. As in the JAX package, every
-norm goes through ``_rms_norm(..., cfg.use_fused_norm)`` (the fused kernel
-when the flag is set) and RoPE always takes the plain route (``_rope(...,
+:func:`sample_tokens` and the static-knob :func:`_sample` of the dense
+tier, whose draws equal ``jax.random``'s
+(:mod:`paddle_tpu_torch.prng`). As in the JAX package, every norm goes
+through ``_rms_norm(..., cfg.use_fused_norm)`` (the fused kernel when the
+flag is set), every projection through ``_mm`` (the int8 kernel under
+int8 weights) and RoPE always takes the plain route (``_rope(...,
 False)``).
 
 Differences from the JAX package, all deliberate:
 
 * ``lax.scan`` over layers is a Python loop over the stacked ``[L, ...]``
   tensors.
-* The pool is updated IN PLACE: every entry point scatters the new K/V
-  into the tensors of the ``pool`` dict it was handed and returns that
-  same dict. JAX returns a new pool (buffer donation makes it in place on
-  device); here the in-place write saves one copy of the pool per
+* The pool and the dense cache are updated IN PLACE: every entry point
+  scatters the new K/V into the tensors of the dict it was handed and
+  returns that same dict. JAX returns a new pool (buffer donation makes it
+  in place on device); here the in-place write saves one copy per
   dispatch. Callers that need the old pool pass a clone.
+* ``generate``'s ``lax.while_loop`` is a host loop with the same early
+  exit once every row has hit EOS: with ``eos_token_id`` set, the host
+  reads the done mask each step (one device sync a token); without it
+  nothing is read until the end. The per-step keys of the
+  ``jax.random.split`` chain are folded on the host up front.
+* The LoRA factors of a dispatch are gathered (and cast) once for all
+  layers (:func:`~paddle_tpu_torch.models.lora.gather_adapters`), not
+  once per layer: the same values, 16 launches instead of ``16 L``.
 * Out-of-vocabulary token ids follow ``jnp.take``'s fill semantics (ids
   in ``[-V, V)`` wrap like Python indices, anything else embeds as a NaN
   row) through a clamped gather plus a select, so a poisoned id never
@@ -38,6 +53,7 @@ import dataclasses
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .. import prng
@@ -46,8 +62,11 @@ from ..kernels.paged_attention import paged_attention
 from ..kernels.rope import rope_cos_sin
 from .llama import (KV_QUANT_MODES, LlamaConfig, _embed, _ffn_tail,
                     _masked_sdpa, _mm, _rms_norm, _rope, validate_quant_mode)
+from .lora import gather_adapters, gathered_delta
 
-__all__ = ["GenerationConfig", "init_paged_pool", "paged_pool_block_bytes",
+__all__ = ["GenerationConfig", "init_cache", "left_align", "prefill",
+           "decode_step", "make_generate_fn", "generate", "DecodeSession",
+           "init_paged_pool", "paged_pool_block_bytes",
            "paged_prefill", "paged_prefill_chunk", "paged_decode_step",
            "paged_mixed_step", "paged_spec_step", "seed_key",
            "validate_sampling", "sample_tokens"]
@@ -90,9 +109,8 @@ def _sample(logits, key, temperature: float, top_k: Optional[int],
             top_p: Optional[float]):
     """Greedy when ``temperature == 0``; else temperature/top-k/top-p
     sampling with static knobs, every row drawn with the ONE raw key
-    ``key [2]`` over the whole ``[B, V]`` block (the dense tier's
-    spelling). Its caller, the dense ``generate``, is not ported yet;
-    the serving engine samples through ``sample_tokens``."""
+    ``key [2]`` over the whole ``[B, V]`` block: the dense tier's
+    sampler (the serving engine samples through ``sample_tokens``)."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     # a device tensor, not a Python scalar: CUDA divides by a host scalar
@@ -350,24 +368,54 @@ def _kv_gather(p: Dict, block_tables, B: int, C: int, Hk: int, D: int):
     return kk, vv
 
 
-def _qkv(lp: Dict, h, cfg: LlamaConfig, B: int, T: int, H: int, Hk: int):
-    """Pre-norm + the three projections, reshaped to heads."""
+def _qkv(lp: Dict, h, cfg: LlamaConfig, B: int, T: int, H: int, Hk: int,
+         ll: Optional[Dict] = None):
+    """Pre-norm + the three projections, reshaped to heads. ``ll`` (one
+    layer of :func:`_lora_factors`) adds each row's adapter delta on the
+    normed input before the reshape."""
     dt, D = cfg.dtype, cfg.head_dim
     hh = _rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps, cfg.use_fused_norm)
-    q = _mm(hh, lp, "wq", dt).reshape(B, T, H, D)
-    k = _mm(hh, lp, "wk", dt).reshape(B, T, Hk, D)
-    v = _mm(hh, lp, "wv", dt).reshape(B, T, Hk, D)
-    return q, k, v
+    q = _mm(hh, lp, "wq", dt)
+    k = _mm(hh, lp, "wk", dt)
+    v = _mm(hh, lp, "wv", dt)
+    if ll is not None:
+        q = q + gathered_delta(hh, ll["qA"], ll["qB"])
+        k = k + gathered_delta(hh, ll["kA"], ll["kB"])
+        v = v + gathered_delta(hh, ll["vA"], ll["vB"])
+    return (q.reshape(B, T, H, D), k.reshape(B, T, Hk, D),
+            v.reshape(B, T, Hk, D))
 
 
-def _attn_out(lp: Dict, h, o, cfg: LlamaConfig):
-    """Residual add of the output projection, then the FFN half: ``(block
-    output, kept)``, ``kept`` the (token, choice) pairs the MoE FFN took
-    (``0.0`` for a dense FFN)."""
+def _attn_out(lp: Dict, h, o, cfg: LlamaConfig, ll: Optional[Dict] = None):
+    """Residual add of the output projection (plus each row's adapter
+    delta on the merged heads when ``ll`` is given), then the FFN half:
+    ``(block output, kept)``, ``kept`` the (token, choice) pairs the MoE
+    FFN took (``0.0`` for a dense FFN)."""
     dt = cfg.dtype
-    h = h + _mm(_merge_heads(o).to(dt), lp, "wo", dt)
-    out, _, kept = _ffn_tail(lp, h, cfg)
+    m = _merge_heads(o).to(dt)
+    d = _mm(m, lp, "wo", dt)
+    if ll is not None:
+        d = d + gathered_delta(m, ll["oA"], ll["oB"])
+    out, _, kept = _ffn_tail(lp, h + d, cfg)
     return out, kept
+
+
+def _lora_factors(cfg: LlamaConfig, lora: Optional[Dict]):
+    """The multi-adapter operand ``{"ids": [B] pool slots, "layers":
+    stacked adapter pool}`` gathered at the rows' slots and cast to the
+    compute dtype, once per dispatch (``[L, B, ...]`` per leaf); ``None``
+    without LoRA, which leaves the computation exactly the LoRA-less
+    one."""
+    if lora is None:
+        return None
+    return gather_adapters(lora["layers"], lora["ids"], cfg.dtype)
+
+
+def _lora_layer(factors: Optional[Dict], l: int) -> Optional[Dict]:
+    """Layer ``l``'s gathered factors (views), or ``None``."""
+    if factors is None:
+        return None
+    return {name: t[l] for name, t in factors.items()}
 
 
 def _dropped(cfg: LlamaConfig, T: int, kept):
@@ -386,15 +434,17 @@ def _dropped(cfg: LlamaConfig, T: int, kept):
 # ---------------------------------------------------------------------------
 
 def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
-                  block_tables, pool: Dict, active):
+                  block_tables, pool: Dict, active, lora=None):
     """Prefill a BATCH of admitted sequences into the paged pool.
 
     ``ids [B, Sb]`` right-padded; ``prompt_lens [B]``; ``block_tables
     [B, W]``; ``active [B]`` bool (inactive pad rows and pad positions
     scatter into the null block). On int8 pools the attention reads the
     quantized round trip of this batch's K/V, exactly what later dispatches
-    gather back. Returns (next-token logits ``[B, V]`` read at each row's
-    ``prompt_len - 1``, pool, dropped tokens)."""
+    gather back. ``lora`` (optional) is the multi-adapter operand
+    ``{"ids": [B] adapter slots, "layers": stacked adapter pool}``.
+    Returns (next-token logits ``[B, V]`` read at each row's ``prompt_len
+    - 1``, pool, dropped tokens)."""
     B, Sb = ids.shape
     H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
@@ -412,13 +462,15 @@ def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
     x = _embed(params, ids, cfg.dtype)
     src = _write_src(cfg, phys, off, bs)
     kept = []
+    lf = _lora_factors(cfg, lora)
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
-        q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk)
+        ll = _lora_layer(lf, l)
+        q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk, ll)
         q = _rope(q, cos, sin, False)
         k = _rope(k, cos, sin, False)
         ka, va = _kv_store(pz, phys, off, k, v, src)
-        x, n = _attn_out(lp, x, _masked_sdpa(q, ka, va, kv_mask), cfg)
+        x, n = _attn_out(lp, x, _masked_sdpa(q, ka, va, kv_mask), cfg, ll)
         kept.append(n)
     idx = torch.clamp(prompt_lens.long() - 1, min=0)
     last = x[torch.arange(B, device=dev), idx][:, None]       # [B, 1, E]
@@ -427,14 +479,15 @@ def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
 
 
 def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
-                        chunk_len, block_tables, pool: Dict):
+                        chunk_len, block_tables, pool: Dict, lora=None):
     """Prefill-from-offset: one sequence's chunk ``ids [1, Sb]`` (real
     length ``chunk_len``) at positions ``[start, start + chunk_len)``
     against the pool — the entry point behind chunked prefill and
     prefix-cache hits. Queries RoPE at their absolute positions, scatter
     their K/V, then attend the gathered pool under ``j <= start + i``.
-    Returns (next-token logits ``[1, V]`` at position ``start + chunk_len -
-    1``, pool, dropped tokens)."""
+    ``lora`` as in :func:`paged_prefill` (``ids [1]``). Returns
+    (next-token logits ``[1, V]`` at position ``start + chunk_len - 1``,
+    pool, dropped tokens)."""
     B, Sb = ids.shape
     H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
@@ -457,14 +510,16 @@ def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
     x = _embed(params, ids, cfg.dtype)
     src = _write_src(cfg, phys, off, bs)
     kept = []
+    lf = _lora_factors(cfg, lora)
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
-        q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk)
+        ll = _lora_layer(lf, l)
+        q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk, ll)
         q = _rope(q, cos, sin, False)
         k = _rope(k, cos, sin, False)
         _kv_store(pz, phys, off, k, v, src)
         kk, vv = _kv_gather(pz, block_tables, B, C, Hk, D)
-        x, n = _attn_out(lp, x, _masked_sdpa(q, kk, vv, kv_mask), cfg)
+        x, n = _attn_out(lp, x, _masked_sdpa(q, kk, vv, kv_mask), cfg, ll)
         kept.append(n)
     last = x[:, max(chunk_len - 1, 0)][:, None]               # [1, 1, E]
     return (_lm_head(params, cfg, last), pool,
@@ -473,7 +528,7 @@ def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
 
 def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
                       block_tables, pool: Dict, active,
-                      use_kernel: bool = False):
+                      use_kernel: bool = False, lora=None):
     """One decode iteration over ``M`` serving slots against the pool.
 
     ``tokens [M]`` the last token per slot; ``seq_lens [M]`` int32 the KV
@@ -482,8 +537,8 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     null block). Attention runs either through the gather path
     (``use_kernel=False``: ``_kv_gather`` + ``_masked_sdpa``) or through
     ``kernels.paged_attention`` (``use_kernel=True``: the CUDA kernel on a
-    card — no gather is built). Returns (logits ``[M, V]``, pool, dropped
-    tokens)."""
+    card — no gather is built). ``lora`` as in :func:`paged_prefill`.
+    Returns (logits ``[M, V]``, pool, dropped tokens)."""
     M = tokens.shape[0]
     H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
@@ -502,9 +557,11 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     x = _embed(params, tokens[:, None], cfg.dtype)
     src = _write_src(cfg, phys, off, bs)
     kept = []
+    lf = _lora_factors(cfg, lora)
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
-        q, k, v = _qkv(lp, x, cfg, M, 1, H, Hk)
+        ll = _lora_layer(lf, l)
+        q, k, v = _qkv(lp, x, cfg, M, 1, H, Hk, ll)
         q = _rope(q, cos, sin, False)
         k = _rope(k, cos, sin, False)
         _kv_store(pz, phys, off, k[:, 0], v[:, 0], src)
@@ -516,14 +573,14 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
         else:
             kk, vv = _kv_gather(pz, block_tables, M, C, Hk, D)
             o = _masked_sdpa(q, kk, vv, kv_mask)
-        x, n = _attn_out(lp, x, o, cfg)
+        x, n = _attn_out(lp, x, o, cfg, ll)
         kept.append(n)
     return _lm_head(params, cfg, x), pool, _dropped(cfg, M, kept)
 
 
 def paged_mixed_step(params: Dict, cfg: LlamaConfig, tokens, starts,
                      q_lens, block_tables, pool: Dict, active,
-                     use_kernel: bool = False):
+                     use_kernel: bool = False, lora=None):
     """ONE mixed prefill+decode iteration over ``M`` slots: row ``m`` of
     ``tokens [M, Q]`` holds ``q_lens[m]`` real tokens written from
     position ``starts[m]`` — a decode slot is the ``q_len == 1`` case, a
@@ -534,7 +591,8 @@ def paged_mixed_step(params: Dict, cfg: LlamaConfig, tokens, starts,
     draft_lens = torch.clamp(q_lens - 1, min=0)
     x, pool, drops = _paged_multiquery_forward(params, cfg, tokens, starts,
                                                draft_lens, block_tables,
-                                               pool, active, use_kernel)
+                                               pool, active, use_kernel,
+                                               lora)
     M = tokens.shape[0]
     last = x[torch.arange(M, device=x.device), draft_lens.long()][:, None]
     return _lm_head(params, cfg, last), pool, drops
@@ -542,7 +600,7 @@ def paged_mixed_step(params: Dict, cfg: LlamaConfig, tokens, starts,
 
 def paged_spec_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
                     draft_lens, block_tables, pool: Dict, active,
-                    use_kernel: bool = False):
+                    use_kernel: bool = False, lora=None):
     """Speculative VERIFY over ``M`` slots: one multi-query decode
     iteration per slot against the pool. Row ``m`` of ``tokens [M, Q]``
     is the slot's last token followed by ``draft_lens[m] <= Q - 1``
@@ -557,13 +615,14 @@ def paged_spec_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     x, pool, drops = _paged_multiquery_forward(params, cfg, tokens,
                                                seq_lens, draft_lens,
                                                block_tables, pool, active,
-                                               use_kernel)
+                                               use_kernel, lora)
     return _lm_head_all(params, cfg, x), pool, drops
 
 
 def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
                               seq_lens, draft_lens, block_tables,
-                              pool: Dict, active, use_kernel: bool):
+                              pool: Dict, active, use_kernel: bool,
+                              lora=None):
     """Embed ``tokens [M, Q]``, write K/V for every valid query position
     ``seq_lens + q`` (``q <= draft_lens``), attend ``j <= seq_lens +
     min(q, draft_lens)``, and return the hidden states ``[M, Q, E]``, the
@@ -591,9 +650,11 @@ def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
     x = _embed(params, tokens, cfg.dtype)
     src = _write_src(cfg, phys, off, bs)
     kept = []
+    lf = _lora_factors(cfg, lora)
     for l in range(cfg.num_hidden_layers):
         lp, pz = _layer(params, l), _pool_layer(pool, l)
-        q, k, v = _qkv(lp, x, cfg, M, Q, H, Hk)
+        ll = _lora_layer(lf, l)
+        q, k, v = _qkv(lp, x, cfg, M, Q, H, Hk, ll)
         q = _rope(q, cos, sin, False)
         k = _rope(k, cos, sin, False)
         _kv_store(pz, phys, off, k, v, src)
@@ -606,6 +667,256 @@ def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
         else:
             kk, vv = _kv_gather(pz, block_tables, M, C, Hk, D)
             o = _masked_sdpa(q, kk, vv, kv_mask)
-        x, n = _attn_out(lp, x, o, cfg)
+        x, n = _attn_out(lp, x, o, cfg, ll)
         kept.append(n)
     return x, pool, _dropped(cfg, M * Q, kept)
+
+
+# ---------------------------------------------------------------------------
+# the dense-cache tier: prefill + decode over a [L, B, C, Hk, D] cache
+# ---------------------------------------------------------------------------
+
+def _on(x, device, dtype=None) -> torch.Tensor:
+    """``x`` (a tensor, numpy array or list) as a tensor on ``device``."""
+    t = x if torch.is_tensor(x) else torch.from_numpy(np.array(x))
+    return t.to(device=device, dtype=dtype)
+
+
+def init_cache(cfg: LlamaConfig, batch: int, capacity: int, dtype=None,
+               device=None) -> Dict:
+    """Stacked KV cache ``{"k","v": [L, B, C, Hk, D]}`` (static capacity)
+    on ``device`` (the card unless ``"cpu"`` is asked for)."""
+    dev = resolve_device(device)
+    dt = dtype if dtype is not None else cfg.dtype
+    shape = (cfg.num_hidden_layers, batch, capacity, cfg.kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _cached_layer(lp: Dict, x, ck, cv, cos, sin, kv_mask, write_idx: int,
+                  cfg: LlamaConfig):
+    """One decoder block attending against one layer's cache ``ck``/``cv
+    [B, C, Hk, D]``: the new K/V rows of ``x [B, T, E]`` are written in
+    place at cache positions ``[write_idx, write_idx + T)``, then every
+    query attends the cache under ``kv_mask [B, T, C]``. Returns ``(block
+    output, kept)`` (:func:`_attn_out`)."""
+    B, T, _ = x.shape
+    q, k, v = _qkv(lp, x, cfg, B, T, cfg.num_attention_heads, cfg.kv_heads)
+    q = _rope(q, cos, sin, False)
+    k = _rope(k, cos, sin, False)
+    ck[:, write_idx:write_idx + T] = k.to(ck.dtype)
+    cv[:, write_idx:write_idx + T] = v.to(cv.dtype)
+    return _attn_out(lp, x, _masked_sdpa(q, ck, cv, kv_mask), cfg)
+
+
+def _fwd_cached(params: Dict, cfg: LlamaConfig, ids, cache: Dict, cos, sin,
+                kv_mask, write_idx: int):
+    """Embed ``ids [B, T]``, run every layer against the cache, return
+    (last-position logits ``[B, V]``, the cache, dropped tokens)."""
+    x = _embed(params, ids, cfg.dtype)
+    kept = []
+    for l in range(cfg.num_hidden_layers):
+        x, n = _cached_layer(_layer(params, l), x, cache["k"][l],
+                             cache["v"][l], cos, sin, kv_mask, write_idx,
+                             cfg)
+        kept.append(n)
+    return (_lm_head(params, cfg, x[:, -1:]), cache,
+            _dropped(cfg, ids.numel(), kept))
+
+
+def left_align(ids, prompt_lens, pad_token_id: int = 0):
+    """Right-padded rows -> left-padded (row b's tokens end at index
+    ``S - 1``), pad positions filled with ``pad_token_id``."""
+    B, S = ids.shape
+    j = torch.arange(S, device=ids.device)[None, :]
+    shift = (S - prompt_lens.long())[:, None]
+    out = torch.gather(ids, 1, (j - shift) % S)
+    return torch.where(j >= shift, out,
+                       torch.full((), pad_token_id, dtype=ids.dtype,
+                                  device=ids.device))
+
+
+def prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens, cache: Dict,
+            left_padded: bool = False):
+    """Run the prompt through the model, filling cache positions ``[0,
+    S)``. ``ids [B, S]`` is right-padded ragged unless ``left_padded``;
+    rows are left-aligned so every row's last prompt token sits at index
+    ``S - 1``. Returns (next-token logits ``[B, V]``, cache, dropped
+    tokens: the MoE capacity drops, ``0.0`` for a dense model)."""
+    if not left_padded:
+        ids = left_align(ids, prompt_lens)
+    B, S = ids.shape
+    C = cache["k"].shape[2]
+    dev = ids.device
+    j = torch.arange(S, device=dev)[None, :]
+    shift = (S - prompt_lens.long())[:, None]                # [B, 1] pad
+    valid = j >= shift                                       # [B, S]
+    cos, sin = _row_tables(cfg, torch.clamp(j - shift, min=0))
+    causal = (torch.arange(C, device=dev)[None, :]
+              <= torch.arange(S, device=dev)[:, None])       # [S, C]
+    valid_k = torch.nn.functional.pad(valid, (0, C - S))     # [B, C]
+    kv_mask = causal[None] & valid_k[:, None, :]
+    return _fwd_cached(params, cfg, ids, cache, cos, sin, kv_mask, 0)
+
+
+def decode_step(params: Dict, cfg: LlamaConfig, token, t: int, prompt_lens,
+                prompt_pad: int, cache: Dict):
+    """One decode step: ``token [B]`` at step ``t`` (0-based), writing
+    cache position ``prompt_pad + t`` (``prompt_pad = S``, the
+    left-padded prompt length). Returns (logits ``[B, V]``, cache, dropped
+    tokens)."""
+    t, prompt_pad = int(t), int(prompt_pad)
+    C = cache["k"].shape[2]
+    dev = token.device
+    plens = prompt_lens.long()
+    cos, sin = _row_tables(cfg, (plens + t)[:, None])        # [B, 1, D]
+    j = torch.arange(C, device=dev)[None, :]
+    valid_prompt = (j >= (prompt_pad - plens)[:, None]) & (j < prompt_pad)
+    appended = (j >= prompt_pad) & (j <= prompt_pad + t)
+    kv_mask = (valid_prompt | appended)[:, None, :]          # [B, 1, C]
+    return _fwd_cached(params, cfg, token[:, None], cache, cos, sin,
+                       kv_mask, prompt_pad + t)
+
+
+def _sample_keys(key, n: int):
+    """The sub-keys of the first ``n`` draws of the JAX tier's key chain
+    ``key, sub = split(key)``: ``[n, 2]`` int64 on ``key``'s device."""
+    subs = []
+    for _ in range(n):
+        key, sub = prng.split(key)
+        subs.append(sub)
+    return torch.stack(subs)
+
+
+def make_generate_fn(cfg: LlamaConfig, *, max_new_tokens: int,
+                     temperature: float = 0.0, top_k: Optional[int] = None,
+                     top_p: Optional[float] = None,
+                     eos_token_id: Optional[int] = None,
+                     pad_token_id: int = 0, return_drops: bool = False):
+    """Build ``gen(params, ids [B, S], prompt_lens [B], key [2]) -> tokens
+    [B, max_new_tokens]`` on the device of ``ids``.
+
+    ``ids`` may be right-padded; rows are left-aligned internally. Rows
+    finish at ``eos_token_id`` (emitted) and emit ``pad_token_id``
+    thereafter; once every row has finished the loop exits, the output
+    already holding ``pad_token_id`` where the skipped steps would have
+    written it."""
+
+    def gen(params, ids, prompt_lens, key):
+        B, S = ids.shape
+        dev = ids.device
+        ids_l = left_align(ids, prompt_lens, pad_token_id)
+        cache = init_cache(cfg, B, S + max_new_tokens, device=dev)
+        logits, cache, drops = prefill(params, cfg, ids_l, prompt_lens,
+                                       cache, left_padded=True)
+        subs = (_sample_keys(key.cpu(), max_new_tokens).to(dev)
+                if temperature != 0.0 else [None] * max_new_tokens)
+        tok = _sample(logits, subs[0], temperature, top_k,
+                      top_p).to(ids.dtype)
+        out = torch.full((B, max_new_tokens), pad_token_id, dtype=ids.dtype,
+                         device=dev)
+        out[:, 0] = tok
+        done = None if eos_token_id is None else tok == eos_token_id
+        pad = torch.full((), pad_token_id, dtype=ids.dtype, device=dev)
+        for t in range(max_new_tokens - 1):
+            if done is not None and bool(done.all()):
+                break                        # every row hit EOS
+            logits, cache, d = decode_step(params, cfg, tok, t, prompt_lens,
+                                           S, cache)
+            nxt = _sample(logits, subs[t + 1], temperature, top_k,
+                          top_p).to(ids.dtype)
+            if done is not None:
+                nxt = torch.where(done, pad, nxt)
+                done = done | (nxt == eos_token_id)
+            out[:, t + 1] = nxt
+            drops = drops + d
+            tok = nxt
+        if return_drops:
+            return out, drops
+        return out
+
+    return gen
+
+
+def generate(params: Dict, ids, cfg: LlamaConfig, *, max_new_tokens: int,
+             prompt_lens=None, temperature: float = 0.0,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             eos_token_id: Optional[int] = None, pad_token_id: int = 0,
+             seed: Optional[int] = None, key=None):
+    """Fixed-batch decode on the device of ``params`` — the dense-cache
+    tier: every row holds a ``[B, S + max_new_tokens]`` KV cache for its
+    whole lifetime and the batch retires together. Greedy outputs equal
+    the serving engine's (its parity oracle). ``ids`` (numpy or a tensor)
+    is taken as int32, as the JAX package takes it. Sampling draws with
+    the key of ``seed`` (default ``GenerationConfig.seed``: 0), or the raw
+    ``key [2]`` when given. Returns int32 tokens ``[B, max_new_tokens]``."""
+    dev = params["embed"].device
+    ids = _on(ids, dev, torch.int32)
+    B, S = ids.shape
+    prompt_lens = (torch.full((B,), S, dtype=torch.int32, device=dev)
+                   if prompt_lens is None
+                   else _on(prompt_lens, dev, torch.int32))
+    if key is None:
+        key = seed_key(int(seed) if seed is not None
+                       else GenerationConfig.seed)
+    fn = make_generate_fn(cfg, max_new_tokens=max_new_tokens,
+                          temperature=temperature, top_k=top_k, top_p=top_p,
+                          eos_token_id=eos_token_id,
+                          pad_token_id=pad_token_id)
+    return fn(params, ids, prompt_lens, _on(key, "cpu", torch.int64))
+
+
+class DecodeSession:
+    """Token-at-a-time decoding for streaming callers over the dense cache
+    (updated in place between calls, where the JAX package donates it)::
+
+        sess = DecodeSession(params, cfg, capacity=512)
+        logits = sess.prefill(ids, prompt_lens)   # fills the cache
+        for _ in range(n):
+            tok = logits.argmax(-1)
+            logits = sess.step(tok)
+    """
+
+    def __init__(self, params: Dict, cfg: LlamaConfig, capacity: int):
+        self.params, self.cfg, self.capacity = params, cfg, capacity
+        self.device = params["embed"].device
+        self._cache = None
+        self._t = 0
+        self._dropped = None
+
+    def prefill(self, ids, prompt_lens=None):
+        ids = _on(ids, self.device, torch.int32)
+        B, S = ids.shape
+        if S > self.capacity:
+            raise ValueError(f"prompt {S} exceeds capacity {self.capacity}")
+        self._plens = (
+            torch.full((B,), S, dtype=torch.int32, device=self.device)
+            if prompt_lens is None
+            else _on(prompt_lens, self.device, torch.int32))
+        self._ppad = S
+        self._t = 0
+        cache = init_cache(self.cfg, B, self.capacity, device=self.device)
+        logits, self._cache, self._dropped = prefill(
+            self.params, self.cfg, ids, self._plens, cache)
+        return logits
+
+    def step(self, token):
+        if self._cache is None:
+            raise RuntimeError("call prefill() first")
+        if self._ppad + self._t >= self.capacity:
+            raise RuntimeError(f"capacity {self.capacity} exhausted")
+        token = _on(token, self.device)
+        logits, self._cache, drops = decode_step(
+            self.params, self.cfg, token, self._t, self._plens, self._ppad,
+            self._cache)
+        self._dropped = self._dropped + drops
+        self._t += 1
+        return logits
+
+    @property
+    def dropped_tokens(self) -> float:
+        """Cumulative MoE capacity-drop count of this session (0.0 for a
+        dense model; nonzero means decode may part from the full-forward
+        oracle)."""
+        return float(self._dropped) if self._dropped is not None else 0.0

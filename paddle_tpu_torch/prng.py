@@ -10,6 +10,9 @@ the same token streams, the port computes the same random bits:
   ``_threefry2x32_lowering``.
 * :func:`fold_in` — ``jax.random.fold_in`` on a raw ``uint32[2]`` key and a
   uint32 datum: the hash of the counter pair ``(0, data)``.
+* :func:`split` — ``jax.random.split`` with ``jax_threefry_partitionable``
+  on (the default): key ``i`` of the split is the hash of the counter
+  ``(0, i)``, i.e. ``fold_in(key, i)``.
 * :func:`random_bits32` — ``jax.random.bits`` with
   ``jax_threefry_partitionable`` on (the default): the counters are the
   high and low 32 bits of the flat index over ``shape``; the bits are
@@ -39,8 +42,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["threefry2x32", "fold_in", "random_bits32", "uniform", "gumbel",
-           "categorical"]
+__all__ = ["threefry2x32", "fold_in", "split", "random_bits32", "uniform",
+           "gumbel", "categorical"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -78,6 +81,14 @@ def fold_in(key, data):
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
                           data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def split(key, num: int = 2):
+    """``jax.random.split(key, num)`` for raw keys ``[..., 2]`` (the
+    partitionable form): ``[..., num, 2]``, key ``i`` the hash of the
+    counter ``(0, i)``."""
+    idx = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    return fold_in(key[..., None, :], idx)
 
 
 def random_bits32(key, shape: Sequence[int]):

@@ -772,3 +772,63 @@ def test_moe_decode_with_freed_slots_sharing_the_null_block(dev, use_kernel):
         assert torch.equal(lg, runs[0][0])
         assert float(drops) == float(want_drops) > 0
     assert (runs[0][0].cpu() - want).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_lora_decode_matches_cpu(dev, quant):
+    """One fp32 decode dispatch with a LoRA operand mixing the base slot
+    0 with two loaded adapters (the engine's per-dispatch gather and
+    batched matmuls on the card), through the paged-attention kernel and,
+    with ``quant``, int8 weights through the int8 matmul and an int8 KV
+    pool: the logits equal the CPU's within 1e-4 and both kernels
+    launched. Base rows equal the same call without the operand bit for
+    bit."""
+    from paddle_tpu_torch.kernels.paged_attention import paged_attention
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_matmul
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.models.llama import (LlamaConfig, _tree_map,
+                                               ensure_quantized, init_params)
+    from paddle_tpu_torch.models.lora import AdapterPool, lora_init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=3, num_attention_heads=4,
+                      num_key_value_heads=2)
+    rng = np.random.default_rng(9)
+    M, bs, W = 6, 16, 4
+    toks = torch.from_numpy(rng.integers(0, 256, M).astype(np.int32))
+    lens = torch.tensor([5, 17, 30, 9, 0, 40], dtype=torch.int32)
+    act = lens > 0
+    tables = torch.arange(1, 1 + M * W, dtype=torch.int32).view(M, W)
+    ids = torch.tensor([0, 1, 2, 1, 0, 2], dtype=torch.int32)
+    params = ensure_quantized(init_params(cfg, seed=6, device="cpu"),
+                              "int8" if quant else None)
+    pool = G.init_paged_pool(cfg, 1 + M * W, bs, device="cpu",
+                             kv_quant="int8" if quant else None)
+    for t in pool.values():
+        src = rng.standard_normal(t.shape)
+        t.copy_(torch.from_numpy(
+            (np.clip(src * 40, -127, 127) if t.dtype == torch.int8
+             else np.abs(src) * 0.02
+             if t.dim() == 4 else src).astype(np.float32)).to(t.dtype))
+
+    def run(d, lora=True):
+        ap = AdapterPool(cfg, 8, 2, 2, device=d)
+        for i in (1, 2):
+            ap.register(f"a{i}", lora_init_params(cfg, 8, seed=i))
+            ap.acquire(f"a{i}")
+        return G.paged_decode_step(
+            _tree_map(lambda t: t.to(d), params), cfg, toks.to(d),
+            lens.to(d), tables.to(d), {k: v.to(d) for k, v in pool.items()},
+            act.to(d), use_kernel=d != "cpu",
+            lora={"ids": ids.to(d), "layers": ap.layers} if lora else None)[0]
+    want = run("cpu")
+    paged_attention.launches = weight_only_matmul.launches = 0
+    got = run(dev)
+    assert paged_attention.launches == cfg.num_hidden_layers
+    assert weight_only_matmul.launches == (
+        7 * cfg.num_hidden_layers + 1 if quant else 0)
+    assert (got.cpu() - want).abs().max() <= 1e-4
+    base = run(dev, lora=False)
+    for m in (0, 4):
+        assert torch.equal(got[m], base[m])
+    assert not torch.allclose(got[1], base[1], atol=1e-3)

@@ -234,11 +234,13 @@ def test_engine_stream_and_cancel(model):
 
 def test_unported_features_raise(model):
     _, _, tcfg, tparams, _ = model
-    for kw in (dict(tp=2), dict(lora_slots=1), dict(offload=True)):
+    for kw in (dict(tp=2), dict(offload=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TConfig(**kw)
+    # LoRA is ported: an adapter on a pool-less engine is a usage error
+    assert TConfig(lora_slots=1).lora_slots == 1
     eng = TEngine(tparams, tcfg, TConfig(**_BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="lora_slots"):
         eng.submit([1, 2, 3], max_new_tokens=2, adapter_id="a")
     for kw in (dict(journal="/nonexistent"), dict(embed_model=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -275,7 +277,7 @@ _FLAGS = ("block_size", "max_slots", "max_model_len", "queue_depth",
           "decode_chunk", "prefix_cache", "prefill_chunk", "mixed_batch",
           "preempt", "paged_kernel", "kv_quant", "policy", "ttft_slo_s",
           "tenant_cache_quota", "retry_after_s", "spec_decode",
-          "spec_ngram")
+          "spec_ngram", "lora_rank", "lora_slots", "lora_pool")
 
 
 def test_serving_flags_match_jax():
