@@ -169,6 +169,45 @@ Phases (each fails the run on any error; none catches and carries on):
     ``generate`` equals the serving engine, ``DecodeSession``'s argmax
     stream equals ``generate``, and a sampled ``generate`` repeats with
     its seed.
+23. The host KV offload tier (cell O), A's model at bf16: a churn wave of
+    16 families x 2 requests (a 256-token family prefix, a 16-token tail,
+    16 new tokens) through a 200-block pool, then a revisit wave of one
+    request a family (a fresh tail), tier on and off in turns (off, on,
+    on, off; 512 host blocks): revisit TTFT p50 and max, prefill tokens
+    computed, the swap counters, the host ms of the revisit's admissions
+    and of the tier's verified takes. With the tier on the revisit must
+    recompute no prefix token and launch paged attention, every request
+    completes, no block leaks, device and host keys are disjoint. Then
+    the swap cost a block over 64 blocks (D2H into pinned buffers, H2D
+    back: CUDA-event and host ms, GB/s against PCIe's bound, the host's
+    CRC32 of a block); then at fp32 on C's model tier-on streams equal
+    tier-off, with an fp pool and with ``kv_quant="int8",
+    quantize="int8"`` (which must launch the int8 matmul), and a
+    corrupted host block drops once and changes no stream.
+24. The journal, the supervisor and the hang watchdog (cell Q): phase
+    4's trace through ``EngineSupervisor`` with a journal, in turns
+    without and with a crash injected at decode iteration 10 (tokens/s,
+    recovery ms, recovered tokens, journal bytes a token; with the crash
+    ``restarts`` 1, device memory after the rebuild within one KV pool of
+    before, the weights not re-cast); every request completes with its
+    budget, no delivered token repeats, no block leaks; the journal's
+    work a step replayed under the ``step``, ``always`` and ``off``
+    policies. At fp32 on C's model and trace (half the requests seeded,
+    stepped 2 decode iterations at a time): a crash recovers to the
+    uninterrupted streams; a journal abandoned after 4 steps (kill -9)
+    recovers through ``EngineSupervisor.recover`` delivering each stream
+    exactly once; a restart budget of 0 flips the supervisor to broken
+    with partials readable; ``drain(deadline_s=0.5)`` ends holding no
+    block; the watchdog (0.5 s) fires over a ~2 s ``torch.cuda._sleep``
+    behind a blocked ``synchronize()`` inside ``serving.decode``, before
+    the wait returns, and the supervisor recovers to the same streams.
+25. Embeddings (cell P): BERT-base (``BertConfig()``, fp32, seed 0) in
+    one engine with A's model: 64 passages of 16-512 tokens arriving 4 a
+    step beside phase 4's 24 generate requests, in turns without and
+    with them (off, on, on, off): embeds/s, embed latency p50 and max,
+    A's tokens/s and TTFT p50. Every embedding within 1e-4 x max|ref| of
+    ``bert_encode`` of the passage alone; the pool's free blocks the same
+    before and after; paged attention launched for the generate traffic.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -183,8 +222,9 @@ layer's recompute) and nothing else; in phase 11 also 49 RMSNorm
 forwards (2 per layer, twice, plus the final norm), 25 RMSNorm
 backwards, 48 RoPE forwards (q and k, twice) and 24 RoPE backwards. The
 kernels line reports the serving launches of phases 4, 5, 13, 14
-(speculation on) and 20 (the LoRA drain and both base-traffic runs)
-together,
+(speculation on), 20 (the LoRA drain and both base-traffic runs), 23
+(the bf16 revisit and the fp32 int8 tier run), 24 (the bf16 crash run)
+and 25 (the generate traffic beside the embeds) together,
 the flash launches of phase 8 and the RMSNorm and RoPE launches of
 phase 11 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -196,6 +236,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2305,6 +2346,631 @@ def dense_phase(sp, sn):
             "sync_spread_ms": spread_ms, "int8_tok_s": B * 8 / int8_s}
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: the host offload tier, the supervisor and journal, the
+# embeddings endpoint
+# ---------------------------------------------------------------------------
+
+PCIE_BYTES_PER_S = 64e9        # PCIe Gen5 x16, one direction, the H100's
+#                                host link
+
+
+def family_trace(vocab, seed, fams=16, per=2, pre=256, tail=16):
+    """The churn wave (``fams`` families x ``per`` requests, each a
+    ``pre``-token family prefix and its own ``tail``-token tail) and the
+    revisit wave (one request a family, a fresh tail on the same
+    prefix)."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, vocab, pre).astype(np.int32)
+                for _ in range(fams)]
+
+    def wave(k):
+        return [np.concatenate([p, rng.integers(0, vocab, tail)
+                                .astype(np.int32)])
+                for p in prefixes for _ in range(k)]
+
+    return wave(per), wave(1)
+
+
+def tier_engine(params, cfg, on, **kw):
+    """Cell O's engine: a 200-block pool (8 live sequences plus headroom,
+    so the churn evicts most chains), the tier at 512 blocks when on."""
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    return ServingEngine(params, cfg, ServingConfig(
+        num_blocks=200, prefix_cache=True, offload=on, offload_blocks=512,
+        **kw), device="cuda")
+
+
+def churn_revisit(eng, churn, revisit, new=16, between=None):
+    """Drain the churn wave, then the revisit wave (timed, launches
+    counted); returns (revisit streams, metrics, launches)."""
+    import torch
+    drive(eng, churn, [new] * len(churn))
+    if between is not None:
+        between(eng)
+    st0 = eng.stats()
+    # host time of the revisit's admissions, and of the tier's verified
+    # takes inside them (the CRC check of every restored block)
+    spent = {"admit_ms": 0.0, "take_ms": 0.0}
+    owners = [(eng.cache, "admit", "admit_ms")]
+    if eng.cache.offload is not None:
+        owners.append((eng.cache.offload, "take", "take_ms"))
+    for obj, name, key in owners:
+        def timed(*a, _real=getattr(obj, name), _key=key, **kw):
+            t = time.time()
+            try:
+                return _real(*a, **kw)
+            finally:
+                spent[_key] += (time.time() - t) * 1e3
+        setattr(obj, name, timed)
+    reset_counts()
+    outs, m = drive(eng, revisit, [new] * len(revisit))
+    c = read_counts()
+    for obj, name, _ in owners:
+        delattr(obj, name)
+    m.update(spent)
+    st = eng.stats()
+    hit = st["prefix_hit_tokens"] - st0["prefix_hit_tokens"]
+    m["prefill_tokens_computed"] = sum(len(p) for p in revisit) - hit
+    m["prefix_tokens_recomputed"] = (
+        sum(len(p) - 16 for p in revisit) - hit)
+    m["recomputed_tokens"] = st["recomputed_tokens"] - st0[
+        "recomputed_tokens"]
+    m["offload"] = st["offload"]
+    torch.cuda.synchronize()
+    return outs, m, c
+
+
+def tier_disjoint(eng):
+    """The two-tier partition: device keys and host keys disjoint, and
+    free + evictable + in_use == usable."""
+    part = eng.block_partition()
+    dev = set(eng.cache.manager._hash2block)
+    host = set(eng.cache.offload.keys())
+    check(not dev & host, f"{len(dev & host)} keys on device AND host")
+    check(part["free"] + part["evictable"] + part["in_use"]
+          == part["usable"], f"pool partition {part}")
+    return part
+
+
+def swap_cost(cache, n=64):
+    """ms per block of the tier's swap-out (``read_block``: the D2H into
+    pinned buffers) and swap-in (``write_block``: the H2D back), over
+    ``n`` blocks, by CUDA events and by the host clock, with the GB/s and
+    the least time PCIe could take; and the host's CRC32 of one block
+    (every leaf), which a swap-out stamps and a swap-in verifies."""
+    import torch
+    from paddle_tpu_torch.inference.serving.offload import block_crc
+    blocks = list(range(1, n + 1))
+    per_block = sum(a[:, 0].numel() * a.element_size()
+                    for a in cache.pool.values())
+    out = {"bytes_per_block": per_block}
+    for _ in range(2):                       # warm: pinned buffers cached
+        caps = [cache.read_block(b) for b in blocks]
+        for cap in caps:
+            cap.wait()
+    for what in ("d2h", "h2d"):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        a.record()
+        if what == "d2h":
+            caps = [cache.read_block(blk) for blk in blocks]
+        else:
+            for blk, cap in zip(blocks, caps):
+                cache.write_block(blk, cap.data)
+        b.record()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3 / n
+        if what == "d2h":
+            for cap in caps:
+                cap.wait()
+        ms = a.elapsed_time(b) / n
+        if what == "d2h":
+            t1 = time.time()
+            for cap in caps:
+                for t in cap.data.values():
+                    block_crc(t)
+            out["crc_ms_per_block"] = (time.time() - t1) * 1e3 / n
+        out[what] = {"ms_per_block": ms,
+                     "wall_ms_per_block": wall,
+                     "gb_s": per_block / ms / 1e6,
+                     "pcie_bound_ms_per_block":
+                         per_block / PCIE_BYTES_PER_S * 1e3}
+    return out
+
+
+def offload_phase(sp_seed=SEED + 23):
+    """Phase 23 (cell O): the host offload tier on A's model at bf16, tier
+    on and off in turns; the swap cost a block; then at fp32 on C's model
+    tier-on streams against tier-off (fp and int8), and a corrupted host
+    block. Returns (metrics, main-path launches)."""
+    import torch
+    from paddle_tpu_torch.models.llama import init_params
+    cfg = model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    churn, revisit = family_trace(cfg.vocab_size, sp_seed)
+    turns, launches, main = [], None, None
+    for on in (False, True, True, False):
+        eng = tier_engine(params, cfg, on)
+        eng.run([churn[0][:40]], max_new_tokens=4, eos_token_id=None)
+        _, m, c = churn_revisit(eng, churn, revisit)
+        dec = c["paged_attention"] - c["paged_attention_multiquery"]
+        turns.append({"tier": on, "ttft_p50_s": m["ttft_p50_s"],
+                      "ttft_max_s": m["ttft_max_s"], "tok_s": m["tok_s"],
+                      "prefill_tokens_computed":
+                          m["prefill_tokens_computed"],
+                      "prefix_tokens_recomputed":
+                          m["prefix_tokens_recomputed"],
+                      "offload": m["offload"]})
+        check(dec > 0, f"revisit decodes launched paged_attention {dec}")
+        if on:
+            off = m["offload"]
+            check(m["prefix_tokens_recomputed"] == 0
+                  and m["recomputed_tokens"] == 0,
+                  f"tier on: the revisit recomputed "
+                  f"{m['prefix_tokens_recomputed']} prefix tokens")
+            check(off["swap_ins"] > 0 and off["tier_hits"] > 0
+                  and off["corrupt_drops"] == 0, f"tier counters {off}")
+            part = tier_disjoint(eng)
+            if main is None:
+                main = (m, part)
+                launches = c
+                log(f"  tier on, revisit: {json.dumps(m)}")
+                log(f"  partition {json.dumps(part)}; launches "
+                    f"{json.dumps(c)}")
+        else:
+            check(m["prefix_tokens_recomputed"] > 0,
+                  "tier off: the churn evicted no chain")
+        if on and len(turns) == 3:
+            cost = swap_cost(eng.cache)
+            log(f"  swap cost: {json.dumps(cost)}")
+        del eng
+        torch.cuda.empty_cache()
+    log(f"  in turns (off, on, on, off): {json.dumps(turns)}")
+    del params
+    torch.cuda.empty_cache()
+
+    # fp32 on C's model: the tier serves the same streams
+    cfg32 = model_config(torch.float32)
+    params = init_params(cfg32, seed=SEED + 1, device="cuda")
+    churn, revisit = family_trace(cfg32.vocab_size, sp_seed, fams=12)
+    for label, kw in (("fp", {}), ("int8", dict(kv_quant="int8",
+                                                quantize="int8"))):
+        got = {}
+        for on in (True, False):
+            eng = tier_engine(params, cfg32, on, **kw)
+            got[on], m, c = churn_revisit(eng, churn, revisit)
+            if on:
+                check(m["offload"]["tier_hits"] > 0,
+                      f"fp32 {label}: no tier hit {m['offload']}")
+                tier_disjoint(eng)
+                if label == "int8":
+                    check(c["weight_only_matmul"] > 0
+                          and c["paged_attention_int8"] > 0,
+                          f"fp32 int8 tier run launches {c}")
+                    launches = {k: launches[k] + c[k] for k in launches}
+            del eng
+            torch.cuda.empty_cache()
+        for i, (a, b) in enumerate(zip(got[True], got[False])):
+            check(np.array_equal(a, b), f"fp32 {label} request {i}: tier on "
+                  f"{a} != tier off {b}")
+        log(f"  fp32 {label}: {len(got[True])} revisit streams equal with "
+            f"the tier on and off")
+    eng = tier_engine(params, cfg32, True)
+    want, _, _ = churn_revisit(eng, churn, revisit)
+    del eng
+    eng = tier_engine(params, cfg32, True)
+    got, m, _ = churn_revisit(eng, churn, revisit,
+                              between=lambda e: e.cache.offload.corrupt_one(1))
+    check(m["offload"]["corrupt_drops"] == 1,
+          f"corrupt_one: {m['offload']}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(np.array_equal(a, b), f"corrupt block, request {i}: {a} != {b}")
+    log(f"  fp32 corrupt host block: corrupt_drops 1, streams unchanged, "
+        f"prefill tokens computed {m['prefill_tokens_computed']}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"turns": turns, "main": main[0], "swap": cost}, launches
+
+
+class _Crash(RuntimeError):
+    pass
+
+
+def arm_crash(sup, at_decode_iter):
+    """Arm the live engine of ``sup`` to raise once from its step loop at
+    the first step that starts ``at_decode_iter`` or more decode
+    iterations after arming (this script's copy of the JAX package's
+    ``testing/chaos.py::engine_crash``: the patch rides the engine, so the
+    rebuilt engine runs clean). Returns the engine's decode-iteration
+    count at which it fires."""
+    eng = sup.engine
+    real = eng._step
+    at = eng._stats["decode_iters"] + at_decode_iter
+
+    def crashing(max_iters=None):
+        if eng._stats["decode_iters"] >= at:
+            eng._step = real
+            raise _Crash(f"injected engine crash at decode iteration "
+                         f"{eng._stats['decode_iters']}")
+        return real(max_iters)
+
+    eng._step = crashing
+    return at
+
+
+def supervised_drive(sup, prompts, news, knobs=None, crash_at=None,
+                     pre_steps=None, max_iters=None):
+    """Submit the trace to the supervisor and step it to drain, collecting
+    the tokens each step delivers. With ``crash_at`` the engine crashes
+    at that decode iteration; the crashing step is timed (rebuild +
+    resubmit) and device memory read just before it and just after.
+    With ``pre_steps`` it stops after that many steps instead. Returns
+    (srids, delivered by srid, metrics); ``metrics["per_step"]`` holds
+    what each step delivered."""
+    import torch
+    knobs = knobs or [{}] * len(prompts)
+    srids = [sup.submit(p, max_new_tokens=m, eos_token_id=None, **k)
+             for p, m, k in zip(prompts, news, knobs)]
+    got = {s: [] for s in srids}
+    armed = crash_at is not None
+    if armed:
+        crash_at = arm_crash(sup, crash_at)
+    m = {"per_step": []}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    steps = 0
+    while sup.pending and (pre_steps is None or steps < pre_steps):
+        if armed and sup.engine._stats["decode_iters"] >= crash_at:
+            torch.cuda.synchronize()
+            m["mem_before_gb"] = torch.cuda.memory_allocated() / 2**30
+            m["pool_gb"] = sup.engine.cache.kv_bytes() / 2**30
+            m["wq_ptr"] = sup.engine._params["layers"]["wq"].data_ptr()
+            r0 = sup.restarts
+            t1 = time.time()
+            out = sup.step(max_iters)
+            torch.cuda.synchronize()
+            m["recovery_ms"] = (time.time() - t1) * 1e3
+            m["mem_after_gb"] = torch.cuda.memory_allocated() / 2**30
+            check(sup.restarts == r0 + 1 and out == {},
+                  f"the crash did not restart the engine ({sup.restarts})")
+            check(sup.engine._params["layers"]["wq"].data_ptr()
+                  == m.pop("wq_ptr"), "the rebuild re-cast the weights")
+            armed = False
+        else:
+            out = sup.step(max_iters)
+        for s, toks in out.items():
+            got[s].extend(int(t) for t in toks)
+        m["per_step"].append({s: [int(t) for t in toks]
+                              for s, toks in out.items()})
+        steps += 1
+    check(not armed, "the armed crash never fired: the trace drained first")
+    torch.cuda.synchronize()
+    m["wall_s"] = time.time() - t0
+    m["tokens"] = sum(len(v) for v in got.values())
+    m["tok_s"] = m["tokens"] / m["wall_s"]
+    m["steps"] = steps
+    return srids, got, m
+
+
+def journal_flush_cost(jdir, per_step, policy):
+    """ms a step of the journal's per-step work (one ``log_tokens`` per
+    request that advanced, then the ``flush``) under ``policy``, replaying
+    a recorded run's per-step deliveries into a fresh journal; fsync as
+    the machine does it."""
+    from paddle_tpu_torch.inference.serving import RequestJournal
+    j = RequestJournal(jdir, sync=policy, snapshot_every=0)
+    jids = {}
+    for step in per_step:
+        for s in step:
+            if s not in jids:
+                jids[s] = j.log_submit(prompt=[1], max_new_tokens=64,
+                                       eos_token_id=None, temperature=0.0,
+                                       top_k=None, top_p=None, seed=0,
+                                       tenant="default", priority=0,
+                                       deadline=None)
+    t0 = time.time()
+    for step in per_step:
+        for s, toks in step.items():
+            j.log_tokens(jids[s], toks)
+        j.flush()
+    ms = (time.time() - t0) * 1e3 / max(1, len(per_step))
+    j.close()
+    return ms
+
+
+def robustness_phase(prompts, news, sp, sn, tmp):
+    """Phase 24 (cell Q): A's trace through the supervisor with a journal,
+    in turns without and with a crash; journal flush costs; then at fp32
+    on C's model the crash and kill -9 recoveries against the
+    uninterrupted run, the restart budget, a drain, and the hang watchdog
+    over a blocked synchronize. Returns (metrics, main-path launches)."""
+    import gc
+    import os
+    import torch
+    from paddle_tpu_torch.health import watchdog
+    from paddle_tpu_torch.inference.serving import (EngineSupervisor,
+                                                    RequestJournal,
+                                                    ServingConfig)
+    from paddle_tpu_torch.inference.serving.supervisor import FAILED
+    from paddle_tpu_torch.models.llama import init_params
+    cfg = model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    turns, launches, per_step = [], None, None
+    for i, crash in enumerate((False, True, True, False)):
+        gc.collect()             # the last turn's engine is gone before
+        torch.cuda.empty_cache()  # this one's memory is read
+        jdir = os.path.join(tmp, f"bf16-{i}")
+        sup = EngineSupervisor(params, cfg, ServingConfig(),
+                               journal=RequestJournal(jdir), device="cuda")
+        sup.engine.run([prompts[0][:40]], max_new_tokens=4,
+                       eos_token_id=None)
+        reset_counts()
+        srids, got, m = supervised_drive(sup, prompts, news,
+                                         crash_at=10 if crash else None)
+        steps = m.pop("per_step")
+        c = read_counts()
+        for s, n in zip(srids, news):
+            rec = sup.request(s)
+            check(rec.state == "finished" and len(rec.tokens) == n,
+                  f"request {s} ended {rec.state} {len(rec.tokens)}/{n}")
+            check(got[s] == [int(t) for t in rec.tokens],
+                  f"request {s}: delivered tokens repeat or went missing")
+        check(sup.block_partition()["in_use"] == 0, "blocks leaked")
+        wal = os.path.getsize(os.path.join(jdir, "journal.wal"))
+        m.update(restarts=sup.restarts,
+                 recovered_tokens=sup.recovered_tokens,
+                 journal_bytes_per_token=wal / m["tokens"])
+        if crash:
+            check(sup.restarts == 1, f"restarts {sup.restarts}")
+            check(c["paged_attention"] > 0, f"crash run launches {c}")
+            check(m["mem_after_gb"] - m["mem_before_gb"] < m["pool_gb"],
+                  f"device memory {m['mem_before_gb']:.3f} -> "
+                  f"{m['mem_after_gb']:.3f} GB across the recovery (one "
+                  f"KV pool is {m['pool_gb']:.3f} GB)")
+            if launches is None:
+                launches = c
+                log(f"  crash run: {json.dumps(m)}")
+                log(f"  launches: {json.dumps(c)}")
+        elif per_step is None:
+            per_step = steps
+        turns.append({"crash": crash, "tok_s": m["tok_s"],
+                      "recovery_ms": m.get("recovery_ms"),
+                      "recovered_tokens": m["recovered_tokens"],
+                      "journal_bytes_per_token":
+                          m["journal_bytes_per_token"]})
+        sup.close(deadline_s=0.0)
+        del sup
+        torch.cuda.empty_cache()
+    log(f"  in turns (no crash, crash, crash, no crash): "
+        f"{json.dumps(turns)}")
+    flush = {p: journal_flush_cost(os.path.join(tmp, f"flush-{p}"),
+                                   per_step, p)
+             for p in ("step", "always", "off")}
+    log(f"  journal work a step (log_tokens + flush), ms: "
+        f"{json.dumps(flush)} over {len(per_step)} steps")
+    del params
+    torch.cuda.empty_cache()
+
+    # fp32 on C's model and trace: greedy and seeded streams
+    cfg32 = model_config(torch.float32)
+    params = init_params(cfg32, seed=SEED + 1, device="cuda")
+    knobs = [dict(SAMPLED, seed=i) if i % 2 else {} for i in range(len(sp))]
+
+    def sup32(**kw):
+        return EngineSupervisor(params, cfg32, ServingConfig(),
+                                device="cuda", **kw)
+
+    # stepped 2 decode iterations at a time (a streaming client), so a
+    # crash and a kill land mid-stream
+    ref = sup32(journal=None)
+    srids, want, _ = supervised_drive(ref, sp, sn, knobs, max_iters=2)
+    want = [want[s] for s in srids]
+    del ref
+    sup = sup32(journal=None)
+    srids, got, m = supervised_drive(sup, sp, sn, knobs, crash_at=3,
+                                     max_iters=2)
+    for i, s in enumerate(srids):
+        check(got[s] == want[i], f"fp32 crash, request {i}: {got[s]} != "
+              f"{want[i]}")
+    log(f"  fp32 crash at decode iteration 3: {len(sp)} streams (half "
+        f"seeded) equal the uninterrupted run; recovery "
+        f"{m['recovery_ms']:.1f} ms")
+    del sup
+    # kill -9: the journal abandoned mid-stream, then a cold restart
+    jdir = os.path.join(tmp, "kill")
+    sup = sup32(journal=RequestJournal(jdir))
+    srids, pre, _ = supervised_drive(sup, sp, sn, knobs, pre_steps=4,
+                                     max_iters=2)
+    jids = [sup.request(s).jid for s in srids]
+    sup.journal.abandon()
+    del sup
+    rec = EngineSupervisor.recover(jdir, params, cfg32, ServingConfig(),
+                                   device="cuda")
+    post = {}
+    while rec.pending:
+        for s, toks in rec.step(2).items():
+            post.setdefault(rec.request(s).jid, []).extend(
+                int(t) for t in toks)
+    by_jid = {rec.request(s).jid: s for s in rec._reqs}
+    for i, (s, jid) in enumerate(zip(srids, jids)):
+        check(pre[s] + post.get(jid, []) == want[i],
+              f"kill -9, request {i}: delivered {pre[s]} + resumed "
+              f"{post.get(jid)} != {want[i]}")
+        check(rec.request(by_jid[jid]).state == "finished",
+              f"recovered request {i} {rec.request(by_jid[jid]).state}")
+    log(f"  fp32 kill -9 after 4 steps: each stream delivered exactly once "
+        f"({sum(len(v) for v in pre.values())} before, "
+        f"{sum(len(v) for v in post.values())} resumed); resubmitted "
+        f"{rec.resubmitted}")
+    check(rec.block_partition()["in_use"] == 0, "blocks leaked after kill")
+    del rec
+    # the restart budget at 0: broken, FAILED partials readable
+    sup = sup32(journal=None, max_restarts=0)
+    srids, got, _ = supervised_drive(sup, sp, sn, knobs, pre_steps=3,
+                                     max_iters=2)
+    arm_crash(sup, 0)
+    sup.step()
+    check(sup.broken and not sup.accepting, "restart budget 0: not broken")
+    for s in srids:
+        rec_s = sup.request(s)
+        check(rec_s.state in (FAILED, "finished"), f"state {rec_s.state}")
+        check([int(t) for t in sup.result(s)] == got[s],
+              f"partial output of {s} unreadable")
+    log(f"  restart budget 0: broken, "
+        f"{sum(sup.request(s).state == FAILED for s in srids)} requests "
+        f"FAILED with their partials readable")
+    del sup
+    # drain with a deadline ends holding zero blocks
+    sup = sup32(journal=None)
+    for p, n in zip(sp, sn):
+        sup.submit(p, max_new_tokens=n, eos_token_id=None)
+    sup.step()
+    rep = sup.drain(deadline_s=0.5)
+    check(rep["leaked_blocks"] == 0, f"drain report {rep}")
+    log(f"  drain(deadline_s=0.5): {json.dumps(rep)}")
+    del sup
+    torch.cuda.empty_cache()
+
+    # the hang watchdog over a blocked synchronize
+    fired = {}
+
+    def on_hang(diag):
+        fired["t"] = time.time()
+        fired["diag"] = diag
+
+    wd = watchdog.install(0.5, on_hang=on_hang)
+    try:
+        sup = sup32(journal=None)
+        eng = sup.engine
+        real = eng._decode_burst
+        spin = {}
+
+        def stalled(*a, **kw):
+            eng._decode_burst = real
+            with watchdog.section("serving.decode"):
+                torch.cuda._sleep(int(2.0 * 1.98e9))   # ~2 s at 1.98 GHz
+                t0 = time.time()
+                torch.cuda.synchronize()
+                spin["sync_s"] = time.time() - t0
+                spin["returned"] = time.time()
+            return real(*a, **kw)
+
+        eng._decode_burst = stalled
+        srids, got, _ = supervised_drive(sup, sp, sn, knobs, max_iters=2)
+        check("t" in fired and "serving.decode" in fired["diag"],
+              "the watchdog did not fire naming serving.decode")
+        check(fired["t"] < spin["returned"],
+              "the watchdog fired only after the synchronize returned")
+        check(sup.restarts == 1, f"watchdog trip: restarts {sup.restarts}")
+        for i, s in enumerate(srids):
+            check(got[s] == want[i], f"after the watchdog trip, request "
+                  f"{i}: {got[s]} != {want[i]}")
+        log(f"  watchdog: fired {spin['returned'] - fired['t']:.2f} s "
+            f"before the blocked synchronize returned (it blocked "
+            f"{spin['sync_s']:.2f} s), diagnosis names serving.decode; "
+            f"the supervisor recovered (restarts 1), streams equal")
+        del sup, eng
+    finally:
+        watchdog.uninstall()
+    del wd, params
+    torch.cuda.empty_cache()
+    return {"turns": turns, "flush_ms_per_step": flush}, launches
+
+
+def embeddings_phase(prompts, news):
+    """Phase 25 (cell P): BERT-base embeddings interleaved with A's
+    generate traffic through one engine, in turns without and with the
+    embeds; embeddings against ``bert_encode`` of each request alone; the
+    pool untouched by embeds. Returns (metrics, main-path launches)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    from paddle_tpu_torch.models.bert import (BertConfig, bert_encode,
+                                              bert_init_params)
+    from paddle_tpu_torch.models.llama import init_params
+    cfg = model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    bcfg = BertConfig()
+    bparams = bert_init_params(bcfg, seed=0, device="cuda")
+    rng = np.random.default_rng(SEED + 25)
+    passages = [rng.integers(0, bcfg.vocab_size, int(n)).astype(np.int32)
+                for n in rng.integers(16, 513, 64)]
+    turns, launches, rows = [], None, None
+    for with_embeds in (False, True, True, False):
+        eng = ServingEngine(params, cfg, ServingConfig(), device="cuda",
+                            embed_model=(bcfg, bparams))
+        eng.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+        e0 = eng.submit_embedding(passages[0][:16])
+        eng.step()
+        free0 = eng.stats()["free_blocks"]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rids = [eng.submit(p, max_new_tokens=m, eos_token_id=None)
+                for p, m in zip(prompts, news)]
+        erids, todo = [], list(passages) if with_embeds else []
+        while eng.pending or todo:
+            for p in todo[:4]:                # 4 arrivals a step
+                erids.append(eng.submit_embedding(p))
+            todo = todo[4:]
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        c = read_counts()
+        reqs = [eng.request(r) for r in rids]
+        for r, m in zip(reqs, news):
+            check(r.state == "finished" and len(r.tokens) == m,
+                  f"request {r.rid} ended {r.state}")
+        st = eng.stats()
+        check(st["blocks_in_use"] == 0 and st["free_blocks"] == free0,
+              f"pool after the run: {st['blocks_in_use']} in use, free "
+              f"{st['free_blocks']} (before {free0})")
+        check(c["paged_attention"] > 0, f"generate launches {c}")
+        gen = sum(len(r.tokens) for r in reqs)
+        turn = {"embeds": with_embeds, "tok_s": gen / wall,
+                "ttft_p50_s": float(np.percentile(
+                    [r.ttft_s for r in reqs], 50))}
+        if with_embeds:
+            lat = [eng.request(e).finish_t - eng.request(e).submit_t
+                   for e in erids]
+            turn.update(embeds_s=len(erids) / wall,
+                        embed_p50_s=float(np.percentile(lat, 50)),
+                        embed_max_s=float(max(lat)))
+            if rows is None:
+                rows = [np.asarray(eng.embedding(e)) for e in erids]
+                launches = c
+        turns.append(turn)
+        # an embeds-only batch on the idle engine leaves the pool alone
+        free1 = eng.stats()["free_blocks"]
+        ex = [eng.submit_embedding(p) for p in passages[:8]]
+        eng.step()
+        check(all(eng.request(e).state == "finished" for e in ex)
+              and eng.stats()["free_blocks"] == free1
+              and eng.stats()["blocks_in_use"] == 0,
+              "embeds touched the KV pool")
+        del eng
+        torch.cuda.empty_cache()
+    log(f"  in turns (off, on, on, off): {json.dumps(turns)}")
+    worst = 0.0
+    for p, row in zip(passages, rows):
+        ref = bert_encode(bparams, bcfg, torch.from_numpy(p[None]),
+                          torch.tensor([len(p)]))[0]
+        ref = ref.cpu().numpy()
+        err = float(np.abs(row - ref).max() / np.abs(ref).max())
+        worst = max(worst, err)
+        check(err <= 1e-4, f"embedding of a {len(p)}-token passage: "
+              f"{err:.3g} x max|ref| from bert_encode alone")
+    log(f"  64 embeddings within {worst:.3g} x max|ref| of bert_encode "
+        f"alone (limit 1e-4)")
+    del params, bparams
+    torch.cuda.empty_cache()
+    return {"turns": turns, "worst_rel_err": worst}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2579,6 +3245,17 @@ def main() -> int:
     log("== phase 22: the dense tier (generate, DecodeSession, "
         "GenerationPredictor)")
     dense_phase(sp, sn)
+
+    log("== phase 23: host KV offload tier, full width, bf16, 16 families "
+        "of a 256-token prefix, tier on and off in turns")
+    _, c23 = offload_phase()
+    log("== phase 24: journal, supervisor, hang watchdog")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, c24 = robustness_phase(prompts, news, sp, sn, tmp)
+    log("== phase 25: BERT-base embeddings beside A's generate traffic")
+    _, c25 = embeddings_phase(prompts, news)
+    for c in (c23, c24, c25):
+        launches = {k: launches[k] + c[k] for k in launches}
 
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [

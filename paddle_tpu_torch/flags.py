@@ -3,9 +3,10 @@ port reads.
 
 Counterpart of ``paddle_tpu/flags.py``: its ``define_flag`` / ``flag``
 helpers and the same names, defaults and ``FLAGS_<name>=value``
-environment override, limited to the serving knobs the ported engine
-resolves when a ``ServingConfig`` field is left unset and the two
-loss-spike knobs of the health sentinel.
+environment override, limited to the serving knobs the ported engine,
+offload tier, journal and supervisor resolve when a field is left unset,
+the two loss-spike knobs of the health sentinel and the hang watchdog's
+timeout.
 """
 
 from __future__ import annotations
@@ -155,6 +156,66 @@ define_flag("FLAGS_serving_lora_pool", 16,
             "error naming this flag. Must be >= FLAGS_serving_lora_slots.",
             int)
 
+# host-RAM KV offload tier (ServingConfig.offload / offload_blocks)
+define_flag("FLAGS_serving_offload", False,
+            "Host-RAM KV offload tier (ServingConfig.offload): refcount-0 "
+            "evictable blocks (including a preemption victim's registered "
+            "blocks) swap to a bounded host-side pool instead of dying "
+            "when device pressure evicts them — a later prefix hit or "
+            "victim readmission H2D-restores the chain with zero "
+            "recompute. Write-time checksums make a corrupt host block "
+            "degrade to a cache MISS (recompute), never to wrong KV; the "
+            "lookup() verification contract extends to the tier. Off by "
+            "default: the tier costs host RAM and D2H bandwidth.", bool)
+define_flag("FLAGS_serving_offload_blocks", 256,
+            "Host-tier capacity bound in KV blocks "
+            "(ServingConfig.offload_blocks): the offload pool holds at "
+            "most this many swapped-out blocks, LRU-evicting beyond it "
+            "(an evicted host block falls back to the recompute path "
+            "bit-exactly). int8-quantized blocks are ~3.5x cheaper per "
+            "block, so the same bound holds ~3.5x the cached tokens.", int)
+
+# engine supervisor: restart budget and graceful drain
+define_flag("FLAGS_serving_max_restarts", 3,
+            "EngineSupervisor restart budget: unexpected step-loop "
+            "exceptions (or serving-section hang-watchdog trips) tear the "
+            "engine down, rebuild it and re-submit every non-terminal "
+            "request — past this many restarts the replica flips to "
+            "not-accepting (/readyz 503) instead of crash-looping "
+            "(docs/OPS.md runbook).", int)
+define_flag("FLAGS_serving_drain_deadline_s", 30.0,
+            "Graceful-drain deadline (s): on SIGTERM/close() the front "
+            "line stops admissions (structured 503 + retry_after_s), "
+            "finishes in-flight requests within this window, then cancels "
+            "the remainder. The launcher's PADDLE_PREEMPT_GRACE (minus a "
+            "2s margin) overrides when exported — the same preemption "
+            "window the emergency-checkpoint path uses.", float)
+
+# durable serving: crash-safe request journal + cold-restart recovery
+define_flag("FLAGS_serving_journal_dir", "",
+            "Directory for the crash-safe serving request journal; empty "
+            "disables durability. When set, EngineSupervisor and "
+            "ServingRouter journal every submit / delivered-token cursor "
+            "/ terminal transition there (crc32 + length framed WAL plus "
+            "periodic snapshots), and EngineSupervisor.recover() / "
+            "ServingRouter.cold_start() rebuild the fleet after a "
+            "process death — every non-terminal request resubmitted "
+            "bit-exactly from prompt + delivered-so-far, no delivered "
+            "token ever re-emitted.", str)
+define_flag("FLAGS_serving_journal_sync", "step",
+            "Journal fsync policy: 'step' batches one fsync per engine "
+            "step (the boundary at which tokens become visible to "
+            "clients, so the journal never claims delivery of a token "
+            "the caller could not have seen), 'always' fsyncs every "
+            "record, 'off' leaves residency to the page cache (survives "
+            "process death, not host death).", str)
+define_flag("FLAGS_serving_snapshot_every", 64,
+            "Engine steps (journal flushes) between serving-state "
+            "snapshots; 0 disables periodic snapshots (the journal "
+            "still snapshots once on graceful drain). Snapshots bound "
+            "cold-restart replay to the WAL suffix written since the "
+            "last good generation.", int)
+
 # ---------------------------------------------------------------------------
 # Run-health sentinel (paddle_tpu_torch.health): the two knobs
 # sentinel_check reads when its caller leaves them unset.
@@ -167,3 +228,7 @@ define_flag("FLAGS_health_spike_factor", 0.0,
 define_flag("FLAGS_health_spike_warmup", 20,
             "Good steps required to seed the loss EMA before the spike test "
             "arms (early-training loss is legitimately volatile).", int)
+define_flag("FLAGS_health_watchdog_timeout_s", 0.0,
+            "health.watchdog.install() default: seconds without a progress "
+            "tick before the in-process hang watchdog fires (stack-dump "
+            "diagnosis; fatal=True exits HUNG_EXIT_RC). 0 = off.", float)

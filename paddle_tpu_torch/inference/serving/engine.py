@@ -29,9 +29,20 @@ only the ``[rows, V]`` random bits are drawn on the engine's device. A
 dispatch whose rows are all greedy (decided on the host from the slot
 table) takes the literal argmax and never runs the sampler.
 
+Robustness: the host offload tier (``ServingConfig.offload``) swaps
+evicted prefix-cache blocks to pinned host RAM and restores them on the
+next hit; ``journal=`` feeds a :class:`~.journal.RequestJournal` (submit
+records, delivered-token cursors, terminal transitions, one flush a
+step); :meth:`ServingEngine.resubmit` re-queues a request with the tokens
+it already delivered, the supervisor's recovery path; every step ticks
+the global hang watchdog and marks its ``serving.step`` /
+``serving.prefill`` / ``serving.decode`` sections. ``embed_model=
+(BertConfig, params)`` serves prefill-only embedding requests through
+:func:`~paddle_tpu_torch.models.bert.bert_encode`.
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-item): tensor parallelism, the embeddings endpoint, the request journal
-and the host offload tier.
+item): tensor parallelism and the live-migration surface
+(``serialize_request``, ``adopt``, ``export_chain``, ``graft_chain``).
 
 API::
 
@@ -44,6 +55,7 @@ API::
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -55,7 +67,9 @@ import torch
 from ... import prng
 from ...device import resolve_device, resolve_paged_kernel
 from ...flags import flag
+from ...health import watchdog as _watchdog
 from ...models import generation as G
+from ...models.bert import bert_encode
 from ...models.llama import (KV_QUANT_MODES, QUANTIZE_MODES,
                              ensure_quantized, validate_quant_mode)
 from ...models.lora import AdapterPool
@@ -64,18 +78,26 @@ from .policies import resolve_policy
 from .scheduler import (CANCELLED, DEFAULT_TENANT, SHED, TIMED_OUT, Request,
                         Scheduler, ServingQueueFull)
 
-__all__ = ["ServingConfig", "ServingEngine", "ServingQueueFull"]
+__all__ = ["ServingConfig", "ServingEngine", "ServingQueueFull",
+           "HEALTH_SNAPSHOT_KEYS", "SUPERVISOR_SNAPSHOT_KEYS"]
 
 _UNSET = "unset"
 # the ROADMAP.md section A items that bring what this slice leaves out
 _LATER = {
-    "tp": "tensor parallelism over NCCL is the next item of ROADMAP.md "
-          "section A",
-    "robustness": "the offload tier, journal, supervisor, router and server "
-                  "are queued after TP (ROADMAP.md section A)",
-    "embed": "the embeddings endpoint comes with the BERT encoder "
-             "(ROADMAP.md section A)",
+    "tp": "tensor parallelism over NCCL is item 7 of ROADMAP.md section A",
+    "migration": "live KV migration and cross-replica chain pulls come "
+                 "with the fleet layer, item 8b of ROADMAP.md section A",
 }
+
+# the keys of health_snapshot(): the engine serves every one except
+# SUPERVISOR_SNAPSHOT_KEYS, which EngineSupervisor layers on top
+HEALTH_SNAPSHOT_KEYS = (
+    "ok", "accepting", "policy", "queued", "queue_limit", "live_slots",
+    "max_slots", "free_blocks", "usable_blocks", "kv_pool_bytes",
+    "tp_degree", "kv_pool_shard_bytes", "kv_quant", "paged_kernel",
+    "spec_decode", "retry_after_s", "counters", "dispatch_latency",
+    "offload", "lora", "watchdog", "tenants", "supervisor", "autoscale")
+SUPERVISOR_SNAPSHOT_KEYS = ("supervisor", "autoscale")
 
 # weights the engine casts once to the activation dtype (every use casts
 # them to it anyway, so the result is the same and no dispatch pays the
@@ -112,15 +134,16 @@ class ServingConfig:
     lora_slots: Optional[int] = None  # device adapter-pool slots on top of
     #                                   the zeroed base slot 0; 0 = off
     lora_pool: Optional[int] = None  # host-registry capacity (>= slots)
-    # features of the JAX engine that later slices bring (must stay off)
+    offload: Any = _UNSET            # bool; evicted registered blocks swap
+    #                                  to a bounded pinned host pool
+    #                                  instead of dying
+    offload_blocks: Any = _UNSET     # host-tier capacity bound in blocks
+    # a feature of the JAX engine that a later slice brings (must stay 1)
     tp: int = 1
-    offload: bool = False
 
     def __post_init__(self):
         if int(self.tp) != 1:
             raise NotImplementedError(_LATER["tp"])
-        if self.offload:
-            raise NotImplementedError(_LATER["robustness"])
         for f, name in (("block_size", "FLAGS_serving_block_size"),
                         ("max_slots", "FLAGS_serving_max_slots"),
                         ("max_model_len", "FLAGS_serving_max_model_len"),
@@ -172,6 +195,14 @@ class ServingConfig:
                 flag("FLAGS_serving_tenant_cache_quota"))
         self.tenant_cache_quota = (int(self.tenant_cache_quota)
                                    if self.tenant_cache_quota else None)
+        if self.offload == _UNSET:
+            self.offload = bool(flag("FLAGS_serving_offload"))
+        else:
+            self.offload = bool(self.offload)
+        if self.offload_blocks == _UNSET:
+            self.offload_blocks = int(flag("FLAGS_serving_offload_blocks"))
+        self.offload_blocks = (int(self.offload_blocks)
+                               if self.offload_blocks else 0)
         if self.policy is None:
             self.policy = str(flag("FLAGS_serving_policy"))
         validate_quant_mode(self.quantize, QUANTIZE_MODES)
@@ -188,21 +219,37 @@ class ServingConfig:
 
 class ServingEngine:
     """Continuous-batching decode service over a causal-LM parameter dict,
-    on ``device`` (CUDA unless ``device="cpu"``)."""
+    on ``device`` (CUDA unless ``device="cpu"``).
+
+    ``journal`` is an optional :class:`~.journal.RequestJournal` this
+    engine feeds under its own lock; ``embed_model`` an optional
+    ``(BertConfig, params)`` encoder serving :meth:`submit_embedding`.
+    Both sets of params are moved/cast once here; handing an engine
+    another engine's ``prepared_params`` makes every cast a no-op (the
+    supervisor's rebuild)."""
 
     def __init__(self, params, model_config,
                  serving_config: Optional[ServingConfig] = None,
                  gen_config: Optional[G.GenerationConfig] = None,
                  device=None, journal=None, embed_model=None):
-        if journal is not None:
-            raise NotImplementedError(_LATER["robustness"])
-        if embed_model is not None:
-            raise NotImplementedError(_LATER["embed"])
         self.device = resolve_device(device)
         self.config = serving_config or ServingConfig()
         self._gen = gen_config or G.GenerationConfig()
         self._cfg = model_config
         self._params = self._prepare_params(params)
+        # durable serving: a RequestJournal fed under the engine lock —
+        # submit records, per-step delivered-token cursors, terminal
+        # transitions — with ONE flush per step. None = durability off.
+        self.journal = journal
+        self._jlive: Dict[int, int] = {}   # rid -> owned journal jid
+        # embeddings endpoint: an optional (BertConfig, params) encoder
+        # serving prefill-only requests (kind "embed")
+        if embed_model is not None:
+            ecfg, eparams = embed_model
+            self._embed_cfg = ecfg
+            self._embed_params = self._move(eparams)
+        else:
+            self._embed_cfg = self._embed_params = None
         self.cache = PagedKVCache(model_config, self.config.max_slots,
                                   self.config.max_model_len,
                                   self.config.block_size,
@@ -211,7 +258,9 @@ class ServingEngine:
                                   prefix_cache=self.config.prefix_cache,
                                   tenant_quota=self.config.tenant_cache_quota,
                                   kv_quant=self.config.kv_quant,
-                                  device=self.device)
+                                  device=self.device,
+                                  offload=self.config.offload,
+                                  offload_blocks=self.config.offload_blocks)
         self._policy = resolve_policy(
             self.config.policy,
             ttft_slo_s=float(flag("FLAGS_serving_ttft_slo_s")))
@@ -253,22 +302,33 @@ class ServingEngine:
         self._stats = {"chunks": 0, "steps": 0, "prefill_dispatches": 0,
                        "decode_dispatches": 0, "mixed_dispatches": 0,
                        "spec_dispatches": 0, "spec_steps": 0,
-                       "decode_iters": 0}
+                       "decode_iters": 0, "embeds": 0}
         self._dispatch_s = {"prefill": 0.0, "decode": 0.0, "mixed": 0.0,
                             "spec": 0.0}
+        # bounded recent windows of dispatch wall time per kind, behind
+        # the p50/p99 rows of stats() and health_snapshot()
+        self._dispatch_ms = {k: collections.deque(maxlen=512)
+                             for k in self._dispatch_s}
         self._prefill_buckets: set = set()
+
+    def _move(self, tree) -> Dict:
+        """A (nested dict) tree of tensors on the engine's device (a no-op
+        for tensors already there)."""
+        return {k: self._move(v) if isinstance(v, dict)
+                else v.to(self.device) for k, v in tree.items()}
+
+    @property
+    def prepared_params(self) -> Dict:
+        """The params as this engine holds them (on its device, quantized
+        and cast): a rebuilt engine given these allocates nothing new."""
+        return self._params
 
     def _prepare_params(self, params) -> Dict:
         """Params on the engine's device, weight-only quantized when the
         config asks, fp matmul weights and the embedding cast once to the
         activation dtype."""
-        dev, dt = self.device, self._cfg.dtype
-
-        def move(tree):
-            return {k: move(v) if isinstance(v, dict) else v.to(dev)
-                    for k, v in tree.items()}
-
-        p = ensure_quantized(move(params), self.config.quantize)
+        dt = self._cfg.dtype
+        p = ensure_quantized(self._move(params), self.config.quantize)
         p = dict(p)
         layers = dict(p["layers"])
         for name in _MATMUL_WEIGHTS:
@@ -303,9 +363,26 @@ class ServingEngine:
         """Count + time ONE device dispatch by kind (``chunks`` is the
         all-kinds total). Every dispatch ends in a device-to-host read of
         its tokens, so the host clock spans the device work."""
+        dt = time.time() - t0
         self._stats["chunks"] += 1
         self._stats[kind + "_dispatches"] += 1
-        self._dispatch_s[kind] += time.time() - t0
+        self._dispatch_s[kind] += dt
+        self._dispatch_ms[kind].append(dt * 1e3)
+
+    def _dispatch_latency(self) -> Dict[str, Dict[str, Any]]:
+        """p50/p99 dispatch wall time per kind over the recent window."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for kind, window in self._dispatch_ms.items():
+            n = int(self._stats.get(kind + "_dispatches", 0))
+            if window:
+                xs = np.asarray(window, np.float64)
+                out[kind] = {
+                    "count": n,
+                    "p50_ms": round(float(np.percentile(xs, 50)), 3),
+                    "p99_ms": round(float(np.percentile(xs, 99)), 3)}
+            else:
+                out[kind] = {"count": n, "p50_ms": None, "p99_ms": None}
+        return out
 
     # ---- request lifecycle ------------------------------------------------
 
@@ -335,6 +412,25 @@ class ServingEngine:
         if timeout_s is not None:
             t = time.time() + float(timeout_s)
             deadline = t if deadline is None else min(deadline, t)
+        req = self._make_request(prompt, max_new_tokens, eos_token_id,
+                                 tenant, priority, deadline,
+                                 temperature=temperature, top_k=top_k,
+                                 top_p=top_p, seed=seed,
+                                 adapter_id=adapter_id)
+        with self._lock:
+            rid = self._sched.submit(req)
+            self._journal_submit(req)
+            return rid
+
+    def _make_request(self, prompt, max_new_tokens, eos_token_id, tenant,
+                      priority, deadline, tokens: Sequence[int] = (),
+                      temperature: Any = "unset", top_k: Any = "unset",
+                      top_p: Any = "unset", seed: Any = "unset",
+                      adapter_id: Optional[str] = None) -> Request:
+        """One Request from user-facing arguments — the single place
+        submit() and resubmit() resolve the GenerationConfig defaults, the
+        "unset" sentinels and the tenant key, so fresh and recovered
+        requests can never diverge in defaults."""
         g = G.GenerationConfig.resolve(
             self._gen, max_new_tokens=max_new_tokens,
             eos_token_id=eos_token_id, temperature=temperature,
@@ -351,6 +447,10 @@ class ServingEngine:
             tenant=str(tenant) if tenant is not None else DEFAULT_TENANT,
             priority=int(priority),
             deadline=float(deadline) if deadline is not None else None)
+        req.tokens = [int(t) for t in tokens]
+        if req.tokens and req.eos_token_id is not None and \
+                req.tokens[-1] == req.eos_token_id:
+            req.eos_seen = True
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if req.prompt_len < 1:
@@ -367,11 +467,174 @@ class ServingEngine:
                     f"engine (register_adapter() first; registered: "
                     f"{self._lora.registered()})")
             req.adapter_id = str(adapter_id)
+        return req
+
+    def resubmit(self, prompt, tokens: Sequence[int] = (),
+                 max_new_tokens: Optional[int] = None,
+                 eos_token_id: Optional[int] = "unset",
+                 deadline: Optional[float] = None,
+                 tenant: Optional[str] = None, priority: int = 0,
+                 temperature: Any = "unset", top_k: Any = "unset",
+                 top_p: Any = "unset", seed: Any = "unset",
+                 jid: Optional[int] = None,
+                 adapter_id: Optional[str] = None) -> int:
+        """Re-queue a request recovered from a torn-down engine with the
+        tokens it had already emitted — the supervisor's restart path.
+        Rides the preemption-recompute machinery: prefill recomputes KV
+        for ``prompt + tokens[:-1]`` and decode resumes from the last
+        token, so the stream equals an uninterrupted run (token ``t`` is
+        drawn with the key of ``(seed, t)``) and no delivered token is
+        re-emitted. ``deadline`` is ABSOLUTE. Bypasses the queue-depth
+        shed (the work was accepted once already). ``jid`` re-attaches
+        the request to a live journal record (no duplicate submit event);
+        an unknown or terminal jid falls back to a fresh record seeded
+        with the delivered tokens."""
+        req = self._make_request(prompt, max_new_tokens, eos_token_id,
+                                 tenant, priority, deadline, tokens=tokens,
+                                 temperature=temperature, top_k=top_k,
+                                 top_p=top_p, seed=seed,
+                                 adapter_id=adapter_id)
+        if req.finished:
+            raise ValueError(
+                f"request is already finished ({len(req.tokens)} tokens of "
+                f"{req.max_new_tokens}); record it, don't resubmit it")
+        with self._lock:
+            rid = self._sched.submit(req, enforce_bound=False)
+            self._journal_submit(req, jid)
+            return rid
+
+    # ---- durable journal hooks ---------------------------------------------
+
+    def _journal_submit(self, req: Request,
+                        jid: Optional[int] = None) -> None:
+        """Attach a just-queued request to the journal: resume a live
+        record named by ``jid``, else append a fresh submit event with the
+        RESOLVED record. Caller holds the engine lock."""
+        if self.journal is None:
+            return
+        if jid is not None and jid >= 0 \
+                and self.journal.resume(jid, req.tokens):
+            req.jid = jid
+        else:
+            req.jid = self.journal.log_submit(
+                prompt=req.prompt, max_new_tokens=req.max_new_tokens,
+                eos_token_id=req.eos_token_id,
+                temperature=req.temperature, top_k=req.top_k,
+                top_p=req.top_p, seed=req.seed, tenant=req.tenant,
+                priority=req.priority, deadline=req.deadline,
+                tokens=req.tokens, adapter_id=req.adapter_id)
+        self._jlive[req.rid] = req.jid
+
+    def _journal_end(self, req: Request) -> None:
+        """Journal a terminal transition the moment it happens (a
+        disowned request, jid -1, logs nothing). Caller holds the lock."""
+        self._jlive.pop(req.rid, None)
+        if self.journal is not None and req.jid >= 0:
+            self.journal.log_terminal(req.jid, req.state)
+
+    def _journal_step(self, emitted: Dict[int, List[int]]) -> None:
+        """The per-step journal hook, run under the engine lock right after
+        ``_step``: log every delivered-token cursor advance and the
+        terminal transitions the retire sweep made, then flush — one fsync
+        a step under the default policy, at the boundary where the tokens
+        become visible to the caller."""
+        if self.journal is None:
+            return
+        for rid, toks in emitted.items():
+            jid = self._jlive.get(rid)
+            if jid is not None and toks:
+                self.journal.log_tokens(jid, toks)
+        fin = self._sched.finished
+        for rid in [r for r in self._jlive if r in fin]:
+            req = fin[rid]
+            self._jlive.pop(rid, None)
+            if req.jid >= 0:
+                self.journal.log_terminal(req.jid, req.state)
+        self.journal.flush()
+
+    def _journal_flush(self) -> None:
+        if self.journal is not None:
+            self.journal.flush()
+
+    def journal_disown(self, rid: int) -> None:
+        """Detach a live request from its journal record WITHOUT ending it
+        (a deliberate move cancels its vacated copy, and that cancel must
+        not mark the still-live logical request terminal)."""
+        with self._lock:
+            self._jlive.pop(rid, None)
+            req = self._sched.find(rid)
+            if req is not None:
+                req.jid = -1
+
+    def journal_own(self, rid: int, jid: int, tokens) -> bool:
+        """Attach a live request to journal record ``jid``, rebasing the
+        record's delivered cursor to ``tokens``. False when the record is
+        unknown or terminal, or the rid is not live."""
+        with self._lock:
+            if self.journal is None:
+                return False
+            req = self._sched.find(rid)
+            if req is None or not self.journal.resume(jid, tokens):
+                return False
+            req.jid = int(jid)
+            self._jlive[rid] = req.jid
+            return True
+
+    # ---- embeddings endpoint -----------------------------------------------
+
+    def submit_embedding(self, prompt, timeout_s: Optional[float] = None,
+                         deadline_s: Optional[float] = None,
+                         tenant: Optional[str] = None,
+                         priority: int = 0) -> int:
+        """Queue one prefill-only EMBEDDING request: it rides the bounded
+        admission queue, runs through the attached encoder in the next
+        step's batched bucketed dispatch, and retires there with the
+        pooled hidden states readable via :meth:`embedding`. Embeds hold
+        no decode slot and no KV block and are NOT journaled."""
+        if self._embed_params is None:
+            raise ValueError(
+                "no embedding model attached: construct the engine with "
+                "embed_model=(BertConfig, params) to serve embeddings")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.shape[0] < 1:
+            raise ValueError("prompt must contain at least one token")
+        if prompt.shape[0] > self._embed_cfg.max_position_embeddings:
+            raise ValueError(
+                f"embedding prompt has {prompt.shape[0]} tokens > the "
+                f"encoder's max_position_embeddings "
+                f"{self._embed_cfg.max_position_embeddings}")
+        deadline = deadline_s
+        if timeout_s is not None:
+            t = time.time() + float(timeout_s)
+            deadline = t if deadline is None else min(deadline, t)
+        req = Request(
+            rid=-1, prompt=prompt, max_new_tokens=1,
+            tenant=str(tenant) if tenant is not None else DEFAULT_TENANT,
+            priority=int(priority),
+            deadline=float(deadline) if deadline is not None else None,
+            kind="embed")
         with self._lock:
             return self._sched.submit(req)
 
-    def submit_embedding(self, *args, **kwargs) -> int:
-        raise NotImplementedError(_LATER["embed"])
+    def embedding(self, rid: int) -> np.ndarray:
+        """The pooled ``[hidden_size]`` fp32 embedding of a finished embed
+        request (KeyError while still queued)."""
+        with self._lock:
+            return self._sched.finished[rid].embedding
+
+    # ---- live KV migration (ROADMAP.md section A item 8b) -------------------
+
+    def serialize_request(self, rid: int):
+        raise NotImplementedError(_LATER["migration"])
+
+    def adopt(self, payload) -> int:
+        raise NotImplementedError(_LATER["migration"])
+
+    def export_chain(self, chain):
+        raise NotImplementedError(_LATER["migration"])
+
+    def graft_chain(self, payload):
+        raise NotImplementedError(_LATER["migration"])
 
     # ---- multi-adapter LoRA ------------------------------------------------
 
@@ -459,6 +722,7 @@ class ServingEngine:
             if req is None or self._retire_if_finished(req):
                 return False
             self._terminate(req, CANCELLED)
+            self._journal_flush()
             return True
 
     def cancel_all(self) -> int:
@@ -470,6 +734,8 @@ class ServingEngine:
                     continue
                 self._terminate(req, CANCELLED)
                 n += 1
+            if n:
+                self._journal_flush()
             return n
 
     def _retire_if_finished(self, req: Request) -> bool:
@@ -482,6 +748,7 @@ class ServingEngine:
         self._sched.finish(req)
         self._clear_slot(m)
         self._lora_release(req)
+        self._journal_end(req)
         return True
 
     def _clear_slot(self, m: int) -> None:
@@ -502,6 +769,7 @@ class ServingEngine:
         if m is not None:
             self._clear_slot(m)
         self._lora_release(req)
+        self._journal_end(req)
 
     def _expire_deadlines(self, now: float) -> None:
         """Queued requests past their deadline are SHED (TIMED_OUT when
@@ -583,6 +851,7 @@ class ServingEngine:
         cold short prompts (one dispatch per power-of-2 length bucket,
         batch padded to the power-of-2 bucket of the group); prefix hits,
         long prompts and readmissions advance through the chunk path."""
+        self._admit_embeds()
         gate = self._lora_gate if self._lora is not None else None
         admitted: List[Request] = []
         while (req := self._sched.next_admission(gate=gate)) is not None:
@@ -615,11 +884,12 @@ class ServingEngine:
                 act[r] = True
                 aids[r] = req.adapter_slot
             t0 = time.time()
-            logits, self.cache.pool, _ = G.paged_prefill(
-                self._params, self._cfg, self._t(ids), self._t(plens),
-                self._t(tables), self.cache.pool, self._t(act),
-                lora=self._lora_operand(aids))
-            first = self._first_tokens(logits, group, Bb)
+            with _watchdog.section("serving.prefill"):
+                logits, self.cache.pool, _ = G.paged_prefill(
+                    self._params, self._cfg, self._t(ids), self._t(plens),
+                    self._t(tables), self.cache.pool, self._t(act),
+                    lora=self._lora_operand(aids))
+                first = self._first_tokens(logits, group, Bb)
             self._record_dispatch("prefill", t0)
             now = time.time()
             for r, req in enumerate(group):
@@ -628,6 +898,42 @@ class ServingEngine:
                     req.prompt, req.blocks, req.prompt_len, req.reg_state,
                     tenant=req.tenant, namespace=req.adapter_id)
                 self._emit_first(req, int(first[r]), now, emitted)
+
+    def _admit_embeds(self) -> None:
+        """Drain every queued embedding request through the batched
+        encoder: one :func:`bert_encode` dispatch per power-of-2 ``(batch,
+        length)`` bucket, the batched-prefill shape discipline. The whole
+        batch admits, encodes and FINISHES inside this locked step."""
+        if self._embed_params is None:
+            return
+        group = self._sched.admit_embeds()
+        if not group:
+            return
+        by_bucket: Dict[int, List[Request]] = {}
+        for req in group:
+            by_bucket.setdefault(self._bucket(req.prompt_len),
+                                 []).append(req)
+        for Sb, grp in sorted(by_bucket.items()):
+            Bb = 1
+            while Bb < len(grp):
+                Bb *= 2
+            ids = np.zeros((Bb, Sb), np.int32)
+            lens = np.zeros((Bb,), np.int32)      # pad rows: length 0
+            for r, req in enumerate(grp):
+                ids[r, :req.prompt_len] = req.prompt
+                lens[r] = req.prompt_len
+            t0 = time.time()
+            with _watchdog.section("serving.prefill"):
+                pooled = bert_encode(self._embed_params, self._embed_cfg,
+                                     self._t(ids), self._t(lens)
+                                     ).cpu().numpy()
+            self._record_dispatch("prefill", t0)
+            now = time.time()
+            for r, req in enumerate(grp):
+                req.embedding = pooled[r]
+                req.first_token_t = now
+                self._stats["embeds"] += 1
+                self._sched.finish(req)
 
     @staticmethod
     def _argmax(logits: torch.Tensor) -> np.ndarray:
@@ -691,10 +997,12 @@ class ServingEngine:
             ids[0, :n] = req.prefill_ids[req.num_computed:
                                          req.num_computed + n]
             t0 = time.time()
-            logits, self.cache.pool, _ = G.paged_prefill_chunk(
-                self._params, self._cfg, self._t(ids), req.num_computed, n,
-                self._t(self.cache.tables[req.slot][None]), self.cache.pool,
-                lora=self._lora_operand([req.adapter_slot]))
+            with _watchdog.section("serving.prefill"):
+                logits, self.cache.pool, _ = G.paged_prefill_chunk(
+                    self._params, self._cfg, self._t(ids), req.num_computed,
+                    n, self._t(self.cache.tables[req.slot][None]),
+                    self.cache.pool,
+                    lora=self._lora_operand([req.adapter_slot]))
             self._record_dispatch("prefill", t0)
             req.num_computed += n
             req.reg_state = self.cache.register_prefix(
@@ -906,22 +1214,24 @@ class ServingEngine:
             dl[m] = len(d)
         active = (~self._done) & (self._steps_left > 0)
         t0 = time.time()
-        logits, self.cache.pool, _ = G.paged_spec_step(
-            self._params, self._cfg, self._t(toks), self._t(self._seq_lens),
-            self._t(dl), self._t(self.cache.tables), self.cache.pool,
-            self._t(active), use_kernel=self._use_kernel,
-            lora=self._lora_operand(self._adapters))
-        V = logits.shape[-1]
-        if (self._temp[active] > 0).any():
-            keys = self._row_keys(self._keys, self._sample_index(decoding)
-                                  [:, None] + np.arange(Q))
-            cand = self._sample(logits.reshape(M * Q, V),
-                                keys.reshape(M * Q, 2),
-                                np.repeat(self._temp, Q),
-                                np.repeat(self._topk, Q),
-                                np.repeat(self._topp, Q)).reshape(M, Q)
-        else:
-            cand = self._argmax(logits)
+        with _watchdog.section("serving.decode"):
+            logits, self.cache.pool, _ = G.paged_spec_step(
+                self._params, self._cfg, self._t(toks),
+                self._t(self._seq_lens), self._t(dl),
+                self._t(self.cache.tables), self.cache.pool,
+                self._t(active), use_kernel=self._use_kernel,
+                lora=self._lora_operand(self._adapters))
+            V = logits.shape[-1]
+            if (self._temp[active] > 0).any():
+                idx = self._sample_index(decoding)[:, None] + np.arange(Q)
+                keys = self._row_keys(self._keys, idx)
+                cand = self._sample(logits.reshape(M * Q, V),
+                                    keys.reshape(M * Q, 2),
+                                    np.repeat(self._temp, Q),
+                                    np.repeat(self._topk, Q),
+                                    np.repeat(self._topp, Q)).reshape(M, Q)
+            else:
+                cand = self._argmax(logits)
         self._record_dispatch("spec", t0)
         # accepted = the leading run of drafts the chain reproduces
         # (cand[q] is the token after tokens[:q+1], checked against draft
@@ -1054,14 +1364,15 @@ class ServingEngine:
             keys[m], temp[m], topk[m], topp[m] = self._knobs(req)
             adapters[m] = req.adapter_slot
         t0 = time.time()
-        logits, self.cache.pool, _ = G.paged_mixed_step(
-            self._params, self._cfg, self._t(toks), self._t(starts),
-            self._t(qlens), self._t(self.cache.tables), self.cache.pool,
-            self._t(active), use_kernel=self._use_kernel,
-            lora=self._lora_operand(adapters))
-        nxt = (self._sample(logits, self._row_keys(keys, sidx), temp, topk,
-                            topp)
-               if (temp > 0).any() else self._argmax(logits))
+        with _watchdog.section("serving.decode"):
+            logits, self.cache.pool, _ = G.paged_mixed_step(
+                self._params, self._cfg, self._t(toks), self._t(starts),
+                self._t(qlens), self._t(self.cache.tables), self.cache.pool,
+                self._t(active), use_kernel=self._use_kernel,
+                lora=self._lora_operand(adapters))
+            nxt = (self._sample(logits, self._row_keys(keys, sidx), temp,
+                                topk, topp)
+                   if (temp > 0).any() else self._argmax(logits))
         self._record_dispatch("mixed", t0)
         now = time.time()
         for req, n in plan:                       # prefill rows first
@@ -1098,10 +1409,15 @@ class ServingEngine:
         mixed dispatch while a prompt is mid-prefill (mixed batching),
         else extend/preempt for blocks and one decode burst of up to
         ``_limit()`` iterations (``max_iters`` caps it). Returns
-        ``{rid: [tokens emitted]}``."""
-        with self._lock:
+        ``{rid: [tokens emitted]}``. Each step ticks the global hang
+        watchdog and marks the ``serving.step`` / ``serving.prefill`` /
+        ``serving.decode`` sections, so a frozen dispatch is named in the
+        hang diagnosis."""
+        _watchdog.touch()
+        with self._lock, _watchdog.section("serving.step"):
             emitted = self._step(max_iters)
             self._lora_sweep()
+            self._journal_step(emitted)
             return emitted
 
     def _step(self, max_iters: Optional[int]) -> Dict[int, List[int]]:
@@ -1145,8 +1461,9 @@ class ServingEngine:
         if decoding and k >= 1:
             before = self._steps_left.copy()
             t0 = time.time()
-            (self._tokens, self._seq_lens, self._steps_left, self._done,
-             toks) = self._decode_burst(k)
+            with _watchdog.section("serving.decode"):
+                (self._tokens, self._seq_lens, self._steps_left, self._done,
+                 toks) = self._decode_burst(k)
             self._record_dispatch("decode", t0)
             for req in decoding:
                 m = req.slot
@@ -1200,6 +1517,12 @@ class ServingEngine:
     def pending(self) -> bool:
         return self._sched.pending
 
+    def depth(self) -> int:
+        """Queued + live request count under the engine lock — the load
+        signal a router compares."""
+        with self._lock:
+            return self._sched.depth
+
     def request(self, rid: int) -> Request:
         """The finished request record (tokens, timestamps, counters)."""
         with self._lock:
@@ -1207,31 +1530,138 @@ class ServingEngine:
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
-            s = self._sched
-            return {**self._stats,
-                    "dispatch_s": dict(self._dispatch_s),
-                    "prefill_buckets": len(self._prefill_buckets),
-                    "admitted": s.admitted, "retired": s.retired,
-                    "cancelled": s.cancelled, "timed_out": s.timed_out,
-                    "shed": s.shed, "queued": len(s.queue),
-                    "live_slots": len(s.live),
-                    "max_slots": self.config.max_slots,
-                    "policy": self._policy.name,
-                    "free_blocks": self.cache.free_blocks,
-                    "blocks_in_use": self.cache.manager.blocks_in_use,
-                    "prefix_hit_tokens": s.prefix_hit_tokens,
-                    "preemptions": s.preemptions,
-                    "recomputed_tokens": s.recomputed_tokens,
-                    "oom_truncated": s.oom_truncated,
-                    "cached_blocks": self.cache.manager.cached_blocks,
-                    "evictions": self.cache.manager.evictions,
-                    "usable_blocks": self.cache.manager.num_blocks - 1,
-                    "kv_quant": self.config.kv_quant,
-                    "paged_kernel": self._use_kernel,
-                    "spec_decode": self.config.spec_decode,
-                    "spec_drafted": s.spec_drafted,
-                    "spec_accepted": s.spec_accepted,
-                    "kv_pool_bytes": self.cache.kv_bytes(),
-                    "lora": (self._lora.stats()
-                             if self._lora is not None else None),
-                    "device": str(self.device)}
+            return self._stats_locked()
+
+    def _stats_locked(self) -> Dict[str, Any]:
+        s = self._sched
+        tier = self.cache.offload
+        return {**self._stats,
+                "dispatch_s": dict(self._dispatch_s),
+                "dispatch_latency": self._dispatch_latency(),
+                "prefill_buckets": len(self._prefill_buckets),
+                "admitted": s.admitted, "retired": s.retired,
+                "cancelled": s.cancelled, "timed_out": s.timed_out,
+                "shed": s.shed, "queued": len(s.queue),
+                "live_slots": len(s.live),
+                "max_slots": self.config.max_slots,
+                "policy": self._policy.name,
+                "free_blocks": self.cache.free_blocks,
+                "blocks_in_use": self.cache.manager.blocks_in_use,
+                "prefix_hit_tokens": s.prefix_hit_tokens,
+                "preemptions": s.preemptions,
+                "recomputed_tokens": s.recomputed_tokens,
+                "oom_truncated": s.oom_truncated,
+                "cached_blocks": self.cache.manager.cached_blocks,
+                "evictions": self.cache.manager.evictions,
+                "usable_blocks": self.cache.manager.num_blocks - 1,
+                "kv_quant": self.config.kv_quant,
+                "paged_kernel": self._use_kernel,
+                "spec_decode": self.config.spec_decode,
+                "spec_drafted": s.spec_drafted,
+                "spec_accepted": s.spec_accepted,
+                "tp_degree": 1,
+                "kv_pool_bytes": self.cache.kv_bytes(),
+                "offload": tier.stats() if tier is not None else None,
+                "lora": (self._lora.stats()
+                         if self._lora is not None else None),
+                "device": str(self.device)}
+
+    def health_snapshot(self) -> Dict[str, Any]:
+        """One JSON-serializable health/ops record: readiness, capacity
+        headroom, lifecycle/shed counters, the offload tier, the adapter
+        pool, hang-watchdog state and per-tenant breakdowns — the keys of
+        the reference's payload (:data:`HEALTH_SNAPSHOT_KEYS` minus
+        :data:`SUPERVISOR_SNAPSHOT_KEYS`). ``ok`` goes False only when the
+        installed hang watchdog has fired. Built under the engine lock."""
+        with self._lock:
+            return self._health_snapshot_locked()
+
+    def block_partition(self) -> Dict[str, int]:
+        """A consistent view of the pool partition under the engine lock:
+        free + evictable + in_use == usable. With the offload tier,
+        ``host`` / ``host_capacity`` report its side (a key is
+        device-resident XOR host-resident)."""
+        with self._lock:
+            bm = self.cache.manager
+            tier = self.cache.offload
+            return {"free": len(bm._free),
+                    "evictable": len(bm._evictable),
+                    "in_use": bm.blocks_in_use,
+                    "usable": bm.num_blocks - 1,
+                    "host": tier.blocks if tier is not None else 0,
+                    "host_capacity": tier.capacity
+                    if tier is not None else 0}
+
+    def _health_snapshot_locked(self) -> Dict[str, Any]:
+        sched = self._sched
+        wd = _watchdog.current()
+
+        def pct(xs, q):
+            return (round(float(np.percentile(np.asarray(xs), q)), 4)
+                    if xs else None)
+
+        occupancy = sched.by_tenant()
+        tenants = {}
+        for name, t in sched.tenants.items():
+            ttfts = list(t["ttfts"])
+            tpots = list(t["tpots"])
+            tenants[name] = {
+                "queued": occupancy[name]["queued"],
+                "live": occupancy[name]["live"],
+                "submitted": t["submitted"], "admitted": t["admitted"],
+                "retired": t["retired"], "cancelled": t["cancelled"],
+                "timed_out": t["timed_out"], "shed": t["shed"],
+                "service_tokens": t["service_tokens"],
+                "cached_blocks": self.cache.manager.tenant_cached(name),
+                "ttft_p50_s": pct(ttfts, 50), "ttft_p99_s": pct(ttfts, 99),
+                "tpot_p50_s": pct(tpots, 50), "tpot_p99_s": pct(tpots, 99),
+            }
+        tier = self.cache.offload
+        return {
+            "ok": wd is None or not wd.fired.is_set(),
+            "accepting": len(sched.queue) < sched.queue_depth,
+            "policy": self._policy.name,
+            "queued": len(sched.queue),
+            "queue_limit": sched.queue_depth,
+            "live_slots": len(sched.live),
+            "max_slots": self.config.max_slots,
+            "free_blocks": self.cache.free_blocks,
+            "usable_blocks": self.cache.manager.num_blocks - 1,
+            "kv_pool_bytes": self.cache.kv_bytes(),
+            "tp_degree": 1,
+            "kv_pool_shard_bytes": self.cache.kv_bytes(),
+            "kv_quant": self.config.kv_quant,
+            "paged_kernel": self._use_kernel,
+            "spec_decode": self.config.spec_decode,
+            "retry_after_s": sched.retry_after_s(),
+            "counters": {
+                "admitted": sched.admitted, "retired": sched.retired,
+                "cancelled": sched.cancelled, "timed_out": sched.timed_out,
+                "shed": sched.shed, "preemptions": sched.preemptions,
+                "oom_truncated": sched.oom_truncated,
+                "prefix_hit_tokens": sched.prefix_hit_tokens,
+                "evictions": self.cache.manager.evictions,
+            },
+            "dispatch_latency": self._dispatch_latency(),
+            "offload": {
+                "enabled": tier is not None,
+                **(tier.stats() if tier is not None else
+                   {"capacity": 0, "blocks": 0, "swap_outs": 0,
+                    "swap_ins": 0, "tier_hits": 0, "tier_misses": 0,
+                    "corrupt_drops": 0, "tier_evictions": 0}),
+            },
+            "lora": {
+                "enabled": self._lora is not None,
+                **(self._lora.snapshot() if self._lora is not None else
+                   {"rank": 0, "slots": 0, "resident": [],
+                    "adapters_registered": 0, "adapters_resident": 0,
+                    "adapter_loads": 0, "adapter_evictions": 0,
+                    "adapter_pins": 0}),
+            },
+            "watchdog": {
+                "installed": wd is not None,
+                "fired": bool(wd.fired.is_set()) if wd is not None else False,
+                "timeout_s": wd.timeout if wd is not None else None,
+            },
+            "tenants": tenants,
+        }

@@ -15,10 +15,16 @@ has filled; when the pool runs dry the engine preempts. Every FULL block's
 token ids are content-hashed into a CHAINED key (the key covers the whole
 block-aligned prefix), so admissions sharing a prefix map the cached blocks
 by refcount instead of re-running prefill over them; refcount-0 blocks stay
-cached on an LRU list until allocation evicts them.
+cached on an LRU list until allocation evicts them. With the host offload
+tier attached (:mod:`.offload`), an evicted registered block swaps to host
+RAM instead of dying, and ``admit`` restores it on the next hit.
 
-Not ported yet: the host offload tier and the tensor-parallel pool layout
-(``PagedKVCache`` raises when asked for either).
+The device pool's storage never moves: every write (the paged entry
+points' K/V stores, the tier's restores) lands in place, so block I/O
+here copies ``pool[leaf][:, b]`` slices directly.
+
+Not ported yet: the tensor-parallel pool layout (``PagedKVCache`` raises
+when asked for it).
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ...models.generation import init_paged_pool
+from .offload import HostOffloadTier, _Capture
 
 __all__ = ["BlockManager", "PagedKVCache", "prefix_block_chain"]
 
@@ -92,6 +100,12 @@ class BlockManager:
         self._block_tenant: Dict[int, str] = {}
         self._tenant_cached: Dict[str, int] = {}
         self.evictions = 0
+        # host offload tier, installed by PagedKVCache when the engine asks
+        # for it: `offload_capture(b)` enqueues the copy of block b's
+        # leaves to host buffers (the cache owns device I/O); `offload.put`
+        # accepts the capture
+        self.offload = None
+        self.offload_capture = None
 
     @property
     def free_blocks(self) -> int:
@@ -124,11 +138,25 @@ class BlockManager:
                 b = self._free.pop()
             else:                                # LRU-evict a cached block
                 b, _ = self._evictable.popitem(last=False)
+                self._offload(b)
                 self._unregister(b)
                 self.evictions += 1
             self._ref[b] = 1
             blocks.append(b)
         return blocks
+
+    def _offload(self, b: int) -> None:
+        """Swap a dying registered block into the host tier (when one is
+        attached) — called at both eviction sites, BEFORE the block's
+        registration (key + verified tokens) is dropped. Blocks without
+        stored tokens are skipped: the tier's verified-hit contract needs
+        them."""
+        if self.offload is None or self.offload_capture is None:
+            return
+        key = self._block2hash.get(b)
+        toks = self._block_tokens.get(b)
+        if key is not None and toks is not None:
+            self.offload.put(key, toks, self.offload_capture(b))
 
     def _unregister(self, b: int) -> None:
         """Drop block ``b``'s prefix-cache registration (hash maps, stored
@@ -200,9 +228,14 @@ class BlockManager:
             if mine is None:
                 return                   # quota full of pinned entries
             del self._evictable[mine]
+            self._offload(mine)
             self._unregister(mine)
             self._free.append(mine)
             self.evictions += 1
+        if self.offload is not None:
+            # the device copy becomes the resident tier for this key — a
+            # stale host copy must not survive (device XOR host residency)
+            self.offload.discard(key)
         self._hash2block[key] = block
         self._block2hash[block] = key
         if tokens is not None:
@@ -225,15 +258,12 @@ class PagedKVCache:
                  block_size: int, num_blocks: int = 0, dtype=None,
                  prefix_cache: bool = True,
                  tenant_quota: Optional[int] = None, kv_quant=None,
-                 device=None, mesh=None, offload: bool = False):
+                 device=None, mesh=None, offload: bool = False,
+                 offload_blocks: int = 0):
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel KV pools come with TP serving over NCCL "
                 "(ROADMAP.md section A)")
-        if offload:
-            raise NotImplementedError(
-                "the host offload tier comes with the serving robustness "
-                "slice (ROADMAP.md section A)")
         self.block_size = int(block_size)
         self.max_model_len = int(max_model_len)
         self.prefix_cache = bool(prefix_cache)
@@ -248,10 +278,76 @@ class PagedKVCache:
         self.manager = BlockManager(num_blocks, block_size,
                                     tenant_quota=tenant_quota)
         self.tables = np.zeros((max_slots, self.blocks_per_seq), np.int32)
+        # host sources of H2D restores still in flight: (tensors, event)
+        # pairs kept alive until their event completes
+        self._inflight: List[Tuple[Dict, torch.cuda.Event]] = []
+        # host offload tier: evicted registered blocks swap to a bounded
+        # host pool instead of dying; admit() restores them
+        self.offload = None
+        if offload and prefix_cache and offload_blocks > 0:
+            self.offload = HostOffloadTier(offload_blocks, block_size)
+            self.manager.offload = self.offload
+            self.manager.offload_capture = self.read_block
 
     @property
     def free_blocks(self) -> int:
         return self.manager.free_blocks
+
+    # ---- device block I/O --------------------------------------------------
+
+    def read_block(self, block: int) -> _Capture:
+        """Enqueue the copy of one physical block (``pool[leaf][:, b]``,
+        strided across layers) into contiguous host buffers, pinned on a
+        card, and return the capture: the buffers plus the CUDA event that
+        completes after the copies (the host does not wait here). Later
+        kernels that reuse the block are ordered after the copy on the
+        stream."""
+        data = {}
+        event = None
+        for name, arr in self.pool.items():
+            src = arr[:, block]
+            cuda = src.is_cuda
+            buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=cuda)
+            buf.copy_(src, non_blocking=cuda)
+            data[name] = buf
+        if any(a.is_cuda for a in self.pool.values()):
+            event = torch.cuda.Event()
+            event.record()
+        return _Capture(data, event)
+
+    def write_block(self, block: int, data: Dict) -> None:
+        """Copy one block's per-leaf host tensors back into the pool IN
+        PLACE — the offload tier's swap-in restore. On a card the copy is
+        asynchronous from pinned memory; its sources stay referenced until
+        the copy's event completes."""
+        self.write_blocks([block], {n: t.unsqueeze(1)
+                                    for n, t in data.items()})
+
+    def write_blocks(self, blocks: List[int], data: Dict) -> None:
+        """Copy a run of blocks into the pool in place (``data[leaf]``
+        carries the block axis at position 1: ``[L, len(blocks), ...]``)."""
+        self._reap()
+        idx = torch.as_tensor(np.asarray(blocks, np.int64))
+        cuda = False
+        for name, arr in self.pool.items():
+            src = torch.as_tensor(data[name])
+            if src.dtype != arr.dtype:
+                src = src.to(arr.dtype)
+            cuda = arr.is_cuda
+            if len(blocks) == 1:
+                arr[:, blocks[0]].copy_(src[:, 0], non_blocking=cuda)
+            else:
+                arr.index_copy_(1, idx.to(arr.device),
+                                src.to(arr.device, non_blocking=cuda))
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+            self._inflight.append((data, ev))
+
+    def _reap(self) -> None:
+        """Release the host sources of restores whose copy completed."""
+        self._inflight = [(d, e) for d, e in self._inflight
+                          if not e.query()]
 
     # ---- admission ---------------------------------------------------------
 
@@ -278,16 +374,34 @@ class PagedKVCache:
         hits: List[int] = []
         last_key: Optional[int] = None
         if self.prefix_cache:
-            # pin-as-we-go: each verified hit is share()d at once
+            # pin-as-we-go: each verified hit is share()d at once, so a
+            # host-tier restore's alloc (which may itself LRU-evict) never
+            # evicts a block about to be mapped
             for key, toks in prefix_block_chain(ids, self.block_size,
                                                 len(ids) - 1,
                                                 namespace=namespace):
                 b = self.manager.lookup(key, toks)
-                if b is None:
-                    break
-                self.manager.share(b)
-                hits.append(b)
-                last_key = key
+                if b is not None:
+                    self.manager.share(b)
+                    hits.append(b)
+                    last_key = key
+                    continue
+                if self.offload is not None and self.manager.can_alloc(1):
+                    # device miss — consult the host tier. A verified take
+                    # restores the block and re-registers the key: the
+                    # chain continues with zero recompute. A miss (absent,
+                    # evicted, or checksum-failed) breaks to the recompute
+                    # path exactly as without the tier.
+                    data = self.offload.take(key, toks)
+                    if data is not None:
+                        [b] = self.manager.alloc(1)
+                        self.write_block(b, data)
+                        self.manager.register(key, b, toks)
+                        self.offload.swap_ins += 1
+                        hits.append(b)
+                        last_key = key
+                        continue
+                break
         n_new = n_total - len(hits)
         if not self.manager.can_alloc(n_new):
             if hits:

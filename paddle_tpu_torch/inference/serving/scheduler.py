@@ -16,8 +16,13 @@ after it started) or ``shed`` (deadline passed while queued, or the
 bounded queue refused the submit). Terminal transitions release every
 block the request held.
 
-Not ported yet: the embed-request kind and the adopt path of live
-migration.
+Embedding requests (``kind == "embed"``) ride the same bounded queue but
+need no decode slot and no KV block: :meth:`Scheduler.admit_embeds` pops
+them all for the engine's batched encoder dispatch, which finishes them
+inside the same step.
+
+Not ported yet: ``adopt_running``, the seat of a live-migrated request
+(ROADMAP.md section A item 8b).
 """
 
 from __future__ import annotations
@@ -34,7 +39,19 @@ from .policies import AdmissionPolicy, FIFOPolicy
 
 __all__ = ["Request", "Scheduler", "ServingQueueFull",
            "QUEUED", "RUNNING", "FINISHED", "CANCELLED", "TIMED_OUT",
-           "SHED", "TERMINAL_STATES"]
+           "SHED", "TERMINAL_STATES", "completes_by_tokens"]
+
+
+def completes_by_tokens(tokens, max_new_tokens: int,
+                        eos_token_id: Optional[int]) -> bool:
+    """Whether an already-delivered token list alone completes a request
+    (budget spent, or EOS delivered last) — the one completion test the
+    supervisor's and the journal's recovery records share."""
+    if len(tokens) >= max_new_tokens:
+        return True
+    return (eos_token_id is not None and bool(tokens)
+            and tokens[-1] == eos_token_id)
+
 
 QUEUED = "queued"
 RUNNING = "running"
@@ -116,6 +133,13 @@ class Request:
     # state
     adapter_id: Optional[str] = None
     adapter_slot: int = 0
+    # the journal record this request owns (-1 = unjournaled or disowned)
+    jid: int = -1
+    # "embed" requests are prefill-only: they retire at encoder completion
+    # with the pooled hidden states in ``embedding`` and never hold a
+    # decode slot or a KV block (Scheduler.admit_embeds)
+    kind: str = "generate"
+    embedding: Optional[np.ndarray] = None
 
     @property
     def prompt_len(self) -> int:
@@ -133,6 +157,8 @@ class Request:
 
     @property
     def finished(self) -> bool:
+        if self.kind == "embed":
+            return self.embedding is not None
         return self.eos_seen or self.remaining <= 0 or self.oom_truncated
 
     @property
@@ -214,6 +240,10 @@ class Scheduler:
         self.default_retry_after_s = float(
             flag("FLAGS_serving_retry_after_s", 1.0))
         self.tenants: Dict[str, Dict] = {}
+        # absolute time an active drain completes (stamped by the
+        # supervisor): while in the future, retry_after_s() reports the
+        # remainder of the drain window
+        self.drain_deadline: Optional[float] = None
 
     # ---- per-tenant accounting ---------------------------------------------
 
@@ -242,7 +272,13 @@ class Scheduler:
     def retry_after_s(self) -> float:
         """Suggested backoff when shedding: the mean interval between
         recent retirements scaled by the prefill backlog, or the
-        conservative flag default before two retirements exist."""
+        conservative flag default before two retirements exist. During
+        an active drain it is the drain deadline's remainder: this replica
+        is leaving."""
+        if self.drain_deadline is not None:
+            remaining = self.drain_deadline - time.time()
+            if remaining > 0:
+                return round(remaining, 3)
         if len(self._finish_times) < 2:
             return self.default_retry_after_s
         span = self._finish_times[-1] - self._finish_times[0]
@@ -253,10 +289,13 @@ class Scheduler:
 
     # ---- lifecycle --------------------------------------------------------
 
-    def submit(self, req: Request) -> int:
+    def submit(self, req: Request, enforce_bound: bool = True) -> int:
         """Queue one request, shedding past ``queue_depth`` and refusing
-        requests the pool can never hold."""
-        if len(self.queue) >= self.queue_depth:
+        requests the pool can never hold. ``enforce_bound=False`` bypasses
+        the shed: the crash-recovery resubmission, whose requests were all
+        accepted once already. Embedding requests hold no KV block, so
+        pool geometry never rejects them."""
+        if enforce_bound and len(self.queue) >= self.queue_depth:
             self.shed += 1
             self.tenant(req.tenant)["shed"] += 1
             ra = self.retry_after_s()
@@ -266,24 +305,25 @@ class Scheduler:
                 f"FLAGS_serving_queue_depth",
                 queue_depth=len(self.queue), live_slots=len(self.live),
                 retry_after_s=ra)
-        if req.kv_tokens > self.cache.max_model_len:
-            raise ValueError(
-                f"request needs {req.kv_tokens} KV entries "
-                f"(prompt {req.prompt_len} + {req.max_new_tokens} new) "
-                f"> max_model_len {self.cache.max_model_len}")
-        usable = self.cache.manager.num_blocks - 1  # block 0 is null
-        if self.preempt_enabled:
-            n = self.cache.manager.blocks_for(req.prompt_len)
-            what = f"prompt ({req.prompt_len} tokens)"
-        else:
-            n = self.cache.manager.blocks_for(req.kv_tokens)
-            what = f"worst case ({req.kv_tokens} KV entries)"
-        if n > usable:
-            raise ValueError(
-                f"request {what} needs {n} KV blocks but the pool only "
-                f"has {usable} usable blocks (num_blocks="
-                f"{self.cache.manager.num_blocks} incl. the null block); "
-                f"admitting it would wait forever")
+        if req.kind != "embed":
+            if req.kv_tokens > self.cache.max_model_len:
+                raise ValueError(
+                    f"request needs {req.kv_tokens} KV entries "
+                    f"(prompt {req.prompt_len} + {req.max_new_tokens} new) "
+                    f"> max_model_len {self.cache.max_model_len}")
+            usable = self.cache.manager.num_blocks - 1  # block 0 is null
+            if self.preempt_enabled:
+                n = self.cache.manager.blocks_for(req.prompt_len)
+                what = f"prompt ({req.prompt_len} tokens)"
+            else:
+                n = self.cache.manager.blocks_for(req.kv_tokens)
+                what = f"worst case ({req.kv_tokens} KV entries)"
+            if n > usable:
+                raise ValueError(
+                    f"request {what} needs {n} KV blocks but the pool only "
+                    f"has {usable} usable blocks (num_blocks="
+                    f"{self.cache.manager.num_blocks} incl. the null block); "
+                    f"admitting it would wait forever")
         req.rid = self._next_rid
         self._next_rid += 1
         req.submit_t = time.time()
@@ -306,7 +346,7 @@ class Scheduler:
         iteration only (the policy re-selects among the rest, so one
         starved adapter never blocks base traffic or other adapters) and
         stays queued."""
-        candidates = list(self.queue)
+        candidates = [r for r in self.queue if r.kind != "embed"]
         while candidates:
             if not [m for m, r in enumerate(self.slots) if r is None]:
                 return None
@@ -366,6 +406,25 @@ class Scheduler:
         self.preemptions += 1
         req.state = QUEUED
         self.queue.appendleft(req)
+
+    def admit_embeds(self) -> List[Request]:
+        """Pop EVERY queued embedding request for the engine's batched
+        encoder dispatch. Embeds need no decode slot and no KV block, so
+        admission is unconditional; the engine completes the whole batch
+        (encoder forward, pooled output, :meth:`finish`) inside the same
+        locked step. Stamps the admit bookkeeping as for generate
+        traffic."""
+        out = [r for r in self.queue if r.kind == "embed"]
+        for req in out:
+            self.queue.remove(req)
+            req.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            req.state = RUNNING
+            self.admitted += 1
+            t = self.tenant(req.tenant)
+            t["admitted"] += 1
+            t["service_tokens"] += req.prompt_len
+        return out
 
     def preempt_victim(self) -> Optional[Request]:
         """The newest-admitted live request — unless it is the only one."""
@@ -454,6 +513,27 @@ class Scheduler:
     @property
     def pending(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self.slots)
+
+    @property
+    def depth(self) -> int:
+        """Outstanding work — queued plus live requests (the load signal a
+        router compares)."""
+        return len(self.queue) + sum(r is not None for r in self.slots)
+
+    def by_tenant(self) -> Dict[str, Dict[str, int]]:
+        """Queued/live request counts per tenant row — tenants past
+        ``MAX_TENANTS`` fold into the overflow row exactly as
+        :meth:`tenant` folded their counters at submit."""
+        def tkey(name: str) -> str:
+            return name if name in self.tenants else self._OVERFLOW_TENANT
+
+        out = {name: {"queued": 0, "live": 0} for name in self.tenants}
+        for r in self.queue:
+            out[tkey(r.tenant)]["queued"] += 1
+        for r in self.slots:
+            if r is not None:
+                out[tkey(r.tenant)]["live"] += 1
+        return out
 
     def result(self, rid: int) -> np.ndarray:
         return self.finished[rid].output()

@@ -1,0 +1,956 @@
+"""Engine supervision: crash barrier, restart budget, graceful drain,
+autoscale telemetry.
+
+Counterpart of ``paddle_tpu/inference/serving/supervisor.py``
+(``EngineSupervisor``, ``ServingUnavailable``, ``TrackedRequest``,
+``FAILED``, ``autoscale_signal`` and the drain-signal helpers), with the
+same contract around the port's :class:`~.engine.ServingEngine`:
+
+* **Crash barrier.** ``step()`` runs the engine iteration under a
+  try/except: an unexpected exception (or a global
+  :mod:`~paddle_tpu_torch.health.watchdog` trip whose diagnosis names a
+  ``serving.*`` section) tears the engine down, rebuilds it from the same
+  config and **re-submits** every non-terminal request — queued ones
+  verbatim, running ones from ``prompt + tokens so far`` through
+  :meth:`~.engine.ServingEngine.resubmit` — so the recovered streams equal
+  an uninterrupted run and no delivered token repeats. A restart budget
+  (``FLAGS_serving_max_restarts``) bounds the crash loop: once exhausted
+  the replica flips to **not accepting** and in-flight requests fail with
+  their partial output readable.
+
+  The rebuild re-casts nothing: the new engine takes the dead engine's
+  prepared params (on the card, quantized and cast), so every ``.to()``
+  is a no-op — the port's form of the reference's "recovery never
+  recompiles". The dead engine's KV pool and adapter pool are freed
+  before the new pools are allocated: the barrier lets go of the
+  exception (and with it the traceback's frames) before it recovers, and
+  the teardown collects the dead engine's reference cycles.
+
+* **Graceful drain.** SIGTERM (:meth:`install_signal_handler`) or
+  :meth:`close` stops admissions (submits raise
+  :class:`ServingUnavailable` carrying ``retry_after_s``), finishes
+  in-flight work within a deadline (``PADDLE_PREEMPT_GRACE`` minus a
+  margin when exported, else ``FLAGS_serving_drain_deadline_s``), then
+  cancels the remainder — ending with zero pool blocks held.
+
+* **Durable restart.** With a :class:`~.journal.RequestJournal`,
+  :meth:`EngineSupervisor.recover` rebuilds a replica after a full process
+  death: every live journal record is resubmitted from prompt +
+  delivered-so-far under its original jid, so each stream is delivered
+  exactly once.
+
+* **Autoscale telemetry.** :func:`autoscale_signal` turns one health
+  snapshot + the shed delta into a scale-up / scale-in / hold
+  recommendation, and can write the elastic launcher's rejoin file
+  (:func:`write_rejoin_file`).
+
+Not ported yet: the live-migration surface (``export_request``,
+``adopt``, ``export_chain``, ``graft_chain``, ``release_migrated``),
+which raises ``NotImplementedError`` naming ROADMAP.md section A item 8b.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import os
+import signal
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ...flags import flag
+from ...health import watchdog as _watchdog
+from .engine import _LATER, ServingEngine
+from .journal import RequestJournal
+from .scheduler import (CANCELLED, FINISHED, QUEUED, TERMINAL_STATES,
+                        completes_by_tokens)
+
+__all__ = ["EngineSupervisor", "ServingUnavailable", "TrackedRequest",
+           "autoscale_signal", "write_rejoin_file", "FAILED",
+           "install_drain_handler", "uninstall_drain_handler"]
+
+# supervisor-only terminal state: the restart budget ran out with this
+# request still in flight (its partial output stays readable)
+FAILED = "failed"
+
+
+class ServingUnavailable(RuntimeError):
+    """The replica is not admitting — draining (a deploy/preemption is in
+    progress) or broken (restart budget exhausted). The structured 503:
+    ``reason`` plus a ``retry_after_s`` backoff hint a front end can
+    serialize straight into the response."""
+
+    def __init__(self, message: str, reason: str,
+                 retry_after_s: Optional[float] = None):
+        super().__init__(message)
+        self.reason = reason
+        self.retry_after_s = retry_after_s
+
+
+@dataclasses.dataclass
+class TrackedRequest:
+    """The supervisor's engine-independent view of one request: enough to
+    re-create it verbatim on a fresh engine (the crash-recovery contract)
+    plus the tokens already DELIVERED to the client — the resubmission
+    resumes after them, never repeating one."""
+
+    srid: int                          # supervisor rid: stable across
+    #                                    restarts (engine rids are not)
+    prompt: np.ndarray
+    max_new_tokens: int
+    eos_token_id: Optional[int]
+    tenant: Optional[str]
+    priority: int
+    deadline: Optional[float]          # absolute, like Request.deadline
+    # RESOLVED sampling knobs: resubmission replays them verbatim, and
+    # the per-token-index PRNG keys make the recovered sampled stream
+    # identical to an uninterrupted run
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    seed: int = 0
+    adapter_id: Optional[str] = None   # LoRA adapter; the resubmission
+    #                                    re-selects it so the recovered
+    #                                    stream runs the same adapted
+    #                                    weights
+    erid: int = -1                     # rid in the CURRENT engine
+    jid: int = -1                      # journal record id; -1 =
+    #                                    unjournaled/disowned
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    state: str = QUEUED
+    resubmits: int = 0
+    finish: Optional[Dict[str, Any]] = None
+
+    @property
+    def terminal(self) -> bool:
+        return self.state in TERMINAL_STATES or self.state == FAILED
+
+    @property
+    def finished_by_tokens(self) -> bool:
+        """True when the delivered tokens alone complete the request
+        (budget spent or EOS delivered) — a crash caught it finished but
+        not yet swept; record it, don't resubmit it."""
+        return completes_by_tokens(self.tokens, self.max_new_tokens,
+                                   self.eos_token_id)
+
+
+def write_rejoin_file(path: str, workers: Optional[int] = None) -> str:
+    """Write the elastic launcher's ``--elastic_rejoin_file`` signal: an
+    empty file means "capacity is back, take what you need"; an integer is
+    the offered worker count. Written atomically (tmp + rename) so the
+    watcher's poll never reads a torn count."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        if workers is not None:
+            f.write(str(int(workers)))
+    os.replace(tmp, path)
+    return path
+
+
+def install_drain_handler(target, signum: int = signal.SIGTERM):
+    """Wire ``signum`` (SIGTERM: the elastic launcher's preemption
+    forward) to ``target.request_drain()``. Returns ``(handler,
+    previous_handler)``, or ``(None, None)`` off the main thread (the
+    caller polls instead)."""
+
+    def _handler(sig, frame):
+        target.request_drain()
+
+    try:
+        prev = signal.signal(signum, _handler)
+    except ValueError:                 # not the main thread
+        return None, None
+    return _handler, prev
+
+
+def uninstall_drain_handler(prev, signum: int = signal.SIGTERM) -> None:
+    if prev is None:
+        return
+    try:
+        signal.signal(signum, prev)
+    except ValueError:
+        pass
+
+
+def autoscale_signal(snapshot: Dict[str, Any], shed_delta: int = 0,
+                     high_water: float = 0.5,
+                     low_water: float = 0.25) -> Dict[str, Any]:
+    """One scale recommendation from one health snapshot: ``scale_up``
+    when load was shed since the last signal or the queue sits past
+    ``high_water`` of its bound (the replica is the bottleneck),
+    ``scale_in`` when the queue is empty and slot utilization is at or
+    under ``low_water`` (capacity is idle), else ``hold``. Pure function
+    of its inputs so a bench/autoscaler can drive it from any snapshot;
+    :meth:`EngineSupervisor.autoscale_signal` adds the shed-delta
+    tracking and the rejoin-file write."""
+    queued = int(snapshot["queued"])
+    limit = max(1, int(snapshot["queue_limit"]))
+    live = int(snapshot["live_slots"])
+    slots = max(1, int(snapshot["max_slots"]))
+    pressure = queued / limit
+    util = live / slots
+    if shed_delta > 0:
+        action = "scale_up"
+        reason = f"shed {shed_delta} request(s) since the last signal"
+    elif pressure >= high_water:
+        action = "scale_up"
+        reason = (f"queue {queued}/{limit} at or past the "
+                  f"{high_water:.0%} high-water mark")
+    elif queued == 0 and util <= low_water:
+        action = "scale_in"
+        reason = (f"idle: {live}/{slots} slots busy, queue empty "
+                  f"(low-water {low_water:.0%})")
+    else:
+        action = "hold"
+        reason = f"queue {queued}/{limit}, slots {live}/{slots}"
+    return {"action": action, "reason": reason,
+            "queue_pressure": round(pressure, 3),
+            "utilization": round(util, 3),
+            "shed_delta": int(shed_delta),
+            "retry_after_s": snapshot.get("retry_after_s")}
+
+
+class EngineSupervisor:
+    """Crash-barrier + drain + telemetry wrapper around one
+    :class:`ServingEngine`. Request ids returned by :meth:`submit` are
+    SUPERVISOR ids — stable across engine restarts (engine rids are
+    not)."""
+
+    def __init__(self, params, model_config, serving_config=None,
+                 gen_config=None, max_restarts: Optional[int] = None,
+                 drain_deadline_s: Optional[float] = None,
+                 journal="unset", embed_model=None, device=None):
+        self._params = params
+        self._embed_model = embed_model
+        self._device = device
+        # LoRA adapters registered through THIS supervisor: host copies
+        # survive engine teardown, so every rebuild re-registers them and
+        # crash recovery can resubmit adapter traffic onto the fresh
+        # engine's pool
+        self._adapter_registry: Dict[str, Any] = {}
+        self._model_config = model_config
+        self._serving_config = serving_config
+        self._gen_config = gen_config
+        self.max_restarts = int(max_restarts if max_restarts is not None
+                                else flag("FLAGS_serving_max_restarts"))
+        self.drain_deadline_s = float(
+            drain_deadline_s if drain_deadline_s is not None
+            else flag("FLAGS_serving_drain_deadline_s"))
+        self._lock = threading.RLock()
+        self.restarts = 0
+        self.crashes: List[str] = []
+        self.broken = False
+        self.draining = False
+        self.closed = False
+        self.resubmitted = 0
+        self.recovered_tokens = 0
+        self.adopted = 0          # requests failed over FROM another replica
+        self.migrated_in = 0      # adopted WITH their KV blocks (item 8b)
+        self.migrated_out = 0     # released here after a live migration
+        self.completed = 0
+        self._drain_requested = False
+        self._prev_sigterm = None
+        self._next_srid = 0
+        self._reqs: Dict[int, TrackedRequest] = {}
+        self._by_erid: Dict[int, TrackedRequest] = {}
+        self._wd_seen: Optional[object] = None
+        self._last_shed = 0
+        # durable serving: 'unset' resolves through
+        # FLAGS_serving_journal_dir (empty = off); an explicit journal
+        # instance or an explicit None always wins over the flag.
+        if isinstance(journal, str) and journal == "unset":
+            jdir = str(flag("FLAGS_serving_journal_dir", ""))
+            journal = RequestJournal(jdir) if jdir else None
+        self._journal = journal
+        self.engine = self._build_engine()
+        # terminal TrackedRequests are retained BOUNDED (insertion order,
+        # oldest evicted) — the scheduler's own record bound, which is
+        # the most requests that can be in flight at once, so one
+        # run()/drain cycle can always collect results, while a
+        # long-lived replica cannot retain every prompt it ever served
+        self._keep_finished = self.engine._sched.keep_finished
+
+    def _build_engine(self) -> ServingEngine:
+        eng = ServingEngine(self._params, self._model_config,
+                            self._serving_config, self._gen_config,
+                            device=self._device, journal=self._journal,
+                            embed_model=self._embed_model)
+        # every rebuild takes this engine's prepared params (and encoder
+        # params): on its device, quantized and cast, so a restart moves
+        # and allocates no weights
+        self._params = eng.prepared_params
+        if eng._embed_params is not None:
+            self._embed_model = (eng._embed_cfg, eng._embed_params)
+        for name, aparams in self._adapter_registry.items():
+            eng.register_adapter(name, aparams)
+        return eng
+
+    def _teardown(self) -> None:
+        """Drop the current engine and free its device memory (KV pool,
+        adapter pool, dispatch temporaries) BEFORE a rebuild allocates new
+        ones: the engine's own reference cycles (the cache's offload
+        capture is a bound method of the cache) are collected here, so
+        the allocator gets the memory back now rather than at the next
+        garbage-collection pass."""
+        self.engine = None
+        gc.collect()
+
+    # ---- admission ---------------------------------------------------------
+
+    @property
+    def accepting(self) -> bool:
+        """Whether a submit() right now would queue: not broken (restart
+        budget intact), not draining/closed, and the engine's admission
+        queue below its bound — the ``/readyz`` predicate."""
+        with self._lock:
+            return (not self.broken and not self.draining
+                    and not self.closed
+                    and len(self.engine._sched.queue)
+                    < self.engine._sched.queue_depth)
+
+    def _check_admitting(self) -> None:
+        if self.broken:
+            raise ServingUnavailable(
+                f"replica broken: engine restart budget "
+                f"({self.max_restarts}) exhausted; last crash: "
+                f"{self.crashes[-1] if self.crashes else '?'}",
+                reason="broken", retry_after_s=None)
+        if self.draining or self.closed or self._drain_requested:
+            raise ServingUnavailable(
+                "replica draining: admissions stopped, in-flight work "
+                "finishing; retry against another replica",
+                reason="draining",
+                retry_after_s=self.engine._sched.retry_after_s())
+
+    def submit(self, prompt, max_new_tokens: Optional[int] = None,
+               eos_token_id: Optional[int] = "unset",
+               timeout_s: Optional[float] = None,
+               deadline_s: Optional[float] = None,
+               tenant: Optional[str] = None, priority: int = 0,
+               temperature="unset", top_k="unset", top_p="unset",
+               seed="unset", adapter_id: Optional[str] = None) -> int:
+        """Queue one prompt; returns the SUPERVISOR request id (stable
+        across engine restarts). Sampling knobs pass through to
+        :meth:`ServingEngine.submit` (resolved once there — the tracked
+        record mirrors the RESOLVED values so a crash resubmission
+        replays them verbatim). Raises :class:`ServingUnavailable` while
+        draining or broken (the structured 503) and passes
+        :class:`~.scheduler.ServingQueueFull` through (the structured
+        shed)."""
+        with self._lock:
+            self._check_admitting()
+            erid = self.engine.submit(
+                prompt, max_new_tokens=max_new_tokens,
+                eos_token_id=eos_token_id, timeout_s=timeout_s,
+                deadline_s=deadline_s, tenant=tenant, priority=priority,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed, adapter_id=adapter_id)
+            return self._track(erid).srid
+
+    def _track(self, erid: int, resubmits: int = 0) -> TrackedRequest:
+        """Mirror the RESOLVED engine record (defaults, sentinels,
+        deadline already applied by the one resolver,
+        engine._make_request) into a TrackedRequest — the single place
+        submit() and resubmit() register work, so a crash resubmission
+        re-creates exactly what was queued."""
+        req = self.engine._sched.find(erid)
+        rec = TrackedRequest(
+            srid=self._next_srid, prompt=req.prompt,
+            max_new_tokens=req.max_new_tokens,
+            eos_token_id=req.eos_token_id, tenant=req.tenant,
+            priority=req.priority, deadline=req.deadline,
+            temperature=req.temperature, top_k=req.top_k,
+            top_p=req.top_p, seed=req.seed,
+            adapter_id=req.adapter_id, erid=erid, jid=req.jid)
+        rec.tokens = [int(t) for t in req.tokens]
+        rec.resubmits = resubmits
+        self._next_srid += 1
+        self._reqs[rec.srid] = rec
+        self._by_erid[rec.erid] = rec
+        self._prune_records()
+        return rec
+
+    def _prune_records(self) -> None:
+        """Evict the oldest TERMINAL records past the retention bound
+        (live ones — still in ``_by_erid`` or FAILED-pending-collection
+        within the bound — are never touched)."""
+        excess = len(self._reqs) - len(self._by_erid) - self._keep_finished
+        if excess > 0:
+            for srid in list(self._reqs):
+                if excess <= 0:
+                    break
+                if self._reqs[srid].terminal:
+                    del self._reqs[srid]
+                    excess -= 1
+
+    def resubmit(self, prompt, tokens: Sequence[int] = (),
+                 max_new_tokens: Optional[int] = None,
+                 eos_token_id: Optional[int] = "unset",
+                 deadline: Optional[float] = None,
+                 tenant: Optional[str] = None, priority: int = 0,
+                 temperature="unset", top_k="unset", top_p="unset",
+                 seed="unset", jid: Optional[int] = None,
+                 adapter_id: Optional[str] = None) -> int:
+        """ADOPT a request recovered from another replica (cross-replica
+        failover): queue it with the tokens the client has
+        already been delivered, riding :meth:`ServingEngine.resubmit`'s
+        recompute path — greedy output stays bit-identical to an
+        uninterrupted run and no delivered token is re-emitted. Bypasses
+        the queue-depth shed (the work was already accepted once,
+        somewhere) but still refuses while draining or broken. Returns
+        the new supervisor rid."""
+        with self._lock:
+            self._check_admitting()
+            erid = self.engine.resubmit(
+                prompt, tokens, max_new_tokens=max_new_tokens,
+                eos_token_id=eos_token_id, deadline=deadline,
+                tenant=tenant, priority=priority, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed, jid=jid,
+                adapter_id=adapter_id)
+            rec = self._track(erid, resubmits=1)    # born from a failover
+            self.adopted += 1
+            self.recovered_tokens += len(rec.tokens)
+            return rec.srid
+
+    # ---- durable cold-restart recovery ------------------------------------
+
+    @property
+    def journal(self) -> Optional[RequestJournal]:
+        return self._journal
+
+    @classmethod
+    def recover(cls, journal_dir: str, params, model_config,
+                serving_config=None, gen_config=None,
+                max_restarts: Optional[int] = None,
+                drain_deadline_s: Optional[float] = None,
+                journal: Optional[RequestJournal] = None,
+                embed_model=None, adapters: Optional[Dict[str, Any]] = None,
+                device=None) -> "EngineSupervisor":
+        """Rebuild a replica after a FULL process death from its journal
+        directory: open the journal (newest good snapshot + WAL suffix,
+        torn tail truncated), then for every record — terminal ones
+        become readable tracked records; ones whose delivered tokens
+        already complete them are closed FINISHED (record it, don't
+        re-run it); every other request is resubmitted bit-exactly from
+        prompt + delivered-so-far under its original jid, so the
+        exactly-once ledger is primed from the journal and no delivered
+        token is ever re-emitted. KV recomputes through the resubmit
+        path, reusing whatever the prefix cache still holds. Idempotent:
+        a second crash during recovery replays to the same state."""
+        j = journal if journal is not None else RequestJournal(journal_dir)
+        sup = cls(params, model_config, serving_config, gen_config,
+                  max_restarts=max_restarts,
+                  drain_deadline_s=drain_deadline_s,
+                  journal=j, embed_model=embed_model, device=device)
+        for name, aparams in (adapters or {}).items():
+            sup.register_adapter(name, aparams)
+        sup._restore_from_journal()
+        return sup
+
+    def _restore_from_journal(self) -> None:
+        """Turn the journal's mirror into tracked requests + engine
+        resubmissions (submission order — jids are allocated in it)."""
+        j = self._journal
+        if j is None:
+            return
+        with self._lock:
+            for jid in sorted(j.records):
+                rec = j.records[jid]
+                tr = TrackedRequest(
+                    srid=self._next_srid, prompt=rec.prompt_array(),
+                    max_new_tokens=rec.max_new_tokens,
+                    eos_token_id=rec.eos_token_id, tenant=rec.tenant,
+                    priority=rec.priority, deadline=rec.deadline,
+                    temperature=rec.temperature, top_k=rec.top_k,
+                    top_p=rec.top_p, seed=rec.seed,
+                    adapter_id=rec.adapter_id, jid=jid)
+                tr.tokens = [int(t) for t in rec.tokens]
+                self._next_srid += 1
+                self._reqs[tr.srid] = tr
+                if rec.terminal:
+                    tr.state = rec.state
+                    tr.finish = {"state": rec.state,
+                                 "tokens": len(tr.tokens),
+                                 "recovered": True, "resubmits": 0}
+                    continue
+                if tr.finished_by_tokens:
+                    # died after its last delivered token but before the
+                    # terminal event landed: it IS complete
+                    tr.state = FINISHED
+                    tr.finish = {"state": FINISHED,
+                                 "tokens": len(tr.tokens),
+                                 "recovered": True, "resubmits": 0}
+                    self.completed += 1
+                    j.log_terminal(jid, FINISHED)
+                    continue
+                if (tr.adapter_id is not None
+                        and not self.engine.adapter_registered(
+                            tr.adapter_id)):
+                    # the journal outlived the adapter registry (weights
+                    # live OUTSIDE the journal by design): fail the
+                    # record readably instead of poisoning recovery
+                    tr.state = FAILED
+                    tr.finish = {"state": FAILED,
+                                 "tokens": len(tr.tokens),
+                                 "reason": (f"adapter {tr.adapter_id!r} "
+                                            f"not registered at recovery"),
+                                 "recovered": True, "resubmits": 0}
+                    j.log_terminal(jid, FAILED)
+                    continue
+                tr.erid = self.engine.resubmit(
+                    tr.prompt, tr.tokens,
+                    max_new_tokens=tr.max_new_tokens,
+                    eos_token_id=tr.eos_token_id, deadline=tr.deadline,
+                    tenant=tr.tenant, priority=tr.priority,
+                    temperature=tr.temperature, top_k=tr.top_k,
+                    top_p=tr.top_p, seed=tr.seed, jid=jid,
+                    adapter_id=tr.adapter_id)
+                tr.state = QUEUED
+                tr.resubmits = 1
+                self.resubmitted += 1
+                self.recovered_tokens += len(tr.tokens)
+                self._by_erid[tr.erid] = tr
+            j.flush()
+            self._prune_records()
+
+    def disown_journal(self, srid: int) -> None:
+        """Detach a live request from its journal record (see
+        :meth:`ServingEngine.journal_disown`) — before deliberately
+        cancelling a copy whose logical request lives on elsewhere."""
+        with self._lock:
+            rec = self._reqs.get(srid)
+            if rec is None or rec.terminal:
+                return
+            self.engine.journal_disown(rec.erid)
+            rec.jid = -1
+
+    def journal_own(self, srid: int, jid: int, tokens) -> bool:
+        """Attach a live request to journal record ``jid``, rebasing its
+        delivered cursor to ``tokens`` (see
+        :meth:`ServingEngine.journal_own`)."""
+        with self._lock:
+            rec = self._reqs.get(srid)
+            if rec is None or rec.terminal:
+                return False
+            if not self.engine.journal_own(rec.erid, jid, tokens):
+                return False
+            rec.jid = int(jid)
+            return True
+
+    # ---- live KV migration (ROADMAP.md section A item 8b) -------------------
+
+    def export_request(self, srid: int):
+        raise NotImplementedError(_LATER["migration"])
+
+    def adopt(self, payload) -> int:
+        raise NotImplementedError(_LATER["migration"])
+
+    def export_chain(self, chain):
+        raise NotImplementedError(_LATER["migration"])
+
+    def graft_chain(self, payload):
+        raise NotImplementedError(_LATER["migration"])
+
+    def release_migrated(self, srid: int) -> bool:
+        raise NotImplementedError(_LATER["migration"])
+
+    # ---- multi-adapter LoRA + embeddings -----------------------------------
+
+    def register_adapter(self, name: str, adapter_params) -> None:
+        """Register a LoRA adapter on the live engine AND in the
+        supervisor's host registry, so every crash rebuild re-registers
+        it (weights survive the engine; residency/pins do not — a
+        recovered request re-faults its adapter in through the pool's
+        normal load path)."""
+        with self._lock:
+            self.engine.register_adapter(name, adapter_params)
+            self._adapter_registry[str(name)] = adapter_params
+
+    def adapter_registered(self, name: str) -> bool:
+        with self._lock:
+            return self.engine.adapter_registered(name)
+
+    def adapter_resident(self, name: str) -> bool:
+        """Device residency of one adapter (False on a broken replica:
+        nothing is resident)."""
+        with self._lock:
+            if self.broken:
+                return False
+            return self.engine.adapter_resident(name)
+
+    def adapter_partition(self):
+        with self._lock:
+            return self.engine.adapter_partition()
+
+    def submit_embedding(self, prompt, timeout_s: Optional[float] = None,
+                         deadline_s: Optional[float] = None,
+                         tenant: Optional[str] = None,
+                         priority: int = 0) -> int:
+        """Queue a prefill-only embedding request; returns the ENGINE
+        rid (embeddings are stateless and unjournaled — they retire
+        within the admitting step, so the supervisor does not track
+        them; a crash mid-batch simply drops them and the client
+        retries)."""
+        with self._lock:
+            self._check_admitting()
+            return self.engine.submit_embedding(
+                prompt, timeout_s=timeout_s, deadline_s=deadline_s,
+                tenant=tenant, priority=priority)
+
+    def embedding(self, erid: int):
+        """Pooled embedding row, or ``None`` while the request is still
+        queued (the engine raises KeyError until it retires)."""
+        with self._lock:
+            try:
+                return self.engine.embedding(erid)
+            except KeyError:
+                return None
+
+    def depth(self) -> int:
+        """Queued + live requests on this replica — a router's load
+        signal. A broken replica reports a depth no router should ever
+        pick."""
+        with self._lock:
+            if self.broken:
+                return 1 << 30
+            return self.engine.depth()
+
+    def cancel(self, srid: int) -> bool:
+        """Cancel by supervisor rid; same idempotence contract as
+        :meth:`ServingEngine.cancel`."""
+        with self._lock:
+            rec = self._reqs.get(srid)
+            if rec is None or rec.terminal:
+                return False
+            ok = self.engine.cancel(rec.erid)
+            self._sweep()
+            return ok
+
+    # ---- the supervised step loop ------------------------------------------
+
+    def step(self, max_iters: Optional[int] = None) -> Dict[int, List[int]]:
+        """One engine iteration under the crash barrier. Returns
+        ``{srid: [tokens emitted]}``. An engine exception (or a serving
+        hang-watchdog trip) triggers recovery — teardown, rebuild,
+        resubmit — and returns ``{}`` for that iteration; past the
+        restart budget the replica flips to broken instead."""
+        with self._lock:
+            if self.broken:
+                return {}
+            crash = None
+            try:
+                emitted = self.engine.step(max_iters)
+            except Exception as e:                # noqa: BLE001 — barrier
+                crash = f"engine step raised {type(e).__name__}: {e}"
+            if crash is not None:
+                # recover outside the handler: the exception's traceback
+                # holds the dead engine's frames, and with them its pools
+                self._recover(crash)
+                return {}
+            timeout = self._watchdog_tripped()
+            if timeout is not None:
+                self._recover("hang watchdog fired inside a serving "
+                              "section")
+                # the fresh watchdog's clock starts after the rebuild,
+                # whose collection of the dead engine can outlast a short
+                # timeout
+                _watchdog.install(timeout)
+                return {}
+            out: Dict[int, List[int]] = {}
+            for erid, toks in emitted.items():
+                rec = self._by_erid.get(erid)
+                if rec is None:
+                    continue
+                rec.tokens.extend(int(t) for t in toks)
+                out[rec.srid] = [int(t) for t in toks]
+            self._sweep()
+            return out
+
+    @property
+    def pending(self) -> bool:
+        with self._lock:
+            return (not self.broken) and self.engine.pending
+
+    def _watchdog_tripped(self) -> Optional[float]:
+        """A fired global watchdog whose diagnosis names a ``serving.*``
+        section means OUR dispatch hung (and has now, evidently,
+        returned): treat it like a crash, and return its timeout (the
+        caller reinstalls a fresh watchdog after the restart, so liveness
+        detection survives it: a fired watchdog stands down). Other
+        sections are someone else's problem (None). Either way the trip
+        is consumed once."""
+        wd = _watchdog.current()
+        if wd is None or not wd.fired.is_set() or wd is self._wd_seen:
+            return None
+        self._wd_seen = wd
+        if "serving." not in (wd.diagnosis or ""):
+            return None
+        return wd.timeout
+
+    def _sweep(self) -> None:
+        """Mirror engine-terminal transitions into the tracked records:
+        authoritative tokens/state come from the engine's finished record
+        so cancel/timeout partials land exactly once."""
+        fin = self.engine._sched.finished
+        for erid in [e for e in self._by_erid if e in fin]:
+            rec = self._by_erid.pop(erid)
+            req = fin[erid]
+            rec.tokens = [int(t) for t in req.tokens]
+            rec.state = req.state
+            rec.finish = {
+                "state": req.state, "tokens": len(req.tokens),
+                "ttft_s": req.ttft_s, "tpot_s": req.tok_latency_s,
+                "prefix_hit_tokens": req.prefix_hit_tokens,
+                "preemptions": req.preemptions,
+                "recomputed_tokens": req.recomputed_tokens,
+                "oom_truncated": req.oom_truncated,
+                "resubmits": rec.resubmits,
+            }
+            if req.state == FINISHED:
+                self.completed += 1
+        # belt and braces: a tracked erid neither live nor in `finished`
+        # reached a terminal state whose record was FIFO-evicted before
+        # this sweep (the retention bound is sized so this cannot happen,
+        # but a stuck stream + a later resubmission of cancelled work is
+        # too costly to ever risk) — close it from the supervisor's view
+        live = {r.rid for r in self.engine._sched.queue}
+        live.update(r.rid for r in self.engine._sched.live)
+        for erid in [e for e in self._by_erid if e not in live]:
+            rec = self._by_erid.pop(erid)
+            rec.state = FINISHED if rec.finished_by_tokens else CANCELLED
+            rec.finish = {"state": rec.state, "tokens": len(rec.tokens),
+                          "evicted_record": True,
+                          "resubmits": rec.resubmits}
+            if rec.state == FINISHED:
+                self.completed += 1
+        self._prune_records()
+
+    def _recover(self, reason: str) -> None:
+        self.crashes.append(reason)
+        survivors = sorted(self._by_erid.values(), key=lambda r: r.srid)
+        self._by_erid = {}
+        # carry the drain deadline across the rebuild so a crash mid-
+        # drain keeps reporting the true remaining window
+        drain_deadline = self.engine._sched.drain_deadline
+        self._teardown()
+        if self.restarts >= self.max_restarts:
+            # budget exhausted: flip to not-accepting instead of crash-
+            # looping. In-flight requests FAIL (partial output readable);
+            # a fresh idle engine keeps the ops surface readable without
+            # trusting the dead engine's torn state.
+            self.broken = True
+            for rec in survivors:
+                rec.state = FAILED
+                rec.finish = {"state": FAILED, "tokens": len(rec.tokens),
+                              "reason": reason,
+                              "resubmits": rec.resubmits}
+                if self._journal is not None and rec.jid >= 0:
+                    self._journal.log_terminal(rec.jid, FAILED)
+            if self._journal is not None:
+                self._journal.flush()
+            self.engine = self._build_engine()
+            self.engine._sched.drain_deadline = drain_deadline
+            return
+        self.restarts += 1
+        self.engine = self._build_engine()
+        self.engine._sched.drain_deadline = drain_deadline
+        for rec in survivors:
+            if rec.finished_by_tokens:
+                # crashed after its last token but before the retire
+                # sweep: it IS complete — record it, don't re-run it
+                rec.state = FINISHED
+                rec.finish = {"state": FINISHED,
+                              "tokens": len(rec.tokens),
+                              "resubmits": rec.resubmits}
+                self.completed += 1
+                if self._journal is not None and rec.jid >= 0:
+                    self._journal.log_terminal(rec.jid, FINISHED)
+                continue
+            rec.erid = self.engine.resubmit(
+                rec.prompt, rec.tokens,
+                max_new_tokens=rec.max_new_tokens,
+                eos_token_id=rec.eos_token_id, deadline=rec.deadline,
+                tenant=rec.tenant, priority=rec.priority,
+                temperature=rec.temperature, top_k=rec.top_k,
+                top_p=rec.top_p, seed=rec.seed, jid=rec.jid,
+                adapter_id=rec.adapter_id)
+            rec.resubmits += 1
+            rec.state = QUEUED
+            self.resubmitted += 1
+            self.recovered_tokens += len(rec.tokens)
+            self._by_erid[rec.erid] = rec
+        if self._journal is not None:
+            self._journal.flush()
+
+    # ---- requests ----------------------------------------------------------
+
+    def request(self, srid: int) -> TrackedRequest:
+        with self._lock:
+            return self._reqs[srid]
+
+    def result(self, srid: int) -> np.ndarray:
+        with self._lock:
+            return np.asarray(self._reqs[srid].tokens, np.int32)
+
+    def run(self, prompts: Sequence, max_new_tokens=None,
+            eos_token_id="unset") -> List[np.ndarray]:
+        """Submit every prompt, drive the supervised loop to drain,
+        return outputs in submission order (the engine ``run()`` contract
+        with the crash barrier around every step)."""
+        n = len(prompts)
+        mnt = ([max_new_tokens] * n
+               if max_new_tokens is None or np.isscalar(max_new_tokens)
+               else list(max_new_tokens))
+        srids = [self.submit(p, max_new_tokens=m, eos_token_id=eos_token_id)
+                 for p, m in zip(prompts, mnt)]
+        while self.pending:
+            self.step()
+        return [self.result(s) for s in srids]
+
+    # ---- graceful drain ----------------------------------------------------
+
+    def request_drain(self) -> None:
+        """Thread/signal-safe drain trigger: admissions stop immediately
+        (submit raises the structured 503); whoever owns the step loop —
+        :meth:`drain` here, or the server's pump thread — finishes the
+        in-flight work within the deadline. Stamps the scheduler's
+        ``drain_deadline`` so the structured 503's ``retry_after_s``
+        reports the REMAINING drain window, not a cold-start estimate
+        (whoever runs the actual :meth:`drain` re-stamps the final
+        deadline)."""
+        self._drain_requested = True
+        # single attribute store — safe from a signal handler, no lock
+        self.engine._sched.drain_deadline = (time.time()
+                                             + self.drain_deadline_s)
+
+    @property
+    def drain_requested(self) -> bool:
+        return self._drain_requested
+
+    def install_signal_handler(self, signum: int = signal.SIGTERM):
+        """Wire SIGTERM — the signal the elastic launcher forwards on
+        preemption — to :meth:`request_drain`. When the launcher exported
+        ``PADDLE_PREEMPT_GRACE``, the drain deadline tightens to that
+        window minus a 2s margin (the same contract
+        ``elastic.install_preemption_handler`` applies to emergency
+        checkpoints). Returns the handler, or None off the main
+        thread."""
+        grace = os.environ.get("PADDLE_PREEMPT_GRACE")
+        if grace is not None:
+            try:
+                self.drain_deadline_s = max(1.0, float(grace) - 2.0)
+            except ValueError:
+                pass
+        handler, prev = install_drain_handler(self, signum)
+        if handler is not None:
+            self._prev_sigterm = prev
+        return handler
+
+    def uninstall_signal_handler(self, signum: int = signal.SIGTERM):
+        uninstall_drain_handler(self._prev_sigterm, signum)
+        self._prev_sigterm = None
+
+    def drain(self, deadline_s: Optional[float] = None) -> Dict[str, Any]:
+        """Stop admissions, finish in-flight work within the deadline,
+        cancel the remainder. Returns the drain report: completed /
+        cancelled during the drain, wall time, and ``leaked_blocks``
+        (must be 0 — every terminal path frees its KV)."""
+        t0 = time.time()
+        with self._lock:
+            self.draining = True
+            self._drain_requested = True
+            done_before = self.completed
+        deadline = t0 + (deadline_s if deadline_s is not None
+                         else self.drain_deadline_s)
+        with self._lock:
+            self.engine._sched.drain_deadline = deadline
+        while time.time() < deadline and self.pending:
+            self.step()
+        cancelled = 0
+        with self._lock:
+            if not self.broken and self.engine.pending:
+                cancelled = self.engine.cancel_all()
+                self._sweep()
+            if self._journal is not None:
+                # the SIGTERM/preemption grace contract: before the
+                # process exits, the journal is flushed and a final
+                # snapshot written, so a cold restart replays nothing
+                # and every terminal state reached during the drain
+                # (including the deadline cancels above) is durable
+                self._journal.snapshot()
+            leaked = self.engine.cache.manager.blocks_in_use
+            report = {"completed": self.completed - done_before,
+                      "cancelled": cancelled,
+                      "leaked_blocks": int(leaked),
+                      "duration_s": round(time.time() - t0, 3)}
+        return report
+
+    def close(self, deadline_s: Optional[float] = None) -> Dict[str, Any]:
+        report = self.drain(deadline_s)
+        with self._lock:
+            self.closed = True
+        return report
+
+    # ---- telemetry ---------------------------------------------------------
+
+    def autoscale_signal(self, rejoin_file: Optional[str] = None,
+                         workers: Optional[int] = None) -> Dict[str, Any]:
+        """The scale recommendation for the CURRENT snapshot, with the
+        shed delta tracked between calls (an autoscaler polls this, so
+        "shed since last poll" is the rate signal it wants). With
+        ``rejoin_file`` given, a scale-up also writes the elastic
+        launcher's ``--elastic_rejoin_file`` signal (``workers`` = the
+        offered count; None = "take what you need") so a standby launcher
+        scales the job out."""
+        with self._lock:
+            snap = self.engine._health_snapshot_locked()
+            shed = snap["counters"]["shed"]
+            delta = shed - self._last_shed
+            self._last_shed = shed
+        sig = autoscale_signal(snap, shed_delta=delta)
+        if rejoin_file and sig["action"] == "scale_up":
+            write_rejoin_file(rejoin_file, workers)
+            sig["rejoin_file"] = rejoin_file
+        return sig
+
+    def health_snapshot(self) -> Dict[str, Any]:
+        """The engine's ops payload extended with the supervisor layer
+        (``supervisor`` + ``autoscale`` fields). ``accepting`` folds in
+        draining/broken, so ``/readyz`` can serve it directly."""
+        with self._lock:
+            snap = self.engine._health_snapshot_locked()
+            snap["accepting"] = bool(
+                snap["accepting"] and not self.broken
+                and not self.draining and not self.closed
+                and not self._drain_requested)
+            snap["supervisor"] = {
+                "restarts": self.restarts,
+                "restart_budget": self.max_restarts,
+                "broken": self.broken,
+                "draining": bool(self.draining or self._drain_requested),
+                "accepting": snap["accepting"],
+                "resubmitted": self.resubmitted,
+                "recovered_tokens": self.recovered_tokens,
+                "adopted": self.adopted,
+                "migrated_in": self.migrated_in,
+                "migrated_out": self.migrated_out,
+                "completed": self.completed,
+                "crashes": list(self.crashes[-4:]),
+            }
+            # PEEK the shed delta, never consume it: /metrics and /readyz
+            # GETs must not destroy the signal autoscale_signal() (the
+            # rejoin-file writer) is built on — only that method advances
+            # the baseline
+            snap["autoscale"] = autoscale_signal(
+                snap, shed_delta=snap["counters"]["shed"] - self._last_shed)
+        return snap
+
+    def block_partition(self) -> Dict[str, int]:
+        """The engine's pool-partition view (free / evictable / in-use /
+        usable, and the host tier's side) taken under this supervisor's
+        lock: free + evictable + in_use == usable."""
+        with self._lock:
+            return self.engine.block_partition()

@@ -1,6 +1,8 @@
 """JAX parameter trees -> the port's tensors (through numpy, never jax).
 
-The one way the tests hand the JAX package and the port the same weights:
+The one way the tests hand the JAX package and the port the same weights
+(the LLaMA tree through :func:`params_from_jax`, the BERT encoder's
+through :func:`bert_params_from_jax`):
 the JAX side converts its pytree with ``jax.tree_util.tree_map(np.asarray,
 params)`` and the port takes the numpy tree from there. Both fp trees and
 weight-only-int8 trees (with ``*_s`` scale leaves) convert leaf by leaf;
@@ -18,8 +20,8 @@ import torch
 from ..device import resolve_device
 from .llama import LlamaConfig
 
-__all__ = ["params_from_jax", "config_from_jax", "opt_state_from_jax",
-           "to_numpy"]
+__all__ = ["params_from_jax", "bert_params_from_jax", "config_from_jax",
+           "opt_state_from_jax", "to_numpy"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
@@ -48,6 +50,24 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     dev = resolve_device(device)
     return {k: params_from_jax(v, dev) if isinstance(v, dict)
             else _leaf(v, dev) for k, v in tree.items()}
+
+
+def bert_params_from_jax(tree: Dict[str, Any], device=None
+                         ) -> Dict[str, Any]:
+    """A JAX ``bert_init_params`` tree (numpy-convertible) -> the port's
+    :func:`~paddle_tpu_torch.models.bert.bert_encode` params on ``device``:
+    the same stacked layout, fp32 leaves. Raises ``ValueError`` when a
+    leaf the encoder reads is missing."""
+    need = ("embed", "pos_embed", "ln_embed_w", "ln_embed_b", "layers",
+            "pool_w", "pool_b")
+    missing = [k for k in need if k not in tree]
+    if missing:
+        raise ValueError(f"bert_params_from_jax: not a BERT encoder tree "
+                         f"(missing {missing})")
+    out = params_from_jax(tree, device)
+    return {k: ({n: t.to(torch.float32) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(torch.float32))
+            for k, v in out.items()}
 
 
 def opt_state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, Any]:

@@ -832,3 +832,74 @@ def test_lora_decode_matches_cpu(dev, quant):
     for m in (0, 4):
         assert torch.equal(got[m], base[m])
     assert not torch.allclose(got[1], base[1], atol=1e-3)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
+def test_offload_round_trip_on_card(dev, kv_quant):
+    """The host offload tier on the card: a block captured from the device
+    pool (strided across layers) into pinned host buffers checksums to
+    its device bytes, survives the pool slot's reuse (the copy is ordered
+    before the overwrite), and a verified take restores it into another
+    pool slot in place — the pool's storage unmoved. A corrupted host
+    copy misses."""
+    from paddle_tpu_torch.inference.serving.offload import block_crc
+    from paddle_tpu_torch.inference.serving.paged_cache import PagedKVCache
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=3, num_attention_heads=4,
+                      num_key_value_heads=2, dtype=torch.bfloat16)
+    cache = PagedKVCache(cfg, 2, 64, 16, num_blocks=8, kv_quant=kv_quant,
+                         device=dev, offload=True, offload_blocks=4)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for t in cache.pool.values():
+        t.copy_(torch.randn(t.shape, device=dev, generator=g).mul(40)
+                .to(t.dtype))
+    ptrs = {n: t.data_ptr() for n, t in cache.pool.items()}
+    want = {n: t[:, 3].clone() for n, t in cache.pool.items()}
+    cap = cache.read_block(3)
+    assert all(b.is_pinned() for b in cap.data.values())
+    for t in cache.pool.values():          # the slot is reused at once
+        t[:, 3].zero_()
+    tier = cache.offload
+    toks = tuple(range(16))
+    tier.put(11, toks, cap)
+    tier.flush()
+    for n, w in want.items():
+        assert tier._entries[11]["crc"][n] == block_crc(w.cpu())
+    data = tier.take(11, toks)
+    cache.write_block(5, data)
+    torch.cuda.synchronize()
+    for n, w in want.items():
+        assert torch.equal(cache.pool[n][:, 5], w), n
+    assert {n: t.data_ptr() for n, t in cache.pool.items()} == ptrs
+    tier.put(12, toks, cache.read_block(5))
+    tier.corrupt_one(0)
+    assert tier.take(12, toks) is None and tier.corrupt_drops == 1
+
+
+def test_watchdog_fires_over_a_blocked_synchronize(dev):
+    """A hang on the card is the main thread blocked in
+    ``torch.cuda.synchronize()`` behind a kernel that does not finish:
+    the watchdog thread still runs (the binding releases the GIL) and
+    fires while the main thread is blocked, naming the open serving
+    section."""
+    import time
+    from paddle_tpu_torch.health import watchdog
+    fired = {}
+
+    def on_hang(diag):
+        fired["t"] = time.time()
+        fired["diag"] = diag
+
+    wd = watchdog.install(0.3, on_hang=on_hang)
+    try:
+        torch.cuda.synchronize()
+        with watchdog.section("serving.decode"):
+            torch.cuda._sleep(int(1.5 * 1.98e9))    # ~1.5 s of spinning
+            torch.cuda.synchronize()
+            back = time.time()
+        assert wd.fired.is_set()
+    finally:
+        watchdog.uninstall()
+    assert fired["t"] < back
+    assert "serving.decode" in fired["diag"]
