@@ -208,6 +208,53 @@ Phases (each fails the run on any error; none catches and carries on):
     A's tokens/s and TTFT p50. Every embedding within 1e-4 x max|ref| of
     ``bert_encode`` of the passage alone; the pool's free blocks the same
     before and after; paged attention launched for the generate traffic.
+26. The serving fleet (cell R): A's model at bf16 behind
+    ``ServingRouter`` with live migration, built as one replica plus two
+    spawns (device memory after each: 3 replicas within 2 KV pools + 5 %
+    of 1, the weights held once). Phase 4's trace in turns through one
+    ``EngineSupervisor`` and through the 3-replica fleet (supervisor,
+    fleet, fleet, supervisor): tokens/s, TTFT p50 and max (submit to
+    first delivered token, host clock), the router's host ms a submit
+    and a step beyond its replicas' own steps, placements, sticky and
+    directory hits; the auditor clean after every step and at quiesce,
+    12 paged-attention launches a decode iteration fleet-wide. Then a
+    replica killed at its decode iteration 10 (failovers, failed 0, no
+    delivered token repeated, failover tokens, ms from the kill to a
+    failed-over request's first token after it); a rolling restart under
+    the trace (3 rebuilds, failed 0, memory within one pool); half the
+    trace with the busiest replica drained after 10 decode iterations
+    (migrations, no fallback, no recomputed token, memory within one
+    pool of the 2-replica level; per migrated request blocks, MB,
+    ``serialize_request`` and ``adopt`` ms, GB/s against PCIe's bound).
+27. Fleet cache pulls and disaggregated prefill (cell S), A's model at
+    bf16. Two replicas, 16 families of a 256-token prefix: a placement
+    wave pinned to replica 0, then a sharing wave (fresh 16-token tails)
+    pinned to replica 1, ``fleet_cache`` off and on in turns (off, on,
+    on, off): the sharing wave's TTFT p50 and max, pulls, pulled blocks
+    (256 with the cache on, no fallback, no prefix token recomputed),
+    export and graft ms a block and the host CRC32's share of each;
+    then one more family with replica 0's
+    next export corrupted: exactly one more pull fallback, its stream
+    equal to the cache-off turns'. Then phase 4's trace plus 8 prompts of
+    512-1024 tokens from 16 streaming clients (one decode iteration a
+    step), ``RouterConfig(replicas=2, prefill_replicas=1,
+    prefill_len_threshold=256)`` in turns with 3 unified replicas:
+    tokens/s, TTFT, the short requests' time per output token p50 and
+    p99; the split fleet routes the long prompts to prefill and hands
+    them off with no fallback and no recomputed token.
+28. fp32 fleet parity on C's model and trace (half the requests seeded,
+    stepped 2 decode iterations at a time): the single engine's streams
+    from a 3-replica fleet, a replica kill, a crash loop that opens the
+    breaker and evacuates, a slow replica under hedging (hedges, wins
+    and cancelled copies 1 each), a flaky probe (the breaker opens, then
+    closes after a half-open probe), a rolling restart with deadline 0,
+    a drain with migration, a pinned pull, a prefill handoff, a
+    journaled fleet cold-started after its journal was abandoned (each
+    stream delivered once) and two adapters through a replica kill
+    (the same adapters re-pinned). Then with ``quantize="int8",
+    kv_quant="int8"``: a drain whose migrations carry k, v and their
+    scales, and a pinned pull, each equal to the unmigrated int8 engine;
+    the int8 matmul launches.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -223,8 +270,10 @@ forwards (2 per layer, twice, plus the final norm), 25 RMSNorm
 backwards, 48 RoPE forwards (q and k, twice) and 24 RoPE backwards. The
 kernels line reports the serving launches of phases 4, 5, 13, 14
 (speculation on), 20 (the LoRA drain and both base-traffic runs), 23
-(the bf16 revisit and the fp32 int8 tier run), 24 (the bf16 crash run)
-and 25 (the generate traffic beside the embeds) together,
+(the bf16 revisit and the fp32 int8 tier run), 24 (the bf16 crash run),
+25 (the generate traffic beside the embeds), 26 (the first fleet turn),
+27 (the first sharing wave with the fleet cache on) and 28 (the int8
+drain with migration) together,
 the flash launches of phase 8 and the RMSNorm and RoPE launches of
 phase 11 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -2971,6 +3020,894 @@ def embeddings_phase(prompts, news):
     return {"turns": turns, "worst_rel_err": worst}, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 26-28: the serving fleet (router, live migration, fleet cache
+# pulls, disaggregated prefill)
+# ---------------------------------------------------------------------------
+
+def mem_gb():
+    """Device memory the allocator holds for live tensors, GiB."""
+    import torch
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def release():
+    """Collect what the caller just dropped (a router's or an engine's
+    reference cycles) and hand its device memory back, after a
+    synchronize that surfaces any asynchronous CUDA error of the work
+    before (the router turns an exception in an export, adopt or graft
+    into a fallback counter; a fault on the card must fail the phase)."""
+    import gc
+    import torch
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def arm_kill(router, rid, at_decode_iter=0):
+    """Kill replica ``rid`` for good (this script's copy of the JAX
+    package's ``testing/chaos.py::replica_kill``): its restart budget
+    spent and its engine armed to crash at its ``at_decode_iter``-th
+    decode iteration from now (``arm_crash``). Returns a dict whose
+    ``"t"`` is set to the host time the crash fires."""
+    sup = router._replicas[rid].sup
+    sup.max_restarts = sup.restarts
+    eng = sup.engine
+    real = eng._step
+    at = eng._stats["decode_iters"] + at_decode_iter
+    fired = {}
+
+    def crashing(max_iters=None):
+        if eng._stats["decode_iters"] >= at:
+            eng._step = real
+            fired["t"] = time.time()
+            raise _Crash(f"injected replica kill at decode iteration "
+                         f"{eng._stats['decode_iters']}")
+        return real(max_iters)
+
+    eng._step = crashing
+    if not sup.pending:
+        sup.step()
+    return fired
+
+
+def slow_replica(router, rid, stall_steps, delay_s):
+    """This script's copy of ``testing/chaos.py::slow_replica``: the
+    replica's next ``stall_steps`` engine iterations sleep ``delay_s`` and
+    return nothing."""
+    eng = router._replicas[rid].sup.engine
+    real = eng._step
+    state = {"calls": 0}
+
+    def stalled(max_iters=None):
+        if state["calls"] < stall_steps:
+            state["calls"] += 1
+            time.sleep(delay_s)
+            return {}
+        return real(max_iters)
+
+    eng._step = stalled
+    return state
+
+
+def flaky_probe(router, rid, fails):
+    """This script's copy of ``testing/chaos.py::flaky_probe``: the
+    replica's next ``fails`` health probes raise."""
+    sup = router._replicas[rid].sup
+    real = sup.health_snapshot
+    state = {"calls": 0}
+
+    def shim():
+        if state["calls"] < fails:
+            state["calls"] += 1
+            raise RuntimeError("injected flaky health probe")
+        return real()
+
+    sup.health_snapshot = shim
+    return state
+
+
+def timed_method(obj, name, spent, key):
+    """Wrap ``obj.name`` (an instance attribute from now on) so each call
+    adds its host ms, ending in a synchronize, to ``spent[key]`` and
+    appends its return value to ``spent[key + "_out"]``."""
+    import torch
+    real = getattr(obj, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent[key] = spent.get(key, 0.0) + (time.time() - t) * 1e3
+        spent.setdefault(key + "_n", []).append((time.time() - t) * 1e3)
+        spent.setdefault(key + "_out", []).append(out)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def client_drive(target, prompts, news, knobs=None, max_iters=None,
+                 after_step=None, concurrency=None, pins=None):
+    """Drive a trace through ``target`` (a router or a supervisor) as its
+    clients would: submit (all at once, or keeping ``concurrency``
+    requests in flight), step until drained, recording on the host clock
+    when each request's first and last tokens were delivered.
+    ``after_step(i)`` runs after step i (a fault, an audit) with the
+    clock stopped: no time or rate here includes it. Every request must
+    finish with its ``max_new_tokens``,
+    its delivered tokens equal to its record (no repeat, no gap). Returns
+    (ids, delivered by id, metrics)."""
+    import torch
+    n = len(prompts)
+    knobs = knobs or [{}] * n
+    pins = pins or [None] * n
+    ids, want, got, t_sub, t_first, t_last = [], {}, {}, {}, {}, {}
+    m = {"submit_ms": [], "step_ms": [], "steps": 0, "emits": [],
+         "after_step_ms": 0.0}
+    done = set()
+    nxt = 0
+
+    def clock():
+        return time.time() - m["after_step_ms"] / 1e3
+
+    def submit_more():
+        nonlocal nxt
+        while nxt < n and (concurrency is None
+                           or len(ids) - len(done) < concurrency):
+            kw = dict(knobs[nxt])
+            if pins[nxt] is not None:
+                kw["replica"] = pins[nxt]
+            t = clock()
+            i = target.submit(prompts[nxt], max_new_tokens=news[nxt],
+                              eos_token_id=None, **kw)
+            m["submit_ms"].append((clock() - t) * 1e3)
+            ids.append(i)
+            want[i], got[i], t_sub[i] = news[nxt], [], t
+            nxt += 1
+
+    torch.cuda.synchronize()
+    t0 = clock()
+    submit_more()
+    while target.pending or nxt < n:
+        t = clock()
+        out = target.step(max_iters)
+        now = clock()
+        m["step_ms"].append((now - t) * 1e3)
+        m["emits"].append((now, set(out)))
+        for i, toks in out.items():
+            t_first.setdefault(i, now)
+            t_last[i] = now
+            got[i].extend(int(x) for x in toks)
+            if len(got[i]) >= want[i]:
+                done.add(i)
+        if after_step is not None:
+            ta = time.time()
+            after_step(m["steps"])
+            m["after_step_ms"] += (time.time() - ta) * 1e3
+        m["steps"] += 1
+        check(m["steps"] < 20000, "the trace did not drain")
+        submit_more()
+    torch.cuda.synchronize()
+    m["wall_s"] = clock() - t0
+    for i in ids:
+        rec = target.request(i)
+        check(rec.state == "finished" and len(rec.tokens) == want[i],
+              f"request {i} ended {rec.state} with "
+              f"{len(rec.tokens)}/{want[i]}")
+        check(got[i] == [int(x) for x in target.result(i)],
+              f"request {i}: delivered tokens repeat or went missing")
+    ttft = [t_first[i] - t_sub[i] for i in ids]
+    tpot = [(t_last[i] - t_first[i]) / (want[i] - 1) for i in ids
+            if want[i] > 1]
+    m.update(tokens=sum(want.values()),
+             tok_s=sum(want.values()) / m["wall_s"],
+             ttft_p50_s=float(np.percentile(ttft, 50)),
+             ttft_max_s=float(max(ttft)),
+             tpot_p50_ms=float(np.percentile(tpot, 50)) * 1e3,
+             tpot_p99_ms=float(np.percentile(tpot, 99)) * 1e3,
+             ms_per_submit=float(np.mean(m["submit_ms"])),
+             ms_per_step=float(np.mean(m["step_ms"])),
+             t_first=t_first, t_last=t_last)
+    return ids, got, m
+
+
+def replica_step_ms(router):
+    """Wrap every current replica's ``sup.step`` to add its host ms to the
+    returned dict's ``"ms"``: the replicas' own share of a router step."""
+    spent = {"ms": 0.0}
+    for rep in router._replicas.values():
+        def timed(*a, _real=rep.sup.step, **kw):
+            t = time.time()
+            try:
+                return _real(*a, **kw)
+            finally:
+                spent["ms"] += (time.time() - t) * 1e3
+        rep.sup.step = timed
+    return spent
+
+
+def fleet_stats(router, keys=("decode_iters", "mixed_dispatches",
+                              "recomputed_tokens", "prefix_hit_tokens")):
+    """{rid: engine stats subset} of every replica."""
+    return {rid: {k: rep.sup.engine.stats()[k] for k in keys}
+            for rid, rep in router._replicas.items()}
+
+
+def fleet_delta(before, after, key):
+    """Sum over replicas of a stats key's growth (a replica missing from
+    ``before`` counts from 0; one gone from ``after`` counts nothing)."""
+    return sum(v[key] - before.get(rid, {}).get(key, 0)
+               for rid, v in after.items())
+
+
+def router_counters(router):
+    return dict(router.health_snapshot()["counters"])
+
+
+def counter_delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def balanced_fleet(router):
+    """Every replica's pool partition balances and holds no block."""
+    for rid, part in router.block_partitions().items():
+        check(part["free"] + part["evictable"] + part["in_use"]
+              == part["usable"] and part["in_use"] == 0,
+              f"replica {rid} pool partition {part}")
+
+
+def fleet_phase(prompts, news):
+    """Phase 26 (cell R): A's model through a 3-replica router with live
+    migration. Weights held once; phase 4's trace in turns with one
+    supervisor; a replica killed mid-trace; a rolling restart under a
+    live trace; a drain that migrates its requests. Returns (metrics,
+    main-path launches)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (EngineSupervisor,
+                                                    InvariantAuditor,
+                                                    RouterConfig,
+                                                    ServingConfig,
+                                                    ServingRouter)
+    from paddle_tpu_torch.models.llama import init_params
+    cfg = model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    out = {}
+    # build: one replica, then two spawns, memory read after each
+    r = ServingRouter(params, cfg, ServingConfig(),
+                      router_config=RouterConfig(replicas=1, max_replicas=3,
+                                                 migrate=True),
+                      device="cuda")
+    mem = [mem_gb()]
+    for _ in range(2):
+        r.spawn_replica()
+        mem.append(mem_gb())
+    pool = r._replicas[0].sup.engine.cache.kv_bytes() / 2**30
+    ptrs = {rep.sup.engine.prepared_params["layers"]["wq"].data_ptr()
+            for rep in r._replicas.values()}
+    out["build"] = {"mem_gb_1_2_3": mem, "pool_gb": pool}
+    log(f"  memory with 1 / 2 / 3 replicas: {mem[0]:.3f} / {mem[1]:.3f} / "
+        f"{mem[2]:.3f} GB (one KV pool {pool:.3f} GB); weights shared: "
+        f"{len(ptrs) == 1}")
+    check(len(ptrs) == 1, "replicas hold separate weight copies")
+    check(mem[2] - mem[0] <= 2 * pool * 1.05,
+          f"3 replicas hold {mem[2] - mem[0]:.3f} GB over 1 (limit 2 pools "
+          f"+ 5 % = {2 * pool * 1.05:.3f} GB)")
+    for rid in r.replicas:                   # warm-up, one short request each
+        r.submit(prompts[0][:40], max_new_tokens=4, eos_token_id=None,
+                 replica=rid)
+    while r.pending:
+        r.step()
+    sup = EngineSupervisor(r._params, cfg, ServingConfig(), device="cuda")
+    sup.engine.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+    aud = InvariantAuditor()
+
+    def audit_step(_):
+        v = aud.check(r, collect=True)
+        check(v == [], f"auditor: {[str(x) for x in v]}")
+
+    turns, launches = [], None
+    for kind in ("supervisor", "fleet", "fleet", "supervisor"):
+        if kind == "supervisor":
+            _, _, m = client_drive(sup, prompts, news)
+            turns.append({"kind": kind, "tok_s": m["tok_s"],
+                          "ttft_p50_s": m["ttft_p50_s"],
+                          "ttft_max_s": m["ttft_max_s"]})
+            continue
+        c0, s0 = router_counters(r), fleet_stats(r)
+        inner = replica_step_ms(r)
+        reset_counts()
+        ids, got, m = client_drive(r, prompts, news, after_step=audit_step)
+        c = read_counts()
+        for rep in r._replicas.values():
+            del rep.sup.step
+        s1 = fleet_stats(r)
+        dc = counter_delta(c0, router_counters(r))
+        iters = fleet_delta(s0, s1, "decode_iters")
+        mixed = fleet_delta(s0, s1, "mixed_dispatches")
+        dec = c["paged_attention"] - c["paged_attention_multiquery"]
+        check(dec == 12 * iters, f"fleet: {dec} decode launches for "
+              f"{iters} decode iterations")
+        check(c["paged_attention_multiquery"] == 12 * mixed,
+              f"fleet: {c['paged_attention_multiquery']} multi-query "
+              f"launches for {mixed} mixed dispatches")
+        balanced_fleet(r)
+        turns.append({"kind": kind, "tok_s": m["tok_s"],
+                      "ttft_p50_s": m["ttft_p50_s"],
+                      "ttft_max_s": m["ttft_max_s"],
+                      "ms_per_submit": m["ms_per_submit"],
+                      "ms_per_step": m["ms_per_step"],
+                      "router_ms_per_step": (sum(m["step_ms"])
+                                             - inner["ms"]) / m["steps"],
+                      "audit_ms_per_step": m["after_step_ms"] / m["steps"],
+                      "routed": dc["routed"],
+                      "sticky_hits": dc["sticky_hits"],
+                      "directory_hits": dc["directory_hits"],
+                      "per_replica": sorted(
+                          sum(1 for i in ids if r.request(i).replica == rid)
+                          for rid in r.replicas)})
+        if launches is None:
+            launches = c
+            log(f"  launches (first fleet turn): {json.dumps(c)}")
+    aud.quiesce(r)
+    out["turns"] = turns
+    log(f"  in turns (supervisor, fleet, fleet, supervisor): "
+        f"{json.dumps(turns)}")
+    del sup
+    release()
+
+    # failover: replica 0 killed at its decode iteration 10 (audited at
+    # the end, so the kill and the emissions share one clock)
+    c0 = router_counters(r)
+    fired = arm_kill(r, 0, at_decode_iter=10)
+    ids, got, m = client_drive(r, prompts, news)
+    audit_step(None)
+    dc = counter_delta(c0, router_counters(r))
+    moved = [i for i in ids if r.request(i).failovers > 0]
+    check("t" in fired, "the armed kill never fired")
+    check(dc["failovers"] >= 1 and dc["failed"] == 0,
+          f"failover counters {dc}")
+    check(r._replicas[0].sup.broken, "the killed replica is not broken")
+    # the first token any failed-over request delivers after the kill
+    after = [now for now, who in m["emits"]
+             if now > fired["t"] and who & set(moved)]
+    first_after = min(after) if after else None
+    out["failover"] = {"tok_s": m["tok_s"], "failovers": dc["failovers"],
+                       "failover_tokens": dc["failover_tokens"],
+                       "moved_requests": len(moved),
+                       "kill_to_first_token_ms":
+                           None if first_after is None
+                           else (first_after - fired["t"]) * 1e3}
+    log(f"  replica 0 killed at decode iteration 10: "
+        f"{json.dumps(out['failover'])}")
+    balanced_fleet(r)
+
+    # rolling restart under a live trace (heals the killed replica)
+    c0 = router_counters(r)
+    mem0 = mem_gb()
+
+    def start_roll(i):
+        audit_step(i)
+        if i == 0:
+            r.start_rolling_restart()
+
+    ids, got, m = client_drive(r, prompts, news, after_step=start_roll)
+    while r.rolling:
+        r.step()
+    dc = counter_delta(c0, router_counters(r))
+    mem1 = mem_gb()
+    check(dc["replica_restarts"] == 3 and dc["failed"] == 0,
+          f"roll counters {dc}")
+    check(abs(mem1 - mem0) <= pool, f"memory {mem0:.3f} -> {mem1:.3f} GB "
+          f"across the roll (one pool {pool:.3f})")
+    check(all(not rep.sup.broken for rep in r._replicas.values()),
+          "a replica is still broken after the roll")
+    out["roll"] = {"tok_s": m["tok_s"], "replica_restarts":
+                   dc["replica_restarts"], "migrations": dc["migrations"],
+                   "migration_fallbacks": dc["migration_fallbacks"],
+                   "mem_gb_before_after": [mem0, mem1]}
+    log(f"  rolling restart under phase 4's trace: {json.dumps(out['roll'])}")
+    balanced_fleet(r)
+
+    # live migration: drain the busiest replica after 10 decode iterations
+    spent = {}
+    for rep in r._replicas.values():
+        timed_method(rep.sup.engine, "serialize_request", spent, "ser")
+        timed_method(rep.sup.engine, "adopt", spent, "adopt")
+    c0, s0 = router_counters(r), fleet_stats(r)
+    state = {}
+
+    def drain_busiest(i):
+        audit_step(i)
+        if "rid" in state:
+            return
+        s = fleet_stats(r)
+        if max(s[k]["decode_iters"] - s0[k]["decode_iters"]
+               for k in s) >= 10:
+            busiest = max(r._replicas.values(), key=lambda rep: rep.depth())
+            state["rid"] = busiest.rid
+            r.drain_replica(busiest.rid)
+
+    half = len(prompts) // 2
+    ids, got, m = client_drive(r, prompts[:half], news[:half],
+                               after_step=drain_busiest)
+    for _ in range(3):
+        r.step()
+    dc = counter_delta(c0, router_counters(r))
+    s1 = fleet_stats(r)
+    rc = fleet_delta(s0, s1, "recomputed_tokens")
+    check("rid" in state and state["rid"] not in r._replicas,
+          "the drained replica was not removed")
+    check(dc["migrations"] >= 1 and dc["migration_fallbacks"] == 0
+          and rc == 0, f"migration: {dc}, recomputed {rc}")
+    mem_after = mem_gb()
+    check(mem_after <= mem[1] + pool,
+          f"memory after removing a replica {mem_after:.3f} GB (2-replica "
+          f"level {mem[1]:.3f}, one pool {pool:.3f})")
+    per = []
+    for p in spent.get("ser_out", []):
+        if p is None or p["kv"] is None or p["kv"]["data"] is None:
+            continue
+        per.append({"blocks": p["kv"]["data_blocks"],
+                    "mb": sum(t.numel() * t.element_size()
+                              for t in p["kv"]["data"].values()) / 2**20})
+    ser_ms = [t for t, p in zip(spent.get("ser_n", []),
+                                spent.get("ser_out", []))
+              if p is not None and p["kv"] is not None
+              and p["kv"]["data"] is not None]
+    adopt_ms = spent.get("adopt_n", [])
+    for k, row in enumerate(per):
+        row["serialize_ms"] = ser_ms[k] if k < len(ser_ms) else None
+        row["adopt_ms"] = adopt_ms[k] if k < len(adopt_ms) else None
+        nb = row["mb"] * 2**20
+        row["d2h_gb_s"] = nb / row["serialize_ms"] / 1e6
+        row["h2d_gb_s"] = nb / row["adopt_ms"] / 1e6 \
+            if row["adopt_ms"] else None
+        row["pcie_bound_ms"] = nb / PCIE_BYTES_PER_S * 1e3
+    out["migration"] = {"drained": state["rid"],
+                        "migrations": dc["migrations"],
+                        "migration_tokens": dc["migration_tokens"],
+                        "recomputed_tokens": rc, "mem_gb": mem_after,
+                        "per_request": per}
+    log(f"  drain of the busiest replica after 10 decode iterations: "
+        f"{json.dumps(out['migration'])}")
+    aud.quiesce(r)
+    balanced_fleet(r)
+    del r, params
+    release()
+    return out, launches
+
+
+def share_waves(vocab, seed, fams=16, pre=256, tail=16):
+    """Cell S's pull traffic: a placement wave (one request a family of a
+    ``pre``-token prefix), a sharing wave (a fresh tail on each prefix)
+    and one more family (placement and sharing request) for the corrupt
+    export."""
+    place, share = family_trace(vocab, seed, fams=fams + 1, per=1, pre=pre,
+                                tail=tail)
+    return place[:fams], share[:fams], place[fams], share[fams]
+
+
+def pull_turn(params, cfg, on, waves, new=16):
+    """One turn of the pull experiment on a fresh 2-replica fleet:
+    placement pinned to replica 0, sharing pinned to replica 1 (timed),
+    then the extra family with replica 0's next export corrupted.
+    Returns (metrics, sharing streams, the extra family's stream,
+    main-path launches)."""
+    from paddle_tpu_torch.inference.serving import (InvariantAuditor,
+                                                    RouterConfig,
+                                                    ServingConfig,
+                                                    ServingRouter)
+    from paddle_tpu_torch.inference.serving.offload import block_crc
+    place, share, xplace, xshare = waves
+    r = ServingRouter(params, cfg, ServingConfig(prefix_cache=True),
+                      router_config=RouterConfig(replicas=2,
+                                                 fleet_cache=on),
+                      device="cuda")
+    r0, r1 = r.replicas
+    warm = np.arange(7, 47, dtype=np.int32)   # shares no family's blocks
+    for rid in (r0, r1):
+        r.submit(warm, max_new_tokens=4, eos_token_id=None, replica=rid)
+    while r.pending:
+        r.step()
+    client_drive(r, place, [new] * len(place), pins=[r0] * len(place))
+    spent = {}
+    timed_method(r._replicas[r0].sup.engine, "export_chain", spent, "exp")
+    timed_method(r._replicas[r1].sup.engine, "graft_chain", spent, "graft")
+    c0, s0 = router_counters(r), fleet_stats(r)
+    reset_counts()
+    ids, got, m = client_drive(r, share, [new] * len(share),
+                               pins=[r1] * len(share))
+    c = read_counts()
+    dc = counter_delta(c0, router_counters(r))
+    s1 = fleet_stats(r)
+    hit = s1[r1]["prefix_hit_tokens"] - s0[r1]["prefix_hit_tokens"]
+    payloads = [p for p in spent.get("exp_out", []) if p is not None]
+    blocks = sum(len(p["blocks"]) for p in payloads)
+    # the host CRC32 of a block (every leaf), which the export stamps
+    # and the graft verifies: its share of both
+    t = time.time()
+    for p in payloads:
+        for blk in p["blocks"]:
+            for a in blk["data"].values():
+                block_crc(a)
+    crc_ms = (time.time() - t) * 1e3 / blocks if blocks else None
+    turn = {"fleet_cache": on, "ttft_p50_s": m["ttft_p50_s"],
+            "ttft_max_s": m["ttft_max_s"], "tok_s": m["tok_s"],
+            "cache_pulls": dc["cache_pulls"],
+            "pulled_blocks": dc["pulled_blocks"],
+            "pull_fallbacks": dc["pull_fallbacks"],
+            "prefix_tokens_recomputed": 256 * len(share) - hit,
+            "export_ms_per_block": spent.get("exp", 0.0) / blocks
+            if blocks else None,
+            "graft_ms_per_block": spent.get("graft", 0.0) / blocks
+            if blocks else None,
+            "crc_ms_per_block": crc_ms}
+    # the extra family: placed on replica 0, replica 0's next export
+    # corrupted, its sharing request pinned to replica 1
+    client_drive(r, [xplace], [new], pins=[r0])
+    r._replicas[r0].sup.engine._corrupt_next_export = on
+    c0 = router_counters(r)
+    _, xgot, _ = client_drive(r, [xshare], [new], pins=[r1])
+    turn["corrupt_pull_fallbacks"] = counter_delta(
+        c0, router_counters(r))["pull_fallbacks"]
+    check(InvariantAuditor().quiesce(r, collect=True) == [],
+          "auditor at quiesce")
+    balanced_fleet(r)
+    del r
+    release()
+    return turn, [got[i] for i in ids], list(xgot.values())[0], c
+
+
+def long_trace(vocab, seed, n=8, lens=(512, 1024), outs=(16, 64)):
+    """``n`` long prompts (a long document to summarize, a RAG context)."""
+    rng = np.random.default_rng(seed)
+    return ([rng.integers(0, vocab, int(rng.integers(lens[0], lens[1] + 1)))
+             .astype(np.int32) for _ in range(n)],
+            [int(rng.integers(outs[0], outs[1] + 1)) for _ in range(n)])
+
+
+def cache_phase(prompts, news):
+    """Phase 27 (cell S): cross-replica chain pulls with the fleet cache
+    on and off in turns, a corrupt export; then disaggregated prefill in
+    turns with the unified fleet. Returns (metrics, main-path
+    launches)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (RouterConfig,
+                                                    ServingConfig,
+                                                    ServingRouter)
+    from paddle_tpu_torch.models.llama import init_params
+    cfg = model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    waves = share_waves(cfg.vocab_size, SEED + 27)
+    turns, xs, launches = [], {}, None
+    for on in (False, True, True, False):
+        t, _, xstream, c = pull_turn(params, cfg, on, waves)
+        xs.setdefault(on, []).append(xstream)
+        if on:
+            check(t["cache_pulls"] >= 16 and t["pulled_blocks"] == 256
+                  and t["pull_fallbacks"] == 0
+                  and t["prefix_tokens_recomputed"] == 0,
+                  f"pull turn {t}")
+            check(t["corrupt_pull_fallbacks"] == 1,
+                  f"a corrupt export gave {t['corrupt_pull_fallbacks']} "
+                  f"pull fallbacks")
+            if launches is None:
+                launches = c
+        turns.append(t)
+    check(all(x == xs[False][0] for x in xs[True] + xs[False]),
+          "the corrupt pull's recomputed stream differs from the stream "
+          "without the fleet cache")
+    log(f"  pulls in turns (off, on, on, off): {json.dumps(turns)}")
+    log(f"  a corrupt export: one pull fallback, its stream equal to the "
+        f"fleet-cache-off turns'")
+    # disaggregated prefill against the unified fleet, 16 clients
+    lp, ln = long_trace(cfg.vocab_size, SEED + 28)
+    tp, tn = [], []
+    for i, (p, n) in enumerate(zip(prompts, news)):
+        tp.append(p)
+        tn.append(n)
+        if i % 3 == 2 and lp:
+            tp.append(lp.pop())
+            tn.append(ln.pop())
+    dis = []
+    for split in (False, True, True, False):
+        rc = (RouterConfig(replicas=2, prefill_replicas=1,
+                           prefill_len_threshold=256) if split
+              else RouterConfig(replicas=3))
+        r = ServingRouter(params, cfg, ServingConfig(prefill_chunk=256),
+                          router_config=rc, device="cuda")
+        for rid in r.replicas:
+            r.submit(prompts[0][:40], max_new_tokens=4, eos_token_id=None,
+                     replica=rid)
+        while r.pending:
+            r.step()
+        c0, s0 = router_counters(r), fleet_stats(r)
+        reset_counts()
+        # a streaming client: every token delivered as it is produced
+        ids, got, m = client_drive(r, tp, tn, max_iters=1, concurrency=16)
+        c = read_counts()
+        dc = counter_delta(c0, router_counters(r))
+        rc_tokens = fleet_delta(s0, fleet_stats(r), "recomputed_tokens")
+        # time per output token of the short requests (the ones a long
+        # prefill would stall)
+        tpot = [(m["t_last"][i] - m["t_first"][i]) / (n - 1) * 1e3
+                for i, p, n in zip(ids, tp, tn) if len(p) < 256 and n > 1]
+        row = {"split": split, "tok_s": m["tok_s"],
+               "ttft_p50_s": m["ttft_p50_s"], "ttft_max_s": m["ttft_max_s"],
+               "short_tpot_p50_ms": float(np.percentile(tpot, 50)),
+               "short_tpot_p99_ms": float(np.percentile(tpot, 99)),
+               "prefill_routed": dc["prefill_routed"],
+               "prefill_handoffs": dc["prefill_handoffs"],
+               "handoff_fallbacks": dc["handoff_fallbacks"],
+               "recomputed_tokens": rc_tokens}
+        if split:
+            check(dc["prefill_routed"] >= 8 and dc["prefill_handoffs"] >= 1
+                  and dc["handoff_fallbacks"] == 0 and rc_tokens == 0,
+                  f"disaggregated prefill {row}")
+            check(c["paged_attention"] > 0, f"split run launches {c}")
+        dis.append(row)
+        balanced_fleet(r)
+        del r
+        release()
+    log(f"  disaggregated prefill in turns (unified, split, split, "
+        f"unified; 16 clients, {len(tp)} requests): {json.dumps(dis)}")
+    del params
+    release()
+    return {"pull_turns": turns, "disagg_turns": dis}, launches
+
+
+def fleet_parity_phase(sp, sn, tmp):
+    """Phase 28: fp32 on C's model and trace (half the requests seeded,
+    the fleet stepped 2 decode iterations at a time): every fleet path's
+    streams equal the single engine's; then the migration and the pull
+    at int8."""
+    import os
+    import torch
+    from paddle_tpu_torch.inference.serving import (RequestJournal,
+                                                    RouterConfig,
+                                                    ServingConfig,
+                                                    ServingEngine,
+                                                    ServingRouter)
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.models.lora import lora_init_params
+    cfg32 = model_config(torch.float32)
+    params = init_params(cfg32, seed=SEED + 1, device="cuda")
+    knobs = [dict(SAMPLED, seed=i) if i % 2 else {} for i in range(len(sp))]
+    done = []
+
+    def single(sc=None, prompts=sp, news=sn, kn=knobs, adapters=None):
+        eng = ServingEngine(params, cfg32, sc or ServingConfig(),
+                            device="cuda")
+        for name, ap in (adapters or {}).items():
+            eng.register_adapter(name, ap)
+        outs, _ = drive(eng, prompts, news, kn, max_iters=2)
+        del eng
+        release()
+        return [[int(t) for t in o] for o in outs]
+
+    def fleet(sc=None, **rc):
+        return ServingRouter(params, cfg32, sc or ServingConfig(),
+                             router_config=RouterConfig(**rc),
+                             device="cuda")
+
+    def run(name, r, after_step=None, prompts=sp, news=sn, kn=knobs,
+            want=None, pins=None):
+        ids, got, _ = client_drive(r, prompts, news, kn, max_iters=2,
+                                   after_step=after_step, pins=pins)
+        streams = [got[i] for i in ids]
+        for k, (a, b) in enumerate(zip(streams, want)):
+            check(a == b, f"fp32 {name}, request {k}: {a} != {b}")
+        balanced_fleet(r)
+        done.append(name)
+        return ids
+
+    want = single()
+    # a 3-replica fleet; a replica killed
+    r = fleet(replicas=3)
+    run("3-replica fleet", r, want=want)
+    del r
+    release()
+    r = fleet(replicas=3)
+    c0 = router_counters(r)
+    run("replica kill", r, want=want,
+        after_step=lambda i: arm_kill(r, 0) if i == 1 else None)
+    dc = counter_delta(c0, router_counters(r))
+    check(dc["failovers"] >= 1 and dc["failed"] == 0, f"kill {dc}")
+    del r
+    release()
+    # a crash loop opens the breaker and evacuates
+    r = fleet(replicas=2)
+    r._replicas[0].sup.max_restarts = 10
+
+    def crash_loop(i):
+        if 1 <= i <= r.config.breaker_threshold:
+            arm_crash(r._replicas[0].sup, 0)
+
+    c0 = router_counters(r)
+    run("crash loop", r, want=want, after_step=crash_loop)
+    dc = counter_delta(c0, router_counters(r))
+    check(r._replicas[0].breaker.opens >= 1 and dc["failovers"] >= 1,
+          f"crash loop: breaker {r._replicas[0].breaker.snapshot()}, {dc}")
+    del r
+    release()
+    # a slow replica under hedging
+    r = fleet(replicas=2, hedge_ttft_mult=2.0, ttft_slo_s=0.01, seed=1)
+    slow_replica(r, 0, stall_steps=100, delay_s=0.01)
+    c0 = router_counters(r)
+    run("hedge", r, prompts=sp[:1], news=sn[:1], kn=knobs[:1],
+        want=want[:1], pins=[0])
+    dc = counter_delta(c0, router_counters(r))
+    check(dc["hedges"] == dc["hedge_wins"] == dc["hedges_cancelled"] == 1,
+          f"hedging {dc}")
+    del r
+    release()
+    # a flaky probe: the breaker opens, then closes after a half-open probe
+    r = fleet(replicas=2)
+    rep0 = r._replicas[0]
+    rep0.breaker.cooldown_s = 60.0
+    flaky_probe(r, 0, fails=3)
+    for k in range(3):
+        ids = run("flaky probe", r, prompts=sp[k:k + 1], news=sn[k:k + 1],
+                  kn=knobs[k:k + 1], want=want[k:k + 1])
+        check(r.request(ids[0]).replica == 1, "routed to the flaky replica")
+    check(rep0.breaker.state == "open", "the breaker did not open")
+    rep0.breaker.cooldown_s = 0.02
+    time.sleep(0.03)
+    run("half-open probe", r, prompts=sp[3:4], news=sn[3:4], kn=knobs[3:4],
+        want=want[3:4])
+    check(rep0.breaker.state == "closed" and rep0.breaker.reclosures >= 1,
+          f"breaker {rep0.breaker.snapshot()}")
+    run("rejoined replica", r, prompts=sp[4:5], news=sn[4:5],
+        kn=knobs[4:5], want=want[4:5], pins=[0])
+    del r
+    release()
+    # a rolling restart with deadline 0 (the failover path)
+    r = fleet(replicas=2)
+    c0 = router_counters(r)
+    run("roll, deadline 0", r, want=want,
+        after_step=lambda i: r.start_rolling_restart(drain_deadline_s=0.0)
+        if i == 0 else None)
+    while r.rolling:
+        r.step()
+    dc = counter_delta(c0, router_counters(r))
+    check(dc["replica_restarts"] == 2 and dc["failed"] == 0, f"roll {dc}")
+    del r
+    release()
+    # a drain with migration
+    r = fleet(replicas=3, migrate=True)
+    c0, s0 = router_counters(r), fleet_stats(r)
+    run("drain with migration", r, want=want,
+        after_step=lambda i: r.drain_replica(0) if i == 0 else None)
+    dc = counter_delta(c0, router_counters(r))
+    rc_tokens = fleet_delta(s0, fleet_stats(r), "recomputed_tokens")
+    check(dc["migrations"] >= 1 and dc["migration_fallbacks"] == 0
+          and rc_tokens == 0, f"migration {dc}, recomputed {rc_tokens}")
+    del r
+    release()
+    # a pinned pull, and a prefill handoff
+    rng = np.random.default_rng(SEED + 29)
+    prefix = sp[2][:64]                        # the 300-token prompt
+    pp = [np.concatenate([prefix, rng.integers(0, cfg32.vocab_size, 8)
+                          .astype(np.int32)]) for _ in range(2)]
+    pwant = single(prompts=pp, news=[8, 8], kn=[{}, knobs[1]])
+    r = fleet(replicas=2)
+    run("placement", r, prompts=pp[:1], news=[8], kn=[{}], want=pwant[:1],
+        pins=[0])
+    c0 = router_counters(r)
+    run("pinned pull", r, prompts=pp[1:], news=[8], kn=[knobs[1]],
+        want=pwant[1:], pins=[1])
+    dc = counter_delta(c0, router_counters(r))
+    check(dc["cache_pulls"] == 1 and dc["pulled_blocks"] == 4
+          and dc["pull_fallbacks"] == 0, f"pull {dc}")
+    del r
+    release()
+    r = fleet(replicas=1, prefill_replicas=1, prefill_len_threshold=256)
+    c0, s0 = router_counters(r), fleet_stats(r)
+    run("prefill handoff", r, want=want)
+    dc = counter_delta(c0, router_counters(r))
+    rc_tokens = fleet_delta(s0, fleet_stats(r), "recomputed_tokens")
+    check(dc["prefill_handoffs"] >= 1 and dc["handoff_fallbacks"] == 0
+          and rc_tokens == 0, f"handoff {dc}, recomputed {rc_tokens}")
+    del r
+    release()
+    # a journaled fleet, its journal abandoned mid-trace, a cold start
+    jdir = os.path.join(tmp, "fleet-journal")
+    r = ServingRouter(params, cfg32, ServingConfig(),
+                      router_config=RouterConfig(replicas=2),
+                      journal=RequestJournal(jdir), device="cuda")
+    frids = [r.submit(p, max_new_tokens=n, eos_token_id=None, **k)
+             for p, n, k in zip(sp, sn, knobs)]
+    jids = [r.request(f).jid for f in frids]
+    pre = {j: [] for j in jids}
+    for _ in range(3):
+        for f, toks in r.step(2).items():
+            pre[r.request(f).jid].extend(int(t) for t in toks)
+    r.journal.abandon()
+    del r
+    release()
+    rt = ServingRouter.cold_start(jdir, params, cfg32, ServingConfig(),
+                                  router_config=RouterConfig(replicas=2),
+                                  device="cuda")
+    steps = 0
+    while rt.pending:
+        for f, toks in rt.step(2).items():
+            pre[rt.request(f).jid].extend(int(t) for t in toks)
+        steps += 1
+        check(steps < 2000, "the cold-started fleet did not drain")
+    for k, j in enumerate(jids):
+        check(pre[j] == want[k], f"cold start, request {k}: {pre[j]} != "
+              f"{want[k]}")
+    check(rt.cold_recovered >= 1, "cold start recovered nothing")
+    balanced_fleet(rt)
+    del rt
+    release()
+    done.append("cold start")
+    # two adapters registered through the router; failover re-pins them
+    adapters = {f"a{i}": lora_init_params(cfg32, LORA_RANK, seed=200 + i)
+                for i in (1, 2)}
+    lsc = ServingConfig(lora_rank=LORA_RANK, lora_slots=2, lora_pool=8)
+    aids = [None, "a1", "a2", "a1", "a2", None][:len(sp)]
+    akn = [dict(k, adapter_id=a) for k, a in zip(knobs, aids)]
+    awant = single(lsc, kn=akn, adapters=adapters)
+    r = fleet(lsc, replicas=2)
+    for name, ap in adapters.items():
+        r.register_adapter(name, ap)
+    ids = run("adapters, replica kill", r, kn=akn, want=awant,
+              after_step=lambda i: arm_kill(r, 0) if i == 1 else None)
+    check(router_counters(r)["failovers"] >= 1, "no adapter failover")
+    for i, a in zip(ids, aids):
+        check(r.request(i).adapter_id == a, "failover changed an adapter")
+    del r
+    release()
+    log(f"  fp32 fleet streams equal the single engine's: "
+        f"{', '.join(done)}")
+
+    # int8 (weights and KV): the migration and the pull
+    isc = dict(quantize="int8", kv_quant="int8")
+    iwant = single(ServingConfig(**isc))
+    r = fleet(ServingConfig(**isc), replicas=3, migrate=True)
+    spent = {}
+    for rep in r._replicas.values():
+        timed_method(rep.sup.engine, "serialize_request", spent, "ser")
+    c0 = router_counters(r)
+    reset_counts()
+    run("int8 drain with migration", r, want=iwant,
+        after_step=lambda i: r.drain_replica(0) if i == 0 else None)
+    c = read_counts()
+    dc = counter_delta(c0, router_counters(r))
+    leaves = {n for p in spent.get("ser_out", []) if p and p["kv"]
+              and p["kv"]["data"] for n in p["kv"]["data"]}
+    check(dc["migrations"] >= 1 and dc["migration_fallbacks"] == 0,
+          f"int8 migration {dc}")
+    check(leaves == {"k", "v", "k_scale", "v_scale"},
+          f"int8 payload leaves {leaves}")
+    del r
+    release()
+    pwant8 = single(ServingConfig(**isc), prompts=pp, news=[8, 8],
+                    kn=[{}, knobs[1]])
+    r = fleet(ServingConfig(**isc), replicas=2)
+    run("int8 placement", r, prompts=pp[:1], news=[8], kn=[{}],
+        want=pwant8[:1], pins=[0])
+    c0 = router_counters(r)
+    run("int8 pinned pull", r, prompts=pp[1:], news=[8], kn=[knobs[1]],
+        want=pwant8[1:], pins=[1])
+    dc = counter_delta(c0, router_counters(r))
+    check(dc["cache_pulls"] == 1 and dc["pull_fallbacks"] == 0,
+          f"int8 pull {dc}")
+    del r
+    release()
+    check(c["weight_only_matmul"] > 0 and c["paged_attention_int8"] > 0,
+          f"int8 fleet launches {c}")
+    log(f"  int8: the drain's migrations move k, v and their scales, the "
+        f"pull grafts int8 blocks; streams equal the unmigrated int8 "
+        f"engine's; launches {json.dumps(c)}")
+    del params
+    release()
+    return {"paths": done}, c
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3255,6 +4192,18 @@ def main() -> int:
     log("== phase 25: BERT-base embeddings beside A's generate traffic")
     _, c25 = embeddings_phase(prompts, news)
     for c in (c23, c24, c25):
+        launches = {k: launches[k] + c[k] for k in launches}
+
+    log("== phase 26: the serving fleet (cell R), full width, bf16, 3 "
+        "replicas with live migration")
+    _, c26 = fleet_phase(prompts, news)
+    log("== phase 27: fleet cache pulls and disaggregated prefill (cell S), "
+        "full width, bf16")
+    _, c27 = cache_phase(prompts, news)
+    log("== phase 28: fp32 fleet parity on C's model and trace, then int8")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, c28 = fleet_parity_phase(sp, sn, tmp)
+    for c in (c26, c27, c28):
         launches = {k: launches[k] + c[k] for k in launches}
 
     log(f"== done in {time.time() - t_start:.1f} s")

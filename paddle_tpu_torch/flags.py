@@ -4,9 +4,9 @@ port reads.
 Counterpart of ``paddle_tpu/flags.py``: its ``define_flag`` / ``flag``
 helpers and the same names, defaults and ``FLAGS_<name>=value``
 environment override, limited to the serving knobs the ported engine,
-offload tier, journal and supervisor resolve when a field is left unset,
-the two loss-spike knobs of the health sentinel and the hang watchdog's
-timeout.
+offload tier, journal, supervisor and fleet router resolve when a field
+is left unset, the two loss-spike knobs of the health sentinel and the
+hang watchdog's timeout.
 """
 
 from __future__ import annotations
@@ -175,6 +175,17 @@ define_flag("FLAGS_serving_offload_blocks", 256,
             "bit-exactly). int8-quantized blocks are ~3.5x cheaper per "
             "block, so the same bound holds ~3.5x the cached tokens.", int)
 
+define_flag("FLAGS_serving_migrate", False,
+            "Live KV migration (RouterConfig.migrate): graceful drain, "
+            "rolling restart, and scale-in transfer each in-flight "
+            "request's KV block chain + resolved record to an adoptive "
+            "replica (same shared-weights fleet, shapes always agree) "
+            "instead of resubmitting for recompute — recomputed_tokens "
+            "== 0 across a clean roll, token streams bit-identical. "
+            "Falls back automatically to the resubmit path when the "
+            "target can't take the blocks (pool-full, mid-crash, "
+            "TP-shape mismatch). Off by default.", bool)
+
 # engine supervisor: restart budget and graceful drain
 define_flag("FLAGS_serving_max_restarts", 3,
             "EngineSupervisor restart budget: unexpected step-loop "
@@ -190,6 +201,74 @@ define_flag("FLAGS_serving_drain_deadline_s", 30.0,
             "the remainder. The launcher's PADDLE_PREEMPT_GRACE (minus a "
             "2s margin) overrides when exported — the same preemption "
             "window the emergency-checkpoint path uses.", float)
+
+define_flag("FLAGS_serving_audit", False,
+            "Run the serving InvariantAuditor's structural checks "
+            "(block-pool partition conservation, zero leaks at idle, "
+            "terminal-state consistency, per-tenant accounting closure, "
+            "monotonic counters — the AUDIT_CHECKS registry) inside "
+            "ServingRouter.health_snapshot(), surfacing the verdict on "
+            "/metrics. Off by default: the checks walk every block map, "
+            "a cost a hot serving loop should only pay when asked to.",
+            bool)
+
+# serving fleet router: multi-replica routing over supervised replicas
+define_flag("FLAGS_serving_router_replicas", 2,
+            "Replicas the ServingRouter spawns at construction when "
+            "ServingRouter(replicas=) is left unset. All replicas share "
+            "one set of weights (one device copy), so extra replicas cost "
+            "KV-pool memory and host scheduling, never a second weight "
+            "copy.", int)
+define_flag("FLAGS_serving_router_max_replicas", 8,
+            "Ceiling on fleet size: autoscale scale-up (and rejoin-file "
+            "polls) stop spawning replicas at this many; scale-in never "
+            "drains below 1.", int)
+define_flag("FLAGS_serving_router_breaker_threshold", 3,
+            "Per-replica circuit breaker: consecutive failures (probe "
+            "raises, submit unavailability, supervisor restarts) before "
+            "the breaker OPENS and the router stops routing to the "
+            "replica.", int)
+define_flag("FLAGS_serving_router_breaker_cooldown_s", 5.0,
+            "Seconds an OPEN breaker waits before the router re-probes "
+            "the replica HALF-OPEN (one health probe: success closes the "
+            "breaker and the replica rejoins, failure re-opens with a "
+            "fresh cooldown).", float)
+define_flag("FLAGS_serving_router_hedge_ttft_mult", 0.0,
+            "Hedged retry: a request still waiting for its FIRST token "
+            "after mult x FLAGS_serving_ttft_slo_s seconds is duplicated "
+            "onto a second healthy replica; whichever copy emits first "
+            "wins and the loser is cancelled through the lifecycle path "
+            "(KV freed — greedy outputs make the copies bit-identical, so "
+            "the winner's stream is THE stream). 0 disables hedging; it "
+            "also stays off while FLAGS_serving_ttft_slo_s is 0.", float)
+
+# disaggregated prefill + fleet-wide cache directory
+define_flag("FLAGS_serving_router_prefill_replicas", 0,
+            "Prefill-only replicas the ServingRouter spawns in addition "
+            "to its decode replicas (Splitwise/DistServe-style compute "
+            "disaggregation): long prompts (see "
+            "FLAGS_serving_prefill_len_threshold) run chunked prefill "
+            "there, then hand the finished KV chain + resolved record to "
+            "a decode replica via the live-migration adopt path with "
+            "recomputed_tokens == 0. 0 disables the split — every prompt "
+            "takes the unified path. The router also collapses to the "
+            "unified path automatically when the pool is empty, draining "
+            "or the transfer fails.", int)
+define_flag("FLAGS_serving_prefill_len_threshold", 64,
+            "Prompt length (tokens) at which the router classifies a "
+            "request as LONG and routes its prefill to the prefill-only "
+            "pool (when FLAGS_serving_router_prefill_replicas > 0). "
+            "Shorter prompts always take the unified path — their "
+            "prefill is too cheap to be worth a handoff.", int)
+define_flag("FLAGS_serving_fleet_cache", True,
+            "Fleet-wide KV cache directory: the router tracks which "
+            "replica (device pool or host tier) holds each prefix-chain "
+            "key, routes submits to the replica holding the LONGEST "
+            "cached chain, and otherwise PULLS the cached blocks "
+            "cross-replica (checksummed like offload puts — a mismatch "
+            "degrades to recompute, never wrong KV). Off: each replica's "
+            "prefix cache is an island and stickiness falls back to the "
+            "first-block affinity map.", bool)
 
 # durable serving: crash-safe request journal + cold-restart recovery
 define_flag("FLAGS_serving_journal_dir", "",

@@ -40,9 +40,17 @@ the global hang watchdog and marks its ``serving.step`` /
 (BertConfig, params)`` serves prefill-only embedding requests through
 :func:`~paddle_tpu_torch.models.bert.bert_encode`.
 
-Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-item): tensor parallelism and the live-migration surface
-(``serialize_request``, ``adopt``, ``export_chain``, ``graft_chain``).
+Live KV migration: :meth:`ServingEngine.serialize_request` snapshots a
+live request with its committed KV blocks copied to host tensors, and
+:meth:`ServingEngine.adopt` seats it on another engine mid-stream with no
+recompute; :meth:`ServingEngine.export_chain` / :meth:`graft_chain` move
+a cached prefix chain between engines, each block's leaves checksummed
+with :func:`~.offload.block_crc` over their raw bytes (a bf16 block has
+no numpy form, so the bytes travel as CPU tensors). The fleet router
+(:mod:`.router`) drives both.
+
+Not ported yet (raises ``NotImplementedError`` naming the ROADMAP item):
+tensor parallelism.
 
 API::
 
@@ -73,20 +81,19 @@ from ...models.bert import bert_encode
 from ...models.llama import (KV_QUANT_MODES, QUANTIZE_MODES,
                              ensure_quantized, validate_quant_mode)
 from ...models.lora import AdapterPool
+from .offload import block_crc as _block_crc
 from .paged_cache import PagedKVCache
 from .policies import resolve_policy
 from .scheduler import (CANCELLED, DEFAULT_TENANT, SHED, TIMED_OUT, Request,
                         Scheduler, ServingQueueFull)
 
 __all__ = ["ServingConfig", "ServingEngine", "ServingQueueFull",
-           "HEALTH_SNAPSHOT_KEYS", "SUPERVISOR_SNAPSHOT_KEYS"]
+           "AdoptError", "HEALTH_SNAPSHOT_KEYS", "SUPERVISOR_SNAPSHOT_KEYS"]
 
 _UNSET = "unset"
 # the ROADMAP.md section A items that bring what this slice leaves out
 _LATER = {
     "tp": "tensor parallelism over NCCL is item 7 of ROADMAP.md section A",
-    "migration": "live KV migration and cross-replica chain pulls come "
-                 "with the fleet layer, item 8b of ROADMAP.md section A",
 }
 
 # the keys of health_snapshot(): the engine serves every one except
@@ -98,6 +105,19 @@ HEALTH_SNAPSHOT_KEYS = (
     "spec_decode", "retry_after_s", "counters", "dispatch_latency",
     "offload", "lora", "watchdog", "tenants", "supervisor", "autoscale")
 SUPERVISOR_SNAPSHOT_KEYS = ("supervisor", "autoscale")
+
+class AdoptError(RuntimeError):
+    """A migration target refused a serialized request (pool full, no free
+    slot, KV-layout mismatch, over-long chain, unregistered adapter). The
+    caller falls back to the resubmit path — recompute instead of
+    transfer, outputs still bit-identical."""
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A host tensor that owns its bytes (never a view of a buffer another
+    owner may overwrite later)."""
+    return t.detach().to("cpu", copy=True).contiguous()
+
 
 # weights the engine casts once to the activation dtype (every use casts
 # them to it anyway, so the result is the same and no dispatch pays the
@@ -226,7 +246,14 @@ class ServingEngine:
     ``(BertConfig, params)`` encoder serving :meth:`submit_embedding`.
     Both sets of params are moved/cast once here; handing an engine
     another engine's ``prepared_params`` makes every cast a no-op (the
-    supervisor's rebuild)."""
+    supervisor's rebuild, and every replica of a router fleet)."""
+
+    # fault-injection hook: when set, the NEXT export_chain() flips one
+    # byte of its payload AFTER stamping the checksums, so the receiving
+    # graft_chain() must detect the mismatch and degrade to recompute.
+    # Class-level default; injectors set it per instance and the export
+    # consumes it.
+    _corrupt_next_export = False
 
     def __init__(self, params, model_config,
                  serving_config: Optional[ServingConfig] = None,
@@ -622,19 +649,244 @@ class ServingEngine:
         with self._lock:
             return self._sched.finished[rid].embedding
 
-    # ---- live KV migration (ROADMAP.md section A item 8b) -------------------
+    # ---- live KV migration -----------------------------------------------
 
-    def serialize_request(self, rid: int):
-        raise NotImplementedError(_LATER["migration"])
+    def kv_shape_key(self) -> tuple:
+        """The KV-layout signature two engines must share for a block
+        chain to transfer byte for byte: block size, quantization mode,
+        TP degree and every pool leaf's per-block shape and dtype (the
+        block axis itself left out, so pools of different sizes
+        interoperate; the int8 scale leaves included), dtypes spelled as
+        the reference spells them. :meth:`adopt` and :meth:`graft_chain`
+        refuse a mismatched payload."""
+        return (int(self.config.block_size), str(self.config.kv_quant),
+                int(self.config.tp),
+                tuple(sorted((name, str(a.dtype).replace("torch.", ""),
+                              tuple(int(s) for i, s in enumerate(a.shape)
+                                    if i != 1))
+                             for name, a in self.cache.pool.items())))
 
-    def adopt(self, payload) -> int:
-        raise NotImplementedError(_LATER["migration"])
+    def serialize_request(self, rid: int) -> Optional[Dict[str, Any]]:
+        """Snapshot one live request for adoption by another engine: the
+        resolved record (prompt, delivered tokens, sampling knobs, tenant
+        / priority / deadline, journal id, adapter) plus — for a request
+        holding a slot — the blocks with committed KV entries, gathered
+        per pool leaf into host tensors (``[L, blocks, ...]``; the copy
+        completes before this returns). None for unknown, terminal or
+        finished requests (their work is done; moving it would deliver it
+        twice). Queued and requeued requests serialize with ``kv: None``:
+        they hold no KV, so adoption is a plain resubmit of the record."""
+        with self._lock:
+            req = self._sched.find(rid)
+            if req is None or req.terminal or req.finished:
+                return None
+            payload: Dict[str, Any] = {
+                "prompt": np.array(req.prompt, np.int32),
+                "tokens": list(req.tokens),
+                "max_new_tokens": req.max_new_tokens,
+                "eos_token_id": req.eos_token_id,
+                "temperature": req.temperature,
+                "top_k": req.top_k, "top_p": req.top_p, "seed": req.seed,
+                "tenant": req.tenant, "priority": req.priority,
+                "deadline": req.deadline,
+                "jid": req.jid,
+                "adapter_id": req.adapter_id,
+                "kv": None,
+            }
+            if req.slot is None or not req.blocks:
+                return payload
+            if req.prefilling:
+                entries = int(req.num_computed)
+            else:
+                entries = int(self._seq_lens[req.slot])
+            bs = self.config.block_size
+            nd = min(-(-entries // bs), len(req.blocks)) if entries else 0
+            data = None
+            if nd:
+                idx = torch.as_tensor(np.asarray(req.blocks[:nd], np.int64))
+                data = {name: _host_copy(arr[:, idx.to(arr.device)])
+                        for name, arr in self.cache.pool.items()}
+            payload["kv"] = {
+                "entries": entries,
+                "prefilling": bool(req.prefilling),
+                "data_blocks": nd,
+                "total_blocks": len(req.blocks),
+                "data": data,
+                "shape_key": self.kv_shape_key(),
+            }
+            return payload
 
-    def export_chain(self, chain):
-        raise NotImplementedError(_LATER["migration"])
+    def adopt(self, payload: Dict[str, Any]) -> int:
+        """Adopt a request serialized on another engine, KV included:
+        allocate the chain, write the committed blocks into the pool in
+        place, pin the adapter, seat the request directly in a RUNNING
+        slot (mid-chunked-prefill resumes at its chunk offset; decoding
+        resumes from its last token, drawing the next at the same PRNG
+        index, so the stream stays bit-identical) and re-register the
+        chain's prefix keys. Raises :class:`AdoptError` when the blocks
+        cannot land here — no free slot, pool full, layout mismatch,
+        unregistered adapter — and the caller falls back to the resubmit
+        path. A ``kv: None`` payload is queued as a resubmit."""
+        with self._lock:
+            aid = payload.get("adapter_id")
+            if aid is not None and (self._lora is None
+                                    or not self._lora.is_registered(aid)):
+                raise AdoptError(
+                    f"adapter {aid!r} is not registered on this replica; "
+                    f"falling back to resubmit")
+            req = self._make_request(
+                payload["prompt"], payload["max_new_tokens"],
+                payload["eos_token_id"], payload["tenant"],
+                payload["priority"], payload["deadline"],
+                tokens=payload["tokens"],
+                temperature=payload["temperature"],
+                top_k=payload["top_k"], top_p=payload["top_p"],
+                seed=payload["seed"], adapter_id=aid)
+            if req.finished:
+                raise AdoptError("request already finished; record it, "
+                                 "don't migrate it")
+            kv = payload.get("kv")
+            if kv is None:
+                rid = self._sched.submit(req, enforce_bound=False)
+                self._journal_submit(req, payload.get("jid"))
+                return rid
+            if tuple(kv["shape_key"]) != self.kv_shape_key():
+                raise AdoptError("KV layout mismatch (block size / "
+                                 "kv_quant / TP shape differ); falling "
+                                 "back to resubmit")
+            if req.kv_tokens > self.cache.max_model_len:
+                raise AdoptError("chain exceeds this engine's "
+                                 "max_model_len")
+            free = [m for m, r in enumerate(self._sched.slots) if r is None]
+            if not free:
+                raise AdoptError("no free decode slot")
+            total = int(kv["total_blocks"])
+            if total > self.cache.blocks_per_seq:
+                raise AdoptError("chain longer than the block table")
+            if not self.cache.manager.can_alloc(total):
+                raise AdoptError("pool full")
+            blocks = self.cache.manager.alloc(total)
+            nd = int(kv["data_blocks"])
+            try:
+                if nd:
+                    self.cache.write_blocks(blocks[:nd], kv["data"])
+            except Exception as e:
+                self.cache.manager.free(blocks)
+                raise AdoptError(f"KV restore failed: {e}") from e
+            if req.adapter_id is not None:
+                # pin the adapter resident BEFORE seating: a fully pinned
+                # pool refuses the migration (recompute elsewhere beats
+                # evicting someone's in-flight weights)
+                aslot = self._lora.acquire(req.adapter_id)
+                if aslot is None:
+                    self.cache.manager.free(blocks)
+                    raise AdoptError(
+                        f"adapter pool fully pinned; cannot seat adapter "
+                        f"{req.adapter_id!r} — falling back to resubmit")
+                req.adapter_slot = aslot
+            slot = free[0]
+            self._clear_slot(slot)
+            self._sched.adopt_running(req, slot, blocks)
+            if req.adapter_id is not None:
+                self._lora_pinned[req.rid] = req.adapter_id
+            self.cache.assign(slot, blocks)
+            entries = int(kv["entries"])
+            if kv["prefilling"]:
+                # resume the chunked prefill at its chunk offset: the
+                # next step's prefill pass picks the slot up
+                req.prefill_ids = req.build_prefill_ids()
+                req.num_computed = entries
+            else:
+                req.prefill_ids = None
+                self._start_decode(req)
+            # the chained content keys are a pure function of the token
+            # ids, so the adopted blocks register under the origin's keys
+            req.reg_state = self.cache.register_prefix(
+                req.build_prefill_ids(), blocks, entries,
+                tenant=req.tenant, namespace=req.adapter_id)
+            self._journal_submit(req, payload.get("jid"))
+            return req.rid
 
-    def graft_chain(self, payload):
-        raise NotImplementedError(_LATER["migration"])
+    # ---- fleet-wide cache pulls --------------------------------------------
+
+    def export_chain(self, chain) -> Optional[Dict[str, Any]]:
+        """Serialize the longest CONTIGUOUS prefix of ``chain`` — ``(key,
+        tokens)`` pairs in :func:`~.paged_cache.prefix_block_chain` order
+        — that this engine holds: device blocks copy to host through
+        :meth:`PagedKVCache.read_block`, host-tier blocks come from a
+        verified :meth:`HostOffloadTier.peek` and are COPIED (the tier's
+        buffers stay the tier's). Each block's leaves carry a CRC32 of
+        their raw bytes, so :meth:`graft_chain` detects corruption in
+        flight and degrades to recompute. Refcounts, registrations and
+        tier entries here are untouched. None when not even the first key
+        resolves (a stale directory entry)."""
+        with self._lock:
+            blocks: List[Dict[str, Any]] = []
+            for key, toks in chain:
+                toks = tuple(int(t) for t in toks)
+                data = None
+                b = self.cache.manager.lookup(key, toks)
+                if b is not None:
+                    data = self.cache.read_block(b).wait()
+                elif self.cache.offload is not None:
+                    hit = self.cache.offload.peek(key, toks)
+                    if hit is not None:
+                        data = {name: _host_copy(t)
+                                for name, t in hit.items()}
+                if data is None:
+                    break                 # contiguity ends at first miss
+                blocks.append({"key": int(key), "tokens": toks,
+                               "data": data,
+                               "crc": {n: _block_crc(a)
+                                       for n, a in data.items()}})
+            if not blocks:
+                return None
+            if self._corrupt_next_export:
+                # fault drill: flip one raw byte AFTER the checksums
+                self._corrupt_next_export = False
+                leaf = sorted(blocks[0]["data"])[0]
+                t = _host_copy(blocks[0]["data"][leaf])
+                t.reshape(-1).view(torch.uint8)[0] ^= 0xFF
+                blocks[0]["data"][leaf] = t
+            return {"blocks": blocks, "shape_key": self.kv_shape_key()}
+
+    def graft_chain(self, payload: Dict[str, Any]) -> Dict[str, int]:
+        """Graft an exported chain into this engine's prefix cache: verify
+        each block's checksums, allocate a block, write the bytes and
+        register the chain key, then release it refcount-0 to the
+        evictable list like a locally computed cached block, where the
+        next ``admit()`` hits it. Walks in chain order: an already-present
+        key is skipped (first writer won here); the walk STOPS at the
+        first checksum mismatch (the rest of the chain is downstream of
+        corrupt KV) or when the pool runs dry. Returns ``{"grafted",
+        "present", "corrupt"}``."""
+        counts = {"grafted": 0, "present": 0, "corrupt": 0}
+        if payload is None:
+            return counts
+        with self._lock:
+            if tuple(payload["shape_key"]) != self.kv_shape_key():
+                raise AdoptError("KV layout mismatch (block size / "
+                                 "kv_quant / TP shape differ); pull "
+                                 "falls back to recompute")
+            for ent in payload["blocks"]:
+                key, toks = int(ent["key"]), tuple(ent["tokens"])
+                if self.cache.manager._hash2block.get(key) is not None:
+                    counts["present"] += 1
+                    continue              # first writer won locally
+                if any(_block_crc(a) != ent["crc"][n]
+                       for n, a in ent["data"].items()):
+                    counts["corrupt"] += 1
+                    break
+                if not self.cache.manager.can_alloc(1):
+                    break                 # pool pressure: partial graft
+                [b] = self.cache.manager.alloc(1)
+                self.cache.write_block(b, ent["data"])
+                self.cache.manager.register(key, b, toks)
+                # release to the evictable list: cached, shareable and
+                # reclaimable under pressure — never a leak at quiesce
+                self.cache.manager.free([b])
+                counts["grafted"] += 1
+            return counts
 
     # ---- multi-adapter LoRA ------------------------------------------------
 

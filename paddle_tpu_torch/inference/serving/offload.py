@@ -100,6 +100,16 @@ class HostOffloadTier:
         self.tier_misses = 0      # take() for an absent key
         self.corrupt_drops = 0    # entries dropped on checksum/token mismatch
         self.tier_evictions = 0   # entries dropped by the capacity bound
+        # fleet cache directory invalidation: called with the key of EVERY
+        # entry that leaves the tier without re-registering on device in
+        # the same operation (capacity eviction, discard, corrupt drop,
+        # verified take — the take's device re-registration re-adds the
+        # key right after). None = no listener.
+        self.on_drop = None
+
+    def _dropped(self, key: int) -> None:
+        if self.on_drop is not None:
+            self.on_drop(key)
 
     # -- capacity -----------------------------------------------------------
 
@@ -116,11 +126,12 @@ class HostOffloadTier:
     def _evict_to(self, bound: int) -> None:
         while self.blocks > bound:
             if self._pending:   # oldest swap-out first (it is the LRU-est)
-                _, (_, cap) = self._pending.popitem(last=False)
+                k, (_, cap) = self._pending.popitem(last=False)
                 cap.wait()      # its pinned buffers may still be written
             else:
-                self._entries.popitem(last=False)
+                k, _ = self._entries.popitem(last=False)
             self.tier_evictions += 1
+            self._dropped(k)
 
     def resize(self, capacity_blocks: int) -> None:
         """Shrink/grow the bound live; excess entries fall back to the
@@ -178,10 +189,12 @@ class HostOffloadTier:
     def discard(self, key: int) -> None:
         """Drop any host copy of ``key`` — called when the key registers
         on device again (the device copy becomes the authoritative one)."""
-        self._entries.pop(key, None)
+        had = self._entries.pop(key, None) is not None
         old = self._pending.pop(key, None)
         if old is not None:
             old[1].wait()
+        if had or old is not None:
+            self._dropped(key)
 
     # -- swap-in ------------------------------------------------------------
 
@@ -205,14 +218,18 @@ class HostOffloadTier:
         if not self._verified(e, tokens):
             self.corrupt_drops += 1
             self.tier_misses += 1
+            self._dropped(key)
             return None
         self.tier_hits += 1
+        self._dropped(key)   # the caller registers it on device right away
         return e["data"]
 
     def peek(self, key: int, tokens) -> Optional[Dict[str, torch.Tensor]]:
         """Verified NON-destructive read: the block's host tensors iff the
         key is present and tokens + every checksum verify, else None; the
-        entry stays put either way and no counter moves."""
+        entry stays put either way and no counter moves. The tensors are
+        the tier's own buffers: a caller that keeps them past the tier's
+        next operation (a cross-replica chain export) copies them."""
         self._settle(key)
         e = self._entries.get(key)
         if e is None or not self._verified(e, tokens):

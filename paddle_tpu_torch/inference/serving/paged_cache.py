@@ -106,6 +106,15 @@ class BlockManager:
         # accepts the capture
         self.offload = None
         self.offload_capture = None
+        # fleet cache directory: the router subscribes these so its
+        # CacheDirectory learns which replica holds which chain key.
+        # `notify_register(key)` fires when a key becomes device-resident;
+        # `notify_unregister(key)` when it leaves the device WITHOUT
+        # surviving in the host tier (the tier's own on_drop covers the
+        # host side), so an entry can be stale-missing but never
+        # stale-authoritative. None = no listener.
+        self.notify_register = None
+        self.notify_unregister = None
 
     @property
     def free_blocks(self) -> int:
@@ -163,6 +172,12 @@ class BlockManager:
         tokens, tenant accounting)."""
         key = self._block2hash.pop(b)
         del self._hash2block[key]
+        if self.notify_unregister is not None and \
+                not (self.offload is not None and self.offload.holds(key)):
+            # both eviction sites _offload() BEFORE _unregister(), so a
+            # key the tier accepted is still replica-resident — the
+            # directory entry survives the swap-out
+            self.notify_unregister(key)
         self._block_tokens.pop(b, None)
         t = self._block_tenant.pop(b, None)
         if t is not None:
@@ -240,6 +255,8 @@ class BlockManager:
         self._block2hash[block] = key
         if tokens is not None:
             self._block_tokens[block] = tokens
+        if self.notify_register is not None:
+            self.notify_register(key)
         if tenant is not None:
             self._block_tenant[block] = tenant
             self._tenant_cached[tenant] = \

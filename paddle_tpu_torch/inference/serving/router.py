@@ -1,0 +1,1872 @@
+"""Multi-replica serving fleet: a health-aware router over N supervised
+replicas in one process.
+
+Counterpart of ``paddle_tpu/inference/serving/router.py``
+(``ServingRouter``, ``RouterConfig``, ``RouterRequest``,
+``ROUTER_HEALTH_FIELDS``), with the same routing, failover, migration,
+fleet-cache and roll logic step for step, so the port's router and the
+JAX router place the same requests on the same replicas and count the
+same events on the same trace.
+
+One replica exhausting its restart budget must not take the whole service
+down. :class:`ServingRouter` fronts N in-process replicas (each a full
+:class:`~.supervisor.EngineSupervisor`) sharing ONE set of weights on the
+device, behind the same ``submit()/step()/run()`` surface a single
+supervisor exposes:
+
+* **Health-aware routing.** Each submit probes the candidate replicas
+  (``health_snapshot()``; a RAISING probe is a breaker failure) and picks
+  by POWER-OF-TWO-CHOICES on queue depth, drawn from
+  ``random.Random(RouterConfig.seed)``, with tenant/prefix affinity.
+
+* **Failover.** When a replica dies mid-stream — restart budget exhausted
+  (``broken``), or its circuit breaker opens on a crash loop — every
+  non-terminal request it held is resubmitted to a healthy replica from
+  ``prompt + tokens delivered so far``: greedy and seeded outputs stay
+  bit-identical to an uninterrupted run and no delivered token repeats.
+
+* **Self-protection.** A per-replica :class:`~.replica.CircuitBreaker`
+  keeps traffic off a sick replica; an optional HEDGED RETRY duplicates a
+  request still waiting for its first token past a TTFT-SLO multiple onto
+  a second replica, first token wins, and the loser is cancelled (its KV
+  blocks freed).
+
+* **One cache, split compute.** A fleet-wide
+  :class:`~.directory.CacheDirectory` tracks which replica holds every
+  chained prefix key: a submit finds the LONGEST cached chain anywhere in
+  the fleet and either routes to its holder or PULLS the blocks
+  cross-replica (host bytes, CRC32 per leaf at both ends — a stale entry
+  or corrupt transfer degrades to recompute, never wrong KV). With
+  ``RouterConfig.prefill_replicas`` set, long prompts run their chunked
+  prefill on a dedicated PREFILL-ONLY pool, then hand off to a decode
+  replica through the live-migration adopt path (``recomputed_tokens ==
+  0``).
+
+* **Live migration, autoscale and rolling restarts.** A drain, a roll or
+  a scale-in moves in-flight requests to another replica WITH their KV
+  blocks (``RouterConfig.migrate``); :meth:`autoscale` spawns or drains
+  replicas on the fleet-aggregated :func:`~.supervisor.autoscale_signal`;
+  :meth:`start_rolling_restart` rebuilds one replica at a time while the
+  rest serve.
+
+Weights, not programs: the port has no compiled programs to share, so the
+reference's "one compile per fleet" becomes one weight copy per fleet.
+Every replica — at construction, on a spawn and on a roll's rebuild — is
+handed the first engine's ``prepared_params`` (and its encoder's), so
+every ``.to()`` and cast is a no-op and an extra replica costs one KV
+pool. ``ServingRouter`` and :meth:`ServingRouter.cold_start` therefore
+take no ``programs=``; they take ``device=``, passed to every supervisor.
+A replica the fleet lets go of (scale-in, roll) is torn down at once —
+drained, its engine dropped and its reference cycles collected — so its
+pool returns to the allocator before the next one is built.
+
+The router is synchronous and thread-safe like the supervisor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+import signal
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+
+from ...flags import flag
+from ...health import watchdog as _watchdog
+from .directory import CacheDirectory
+from .journal import RequestJournal
+from .paged_cache import prefix_block_chain
+from .replica import CircuitBreaker, Replica
+from .scheduler import (CANCELLED, FINISHED, QUEUED, TERMINAL_STATES,
+                        ServingQueueFull, completes_by_tokens)
+from .supervisor import (EngineSupervisor, FAILED, ServingUnavailable,
+                         autoscale_signal, consume_rejoin_file,
+                         install_drain_handler, uninstall_drain_handler,
+                         write_rejoin_file)
+
+__all__ = ["ServingRouter", "RouterConfig", "RouterRequest",
+           "ROUTER_HEALTH_FIELDS"]
+
+# field -> meaning for ServingRouter.health_snapshot(); the snapshot test
+# pins the live payload's keys to it (the reference's keys).
+ROUTER_HEALTH_FIELDS = {
+    "ok": "at least one replica is alive with a quiet watchdog (the "
+          "fleet can still serve)",
+    "accepting": "whether a submit() right now could be routed: some "
+                 "replica is routable (breaker closed, not draining/"
+                 "retiring, queue open) and the router itself is not "
+                 "draining",
+    "queued": "fleet-wide queued requests (sum over replicas)",
+    "queue_limit": "fleet-wide admission bound (sum over replicas)",
+    "live_slots": "fleet-wide occupied decode slots",
+    "max_slots": "fleet-wide slot capacity",
+    "retry_after_s": "suggested client backoff: the minimum "
+                     "retirement-interval estimate over replicas still "
+                     "serving (broken / breaker-open / retiring replicas "
+                     "excluded — their idle schedulers promise capacity "
+                     "that no longer takes traffic)",
+    "counters": "router lifetime totals: routed / sticky_hits / "
+                "failovers / failover_tokens / hedges / hedge_wins / "
+                "hedges_cancelled / probe_failures / breaker_opens / "
+                "replica_restarts / rolls_completed / migrations + "
+                "migration_tokens (requests moved LIVE with their KV "
+                "blocks during a drain/roll/scale-in — the tokens never "
+                "recompute) / migration_fallbacks (exports "
+                "that no replica could adopt; they ride the resubmit/"
+                "recompute path instead) / directory_hits (submits "
+                "routed to the replica the fleet cache directory says "
+                "holds the longest prefix chain) / "
+                "cache_pulls + pulled_blocks (cross-replica chain "
+                "pulls that landed at least one checksummed block on "
+                "the target) / pull_fallbacks (pulls that found "
+                "nothing to move — stale entry, layout mismatch or "
+                "checksum failure; the submit recomputes) / "
+                "prefill_routed (long prompts classified onto the "
+                "disaggregated prefill pool) / prefill_handoffs "
+                "(prefill->decode adoptions, recomputed_tokens == 0) / "
+                "handoff_fallbacks (handoffs that collapsed to "
+                "decoding in place on the prefill replica) / "
+                "adapter_affinity_hits (adapter submits routed to a "
+                "replica already holding the adapter device-resident) "
+                "/ adapter_loads (adapter submits that had "
+                "to fault the adapter in somewhere — a thrashing "
+                "signal when it grows with steady traffic) / "
+                "completed / failed "
+                "(failed MUST stay 0 across a rolling restart)",
+    "directory": "fleet cache directory snapshot: entries / adds / "
+                 "drops / evicted ({'enabled': false} when "
+                 "RouterConfig.fleet_cache is off)",
+    "replicas": "per-replica rows: accepting / role (decode|prefill) / "
+                "broken / draining / "
+                "retiring / generation / restarts / depth / breaker "
+                "(state, consecutive_failures, threshold, cooldown_s, "
+                "opens, half_open_probes, reclosures)",
+    "fleet": "size / routable / open_breakers / draining / retiring / "
+             "prefill (disaggregated prefill-pool size) — the "
+             "degraded-then-recovered story /readyz tells",
+    "roll": "rolling-restart progress: active / target / pending / "
+            "restarted",
+    "autoscale": "fleet-aggregated autoscale_signal() record (peeked — "
+                 "reading it never consumes the shed delta)",
+    "watchdog": "global hang-watchdog state (installed / fired / "
+                "timeout_s) — process-wide, shared by every replica",
+    "audit": "InvariantAuditor verdict (audit.py AUDIT_CHECKS: block-"
+             "pool partition conservation, zero leaks at idle, terminal-"
+             "state consistency, per-tenant accounting closure, "
+             "monotonic counters) run fleet-wide inside this snapshot "
+             "when FLAGS_serving_audit is on; {'enabled': false} "
+             "otherwise — the checks walk every block map, a cost a hot "
+             "loop only pays when asked to",
+    "supervisor": "single-supervisor compatibility summary so /readyz "
+                  "serves a router unchanged: draining / broken (ALL "
+                  "replicas broken) / restarts (fleet total) / "
+                  "restart_budget (fleet total)",
+}
+
+
+@dataclasses.dataclass
+class RouterConfig:
+    """Fleet knobs; ``None`` fields resolve from ``FLAGS_serving_router_*``
+    (flags.py) at construction, the same contract as ServingConfig."""
+
+    replicas: Optional[int] = None
+    max_replicas: Optional[int] = None
+    breaker_threshold: Optional[int] = None
+    breaker_cooldown_s: Optional[float] = None
+    hedge_ttft_mult: Optional[float] = None   # 0 = hedging off
+    ttft_slo_s: Optional[float] = None        # base for the hedge delay
+    affinity: bool = True                     # prefix/tenant stickiness
+    # live KV migration: drain/roll/scale-in moves in-flight
+    # requests to an adoptive replica WITH their computed blocks instead
+    # of recomputing; None resolves FLAGS_serving_migrate
+    migrate: Optional[bool] = None
+    # disaggregated prefill + fleet cache directory: a pool
+    # of prefill-only replicas long prompts are classified onto (0 =
+    # unified serving), the prompt length (tokens) at which a request
+    # counts as long, and the fleet-wide prefix-chain directory that
+    # replaces the first-block affinity map; None resolves the
+    # FLAGS_serving_* flags of the same names
+    prefill_replicas: Optional[int] = None
+    prefill_len_threshold: Optional[int] = None
+    fleet_cache: Optional[bool] = None
+    seed: int = 0                             # P2C sampling RNG
+    # successful health probes are cached this long: 0 (default) probes
+    # every candidate on every submit — the spec'd behavior, and what a
+    # few replicas can afford; a large fleet under heavy traffic sets a
+    # small TTL so routing stops paying N full snapshots per request.
+    # Probe FAILURES are never cached (breaker charging stays exact).
+    probe_ttl_s: float = 0.0
+
+    def __post_init__(self):
+        if self.replicas is None:
+            self.replicas = int(flag("FLAGS_serving_router_replicas"))
+        if self.max_replicas is None:
+            self.max_replicas = int(
+                flag("FLAGS_serving_router_max_replicas"))
+        if self.breaker_threshold is None:
+            self.breaker_threshold = int(
+                flag("FLAGS_serving_router_breaker_threshold"))
+        if self.breaker_cooldown_s is None:
+            self.breaker_cooldown_s = float(
+                flag("FLAGS_serving_router_breaker_cooldown_s"))
+        if self.hedge_ttft_mult is None:
+            self.hedge_ttft_mult = float(
+                flag("FLAGS_serving_router_hedge_ttft_mult"))
+        if self.ttft_slo_s is None:
+            self.ttft_slo_s = float(flag("FLAGS_serving_ttft_slo_s"))
+        if self.migrate is None:
+            self.migrate = bool(flag("FLAGS_serving_migrate"))
+        if self.prefill_replicas is None:
+            self.prefill_replicas = int(
+                flag("FLAGS_serving_router_prefill_replicas"))
+        if self.prefill_len_threshold is None:
+            self.prefill_len_threshold = int(
+                flag("FLAGS_serving_prefill_len_threshold"))
+        if self.fleet_cache is None:
+            self.fleet_cache = bool(flag("FLAGS_serving_fleet_cache"))
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1 (got {self.replicas})")
+        if self.prefill_replicas < 0:
+            raise ValueError("prefill_replicas must be >= 0 "
+                             f"(got {self.prefill_replicas})")
+        # the ceiling governs DECODE autoscale headroom; the prefill pool
+        # is fixed-size and must not eat it
+        self.max_replicas = max(self.max_replicas, self.replicas) \
+            + self.prefill_replicas
+
+    @property
+    def hedge_after_s(self) -> Optional[float]:
+        """Seconds without a first token before a hedge fires; None =
+        hedging disabled (either knob at 0 disables)."""
+        if self.hedge_ttft_mult and self.ttft_slo_s:
+            return self.hedge_ttft_mult * self.ttft_slo_s
+        return None
+
+
+@dataclasses.dataclass
+class RouterRequest:
+    """The router's replica-independent view of one request: enough to
+    fail it over to any replica (prompt + RESOLVED knobs) plus the tokens
+    already delivered to the client — a failover resumes after them,
+    never repeating one (the same contract TrackedRequest gives one
+    supervisor, lifted fleet-wide)."""
+
+    frid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    eos_token_id: Optional[int]
+    tenant: Optional[str]
+    priority: int
+    deadline: Optional[float]
+    # RESOLVED sampling knobs: a failover/hedge replays them
+    # verbatim — per-token-index PRNG keys keep the sampled stream
+    # bit-identical across replicas, so hedged copies stay
+    # interchangeable and failover never forks a stream
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    seed: int = 0
+    adapter_id: Optional[str] = None  # LoRA adapter: failover/
+    #                                   hedge copies re-select it, so the
+    #                                   copies stay interchangeable
+    replica: int = -1                 # current primary replica rid
+    srid: int = -1                    # supervisor rid on that replica
+    jid: int = -1                     # journal record id;
+    #                                    journal-global across the fleet
+    affinity_key: Optional[int] = None
+    submit_t: float = 0.0
+    first_token_t: Optional[float] = None
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    state: str = QUEUED
+    finish: Optional[Dict[str, Any]] = None
+    failovers: int = 0
+    # disaggregated prefill: True while the request runs on a
+    # prefill-only replica; cleared on handoff to a decode replica (or
+    # on the collapse-to-unified fallbacks). Hedging skips staged
+    # requests — the handoff IS their second-replica path.
+    prefill_stage: bool = False
+    hedge: Optional[Tuple[int, int]] = None   # (replica rid, srid)
+    hedged: bool = False              # a hedge was ever placed
+    client_cancelled: bool = False
+
+    @property
+    def terminal(self) -> bool:
+        return self.state in TERMINAL_STATES or self.state == FAILED
+
+    @property
+    def finished_by_tokens(self) -> bool:
+        return completes_by_tokens(self.tokens, self.max_new_tokens,
+                                   self.eos_token_id)
+
+
+class ServingRouter:
+    """Health-aware router over N in-process supervised replicas. Request
+    ids returned by :meth:`submit` are ROUTER ids (frids) — stable across
+    replica failovers and restarts (supervisor rids are not)."""
+
+    # affinity entries retained; hostile traffic minting a fresh prefix
+    # per request must not grow host memory unboundedly (same bound
+    # philosophy as Scheduler.MAX_TENANTS) — oldest-inserted evict first
+    MAX_AFFINITY = 4096
+
+    def __init__(self, params, model_config, serving_config=None,
+                 gen_config=None, router_config: Optional[RouterConfig]
+                 = None, replicas: Optional[int] = None,
+                 journal="unset", embed_model=None, device=None):
+        from .engine import ServingConfig
+        self.config = router_config or RouterConfig(replicas=replicas)
+        if replicas is not None and router_config is not None:
+            raise ValueError("pass replicas= or router_config=, not both")
+        self._params = params
+        self._model_config = model_config
+        self._serving_config = serving_config or ServingConfig()
+        self._gen_config = gen_config
+        self._embed_model = embed_model
+        # multi-adapter LoRA: the fleet-wide adapter registry
+        # — register_adapter fans out to every replica, and every spawn/
+        # rebuild re-registers from here so the whole fleet always serves
+        # the same adapter set
+        self._adapter_registry: Dict[str, Any] = {}
+        self._device = device
+        self._lock = threading.RLock()
+        self._rng = random.Random(self.config.seed)
+        self._replicas: Dict[int, Replica] = {}
+        self._routes: Dict[int, Dict[int, int]] = {}  # rid -> {srid: frid}
+        self._reqs: Dict[int, RouterRequest] = {}
+        # non-terminal subset of _reqs: pending/hedge scans stay O(live),
+        # not O(every request ever routed)
+        self._active: Dict[int, RouterRequest] = {}
+        # terminal-record retention bound (same philosophy as
+        # Scheduler.keep_finished): the most requests that can be in
+        # flight fleet-wide, so one drain/roll can always collect its
+        # results afterwards, while a long-lived router cannot retain
+        # every prompt it ever served
+        self._keep_finished = max(64, (
+            int(self._serving_config.queue_depth)
+            + 2 * int(self._serving_config.max_slots))
+            * int(self.config.max_replicas))
+        self._affinity: Dict[int, int] = {}           # key -> replica rid
+        self._next_frid = 0
+        self._next_replica_rid = 0
+        self._drain_requested = False
+        self.draining = False
+        self.closed = False
+        self._prev_sigterm = None
+        self._roll: Optional[Dict[str, Any]] = None
+        self._auditor = None          # lazy InvariantAuditor (audit())
+        self._shed_accum = 0       # monotonic fleet-lifetime shed total
+        self._last_shed = 0        # baseline autoscale_signal() consumed
+        # lifetime contributions of replicas since rebuilt/removed, so
+        # the snapshot's "lifetime totals" never go backwards when a
+        # roll resets a supervisor or scale-in drops a replica
+        self._opens_retired = 0
+        self._restarts_retired = 0
+        # counters (ROUTER_HEALTH_FIELDS["counters"])
+        self.routed = 0
+        self.sticky_hits = 0
+        self.failovers = 0
+        self.failover_tokens = 0
+        self.hedges = 0
+        self.hedge_wins = 0            # the hedge copy beat the primary
+        self.hedges_cancelled = 0      # losing copies cancelled (KV freed)
+        self.probe_failures = 0
+        self.replica_restarts = 0      # rolling-restart rebuilds
+        self.rolls_completed = 0
+        self.migrations = 0            # live KV migrations completed
+        self.migration_tokens = 0      # tokens that skipped recompute
+        self.migration_fallbacks = 0   # exports no replica could adopt
+        self.directory_hits = 0        # routed to the fleet-cache holder
+        self.cache_pulls = 0           # cross-replica pulls that landed
+        self.pulled_blocks = 0         # blocks grafted by those pulls
+        self.pull_fallbacks = 0        # pulls that degraded to recompute
+        self.prefill_routed = 0        # long prompts onto the prefill pool
+        self.prefill_handoffs = 0      # prefill->decode adoptions (0 rcmp)
+        self.handoff_fallbacks = 0     # collapsed to decoding in place
+        self.adapter_affinity_hits = 0  # routed to a replica already
+        #                                 holding the adapter resident
+        self.adapter_loads = 0         # routed where the adapter was NOT
+        #                                resident (the pick faults it in)
+        self.completed = 0
+        self.failed = 0                # router-terminal FAILED (no replica)
+        self.cold_recovered = 0        # requests resubmitted by cold_start
+        # fleet-wide prefix-chain directory: fed by the
+        # BlockManager/offload-tier callbacks _wire_directory installs
+        # on every replica; None = legacy first-block affinity only
+        self._directory: Optional[CacheDirectory] = (
+            CacheDirectory() if self.config.fleet_cache else None)
+        # durable serving: the WHOLE fleet shares ONE journal
+        # (jids are journal-global), resolved here and passed explicitly
+        # to every supervisor — they must never self-resolve the flag
+        # into N competing journals on the same directory.
+        if isinstance(journal, str) and journal == "unset":
+            jdir = str(flag("FLAGS_serving_journal_dir", ""))
+            journal = RequestJournal(jdir) if jdir else None
+        self._journal = journal
+        for _ in range(self.config.replicas):
+            self.spawn_replica()
+        for _ in range(self.config.prefill_replicas):
+            self.spawn_replica(role="prefill")
+
+    # ---- fleet membership ---------------------------------------------------
+
+    def _build_supervisor(self) -> EngineSupervisor:
+        sup = EngineSupervisor(self._params, self._model_config,
+                               self._serving_config, self._gen_config,
+                               journal=self._journal,
+                               embed_model=self._embed_model,
+                               device=self._device)
+        # EVERY replica takes the first engine's prepared weights (on the
+        # device, quantized and cast): a fleet holds one weight copy, and
+        # each extra replica costs only its KV pool
+        eng = sup.engine
+        self._params = eng.prepared_params
+        if eng._embed_params is not None:
+            self._embed_model = (eng._embed_cfg, eng._embed_params)
+        for name, aparams in self._adapter_registry.items():
+            sup.register_adapter(name, aparams)
+        return sup
+
+    # ---- multi-adapter LoRA + embeddings ------------------------------------
+
+    def register_adapter(self, name: str, adapter_params) -> None:
+        """Register one LoRA adapter FLEET-WIDE: every current replica
+        (decode and prefill pools alike) registers it now, and every
+        future spawn/rebuild re-registers it from the router's registry
+        — a request carrying ``adapter_id`` can then land anywhere a
+        failover or hedge takes it."""
+        with self._lock:
+            for rep in self._replicas.values():
+                rep.sup.register_adapter(name, adapter_params)
+            self._adapter_registry[str(name)] = adapter_params
+
+    def adapter_registered(self, name: str) -> bool:
+        with self._lock:
+            return str(name) in self._adapter_registry
+
+    def embed(self, prompts: Sequence, tenant: Optional[str] = None,
+              priority: int = 0) -> np.ndarray:
+        """Pooled sentence embeddings for ``prompts`` — the prefill-only
+        request kind, routed to one healthy replica and pumped to
+        completion (embedding batches retire inside the admitting step,
+        so this returns after at most a few fleet steps). Returns
+        ``[len(prompts), hidden]`` fp32 rows in submission order.
+        Embeddings are stateless and unjournaled: a crash mid-batch
+        raises and the client simply retries."""
+        with self._lock:
+            if self._drain_requested or self.draining or self.closed:
+                raise ServingUnavailable(
+                    "router draining: admissions stopped fleet-wide",
+                    reason="draining", retry_after_s=self._retry_after())
+            cands = self._candidates()
+            if not cands:
+                raise ServingUnavailable(
+                    "no routable replica for embeddings",
+                    reason="no_replica",
+                    retry_after_s=self._retry_after())
+            rep = (cands[0] if len(cands) == 1
+                   else min(self._rng.sample(cands, 2),
+                            key=lambda r: r.probe_depth))
+            erids = [rep.sup.submit_embedding(p, tenant=tenant,
+                                              priority=priority)
+                     for p in prompts]
+            self.routed += len(erids)
+        for _ in range(64):
+            with self._lock:
+                if all(rep.sup.embedding(e) is not None for e in erids):
+                    break
+                rep.sup.step()
+        with self._lock:
+            rows = [rep.sup.embedding(e) for e in erids]
+        if any(r is None for r in rows):
+            raise RuntimeError("embedding batch did not complete "
+                               "(replica crashed mid-batch; retry)")
+        return np.stack(rows)
+
+    # ---- durable cold-restart recovery --------------------------------------
+
+    @property
+    def journal(self) -> Optional[RequestJournal]:
+        return self._journal
+
+    @classmethod
+    def cold_start(cls, journal_dir: str, params, model_config,
+                   serving_config=None, gen_config=None,
+                   router_config: Optional[RouterConfig] = None,
+                   replicas: Optional[int] = None,
+                   journal: Optional[RequestJournal] = None,
+                   embed_model=None,
+                   adapters: Optional[Dict[str, Any]] = None,
+                   device=None) -> "ServingRouter":
+        """Rebuild the fleet after a FULL process death from the shared
+        journal directory: spawn fresh replicas, then for every journal
+        record — terminal ones become readable router records; ones
+        whose delivered tokens already complete them close FINISHED
+        (record it, don't re-run it); every other request resubmits
+        bit-exactly from prompt + delivered-so-far under its original
+        jid onto a healthy replica. Greedy and seeded streams resume
+        bit-identical to an uninterrupted run and no delivered token is
+        ever re-emitted — the exactly-once ledger is primed from the
+        journal. Idempotent: dying again during recovery and cold-
+        starting once more replays to the same state."""
+        j = journal if journal is not None else RequestJournal(journal_dir)
+        router = cls(params, model_config, serving_config, gen_config,
+                     router_config, replicas=replicas, journal=j,
+                     embed_model=embed_model, device=device)
+        for name, aparams in (adapters or {}).items():
+            router.register_adapter(name, aparams)
+        router._restore_from_journal()
+        return router
+
+    def _restore_from_journal(self) -> None:
+        """Turn the journal mirror into router records + replica
+        resubmissions, in jid (original submission) order."""
+        j = self._journal
+        if j is None:
+            return
+        with self._lock:
+            now = time.time()
+            for jid in sorted(j.records):
+                rec = j.records[jid]
+                req = RouterRequest(
+                    frid=self._next_frid, prompt=rec.prompt_array(),
+                    max_new_tokens=rec.max_new_tokens,
+                    eos_token_id=rec.eos_token_id, tenant=rec.tenant,
+                    priority=rec.priority, deadline=rec.deadline,
+                    temperature=rec.temperature, top_k=rec.top_k,
+                    top_p=rec.top_p, seed=rec.seed,
+                    adapter_id=rec.adapter_id, jid=jid,
+                    submit_t=now)
+                req.tokens = [int(t) for t in rec.tokens]
+                self._next_frid += 1
+                self._reqs[req.frid] = req
+                if rec.terminal:
+                    req.state = rec.state
+                    req.finish = {"state": rec.state,
+                                  "tokens": len(req.tokens),
+                                  "recovered": True}
+                    continue
+                if req.finished_by_tokens:
+                    # died after its last delivered token but before the
+                    # terminal event landed: it IS complete
+                    req.state = FINISHED
+                    req.finish = {"state": FINISHED,
+                                  "tokens": len(req.tokens),
+                                  "recovered": True,
+                                  "finished_by_tokens": True}
+                    self.completed += 1
+                    j.log_terminal(jid, FINISHED)
+                    continue
+                placed = False
+                for rep in self._candidates(now=now) or \
+                        [r for r in self._replicas.values()
+                         if r.adoptable() and r.role == "decode"]:
+                    try:
+                        srid = rep.sup.resubmit(
+                            req.prompt, req.tokens,
+                            max_new_tokens=req.max_new_tokens,
+                            eos_token_id=req.eos_token_id,
+                            deadline=req.deadline, tenant=req.tenant,
+                            priority=req.priority,
+                            temperature=req.temperature,
+                            top_k=req.top_k, top_p=req.top_p,
+                            seed=req.seed, jid=jid,
+                            adapter_id=req.adapter_id)
+                    except Exception:  # noqa: BLE001 — raced a drain
+                        continue
+                    self._routes[rep.rid][srid] = req.frid
+                    req.replica, req.srid = rep.rid, srid
+                    self._active[req.frid] = req
+                    self.cold_recovered += 1
+                    placed = True
+                    break
+                if not placed:
+                    req.state = FAILED
+                    req.finish = {"state": FAILED,
+                                  "tokens": len(req.tokens),
+                                  "reason": "no_replica",
+                                  "recovered": True}
+                    self.failed += 1
+                    j.log_terminal(jid, FAILED)
+            j.flush()
+
+    def _journal_router_end(self, req: RouterRequest, state: str) -> None:
+        """Journal a router-level terminal no engine can log (the owning
+        replica is gone): FAILED with no replica left, or finished-by-
+        tokens resolved during failover."""
+        if self._journal is not None and req.jid >= 0:
+            self._journal.log_terminal(req.jid, state)
+            self._journal.flush()
+
+    def spawn_replica(self, role: str = "decode") -> Optional[int]:
+        """Add one replica (autoscale scale-up / construction). Returns
+        its rid, or None at the ``max_replicas`` ceiling.
+        ``role="prefill"`` adds to the disaggregated prefill pool."""
+        with self._lock:
+            if len(self._replicas) >= self.config.max_replicas:
+                return None
+            rid = self._next_replica_rid
+            self._next_replica_rid += 1
+            rep = Replica(rid, self._build_supervisor(),
+                          CircuitBreaker(self.config.breaker_threshold,
+                                         self.config.breaker_cooldown_s),
+                          role=role)
+            self._replicas[rid] = rep
+            self._routes[rid] = {}
+            self._wire_directory(rep)
+            return rid
+
+    def _wire_directory(self, rep: Replica) -> None:
+        """Point the replica's CURRENT engine at the fleet cache
+        directory: every prefix-chain key the BlockManager registers
+        appears under this rid, every removal path — device
+        unregistration without a surviving host-tier copy, tier
+        eviction/discard/verified-take — drops it. Re-run after every
+        engine rebuild (crash recovery, rolling restart): the callbacks
+        die with the old BlockManager, and the fresh pool starts
+        empty."""
+        if self._directory is None:
+            return
+        d, rid = self._directory, rep.rid
+        try:
+            cache = rep.sup.engine.cache
+        except Exception:              # noqa: BLE001 — mid-crash rebuild
+            return
+        cache.manager.notify_register = lambda key: d.add(rid, key)
+        cache.manager.notify_unregister = lambda key: d.drop(rid, key)
+        if cache.offload is not None:
+            cache.offload.on_drop = lambda key: d.drop(rid, key)
+
+    def drain_replica(self, rid: int) -> None:
+        """Scale-in: stop routing to the replica, migrate its in-flight
+        work out live (KV blocks and all, when ``RouterConfig.migrate``)
+        and let whatever stays finish in place (step() keeps pumping it);
+        remove it once empty."""
+        with self._lock:
+            rep = self._replicas[rid]
+            rep.retiring = True
+            rep.sup.request_drain()
+            self._migrate(rep, time.time())
+
+    def _finalize_retiring(self) -> None:
+        for rid in [r for r, rep in self._replicas.items() if rep.retiring]:
+            rep = self._replicas[rid]
+            if rep.sup.pending or self._routes.get(rid):
+                continue
+            rep.sup.drain(0)              # close out; nothing in flight
+            self._opens_retired += rep.breaker.opens
+            self._restarts_retired += rep.sup.restarts
+            rep.sup._teardown()           # its pool goes back right now
+            del self._replicas[rid]
+            self._routes.pop(rid, None)
+            self._affinity = {k: v for k, v in self._affinity.items()
+                              if v != rid}
+            if self._directory is not None:
+                # scale-in: its cached chains left with it
+                self._directory.drop_replica(rid)
+
+    @property
+    def replicas(self) -> List[int]:
+        with self._lock:
+            return list(self._replicas)
+
+    # ---- routing ------------------------------------------------------------
+
+    def _probe(self, rep: Replica, now: float) -> Optional[Dict[str, Any]]:
+        """One health probe (the in-process /readyz + health_snapshot):
+        a raising probe charges the replica's breaker. Successes are
+        cached for ``RouterConfig.probe_ttl_s`` (default 0 = always
+        probe); failures never are."""
+        ttl = self.config.probe_ttl_s
+        if ttl > 0 and rep.probe_cache is not None \
+                and now - rep.probe_t < ttl:
+            return rep.probe_cache
+        try:
+            snap = rep.probe()
+        except Exception:              # noqa: BLE001 — wedged ops surface
+            self.probe_failures += 1
+            rep.breaker.record_failure(now)
+            rep.probe_cache = None
+            return None
+        rep.probe_cache, rep.probe_t = snap, now
+        return snap
+
+    def _half_open_probe(self, rep: Replica, now: float) -> None:
+        rep.breaker.probe_started()
+        rep.probe_cache = None        # the decision needs a REAL probe:
+        #                               a cached pre-failure snapshot
+        #                               must not close the breaker
+        snap = self._probe(rep, now)
+        if snap is None:
+            return                     # record_failure already re-opened
+        if rep.sup.broken:
+            rep.breaker.trip(now)      # still broken: stay open
+            return
+        rep.breaker.record_success()   # rejoin the candidate set
+
+    def _candidates(self, exclude: Set[int] = frozenset(),
+                    now: Optional[float] = None,
+                    role: str = "decode") -> List[Replica]:
+        now = time.time() if now is None else now
+        out = []
+        for rep in self._replicas.values():
+            if rep.rid in exclude or rep.role != role:
+                continue
+            if rep.breaker.ready_to_probe(now):
+                self._half_open_probe(rep, now)
+            if not rep.breaker.allow() or rep.retiring or rep.draining:
+                continue
+            snap = self._probe(rep, now)
+            if snap is None or not snap.get("accepting"):
+                continue
+            # the probe already carries the load signal — stash it so
+            # _pick's two-choice comparison reads it instead of taking
+            # the supervisor+engine locks again per sampled replica
+            rep.probe_depth = int(snap["queued"]) + int(snap["live_slots"])
+            out.append(rep)
+        return out
+
+    def _retry_after(self) -> Optional[float]:
+        """Backoff hint: the minimum retirement-interval estimate over
+        replicas still serving (or about to again) — a broken,
+        breaker-open or retiring replica's fresh-but-idle scheduler must
+        not promise capacity that no longer takes traffic.
+
+        With a disaggregated prefill pool the DECODE minimum alone is
+        the wrong hint for a shed long prompt: an idle decode fleet
+        promises sub-second retries while every prefill replica is
+        backlogged. When the prefill pool exists and none of it is
+        routable, the pool's own estimate — already scaled by
+        ``Scheduler.prefill_queue_depth`` — is the binding one."""
+        decode_vals, prefill_vals = [], []
+        prefill_routable = False
+        for rep in self._replicas.values():
+            if rep.sup.broken or not rep.breaker.allow() or rep.retiring:
+                continue
+            try:
+                v = rep.sup.engine._sched.retry_after_s()
+            except Exception:          # noqa: BLE001
+                continue
+            if rep.role == "prefill":
+                prefill_vals.append(v)
+                prefill_routable = prefill_routable or rep.routable()
+            else:
+                decode_vals.append(v)
+        if prefill_vals and not prefill_routable:
+            return min(prefill_vals)   # the saturated pool binds
+        return min(decode_vals) if decode_vals else (
+            min(prefill_vals) if prefill_vals else None)
+
+    def _depth(self, rep: Replica) -> int:
+        try:
+            return rep.depth()
+        except Exception:              # noqa: BLE001
+            return 1 << 30
+
+    def _affinity_key(self, prompt: np.ndarray,
+                      tenant: Optional[str]) -> Optional[int]:
+        """Stickiness key: the tenant plus the prompt's LEADING FULL
+        BLOCK of token ids — the exact unit the prefix cache registers,
+        so traffic sharing a system-prompt prefix lands where its cached
+        blocks live."""
+        if not self.config.affinity:
+            return None
+        bs = self.decode_config.block_size
+        if prompt.shape[0] < bs:
+            return None
+        return hash((tenant, prompt[:bs].tobytes()))
+
+    def _prompt_chain(self, prompt: np.ndarray,
+                      adapter_id: Optional[str] = None
+                      ) -> List[Tuple[int, tuple]]:
+        """The prompt's full chained prefix keys — the directory lookup
+        unit (every FULL block, not just the leading one: two prompts
+        sharing three blocks route to the same holder even when their
+        first blocks are ubiquitous). ``adapter_id`` seeds the chain
+        exactly like the engine's admit does — adapter KV
+        lives in its own key space, so directory hits for adapter
+        traffic resolve to blocks the target admit can actually map.
+        Empty when the directory is off or the prompt spans no full
+        block."""
+        if self._directory is None:
+            return []
+        bs = self.decode_config.block_size
+        if prompt.shape[0] < bs:
+            return []
+        return list(prefix_block_chain(prompt, bs, prompt.shape[0],
+                                       namespace=adapter_id))
+
+    def _pull_chain(self, holder_rid: int, target: Replica,
+                    chain: List[Tuple[int, tuple]]) -> int:
+        """Move a cached chain's blocks cross-replica: serialize on the
+        holder (device read or host-tier peek, per-leaf CRC32 stamped),
+        graft into the target's pool (CRC re-verified, registered as
+        ordinary refcount-0 cached blocks). Any failure — stale
+        directory entry, layout mismatch, checksum mismatch, dry pool —
+        lands as ``pull_fallbacks`` and the submit recomputes: a pull
+        can cost time, never correctness. Returns blocks grafted."""
+        src = self._replicas.get(holder_rid)
+        if src is None or not chain:
+            return 0
+        try:
+            payload = src.sup.export_chain(chain)
+        except Exception:              # noqa: BLE001 — sick holder
+            payload = None
+        if payload is None:
+            # stale-missing entry: the holder evicted since the lookup
+            self.pull_fallbacks += 1
+            if self._directory is not None:
+                for k, _ in chain:
+                    self._directory.drop(holder_rid, k)
+            return 0
+        try:
+            res = target.sup.graft_chain(payload)
+        except Exception:              # noqa: BLE001 — AdoptError/drain
+            self.pull_fallbacks += 1
+            return 0
+        got = int(res.get("grafted", 0))
+        self.pulled_blocks += got
+        if got or res.get("present"):
+            self.cache_pulls += 1
+        else:
+            self.pull_fallbacks += 1
+        return got
+
+    def _pick(self, cands: List[Replica],
+              key: Optional[int]) -> Replica:
+        if key is not None:
+            rid = self._affinity.get(key)
+            if rid is not None:
+                rep = self._replicas.get(rid)
+                if rep is not None and rep in cands:
+                    self.sticky_hits += 1
+                    return rep
+        if len(cands) == 1:
+            return cands[0]
+        # power-of-two-choices on the depth the candidacy probe measured
+        # (same lock-held pass, so it cannot be stale)
+        a, b = self._rng.sample(cands, 2)
+        return a if a.probe_depth <= b.probe_depth else b
+
+    def submit(self, prompt, max_new_tokens: Optional[int] = None,
+               eos_token_id: Optional[int] = "unset",
+               timeout_s: Optional[float] = None,
+               deadline_s: Optional[float] = None,
+               tenant: Optional[str] = None, priority: int = 0,
+               temperature="unset", top_k="unset", top_p="unset",
+               seed="unset", replica: Optional[int] = None,
+               adapter_id: Optional[str] = None) -> int:
+        """Route one prompt to a healthy replica; returns the ROUTER
+        request id. ``replica`` pins the pick (an ops/canary hook — the
+        pinned replica must still be routable). Raises
+        :class:`ServingUnavailable` when no replica can take traffic and
+        passes the last replica's :class:`ServingQueueFull` through when
+        the whole fleet is shedding."""
+        with self._lock:
+            if self._drain_requested or self.draining or self.closed:
+                raise ServingUnavailable(
+                    "router draining: admissions stopped fleet-wide",
+                    reason="draining", retry_after_s=self._retry_after())
+            if adapter_id is not None \
+                    and str(adapter_id) not in self._adapter_registry:
+                raise ValueError(
+                    f"adapter {adapter_id!r} is not registered with this "
+                    f"router (register_adapter first; registered: "
+                    f"{sorted(self._adapter_registry)})")
+            now = time.time()
+            cands = self._candidates(now=now)
+            if not cands:
+                # healthy replicas whose only problem is a FULL admission
+                # queue are still submit targets: the attempt below sheds
+                # with the engine's structured ServingQueueFull (the 429
+                # a single supervisor gives), not a misleading
+                # "broken/circuit-broken" 503 for plain overload
+                cands = [rep for rep in self._replicas.values()
+                         if rep.adoptable() and rep.role == "decode"]
+            if replica is not None:
+                # an ops/canary pin may name a prefill replica too (the
+                # bench's island-cache baseline pins placement directly)
+                cands = [r for r in cands
+                         + self._candidates(now=now, role="prefill")
+                         if r.rid == replica]
+            if not cands:
+                raise ServingUnavailable(
+                    f"no routable replica ({len(self._replicas)} in the "
+                    f"fleet: broken, draining, or circuit-broken)",
+                    reason="no_replica",
+                    retry_after_s=self._retry_after())
+            p = np.asarray(prompt, np.int32).reshape(-1)
+            key = self._affinity_key(p, tenant)
+            chain = self._prompt_chain(
+                p, None if adapter_id is None else str(adapter_id))
+            holder_rid, depth = (None, 0)
+            if chain and self._directory is not None:
+                holder_rid, depth = self._directory.longest(
+                    [k for k, _ in chain])
+            pick = None
+            if holder_rid is not None and replica is None:
+                # fleet cache hit: the replica holding the longest cached
+                # chain takes the request when it has headroom — the
+                # admit() there maps depth*block_size tokens, recompute 0
+                hrep = self._replicas.get(holder_rid)
+                if hrep is not None and hrep.role == "decode" \
+                        and hrep in cands:
+                    pick = hrep
+                    self.directory_hits += 1
+                    self.sticky_hits += 1
+            prefill_cands: List[Replica] = []
+            if pick is None and replica is None \
+                    and self.config.prefill_replicas > 0 \
+                    and self.config.prefill_len_threshold > 0 \
+                    and p.shape[0] >= self.config.prefill_len_threshold:
+                # disaggregated prefill: a long prompt runs its chunked
+                # prefill on the dedicated pool, then hands the chain to
+                # a decode replica via the adopt path; an empty/draining
+                # pool falls through to the unified path below
+                prefill_cands = self._candidates(now=now, role="prefill")
+                if prefill_cands:
+                    pick = (prefill_cands[0] if len(prefill_cands) == 1
+                            else min(self._rng.sample(prefill_cands, 2),
+                                     key=lambda r: r.probe_depth))
+            if pick is None and adapter_id is not None and cands:
+                # adapter affinity: a replica already holding the adapter
+                # RESIDENT serves it without an H2D load; with none, the
+                # P2C pick below faults it in (counted — the ops signal
+                # for an adapter set that thrashes the pools)
+                resident = [r for r in cands
+                            if r.sup.adapter_resident(adapter_id)]
+                if resident:
+                    pick = (resident[0] if len(resident) == 1
+                            else min(self._rng.sample(resident, 2),
+                                     key=lambda r: r.probe_depth))
+                    self.adapter_affinity_hits += 1
+                else:
+                    self.adapter_loads += 1
+            if pick is None:
+                pick = self._pick(cands, key)
+            if holder_rid is not None and chain \
+                    and pick.rid != holder_rid:
+                # the chain lives elsewhere: pull its blocks into the
+                # pick's prefix cache before admitting — checksummed at
+                # both ends, and any failure just means recompute
+                self._pull_chain(holder_rid, pick, chain[:depth])
+            last_exc: Optional[Exception] = None
+            for rep in [pick] + [c for c in prefill_cands + cands
+                                 if c is not pick]:
+                try:
+                    srid = rep.sup.submit(
+                        p, max_new_tokens=max_new_tokens,
+                        eos_token_id=eos_token_id, timeout_s=timeout_s,
+                        deadline_s=deadline_s, tenant=tenant,
+                        priority=priority, temperature=temperature,
+                        top_k=top_k, top_p=top_p, seed=seed,
+                        adapter_id=adapter_id)
+                    rep.breaker.record_success()
+                    break
+                except ServingQueueFull as e:   # full: try the next pick
+                    last_exc = e
+                except ServingUnavailable as e:  # raced a drain/crash
+                    rep.breaker.record_failure(now)
+                    last_exc = e
+            else:
+                raise last_exc
+            rec = rep.sup._reqs[srid]     # the RESOLVED request record
+            req = RouterRequest(
+                frid=self._next_frid, prompt=rec.prompt,
+                max_new_tokens=rec.max_new_tokens,
+                eos_token_id=rec.eos_token_id, tenant=rec.tenant,
+                priority=rec.priority, deadline=rec.deadline,
+                temperature=rec.temperature, top_k=rec.top_k,
+                top_p=rec.top_p, seed=rec.seed,
+                adapter_id=rec.adapter_id,
+                replica=rep.rid, srid=srid, jid=rec.jid,
+                affinity_key=key, submit_t=now)
+            req.prefill_stage = (rep.role == "prefill")
+            if req.prefill_stage:
+                self.prefill_routed += 1
+            self._next_frid += 1
+            self._reqs[req.frid] = req
+            self._active[req.frid] = req
+            self._routes[rep.rid][srid] = req.frid
+            if key is not None and rep.role == "decode":
+                self._affinity[key] = rep.rid
+            self.routed += 1
+            while len(self._affinity) > self.MAX_AFFINITY:
+                del self._affinity[next(iter(self._affinity))]
+            return req.frid
+
+    def _retire_record(self, req: RouterRequest) -> None:
+        """Called on every router-terminal transition: drop the request
+        from the active set and evict the oldest terminal records past
+        the retention bound (results of recent work stay readable via
+        :meth:`request`/:meth:`result`)."""
+        self._active.pop(req.frid, None)
+        excess = len(self._reqs) - len(self._active) - self._keep_finished
+        if excess > 0:
+            for frid in list(self._reqs):
+                if excess <= 0:
+                    break
+                old = self._reqs[frid]
+                if old.terminal and frid != req.frid:
+                    del self._reqs[frid]
+                    excess -= 1
+
+    def cancel(self, frid: int) -> bool:
+        """Cancel by router rid — primary and any hedge copy, idempotent
+        like the engine's."""
+        with self._lock:
+            req = self._reqs.get(frid)
+            if req is None or req.terminal:
+                return False
+            req.client_cancelled = True
+            ok = False
+            for rid, srid in filter(None, [(req.replica, req.srid),
+                                           req.hedge]):
+                rep = self._replicas.get(rid)
+                if rep is None:
+                    continue
+                try:
+                    ok = rep.sup.cancel(srid) or ok
+                except Exception:      # noqa: BLE001 — sick replica
+                    pass
+            self._sweep(time.time())
+            return ok
+
+    # ---- the fleet step loop ------------------------------------------------
+
+    def step(self, max_iters: Optional[int] = None) -> Dict[int, List[int]]:
+        """One iteration across every replica. Returns ``{frid: [tokens
+        emitted]}`` — exactly-once: a hedged request delivers only its
+        winning copy's tokens, a failed-over request resumes after the
+        tokens already delivered."""
+        with self._lock:
+            out: Dict[int, List[int]] = {}
+            now = time.time()
+            for rep in list(self._replicas.values()):
+                # a prefill replica's decode dispatch is bounded to ONE
+                # iteration: chunked prefill still advances a full chunk
+                # per step (its whole job), but a finished prompt stops
+                # right after its first sampled token instead of decoding
+                # to completion — the same-step _handoffs() below moves
+                # it to a decode replica with zero recompute
+                iters = 1 if rep.role == "prefill" else max_iters
+                emitted = rep.sup.step(iters) if rep.sup.pending else {}
+                self._observe(rep, now)
+                routes = self._routes.get(rep.rid, {})
+                for srid in sorted(emitted):
+                    frid = routes.get(srid)
+                    if frid is None:
+                        continue                  # cancelled hedge/loser
+                    req = self._reqs[frid]
+                    if req.terminal:
+                        continue
+                    if req.hedge is not None:
+                        self._resolve_hedge(req, rep.rid, srid)
+                        if (req.replica, req.srid) != (rep.rid, srid):
+                            continue              # this copy lost
+                    if req.first_token_t is None:
+                        req.first_token_t = now
+                    got = [int(t) for t in emitted[srid]]
+                    req.tokens.extend(got)
+                    out.setdefault(frid, []).extend(got)
+                    if req.jid >= 0:
+                        srec = rep.sup._reqs.get(srid)
+                        if srec is not None and srec.jid != req.jid:
+                            # a promoted hedge copy inherits the logical
+                            # request's journal record, rebased to what
+                            # the client has ACTUALLY been delivered
+                            rep.sup.journal_own(srid, req.jid,
+                                                req.tokens)
+            self._handoffs(now)
+            self._sweep(now)
+            self._check_hedges(now)
+            self._advance_roll(now)
+            self._finalize_retiring()
+            return out
+
+    def _handoffs(self, now: float) -> None:
+        """Disaggregated prefill stage 2: every staged request that got
+        its FIRST token (prefill finished — the prefill replica sampled
+        it) moves to a decode replica through the live-migration adopt
+        path, KV blocks and all (``recomputed_tokens == 0``). A handoff
+        no decode replica can take right now collapses to decoding in
+        place on the prefill replica (``handoff_fallbacks``) — the
+        unified path, never a lost request."""
+        from .engine import AdoptError
+        for req in list(self._active.values()):
+            if req.terminal or not req.prefill_stage or not req.tokens:
+                continue
+            rep = self._replicas.get(req.replica)
+            if rep is None:
+                req.prefill_stage = False     # failover already moved it
+                continue
+            try:
+                payload = rep.sup.export_request(req.srid)
+            except Exception:          # noqa: BLE001 — sick origin
+                payload = None
+            if payload is None:
+                # finished inside the prefill replica (tiny max_new /
+                # EOS on the first token): the sweep mirrors it; there
+                # is nothing left to move
+                req.prefill_stage = False
+                continue
+            moved = False
+            for cand in self._candidates(exclude={rep.rid}, now=now):
+                try:
+                    new_srid = cand.sup.adopt(payload)
+                except (AdoptError, ServingUnavailable):
+                    continue           # this target can't take the blocks
+                except Exception:      # noqa: BLE001 — raced a crash
+                    continue
+                # pop the route BEFORE cancelling the origin copy so no
+                # sweep can double-handle this frid (the _migrate rule)
+                self._routes[rep.rid].pop(req.srid, None)
+                try:
+                    rep.sup.release_migrated(req.srid)
+                except Exception:      # noqa: BLE001 — drain reaps it
+                    pass
+                self._routes[cand.rid][new_srid] = req.frid
+                req.replica, req.srid = cand.rid, new_srid
+                req.prefill_stage = False
+                if req.affinity_key is not None:
+                    # shared-prefix traffic follows the blocks
+                    self._affinity[req.affinity_key] = cand.rid
+                self.prefill_handoffs += 1
+                moved = True
+                break
+            if not moved:
+                self.handoff_fallbacks += 1
+                req.prefill_stage = False
+
+    def _observe(self, rep: Replica, now: float) -> None:
+        """Post-step health accounting: supervisor restarts count as
+        breaker failures (a crash LOOP opens the breaker even while the
+        restart budget lasts), a broken replica trips it immediately, and
+        a newly not-allowed replica is EVACUATED — its requests fail over
+        now, not when the budget runs out."""
+        if rep.sup.restarts > rep.restarts_seen:
+            for _ in range(rep.sup.restarts - rep.restarts_seen):
+                rep.breaker.record_failure(now)
+            rep.restarts_seen = rep.sup.restarts
+            rep.probe_cache = None    # pre-crash snapshot is stale
+            if self._directory is not None:
+                # the rebuilt engine's pool is EMPTY and its BlockManager
+                # is a new object: every directory entry naming this rid
+                # died with the old pool, and the callbacks must re-aim
+                # at the fresh one — a crash can never leave a
+                # stale-authoritative entry behind
+                self._directory.drop_replica(rep.rid)
+                self._wire_directory(rep)
+        if rep.sup.broken and not rep.broken_seen:
+            rep.broken_seen = True
+            rep.breaker.trip(now)
+            rep.probe_cache = None
+            if self._directory is not None:
+                self._directory.drop_replica(rep.rid)
+        if not rep.breaker.allow() and self._routes.get(rep.rid):
+            self._evacuate(rep, now)
+
+    def _evacuate(self, rep: Replica, now: float) -> None:
+        """Move every non-terminal request off a replica the router no
+        longer trusts (breaker open / broken), cancelling the originals
+        best-effort so a still-alive-but-sick replica frees its KV."""
+        for srid, frid in list(self._routes.get(rep.rid, {}).items()):
+            req = self._reqs[frid]
+            self._routes[rep.rid].pop(srid, None)
+            if req.terminal:
+                continue
+            is_primary = (req.replica, req.srid) == (rep.rid, srid)
+            if not rep.sup.broken:
+                if is_primary and req.jid >= 0:
+                    # the evacuation cancel must not end the journal
+                    # record — the failover below resumes it elsewhere
+                    try:
+                        rep.sup.disown_journal(srid)
+                    except Exception:  # noqa: BLE001
+                        pass
+                try:
+                    rep.sup.cancel(srid)
+                except Exception:      # noqa: BLE001
+                    pass
+            if is_primary:
+                self._failover(req, exclude={rep.rid}, now=now)
+            else:
+                req.hedge = None       # the hedge copy died with its host
+
+    def _migrate(self, rep: Replica, now: float) -> None:
+        """Live KV migration: move every in-flight PRIMARY
+        request off a draining/retiring replica WITH its computed blocks
+        — the adoptive replica resumes it mid-stream with
+        ``recomputed_tokens == 0`` (the :meth:`EngineSupervisor.adopt`
+        contract), bit-identical to staying put. A request no replica
+        can adopt (pool full, TP/layout mismatch, mid-crash) stays on
+        the origin: the drain window may still finish it, and the
+        deadline evacuation falls back to the resubmit/recompute path —
+        migration only ever SAVES work, never risks it."""
+        if not self.config.migrate:
+            return
+        from .engine import AdoptError
+        for srid, frid in list(self._routes.get(rep.rid, {}).items()):
+            req = self._reqs.get(frid)
+            if req is None or req.terminal:
+                continue
+            if (req.replica, req.srid) != (rep.rid, srid):
+                continue           # hedge copy: its primary keeps serving
+            try:
+                payload = rep.sup.export_request(srid)
+            except Exception:      # noqa: BLE001 — sick origin
+                payload = None
+            if payload is None:
+                continue           # already finishing inside the drain
+            moved = False
+            for cand in self._candidates(exclude={rep.rid}, now=now):
+                try:
+                    new_srid = cand.sup.adopt(payload)
+                except (AdoptError, ServingUnavailable):
+                    continue       # this target can't take the blocks
+                except Exception:  # noqa: BLE001 — raced a crash
+                    continue
+                # pop the route BEFORE cancelling the origin copy so the
+                # drain-cancel sweep can never double-failover this frid
+                self._routes[rep.rid].pop(srid, None)
+                try:
+                    rep.sup.release_migrated(srid)
+                except Exception:  # noqa: BLE001 — drain will reap it
+                    pass
+                self._routes[cand.rid][new_srid] = frid
+                req.replica, req.srid = cand.rid, new_srid
+                if req.affinity_key is not None:
+                    # shared-prefix traffic follows the blocks
+                    self._affinity[req.affinity_key] = cand.rid
+                self.migrations += 1
+                self.migration_tokens += len(req.tokens)
+                moved = True
+                break
+            if not moved:
+                self.migration_fallbacks += 1
+
+    def _failover(self, req: RouterRequest, exclude: Set[int],
+                  now: float) -> None:
+        """Resume one request on a healthy replica from the tokens the
+        client already has. An outstanding hedge copy is PROMOTED instead
+        of resubmitting (it is already running the same work); with no
+        replica available the request goes router-FAILED — partial output
+        readable, ``counters.failed`` incremented."""
+        req.failovers += 1
+        self.failovers += 1
+        if req.hedge is not None:
+            hrid, hsrid = req.hedge
+            req.hedge = None
+            if hrid not in exclude and hrid in self._replicas:
+                req.replica, req.srid = hrid, hsrid
+                self.hedge_wins += 1
+                return
+        if req.finished_by_tokens:
+            req.state = FINISHED
+            req.finish = {"state": FINISHED, "tokens": len(req.tokens),
+                          "failovers": req.failovers,
+                          "finished_by_tokens": True}
+            self.completed += 1
+            self._journal_router_end(req, FINISHED)
+            self._retire_record(req)
+            return
+        cands = self._candidates(exclude=exclude, now=now)
+        if not cands:
+            # a replica whose only problem is a FULL admission queue can
+            # still ADOPT: resubmit rides the recovery path, which
+            # bypasses the queue-depth shed (the work was accepted once,
+            # somewhere). Without this fallback, a replica killed at
+            # peak saturation (the fleet-replay regime) FAILs its
+            # in-flight requests even though healthy replicas remain.
+            cands = [rep for rep in self._replicas.values()
+                     if rep.rid not in exclude and rep.adoptable()
+                     and rep.role == "decode"]
+        for rep in cands:
+            try:
+                srid = rep.sup.resubmit(
+                    req.prompt, req.tokens,
+                    max_new_tokens=req.max_new_tokens,
+                    eos_token_id=req.eos_token_id, deadline=req.deadline,
+                    tenant=req.tenant, priority=req.priority,
+                    temperature=req.temperature, top_k=req.top_k,
+                    top_p=req.top_p, seed=req.seed,
+                    jid=req.jid if req.jid >= 0 else None,
+                    adapter_id=req.adapter_id)
+            except Exception:          # noqa: BLE001 — raced a drain
+                continue
+            self._routes[rep.rid][srid] = req.frid
+            req.replica, req.srid = rep.rid, srid
+            # when the crashed supervisor closed the old journal record
+            # FAILED, resubmit opened a fresh superseding record — adopt
+            # its jid so the ownership hook doesn't chase a dead one
+            srec = rep.sup._reqs.get(srid)
+            if srec is not None:
+                req.jid = srec.jid
+            self.failover_tokens += len(req.tokens)
+            if req.affinity_key is not None:
+                # shared-prefix traffic follows the work to its new home
+                self._affinity[req.affinity_key] = rep.rid
+            return
+        req.state = FAILED
+        req.finish = {"state": FAILED, "tokens": len(req.tokens),
+                      "failovers": req.failovers, "reason": "no_replica"}
+        self.failed += 1
+        self._journal_router_end(req, FAILED)
+        self._retire_record(req)
+
+    def _sweep(self, now: float) -> None:
+        """Mirror replica-terminal transitions into the router records:
+        FAILED (budget exhausted) fails over, a drain-cancel out from
+        under a live client fails over, everything else lands as the
+        request's terminal record — and a terminal primary cancels its
+        outstanding hedge copy."""
+        for rep in list(self._replicas.values()):
+            routes = self._routes.get(rep.rid, {})
+            for srid, frid in list(routes.items()):
+                rec = rep.sup._reqs.get(srid)
+                if rec is None or not rec.terminal:
+                    continue
+                routes.pop(srid, None)
+                req = self._reqs[frid]
+                if req.terminal:
+                    continue
+                is_primary = (req.replica, req.srid) == (rep.rid, srid)
+                if not is_primary:
+                    # a hedge/stale copy ended on its own (cancelled, or
+                    # raced a terminal): nothing to mirror
+                    if req.hedge == (rep.rid, srid):
+                        req.hedge = None
+                    continue
+                if rec.state == FAILED:
+                    self._failover(req, exclude={rep.rid}, now=now)
+                    continue
+                if rec.state == CANCELLED and not req.client_cancelled \
+                        and not (self._drain_requested or self.draining) \
+                        and (rep.draining or rep.retiring or rep.sup.broken):
+                    # a drain deadline cancelled it out from under a live
+                    # client: the roll's zero-failed contract says move
+                    # it, not kill it
+                    self._failover(req, exclude={rep.rid}, now=now)
+                    continue
+                req.tokens = [int(t) for t in rec.tokens]
+                req.state = rec.state
+                fin = dict(rec.finish or {"state": rec.state,
+                                          "tokens": len(rec.tokens)})
+                fin.update({"replica": rep.rid,
+                            "failovers": req.failovers,
+                            "hedged": req.hedged})
+                req.finish = fin
+                if rec.state == FINISHED:
+                    self.completed += 1
+                self._cancel_hedge(req)
+                self._retire_record(req)
+
+    def _cancel_hedge(self, req: RouterRequest) -> None:
+        if req.hedge is None:
+            return
+        hrid, hsrid = req.hedge
+        req.hedge = None
+        self._routes.get(hrid, {}).pop(hsrid, None)
+        rep = self._replicas.get(hrid)
+        if rep is not None:
+            try:
+                rep.sup.cancel(hsrid)
+            except Exception:          # noqa: BLE001
+                pass
+        self.hedges_cancelled += 1
+
+    def _resolve_hedge(self, req: RouterRequest, rid: int,
+                       srid: int) -> None:
+        """First token wins: the copy that emitted becomes the primary,
+        the other is cancelled through the lifecycle path (KV freed).
+        Greedy decode makes the copies bit-identical, so the winner's
+        stream IS the stream."""
+        if (rid, srid) == (req.replica, req.srid):
+            self._cancel_hedge(req)    # primary won
+            return
+        loser = (req.replica, req.srid)
+        lrep = self._replicas.get(loser[0])
+        if lrep is not None and req.jid >= 0:
+            # the demoted primary must not terminate the journal record
+            # its winning copy is about to inherit
+            try:
+                lrep.sup.disown_journal(loser[1])
+            except Exception:          # noqa: BLE001 — sick loser
+                pass
+        req.replica, req.srid = rid, srid
+        req.hedge = loser              # demote, then cancel via the same
+        self._cancel_hedge(req)        # path (mapping + engine cancel)
+        self.hedge_wins += 1
+
+    def _check_hedges(self, now: float) -> None:
+        thresh = self.config.hedge_after_s
+        if thresh is None:
+            return
+        for req in list(self._active.values()):
+            if req.terminal or req.tokens or req.hedged \
+                    or req.prefill_stage \
+                    or now - req.submit_t < thresh:
+                continue
+            cands = self._candidates(exclude={req.replica}, now=now)
+            if not cands:
+                continue
+            rep = self._pick(cands, None)
+            try:
+                srid = rep.sup.submit(
+                    req.prompt, max_new_tokens=req.max_new_tokens,
+                    eos_token_id=req.eos_token_id,
+                    deadline_s=req.deadline, tenant=req.tenant,
+                    priority=req.priority, temperature=req.temperature,
+                    top_k=req.top_k, top_p=req.top_p, seed=req.seed,
+                    adapter_id=req.adapter_id)
+            except Exception:          # noqa: BLE001 — shed: retry later
+                continue
+            req.hedge = (rep.rid, srid)
+            req.hedged = True
+            # the hedge copy is NOT journaled (its emission is not client
+            # delivery — the primary's is); on promotion it inherits the
+            # primary's record via journal_own
+            rep.sup.disown_journal(srid)
+            self._routes[rep.rid][srid] = req.frid
+            self.hedges += 1
+
+    # ---- rolling restarts ---------------------------------------------------
+
+    def start_rolling_restart(self,
+                              drain_deadline_s: Optional[float] = None
+                              ) -> None:
+        """Begin a one-replica-at-a-time roll: the current target drains
+        (admissions shift to the rest of the fleet), its in-flight work
+        finishes — or fails over at the deadline — and a fresh supervisor
+        is built on the SHARED weights before the roll moves on.
+        ``step()`` advances the roll; a live trace served across it
+        completes with zero failed requests."""
+        with self._lock:
+            if self._roll is not None:
+                raise RuntimeError("a rolling restart is already active")
+            self._roll = {"pending": list(self._replicas), "target": None,
+                          "t0": 0.0, "restarted": 0,
+                          "deadline_s": (
+                              drain_deadline_s if drain_deadline_s
+                              is not None
+                              else float(flag(
+                                  "FLAGS_serving_drain_deadline_s")))}
+
+    @property
+    def rolling(self) -> bool:
+        return self._roll is not None
+
+    def rolling_restart(self, drain_deadline_s: Optional[float] = None,
+                        max_steps: int = 100000) -> int:
+        """Blocking convenience: start a roll and pump :meth:`step` until
+        it completes. Returns the number of replicas THIS roll restarted
+        (an incomplete ``max_steps``-exhausted roll returns fewer than
+        the fleet size)."""
+        with self._lock:
+            before = self.replica_restarts
+        self.start_rolling_restart(drain_deadline_s)
+        steps = 0
+        while self.rolling and steps < max_steps:
+            self.step()
+            steps += 1
+        with self._lock:
+            return self.replica_restarts - before
+
+    def _advance_roll(self, now: float) -> None:
+        roll = self._roll
+        if roll is None:
+            return
+        if roll["target"] is None:
+            if not roll["pending"]:
+                self._roll = None
+                self.rolls_completed += 1
+                return
+            roll["pending"] = [rid for rid in roll["pending"]
+                               if rid in self._replicas]  # scaled in
+            # pick ANY pending replica whose drain the fleet can absorb:
+            # a non-routable one (broken / breaker-open) serves no
+            # traffic, so rebuilding it never needs cover — insisting on
+            # head order would stall the roll forever when the head is
+            # the last routable replica and a later entry is the broken
+            # one the roll exists to heal
+            rid = None
+            for cand in roll["pending"]:
+                rep = self._replicas[cand]
+                if not rep.routable() or \
+                        self._candidates(exclude={cand}, now=now):
+                    rid = cand
+                    break
+            if rid is None:
+                if len(self._replicas) > 1 or not roll["pending"]:
+                    return               # wait for cover to come back
+                # a sole healthy replica has nowhere to shift traffic:
+                # proceed anyway — a brief admissions outage (structured
+                # 503 + retry hint) beats a roll stalled forever
+                rid = roll["pending"][0]
+            rep = self._replicas[rid]
+            roll["pending"].remove(rid)
+            roll["target"] = rid
+            roll["t0"] = now
+            rep.sup.request_drain()
+            # live migration empties the target immediately — its KV
+            # moves with the requests, so the roll's zero-recompute
+            # contract holds even at a 0s drain deadline
+            self._migrate(rep, now)
+            return
+        rid = roll["target"]
+        rep = self._replicas.get(rid)
+        if rep is None:
+            roll["target"] = None
+            return
+        if rep.sup.pending and now - roll["t0"] < roll["deadline_s"]:
+            return                            # still draining; step() pumps
+        if rep.sup.pending:
+            # deadline: retry live migration first (an earlier fallback
+            # may find room now that the fleet drained), then move the
+            # stragglers — the same evacuation the breaker path uses
+            # (fails primaries over, clears hedge copies so a later
+            # failover can't promote a stale srid of the rebuilt
+            # supervisor); the close-out drain below then cancels
+            # what's left
+            self._migrate(rep, now)
+            self._evacuate(rep, now)
+        report = rep.sup.drain(0)             # close-out + leak check
+        # free the old pool BEFORE the rebuild allocates its own
+        rep.sup._teardown()
+        fresh = self._build_supervisor()
+        old = rep.replace(fresh)
+        self._restarts_retired += old.restarts  # lifetime totals survive
+        self._routes[rid] = {}
+        if self._directory is not None:
+            # the rebuilt pool starts empty; re-aim the callbacks at it
+            self._directory.drop_replica(rid)
+            self._wire_directory(rep)
+        roll["restarted"] += 1
+        roll["last_report"] = report
+        self.replica_restarts += 1
+        roll["target"] = None
+
+    # ---- autoscale ----------------------------------------------------------
+
+    def _aggregate(self) -> Dict[str, Any]:
+        """Fleet-wide capacity view. The shed total is accumulated
+        MONOTONICALLY from per-replica deltas (each against that
+        replica's own baseline, re-based when its supervisor is
+        rebuilt), so a rolling restart or scale-in — which resets or
+        removes a replica's cumulative counter — can never mask new
+        shedding from the autoscale delta."""
+        agg = {"queued": 0, "queue_limit": 0, "live_slots": 0,
+               "max_slots": 0, "retry_after_s": None,
+               "counters": {"shed": 0}}
+        for rep in self._replicas.values():
+            if rep.retiring:
+                continue
+            try:
+                snap = rep.sup.health_snapshot()
+            except Exception:          # noqa: BLE001 — skip wedged ops
+                continue
+            for k in ("queued", "queue_limit", "live_slots", "max_slots"):
+                agg[k] += int(snap[k])
+            shed = int(snap["counters"]["shed"])
+            self._shed_accum += max(0, shed - rep.shed_seen)
+            rep.shed_seen = shed
+            ra = snap.get("retry_after_s")
+            if ra is not None:
+                agg["retry_after_s"] = (ra if agg["retry_after_s"] is None
+                                        else min(agg["retry_after_s"], ra))
+        agg["counters"]["shed"] = self._shed_accum
+        return agg
+
+    def autoscale_signal(self, rejoin_file: Optional[str] = None,
+                         workers: Optional[int] = None) -> Dict[str, Any]:
+        """The fleet-wide scale recommendation (the per-replica signal,
+        aggregated), tracking the shed delta between calls. A scale-up
+        with ``rejoin_file`` also writes the elastic launcher's signal
+        file so an external launcher adds capacity."""
+        with self._lock:
+            agg = self._aggregate()
+            shed = agg["counters"]["shed"]
+            delta = max(0, shed - self._last_shed)
+            self._last_shed = shed
+        sig = autoscale_signal(agg, shed_delta=delta)
+        if rejoin_file and sig["action"] == "scale_up":
+            write_rejoin_file(rejoin_file, workers)
+            sig["rejoin_file"] = rejoin_file
+        return sig
+
+    def autoscale(self, rejoin_file: Optional[str] = None,
+                  workers: Optional[int] = None) -> Dict[str, Any]:
+        """ACT on the signal: scale-up spawns a replica (sharing the
+        weights — only a new KV pool), scale-in drains the
+        least-loaded replica (never below one). Returns the signal with
+        ``spawned``/``retiring`` annotations."""
+        sig = self.autoscale_signal(rejoin_file=rejoin_file,
+                                    workers=workers)
+        with self._lock:
+            if sig["action"] == "scale_up":
+                rid = self.spawn_replica()
+                if rid is not None:
+                    sig["spawned"] = rid
+            elif sig["action"] == "scale_in":
+                # the floor is one HEALTHY replica: broken/breaker-open
+                # replicas neither count toward it nor protect it — with
+                # one healthy and one broken replica, min-by-depth would
+                # otherwise drain the healthy one (the broken replica
+                # reports an un-pickable depth) and self-inflict a total
+                # outage
+                healthy = [r for r in self._replicas.values()
+                           if not r.retiring and not r.sup.broken
+                           and r.breaker.allow()
+                           and r.role == "decode"]
+                if len(healthy) > 1:
+                    victim = min(healthy, key=self._depth)
+                    self.drain_replica(victim.rid)
+                    sig["retiring"] = victim.rid
+        return sig
+
+    def poll_rejoin(self, path: str) -> List[int]:
+        """Consume an external scale-out signal written in the launcher's
+        rejoin-file format (``write_rejoin_file``): spawn up to the
+        offered worker count (bounded by ``max_replicas``), then remove
+        the file — the same read-and-consume handshake the elastic
+        launcher applies between rounds."""
+        offered = consume_rejoin_file(path)
+        spawned: List[int] = []
+        with self._lock:
+            while offered > 0:
+                rid = self.spawn_replica()
+                if rid is None:
+                    break
+                spawned.append(rid)
+                offered -= 1
+        return spawned
+
+    # ---- client surface (the supervisor contract, fleet-wide) ---------------
+
+    @property
+    def pending(self) -> bool:
+        with self._lock:
+            return bool(self._active)
+
+    def request(self, frid: int) -> RouterRequest:
+        with self._lock:
+            return self._reqs[frid]
+
+    def result(self, frid: int) -> np.ndarray:
+        with self._lock:
+            return np.asarray(self._reqs[frid].tokens, np.int32)
+
+    def run(self, prompts: Sequence, max_new_tokens=None,
+            eos_token_id="unset") -> List[np.ndarray]:
+        """Submit every prompt, drive the fleet to drain, return outputs
+        in submission order — the engine ``run()`` contract behind the
+        router."""
+        n = len(prompts)
+        mnt = ([max_new_tokens] * n
+               if max_new_tokens is None or np.isscalar(max_new_tokens)
+               else list(max_new_tokens))
+        frids = [self.submit(p, max_new_tokens=m, eos_token_id=eos_token_id)
+                 for p, m in zip(prompts, mnt)]
+        while self.pending:
+            self.step()
+        return [self.result(f) for f in frids]
+
+    @property
+    def decode_config(self):
+        """The resolved ServingConfig every replica shares (block size
+        for affinity keys, decode_chunk for the server pump)."""
+        return self._serving_config
+
+    @property
+    def decode_chunk(self) -> int:
+        return int(self._serving_config.decode_chunk)
+
+    # ---- drain (fleet-wide) -------------------------------------------------
+
+    def request_drain(self) -> None:
+        self._drain_requested = True
+        with self._lock:
+            for rep in self._replicas.values():
+                rep.sup.request_drain()
+
+    @property
+    def drain_requested(self) -> bool:
+        return self._drain_requested
+
+    def install_signal_handler(self, signum: int = signal.SIGTERM):
+        """SIGTERM (the launcher's preemption forward) drains the whole
+        fleet — same contract and plumbing as the single supervisor's
+        handler."""
+        handler, prev = install_drain_handler(self, signum)
+        if handler is not None:
+            self._prev_sigterm = prev
+        return handler
+
+    def uninstall_signal_handler(self, signum: int = signal.SIGTERM):
+        uninstall_drain_handler(self._prev_sigterm, signum)
+        self._prev_sigterm = None
+
+    def drain(self, deadline_s: Optional[float] = None) -> Dict[str, Any]:
+        """Fleet-wide graceful drain: admissions stop everywhere,
+        in-flight work finishes within the deadline, the remainder is
+        cancelled. Returns the merged report — ``leaked_blocks`` sums
+        every replica's pool and must read 0."""
+        t0 = time.time()
+        with self._lock:
+            self.draining = True
+            done_before = self.completed
+            self.request_drain()
+            deadline_s = (deadline_s if deadline_s is not None else
+                          float(flag("FLAGS_serving_drain_deadline_s")))
+        deadline = t0 + deadline_s
+        while time.time() < deadline and self.pending:
+            self.step()
+        cancelled = leaked = 0
+        with self._lock:
+            for rep in self._replicas.values():
+                rep_report = rep.sup.drain(0)
+                cancelled += rep_report["cancelled"]
+                leaked += rep_report["leaked_blocks"]
+            self._sweep(time.time())
+            report = {"completed": self.completed - done_before,
+                      "cancelled": cancelled,
+                      "leaked_blocks": int(leaked),
+                      "duration_s": round(time.time() - t0, 3)}
+        return report
+
+    def close(self, deadline_s: Optional[float] = None) -> Dict[str, Any]:
+        report = self.drain(deadline_s)
+        with self._lock:
+            self.closed = True
+        return report
+
+    # ---- telemetry ----------------------------------------------------------
+
+    def audit(self) -> Dict[str, Any]:
+        """Run the :class:`~.audit.InvariantAuditor`'s structural checks
+        against the whole fleet (production spelling: collects, never
+        raises). The auditor instance persists across calls so the
+        monotonic-counter baselines accumulate; ``health_snapshot()``
+        folds the verdict in behind ``FLAGS_serving_audit``."""
+        from .audit import InvariantAuditor
+        with self._lock:
+            if self._auditor is None:
+                # bounded history: a production auditor scraped at 1 Hz
+                # forever must not grow its trail/violation lists without
+                # bound (replay auditors stay unbounded — the
+                # determinism contract compares the full trail)
+                self._auditor = InvariantAuditor(history=256)
+            return self._auditor.audit(self)
+
+    def health_snapshot(self) -> Dict[str, Any]:
+        """The fleet ops payload — keys pinned to
+        :data:`ROUTER_HEALTH_FIELDS`, shaped like one supervisor's so an
+        HTTP front serves a router exactly as it serves one
+        supervisor."""
+        with self._lock:
+            now = time.time()
+            reps = {str(rid): rep.snapshot()
+                    for rid, rep in self._replicas.items()}
+            routable = [rid for rid, r in reps.items() if r["accepting"]]
+            agg = self._aggregate()
+            wd = _watchdog.current()
+            roll = self._roll
+            snap = {
+                "ok": bool(reps) and any(not r["broken"]
+                                         for r in reps.values())
+                and (wd is None or not wd.fired.is_set()),
+                "accepting": bool(routable) and not self._drain_requested
+                and not self.draining and not self.closed,
+                "queued": agg["queued"],
+                "queue_limit": agg["queue_limit"],
+                "live_slots": agg["live_slots"],
+                "max_slots": agg["max_slots"],
+                "retry_after_s": agg["retry_after_s"],
+                "counters": {
+                    "routed": self.routed,
+                    "sticky_hits": self.sticky_hits,
+                    "failovers": self.failovers,
+                    "failover_tokens": self.failover_tokens,
+                    "hedges": self.hedges,
+                    "hedge_wins": self.hedge_wins,
+                    "hedges_cancelled": self.hedges_cancelled,
+                    "probe_failures": self.probe_failures,
+                    "breaker_opens": self._opens_retired
+                    + sum(r["breaker"]["opens"] for r in reps.values()),
+                    "replica_restarts": self.replica_restarts,
+                    "rolls_completed": self.rolls_completed,
+                    "migrations": self.migrations,
+                    "migration_tokens": self.migration_tokens,
+                    "migration_fallbacks": self.migration_fallbacks,
+                    "directory_hits": self.directory_hits,
+                    "cache_pulls": self.cache_pulls,
+                    "pulled_blocks": self.pulled_blocks,
+                    "pull_fallbacks": self.pull_fallbacks,
+                    "prefill_routed": self.prefill_routed,
+                    "prefill_handoffs": self.prefill_handoffs,
+                    "handoff_fallbacks": self.handoff_fallbacks,
+                    "adapter_affinity_hits": self.adapter_affinity_hits,
+                    "adapter_loads": self.adapter_loads,
+                    "completed": self.completed,
+                    "failed": self.failed,
+                },
+                "directory": ({"enabled": True,
+                               **self._directory.snapshot()}
+                              if self._directory is not None
+                              else {"enabled": False}),
+                "replicas": reps,
+                "fleet": {
+                    "size": len(reps),
+                    "routable": len(routable),
+                    "open_breakers": sum(
+                        r["breaker"]["state"] != "closed"
+                        for r in reps.values()),
+                    "draining": sum(r["draining"] for r in reps.values()),
+                    "retiring": sum(r["retiring"] for r in reps.values()),
+                    "prefill": sum(r["role"] == "prefill"
+                                   for r in reps.values()),
+                },
+                "roll": {
+                    "active": roll is not None,
+                    "target": roll["target"] if roll else None,
+                    "pending": list(roll["pending"]) if roll else [],
+                    "restarted": roll["restarted"] if roll else 0,
+                },
+                # PEEK the shed delta (autoscale_signal() owns advancing)
+                "autoscale": autoscale_signal(
+                    agg, shed_delta=max(
+                        0, agg["counters"]["shed"] - self._last_shed)),
+                "watchdog": {
+                    "installed": wd is not None,
+                    "fired": bool(wd.fired.is_set())
+                    if wd is not None else False,
+                    "timeout_s": wd.timeout if wd is not None else None,
+                },
+                # the production audit hook: FLAGS_serving_audit runs the
+                # InvariantAuditor fleet-wide inside this snapshot (the
+                # checks walk every block map — paid only when asked to)
+                "audit": ({"enabled": True, **self.audit()}
+                          if flag("FLAGS_serving_audit")
+                          else {"enabled": False}),
+                "supervisor": {
+                    "draining": bool(self._drain_requested or self.draining),
+                    "broken": bool(reps) and all(r["broken"]
+                                                 for r in reps.values()),
+                    "restarts": self._restarts_retired
+                    + sum(r["restarts"] for r in reps.values()),
+                    "restart_budget": sum(
+                        rep.sup.max_restarts
+                        for rep in self._replicas.values()),
+                },
+            }
+            return snap
+
+    def block_partitions(self) -> Dict[int, Dict[str, int]]:
+        """Every replica's free/evictable/in-use/usable pool partition —
+        the invariant (free + evictable + in_use == usable, per replica)
+        the failover fuzz asserts every step."""
+        with self._lock:
+            return {rid: rep.sup.block_partition()
+                    for rid, rep in self._replicas.items()}

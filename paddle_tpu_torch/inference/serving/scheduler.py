@@ -21,8 +21,8 @@ need no decode slot and no KV block: :meth:`Scheduler.admit_embeds` pops
 them all for the engine's batched encoder dispatch, which finishes them
 inside the same step.
 
-Not ported yet: ``adopt_running``, the seat of a live-migrated request
-(ROADMAP.md section A item 8b).
+:meth:`Scheduler.adopt_running` seats a live-migrated request straight
+into a slot, with the whole submit+admit bookkeeping done in one step.
 """
 
 from __future__ import annotations
@@ -406,6 +406,34 @@ class Scheduler:
         self.preemptions += 1
         req.state = QUEUED
         self.queue.appendleft(req)
+
+    def adopt_running(self, req: Request, slot: int,
+                      blocks: List[int]) -> int:
+        """Seat a MIGRATED request directly into a slot, bypassing the
+        queue: its KV chain arrived with it, so there is no prefill to
+        schedule and no admission to wait for. The engine has already
+        allocated ``blocks`` and written the chain; this stamps the whole
+        submit+admit bookkeeping (rid, timestamps, counters, tenant
+        accounting) in one step, so the auditor's closure checks hold as
+        if the request had been submitted and admitted here."""
+        if self.slots[slot] is not None:
+            raise RuntimeError(f"adopt into occupied slot {slot}")
+        req.rid = self._next_rid
+        self._next_rid += 1
+        req.submit_t = time.time()
+        if req.deadline is not None:
+            self.deadline_requests += 1
+        t = self.tenant(req.tenant)
+        t["submitted"] += 1
+        req.blocks, req.slot = blocks, slot
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        req.state = RUNNING
+        self.slots[slot] = req
+        self.admitted += 1
+        t["admitted"] += 1
+        t["service_tokens"] += req.prompt_len
+        return req.rid
 
     def admit_embeds(self) -> List[Request]:
         """Pop EVERY queued embedding request for the engine's batched

@@ -44,9 +44,11 @@ same contract around the port's :class:`~.engine.ServingEngine`:
   recommendation, and can write the elastic launcher's rejoin file
   (:func:`write_rejoin_file`).
 
-Not ported yet: the live-migration surface (``export_request``,
-``adopt``, ``export_chain``, ``graft_chain``, ``release_migrated``),
-which raises ``NotImplementedError`` naming ROADMAP.md section A item 8b.
+* **Live migration.** :meth:`EngineSupervisor.export_request` /
+  :meth:`adopt` / :meth:`release_migrated` move an in-flight request with
+  its KV blocks to another replica, and :meth:`export_chain` /
+  :meth:`graft_chain` pull a cached prefix chain across replicas — the
+  surface the fleet router (:mod:`.router`) drives.
 """
 
 from __future__ import annotations
@@ -63,13 +65,14 @@ import numpy as np
 
 from ...flags import flag
 from ...health import watchdog as _watchdog
-from .engine import _LATER, ServingEngine
+from .engine import ServingEngine
 from .journal import RequestJournal
 from .scheduler import (CANCELLED, FINISHED, QUEUED, TERMINAL_STATES,
                         completes_by_tokens)
 
 __all__ = ["EngineSupervisor", "ServingUnavailable", "TrackedRequest",
-           "autoscale_signal", "write_rejoin_file", "FAILED",
+           "autoscale_signal", "write_rejoin_file", "consume_rejoin_file",
+           "FAILED",
            "install_drain_handler", "uninstall_drain_handler"]
 
 # supervisor-only terminal state: the restart budget ran out with this
@@ -148,6 +151,26 @@ def write_rejoin_file(path: str, workers: Optional[int] = None) -> str:
             f.write(str(int(workers)))
     os.replace(tmp, path)
     return path
+
+
+def consume_rejoin_file(path: Optional[str]) -> int:
+    """Read-and-consume one rejoin signal: returns the offered worker
+    count (0 = no signal; an empty or unreadable file means "capacity is
+    back, take what you need") and removes the file — a zero-count one
+    too, or the next poll would re-read the stale signal forever."""
+    if not path or not os.path.exists(path):
+        return 0
+    try:
+        with open(path) as f:
+            txt = f.read().strip()
+        offered = int(txt) if txt else 10 ** 9
+    except (OSError, ValueError):
+        offered = 10 ** 9
+    try:
+        os.remove(path)
+    except OSError:
+        pass
+    return offered
 
 
 def install_drain_handler(target, signum: int = signal.SIGTERM):
@@ -248,7 +271,7 @@ class EngineSupervisor:
         self.resubmitted = 0
         self.recovered_tokens = 0
         self.adopted = 0          # requests failed over FROM another replica
-        self.migrated_in = 0      # adopted WITH their KV blocks (item 8b)
+        self.migrated_in = 0      # adopted WITH their KV blocks
         self.migrated_out = 0     # released here after a live migration
         self.completed = 0
         self._drain_requested = False
@@ -540,22 +563,78 @@ class EngineSupervisor:
             rec.jid = int(jid)
             return True
 
-    # ---- live KV migration (ROADMAP.md section A item 8b) -------------------
+    # ---- live KV migration -------------------------------------------------
 
     def export_request(self, srid: int):
-        raise NotImplementedError(_LATER["migration"])
+        """Serialize one in-flight request — resolved record + computed KV
+        blocks — for live migration to another replica (the router's
+        drain / roll / scale-in path). None when the request is terminal
+        or already finished (the origin's own drain delivers it). The
+        origin keeps serving the request until :meth:`release_migrated`
+        confirms the adoption."""
+        with self._lock:
+            rec = self._reqs.get(srid)
+            if rec is None or rec.terminal:
+                return None
+            return self.engine.serialize_request(rec.erid)
 
     def adopt(self, payload) -> int:
-        raise NotImplementedError(_LATER["migration"])
+        """ADOPT a live-migrated request: restore its KV blocks into this
+        replica's pool and resume it where the origin paused it
+        (``recomputed_tokens == 0``, bit-identical stream; the
+        :meth:`ServingEngine.adopt` contract). Raises
+        :class:`~.engine.AdoptError` when this replica cannot take the
+        blocks, and :class:`ServingUnavailable` while draining or broken.
+        Returns the new supervisor rid."""
+        with self._lock:
+            self._check_admitting()
+            erid = self.engine.adopt(payload)
+            rec = self._track(erid, resubmits=1)    # born from a migration
+            self.adopted += 1
+            self.migrated_in += 1
+            self.recovered_tokens += len(rec.tokens)
+            return rec.srid
 
     def export_chain(self, chain):
-        raise NotImplementedError(_LATER["migration"])
+        """Serialize a cached prefix chain for a cross-replica cache pull
+        (:meth:`ServingEngine.export_chain`), guarded for a dead engine:
+        None when the engine is unavailable or holds none of the chain."""
+        with self._lock:
+            if self.broken or self.engine is None:
+                return None
+            return self.engine.export_chain(chain)
 
     def graft_chain(self, payload):
-        raise NotImplementedError(_LATER["migration"])
+        """Land an exported chain in this replica's prefix cache
+        (:meth:`ServingEngine.graft_chain`). Raises
+        :class:`ServingUnavailable` while draining or broken and
+        :class:`~.engine.AdoptError` on a layout mismatch; both degrade
+        the pull to recompute at the router."""
+        with self._lock:
+            self._check_admitting()
+            return self.engine.graft_chain(payload)
 
     def release_migrated(self, srid: int) -> bool:
-        raise NotImplementedError(_LATER["migration"])
+        """Confirm a migration: the adoptive replica owns the request now,
+        so detach the origin's copy from the journal, cancel it (its
+        blocks free, possibly into the offload tier) and mark the record
+        migrated. Idempotent."""
+        with self._lock:
+            rec = self._reqs.get(srid)
+            if rec is None:
+                return False
+            already = rec.terminal
+            if not already:
+                # the adoptive replica owns the journal record now: the
+                # vacated copy must not mark the logical request terminal
+                self.engine.journal_disown(rec.erid)
+                rec.jid = -1
+                self.engine.cancel(rec.erid)
+                self._sweep()
+                self.migrated_out += 1
+            if rec.finish is not None:
+                rec.finish["migrated"] = True
+            return not already
 
     # ---- multi-adapter LoRA + embeddings -----------------------------------
 

@@ -903,3 +903,90 @@ def test_watchdog_fires_over_a_blocked_synchronize(dev):
         watchdog.uninstall()
     assert fired["t"] < back
     assert "serving.decode" in fired["diag"]
+
+
+def _migration_engines(dev, kv_quant, n=2):
+    from paddle_tpu_torch.inference.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, init_params
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=5, device=dev)
+    sc = ServingConfig(block_size=16, max_slots=3, max_model_len=128,
+                       kv_quant=kv_quant, quantize=kv_quant)
+    first = ServingEngine(params, cfg, sc, device=dev)
+    return [first] + [ServingEngine(first.prepared_params, cfg, sc,
+                                    device=dev) for _ in range(n - 1)]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
+def test_serialize_adopt_between_engines_on_card(dev, kv_quant):
+    """A request moved mid-decode from one engine's pool to another's on
+    the card: the payload is host bytes (bf16 as CPU tensors; int8 K/V
+    with their fp32 scales), the adopted blocks are byte-equal to the
+    origin's, the adopter recomputes nothing and the stream equals the
+    origin's uninterrupted run."""
+    a, b, ref = _migration_engines(dev, kv_quant, n=3)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, 256, size=70)
+    want = ref.run([prompt], max_new_tokens=20, eos_token_id=None)[0]
+    rid = a.submit(prompt, max_new_tokens=20, eos_token_id=None)
+    got = []
+    for _ in range(2):
+        got += a.step(4).get(rid, [])
+    payload = a.serialize_request(rid)
+    kv = payload["kv"]
+    assert all(t.device.type == "cpu" for t in kv["data"].values())
+    assert set(kv["data"]) == ({"k", "v"} if kv_quant is None else
+                               {"k", "v", "k_scale", "v_scale"})
+    src_blocks = a._sched.find(rid).blocks[:kv["data_blocks"]]
+    nr = b.adopt(payload)
+    dst_blocks = b._sched.find(nr).blocks[:kv["data_blocks"]]
+    torch.cuda.synchronize()
+    for name, pool in a.cache.pool.items():
+        for sb, db in zip(src_blocks, dst_blocks):
+            assert torch.equal(pool[:, sb].view(torch.uint8),
+                               b.cache.pool[name][:, db].view(torch.uint8))
+    a.cancel(rid)
+    while b.pending:
+        got += b.step(4).get(nr, [])
+    np.testing.assert_array_equal(np.asarray(got), want)
+    assert b.stats()["recomputed_tokens"] == 0
+    assert a.stats()["blocks_in_use"] == b.stats()["blocks_in_use"] == 0
+
+
+def test_graft_bf16_chain_on_card(dev):
+    """A cached bf16 chain exported from one engine's pool (pinned host
+    buffers, CRC32 over the raw bytes) and grafted into another's lands
+    byte-equal and is a prefix hit there; a corrupted export grafts
+    nothing."""
+    from paddle_tpu_torch.inference.serving.offload import block_crc
+    from paddle_tpu_torch.inference.serving.paged_cache import \
+        prefix_block_chain
+    a, b = _migration_engines(dev, None)
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, 256, size=64).astype(np.int32)
+    a.run([np.concatenate([prefix, [7, 8]])], max_new_tokens=4,
+          eos_token_id=None)
+    chain = list(prefix_block_chain(prefix, 16, 64))
+    a._corrupt_next_export = True
+    bad = a.export_chain(chain)
+    assert b.graft_chain(bad) == {"grafted": 0, "present": 0, "corrupt": 1}
+    payload = a.export_chain(chain)
+    for blk in payload["blocks"]:
+        for n, t in blk["data"].items():
+            assert t.is_pinned() and block_crc(t) == blk["crc"][n]
+    assert b.graft_chain(payload)["grafted"] == 4
+    torch.cuda.synchronize()
+    for key, toks in chain:
+        sa = a.cache.manager.lookup(key, toks)
+        sb = b.cache.manager.lookup(key, toks)
+        for name, pool in a.cache.pool.items():
+            assert torch.equal(pool[:, sa].view(torch.uint8),
+                               b.cache.pool[name][:, sb].view(torch.uint8))
+    p = np.concatenate([prefix, [9, 10, 11]]).astype(np.int32)
+    want = a.run([p], max_new_tokens=6, eos_token_id=None)[0]
+    hit0 = b.stats()["prefix_hit_tokens"]
+    got = b.run([p], max_new_tokens=6, eos_token_id=None)[0]
+    assert b.stats()["prefix_hit_tokens"] - hit0 == 64
+    np.testing.assert_array_equal(got, want)

@@ -245,11 +245,15 @@ def test_unported_features_raise(model):
         eng.submit([1, 2, 3], max_new_tokens=2, adapter_id="a")
     with pytest.raises(ValueError, match="embed_model"):
         eng.submit_embedding([1, 2, 3])
-    # the live-migration surface raises, naming its ROADMAP item
-    for call in (lambda: eng.serialize_request(0), lambda: eng.adopt({}),
-                 lambda: eng.export_chain([]), lambda: eng.graft_chain({})):
-        with pytest.raises(NotImplementedError, match="8b"):
-            call()
+    # the live-migration surface is ported: nothing to move is a benign
+    # miss, a foreign KV layout a structured refusal
+    from paddle_tpu_torch.inference.serving import AdoptError
+    assert eng.serialize_request(0) is None
+    assert eng.export_chain([]) is None
+    assert eng.graft_chain(None) == {"grafted": 0, "present": 0,
+                                     "corrupt": 0}
+    with pytest.raises(AdoptError, match="layout mismatch"):
+        eng.graft_chain({"shape_key": ("foreign",), "blocks": []})
     with pytest.raises(ValueError, match="options"):
         TConfig(kv_quant="fp4")
 
