@@ -255,6 +255,47 @@ Phases (each fails the run on any error; none catches and carries on):
     kv_quant="int8"``: a drain whose migrations carry k, v and their
     scales, and a pinned pull, each equal to the unmigrated int8 engine;
     the int8 matmul launches.
+29. The serving front end (cell T), A's model at bf16, default
+    ``ServingConfig``: ``ServingServer`` over an ``EngineSupervisor``,
+    serving HTTP/1.1 + SSE on ``127.0.0.1``; phase 4's trace from 16
+    concurrent clients (standard-library asyncio streams, a connection a
+    request) in turns with the same trace through a second supervisor's
+    own step loop, 16 in flight (direct, server, server, direct):
+    tokens/s, TTFT p50/p99 and TPOT p50/p99 on the client clock, the
+    pump's host ms per delivered token event (its iterations less the
+    backend's steps and the idle wait for a command); during the server
+    turns one more client reads ``/metrics`` every 50 ms (count, ms p50
+    and max). Every stream ends ``finish`` with exactly its
+    ``max_new_tokens`` token events, each token once (the supervisor's
+    record), 12 paged-attention launches a decode iteration and a mixed
+    dispatch, the auditor clean, no block held. Then a slow client (an
+    8-event buffer) is disconnected and cancelled, a client that closes
+    after 2 events is cancelled, no block held; then
+    ``install_signal_handlers`` and SIGTERM with 4 requests in flight:
+    ``/readyz`` 503, a new ``/generate`` 503 with ``retry_after_s``,
+    every in-flight request finishes with its ``max_new_tokens`` (the
+    finish record; its token events a prefix of its record), the drain
+    cancels nothing and leaks nothing. Then the same server over
+    ``ServingServer.cold_start(journal dir, replicas=3)`` with replica 0
+    killed at its decode iteration 10: the trace from 16 clients, every
+    stream exact, failovers, 0 failed, the auditor clean, no block held.
+    ``pump_error`` is None after every server run.
+30. fp32 parity through the server on C's model and trace plus its
+    first two requests (8 concurrent in-process clients, half seeded):
+    the streams equal one supervisor's direct drain through the server,
+    through the server with an engine crash (each token delivered once),
+    and through a 3-replica router with and without crashes.
+31. Workload replay (cell U), A's model at bf16: ``run_replay`` of a
+    192-request ``WorkloadSpec`` (64-token family prefixes, tails of
+    16-128, outputs of 8-64; diurnal arrivals, 6 tenants, 3 families, a
+    quarter sampled, fixed retry backoff) through 3 replicas on the card
+    with 6 chaos events and the autoscaler on, auditing throughout (a
+    violation raises): every request has an outcome, 0 failed, no block
+    held, ``chips == 1.0``; elapsed, req/s, goodput, TTFT and TPOT
+    percentiles, the chaos and autoscale logs and ``capacity_report`` at
+    the card's memory. The manifest replayed onto a fresh fleet gives
+    every step-keyed field and stream again. Then 64 requests with
+    ``quantize="int8", kv_quant="int8"`` (the int8 matmul launches).
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -272,8 +313,9 @@ kernels line reports the serving launches of phases 4, 5, 13, 14
 (speculation on), 20 (the LoRA drain and both base-traffic runs), 23
 (the bf16 revisit and the fp32 int8 tier run), 24 (the bf16 crash run),
 25 (the generate traffic beside the embeds), 26 (the first fleet turn),
-27 (the first sharing wave with the fleet cache on) and 28 (the int8
-drain with migration) together,
+27 (the first sharing wave with the fleet cache on), 28 (the int8
+drain with migration), 29 (the first server turn) and 31 (the bf16 and
+the int8 replays) together,
 the flash launches of phase 8 and the RMSNorm and RoPE launches of
 phase 11 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -286,6 +328,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -294,6 +337,12 @@ HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense, tensor-core bf16;
 #                                                fp32 outside the tensor cores
 SEED = 0
+# the port's main paths this script drives, in phase order
+PATHS = ("serving kernels", "serving engine", "training step",
+         "sampled and speculative serving", "MoE serving and training",
+         "LoRA serving", "dense generation", "host offload tier",
+         "supervisor and journal", "embeddings", "serving fleet",
+         "serving server and replay")
 
 
 def check(cond, msg):
@@ -2632,9 +2681,9 @@ class _Crash(RuntimeError):
 def arm_crash(sup, at_decode_iter):
     """Arm the live engine of ``sup`` to raise once from its step loop at
     the first step that starts ``at_decode_iter`` or more decode
-    iterations after arming (this script's copy of the JAX package's
-    ``testing/chaos.py::engine_crash``: the patch rides the engine, so the
-    rebuilt engine runs clean). Returns the engine's decode-iteration
+    iterations after arming (the port's ``testing/chaos.py::
+    engine_crash`` keyed to decode iterations: the patch rides the
+    engine, so the rebuilt engine runs clean). Returns the engine's decode-iteration
     count at which it fires."""
     eng = sup.engine
     real = eng._step
@@ -3046,8 +3095,9 @@ def release():
 
 
 def arm_kill(router, rid, at_decode_iter=0):
-    """Kill replica ``rid`` for good (this script's copy of the JAX
-    package's ``testing/chaos.py::replica_kill``): its restart budget
+    """Kill replica ``rid`` for good (the port's
+    ``testing/chaos.py::replica_kill``, armed at a decode iteration
+    rather than the next step, and timed): its restart budget
     spent and its engine armed to crash at its ``at_decode_iter``-th
     decode iteration from now (``arm_crash``). Returns a dict whose
     ``"t"`` is set to the host time the crash fires."""
@@ -3070,42 +3120,6 @@ def arm_kill(router, rid, at_decode_iter=0):
     if not sup.pending:
         sup.step()
     return fired
-
-
-def slow_replica(router, rid, stall_steps, delay_s):
-    """This script's copy of ``testing/chaos.py::slow_replica``: the
-    replica's next ``stall_steps`` engine iterations sleep ``delay_s`` and
-    return nothing."""
-    eng = router._replicas[rid].sup.engine
-    real = eng._step
-    state = {"calls": 0}
-
-    def stalled(max_iters=None):
-        if state["calls"] < stall_steps:
-            state["calls"] += 1
-            time.sleep(delay_s)
-            return {}
-        return real(max_iters)
-
-    eng._step = stalled
-    return state
-
-
-def flaky_probe(router, rid, fails):
-    """This script's copy of ``testing/chaos.py::flaky_probe``: the
-    replica's next ``fails`` health probes raise."""
-    sup = router._replicas[rid].sup
-    real = sup.health_snapshot
-    state = {"calls": 0}
-
-    def shim():
-        if state["calls"] < fails:
-            state["calls"] += 1
-            raise RuntimeError("injected flaky health probe")
-        return real()
-
-    sup.health_snapshot = shim
-    return state
 
 
 def timed_method(obj, name, spent, key):
@@ -3672,6 +3686,7 @@ def fleet_parity_phase(sp, sn, tmp):
                                                     ServingRouter)
     from paddle_tpu_torch.models.llama import init_params
     from paddle_tpu_torch.models.lora import lora_init_params
+    from paddle_tpu_torch.testing import chaos
     cfg32 = model_config(torch.float32)
     params = init_params(cfg32, seed=SEED + 1, device="cuda")
     knobs = [dict(SAMPLED, seed=i) if i % 2 else {} for i in range(len(sp))]
@@ -3734,7 +3749,7 @@ def fleet_parity_phase(sp, sn, tmp):
     release()
     # a slow replica under hedging
     r = fleet(replicas=2, hedge_ttft_mult=2.0, ttft_slo_s=0.01, seed=1)
-    slow_replica(r, 0, stall_steps=100, delay_s=0.01)
+    chaos.slow_replica(r, rid=0, stall_steps=100, delay_s=0.01)
     c0 = router_counters(r)
     run("hedge", r, prompts=sp[:1], news=sn[:1], kn=knobs[:1],
         want=want[:1], pins=[0])
@@ -3747,7 +3762,7 @@ def fleet_parity_phase(sp, sn, tmp):
     r = fleet(replicas=2)
     rep0 = r._replicas[0]
     rep0.breaker.cooldown_s = 60.0
-    flaky_probe(r, 0, fails=3)
+    chaos.flaky_probe(r, rid=0, fails=3)
     for k in range(3):
         ids = run("flaky probe", r, prompts=sp[k:k + 1], news=sn[k:k + 1],
                   kn=knobs[k:k + 1], want=want[k:k + 1])
@@ -3906,6 +3921,552 @@ def fleet_parity_phase(sp, sn, tmp):
     del params
     release()
     return {"paths": done}, c
+
+
+# ---------------------------------------------------------------------------
+# phases 29-31: the serving front end (ServingServer over HTTP/1.1 + SSE),
+# fp32 parity through it, and the workload replay with its capacity report
+# ---------------------------------------------------------------------------
+
+async def sse_client(port, body, t_sent=None):
+    """One ``POST /generate`` over a fresh connection, read to its end as
+    a client would (the standard library's asyncio streams): returns the
+    status, the events (or the JSON body of a refusal) and, on the client
+    clock, when the request was sent and each token event arrived."""
+    import asyncio
+    t0 = time.time() if t_sent is None else t_sent
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode()
+    writer.write(b"POST /generate HTTP/1.1\r\nHost: localhost\r\n"
+                 b"Content-Type: application/json\r\nContent-Length: "
+                 + str(len(data)).encode() + b"\r\n\r\n" + data)
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    while (await reader.readline()) not in (b"\r\n", b"\n", b""):
+        pass
+    out = {"status": status, "t_sent": t0, "events": [], "t_tokens": []}
+    if status != 200:
+        out["body"] = json.loads(await reader.read())
+    else:
+        while True:
+            line = await reader.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                ev = json.loads(line[6:])
+                out["events"].append(ev)
+                if ev["type"] == "token":
+                    out["t_tokens"].append(time.time())
+    writer.close()
+    await writer.wait_closed()
+    out["tokens"] = [ev["token"] for ev in out["events"]
+                     if ev["type"] == "token"]
+    starts = [ev["rid"] for ev in out["events"] if ev["type"] == "start"]
+    fins = [ev for ev in out["events"] if ev["type"] == "finish"]
+    out["rid"] = starts[0] if starts else None
+    out["finish"] = fins[0] if fins else None
+    return out
+
+
+async def http_get(port, path):
+    """``GET path`` over a fresh connection: (status, JSON body, ms)."""
+    import asyncio
+    t = time.time()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: localhost\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), json.loads(body), (time.time() - t) * 1e3
+
+
+class PumpMeter:
+    """Wraps a server's pump (instance attributes, removed by ``stop``):
+    the pump's own host ms — each ``_pump_once`` less the backend's
+    ``step`` and the idle wait for a command — and the token events it
+    delivered."""
+
+    def __init__(self, srv):
+        self.srv, self.ms, self.events = srv, 0.0, 0
+        self.step_ms = self.wait_ms = 0.0
+        once, step = srv._pump_once, srv.sup.step
+        run_cmds, deliver = srv._run_cmds, srv._deliver
+        # an iteration already under way when the meter went in is not
+        # counted: only steps and waits inside a metered iteration are
+        inside = threading.local()
+
+        def timed_once():
+            inside.on = True
+            t = time.time()
+            try:
+                return once()
+            finally:
+                self.ms += (time.time() - t) * 1e3
+                inside.on = False
+
+        def timed_step(*a, **kw):
+            t = time.time()
+            try:
+                return step(*a, **kw)
+            finally:
+                if getattr(inside, "on", False):
+                    self.step_ms += (time.time() - t) * 1e3
+
+        def timed_cmds(block):
+            t = time.time()
+            try:
+                return run_cmds(block)
+            finally:
+                if block and getattr(inside, "on", False):
+                    self.wait_ms += (time.time() - t) * 1e3
+
+        def counted(client, ev):
+            if ev is not None and ev.get("type") == "token":
+                self.events += 1
+            return deliver(client, ev)
+
+        srv._pump_once, srv.sup.step = timed_once, timed_step
+        srv._run_cmds, srv._deliver = timed_cmds, counted
+
+    def stop(self):
+        for obj, name in ((self.srv, "_pump_once"), (self.srv.sup, "step"),
+                          (self.srv, "_run_cmds"), (self.srv, "_deliver")):
+            delattr(obj, name)
+        host = self.ms - self.step_ms - self.wait_ms
+        return {"pump_host_ms": host, "token_events": self.events,
+                "pump_ms_per_event": host / max(1, self.events)}
+
+
+async def server_turn(srv, prompts, news, concurrency=16, scrape=False):
+    """Phase 4's trace from ``concurrency`` SSE clients over TCP, each
+    request on its own connection. Every stream must end ``finish`` with
+    exactly its ``max_new_tokens`` token events, each token once (the
+    backend's record). With ``scrape``, one more client reads
+    ``/metrics`` every 50 ms. Returns the client-clock metrics."""
+    import asyncio
+    sem = asyncio.Semaphore(concurrency)
+    done = asyncio.Event()
+
+    async def one(i):
+        async with sem:
+            return await sse_client(srv.port, {
+                "prompt": [int(t) for t in prompts[i]],
+                "max_new_tokens": int(news[i]), "eos_token_id": None})
+
+    async def scraper():
+        ms = []
+        while not done.is_set():
+            st, _, t = await http_get(srv.port, "/metrics")
+            check(st == 200, f"/metrics answered {st}")
+            ms.append(t)
+            await asyncio.sleep(0.05)
+        return ms
+
+    scrape_task = asyncio.ensure_future(scraper()) if scrape else None
+    t0 = time.time()
+    outs = await asyncio.gather(*(one(i) for i in range(len(prompts))))
+    wall = time.time() - t0
+    done.set()
+    scrapes = await scrape_task if scrape_task is not None else []
+    for i, o in enumerate(outs):
+        check(o["status"] == 200 and o["finish"] is not None
+              and o["finish"]["state"] == "finished"
+              and o["finish"]["tokens"] == news[i]
+              and len(o["tokens"]) == news[i],
+              f"client {i}: status {o['status']}, finish {o['finish']}, "
+              f"{len(o['tokens'])}/{news[i]} token events")
+        check(o["tokens"] == [int(t) for t in srv.sup.result(o["rid"])],
+              f"client {i}: streamed tokens repeat or went missing")
+    ttft = [o["t_tokens"][0] - o["t_sent"] for o in outs]
+    tpot = [(o["t_tokens"][-1] - o["t_tokens"][0]) / (len(o["tokens"]) - 1)
+            for o in outs if len(o["tokens"]) > 1]
+    m = {"tok_s": sum(news) / wall, "wall_s": wall,
+         "ttft_p50_s": float(np.percentile(ttft, 50)),
+         "ttft_p99_s": float(np.percentile(ttft, 99)),
+         "tpot_p50_ms": float(np.percentile(tpot, 50)) * 1e3,
+         "tpot_p99_ms": float(np.percentile(tpot, 99)) * 1e3}
+    if scrape:
+        m.update(scrapes=len(scrapes),
+                 scrape_ms_p50=float(np.percentile(scrapes, 50)),
+                 scrape_ms_max=float(max(scrapes)))
+    return m, outs
+
+
+def frontend_phase(prompts, news, tmp, cfg=None, dev="cuda"):
+    """Phase 29 (cell T): A's model behind ``ServingServer`` over HTTP/1.1
+    + SSE. Phase 4's trace from 16 clients in turns with the supervisor's
+    own step loop (direct, server, server, direct), ``/metrics`` scraped
+    every 50 ms during the server turns; a slow client, a disconnect and a
+    SIGTERM drain; then the server over a cold-started 3-replica fleet with
+    a replica killed at decode iteration 10. Returns (metrics, main-path
+    launches)."""
+    import asyncio
+    import os
+    import signal
+    import torch
+    from paddle_tpu_torch.inference.serving import (EngineSupervisor,
+                                                    InvariantAuditor,
+                                                    ServingConfig,
+                                                    ServingServer)
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.testing import chaos
+    cfg = cfg or model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device=dev)
+    sup = EngineSupervisor(params, cfg, ServingConfig(), device=dev)
+    direct = EngineSupervisor(sup._params, cfg, ServingConfig(), device=dev)
+    for s in (sup, direct):                  # warm-up, one short request
+        s.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+    srv = ServingServer(sup)
+    out = {"turns": []}
+    state = {}
+
+    async def main():
+        async with srv.running(host="127.0.0.1", port=0):
+            for kind in ("direct", "server", "server", "direct"):
+                if kind == "direct":
+                    _, _, m = client_drive(direct, prompts, news,
+                                           concurrency=16)
+                    out["turns"].append({
+                        "kind": kind, "tok_s": m["tok_s"],
+                        "ttft_p50_s": m["ttft_p50_s"],
+                        "ttft_max_s": m["ttft_max_s"],
+                        "tpot_p50_ms": m["tpot_p50_ms"],
+                        "tpot_p99_ms": m["tpot_p99_ms"]})
+                    continue
+                s0 = sup.engine.stats()
+                meter = PumpMeter(srv)
+                first = "launches" not in state
+                if first:
+                    reset_counts()
+                m, _ = await server_turn(srv, prompts, news, scrape=True)
+                if first:
+                    state["launches"] = read_counts()
+                m.update(meter.stop())
+                s1 = sup.engine.stats()
+                if first:
+                    c = state["launches"]
+                    iters = s1["decode_iters"] - s0["decode_iters"]
+                    mixed = s1["mixed_dispatches"] - s0["mixed_dispatches"]
+                    dec = c["paged_attention"] - c["paged_attention_multiquery"]
+                    check(dec == 12 * iters, f"server: {dec} decode launches "
+                          f"for {iters} decode iterations")
+                    check(c["paged_attention_multiquery"] == 12 * mixed,
+                          f"server: {c['paged_attention_multiquery']} "
+                          f"multi-query launches for {mixed} mixed "
+                          f"dispatches")
+                    m["decode_iters"], m["mixed_dispatches"] = iters, mixed
+                InvariantAuditor().check(sup)
+                out["turns"].append({"kind": kind, **m})
+            check(sup.block_partition()["in_use"] == 0,
+                  f"blocks held after the turns: {sup.block_partition()}")
+
+            # a slow client (8-event buffer) is dropped and cancelled
+            c0 = sup.engine.stats()["cancelled"]
+            srv.client_queue = 8
+            slow = await chaos.slow_client(srv, prompts[1], read_events=1,
+                                           max_new_tokens=64,
+                                           eos_token_id=None)
+            srv.client_queue = 64
+            # a client that disconnects after 2 events is cancelled
+            cut = await chaos.disconnect_mid_stream(
+                srv, prompts[2], events=2, max_new_tokens=64,
+                eos_token_id=None)
+            t = time.time()
+            while sup.pending and time.time() - t < 30:
+                await asyncio.sleep(0.01)
+            check(slow["dropped"] and slow["disconnected"],
+                  f"slow client not disconnected: {slow}")
+            check(cut["events"] == 2, f"disconnect: {cut}")
+            for rid in (slow["rid"], cut["rid"]):
+                check(sup.request(rid).state == "cancelled",
+                      f"request {rid} ended {sup.request(rid).state}")
+            check(sup.engine.stats()["cancelled"] - c0 == 2,
+                  "the slow client and the disconnect were not cancelled")
+            check(sup.block_partition()["in_use"] == 0,
+                  f"blocks held after the faults: {sup.block_partition()}")
+            out["faults"] = {"slow_client": slow, "disconnect": cut}
+
+            # SIGTERM: in-flight requests finish, admissions get 503
+            check(srv.install_signal_handlers(),
+                  "SIGTERM handler not installed on the loop")
+            tasks = [asyncio.ensure_future(sse_client(srv.port, {
+                "prompt": [int(t) for t in prompts[i]],
+                "max_new_tokens": int(news[i]), "eos_token_id": None}))
+                for i in range(4)]
+            t = time.time()
+            while len([r for r in list(sup._reqs.values()) if r.tokens
+                       and not r.terminal]) < 4 and time.time() - t < 60:
+                await asyncio.sleep(0.005)
+            started = [r.srid for r in list(sup._reqs.values())
+                       if r.tokens and not r.terminal]
+            os.kill(os.getpid(), signal.SIGTERM)
+            t = time.time()
+            while True:
+                st_r, ready, _ = await http_get(srv.port, "/readyz")
+                if st_r == 503 or time.time() - t > 10:
+                    break
+            refused = await sse_client(srv.port, {
+                "prompt": [int(t) for t in prompts[5]],
+                "max_new_tokens": 4, "eos_token_id": None})
+            fins = await asyncio.gather(*tasks)
+            check(st_r == 503 and ready["draining"],
+                  f"/readyz during the drain: {st_r} {ready}")
+            check(refused["status"] == 503
+                  and refused["body"]["reason"] == "draining"
+                  and refused["body"]["retry_after_s"] > 0,
+                  f"/generate during the drain: {refused}")
+            for i, f in enumerate(fins):
+                want = [int(x) for x in sup.result(f["rid"])]
+                check(f["finish"] is not None
+                      and f["finish"]["state"] == "finished"
+                      and f["finish"]["tokens"] == news[i] == len(want)
+                      and f["tokens"] == want[:len(f["tokens"])],
+                      f"in-flight client {i} across the drain: "
+                      f"{f['finish']}, {len(f['tokens'])} token events")
+            rep = srv.drain_report
+            check(rep is not None and rep["cancelled"] == 0
+                  and rep["leaked_blocks"] == 0, f"drain report {rep}")
+            out["sigterm"] = {
+                "in_flight": len(started), "drain_report": rep,
+                "readyz": st_r, "refused": refused["body"],
+                "token_events_in_flight": [len(f["tokens"]) for f in fins],
+                "tokens_in_flight": [f["finish"]["tokens"] for f in fins]}
+        check(srv.pump_error is None, f"pump error {srv.pump_error!r}")
+
+    asyncio.run(main())
+    log(f"  in turns (direct, server, server, direct): "
+        f"{json.dumps(out['turns'])}")
+    log(f"  slow client / disconnect: {json.dumps(out['faults'])}")
+    log(f"  SIGTERM drain: {json.dumps(out['sigterm'])}")
+    launches = state["launches"]
+    log(f"  launches (first server turn): {json.dumps(launches)}")
+    InvariantAuditor().quiesce(sup)
+    del srv, sup, direct
+    release()
+
+    # the same server over a cold-started 3-replica fleet, a replica killed
+    jdir = os.path.join(tmp, "frontend-journal")
+    srv = ServingServer.cold_start(jdir, params, cfg, ServingConfig(),
+                                   replicas=3, device=dev)
+    r = srv.sup
+    for rid in r.replicas:                   # warm-up, one short request each
+        r.submit(prompts[0][:40], max_new_tokens=4, eos_token_id=None,
+                 replica=rid)
+    while r.pending:
+        r.step()
+    c0 = router_counters(r)
+    fired = arm_kill(r, 0, at_decode_iter=10)
+
+    async def fleet_main():
+        async with srv.running(host="127.0.0.1", port=0):
+            m, _ = await server_turn(srv, prompts, news)
+            InvariantAuditor().check(r)
+        check(srv.pump_error is None, f"pump error {srv.pump_error!r}")
+        return m
+
+    m = asyncio.run(fleet_main())
+    dc = counter_delta(c0, router_counters(r))
+    check("t" in fired and r._replicas[0].sup.broken,
+          "the armed replica kill never fired")
+    check(dc["failovers"] >= 1 and dc["failed"] == 0, f"fleet counters {dc}")
+    InvariantAuditor().quiesce(r)
+    balanced_fleet(r)
+    out["fleet"] = {**m, "failovers": dc["failovers"],
+                    "failover_tokens": dc["failover_tokens"],
+                    "failed": dc["failed"]}
+    log(f"  cold-started 3-replica fleet, replica 0 killed at decode "
+        f"iteration 10: {json.dumps(out['fleet'])}")
+    del srv, r, params
+    release()
+    return out, launches
+
+
+def server_parity_phase(sp, sn, cfg=None, dev="cuda"):
+    """Phase 30: fp32 on C's model, C's trace plus its first two requests
+    again (8 concurrent in-process clients, half the requests seeded):
+    the server's streams equal the supervisor's direct drain, through an
+    engine crash too (each token delivered once), and through a 3-replica
+    router with and without a crash."""
+    import asyncio
+    import torch
+    from paddle_tpu_torch.inference.serving import (EngineSupervisor,
+                                                    RouterConfig,
+                                                    ServingConfig,
+                                                    ServingRouter,
+                                                    ServingServer)
+    from paddle_tpu_torch.models.llama import init_params
+    cfg32 = cfg or model_config(torch.float32)
+    params = init_params(cfg32, seed=SEED + 1, device=dev)
+    prompts, news = list(sp) + list(sp[:2]), list(sn) + list(sn[:2])
+    knobs = [dict(SAMPLED, seed=i) if i % 2 else {}
+             for i in range(len(prompts))]
+    sup = EngineSupervisor(params, cfg32, ServingConfig(), device=dev)
+    ids, got, _ = client_drive(sup, prompts, news, knobs)
+    want = [got[i] for i in ids]
+    del sup
+    release()
+    done = []
+
+    def serve(name, backend, crashed=None):
+        srv = ServingServer(backend)
+
+        async def one(i):
+            toks, kinds, fin = [], [], None
+            async for ev in srv.agenerate(prompts[i], max_new_tokens=news[i],
+                                          eos_token_id=None, **knobs[i]):
+                kinds.append(ev["type"])
+                if ev["type"] == "token":
+                    toks.append(ev["token"])
+                elif ev["type"] == "finish":
+                    fin = ev
+            return toks, kinds, fin
+
+        async def main():
+            async with srv.running():
+                return await asyncio.gather(*(one(i)
+                                              for i in range(len(prompts))))
+
+        outs = asyncio.run(main())
+        check(srv.pump_error is None, f"{name}: pump error "
+              f"{srv.pump_error!r}")
+        for i, (toks, kinds, fin) in enumerate(outs):
+            check(toks == want[i], f"fp32 {name}, request {i}: {toks} != "
+                  f"{want[i]}")
+            check(kinds == ["start"] + ["token"] * news[i] + ["finish"]
+                  and fin["tokens"] == news[i],
+                  f"fp32 {name}, request {i}: events {kinds}")
+        if crashed is not None:
+            n = sum(sup.restarts for sup in crashed)
+            check(n >= 1, f"{name}: the armed crash never fired")
+        done.append(name)
+
+    serve("server", EngineSupervisor(params, cfg32, ServingConfig(),
+                                     device=dev))
+    release()
+    sup = EngineSupervisor(params, cfg32, ServingConfig(), device=dev)
+    arm_crash(sup, 3)
+    serve("server, engine crash", sup, crashed=[sup])
+    del sup
+    release()
+    r = ServingRouter(params, cfg32, ServingConfig(),
+                      router_config=RouterConfig(replicas=3), device=dev)
+    serve("server over 3 replicas", r)
+    balanced_fleet(r)
+    del r
+    release()
+    r = ServingRouter(params, cfg32, ServingConfig(),
+                      router_config=RouterConfig(replicas=3), device=dev)
+    sups = [rep.sup for rep in r._replicas.values()]
+    for s in sups:                           # whichever replica decodes
+        arm_crash(s, 3)
+    serve("server over 3 replicas, replica crashes", r, crashed=sups)
+    balanced_fleet(r)
+    del r, params
+    release()
+    log(f"  fp32 server streams equal the supervisor's direct drain: "
+        f"{', '.join(done)}")
+    return {"paths": done}
+
+
+# every report field keyed to steps, counts or the trace (not the clock)
+REPLAY_STEP_KEYS = (
+    "requests", "outcomes", "completed", "failed", "gave_up", "retries",
+    "shed_submits", "steps", "tokens_delivered", "good_tokens",
+    "mean_fleet", "tp", "ttft_steps_p50", "ttft_steps_p99",
+    "arrival_ttft_steps_p50", "arrival_ttft_steps_p99",
+    "pre_spawn_ttft_p99_steps", "post_spawn_ttft_p99_steps",
+    "ttft_p99_at_spawn_steps", "ttft_p99_after_spawn_steps", "autoscale",
+    "chaos_fired", "chaos_kinds", "violations", "audit", "audit_trail",
+    "router_failed", "leaked_blocks", "prompt_len_mean", "manifest_json",
+    "streams")
+
+
+def replay_phase(cfg=None, dev="cuda", requests=192, int8_requests=64,
+                 hbm_gb=None):
+    """Phase 31 (cell U): ``run_replay`` at A's width, 3 replicas on the
+    card, 6 chaos events, the autoscaler on; the auditor raises on any
+    violation. Then the manifest replayed onto a fresh fleet (every
+    step-keyed field and stream equal), then an int8 replay. The capacity
+    report sizes pools against ``hbm_gb`` (``None``: the card's memory).
+    Returns (metrics, main-path launches)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ReplayManifest,
+                                                    ServingConfig,
+                                                    WorkloadSpec,
+                                                    run_replay)
+    from paddle_tpu_torch.models.llama import init_params
+    cfg = cfg or model_config(torch.bfloat16)
+    params = init_params(cfg, seed=SEED, device=dev)
+    spec = WorkloadSpec(vocab_size=cfg.vocab_size, requests=requests,
+                        prefix_len=64, tail_lens=(16, 32, 64, 128),
+                        output_lens=(8, 16, 32, 64))
+    reset_counts()
+    one = run_replay(params, cfg, spec=spec, replicas=3, chaos="auto",
+                     chaos_events=6, record_streams=True, device=dev,
+                     hbm_gb=hbm_gb)
+    launches = read_counts()
+    n_out = sum(one["outcomes"].values())
+    check(n_out == one["requests"] == requests
+          and not set(one["outcomes"]) & {"waiting", "backoff", "live"},
+          f"replay outcomes {one['outcomes']}")
+    check(one["failed"] == 0 and one["router_failed"] == 0
+          and one["leaked_blocks"] == 0 and one["violations"] == [],
+          f"replay: failed {one['failed']}, router_failed "
+          f"{one['router_failed']}, leaked {one['leaked_blocks']}")
+    check(one["chips"] == 1.0, f"three replicas on one card counted as "
+          f"{one['chips']} chips")
+    check(launches["paged_attention"] > 0, "replay never launched paged "
+          "attention")
+    release()
+    two = run_replay(params, cfg,
+                     manifest=ReplayManifest.from_json(one["manifest_json"]),
+                     record_streams=True, device=dev, hbm_gb=hbm_gb)
+    for k in REPLAY_STEP_KEYS:
+        check(two[k] == one[k], f"replay of the manifest: {k} differs "
+              f"({str(one[k])[:200]} != {str(two[k])[:200]})")
+    release()
+    keys = ("elapsed_s", "req_s", "goodput_tok_s", "goodput_tok_s_per_chip",
+            "chips", "mean_fleet", "completed", "outcomes", "retries",
+            "shed_submits", "steps", "ttft_steps_p50", "ttft_steps_p99",
+            "ttft_s_p50", "ttft_s_p99", "tpot_s_p50", "tpot_s_p99",
+            "tokens_delivered", "good_tokens", "chaos_kinds",
+            "chaos_fired", "autoscale")
+    out = {"bf16": {k: one[k] for k in keys},
+           "rerun_elapsed_s": two["elapsed_s"],
+           "capacity": one["capacity"]}
+    log(f"  bf16 replay, {requests} requests, 3 replicas: "
+        f"{json.dumps(out['bf16'], default=str)}")
+    log(f"  capacity report at the card's memory: "
+        f"{json.dumps(one['capacity'])}")
+    log(f"  the manifest replayed onto a fresh fleet: every step-keyed field "
+        f"and all {len(one['streams'])} streams equal "
+        f"({two['elapsed_s']} s)")
+    del one, two
+    ispec = WorkloadSpec(vocab_size=cfg.vocab_size, requests=int8_requests,
+                         prefix_len=64, tail_lens=(16, 32, 64, 128),
+                         output_lens=(8, 16, 32, 64))
+    reset_counts()
+    rep8 = run_replay(params, cfg, spec=ispec, replicas=3,
+                      serving_config=ServingConfig(quantize="int8",
+                                                   kv_quant="int8"),
+                      chaos="auto", chaos_events=6, device=dev,
+                      hbm_gb=hbm_gb)
+    c8 = read_counts()
+    check(rep8["failed"] == 0 and rep8["leaked_blocks"] == 0
+          and sum(rep8["outcomes"].values()) == int8_requests,
+          f"int8 replay {rep8['outcomes']}")
+    check(c8["weight_only_matmul"] > 0 and c8["paged_attention_int8"] > 0,
+          f"int8 replay launches {c8}")
+    out["int8"] = {k: rep8[k] for k in keys}
+    log(f"  int8 replay, {int8_requests} requests: "
+        f"{json.dumps(out['int8'], default=str)}")
+    log(f"  launches: bf16 replay {json.dumps(launches)}, int8 replay "
+        f"{json.dumps(c8)}")
+    del params, rep8
+    release()
+    return out, {k: launches[k] + c8[k] for k in launches}
 
 
 def main() -> int:
@@ -4206,6 +4767,20 @@ def main() -> int:
     for c in (c26, c27, c28):
         launches = {k: launches[k] + c[k] for k in launches}
 
+    log("== phase 29: the serving front end (cell T), full width, bf16, "
+        "HTTP/1.1 + SSE from 16 clients")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, c29 = frontend_phase(prompts, news, tmp)
+    log("== phase 30: fp32 parity through the server on C's model and "
+        "trace")
+    server_parity_phase(sp, sn)
+    log("== phase 31: workload replay (cell U), full width, bf16, 3 "
+        "replicas under chaos, then int8")
+    _, c31 = replay_phase()
+    for c in (c29, c31):
+        launches = {k: launches[k] + c[k] for k in launches}
+
+    log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [
         summarize("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",

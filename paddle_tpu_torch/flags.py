@@ -1,12 +1,14 @@
 """Runtime flag registry — the ``FLAGS_serving_*`` and health subset the
 port reads.
 
-Counterpart of ``paddle_tpu/flags.py``: its ``define_flag`` / ``flag``
-helpers and the same names, defaults and ``FLAGS_<name>=value``
-environment override, limited to the serving knobs the ported engine,
-offload tier, journal, supervisor and fleet router resolve when a field
-is left unset, the two loss-spike knobs of the health sentinel and the
-hang watchdog's timeout.
+Counterpart of ``paddle_tpu/flags.py``: its ``define_flag`` / ``flag`` /
+``get_flags`` / ``set_flags`` helpers and the same names, defaults and
+``FLAGS_<name>=value`` environment override, limited to the serving
+knobs the ported engine, offload tier, journal, supervisor, fleet router
+and front-end server resolve when a field is left unset (every
+``FLAGS_serving_*`` of the reference, so a replay manifest records the
+same set), the two loss-spike knobs of the health sentinel and the hang
+watchdog's timeout.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import os
 from dataclasses import dataclass
 from typing import Any, Dict
 
-__all__ = ["define_flag", "flag"]
+__all__ = ["define_flag", "flag", "get_flags", "set_flags"]
 
 
 @dataclass
@@ -65,6 +67,29 @@ def flag(name: str, default: Any = _MISSING) -> Any:
             return default
         raise KeyError(name)
     return d.value
+
+
+def get_flags(names=None) -> Dict[str, Any]:
+    """``{name: value}`` of every registered flag, or of ``names`` (one
+    name or a list; each key as given)."""
+    if names is None:
+        return {k: d.value for k, d in _registry.items()}
+    if isinstance(names, str):
+        names = [names]
+    return {n: _registry[n if n.startswith("FLAGS_") else "FLAGS_" + n]
+            .value for n in names}
+
+
+def set_flags(flags_dict: Dict[str, Any]) -> None:
+    """Set registered flags at run time (coerced to each flag's type);
+    an unknown name raises ``ValueError`` naming the known ones."""
+    for name, value in flags_dict.items():
+        key = name if name.startswith("FLAGS_") else "FLAGS_" + name
+        d = _registry.get(key)
+        if d is None:
+            raise ValueError(f"unknown flag {name!r}; known flags: "
+                             f"{sorted(_registry)}")
+        d.value = _coerce(d, value)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +226,18 @@ define_flag("FLAGS_serving_drain_deadline_s", 30.0,
             "the remainder. The launcher's PADDLE_PREEMPT_GRACE (minus a "
             "2s margin) overrides when exported — the same preemption "
             "window the emergency-checkpoint path uses.", float)
+define_flag("FLAGS_serving_client_queue", 64,
+            "Per-client event-buffer bound in the asyncio serving server. "
+            "A consumer that falls this many undelivered events behind is "
+            "DISCONNECTED and its request cancelled through the normal "
+            "lifecycle path (KV blocks freed immediately) — a stalled SSE "
+            "reader cannot pin pool blocks or host memory.", int)
+define_flag("FLAGS_serving_tp", 1,
+            "Tensor-parallel degree for the serving engine "
+            "(ServingConfig.tp). The port serves on one device: any value "
+            "but 1 is refused (tensor parallelism over NCCL is item 7 of "
+            "ROADMAP.md section A); capacity_report's arithmetic covers "
+            "the other degrees.", int)
 
 define_flag("FLAGS_serving_audit", False,
             "Run the serving InvariantAuditor's structural checks "

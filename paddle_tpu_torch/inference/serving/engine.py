@@ -158,11 +158,15 @@ class ServingConfig:
     #                                  to a bounded pinned host pool
     #                                  instead of dying
     offload_blocks: Any = _UNSET     # host-tier capacity bound in blocks
-    # a feature of the JAX engine that a later slice brings (must stay 1)
-    tp: int = 1
+    # a feature of the JAX engine that a later slice brings: resolves
+    # from FLAGS_serving_tp and must be 1
+    tp: Optional[int] = None
 
     def __post_init__(self):
-        if int(self.tp) != 1:
+        if self.tp is None:
+            self.tp = int(flag("FLAGS_serving_tp"))
+        self.tp = int(self.tp)
+        if self.tp != 1:
             raise NotImplementedError(_LATER["tp"])
         for f, name in (("block_size", "FLAGS_serving_block_size"),
                         ("max_slots", "FLAGS_serving_max_slots"),

@@ -5,7 +5,8 @@ Ported here: ``GenerationConfig``; the dense-cache tier (:func:`init_cache`,
 :func:`left_align`, :func:`prefill`, :func:`decode_step`,
 :func:`make_generate_fn`, :func:`generate` and the streaming
 :class:`DecodeSession`); the paged block pool (:func:`init_paged_pool`,
-:func:`paged_pool_block_bytes`), the KV store / gather helpers and the
+:func:`paged_pool_block_bytes` with its tensor-parallel arithmetic and
+:func:`validate_tp`), the KV store / gather helpers and the
 paged forward entry points the serving engine drives —
 :func:`paged_prefill`, :func:`paged_prefill_chunk`,
 :func:`paged_decode_step` and :func:`paged_mixed_step` (the last over
@@ -69,7 +70,7 @@ __all__ = ["GenerationConfig", "init_cache", "left_align", "prefill",
            "init_paged_pool", "paged_pool_block_bytes",
            "paged_prefill", "paged_prefill_chunk", "paged_decode_step",
            "paged_mixed_step", "paged_spec_step", "seed_key",
-           "validate_sampling", "sample_tokens"]
+           "validate_sampling", "validate_tp", "sample_tokens"]
 
 
 @dataclasses.dataclass
@@ -276,11 +277,33 @@ def init_paged_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
+def validate_tp(cfg: LlamaConfig, tp: int) -> None:
+    """Check a tensor-parallel degree against a model config: the paged
+    pool shards its kv-heads axis, so ``tp`` must be >= 1 and divide
+    ``num_kv_heads`` (``ValueError`` naming the supported degrees)."""
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"tensor-parallel degree must be >= 1 (1 = the "
+                         f"single-device engine), got tp={tp}")
+    if tp == 1:
+        return
+    Hk = cfg.kv_heads
+    if Hk % tp:
+        divisors = [d for d in range(1, Hk + 1) if Hk % d == 0]
+        raise ValueError(
+            f"tensor-parallel degree tp={tp} does not divide the model's "
+            f"num_kv_heads={Hk} (the paged KV pool shards its kv-heads "
+            f"axis); supported degrees for this config: {divisors}")
+
+
 def paged_pool_block_bytes(cfg: LlamaConfig, block_size: int, dtype=None,
-                           kv_quant=None) -> int:
-    """Bytes ONE physical block costs across all layers (K + V + scales)."""
+                           kv_quant=None, tp: int = 1) -> int:
+    """Bytes ONE physical block costs across all layers (K + V + scales);
+    with ``tp > 1`` the cost on each device of a pool whose kv heads are
+    split ``tp`` ways (capacity arithmetic: the port serves at tp 1)."""
+    validate_tp(cfg, tp)
     L, bs = cfg.num_hidden_layers, int(block_size)
-    Hk, D = cfg.kv_heads, cfg.head_dim
+    Hk, D = cfg.kv_heads // int(tp), cfg.head_dim
     if kv_quant == "int8":
         return L * bs * Hk * (2 * D * 1 + 2 * 4)
     dt = dtype if dtype is not None else cfg.dtype

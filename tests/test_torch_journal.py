@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 
 from paddle_tpu.inference.serving import journal as JJ
-from paddle_tpu.testing.chaos import corrupt_snapshot, torn_journal_tail
 from paddle_tpu_torch.inference.serving import journal as TJ
+from paddle_tpu_torch.testing.chaos import corrupt_snapshot, torn_journal_tail
 
 PKGS = {"jax": JJ.RequestJournal, "port": TJ.RequestJournal}
 

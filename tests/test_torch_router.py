@@ -12,10 +12,10 @@ reference's own assertions run on both.
 Mirrors ``tests/test_router.py``: routing (P2C, affinity, directory
 hits), failover, circuit breakers, hedging, rolling restarts, autoscale,
 the snapshot registry, the failover fuzz (three trials), the review
-regressions, sampled failover and live migration. The JAX package's
-chaos injectors (``replica_kill``, ``slow_replica``, ``flaky_probe``,
-``engine_crash``) drive the port's router unchanged: they reach the same
-attribute names.
+regressions, sampled failover and live migration. The port's own chaos
+injectors (``paddle_tpu_torch.testing.chaos``: ``replica_kill``,
+``slow_replica``, ``flaky_probe``, ``engine_crash``) drive both routers:
+they reach the same attribute names on either package's objects.
 """
 
 import json
@@ -32,7 +32,6 @@ import paddle_tpu.inference.serving as JV
 from paddle_tpu.distributed.launch.main import (read_rejoin_count,
                                                 write_rejoin_file)
 from paddle_tpu.models import llama as JL
-from paddle_tpu.testing import chaos
 
 import paddle_tpu_torch.inference.serving as TV
 from paddle_tpu_torch.inference.serving.supervisor import (
@@ -40,6 +39,7 @@ from paddle_tpu_torch.inference.serving.supervisor import (
 from paddle_tpu_torch.inference.serving.supervisor import (
     write_rejoin_file as t_write_rejoin_file)
 from paddle_tpu_torch.models.convert import config_from_jax, params_from_jax
+from paddle_tpu_torch.testing import chaos
 
 torch.set_num_threads(2)
 

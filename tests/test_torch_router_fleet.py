@@ -6,9 +6,11 @@ tests of ``TestDurabilityAndFleet`` and ``TestEmbeddings``
 (``tests/test_lora.py``) and ``TestFleetChaos`` (``tests/test_chaos.py``).
 Each scenario runs on the JAX ``ServingRouter`` and on the port's with
 the same weights and trace; streams and router counters must be equal.
-The JAX package's chaos injectors — ``process_kill``, ``replica_kill``,
-``slow_replica``, ``flaky_probe``, ``kill_prefill_replica`` and
-``stale_directory`` — drive the port's router unchanged.
+The port's own chaos injectors (``paddle_tpu_torch.testing.chaos``) —
+``process_kill``, ``replica_kill``, ``slow_replica``, ``flaky_probe``,
+``kill_prefill_replica`` and ``stale_directory`` — drive the port's
+router; the JAX scenario drives the same port injector, which reaches
+the same attribute names on the JAX router.
 """
 
 import time
@@ -24,12 +26,12 @@ from paddle_tpu.models import llama as JL
 from paddle_tpu.models.bert import BertConfig as JBertConfig
 from paddle_tpu.models.bert import bert_init_params as j_bert_init
 from paddle_tpu.models.lora import lora_init_params
-from paddle_tpu.testing import chaos
 
 import paddle_tpu_torch.inference.serving as TV
 from paddle_tpu_torch.models.bert import BertConfig as TBertConfig
 from paddle_tpu_torch.models.convert import (bert_params_from_jax,
                                              config_from_jax, params_from_jax)
+from paddle_tpu_torch.testing import chaos
 
 torch.set_num_threads(2)
 

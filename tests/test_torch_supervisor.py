@@ -21,7 +21,7 @@ to the dense oracle; here the port is held to the JAX package.
 * The hang watchdog's unit contract, the engine's serving sections, and
   the health snapshot's shape, tenant breakdown and overflow folding.
 
-The crash and kill injectors are the JAX package's ``testing.chaos``
+The crash and kill injectors are the port's own ``testing.chaos``
 helpers: they patch the engine's ``_step`` or abandon the journal, and
 work on either package's objects.
 """
@@ -49,7 +49,6 @@ from paddle_tpu.models import llama as JL
 from paddle_tpu.models.bert import BertConfig as JBertConfig
 from paddle_tpu.models.bert import bert_init_params as j_bert_init
 from paddle_tpu.models.lora import lora_init_params
-from paddle_tpu.testing import chaos
 
 import paddle_tpu_torch.health.watchdog as TW
 import paddle_tpu_torch.inference.serving.supervisor as TS
@@ -63,6 +62,7 @@ from paddle_tpu_torch.inference.serving.scheduler import \
 from paddle_tpu_torch.models.bert import BertConfig as TBertConfig
 from paddle_tpu_torch.models.convert import (bert_params_from_jax,
                                              config_from_jax, params_from_jax)
+from paddle_tpu_torch.testing import chaos
 
 torch.set_num_threads(2)
 
@@ -931,4 +931,6 @@ def test_robustness_flags_match_jax(key):
     from paddle_tpu_torch import flags as TF
     a, b = JF._registry[key], TF._registry[key]
     assert (b.default, b.type, b.help) == (a.default, a.type, a.help)
-    assert "FLAGS_serving_tp" not in TF._registry
+    # the port registers FLAGS_serving_tp at the reference's default and
+    # serves at that degree only (ServingConfig refuses any other)
+    assert TF.flag("FLAGS_serving_tp") == JF.flag("FLAGS_serving_tp") == 1
