@@ -296,6 +296,31 @@ Phases (each fails the run on any error; none catches and carries on):
     the card's memory. The manifest replayed onto a fresh fleet gives
     every step-keyed field and stream again. Then 64 requests with
     ``quantize="int8", kv_quant="int8"`` (the int8 matmul launches).
+32. The paged-attention kernel (decode bf16 and int8, the Q = 5 verify)
+    and the int8 matmul ((K, N) = (2048, 1024) and (2048, 512), M = 8 and
+    2048) at the shapes one tensor-parallel shard of A gets at tp 2 and 4
+    (8 / 4 query and kv heads; N = 2048 / tp), under phase 3's rules.
+33. Tensor-parallel serving on the one card (cell V), every shard on
+    ``cuda:0``: A's model and trace through ``ServingEngine`` at tp 1 and
+    tp 2 in turns (1, 2, 2, 1): tokens/s, TTFT, ms a decode iteration,
+    the pool's bytes a shard and in all; paged attention must launch
+    exactly 12 x tp times a decode iteration or mixed dispatch, and every
+    bf16 stream where tp 1 and tp 2 part must part within bf16 rounding
+    (phase 14's rule). B's int8 weights and pool at tp 2: the int8 matmul
+    launches exactly 12 x (3 tp + 4) + 1 times a forward. Then fp32 on C's
+    model and trace: the first dispatch's logits (prefill, decode through
+    the kernel and the gather path) at tp 2 and 4 within 1e-4 x max|logit|
+    of tp 1's on fp pools and 1e-2 on int8 pools (one quantization step:
+    cuBLAS's fp32 GEMM rounds a shard's narrower projection differently,
+    and the quantizer can turn that ulp into a step); tp 2 and 4 streams
+    equal tp 1's, greedy and seeded, on the kernel and gather paths,
+    mixed on and off, the speculative verify, LoRA, a supervisor crash
+    (memory within one pool, no re-shard), a 2-replica tp-2 router with
+    a kill (0 failed, the weight shards held once), the offload tier
+    with a corrupt host block, and a migration between tp-2 engines; on
+    int8 pools every live row of every dispatch within 1e-2 x max|logit|
+    of tp 1's with the tokens teacher-forced (``lockstep``), the near ties
+    and the free-running streams' equality reported.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -314,8 +339,9 @@ kernels line reports the serving launches of phases 4, 5, 13, 14
 (the bf16 revisit and the fp32 int8 tier run), 24 (the bf16 crash run),
 25 (the generate traffic beside the embeds), 26 (the first fleet turn),
 27 (the first sharing wave with the fleet cache on), 28 (the int8
-drain with migration), 29 (the first server turn) and 31 (the bf16 and
-the int8 replays) together,
+drain with migration), 29 (the first server turn), 31 (the bf16 and
+the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
+together,
 the flash launches of phase 8 and the RMSNorm and RoPE launches of
 phase 11 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -342,7 +368,7 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "sampled and speculative serving", "MoE serving and training",
          "LoRA serving", "dense generation", "host offload tier",
          "supervisor and journal", "embeddings", "serving fleet",
-         "serving server and replay")
+         "serving server and replay", "tensor-parallel serving")
 
 
 def check(cond, msg):
@@ -1297,13 +1323,17 @@ def model_config(dtype, **kw):
                        param_dtype=torch.float32, **kw)
 
 
-def first_dispatch(params, cfg, prompts, B=4, W=16):
+def first_dispatch(params, cfg, prompts, B=4, W=16, kv_quant=None,
+                   devices=None):
     """One batched ``paged_prefill`` of the first ``B`` prompts (cut to 120
-    tokens) into a fresh pool: (logits, pool, greedy tokens, the decode
-    operands ``(seq_lens, tables, active)``, the MoE drop count)."""
+    tokens) into a fresh pool (``kv_quant``; a tensor-parallel pool over
+    ``devices``, for params sharded over them): (logits, pool, greedy
+    tokens, the decode operands ``(seq_lens, tables, active)``, the MoE
+    drop count)."""
     import torch
     from paddle_tpu_torch.models import generation as G
-    pool = G.init_paged_pool(cfg, 1 + B * W, 16, device="cuda")
+    pool = G.init_paged_pool(cfg, 1 + B * W, 16, kv_quant=kv_quant,
+                             device="cuda", devices=devices)
     ids = np.zeros((B, 128), np.int32)
     plens = np.array([len(p[:120]) for p in prompts[:B]], np.int32)
     for b in range(B):
@@ -2726,7 +2756,7 @@ def supervised_drive(sup, prompts, news, knobs=None, crash_at=None,
             torch.cuda.synchronize()
             m["mem_before_gb"] = torch.cuda.memory_allocated() / 2**30
             m["pool_gb"] = sup.engine.cache.kv_bytes() / 2**30
-            m["wq_ptr"] = sup.engine._params["layers"]["wq"].data_ptr()
+            m["wq_ptr"] = weight_ptrs(sup.engine)
             r0 = sup.restarts
             t1 = time.time()
             out = sup.step(max_iters)
@@ -2735,8 +2765,8 @@ def supervised_drive(sup, prompts, news, knobs=None, crash_at=None,
             m["mem_after_gb"] = torch.cuda.memory_allocated() / 2**30
             check(sup.restarts == r0 + 1 and out == {},
                   f"the crash did not restart the engine ({sup.restarts})")
-            check(sup.engine._params["layers"]["wq"].data_ptr()
-                  == m.pop("wq_ptr"), "the rebuild re-cast the weights")
+            check(weight_ptrs(sup.engine) == m.pop("wq_ptr"),
+                  "the rebuild re-cast or re-sharded the weights")
             armed = False
         else:
             out = sup.step(max_iters)
@@ -4469,6 +4499,437 @@ def replay_phase(cfg=None, dev="cuda", requests=192, int8_requests=64,
     return out, {k: launches[k] + c8[k] for k in launches}
 
 
+# ---------------------------------------------------------------------------
+# phases 32-33: tensor-parallel serving on the one card
+# ---------------------------------------------------------------------------
+
+def weight_ptrs(engine):
+    """The storage of an engine's ``wq`` (one tensor, or the tuple of a
+    tensor-parallel engine's column shards)."""
+    wq = engine.prepared_params["layers"]["wq"]
+    return tuple(t.data_ptr() for t in wq) if isinstance(wq, tuple) \
+        else (wq.data_ptr(),)
+
+
+def shard_kernel_phase():
+    """Phase 32: the two serving kernels at the shapes one shard of A's
+    model gets at tp 2 and 4 (8 / 4 query and kv heads; the q/k/v
+    projections' N = 2048 / tp), under phase 3's rules."""
+    att, mm = [], []
+    for tp in (2, 4):
+        h = 16 // tp
+        shape = f"M=8 H={h} Hk={h} D=128 bs=16 W=128"
+        att.append(attention_case(f"tp{tp} shard decode bf16 {shape}", 8, h,
+                                  h, 128, 16, 128, False, seed=320 + tp))
+        att.append(attention_case(f"tp{tp} shard decode int8 {shape}", 8, h,
+                                  h, 128, 16, 128, True, seed=330 + tp))
+        att.append(attention_case(
+            f"tp{tp} shard verify bf16 Q=5 {shape} draft_lens 0..4", 8, h, h,
+            128, 16, 128, False, Q=5, seed=340 + tp, every_draft_len=True))
+    for M in (8, 2048):
+        for N in (1024, 512):
+            mm.append(matmul_case(M, 2048, N, seed=350 + M + N))
+    return att, mm
+
+
+def placement(tp, dev):
+    """``tp`` shards all on ``dev`` (the card's index 0, or the CPU)."""
+    return [dev if dev == "cpu" else "cuda:0"] * tp
+
+
+def forwards(m):
+    """The model forwards a drain ran: every dispatch is one forward,
+    except a decode dispatch, which runs one a decode iteration."""
+    return (m["prefill_dispatches"] + m["mixed_dispatches"]
+            + m["spec_dispatches"] + m["decode_iters"])
+
+
+def tp_serving_phase(prompts, news, cfg=None, dev="cuda"):
+    """Phase 33, A and B: A's model and trace at bf16 through
+    ``ServingEngine`` at tp 1 and at tp 2 with both shards on the card,
+    in turns (1, 2, 2, 1), then B's int8 weights and pool at tp 2. Gates
+    the exact launch counts: paged attention ``L x tp`` a decode
+    iteration or mixed dispatch, the int8 matmul ``L x (3 tp + 4) + 1`` a
+    forward; every bf16 stream where tp 1 and tp 2 part is held to bf16
+    rounding (``divergence_margins``). Returns (metrics, the first tp-2
+    turn's launches plus the int8 run's)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    from paddle_tpu_torch.models.llama import init_params
+    cfg = cfg or model_config(torch.bfloat16)
+    L = cfg.num_hidden_layers
+    params = init_params(cfg, seed=SEED, device=dev)
+    cuda = dev != "cpu"
+    out, turns, main = {}, [], None
+    for tp in (1, 2, 2, 1):
+        mem0 = mem_gb() if cuda else 0.0
+        eng = ServingEngine(params, cfg, ServingConfig(tp=tp),
+                            device=placement(tp, dev))
+        mem1 = mem_gb() if cuda else 0.0
+        eng.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+        reset_counts()
+        streams, m = drive(eng, prompts, news)
+        c = read_counts()
+        want = L * tp * (m["decode_iters"] + m["mixed_dispatches"])
+        if cuda:
+            check(c["paged_attention"] == want,
+                  f"tp {tp}: {c['paged_attention']} paged-attention "
+                  f"launches, want {want} ({L} x {tp} a decode iteration "
+                  f"or mixed dispatch)")
+        if tp == 2 and main is None:
+            main = c
+        m.update(tp=tp, launches=c,
+                 attention_launches_per_decode_iter=L * tp,
+                 engine_gb=mem1 - mem0,
+                 pool_gb=eng.cache.kv_bytes() / 2**30,
+                 pool_shard_gb=eng.cache.kv_bytes(per_shard=True) / 2**30)
+        out.setdefault(tp, streams)
+        turns.append(m)
+        log(f"  tp {tp}: {json.dumps(m)}")
+        del eng
+        release()
+    equal = sum(np.array_equal(a, b) for a, b in zip(out[1], out[2]))
+    log(f"  {equal} of {len(prompts)} bf16 streams equal between tp 1 and "
+        f"tp 2")
+    rows = divergence_margins(params, cfg, prompts, out[1], out[2]) \
+        if cuda else []
+    eng = ServingEngine(params, cfg, ServingConfig(
+        tp=2, quantize="int8", kv_quant="int8"), device=placement(2, dev))
+    eng.run([prompts[0][:40]], max_new_tokens=4, eos_token_id=None)
+    reset_counts()
+    _, m8 = drive(eng, prompts, news)
+    c8 = read_counts()
+    per = L * (3 * 2 + 4) + 1
+    if cuda:
+        check(c8["weight_only_matmul"] == per * forwards(m8),
+              f"int8 tp 2: {c8['weight_only_matmul']} matmul launches, want "
+              f"{per} x {forwards(m8)} forwards")
+        check(c8["paged_attention_int8"] == c8["paged_attention"] > 0,
+              f"int8 tp 2 attention launches {c8}")
+    m8.update(launches=c8, matmul_launches_per_forward=per)
+    log(f"  int8 tp 2: {json.dumps(m8)}")
+    del eng, params
+    release()
+    launches = {k: main[k] + c8[k] for k in main}
+    return {"turns": turns, "equal_streams": equal, "divergences": rows,
+            "int8": m8}, launches
+
+
+# first-dispatch fp32 logits at tp > 1 against tp 1, as a share of
+# max |logit|: fp pools round like the projections (an ulp of cuBLAS's
+# fp32 GEMM, whose reduction depends on N); int8 pools may move a KV
+# entry by one quantization step (1/127 of its row's range)
+FP_LOGIT_TOL, INT8_LOGIT_TOL = 1e-4, 1e-2
+
+
+def first_dispatch_tp(params, cfg, prompts):
+    """A batched prefill, then one decode step through the kernel and the
+    gather path, at tp 2 and 4 (shards on the card) against tp 1, fp and
+    int8 pools; each logits tensor within its tolerance of tp 1's.
+    Returns {case: max |d| / max |logit|}."""
+    import torch
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.models.llama import shard_serving_params
+    out = {}
+    for kv in (None, "int8"):
+        ref = None
+        for tp in (1, 2, 4):
+            devs = None if tp == 1 else [torch.device("cuda", 0)] * tp
+            p = params if tp == 1 else shard_serving_params(params, devs)
+            pre, pool, tok, (sl, tbl, act), _ = first_dispatch(
+                p, cfg, prompts, kv_quant=kv, devices=devs)
+            got = [pre]
+            for use in (True, False):
+                copy = ({k: v.clone() for k, v in pool.items()} if tp == 1
+                        else [{k: v.clone() for k, v in sh.items()}
+                              for sh in pool])
+                got.append(G.paged_decode_step(p, cfg, tok, sl, tbl, copy,
+                                               act, use_kernel=use)[0])
+            del pool, p
+            if ref is None:
+                ref = got
+                continue
+            tol = INT8_LOGIT_TOL if kv else FP_LOGIT_TOL
+            for name, a, b in zip(("prefill", "decode kernel",
+                                   "decode gather"), got, ref):
+                rel = float((a - b).abs().max() / b.abs().max())
+                out[f"{kv or 'fp'} tp{tp} {name}"] = rel
+                check(rel <= tol, f"fp32 {kv or 'fp'} pool tp {tp} {name} "
+                      f"logits {rel:.3g} x max|logit| from tp 1 > {tol}")
+        release()
+    return out
+
+
+def lockstep(params, cfg, tp, prompts, news, knobs, dev, **kw):
+    """Drain the trace on a tp-1 engine, then on a tp-``tp`` engine whose
+    every sampled token is replaced by the tp-1 engine's at the same
+    dispatch (teacher forcing: both see the same contexts throughout),
+    then freely. At every dispatch each live row's fp32 logits must lie
+    within ``INT8_LOGIT_TOL`` x max |logit| of tp 1's; a live row whose
+    own token differs there is a near tie. Returns the worst deviation,
+    the near ties, and the free run's streams equal to tp 1's."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (ServingConfig,
+                                                    ServingEngine)
+    from paddle_tpu_torch.models import generation as G
+    real = {n: getattr(G, n) for n in ("sample_tokens", "paged_prefill",
+                                       "paged_prefill_chunk",
+                                       "paged_decode_step",
+                                       "paged_mixed_step")}
+
+    def run(t, forced=None):
+        rec, live = [], [None]
+        eng = ServingEngine(params, cfg, ServingConfig(tp=t, **kw),
+                            device=placement(t, dev))
+
+        def forward(name):
+            # where the entry point takes its active mask (the live rows
+            # of the next sampled logits); a chunk is one live row
+            at = {"paged_prefill": 6, "paged_decode_step": 6,
+                  "paged_mixed_step": 7}.get(name)
+
+            def f(*a, **k):
+                live[0] = (torch.ones(1, dtype=torch.bool) if at is None
+                           else a[at])
+                return real[name](*a, **k)
+            return f
+
+        def pick(logits, out):
+            rec.append((logits.detach().float().clone(), out.copy(),
+                        live[0].detach().cpu().numpy().copy()))
+            if forced is not None:
+                want = forced[len(rec) - 1][1]
+                check(want.shape == out.shape, "the dispatches differ")
+                return want.copy()
+            return out
+
+        def sample(logits, *a):
+            out = real["sample_tokens"](logits, *a).cpu().numpy()
+            return torch.from_numpy(pick(logits, out))
+
+        eng._argmax = lambda logits: pick(
+            logits, logits.argmax(dim=-1).to(torch.int32).cpu().numpy())
+        for name in real:
+            setattr(G, name, sample if name == "sample_tokens"
+                    else forward(name))
+        try:
+            streams, _ = drive(eng, prompts, news, knobs, max_iters=2)
+        finally:
+            for name, fn in real.items():
+                setattr(G, name, fn)
+        del eng
+        release()
+        return [[int(x) for x in o] for o in streams], rec
+
+    want, ref = run(1)
+    forced, got = run(tp, ref)
+    check(forced == want, "teacher forcing did not hold the streams")
+    worst, ties = 0.0, []
+    for k, ((l1, o1, a1), (l2, o2, _)) in enumerate(zip(ref, got)):
+        rows = np.flatnonzero(a1[:len(o1)]) if a1.ndim else []
+        for r in rows:
+            scale = float(l1[r].abs().max())
+            d = float((l1[r] - l2[r]).abs().max()) / scale
+            worst = max(worst, d)
+            check(d <= INT8_LOGIT_TOL, f"tp {tp} {kw}: dispatch {k} row "
+                  f"{r} logits {d:.3g} x max|logit| from tp 1")
+            if o1[r] != o2[r]:
+                ties.append([k, int(r), int(o1[r]), int(o2[r]), d])
+    free, _ = run(tp)
+    equal = sum(a == b for a, b in zip(free, want))
+    return {"worst_rel": worst, "near_ties": ties,
+            "free_streams_equal": f"{equal} of {len(want)}"}
+
+
+
+def tp_parity_phase(sp, sn, cfg=None, dev="cuda"):
+    """Phase 33, C: fp32 streams at tp 2 and 4 (every shard on the card)
+    equal tp 1's on C's model and trace, half the requests seeded, stepped
+    2 decode iterations at a time: kernel and gather, fp and int8 pools,
+    mixed on and off, speculative verify (a drafter proposing the tp-1
+    stream's continuation: every draft verified and accepted), LoRA, an
+    engine crash under a supervisor (memory within one pool of its
+    pre-crash level, the weight shards not re-made), a 2-replica tp-2
+    router with a kill (0 failed, one copy of the weight shards), the
+    host offload tier (and a corrupted host block) and one live
+    migration. Returns the paths checked."""
+    import torch
+    from paddle_tpu_torch.inference.serving import (EngineSupervisor,
+                                                    RouterConfig,
+                                                    ServingConfig,
+                                                    ServingEngine,
+                                                    ServingRouter)
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.models.lora import lora_init_params
+    cfg32 = cfg or model_config(torch.float32)
+    params = init_params(cfg32, seed=SEED + 1, device=dev)
+    cuda = dev != "cpu"
+    knobs = [dict(SAMPLED, seed=i) if i % 2 else {} for i in range(len(sp))]
+    done = []
+
+    def engine(tp, **kw):
+        return ServingEngine(params, cfg32, ServingConfig(tp=tp, **kw),
+                             device=placement(tp, dev))
+
+    def single(tp, adapters=None, hook=None, **kw):
+        eng = engine(tp, **kw)
+        for name, ap in (adapters or {}).items():
+            eng.register_adapter(name, ap)
+        if hook is not None:
+            hook(eng)
+        ids = None
+        if adapters:
+            names = sorted(adapters)
+            ids = [dict(k, adapter_id=names[i % len(names)]) if i % 3 else k
+                   for i, k in enumerate(knobs)]
+        streams, m = drive(eng, sp, sn, ids or knobs, max_iters=2)
+        del eng
+        release()
+        return [[int(t) for t in o] for o in streams], m
+
+    def same(name, got, want):
+        for k, (a, b) in enumerate(zip(got, want)):
+            check(a == b, f"fp32 {name}, request {k}: {a} != {b}")
+        done.append(name)
+
+    if cuda:
+        logits_rows = first_dispatch_tp(params, cfg32, sp)
+    for kernel in ("on", "off"):
+        want, _ = single(1, paged_kernel=kernel)
+        for tp in ((2, 4) if kernel == "on" else (2,)):
+            got, m = single(tp, paged_kernel=kernel)
+            check(m["mixed_dispatches"] > 0, "no mixed dispatch")
+            same(f"tp {tp} fp pool, kernel {kernel}", got, want)
+    # int8 pools: fp32 projections at a shard's width round differently
+    # (cuBLAS picks its fp32 GEMM by N), and the per-token quantizer
+    # turns an ulp into a whole int8 step, so a near-tie may part; each
+    # dispatch is held within INT8_LOGIT_TOL of tp 1, teacher-forced
+    int8 = {}
+    for kernel in ("on", "off"):
+        for tp in ((2, 4) if kernel == "on" else (2,)):
+            int8[(tp, kernel)] = lockstep(params, cfg32, tp, sp, sn, knobs,
+                                          dev, kv_quant="int8",
+                                          paged_kernel=kernel)
+            done.append(f"tp {tp} int8 pool, kernel {kernel} (lockstep)")
+    want = single(1)[0]
+    got, _ = single(2, mixed_batch=False)
+    same("tp 2 mixed off", got, single(1, mixed_batch=False)[0])
+    # the verify path, fed the tp-1 stream's own continuation as drafts
+    cont = {np.asarray(p, np.int32).tobytes(): s for p, s in zip(sp, want)}
+
+    def oracle_drafts(eng):
+        def drafts(req):
+            k = min(4, int(eng._steps_left[req.slot]) - 1)
+            t = len(req.tokens)
+            s = cont[np.asarray(req.prompt, np.int32).tobytes()]
+            return [int(x) for x in s[t:t + k]] if k > 0 else []
+        eng._draft_tokens = drafts
+
+    for tp in (2, 4):
+        got, m = single(tp, hook=oracle_drafts, spec_decode=4,
+                        spec_ngram=2)
+        check(m["spec_dispatches"] > 0
+              and m["spec_accepted"] == m["spec_drafted"] > 0,
+              f"tp {tp} verify: {m['spec_dispatches']} dispatches, "
+              f"{m['spec_drafted']} drafted, {m['spec_accepted']} accepted")
+        same(f"tp {tp} speculative verify", got, want)
+    adapters = {f"a{i}": lora_init_params(cfg32, LORA_RANK, seed=300 + i)
+                for i in range(2)}
+    lw, _ = single(1, adapters=adapters, lora_rank=LORA_RANK, lora_slots=2,
+                   lora_pool=4)
+    check(lw != want, "the adapters never moved a stream")
+    got, _ = single(2, adapters=adapters, lora_rank=LORA_RANK, lora_slots=2,
+                    lora_pool=4)
+    same("tp 2 LoRA", got, lw)
+    # an engine crash under a supervisor: the rebuild reuses the shards
+    sup = EngineSupervisor(params, cfg32, ServingConfig(tp=2),
+                           device=placement(2, dev))
+    srids, got_s, ms = supervised_drive(sup, sp, sn, knobs, crash_at=3,
+                                        max_iters=2)
+    same("tp 2 supervisor crash", [got_s[s] for s in srids], want)
+    if cuda:
+        check(abs(ms["mem_after_gb"] - ms["mem_before_gb"])
+              <= ms["pool_gb"], f"memory across the rebuild {ms}")
+    crash = {k: ms[k] for k in ("recovery_ms", "mem_before_gb",
+                                "mem_after_gb", "pool_gb") if k in ms}
+    del sup
+    release()
+    # a 2-replica tp-2 fleet with a kill: one copy of the weight shards
+    r = ServingRouter(params, cfg32, ServingConfig(tp=2),
+                      router_config=RouterConfig(replicas=2),
+                      device=placement(2, dev))
+    ptrs = {weight_ptrs(rep.sup.engine) for rep in r._replicas.values()}
+    check(len(ptrs) == 1, f"the replicas hold {len(ptrs)} weight copies")
+    c0 = router_counters(r)
+    ids, got_r, _ = client_drive(
+        r, sp, sn, knobs, max_iters=2,
+        after_step=lambda i: arm_kill(r, 0) if i == 1 else None)
+    same("tp 2 router with a kill", [got_r[i] for i in ids], want)
+    dc = counter_delta(c0, router_counters(r))
+    check(dc["failovers"] >= 1 and dc["failed"] == 0, f"kill {dc}")
+    balanced_fleet(r)
+    del r
+    release()
+    # the host offload tier: churn, then revisit; a corrupt host block
+    churn, revisit = family_trace(cfg32.vocab_size, SEED + 33, fams=6,
+                                  per=2, pre=64, tail=16)
+    tier = {}
+    for tp in (1, 2):
+        for corrupt in (False, True):
+            eng = engine(tp, num_blocks=40, max_slots=4, prefix_cache=True,
+                         offload=True, offload_blocks=128)
+            outs, m, _ = churn_revisit(
+                eng, churn, revisit, new=8,
+                between=(lambda e: e.cache.offload.corrupt_one(1))
+                if corrupt else None)
+            tier[(tp, corrupt)] = ([[int(t) for t in o] for o in outs],
+                                   m["offload"])
+            del eng
+            release()
+    for corrupt in (False, True):
+        same(f"tp 2 offload tier{', a corrupt block' if corrupt else ''}",
+             tier[(2, corrupt)][0], tier[(1, corrupt)][0])
+        check(tier[(2, corrupt)][1] == tier[(1, corrupt)][1],
+              f"tier counters {tier[(2, corrupt)][1]} != "
+              f"{tier[(1, corrupt)][1]}")
+    check(tier[(2, False)][1]["tier_hits"] > 0
+          and tier[(2, True)][1]["corrupt_drops"] == 1,
+          f"tier {tier[(2, False)][1]} / {tier[(2, True)][1]}")
+    # one live migration between two tp-2 engines, mid-decode
+    a, b = engine(2), engine(2)
+    rids = [a.submit(p, max_new_tokens=n, eos_token_id=None, **k)
+            for p, n, k in zip(sp, sn, knobs)]
+    got_a, got_b = {}, {}
+    for _ in range(2):
+        for rid, toks in a.step(2).items():
+            got_a.setdefault(rid, []).extend(int(t) for t in toks)
+    moved = {}
+    for rid in rids:
+        moved[rid] = b.adopt(a.serialize_request(rid))
+        a.cancel(rid)
+    while b.pending:
+        for rid, toks in b.step(2).items():
+            got_b.setdefault(rid, []).extend(int(t) for t in toks)
+    same("tp 2 migration", [got_a.get(r, []) + got_b.get(moved[r], [])
+                            for r in rids], want)
+    check(b.stats()["recomputed_tokens"] == 0
+          and a.cache.manager.blocks_in_use == 0
+          and b.cache.manager.blocks_in_use == 0, "migration leaked")
+    del a, b, params
+    release()
+    if cuda:
+        log(f"  first-dispatch fp32 logits against tp 1, max |d| / max "
+            f"|logit|: {json.dumps(logits_rows)}")
+    log(f"  int8 pools, lockstep against tp 1: "
+        f"{json.dumps({f'tp{t} kernel {k}': v for (t, k), v in int8.items()})}")
+    log(f"  fp32 crash under the supervisor at tp 2: {json.dumps(crash)}")
+    log(f"  {len(done)} fp32 paths held to tp 1 (streams equal, or "
+        f"lockstep): {'; '.join(done)}")
+    return done
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4779,6 +5240,19 @@ def main() -> int:
     _, c31 = replay_phase()
     for c in (c29, c31):
         launches = {k: launches[k] + c[k] for k in launches}
+
+    log("== phase 32: paged attention and the int8 matmul at one tensor-"
+        "parallel shard's shapes (A at tp 2 and 4)")
+    att32, mm32 = shard_kernel_phase()
+    att += att32
+    mm += mm32
+    log(f"  nvidia-smi: {card}")
+    log("== phase 33: tensor-parallel serving on the one card (cell V): A "
+        "at tp 1 and 2 in turns, B at tp 2, fp32 parity at tp 2 and 4")
+    _, c33 = tp_serving_phase(prompts, news)
+    tp_parity_phase(sp, sn)
+    launches = {k: launches[k] + c33[k] for k in launches}
+    log(f"  nvidia-smi: {card}")
 
     log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")

@@ -1,2 +1,3 @@
-"""Distributed pieces the single-card port needs — counterpart of
-``paddle_tpu/distributed`` (only the MoE routing math so far)."""
+"""Distributed pieces of the port — counterpart of ``paddle_tpu/distributed``:
+the MoE routing math, and the serving tensor-parallel placement and
+shard helpers."""

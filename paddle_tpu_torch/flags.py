@@ -234,10 +234,12 @@ define_flag("FLAGS_serving_client_queue", 64,
             "reader cannot pin pool blocks or host memory.", int)
 define_flag("FLAGS_serving_tp", 1,
             "Tensor-parallel degree for the serving engine "
-            "(ServingConfig.tp). The port serves on one device: any value "
-            "but 1 is refused (tensor parallelism over NCCL is item 7 of "
-            "ROADMAP.md section A); capacity_report's arithmetic covers "
-            "the other degrees.", int)
+            "(ServingConfig.tp): the QKV projections and the paged KV "
+            "pool split their heads over a placement of this many devices "
+            "(the engine's device= list; shards may share a card), one "
+            "controller drives them and merges the heads by an exact "
+            "concatenation. Requires num_kv_heads % tp == 0. 1 (the "
+            "default) is the single-device engine.", int)
 
 define_flag("FLAGS_serving_audit", False,
             "Run the serving InvariantAuditor's structural checks "

@@ -49,8 +49,18 @@ with :func:`~.offload.block_crc` over their raw bytes (a bf16 block has
 no numpy form, so the bytes travel as CPU tensors). The fleet router
 (:mod:`.router`) drives both.
 
-Not ported yet (raises ``NotImplementedError`` naming the ROADMAP item):
-tensor parallelism.
+Tensor parallelism (``ServingConfig.tp``): one controller over a
+placement of ``tp`` devices (``device=`` a list, or a single device that
+:func:`~paddle_tpu_torch.distributed.topology.tp_devices` expands), as
+the reference is one host program over a ``"tp"`` mesh. The QKV
+projections and the paged KV pool are cut on their heads axis, one shard
+a device; each dispatch runs every shard's projections, K/V store and
+attention on its device and merges the heads by an exact concatenation
+onto the lead device (``device[0]``), where ``wo``, the FFN, the head,
+the sampler, the embeddings endpoint and every host structure
+(scheduler, block manager, prefix cache, tables) stay one copy. Shards
+may share a card. Host consumers of KV bytes see blocks in the global
+layout (:class:`~.paged_cache.PagedKVCache` block I/O).
 
 API::
 
@@ -73,13 +83,15 @@ import numpy as np
 import torch
 
 from ... import prng
-from ...device import resolve_device, resolve_paged_kernel
+from ...device import resolve_paged_kernel
+from ...distributed.topology import tp_devices
 from ...flags import flag
 from ...health import watchdog as _watchdog
 from ...models import generation as G
 from ...models.bert import bert_encode
 from ...models.llama import (KV_QUANT_MODES, QUANTIZE_MODES,
-                             ensure_quantized, validate_quant_mode)
+                             ensure_quantized, serving_placement,
+                             shard_serving_params, validate_quant_mode)
 from ...models.lora import AdapterPool
 from .offload import block_crc as _block_crc
 from .paged_cache import PagedKVCache
@@ -91,10 +103,6 @@ __all__ = ["ServingConfig", "ServingEngine", "ServingQueueFull",
            "AdoptError", "HEALTH_SNAPSHOT_KEYS", "SUPERVISOR_SNAPSHOT_KEYS"]
 
 _UNSET = "unset"
-# the ROADMAP.md section A items that bring what this slice leaves out
-_LATER = {
-    "tp": "tensor parallelism over NCCL is item 7 of ROADMAP.md section A",
-}
 
 # the keys of health_snapshot(): the engine serves every one except
 # SUPERVISOR_SNAPSHOT_KEYS, which EngineSupervisor layers on top
@@ -158,16 +166,19 @@ class ServingConfig:
     #                                  to a bounded pinned host pool
     #                                  instead of dying
     offload_blocks: Any = _UNSET     # host-tier capacity bound in blocks
-    # a feature of the JAX engine that a later slice brings: resolves
-    # from FLAGS_serving_tp and must be 1
-    tp: Optional[int] = None
+    tp: Optional[int] = None         # tensor-parallel degree: the QKV
+    #                                  projections and the paged pool
+    #                                  split their heads over this many
+    #                                  placement devices; None ->
+    #                                  FLAGS_serving_tp (1 = one device)
 
     def __post_init__(self):
         if self.tp is None:
             self.tp = int(flag("FLAGS_serving_tp"))
         self.tp = int(self.tp)
-        if self.tp != 1:
-            raise NotImplementedError(_LATER["tp"])
+        if self.tp < 1:
+            raise ValueError(f"tensor-parallel degree must be >= 1 (1 = "
+                             f"the single-device engine), got tp={self.tp}")
         for f, name in (("block_size", "FLAGS_serving_block_size"),
                         ("max_slots", "FLAGS_serving_max_slots"),
                         ("max_model_len", "FLAGS_serving_max_model_len"),
@@ -243,7 +254,9 @@ class ServingConfig:
 
 class ServingEngine:
     """Continuous-batching decode service over a causal-LM parameter dict,
-    on ``device`` (CUDA unless ``device="cpu"``).
+    on ``device`` (CUDA unless ``device="cpu"``; at ``tp > 1`` a placement,
+    see :func:`~paddle_tpu_torch.distributed.topology.tp_devices`, whose
+    entry 0 is the lead device ``self.device``).
 
     ``journal`` is an optional :class:`~.journal.RequestJournal` this
     engine feeds under its own lock; ``embed_model`` an optional
@@ -263,8 +276,13 @@ class ServingEngine:
                  serving_config: Optional[ServingConfig] = None,
                  gen_config: Optional[G.GenerationConfig] = None,
                  device=None, journal=None, embed_model=None):
-        self.device = resolve_device(device)
         self.config = serving_config or ServingConfig()
+        # tensor parallelism: the degree must divide the kv heads, then the
+        # placement; shard s of the projections and the pool lives on
+        # devices[s], everything replicated on devices[0]
+        G.validate_tp(model_config, self.config.tp)
+        self.devices = tp_devices(self.config.tp, device)
+        self.device = self.devices[0]
         self._gen = gen_config or G.GenerationConfig()
         self._cfg = model_config
         self._params = self._prepare_params(params)
@@ -290,6 +308,7 @@ class ServingEngine:
                                   tenant_quota=self.config.tenant_cache_quota,
                                   kv_quant=self.config.kv_quant,
                                   device=self.device,
+                                  devices=self.devices,
                                   offload=self.config.offload,
                                   offload_blocks=self.config.offload_blocks)
         self._policy = resolve_policy(
@@ -322,7 +341,7 @@ class ServingEngine:
         # (held across preemption, released at a terminal state)
         self._lora = (AdapterPool(model_config, self.config.lora_rank,
                                   self.config.lora_slots,
-                                  self.config.lora_pool, device=self.device)
+                                  self.config.lora_pool, devices=self.devices)
                       if self.config.lora_slots else None)
         self._adapters = np.zeros((M,), np.int32)
         self._lora_pinned: Dict[int, str] = {}
@@ -350,14 +369,32 @@ class ServingEngine:
 
     @property
     def prepared_params(self) -> Dict:
-        """The params as this engine holds them (on its device, quantized
-        and cast): a rebuilt engine given these allocates nothing new."""
+        """The params as this engine holds them (on its device, quantized,
+        cast and, at ``tp > 1``, sharded over its placement): a rebuilt
+        engine or a twin replica given these allocates nothing new."""
         return self._params
 
     def _prepare_params(self, params) -> Dict:
         """Params on the engine's device, weight-only quantized when the
         config asks, fp matmul weights and the embedding cast once to the
-        activation dtype."""
+        activation dtype; at ``tp > 1`` then sharded over the placement
+        (:func:`~paddle_tpu_torch.models.llama.shard_serving_params`).
+        Params already sharded (another engine's ``prepared_params``) are
+        taken as they are when their placement is this engine's: no
+        re-shard, no second copy."""
+        placement = serving_placement(params)
+        if placement is not None:
+            if placement != self.devices:
+                raise ValueError(
+                    f"params sharded over {[str(d) for d in placement]} "
+                    f"cannot serve an engine placed on "
+                    f"{[str(d) for d in self.devices]} (tp="
+                    f"{self.config.tp}); pass the unsharded params")
+            if self.config.quantize == "int8" and \
+                    "wq_s" not in params["layers"]:
+                raise ValueError("params were sharded before quantize="
+                                 "'int8'; pass the unsharded params")
+            return params
         dt = self._cfg.dtype
         p = ensure_quantized(self._move(params), self.config.quantize)
         p = dict(p)
@@ -369,6 +406,8 @@ class ServingEngine:
         p["embed"] = p["embed"].to(dt)
         if "lm_head" in p and p["lm_head"].is_floating_point():
             p["lm_head"] = p["lm_head"].to(dt)
+        if self.config.tp > 1:
+            p = shard_serving_params(p, self.devices)
         return p
 
     def _t(self, a) -> torch.Tensor:
@@ -665,10 +704,11 @@ class ServingEngine:
         refuse a mismatched payload."""
         return (int(self.config.block_size), str(self.config.kv_quant),
                 int(self.config.tp),
-                tuple(sorted((name, str(a.dtype).replace("torch.", ""),
-                              tuple(int(s) for i, s in enumerate(a.shape)
+                tuple(sorted((name, str(dt).replace("torch.", ""),
+                              tuple(int(s) for i, s in enumerate(shape)
                                     if i != 1))
-                             for name, a in self.cache.pool.items())))
+                             for name, (dt, shape)
+                             in self.cache.leaf_shapes().items())))
 
     def serialize_request(self, rid: int) -> Optional[Dict[str, Any]]:
         """Snapshot one live request for adoption by another engine: the
@@ -705,11 +745,7 @@ class ServingEngine:
                 entries = int(self._seq_lens[req.slot])
             bs = self.config.block_size
             nd = min(-(-entries // bs), len(req.blocks)) if entries else 0
-            data = None
-            if nd:
-                idx = torch.as_tensor(np.asarray(req.blocks[:nd], np.int64))
-                data = {name: _host_copy(arr[:, idx.to(arr.device)])
-                        for name, arr in self.cache.pool.items()}
+            data = self.cache.read_blocks(req.blocks[:nd]) if nd else None
             payload["kv"] = {
                 "entries": entries,
                 "prefilling": bool(req.prefilling),
@@ -1815,8 +1851,9 @@ class ServingEngine:
                 "spec_decode": self.config.spec_decode,
                 "spec_drafted": s.spec_drafted,
                 "spec_accepted": s.spec_accepted,
-                "tp_degree": 1,
+                "tp_degree": self.config.tp,
                 "kv_pool_bytes": self.cache.kv_bytes(),
+                "kv_pool_shard_bytes": self.cache.kv_bytes(per_shard=True),
                 "offload": tier.stats() if tier is not None else None,
                 "lora": (self._lora.stats()
                          if self._lora is not None else None),
@@ -1884,8 +1921,8 @@ class ServingEngine:
             "free_blocks": self.cache.free_blocks,
             "usable_blocks": self.cache.manager.num_blocks - 1,
             "kv_pool_bytes": self.cache.kv_bytes(),
-            "tp_degree": 1,
-            "kv_pool_shard_bytes": self.cache.kv_bytes(),
+            "tp_degree": self.config.tp,
+            "kv_pool_shard_bytes": self.cache.kv_bytes(per_shard=True),
             "kv_quant": self.config.kv_quant,
             "paged_kernel": self._use_kernel,
             "spec_decode": self.config.spec_decode,

@@ -16,7 +16,10 @@ The torch version of each step:
 
 * **Capture.** ``PagedKVCache.read_block`` copies ``pool[leaf][:, b]``
   (strided across layers) into a contiguous host buffer, pinned on a card,
-  with ``non_blocking=True``, and records a CUDA event after the copies.
+  with ``non_blocking=True``, and records a CUDA event after the copies
+  (under tensor parallelism a buffer and an event a shard's device; the
+  global block is assembled at materialization, so the tier's bytes and
+  CRCs are the reference's global arrays').
   The copy is ordered on the stream before any later kernel that reuses
   the block, so the host does not wait. On the CPU the copy is done when
   ``copy_`` returns.
@@ -46,6 +49,9 @@ import torch
 
 __all__ = ["HostOffloadTier", "block_crc"]
 
+# the kv-heads axis of one block's leaf: [L, bs, Hk, D] and [L, bs, Hk]
+HEADS_DIM = 2
+
 
 def _bytes(arr) -> np.ndarray:
     """The raw bytes of a host tensor or array, as a flat uint8 array."""
@@ -63,19 +69,31 @@ def block_crc(arr) -> int:
 
 
 class _Capture:
-    """One swap-out in flight: per-leaf host buffers and the CUDA event
-    recorded after their copies were enqueued (None on the CPU)."""
+    """One swap-out in flight: per-leaf host buffers and the CUDA events
+    recorded after their copies were enqueued, one a device (none on the
+    CPU). Under tensor parallelism a leaf is the LIST of its shards'
+    buffers (a pinned buffer a shard, so every copy stays asynchronous);
+    :meth:`wait` then assembles the global block, heads in shard order,
+    into one buffer (pinned when the shards' were)."""
 
-    __slots__ = ("data", "event")
+    __slots__ = ("data", "events")
 
-    def __init__(self, data: Dict[str, torch.Tensor], event=None):
+    def __init__(self, data: Dict, events=()):
         self.data = data
-        self.event = event
+        self.events = list(events)
 
     def wait(self) -> Dict[str, torch.Tensor]:
-        if self.event is not None:
-            self.event.synchronize()
-            self.event = None
+        for ev in self.events:
+            ev.synchronize()
+        pinned = bool(self.events)
+        self.events = []
+        for name, parts in self.data.items():
+            if isinstance(parts, list):
+                shape = list(parts[0].shape)
+                shape[HEADS_DIM] = sum(p.shape[HEADS_DIM] for p in parts)
+                out = torch.empty(shape, dtype=parts[0].dtype,
+                                  pin_memory=pinned)
+                self.data[name] = torch.cat(parts, dim=HEADS_DIM, out=out)
         return self.data
 
 

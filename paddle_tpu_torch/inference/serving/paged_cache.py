@@ -23,8 +23,14 @@ The device pool's storage never moves: every write (the paged entry
 points' K/V stores, the tier's restores) lands in place, so block I/O
 here copies ``pool[leaf][:, b]`` slices directly.
 
-Not ported yet: the tensor-parallel pool layout (``PagedKVCache`` raises
-when asked for it).
+Under serving tensor parallelism (``devices=``, a placement of ``tp``
+devices) the pool is a list of ``tp`` shard dicts, each holding ``Hk/tp``
+kv heads of EVERY block (:func:`~paddle_tpu_torch.models.generation.
+init_paged_pool`): block ids, tables and the block manager stay one
+host-side copy, only pool bytes split. Every host consumer of KV bytes
+(the offload tier, migration, chain export and graft) goes through the
+block I/O here, which presents a block in the GLOBAL layout, heads in
+order — the bytes of the reference's global arrays at the same ``tp``.
 """
 
 from __future__ import annotations
@@ -37,9 +43,16 @@ import numpy as np
 import torch
 
 from ...models.generation import init_paged_pool
-from .offload import HostOffloadTier, _Capture
+from .offload import HEADS_DIM, HostOffloadTier, _Capture
 
 __all__ = ["BlockManager", "PagedKVCache", "prefix_block_chain"]
+
+
+def _record(device: torch.device) -> "torch.cuda.Event":
+    """A CUDA event recorded on ``device``'s current stream."""
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
 
 def prefix_block_chain(ids: Sequence[int], block_size: int, upto: int,
@@ -275,12 +288,8 @@ class PagedKVCache:
                  block_size: int, num_blocks: int = 0, dtype=None,
                  prefix_cache: bool = True,
                  tenant_quota: Optional[int] = None, kv_quant=None,
-                 device=None, mesh=None, offload: bool = False,
+                 device=None, devices=None, offload: bool = False,
                  offload_blocks: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel KV pools come with TP serving over NCCL "
-                "(ROADMAP.md section A)")
         self.block_size = int(block_size)
         self.max_model_len = int(max_model_len)
         self.prefix_cache = bool(prefix_cache)
@@ -289,9 +298,15 @@ class PagedKVCache:
         if num_blocks <= 0:
             # auto-size: every slot can hold a full-length sequence, +1 null
             num_blocks = max_slots * self.blocks_per_seq + 1
-        self.pool: Dict = init_paged_pool(model_config, num_blocks,
-                                          block_size, dtype,
-                                          kv_quant=kv_quant, device=device)
+        # tensor parallelism: a placement of tp > 1 devices gives one pool
+        # dict a shard (the list the paged entry points take); the host
+        # structures below do not change
+        self.tp = len(devices) if devices is not None else 1
+        self.pool = init_paged_pool(model_config, num_blocks, block_size,
+                                    dtype, kv_quant=kv_quant, device=device,
+                                    devices=devices if self.tp > 1 else None)
+        self.shards: List[Dict] = ([self.pool] if self.tp == 1
+                                   else list(self.pool))
         self.manager = BlockManager(num_blocks, block_size,
                                     tenant_quota=tenant_quota)
         self.tables = np.zeros((max_slots, self.blocks_per_seq), np.int32)
@@ -315,51 +330,82 @@ class PagedKVCache:
     def read_block(self, block: int) -> _Capture:
         """Enqueue the copy of one physical block (``pool[leaf][:, b]``,
         strided across layers) into contiguous host buffers, pinned on a
-        card, and return the capture: the buffers plus the CUDA event that
-        completes after the copies (the host does not wait here). Later
-        kernels that reuse the block are ordered after the copy on the
-        stream."""
-        data = {}
-        event = None
-        for name, arr in self.pool.items():
-            src = arr[:, block]
-            cuda = src.is_cuda
-            buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=cuda)
-            buf.copy_(src, non_blocking=cuda)
-            data[name] = buf
-        if any(a.is_cuda for a in self.pool.values()):
-            event = torch.cuda.Event()
-            event.record()
-        return _Capture(data, event)
+        card, and return the capture: the buffers plus the CUDA events
+        that complete after the copies (the host does not wait here; under
+        tensor parallelism a buffer a shard, assembled into the global
+        block by ``wait()``). Later kernels that reuse the block are
+        ordered after the copy on the stream."""
+        data: Dict = {}
+        devs = []
+        for shard in self.shards:
+            for name, arr in shard.items():
+                src = arr[:, block]
+                cuda = src.is_cuda
+                buf = torch.empty(src.shape, dtype=src.dtype,
+                                  pin_memory=cuda)
+                buf.copy_(src, non_blocking=cuda)
+                data.setdefault(name, []).append(buf)
+                if cuda and src.device not in devs:
+                    devs.append(src.device)
+        if self.tp == 1:
+            data = {name: bufs[0] for name, bufs in data.items()}
+        return _Capture(data, [_record(d) for d in devs])
+
+    def read_blocks(self, blocks: List[int]) -> Dict[str, torch.Tensor]:
+        """A run of blocks copied to host tensors that own their bytes, in
+        the global layout: ``[L, len(blocks), bs, Hk, D]`` per leaf (scales
+        ``[L, len(blocks), bs, Hk]``), heads in shard order. Synchronous:
+        the copy is complete when this returns (live migration)."""
+        out = {}
+        for name in self.shards[0]:
+            parts = []
+            for shard in self.shards:
+                arr = shard[name]
+                idx = torch.as_tensor(np.asarray(blocks, np.int64),
+                                      device=arr.device)
+                parts.append(arr[:, idx].detach().to("cpu", copy=True))
+            out[name] = (parts[0].contiguous() if self.tp == 1
+                         else torch.cat(parts, dim=HEADS_DIM + 1))
+        return out
 
     def write_block(self, block: int, data: Dict) -> None:
-        """Copy one block's per-leaf host tensors back into the pool IN
-        PLACE — the offload tier's swap-in restore. On a card the copy is
-        asynchronous from pinned memory; its sources stay referenced until
-        the copy's event completes."""
+        """Copy one block's per-leaf host tensors (global layout) back into
+        the pool IN PLACE — the offload tier's swap-in restore. On a card
+        the copy is asynchronous from pinned memory; its sources stay
+        referenced until the copy's event completes."""
         self.write_blocks([block], {n: t.unsqueeze(1)
                                     for n, t in data.items()})
 
     def write_blocks(self, blocks: List[int], data: Dict) -> None:
         """Copy a run of blocks into the pool in place (``data[leaf]``
-        carries the block axis at position 1: ``[L, len(blocks), ...]``)."""
+        carries the block axis at position 1: ``[L, len(blocks), ...]``,
+        the global layout; under tensor parallelism shard ``s`` takes its
+        heads, staged through a buffer of its own, pinned on a card)."""
         self._reap()
         idx = torch.as_tensor(np.asarray(blocks, np.int64))
-        cuda = False
-        for name, arr in self.pool.items():
-            src = torch.as_tensor(data[name])
-            if src.dtype != arr.dtype:
-                src = src.to(arr.dtype)
-            cuda = arr.is_cuda
-            if len(blocks) == 1:
-                arr[:, blocks[0]].copy_(src[:, 0], non_blocking=cuda)
-            else:
-                arr.index_copy_(1, idx.to(arr.device),
-                                src.to(arr.device, non_blocking=cuda))
-        if cuda:
-            ev = torch.cuda.Event()
-            ev.record()
-            self._inflight.append((data, ev))
+        held = [data]
+        devs = []
+        for s, shard in enumerate(self.shards):
+            for name, arr in shard.items():
+                src = torch.as_tensor(data[name])
+                cuda = arr.is_cuda
+                if self.tp > 1:
+                    h = arr.shape[HEADS_DIM + 1]
+                    part = src.narrow(HEADS_DIM + 1, s * h, h)
+                    src = torch.empty(part.shape, dtype=part.dtype,
+                                      pin_memory=cuda).copy_(part)
+                    held.append(src)
+                if src.dtype != arr.dtype:
+                    src = src.to(arr.dtype)
+                if len(blocks) == 1:
+                    arr[:, blocks[0]].copy_(src[:, 0], non_blocking=cuda)
+                else:
+                    arr.index_copy_(1, idx.to(arr.device),
+                                    src.to(arr.device, non_blocking=cuda))
+                if cuda and arr.device not in devs:
+                    devs.append(arr.device)
+        for d in devs:
+            self._inflight.append((held, _record(d)))
 
     def _reap(self) -> None:
         """Release the host sources of restores whose copy completed."""
@@ -471,7 +517,22 @@ class PagedKVCache:
         self.manager.free(blocks)
         self.tables[slot] = 0
 
-    def kv_bytes(self) -> int:
+    def leaf_shapes(self) -> Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]:
+        """Every pool leaf's dtype and GLOBAL shape (kv heads summed over
+        the shards): what the reference's global arrays report."""
+        out = {}
+        for name, a in self.shards[0].items():
+            shape = list(a.shape)
+            shape[HEADS_DIM + 1] *= self.tp
+            out[name] = (a.dtype, tuple(shape))
+        return out
+
+    def kv_bytes(self, per_shard: bool = False) -> int:
         """Device bytes the pool holds (K + V, plus the scale planes on
-        quantized layouts)."""
-        return sum(a.numel() * a.element_size() for a in self.pool.values())
+        quantized layouts), over every shard; ``per_shard=True`` gives the
+        bytes ONE shard's device holds (the total divided by ``tp``: the
+        kv-heads split is exact), the number a per-device memory budget
+        must cover."""
+        total = sum(a.numel() * a.element_size()
+                    for shard in self.shards for a in shard.values())
+        return total // self.tp if per_shard else total

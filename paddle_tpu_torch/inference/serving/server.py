@@ -135,8 +135,12 @@ class ServingServer:
         self.pump_error: Optional[BaseException] = None
         # the CUDA device the pump makes current on its thread (None on
         # the CPU): an index-less "cuda" backend lives on the device that
-        # was current where it was built, which is this caller's
-        dev = torch.device(getattr(supervisor, "_device", None) or "cuda")
+        # was current where it was built, which is this caller's; a
+        # tensor-parallel placement's is its lead device
+        dev = getattr(supervisor, "_device", None) or "cuda"
+        if isinstance(dev, (list, tuple)):
+            dev = dev[0]
+        dev = torch.device(dev)
         self._cuda_index: Optional[int] = None
         if dev.type == "cuda":
             self._cuda_index = (dev.index if dev.index is not None

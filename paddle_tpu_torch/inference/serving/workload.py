@@ -408,9 +408,11 @@ def run_replay(params, model_config, spec: Optional[WorkloadSpec] = None,
     fleet — the caller then owns its lifecycle. ``hbm_gb`` sizes the
     capacity report's device budget: ``None`` reads the memory of the
     fleet's device (on the CPU the caller passes it). The report's
-    ``chips`` counts the distinct devices the replicas hold, times tp,
-    averaged over the same per-step samples as ``mean_fleet``: three
-    replicas on one card are ``chips == 1.0``, and
+    ``chips`` counts the distinct devices held by any shard of any
+    replica, averaged over the same per-step samples as ``mean_fleet``:
+    three replicas on one card are ``chips == 1.0``, so are three TP2
+    replicas with both shards on it (``device=["cuda:0", "cuda:0"]``),
+    and
     ``goodput_tok_s_per_chip`` divides by that. By default violations RAISE
     (:class:`~.audit.InvariantViolation` naming check/replica/manifest);
     ``collect_violations=True`` switches to the production spelling —
@@ -768,8 +770,9 @@ def run_replay(params, model_config, spec: Optional[WorkloadSpec] = None,
             if spec.audit_every and step and step % spec.audit_every == 0:
                 auditor.check(router, collect=collect_violations)
             fleet_sizes.append(len(router._replicas))
-            fleet_devices.append(len({str(rep.sup.engine.device) for rep
-                                      in router._replicas.values()}))
+            fleet_devices.append(len({str(d) for rep
+                                      in router._replicas.values()
+                                      for d in rep.sup.engine.devices}))
             step += 1
             if step > budget:
                 raise RuntimeError(
@@ -853,9 +856,10 @@ def run_replay(params, model_config, spec: Optional[WorkloadSpec] = None,
             or (c.finish_step - c.submit_step) <= c.tr.deadline_steps]
     good_tokens = sum(len(c.delivered) for c in good)
     mean_fleet = float(np.mean(fleet_sizes)) if fleet_sizes else 1.0
-    # devices, not replicas: the fleet's replicas share their device
-    chips = max(1e-9, (float(np.mean(fleet_devices))
-                       if fleet_devices else 1.0) * tp)
+    # devices, not replicas: the distinct devices any shard of any
+    # replica holds (replicas and their tensor-parallel shards may share)
+    chips = max(1e-9, float(np.mean(fleet_devices))
+                if fleet_devices else 1.0)
     goodput = good_tokens / max(elapsed, 1e-9)
     outcomes: Dict[str, int] = {}
     for c in clients:

@@ -15,10 +15,12 @@ paged forward entry points the serving engine drives —
 dropped_tokens)``: the tokens an MoE FFN dropped at capacity, summed over
 the layers, ``0.0`` for a dense model; each takes the multi-adapter LoRA
 operand ``lora={"ids": [B] slots, "layers": adapter pool}``, see
-:mod:`paddle_tpu_torch.models.lora`), and the samplers: :func:`seed_key`,
-:func:`validate_sampling`, the per-row serving sampler
-:func:`sample_tokens` and the static-knob :func:`_sample` of the dense
-tier, whose draws equal ``jax.random``'s
+:mod:`paddle_tpu_torch.models.lora`; each serves tensor parallelism when
+handed the list pool of ``init_paged_pool(devices=)`` and params from
+:func:`~paddle_tpu_torch.models.llama.shard_serving_params`), and the
+samplers: :func:`seed_key`, :func:`validate_sampling`, the per-row
+serving sampler :func:`sample_tokens` and the static-knob :func:`_sample`
+of the dense tier, whose draws equal ``jax.random``'s
 (:mod:`paddle_tpu_torch.prng`). As in the JAX package, every norm goes
 through ``_rms_norm(..., cfg.use_fused_norm)`` (the fused kernel when the
 flag is set), every projection through ``_mm`` (the int8 kernel under
@@ -42,6 +44,14 @@ Differences from the JAX package, all deliberate:
 * The LoRA factors of a dispatch are gathered (and cast) once for all
   layers (:func:`~paddle_tpu_torch.models.lora.gather_adapters`), not
   once per layer: the same values, 16 launches instead of ``16 L``.
+* Serving tensor parallelism is one controller over a placement, not
+  ``shard_map``: per layer the pre-norm runs once on the lead device,
+  then each shard runs its q/k/v columns, RoPE, the K/V store into its
+  pool shard and attention on its own device, the heads are
+  concatenated back onto the lead device in shard order (the
+  reference's tiled ``all_gather``: exact, no sum), and ``wo``, the FFN
+  and the head run once. A dict pool is one shard and takes exactly the
+  single-device path.
 * Out-of-vocabulary token ids follow ``jnp.take``'s fill semantics (ids
   in ``[-V, V)`` wrap like Python indices, anything else embeds as a NaN
   row) through a clamped gather plus a select, so a poisoned id never
@@ -59,10 +69,12 @@ import torch
 
 from .. import prng
 from ..device import resolve_device
+from ..distributed.sharding import shard_dim_spec
 from ..kernels.paged_attention import paged_attention
 from ..kernels.rope import rope_cos_sin
-from .llama import (KV_QUANT_MODES, LlamaConfig, _embed, _ffn_tail,
-                    _masked_sdpa, _mm, _rms_norm, _rope, validate_quant_mode)
+from .llama import (_SERVING_TP_SHARDED, KV_QUANT_MODES, LlamaConfig,
+                    _embed, _ffn_tail, _masked_sdpa, _mm, _rms_norm, _rope,
+                    validate_quant_mode)
 from .lora import gather_adapters, gathered_delta
 
 __all__ = ["GenerationConfig", "init_cache", "left_align", "prefill",
@@ -209,8 +221,16 @@ def sample_tokens(logits, keys, temperature, top_k, top_p):
 # ---------------------------------------------------------------------------
 
 def _layer(params: Dict, l: int) -> Dict:
-    """Layer ``l``'s un-stacked weights (views)."""
-    return {name: w[l] for name, w in params["layers"].items()}
+    """Layer ``l``'s un-stacked weights (views; a tuple of the shards'
+    views for a tensor-parallel leaf)."""
+    return {name: (tuple(t[l] for t in w) if isinstance(w, tuple) else w[l])
+            for name, w in params["layers"].items()}
+
+
+def _pool_shards(pool) -> list:
+    """The shard dicts of a pool operand: a dict is one shard, a list the
+    tensor-parallel pool of :func:`init_paged_pool`."""
+    return [pool] if isinstance(pool, dict) else list(pool)
 
 
 def _pool_layer(pool: Dict, l: int) -> Dict:
@@ -243,11 +263,22 @@ def _row_tables(cfg: LlamaConfig, pos):
 
 
 def _local_heads(cfg: LlamaConfig, pool: Dict):
+    """(query heads, kv heads) of one pool shard: ``Hk/tp`` kv heads, and
+    as many query heads as the GQA group size ``G = H / Hk`` (shard
+    invariant) gives."""
     Hk = pool["k"].shape[3]
     return Hk * (cfg.num_attention_heads // cfg.kv_heads), Hk
 
 
-def _merge_heads(o):
+def _merge_heads(o, device=None):
+    """Flatten the attention output ``[B, T, h, D] -> [B, T, h*D]`` for the
+    output projection. A list is the tensor-parallel shards' outputs, each
+    its slice of the heads: they are concatenated on the heads axis onto
+    ``device`` in shard order (the reference's tiled all_gather) — an
+    exact concatenation, never a sum, so ``wo`` and everything after it
+    compute the single-device engine's values bit for bit."""
+    if isinstance(o, list):
+        o = torch.cat([t.to(device, non_blocking=True) for t in o], dim=2)
     B, T = o.shape[:2]
     return o.reshape(B, T, o.shape[2] * o.shape[3])
 
@@ -257,24 +288,42 @@ def _merge_heads(o):
 # ---------------------------------------------------------------------------
 
 def init_paged_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
-                    dtype=None, kv_quant=None, device=None) -> Dict:
+                    dtype=None, kv_quant=None, device=None,
+                    devices=None):
     """Physical KV block pool ``{"k","v": [L, num_blocks, block_size, Hk,
     D]}`` shared by every sequence of a serving engine; block 0 is the
     NULL block (the scatter target of masked lanes, never allocated).
     ``kv_quant="int8"`` stores K/V as int8 with per-token-per-head fp32
-    scales alongside (``"k_scale"``/``"v_scale" [L, N, bs, Hk]``)."""
+    scales alongside (``"k_scale"``/``"v_scale" [L, N, bs, Hk]``).
+
+    ``devices`` (a tensor-parallel placement,
+    :func:`~paddle_tpu_torch.distributed.topology.tp_devices`) returns
+    instead a LIST of ``tp`` pool dicts, shard ``s`` allocated on
+    ``devices[s]`` with leaves ``[L, N, bs, Hk/tp, D]`` (scales ``[L, N,
+    bs, Hk/tp]``) holding kv heads ``[s Hk/tp, (s+1) Hk/tp)``. Block ids
+    stay global: every shard holds its heads of every block. An
+    indivisible head count raises the structured error naming the
+    leaf."""
     validate_quant_mode(kv_quant, KV_QUANT_MODES, "kv_quant")
-    dev = resolve_device(device)
     dt = dtype if dtype is not None else cfg.dtype
     shape = (cfg.num_hidden_layers, num_blocks, block_size, cfg.kv_heads,
              cfg.head_dim)
-    if kv_quant == "int8":
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "k_scale": torch.zeros(shape[:-1], device=dev),
-                "v_scale": torch.zeros(shape[:-1], device=dev)}
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    leaves = ({"k": (shape, torch.int8), "v": (shape, torch.int8),
+               "k_scale": (shape[:-1], torch.float32),
+               "v_scale": (shape[:-1], torch.float32)}
+              if kv_quant == "int8" else
+              {"k": (shape, dt), "v": (shape, dt)})
+    if devices is None:
+        dev = resolve_device(device)
+        return {n: torch.zeros(sh, dtype=t, device=dev)
+                for n, (sh, t) in leaves.items()}
+    tp = len(devices)
+    for n, (sh, _) in leaves.items():
+        shard_dim_spec(sh, tp, "tp", dim=3, name=f"paged_pool.{n}")
+    return [{n: torch.zeros(sh[:3] + (sh[3] // tp,) + sh[4:], dtype=t,
+                            device=dev)
+             for n, (sh, t) in leaves.items()}
+            for dev in devices]
 
 
 def validate_tp(cfg: LlamaConfig, tp: int) -> None:
@@ -300,7 +349,7 @@ def paged_pool_block_bytes(cfg: LlamaConfig, block_size: int, dtype=None,
                            kv_quant=None, tp: int = 1) -> int:
     """Bytes ONE physical block costs across all layers (K + V + scales);
     with ``tp > 1`` the cost on each device of a pool whose kv heads are
-    split ``tp`` ways (capacity arithmetic: the port serves at tp 1)."""
+    split ``tp`` ways."""
     validate_tp(cfg, tp)
     L, bs = cfg.num_hidden_layers, int(block_size)
     Hk, D = cfg.kv_heads // int(tp), cfg.head_dim
@@ -393,11 +442,19 @@ def _kv_gather(p: Dict, block_tables, B: int, C: int, Hk: int, D: int):
 
 def _qkv(lp: Dict, h, cfg: LlamaConfig, B: int, T: int, H: int, Hk: int,
          ll: Optional[Dict] = None):
-    """Pre-norm + the three projections, reshaped to heads. ``ll`` (one
-    layer of :func:`_lora_factors`) adds each row's adapter delta on the
-    normed input before the reshape."""
-    dt, D = cfg.dtype, cfg.head_dim
+    """Pre-norm + the three projections, reshaped to heads
+    (:func:`_project`)."""
     hh = _rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps, cfg.use_fused_norm)
+    return _project(lp, hh, cfg, B, T, H, Hk, ll)
+
+
+def _project(lp: Dict, hh, cfg: LlamaConfig, B: int, T: int, H: int,
+             Hk: int, ll: Optional[Dict] = None):
+    """The q/k/v projections of the normed input ``hh``, reshaped to ``H``
+    query and ``Hk`` kv heads (a shard's under tensor parallelism: ``lp``
+    then holds its columns). ``ll`` (one layer of :func:`_lora_factors`)
+    adds each row's adapter delta on ``hh`` before the reshape."""
+    dt, D = cfg.dtype, cfg.head_dim
     q = _mm(hh, lp, "wq", dt)
     k = _mm(hh, lp, "wk", dt)
     v = _mm(hh, lp, "wv", dt)
@@ -413,9 +470,10 @@ def _attn_out(lp: Dict, h, o, cfg: LlamaConfig, ll: Optional[Dict] = None):
     """Residual add of the output projection (plus each row's adapter
     delta on the merged heads when ``ll`` is given), then the FFN half:
     ``(block output, kept)``, ``kept`` the (token, choice) pairs the MoE
-    FFN took (``0.0`` for a dense FFN)."""
+    FFN took (``0.0`` for a dense FFN). ``o`` may be the list of the
+    tensor-parallel shards' outputs (:func:`_merge_heads`)."""
     dt = cfg.dtype
-    m = _merge_heads(o).to(dt)
+    m = _merge_heads(o, h.device).to(dt)
     d = _mm(m, lp, "wo", dt)
     if ll is not None:
         d = d + gathered_delta(m, ll["oA"], ll["oB"])
@@ -426,19 +484,99 @@ def _attn_out(lp: Dict, h, o, cfg: LlamaConfig, ll: Optional[Dict] = None):
 def _lora_factors(cfg: LlamaConfig, lora: Optional[Dict]):
     """The multi-adapter operand ``{"ids": [B] pool slots, "layers":
     stacked adapter pool}`` gathered at the rows' slots and cast to the
-    compute dtype, once per dispatch (``[L, B, ...]`` per leaf); ``None``
-    without LoRA, which leaves the computation exactly the LoRA-less
-    one."""
+    compute dtype, once per dispatch (``[L, B, ...]`` per leaf; a tuple
+    of shards for the sharded ``qB``/``kB``/``vB``); ``None`` without
+    LoRA, which leaves the computation exactly the LoRA-less one."""
     if lora is None:
         return None
     return gather_adapters(lora["layers"], lora["ids"], cfg.dtype)
 
 
 def _lora_layer(factors: Optional[Dict], l: int) -> Optional[Dict]:
-    """Layer ``l``'s gathered factors (views), or ``None``."""
+    """Layer ``l``'s gathered factors (views; a tuple of the shards' views
+    for a tensor-parallel leaf), or ``None``."""
     if factors is None:
         return None
-    return {name: t[l] for name, t in factors.items()}
+    return {name: (tuple(x[l] for x in t) if isinstance(t, tuple) else t[l])
+            for name, t in factors.items()}
+
+
+# the factors a shard's q/k/v projections read
+_QKV_FACTORS = ("qA", "qB", "kA", "kB", "vA", "vB")
+
+
+class _Shard:
+    """One shard of a paged dispatch: its pool dict, the dispatch's
+    operands on its device (``ops``: tensors by name, ``None`` kept) and
+    its gathered LoRA factors for the q/k/v projections."""
+
+    __slots__ = ("pool", "ops", "lora")
+
+    def __init__(self, pool, ops, lora):
+        self.pool, self.ops, self.lora = pool, ops, lora
+
+
+def _shards(params: Dict, pool, lf: Optional[Dict], **ops):
+    """The shards of the pool operand of a paged entry point: a dict is
+    ONE shard and passes through untouched (every operand, the LoRA
+    factors included, as given: the single-device path), a list is the
+    tensor-parallel pool of :func:`init_paged_pool` — each shard gets the
+    dispatch's operands moved once to its device (a no-op when it shares
+    the lead device) and its slice of the q/k/v factors. The params must
+    be sharded over as many devices as the pool
+    (:func:`~paddle_tpu_torch.models.llama.shard_serving_params`)."""
+    wq = params["layers"]["wq"]
+    ways = len(wq) if isinstance(wq, tuple) else None
+    if ways != (None if isinstance(pool, dict) else len(pool)):
+        raise ValueError(
+            f"a pool of {len(_pool_shards(pool))} shard(s) needs params "
+            f"sharded as many ways (shard_serving_params; one shard: "
+            f"unsharded), got {ways or 'unsharded'}")
+    if isinstance(pool, dict):
+        return [_Shard(pool, ops, lf)]
+    out, moved = [], {}
+    for s, p in enumerate(pool):
+        dev = p["k"].device
+        if dev not in moved:
+            moved[dev] = {k: (v.to(dev, non_blocking=True)
+                              if torch.is_tensor(v) else v)
+                          for k, v in ops.items()}
+        lora = None
+        if lf is not None:
+            lora = {n: (lf[n][s] if isinstance(lf[n], tuple)
+                        else lf[n].to(dev, non_blocking=True))
+                    for n in _QKV_FACTORS}
+        out.append(_Shard(p, moved[dev], lora))
+    return out
+
+
+def _shard_layer(lp: Dict, s: int, sharded: bool) -> Dict:
+    """Shard ``s``'s columns of layer ``lp``'s q/k/v projections (``lp``
+    itself on the single-device path)."""
+    if not sharded:
+        return lp
+    return {n: lp[n][s] for n in _SERVING_TP_SHARDED if n in lp}
+
+
+def _attention(lp: Dict, x, cfg: LlamaConfig, shards, l: int, T: int,
+               attend):
+    """The attention half of paged layer ``l`` on ``x [B, T, E]``: the
+    pre-norm once, on the lead device; then on every shard, on its
+    device, the q/k/v projections through its columns and ``attend(q, k,
+    v, pz, ops)`` (RoPE, the K/V store into its pool layer ``pz`` and
+    attention). Returns the attention output ``[B, T, H, D]``, or the
+    list of the shards' outputs for :func:`_merge_heads`."""
+    B = x.shape[0]
+    hh = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps, cfg.use_fused_norm)
+    sharded = isinstance(lp["wq"], tuple)
+    outs = []
+    for s, sh in enumerate(shards):
+        H, Hk = _local_heads(cfg, sh.pool)
+        h = hh.to(sh.pool["k"].device, non_blocking=True)
+        q, k, v = _project(_shard_layer(lp, s, sharded), h, cfg, B, T, H,
+                           Hk, _lora_layer(sh.lora, l))
+        outs.append(attend(q, k, v, _pool_layer(sh.pool, l), sh.ops))
+    return outs if sharded else outs[0]
 
 
 def _dropped(cfg: LlamaConfig, T: int, kept):
@@ -469,9 +607,8 @@ def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
     Returns (next-token logits ``[B, V]`` read at each row's ``prompt_len
     - 1``, pool, dropped tokens)."""
     B, Sb = ids.shape
-    H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
-    bs = pool["k"].shape[2]
+    bs = _pool_shards(pool)[0]["k"].shape[2]
     W = block_tables.shape[1]
     dev = ids.device
     cos, sin = rope_cos_sin(Sb, D, cfg.rope_theta, device=dev)
@@ -483,17 +620,21 @@ def paged_prefill(params: Dict, cfg: LlamaConfig, ids, prompt_lens,
     kv_mask = (j[None, :] <= j[:, None])[None].expand(B, Sb, Sb)
 
     x = _embed(params, ids, cfg.dtype)
-    src = _write_src(cfg, phys, off, bs)
-    kept = []
     lf = _lora_factors(cfg, lora)
+    shards = _shards(params, pool, lf, cos=cos, sin=sin, phys=phys, off=off,
+                     src=_write_src(cfg, phys, off, bs), mask=kv_mask)
+
+    def attend(q, k, v, pz, o):
+        q = _rope(q, o["cos"], o["sin"], False)
+        k = _rope(k, o["cos"], o["sin"], False)
+        ka, va = _kv_store(pz, o["phys"], o["off"], k, v, o["src"])
+        return _masked_sdpa(q, ka, va, o["mask"])
+
+    kept = []
     for l in range(cfg.num_hidden_layers):
-        lp, pz = _layer(params, l), _pool_layer(pool, l)
-        ll = _lora_layer(lf, l)
-        q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk, ll)
-        q = _rope(q, cos, sin, False)
-        k = _rope(k, cos, sin, False)
-        ka, va = _kv_store(pz, phys, off, k, v, src)
-        x, n = _attn_out(lp, x, _masked_sdpa(q, ka, va, kv_mask), cfg, ll)
+        lp = _layer(params, l)
+        o = _attention(lp, x, cfg, shards, l, Sb, attend)
+        x, n = _attn_out(lp, x, o, cfg, _lora_layer(lf, l))
         kept.append(n)
     idx = torch.clamp(prompt_lens.long() - 1, min=0)
     last = x[torch.arange(B, device=dev), idx][:, None]       # [B, 1, E]
@@ -512,9 +653,8 @@ def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
     (next-token logits ``[1, V]`` at position ``start + chunk_len - 1``,
     pool, dropped tokens)."""
     B, Sb = ids.shape
-    H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
-    bs = pool["k"].shape[2]
+    bs = _pool_shards(pool)[0]["k"].shape[2]
     W = block_tables.shape[1]
     C = W * bs
     dev = ids.device
@@ -531,18 +671,23 @@ def paged_prefill_chunk(params: Dict, cfg: LlamaConfig, ids, start,
     kv_mask = jg <= pos[:, :, None]                           # [1, Sb, C]
 
     x = _embed(params, ids, cfg.dtype)
-    src = _write_src(cfg, phys, off, bs)
-    kept = []
     lf = _lora_factors(cfg, lora)
+    shards = _shards(params, pool, lf, cos=cos, sin=sin, phys=phys, off=off,
+                     src=_write_src(cfg, phys, off, bs), tbl=block_tables,
+                     mask=kv_mask)
+
+    def attend(q, k, v, pz, o):
+        q = _rope(q, o["cos"], o["sin"], False)
+        k = _rope(k, o["cos"], o["sin"], False)
+        _kv_store(pz, o["phys"], o["off"], k, v, o["src"])
+        kk, vv = _kv_gather(pz, o["tbl"], B, C, k.shape[2], D)
+        return _masked_sdpa(q, kk, vv, o["mask"])
+
+    kept = []
     for l in range(cfg.num_hidden_layers):
-        lp, pz = _layer(params, l), _pool_layer(pool, l)
-        ll = _lora_layer(lf, l)
-        q, k, v = _qkv(lp, x, cfg, B, Sb, H, Hk, ll)
-        q = _rope(q, cos, sin, False)
-        k = _rope(k, cos, sin, False)
-        _kv_store(pz, phys, off, k, v, src)
-        kk, vv = _kv_gather(pz, block_tables, B, C, Hk, D)
-        x, n = _attn_out(lp, x, _masked_sdpa(q, kk, vv, kv_mask), cfg, ll)
+        lp = _layer(params, l)
+        o = _attention(lp, x, cfg, shards, l, Sb, attend)
+        x, n = _attn_out(lp, x, o, cfg, _lora_layer(lf, l))
         kept.append(n)
     last = x[:, max(chunk_len - 1, 0)][:, None]               # [1, 1, E]
     return (_lm_head(params, cfg, last), pool,
@@ -563,9 +708,8 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     card — no gather is built). ``lora`` as in :func:`paged_prefill`.
     Returns (logits ``[M, V]``, pool, dropped tokens)."""
     M = tokens.shape[0]
-    H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
-    bs = pool["k"].shape[2]
+    bs = _pool_shards(pool)[0]["k"].shape[2]
     W = block_tables.shape[1]
     C = W * bs
     dev = tokens.device
@@ -578,25 +722,28 @@ def paged_decode_step(params: Dict, cfg: LlamaConfig, tokens, seq_lens,
     kv_mask = (jj <= seq_lens[:, None])[:, None, :]          # [M, 1, C]
 
     x = _embed(params, tokens[:, None], cfg.dtype)
-    src = _write_src(cfg, phys, off, bs)
-    kept = []
     lf = _lora_factors(cfg, lora)
-    for l in range(cfg.num_hidden_layers):
-        lp, pz = _layer(params, l), _pool_layer(pool, l)
-        ll = _lora_layer(lf, l)
-        q, k, v = _qkv(lp, x, cfg, M, 1, H, Hk, ll)
-        q = _rope(q, cos, sin, False)
-        k = _rope(k, cos, sin, False)
-        _kv_store(pz, phys, off, k[:, 0], v[:, 0], src)
+    shards = _shards(params, pool, lf, cos=cos, sin=sin, phys=phys, off=off,
+                     src=_write_src(cfg, phys, off, bs), tbl=block_tables,
+                     sl=seq_lens, mask=kv_mask)
+
+    def attend(q, k, v, pz, o):
+        q = _rope(q, o["cos"], o["sin"], False)
+        k = _rope(k, o["cos"], o["sin"], False)
+        _kv_store(pz, o["phys"], o["off"], k[:, 0], v[:, 0], o["src"])
         if use_kernel:
-            o = paged_attention(q[:, 0].contiguous(), pz["k"], pz["v"],
-                                block_tables, seq_lens,
-                                k_scale=pz.get("k_scale"),
-                                v_scale=pz.get("v_scale"))[:, None]
-        else:
-            kk, vv = _kv_gather(pz, block_tables, M, C, Hk, D)
-            o = _masked_sdpa(q, kk, vv, kv_mask)
-        x, n = _attn_out(lp, x, o, cfg, ll)
+            return paged_attention(q[:, 0].contiguous(), pz["k"], pz["v"],
+                                   o["tbl"], o["sl"],
+                                   k_scale=pz.get("k_scale"),
+                                   v_scale=pz.get("v_scale"))[:, None]
+        kk, vv = _kv_gather(pz, o["tbl"], M, C, k.shape[2], D)
+        return _masked_sdpa(q, kk, vv, o["mask"])
+
+    kept = []
+    for l in range(cfg.num_hidden_layers):
+        lp = _layer(params, l)
+        o = _attention(lp, x, cfg, shards, l, 1, attend)
+        x, n = _attn_out(lp, x, o, cfg, _lora_layer(lf, l))
         kept.append(n)
     return _lm_head(params, cfg, x), pool, _dropped(cfg, M, kept)
 
@@ -652,9 +799,8 @@ def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
     pool and the MoE drops. ``use_kernel`` runs the kernel's multi-query
     entry point."""
     M, Q = tokens.shape
-    H, Hk = _local_heads(cfg, pool)
     D = cfg.head_dim
-    bs = pool["k"].shape[2]
+    bs = _pool_shards(pool)[0]["k"].shape[2]
     W = block_tables.shape[1]
     C = W * bs
     dev = tokens.device
@@ -671,26 +817,28 @@ def _paged_multiquery_forward(params: Dict, cfg: LlamaConfig, tokens,
     kv_mask = jj <= (seq_lens[:, None] + qcap)[:, :, None]  # [M, Q, C]
 
     x = _embed(params, tokens, cfg.dtype)
-    src = _write_src(cfg, phys, off, bs)
-    kept = []
     lf = _lora_factors(cfg, lora)
-    for l in range(cfg.num_hidden_layers):
-        lp, pz = _layer(params, l), _pool_layer(pool, l)
-        ll = _lora_layer(lf, l)
-        q, k, v = _qkv(lp, x, cfg, M, Q, H, Hk, ll)
-        q = _rope(q, cos, sin, False)
-        k = _rope(k, cos, sin, False)
-        _kv_store(pz, phys, off, k, v, src)
+    shards = _shards(params, pool, lf, cos=cos, sin=sin, phys=phys, off=off,
+                     src=_write_src(cfg, phys, off, bs), tbl=block_tables,
+                     sl=seq_lens, dl=draft_lens, mask=kv_mask)
+
+    def attend(q, k, v, pz, o):
+        q = _rope(q, o["cos"], o["sin"], False)
+        k = _rope(k, o["cos"], o["sin"], False)
+        _kv_store(pz, o["phys"], o["off"], k, v, o["src"])
         if use_kernel:
-            o = paged_attention(q.contiguous(), pz["k"], pz["v"],
-                                block_tables, seq_lens,
-                                draft_lens=draft_lens,
-                                k_scale=pz.get("k_scale"),
-                                v_scale=pz.get("v_scale"))
-        else:
-            kk, vv = _kv_gather(pz, block_tables, M, C, Hk, D)
-            o = _masked_sdpa(q, kk, vv, kv_mask)
-        x, n = _attn_out(lp, x, o, cfg, ll)
+            return paged_attention(q.contiguous(), pz["k"], pz["v"],
+                                   o["tbl"], o["sl"], draft_lens=o["dl"],
+                                   k_scale=pz.get("k_scale"),
+                                   v_scale=pz.get("v_scale"))
+        kk, vv = _kv_gather(pz, o["tbl"], M, C, k.shape[2], D)
+        return _masked_sdpa(q, kk, vv, o["mask"])
+
+    kept = []
+    for l in range(cfg.num_hidden_layers):
+        lp = _layer(params, l)
+        o = _attention(lp, x, cfg, shards, l, Q, attend)
+        x, n = _attn_out(lp, x, o, cfg, _lora_layer(lf, l))
         kept.append(n)
     return x, pool, _dropped(cfg, M * Q, kept)
 

@@ -18,8 +18,9 @@ to the fused kernels (``kernels.rms_norm``) and the training forward's
 RoPE with shared ``[S, D]`` tables to ``kernels.rope.apply_rope``;
 ``cfg.remat`` checkpoints each layer under ``cfg.remat_policy`` (full
 remat or one of the JAX package's seven named policies, see
-:func:`_remat_policy`). Context parallelism (``sep_axis``) is not ported
-and raises ``NotImplementedError``.
+:func:`_remat_policy`). :func:`shard_serving_params` lays params out for
+serving tensor parallelism. Context parallelism (``sep_axis``) is not
+ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from ..kernels.rope import apply_rope, rope_cos_sin
 
 __all__ = ["LlamaConfig", "init_params", "num_params", "forward", "loss_fn",
            "make_train_step", "quantize_params", "validate_quant_mode",
-           "ensure_quantized", "QUANTIZE_MODES", "KV_QUANT_MODES"]
+           "ensure_quantized", "QUANTIZE_MODES", "KV_QUANT_MODES",
+           "shard_serving_params", "serving_placement"]
 
 
 @dataclasses.dataclass
@@ -281,6 +283,52 @@ def ensure_quantized(params: Dict, mode) -> Dict:
     if mode == "int8" and "wq_s" not in params.get("layers", {}):
         return quantize_params(params)
     return params
+
+
+# ---------------------------------------------------------------------------
+# the serving tensor-parallel layout
+# ---------------------------------------------------------------------------
+
+# QKV projections (and their weight-only int8 scale leaves) are the only
+# params the serving tensor-parallel layout shards — on the head output
+# dim, so each shard computes exactly the q/k/v head slice whose KV pool
+# shard it owns. Everything else stays replicated on the lead device.
+_SERVING_TP_SHARDED = ("wq", "wk", "wv", "wq_s", "wk_s", "wv_s")
+
+
+def shard_serving_params(params: Dict, devices) -> Dict:
+    """Lay the (fp or weight-only int8) param dict out for serving tensor
+    parallelism over the placement ``devices``
+    (:func:`~paddle_tpu_torch.distributed.topology.tp_devices`):
+    ``wq``/``wk``/``wv`` and their ``*_s`` scales become tuples of
+    ``len(devices)`` contiguous column shards (shard ``s`` on
+    ``devices[s]``, holding heads ``[s H/tp, (s+1) H/tp)``); every other
+    leaf stays where it is (the engine keeps them on the lead device).
+
+    This is not the Megatron training layout: attention is head-sharded
+    and the shards' outputs merge by an exact concatenation, so ``wo``,
+    the FFN and the head stay replicated and the math after attention is
+    the single-device engine's bit for bit. The ONE helper behind which
+    dense weights are sharded: the engine, the supervisor's rebuild and
+    every router replica place params through here (the latter two by
+    taking an engine's ``prepared_params``). An indivisible head axis
+    raises the structured error naming the leaf."""
+    from ..distributed.sharding import shard_tensor
+    layers = dict(params["layers"])
+    for name in _SERVING_TP_SHARDED:
+        if name in layers:
+            layers[name] = shard_tensor(layers[name], devices, dim=-1,
+                                        name=f"params.layers.{name}")
+    out = dict(params)
+    out["layers"] = layers
+    return out
+
+
+def serving_placement(params: Dict):
+    """The placement a sharded param dict was laid out over (the devices
+    of ``wq``'s shards), or ``None`` for an unsharded dict."""
+    wq = params["layers"]["wq"]
+    return [t.device for t in wq] if isinstance(wq, tuple) else None
 
 
 # ---------------------------------------------------------------------------

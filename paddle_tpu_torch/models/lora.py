@@ -28,8 +28,11 @@ projection per layer), not a replica.
 
 The merged-dense oracle (:func:`merge_lora`) folds ``W + A @ B`` into a
 plain parameter dict so the LoRA-less engine reproduces an adapter's
-greedy stream. Tensor-parallel pool specs (``lora_pool_specs``) are not
-ported here; they come with serving tensor parallelism.
+greedy stream.
+* **Tensor parallelism** (``AdapterPool(devices=)``, the reference's
+  ``lora_pool_specs``): ``qB``/``kB``/``vB`` are cut on their output axis
+  like the projections they add into, one tuple entry per shard device;
+  the other factors stay on the lead device.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.sharding import shard_dim_spec
 from .llama import LlamaConfig
 
 __all__ = ["AdapterPool", "lora_param_shapes", "lora_init_params",
@@ -51,6 +55,8 @@ __all__ = ["AdapterPool", "lora_param_shapes", "lora_init_params",
 # the four attention projections LoRA targets: (weight leaf, A leaf, B leaf)
 _TARGETS = (("wq", "qA", "qB"), ("wk", "kA", "kB"),
             ("wv", "vA", "vB"), ("wo", "oA", "oB"))
+# the pool leaves tensor parallelism cuts on their output axis
+_SHARDED = ("qB", "kB", "vB")
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -90,7 +96,9 @@ def gather_adapters(layers: Dict[str, torch.Tensor], ids,
     ``l`` of the result equals the JAX package's per-layer
     ``take(la, ids).astype(dt)``."""
     idx = ids.long()
-    return {name: leaf[:, idx].to(dt) for name, leaf in layers.items()}
+    return {name: (tuple(t[:, idx.to(t.device)].to(dt) for t in leaf)
+                   if isinstance(leaf, tuple) else leaf[:, idx].to(dt))
+            for name, leaf in layers.items()}
 
 
 def gathered_delta(x, a, b):
@@ -144,7 +152,7 @@ class AdapterPool:
     """
 
     def __init__(self, cfg: LlamaConfig, rank: int, slots: int,
-                 capacity: int, device=None):
+                 capacity: int, device=None, devices=None):
         rank, slots, capacity = int(rank), int(slots), int(capacity)
         if rank < 1:
             raise ValueError(
@@ -162,14 +170,27 @@ class AdapterPool:
         self.cfg, self.rank = cfg, rank
         self.num_slots = slots          # loadable slots (1..slots)
         self.capacity = capacity
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if devices is None
+                                     else devices[0])
         self._shapes = lora_param_shapes(cfg, rank)
         # stacked [L, slots+1, ...] pool; row 0 = the zeroed base adapter.
-        # Allocated once: loads write a slot in place
-        self.layers = {
-            n: torch.zeros((s[0], slots + 1) + s[1:], dtype=torch.float32,
-                           device=self.device)
-            for n, s in self._shapes.items()}
+        # Allocated once: loads write a slot in place. Under tensor
+        # parallelism the B factors of q/k/v are a tuple of column shards
+        self.layers = {}
+        for n, s in self._shapes.items():
+            shape = (s[0], slots + 1) + s[1:]
+            if devices is not None and len(devices) > 1 and \
+                    n in _SHARDED:
+                tp = len(devices)
+                shard_dim_spec(shape, tp, "tp", dim=-1,
+                               name=f"lora_pool.{n}")
+                self.layers[n] = tuple(
+                    torch.zeros(shape[:-1] + (shape[-1] // tp,),
+                                dtype=torch.float32, device=d)
+                    for d in devices)
+            else:
+                self.layers[n] = torch.zeros(shape, dtype=torch.float32,
+                                             device=self.device)
         # host registry: name -> {"data": {leaf: np}, "crc": {leaf: int}}
         self._host: "OrderedDict[str, Dict]" = OrderedDict()
         self._resident: Dict[str, int] = {}       # name -> slot (1-based)
@@ -247,7 +268,12 @@ class AdapterPool:
                         f"load-time checksum: host copy corrupted; "
                         f"refusing to serve wrong weights")
             for leaf, arr in entry["data"].items():
-                self.layers[leaf][:, slot].copy_(torch.from_numpy(arr))
+                dst = self.layers[leaf]
+                if isinstance(dst, tuple):
+                    for t, part in zip(dst, np.split(arr, len(dst), -1)):
+                        t[:, slot].copy_(torch.from_numpy(part))
+                else:
+                    dst[:, slot].copy_(torch.from_numpy(arr))
             self._resident[name] = slot
             self._slot_name[slot] = name
             self.loads += 1

@@ -234,8 +234,11 @@ def test_engine_stream_and_cancel(model):
 
 def test_unported_features_raise(model):
     _, _, tcfg, tparams, _ = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TConfig(tp=2)
+    # tensor parallelism is ported: tp=2 is accepted, tp=0 is the
+    # reference's ">= 1" error
+    assert TConfig(tp=2).tp == 2
+    with pytest.raises(ValueError, match=">= 1"):
+        TConfig(tp=0)
     # LoRA, the offload tier, the journal and the embeddings endpoint are
     # ported: an adapter on a pool-less engine is a usage error
     assert TConfig(lora_slots=1).lora_slots == 1
