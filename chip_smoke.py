@@ -321,6 +321,42 @@ Phases (each fails the run on any error; none catches and carries on):
     int8 pools every live row of every dispatch within 1e-2 x max|logit|
     of tp 1's with the tokens teacher-forced (``lockstep``), the near ties
     and the free-running streams' equality reported.
+34. Fault-tolerant training (cell W): F's step (``use_kernels``,
+    ``use_fused_norm``, full remat, bf16 compute, fp32 params and AdamW
+    at lr 1e-4, B 8 x S 2048, the 12-layer hidden-2048 model: a train
+    state of 8.86 GB) with ``sentinel=True``, fed by the port's
+    DataLoader (2 forked workers over 512 seeded rows of 2049 int32
+    tokens; one row fails once and is healed by a retry, one always
+    fails and is quarantined, its batch trains at B 7) through
+    ``prefetch_to_device``. The free bytes of the temporary directory
+    are printed first, and less than 3 x the state fails the run. Two
+    warm-up and 4 timed steps (step ms, tokens/s, the consumer's wait for
+    data a step); an ``AsyncCheckpointer(keep_last_k=2)`` save at step s
+    (the blocking snapshot's ms, then up to 30 steps while the write is
+    in flight: their mean ms against the steady steps, whether the save
+    outlived them, the bytes on disk and the write's GB/s); the state set
+    back to s and a second commit at s + 4; NaN in the live parameters:
+    the monitor (``skip_threshold=2, max_restores=1``) must read SKIP
+    then RESTORE, and ``monitor.restore`` must refill every live leaf
+    bit-equal to a device clone taken at s + 4 (the AdamW step counter
+    too), the next loss finite; the newest commit's ``data_0.pkl``
+    bit-flipped: ``AsyncCheckpointer.restore`` must return s with every
+    leaf equal to the clone at s, and its first loss must lie within the
+    spread of two replays of the same step from that clone; a second bad
+    streak must raise ``HealthAbortError`` with the diagnosis; a save
+    under ``async_writer_fault`` must raise on ``wait()`` and the next
+    save commit; exactly ``expected_launches`` a step over every step of
+    the phase; then one loader epoch with a worker killed mid-epoch
+    (``dead_worker``, ``worker_restarts=1``) must yield every
+    non-quarantined row exactly once. The phase's seconds are printed.
+35. E's config at fp32 with the kernels (hidden 512, 8 / 4 heads, 4
+    layers, B 2 x S 512): 8 steps with ``save_state_dict`` at step 4,
+    loaded by ``load_state_dict`` into a fresh state (every leaf equal
+    bit for bit) that runs steps 5-8 again: each loss within 1e-6 x
+    |loss| of the uninterrupted run's (the largest gap printed; the
+    embedding's backward adds by atomics, so bit equality is not
+    promised); then ``framework.io`` save and load of the same state
+    onto the card (``device=None``), every leaf equal.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -342,8 +378,8 @@ kernels line reports the serving launches of phases 4, 5, 13, 14
 drain with migration), 29 (the first server turn), 31 (the bf16 and
 the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
 together,
-the flash launches of phase 8 and the RMSNorm and RoPE launches of
-phase 11 (RoPE: forward and backward together).
+the flash launches of phases 8 and 34 and the RMSNorm and RoPE
+launches of phases 11 and 34 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -351,6 +387,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -368,7 +405,8 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "sampled and speculative serving", "MoE serving and training",
          "LoRA serving", "dense generation", "host offload tier",
          "supervisor and journal", "embeddings", "serving fleet",
-         "serving server and replay", "tensor-parallel serving")
+         "serving server and replay", "tensor-parallel serving",
+         "fault-tolerant training")
 
 
 def check(cond, msg):
@@ -4930,6 +4968,370 @@ def tp_parity_phase(sp, sn, cfg=None, dev="cuda"):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 34-35: fault-tolerant training (cell W)
+# ---------------------------------------------------------------------------
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _state_leaves(state):
+    from paddle_tpu_torch.models.llama import _leaves
+    return _leaves(state)
+
+
+def _clone_state(state):
+    """A device copy of every leaf of ``{"params", "opt"}``."""
+    from paddle_tpu_torch.models.llama import _tree_map
+    return _tree_map(lambda t: t.detach().clone(), state)
+
+
+def _fill_state(state, src):
+    """Copy ``src``'s leaves into the live tensors of ``state``."""
+    import torch
+    with torch.no_grad():
+        for d, s in zip(_state_leaves(state), _state_leaves(src)):
+            d.copy_(s)
+
+
+def _equal_state(a, b):
+    import torch
+    la, lb = _state_leaves(a), _state_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+class TokenRows:
+    """``n`` seeded rows of ``seq + 1`` int32 tokens; item i is ``(ids,
+    labels, i)``: the row's first ``seq`` tokens, its last ``seq`` (the
+    shifted pair) and the index."""
+
+    def __init__(self, n, seq, vocab, seed):
+        self.rows = np.random.default_rng(seed).integers(
+            0, vocab, (n, seq + 1), dtype=np.int32)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        r = self.rows[i]
+        return r[:-1], r[1:], np.int64(i)
+
+
+def ft_training_phase(tmp, cfg=None, dev="cuda", batch=8, seq=2048,
+                      rows=512, inflight_max=30):
+    """Phase 34 (cell W): F's step (``use_kernels``, ``use_fused_norm``,
+    full remat, bf16 compute, fp32 params and AdamW at lr 1e-4) with
+    ``sentinel=True``, fed by the port's DataLoader (2 forked workers, a
+    transient bad row healed by a retry, a deterministic one quarantined)
+    through ``prefetch_to_device``; the checkpoint stack and the health
+    ladder driven through every rung. Returns (metrics, launches)."""
+    import shutil
+
+    import torch
+    from paddle_tpu_torch.distributed.checkpoint import (
+        AsyncCheckpointer, manifest)
+    from paddle_tpu_torch.health import (HealthAbortError, HealthAction,
+                                         HealthMonitor, sentinel_init,
+                                         unpack_health)
+    from paddle_tpu_torch.io import DataLoader, prefetch_to_device
+    from paddle_tpu_torch.models.llama import init_params, make_train_step
+    from paddle_tpu_torch.testing import chaos
+    t_phase = time.time()
+    cfg = cfg or train_config(torch.bfloat16, use_fused_norm=True)
+    params = init_params(cfg, seed=SEED, device=dev)
+    init_opt, step = make_train_step(cfg, lr=1e-4, sentinel=True)
+    opt = init_opt(params)
+    sent = sentinel_init(dev)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _state_leaves({"params": params, "opt": opt}))
+    free = shutil.disk_usage(tmp).free
+    log(f"  train state {nbytes / 1e9:.3f} GB (params, m, v, step); free "
+        f"in {tmp}: {free / 1e9:.1f} GB")
+    check(free >= 3 * nbytes, f"{tmp} has {free / 1e9:.1f} GB free; phase "
+          f"34 needs 3 x the {nbytes / 1e9:.2f} GB train state (keep_last_k"
+          f"=2 plus the save in flight)")
+
+    healed, poisoned = batch + 1, 10 * batch + 3     # batches 1 and 10
+    data = chaos.bad_sample(chaos.bad_sample(
+        TokenRows(rows, seq, cfg.vocab_size, SEED + 34), [healed],
+        fails_each=1), [poisoned], fails_each=None)
+    loader = DataLoader(data, batch_size=batch, num_workers=2,
+                        sample_retries=1, sample_retry_backoff=0.001,
+                        timeout=120)
+
+    def epochs():
+        while True:
+            yield from loader
+
+    stream = prefetch_to_device(epochs(), size=2, device=dev)
+    ck = AsyncCheckpointer(f"{tmp}/series", keep_last_k=2)
+    mon = HealthMonitor(checkpointer=ck, skip_threshold=2, max_restores=1,
+                        verbose=False)
+    seen, sizes = [], []
+    n_steps, gstep = 0, 0
+
+    def state():
+        return {"params": params, "opt": opt}
+
+    def next_batch():
+        t0 = time.time()
+        ids, labels, idx = next(stream)
+        wait_ms = (time.time() - t0) * 1e3
+        seen.extend(idx.tolist())
+        sizes.append(ids.shape[0])
+        return (ids.long(), labels.long()), wait_ms
+
+    def train(b):
+        nonlocal opt, sent, n_steps
+        _, opt, sent, health = step(params, opt, sent, *b)
+        n_steps += 1
+        return unpack_health(health)
+
+    def timed(n, observe=True):
+        nonlocal gstep
+        ms, waits, losses = [], [], []
+        for _ in range(n):
+            b, w = next_batch()
+            _sync(dev)
+            t0 = time.time()
+            loss, bad, _ = train(b)         # unpack_health reads the host
+            ms.append((time.time() - t0) * 1e3)
+            waits.append(w)
+            losses.append(loss)
+            gstep += 1
+            if observe:
+                check(mon.observe(gstep, loss, bad).action
+                      is HealthAction.OK, f"step {gstep}: loss {loss}")
+        return ms, waits, losses
+
+    reset_counts()
+    timed(2)                                           # warm-up
+    steady_ms, steady_wait, _ = timed(4)
+    s = gstep
+    m = {"steady_step_ms": float(np.mean(steady_ms)),
+         "steady_step_ms_each": steady_ms,
+         "tokens_per_s": batch * seq / (np.mean(steady_ms) / 1e3),
+         "data_wait_ms_per_step": float(np.mean(steady_wait))}
+
+    # (2) the first save, the write overlapped with training
+    clone_s = _clone_state(state())
+    _sync(dev)
+    t0 = time.time()
+    job = ck.save(state(), s)
+    m["snapshot_ms"] = (time.time() - t0) * 1e3
+    landed = []
+    watcher = threading.Thread(target=lambda: (job.wait(),
+                                               landed.append(time.time())))
+    watcher.start()
+    inflight_ms = []
+    while ck.is_saving and len(inflight_ms) < inflight_max:
+        inflight_ms += timed(1, observe=False)[0]
+    m["save_outlived_loop"] = bool(ck.is_saving)
+    ck.wait()
+    watcher.join(timeout=600)
+    check(landed, "the first save never landed")
+    path_s = f"{tmp}/series/{manifest.step_dir_name(s)}"
+    on_disk = sum(os.path.getsize(f"{path_s}/{f}") for f in os.listdir(path_s))
+    m.update({"inflight_steps": len(inflight_ms),
+              "inflight_step_ms": float(np.mean(inflight_ms))
+              if inflight_ms else None,
+              "write_s": landed[0] - t0 - m["snapshot_ms"] / 1e3,
+              "bytes_on_disk": on_disk})
+    m["inflight_overhead_pct"] = (
+        None if not inflight_ms else
+        100.0 * (m["inflight_step_ms"] / m["steady_step_ms"] - 1.0))
+    m["write_gb_per_s"] = on_disk / 1e9 / m["write_s"]
+    check(manifest.is_committed(path_s), "step s did not commit")
+
+    # (3) back to s, four steps, the second commit at s + 4
+    _fill_state(state(), clone_s)
+    gstep = s
+    timed(4)
+    s4 = gstep
+    clone_s4 = _clone_state(state())
+    t0 = time.time()
+    ck.save(state(), s4)
+    m["snapshot_ms_2"] = (time.time() - t0) * 1e3
+    ck.wait()
+    m["save_s_2"] = time.time() - t0
+    check(ck.all_steps() == [s, s4], f"series {ck.all_steps()}")
+
+    # (4) NaN in the live parameters: SKIP, RESTORE, refilled from s + 4
+    def bad_streak():
+        nonlocal gstep
+        with torch.no_grad():
+            params["ln_f"].copy_(chaos.nan_payload(params["ln_f"]))
+        acts = []
+        for _ in range(2):
+            b, _ = next_batch()
+            loss, bad, _ = train(b)
+            gstep += 1
+            acts.append(mon.observe(gstep, loss, bad).action)
+        return acts
+
+    acts = bad_streak()
+    check(acts == [HealthAction.SKIP, HealthAction.RESTORE],
+          f"ladder {acts}")
+    t0 = time.time()
+    got = mon.restore(state())
+    _sync(dev)
+    m["restore_verify_ms"] = (time.time() - t0) * 1e3
+    check(got == s4, f"monitor restored step {got}, expected {s4}")
+    check(_equal_state(state(), clone_s4),
+          "restored state differs from the device clone at s + 4")
+    check(int(opt["step"]) == int(clone_s4["opt"]["step"]),
+          "AdamW step counter not restored")
+    sent = sentinel_init(dev)          # reseed the device EMA, as the
+    gstep = s4                         # monitor reseeded its own
+    b, _ = next_batch()
+    loss, bad, _ = train(b)
+    check(np.isfinite(loss) and not bad, f"loss after restore {loss}")
+
+    # (5) the newest commit bit-flipped: restore walks back to s
+    chaos.flip_bits(f"{tmp}/series/{manifest.step_dir_name(s4)}/data_0.pkl",
+                    seed=34)
+    t0 = time.time()
+    got = ck.restore(state())
+    _sync(dev)
+    m["walk_back_restore_ms"] = (time.time() - t0) * 1e3
+    check(got == s, f"walk-back restored step {got}, expected {s}")
+    check(_equal_state(state(), clone_s),
+          "walked-back state differs from the device clone at s")
+
+    # (6) the first loss after it within the spread of two replays
+    b, _ = next_batch()
+    losses = [train(b)[0]]
+    for _ in range(2):
+        _fill_state(state(), clone_s)
+        losses.append(train(b)[0])
+    lo, hi = min(losses[1:]), max(losses[1:])
+    log(f"  first loss after the walk-back {losses[0]!r}, replays from the "
+        f"clone {losses[1]!r} {losses[2]!r}")
+    check(lo <= losses[0] <= hi, f"restored loss {losses[0]} outside the "
+          f"replays' spread [{lo}, {hi}]")
+    m["restored_replay_losses"] = losses
+
+    # (7) the one restore is spent: the next streak aborts with the diagnosis
+    acts = bad_streak()
+    check(acts == [HealthAction.SKIP, HealthAction.RESTORE],
+          f"second ladder {acts}")
+    try:
+        mon.restore(state())
+    except HealthAbortError as e:
+        diagnosis = str(e)
+    else:
+        diagnosis = None
+    check(diagnosis is not None and "restore limit reached" in diagnosis
+          and "Recent anomalies" in diagnosis,
+          f"no HealthAbortError with a diagnosis: {diagnosis!r}")
+    log(f"  abort diagnosis: {diagnosis.splitlines()[0]}")
+    _fill_state(state(), clone_s)
+
+    # (8) a writer fault surfaces on wait(); the next save commits
+    with chaos.async_writer_fault(RuntimeError("chaos: writer fault")):
+        ck.save(state(), s + 5)
+        try:
+            ck.wait()
+        except RuntimeError as e:
+            fault = str(e)
+        else:
+            fault = None
+    check(fault == "chaos: writer fault", f"writer fault surfaced as "
+          f"{fault!r}")
+    ck.save(state(), s + 6)
+    ck.wait()
+    check(ck.latest_step() == s + 6
+          and manifest.verify(f"{tmp}/series/{manifest.step_dir_name(s + 6)}"),
+          f"the save after the fault did not commit: {ck.all_steps()}")
+    counts = read_counts()
+    stream.close()
+
+    m["loader_quarantined"] = sorted(loader._quarantined)
+    check(loader._quarantined == {poisoned},
+          f"quarantine {loader._quarantined}, expected {{{poisoned}}}")
+    check(sizes.count(batch - 1) >= 1 and healed in seen,
+          f"batch sizes {sorted(set(sizes))}; healed row seen "
+          f"{healed in seen}")
+
+    # (9) one epoch with a worker killed mid-epoch: every row once
+    epoch = DataLoader(
+        chaos.dead_worker(data, at_index=5 * batch + 2,
+                          marker=f"{tmp}/worker_died"),
+        batch_size=batch, num_workers=2, sample_retries=1,
+        sample_retry_backoff=0.001, worker_restarts=1, timeout=120)
+    got_rows = sorted(int(i) for _, _, idx in epoch for i in idx)
+    want_rows = [i for i in range(rows) if i != poisoned]
+    check(os.path.exists(f"{tmp}/worker_died"), "the worker never died")
+    check(got_rows == want_rows, f"epoch after a worker death: "
+          f"{len(got_rows)} rows, {len(set(got_rows))} distinct, expected "
+          f"{len(want_rows)}")
+
+    per_step = {k: v / n_steps for k, v in counts.items() if v}
+    m.update({"steps": n_steps, "launches_per_step": per_step,
+              "phase_s": time.time() - t_phase})
+    log(f"  {json.dumps(m)}")
+    want = expected_launches(cfg)
+    check(per_step == want, f"launches per step {per_step}, expected {want}")
+    return m, counts
+
+
+def ft_parity_phase(tmp, cfg=None, dev="cuda", steps=8, at=4, batch=2,
+                    seq=512):
+    """Phase 35: E's fp32 config with the kernels; 8 steps with a save at
+    step 4, loaded into a fresh state that runs steps 5-8 again; and
+    ``framework.io`` save/load of the same state on the device."""
+    import torch
+    from paddle_tpu_torch.distributed.checkpoint import (load_state_dict,
+                                                         save_state_dict)
+    from paddle_tpu_torch.framework import io as fio
+    from paddle_tpu_torch.models.llama import init_params, make_train_step
+    cfg = cfg or train_config(torch.float32, hidden_size=512,
+                              intermediate_size=1376, num_hidden_layers=4,
+                              num_attention_heads=8, num_key_value_heads=4,
+                              use_fused_norm=True)
+    rng = np.random.default_rng(SEED + 35)
+    data = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+            .to(dev) for _ in range(steps)]
+    init_opt, step = make_train_step(cfg, lr=1e-3)
+
+    def run(st, first, last):
+        out = []
+        for i in range(first, last):
+            st["params"], st["opt"], loss = step(st["params"], st["opt"],
+                                                 data[i], data[i])
+            out.append(loss.item())
+        return out
+
+    params = init_params(cfg, seed=SEED + 3, device=dev)
+    st = {"params": params, "opt": init_opt(params)}
+    ref = run(st, 0, at)
+    saved = _clone_state(st)
+    save_state_dict(st, f"{tmp}/e_step{at}")
+    ref += run(st, at, steps)
+    fresh = init_params(cfg, seed=SEED + 4, device=dev)
+    st2 = {"params": fresh, "opt": init_opt(fresh)}
+    load_state_dict(st2, f"{tmp}/e_step{at}")
+    check(_equal_state(st2, saved), "loaded state differs from the saved one")
+    resumed = run(st2, at, steps)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(resumed, ref[at:])]
+    log(f"  losses {ref}; resumed from step {at}: {resumed}; largest gap "
+        f"{max(gaps):.3g} x |loss|")
+    check(max(gaps) <= 1e-6, f"resumed losses {resumed} vs {ref[at:]}")
+    fio.save(saved, f"{tmp}/e.pdparams")
+    back = fio.load(f"{tmp}/e.pdparams", device=None if dev == "cuda"
+                    else dev)
+    check(_equal_state(back, saved)
+          and all(t.device == saved["opt"]["step"].device
+                  for t in _state_leaves(back)),
+          "framework.io round trip changed the state")
+    log(f"  framework.io save/load round trip on {dev}: every leaf equal")
+    return {"losses": ref, "resumed": resumed, "max_gap": max(gaps)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5254,6 +5656,19 @@ def main() -> int:
     launches = {k: launches[k] + c33[k] for k in launches}
     log(f"  nvidia-smi: {card}")
 
+    log("== phase 34: fault-tolerant training (cell W), full width, bf16, "
+        "F's step with the sentinel, the loader, the checkpoint series and "
+        "the health ladder")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, c34 = ft_training_phase(tmp)
+    torch.cuda.empty_cache()
+    log(f"  nvidia-smi: {card}")
+    log("== phase 35: fp32 checkpoint resume and framework.io on the card "
+        "(E's config)")
+    with tempfile.TemporaryDirectory() as tmp:
+        ft_parity_phase(tmp)
+    torch.cuda.empty_cache()
+
     log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [
@@ -5269,7 +5684,8 @@ def main() -> int:
         entry = summarize(name, "paddle_tpu_torch/csrc/flash_attention.cu",
                           "paddle_tpu/kernels/flash_attention.py" + line,
                           [rows[which] for rows in fl],
-                          c8["flash_attention" + counter])
+                          c8["flash_attention" + counter]
+                          + c34["flash_attention" + counter])
         if which != "fwd":
             entry["library_note"] = ("scaled_dot_product_attention backward "
                                      "(dq, dk and dv in one call)")
@@ -5278,17 +5694,20 @@ def main() -> int:
     kernels += [
         summarize("rms_norm_fwd", csrc + "rms_norm.cu",
                   "paddle_tpu/kernels/rms_norm.py:27",
-                  [r["fwd"] for r in norms], c11["rms_norm"]),
+                  [r["fwd"] for r in norms],
+                  c11["rms_norm"] + c34["rms_norm"]),
         summarize("rms_norm_bwd", csrc + "rms_norm.cu",
                   "paddle_tpu/kernels/rms_norm.py:35",
                   [r["bwd"] for r in norms if "bwd" in r],
-                  c11["rms_norm_bwd"]),
+                  c11["rms_norm_bwd"] + c34["rms_norm_bwd"]),
         summarize("apply_rope", csrc + "rope.cu",
                   "paddle_tpu/kernels/rope.py:25", ropes,
-                  c11["apply_rope"] + c11["apply_rope_bwd"]),
+                  c11["apply_rope"] + c11["apply_rope_bwd"]
+                  + c34["apply_rope"] + c34["apply_rope_bwd"]),
     ]
-    kernels[-1]["launches_fwd_bwd"] = [c11["apply_rope"],
-                                       c11["apply_rope_bwd"]]
+    kernels[-1]["launches_fwd_bwd"] = [
+        c11["apply_rope"] + c34["apply_rope"],
+        c11["apply_rope_bwd"] + c34["apply_rope_bwd"]]
     kernels[-1]["library_note"] = ("no single PyTorch call applies "
                                    "rotate-half RoPE")
     kernels[-3]["library_note"] = ("torch.nn.functional.rms_norm, the "

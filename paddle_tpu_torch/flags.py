@@ -7,8 +7,9 @@ Counterpart of ``paddle_tpu/flags.py``: its ``define_flag`` / ``flag`` /
 knobs the ported engine, offload tier, journal, supervisor, fleet router
 and front-end server resolve when a field is left unset (every
 ``FLAGS_serving_*`` of the reference, so a replay manifest records the
-same set), the two loss-spike knobs of the health sentinel and the hang
-watchdog's timeout.
+same set), the checkpoint verification switch, the health ladder's
+knobs (sentinel, monitor, the DataLoader's retries and worker restarts)
+and the hang watchdog's timeout.
 """
 
 from __future__ import annotations
@@ -335,8 +336,18 @@ define_flag("FLAGS_serving_snapshot_every", 64,
             "last good generation.", int)
 
 # ---------------------------------------------------------------------------
-# Run-health sentinel (paddle_tpu_torch.health): the two knobs
-# sentinel_check reads when its caller leaves them unset.
+# Checkpoint integrity (framework.io, distributed.checkpoint).
+# ---------------------------------------------------------------------------
+define_flag("FLAGS_checkpoint_verify", True,
+            "Verify SHA-256 integrity (tier-1 footer, tier-3 shard manifests) "
+            "on paddle.load / distributed checkpoint load; corruption raises "
+            "CheckpointCorruptionError instead of unpickling garbage "
+            "(docs/FAULT_TOLERANCE.md).", bool)
+
+# ---------------------------------------------------------------------------
+# Run health (paddle_tpu_torch.health, the DataLoader's self-healing): the
+# knobs sentinel_check, HealthMonitor and DataLoader read when their caller
+# leaves them unset.
 # ---------------------------------------------------------------------------
 define_flag("FLAGS_health_spike_factor", 0.0,
             "Loss-spike threshold: a step is bad when loss > factor * |EMA| "
@@ -346,6 +357,28 @@ define_flag("FLAGS_health_spike_factor", 0.0,
 define_flag("FLAGS_health_spike_warmup", 20,
             "Good steps required to seed the loss EMA before the spike test "
             "arms (early-training loss is legitimately volatile).", int)
+define_flag("FLAGS_health_skip_threshold", 3,
+            "K: consecutive bad steps before HealthMonitor escalates from "
+            "skip to a last-good checkpoint restore.", int)
+define_flag("FLAGS_health_max_restores", 3,
+            "M: last-good restores before HealthMonitor aborts with a "
+            "diagnosis (HealthAbortError) instead of burning more TPU "
+            "hours.", int)
+define_flag("FLAGS_health_lr_backoff", 1.0,
+            "LR multiplier applied per health restore (HealthMonitor."
+            "lr_scale; AnomalyMonitor applies it to the optimizer). 1.0 = "
+            "no backoff.", float)
+define_flag("FLAGS_health_data_retries", 0,
+            "Default DataLoader retries for a failing Dataset.__getitem__ "
+            "(bounded backoff between attempts). 0 keeps the raise-through "
+            "behavior.", int)
+define_flag("FLAGS_health_data_backoff_s", 0.05,
+            "Base backoff (seconds, doubled per attempt) between "
+            "Dataset.__getitem__ retries.", float)
+define_flag("FLAGS_health_worker_restarts", 0,
+            "Default max resurrections of a dead DataLoader worker "
+            "(map-style datasets; in-flight batches are re-queued). 0 keeps "
+            "the fail-fast behavior.", int)
 define_flag("FLAGS_health_watchdog_timeout_s", 0.0,
             "health.watchdog.install() default: seconds without a progress "
             "tick before the in-process hang watchdog fires (stack-dump "

@@ -8,10 +8,22 @@ tensor that ``models.llama._adamw_apply(skip=...)`` gates the update
 with, and the host reads loss and verdict later from ONE packed ``[loss,
 bad, ema]`` vector (:func:`pack_health` / :func:`unpack_health`).
 
-Ported: the core four functions. The generic output-side wrapper
-(``guard_step``, ``tree_where``), the imperative ``Sentinel`` and
-``health_state_tensors`` belong to the JAX package's ``jit/train_step``
-surface and wait for it.
+Two spellings, one core:
+
+* ``models.llama.make_train_step(sentinel=True)`` gates the in-place
+  LLaMA step's update inside ``_adamw_apply(skip=bad)``;
+* :func:`guard_step` wraps a PURE step ``(params, opt, *batch) ->
+  (params, opt, loss)`` that returns new tensors into ``(params, opt,
+  sent, *batch) -> (params, opt, sent, health)``, selecting the old
+  values on a bad step with :func:`tree_where`. It cannot guard the
+  in-place LLaMA step: that step has already overwritten the old values
+  by the time the verdict exists, so it takes ``sentinel=True`` instead.
+
+Ported: ``sentinel_init``, ``sentinel_check``, ``pack_health``,
+``unpack_health``, ``tree_where`` and ``guard_step``. The imperative
+``Sentinel`` and ``health_state_tensors`` work on ``nn.Layer`` and
+optimizer accumulators, which the port does not have yet (ROADMAP item
+11).
 """
 
 from __future__ import annotations
@@ -23,8 +35,8 @@ import torch
 from ..device import resolve_device
 from ..flags import flag as _flag
 
-__all__ = ["sentinel_init", "sentinel_check", "pack_health",
-           "unpack_health"]
+__all__ = ["sentinel_init", "sentinel_check", "tree_where", "guard_step",
+           "pack_health", "unpack_health"]
 
 
 def sentinel_init(device=None) -> Dict[str, torch.Tensor]:
@@ -63,6 +75,43 @@ def sentinel_check(loss, sent: Dict, *, spike_factor: Optional[float] = None,
         good, torch.where(count == 0, l32,
                           (1.0 - ema_alpha) * ema + ema_alpha * l32), ema)
     return bad, {"ema": new_ema, "count": count + good.to(torch.int32)}
+
+
+def tree_where(bad, old_tree, new_tree):
+    """Per-leaf ``torch.where(bad, old, new)`` over nested dicts, lists and
+    tuples of tensors — the gated update of a pure step. ``bad`` is a 0-d
+    bool tensor; nothing syncs with the host."""
+    if isinstance(old_tree, dict):
+        return {k: tree_where(bad, old_tree[k], new_tree[k])
+                for k in old_tree}
+    if isinstance(old_tree, (list, tuple)):
+        return type(old_tree)(tree_where(bad, o, n)
+                              for o, n in zip(old_tree, new_tree))
+    return torch.where(bad, old_tree, new_tree)
+
+
+def guard_step(step_fn, *, spike_factor: Optional[float] = None,
+               warmup: Optional[int] = None, ema_alpha: float = 0.1):
+    """Wrap a PURE train step with the sentinel::
+
+        gstep = guard_step(step)           # step(params, opt, *batch)
+        sent = sentinel_init(device)       #   -> (params, opt, loss)
+        params, opt, sent, health = gstep(params, opt, sent, *batch)
+        loss, bad, ema = unpack_health(health)
+
+    A bad step returns the INPUT params / opt state unchanged (a per-leaf
+    select); the sentinel state still records the verdict. ``step_fn``
+    must leave its inputs intact — the in-place LLaMA step takes
+    ``make_train_step(sentinel=True)`` instead."""
+    def guarded(params, opt_state, sent, *batch):
+        new_p, new_o, loss = step_fn(params, opt_state, *batch)
+        bad, new_sent = sentinel_check(loss, sent, spike_factor=spike_factor,
+                                       warmup=warmup, ema_alpha=ema_alpha)
+        return (tree_where(bad, params, new_p),
+                tree_where(bad, opt_state, new_o), new_sent,
+                pack_health(loss, bad, new_sent))
+
+    return guarded
 
 
 def pack_health(loss, bad, sent) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Chaos / fault-injection harness of the port — counterpart of
 ``paddle_tpu/testing/chaos.py``.
 
-Composable injectors that drive the port's serving stack (engine,
+Composable injectors that drive the port's training stack (checkpoint
+writer, health sentinel, DataLoader) and serving stack (engine,
 supervisor, front-end server, fleet router, offload tier, journal,
 adapter pool) through the failure modes a production deployment sees,
 so the robustness machinery is EXERCISED, not just written. Every
 injector reaches the port's own objects and imports only the port
-(``flood_tenant`` catches the port's ``ServingQueueFull``; the journal
-injectors read the port's WAL framing):
+(``async_writer_fault`` arms the port's writer; ``flood_tenant`` catches
+the port's ``ServingQueueFull``; the journal injectors read the port's
+WAL framing):
 
 =========================  ==============================================
 injector                   fault it models
@@ -16,8 +18,17 @@ injector                   fault it models
 ``flip_bits``              silent data corruption (bad DMA, bit rot)
 ``fail_nth``               the Nth call of ``module.name`` inside a region
                            raising (quota, I/O error) — syscall shim
+``async_writer_fault``     an exception inside the background checkpoint
+                           writer thread
 ``kill_self``              the process dying mid-step (preemption without
                            grace, OOM kill)
+``nan_payload``            NaN/Inf landing in a batch, an activation or a
+                           parameter (the sentinel's bad-step fault)
+``bad_sample``             a corrupt record: ``Dataset.__getitem__``
+                           raising, transiently (retry) or forever
+                           (quarantine)
+``dead_worker``            a DataLoader worker killed mid-epoch (fires
+                           once; the resurrected replacement survives)
 ``stalled_consumer``       a streaming client that reads a few tokens then
                            vanishes without draining — the abandoned-
                            stream block leak
@@ -46,11 +57,9 @@ injector                   fault it models
 ``adapter_churn``          hostile LoRA-adapter locality
 =========================  ==============================================
 
-The reference's training injectors (``async_writer_fault``,
-``stall_heartbeat``, ``nan_payload``, ``bad_sample``, ``dead_worker``)
-drive its checkpoint writer, launcher and data loader, which the port
-does not have yet: they are not here, and :data:`INJECTORS` holds the
-ported names only. The timeline half (:class:`ChaosEvent`,
+The reference's ``stall_heartbeat`` drives its elastic launcher's
+heartbeats, which the port does not have yet (ROADMAP item 10a): it is
+not here, and :data:`INJECTORS` holds the ported names only. The timeline half (:class:`ChaosEvent`,
 :class:`ChaosTimeline`, :func:`chaos_timeline` and the kind tuples) is
 the reference's, draw for draw: one seed gives one schedule in both
 packages, so a replay manifest moves between them.
@@ -66,7 +75,8 @@ import signal
 import time
 from typing import Optional
 
-__all__ = ["truncate_file", "flip_bits", "fail_nth", "kill_self",
+__all__ = ["truncate_file", "flip_bits", "fail_nth", "async_writer_fault",
+           "kill_self", "nan_payload", "bad_sample", "dead_worker",
            "stalled_consumer", "poison_prompt", "flood_tenant",
            "engine_crash", "disconnect_mid_stream", "slow_client",
            "replica_kill", "slow_replica", "flaky_probe", "host_pressure",
@@ -140,10 +150,125 @@ def fail_nth(module, name: str, n: int = 1, exc: Optional[BaseException] = None)
         setattr(module, name, real)
 
 
+@contextlib.contextmanager
+def async_writer_fault(exc: Optional[BaseException] = None):
+    """Every job the port's background checkpoint writer picks up inside
+    the region fails with ``exc`` (stored on the job, surfaced by
+    ``wait()``/the next save — the error-propagation contract under
+    test)."""
+    from ..framework import async_writer
+    err = exc if exc is not None else RuntimeError(
+        "chaos: injected async-writer fault")
+    async_writer.set_fault(err)
+    try:
+        yield err
+    finally:
+        async_writer.set_fault(None)
+
+
 def kill_self(sig: int = signal.SIGKILL) -> None:
     """Die mid-step with no cleanup (default SIGKILL: no atexit, no flush
     — exactly what a preemption without grace or an OOM kill looks like)."""
     os.kill(os.getpid(), sig)
+
+
+# ---------------------------------------------------------------------------
+# runtime-anomaly injectors (health, io.DataLoader)
+# ---------------------------------------------------------------------------
+
+def nan_payload(x, frac: float = 1.0, value: float = float("nan"),
+                seed: int = 0):
+    """Poison a numpy array or a torch tensor (or a nested batch of them)
+    with NaN/Inf — an overflowed reduction, a bf16 numerics edge, or
+    corrupt DMA landing in an input, activation or parameter buffer: the
+    fault the on-device sentinel must catch as a bad step. ``frac`` of the
+    elements (chosen by ``seed``, the reference's draw) are replaced;
+    returns a poisoned COPY, a tensor's on that tensor's device. Integer
+    payloads cannot carry NaN and pass through as copies."""
+    import numpy as np
+    import torch
+    if isinstance(x, dict):
+        return {k: nan_payload(v, frac, value, seed) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(nan_payload(v, frac, value, seed) for v in x)
+    if isinstance(x, torch.Tensor):
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        if not out.is_floating_point():
+            return out
+        flat = out.view(-1)
+    else:
+        out = np.array(x, copy=True)
+        if not np.issubdtype(out.dtype, np.floating):
+            return out
+        flat = out.reshape(-1)
+    size = flat.shape[0]
+    n = max(1, int(size * min(1.0, max(0.0, frac))))
+    if n < size:
+        idx = random.Random(seed).sample(range(size), n)
+        if isinstance(flat, torch.Tensor):
+            idx = torch.tensor(idx, device=flat.device)
+        flat[idx] = value
+    else:
+        flat[:] = value
+    return out
+
+
+class bad_sample:
+    """Dataset wrapper: ``__getitem__`` raises for the chosen indices — a
+    corrupt record / undecodable image. ``fails_each=None`` makes the
+    fault DETERMINISTIC (every access raises: the quarantine path);
+    ``fails_each=n`` makes it TRANSIENT (the first n accesses per index
+    raise, then heal: the retry/backoff path). Counts live in the process
+    that fetches (a forked worker counts its own)."""
+
+    def __init__(self, dataset, indices, fails_each: Optional[int] = None,
+                 exc_type=ValueError):
+        self.dataset = dataset
+        self.bad = set(int(i) for i in indices)
+        self.fails_each = fails_each
+        self.exc_type = exc_type
+        self._counts = {}
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        if int(i) in self.bad:
+            n = self._counts.get(int(i), 0)
+            if self.fails_each is None or n < self.fails_each:
+                self._counts[int(i)] = n + 1
+                raise self.exc_type(
+                    f"chaos: injected bad sample at index {i} "
+                    f"(attempt {n + 1})")
+        return self.dataset[i]
+
+
+class dead_worker:
+    """Dataset wrapper: the DataLoader worker that fetches ``at_index``
+    kills itself (default SIGKILL) — a segfault/OOM in dataset code
+    mid-epoch. The death fires ONCE per ``marker`` file (fork-shared), so
+    the resurrected replacement survives the re-queued batch."""
+
+    def __init__(self, dataset, at_index: int, marker: str,
+                 sig: int = signal.SIGKILL):
+        self.dataset = dataset
+        self.at_index = int(at_index)
+        self.marker = marker
+        self.sig = sig
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        if int(i) == self.at_index:
+            try:
+                fd = os.open(self.marker, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
+                pass            # already died once — the replacement lives
+            else:
+                os.close(fd)
+                os.kill(os.getpid(), self.sig)
+        return self.dataset[i]
 
 
 # ---------------------------------------------------------------------------
@@ -805,12 +930,16 @@ def chaos_timeline(seed: int, horizon_steps: int,
 
 
 # name -> injector: every ported injector (the reference's registry
-# minus its five training injectors)
+# minus stall_heartbeat)
 INJECTORS = {
     "truncate_file": truncate_file,
     "flip_bits": flip_bits,
     "fail_nth": fail_nth,
+    "async_writer_fault": async_writer_fault,
     "kill_self": kill_self,
+    "nan_payload": nan_payload,
+    "bad_sample": bad_sample,
+    "dead_worker": dead_worker,
     "stalled_consumer": stalled_consumer,
     "poison_prompt": poison_prompt,
     "flood_tenant": flood_tenant,

@@ -347,7 +347,8 @@ class TestFrontlineChaos:
 class TestFleetChaos:
     def test_injector_registry_has_fleet_trio(self):
         """The port's registry holds every reference injector but the
-        five training ones, and the kind tuples are the reference's."""
+        launcher's ``stall_heartbeat``, and the kind tuples are the
+        reference's."""
         for name in ("replica_kill", "slow_replica", "flaky_probe"):
             assert name in tchaos.INJECTORS
         for kinds in ("TIER", "DISAGG", "DURABLE", "LORA"):
@@ -357,10 +358,9 @@ class TestFleetChaos:
                 assert name in tchaos.INJECTORS
                 assert name not in tchaos.TIMELINE_INJECTORS
         assert tchaos.TIMELINE_INJECTORS == jchaos.TIMELINE_INJECTORS
-        training = {"async_writer_fault", "stall_heartbeat", "nan_payload",
-                    "bad_sample", "dead_worker"}
-        assert set(tchaos.INJECTORS) == set(jchaos.INJECTORS) - training
-        assert len(tchaos.INJECTORS) == 21
+        assert set(tchaos.INJECTORS) == set(jchaos.INJECTORS) - {
+            "stall_heartbeat"}
+        assert len(tchaos.INJECTORS) == 25
 
     @staticmethod
     def balanced(r):

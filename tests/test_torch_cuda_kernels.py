@@ -990,3 +990,58 @@ def test_graft_bf16_chain_on_card(dev):
     got = b.run([p], max_new_tokens=6, eos_token_id=None)[0]
     assert b.stats()["prefix_hit_tokens"] - hit0 == 64
     np.testing.assert_array_equal(got, want)
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """Cell W's checkpoint stack on card tensors: the AsyncCheckpointer
+    snapshot is taken before ``save`` returns (an in-place write right
+    after it does not reach the file), restore refills the card tensors
+    in place, bf16 bit for bit; ``framework.io.load`` lands on the card
+    by default."""
+    from paddle_tpu_torch.distributed.checkpoint import AsyncCheckpointer
+    from paddle_tpu_torch.framework import io as fio
+    g = torch.Generator(device=dev).manual_seed(0)
+    st = {"w": torch.randn(256, 64, generator=g, device=dev),
+          "h": torch.randn(64, generator=g, device=dev).to(torch.bfloat16),
+          "step": torch.tensor(3, dtype=torch.int32, device=dev)}
+    want = {k: v.clone() for k, v in st.items()}
+    ck = AsyncCheckpointer(str(tmp_path / "ck"), keep_last_k=2)
+    ck.save(st, 1)
+    st["w"].add_(1.0)                       # the next step, in place
+    ck.wait()
+    w_obj = st["w"]
+    assert ck.restore(st) == 1 and st["w"] is w_obj and st["w"].is_cuda
+    for k in want:
+        assert torch.equal(st[k], want[k]), k
+    fio.save(st, str(tmp_path / "m.pdparams"))
+    back = fio.load(str(tmp_path / "m.pdparams"))
+    assert all(v.is_cuda for v in back.values())
+    assert back["h"].dtype == torch.bfloat16
+    assert all(torch.equal(back[k], want[k]) for k in want)
+
+
+def test_prefetch_to_device_on_card(dev):
+    """Pinned, non-blocking copies on a side stream; the consumer stream
+    waits on each batch's event, so the values are right without a
+    synchronize in between."""
+    from paddle_tpu_torch.io import DataLoader, Dataset, prefetch_to_device
+    from paddle_tpu_torch.testing import chaos
+
+    class Rows(Dataset):
+        def __len__(self):
+            return 64
+
+        def __getitem__(self, i):
+            return np.full((4096,), i, np.int32)
+
+    loader = DataLoader(Rows(), batch_size=8, num_workers=2, timeout=60)
+    sums = []
+    for b in prefetch_to_device(loader, size=2):
+        assert b.is_cuda and b.dtype == torch.int32
+        sums.append(b.to(torch.int64).sum())
+    got = torch.stack(sums).cpu().tolist()
+    assert got == [4096 * sum(range(8 * j, 8 * j + 8)) for j in range(8)]
+    x = torch.ones(4, 4, device=dev)
+    p = chaos.nan_payload(x, frac=0.5, seed=2)
+    assert p.is_cuda and int(torch.isnan(p).sum()) == 8
+    assert not torch.isnan(x).any()
