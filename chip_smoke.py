@@ -26,9 +26,10 @@ Phases (each fails the run on any error; none catches and carries on):
 5. The same trace with ``quantize="int8"`` and ``kv_quant="int8"``.
 6. Parity at fp32 on a shortened trace: the kernel engine against the
    ``paged_kernel="off"`` (gather) engine, token streams equal.
-7. Flash-attention kernel checks at bf16 on four cases (the training
+7. Flash-attention kernel checks at bf16 on five cases (the training
    step's B 8 x S 2048 x 16 heads x D 128 causal; GQA 32/8 heads; 4
-   packed segments per row; causal with Sq 1024 < Sk 2048): the public
+   packed segments per row; causal with Sq 1024 < Sk 2048; one shard of
+   phase 36's sharded step, B 2 x S 2048 x 8 heads): the public
    ``flash_attention_with_lse`` and its gradient against the plain
    forward and backward (norm-relative error over the whole tensor and
    per row), dq and dk/dv each the same bits on two runs, the route one
@@ -357,6 +358,25 @@ Phases (each fails the run on any error; none catches and carries on):
     embedding's backward adds by atomics, so bit equality is not
     promised); then ``framework.io`` save and load of the same state
     onto the card (``device=None``), every leaf equal.
+36. The sharded train step (cell X): F's step (phase 34's model and
+    flags, no sentinel) at dp 2 x mp 2 x sharding 2 over ``["cuda:0"] *
+    8``, the batch over ``("dp", "sharding")`` as
+    ``examples/train_llama.py`` lays it out, beside the serial step from
+    the same weights and 5 seeded batches. Params + m + v at a placement
+    entry must equal what the specs give (the serial state / (mp x
+    sharding) plus the replicated norms); the first 3 losses within 5e-3
+    x |loss| of the serial step's; dp replicas of every leaf and moment
+    bit-equal after every step; exactly ``sharded_launches`` a step (the
+    serial counts x 4 pieces x 2 mp shards). Step ms and tokens/s of both
+    (host clock, the last 4 steps), peak memory, a profiled sharded step.
+37. E's width at fp32 with the kernels at dp 2 x mp 2 x sharding 2
+    against the serial step (loss 1e-5; gradients 1e-4 x max|g|; params
+    after one AdamW step at lr 1e-2 within 1e-3 where the gradient
+    exceeds 1e-4 x max|g|, the rest counted; 3 losses 1e-5 x |loss|);
+    the collectives on the card against the same calls on CPU tensors,
+    exact; a sharded train state through ``AsyncCheckpointer`` restored
+    bit-equal into a serial and a sharded state; the ZeRO gate at dp 2 x
+    sharding 4. Each of phases 36 and 37 prints its seconds.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -378,8 +398,8 @@ kernels line reports the serving launches of phases 4, 5, 13, 14
 drain with migration), 29 (the first server turn), 31 (the bf16 and
 the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
 together,
-the flash launches of phases 8 and 34 and the RMSNorm and RoPE
-launches of phases 11 and 34 (RoPE: forward and backward together).
+the flash launches of phases 8, 34 and 36 and the RMSNorm and RoPE
+launches of phases 11, 34 and 36 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -406,7 +426,7 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "LoRA serving", "dense generation", "host offload tier",
          "supervisor and journal", "embeddings", "serving fleet",
          "serving server and replay", "tensor-parallel serving",
-         "fault-tolerant training")
+         "fault-tolerant training", "sharded training")
 
 
 def check(cond, msg):
@@ -5332,6 +5352,352 @@ def ft_parity_phase(tmp, cfg=None, dev="cuda", steps=8, at=4, batch=2,
     return {"losses": ref, "resumed": resumed, "max_gap": max(gaps)}
 
 
+# ---------------------------------------------------------------------------
+# phases 36-37: the sharded train step over a placement on the one card
+# ---------------------------------------------------------------------------
+
+SHARDED_DEGREES = {"dp": 2, "mp": 2, "sharding": 2}
+
+
+def replicas_equal(tree):
+    """Whether every mesh coordinate that holds the same slice of a
+    sharded leaf holds the same bits."""
+    import torch
+    from paddle_tpu_torch.models.llama import _leaves
+    for st in _leaves(tree):
+        for idx, c in st.unique():
+            for c2 in st.mesh.coords():
+                if c2 != c and st.index(c2) == idx and not torch.equal(
+                        st.local(c2), st.local(c)):
+                    return False
+    return True
+    return True
+
+
+def sharded_launches(cfg, pieces, mp):
+    """Kernel launches a sharded step: every piece of the batch runs, on
+    each mp shard, what a serial step runs (``expected_launches``: the
+    flash kernels once a layer in backward and twice forward under full
+    remat, 2 RMSNorms a layer twice plus the final norm, q and k RoPE a
+    layer twice), at the local head counts; so the serial counts x pieces
+    x mp."""
+    return {k: v * pieces * mp for k, v in expected_launches(cfg).items()}
+
+
+def entry_bytes(params, mesh, specs):
+    """(the bytes params + m + v hold at one mesh coordinate, the bytes of
+    the leaves no spec cuts), from the specs: each fp32 leaf's elements
+    over the parts its spec cuts it into, x 3."""
+    from paddle_tpu_torch.distributed.sharding import spec_axes
+    from paddle_tpu_torch.models.llama import _leaves
+    shapes = _leaves(params)
+    parts = [int(np.prod([mesh.shape[a] for e in spec for a in spec_axes(e)]
+                         or [1])) for spec in _leaves(specs)]
+    held = 3 * 4 * sum(t.numel() // n for t, n in zip(shapes, parts))
+    whole = 3 * 4 * sum(t.numel() for t, n in zip(shapes, parts) if n == 1)
+    return held, whole
+
+
+def sharded_phase(dev="cuda", cfg=None, batch=8, seq=2048, steps=5,
+                  gated=3):
+    """Phase 36: F's step (``use_kernels``, ``use_fused_norm``, full
+    remat, bf16 compute, fp32 params and AdamW at lr 1e-4, B 8 x S 2048)
+    at dp 2 x mp 2 x sharding 2 over ``[dev] * 8``, the batch over
+    ``("dp", "sharding")`` as ``examples/train_llama.py`` lays it out,
+    beside the serial step from the same weights and batches.
+
+    Gates: the first ``gated`` losses within 5e-3 x |loss| of the serial
+    step's (the sharded step adds bf16 partial sums in another order: the
+    row-parallel ``wo`` and ``w_down`` products are two half-width GEMMs
+    summed in bf16 where the serial step runs one, and the logsumexp
+    meets across the vocab shards; bf16 carries 8 bits of mantissa, so a
+    loss near 10 moves by some 1e-3 relative through 12 layers); dp
+    replicas bit-equal after every step; exactly ``sharded_launches`` a
+    step; params + m + v at a placement entry equal to what the specs
+    give, within 0.1 % of the serial state / (mp x sharding). Prints step
+    ms and tokens/s of both (host clock, the steps after the first), peak
+    memory and the device busy share of one profiled sharded step."""
+    import torch
+    from paddle_tpu_torch.distributed.sharding import shard_to_mesh
+    from paddle_tpu_torch.distributed.topology import build_mesh
+    from paddle_tpu_torch.models.llama import (batch_spec, init_params,
+                                               make_train_step, param_specs,
+                                               placement_bytes, shard_params)
+    t0 = time.time()
+    cfg = cfg or train_config(torch.bfloat16, use_fused_norm=True)
+    mesh = build_mesh(SHARDED_DEGREES, [dev] * 8)
+    rng = np.random.default_rng(SEED + 36)
+    data = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (batch, seq))).to(dev)
+            for _ in range(steps)]
+    init_opt, step = make_train_step(cfg, lr=1e-4)
+    params = init_params(cfg, seed=SEED, device=dev)
+    ps = shard_params(params, mesh, cfg, mp_axis="mp", fsdp_axis="sharding")
+    opt_s = init_opt(ps)
+    c0 = (0,) * len(mesh.axis_names)
+    held = placement_bytes(ps, c0) + placement_bytes(opt_s, c0)
+    want, whole = entry_bytes(params, mesh,
+                              param_specs(cfg, "mp", "sharding"))
+    serial_bytes = 3 * sum(t.numel() * t.element_size()
+                           for t in _state_leaves(params))
+    share = serial_bytes / (SHARDED_DEGREES["mp"]
+                            * SHARDED_DEGREES["sharding"])
+    log(f"  placement entry holds {held} bytes of params + m + v (specs "
+        f"give {want}); serial state {serial_bytes} / (mp x sharding) = "
+        f"{share:.0f} ({held / share:.6f} of it; the replicated norms "
+        f"{whole} bytes); {mesh.size} entries {held * mesh.size / 1e9:.2f} "
+        f"GB")
+    check(held == want and held <= share + whole,
+          f"placement entry bytes {held}, specs {want}, share {share}")
+
+    def timed(run, after=None):
+        losses, times = [], []
+        for i in range(steps):
+            _sync(dev)
+            t = time.time()
+            losses.append(run(i))
+            times.append(time.time() - t)
+            if after is not None:
+                after()
+        return losses, times
+
+    opt = init_opt(params)
+
+    def serial_step(i):
+        nonlocal params, opt
+        params, opt, loss = step(params, opt, data[i], data[i])
+        return loss.item()
+
+    ser, ser_t = timed(serial_step)
+    del params, opt
+    torch.cuda.empty_cache()
+    spec = batch_spec(("dp", "sharding"))
+    batches = [shard_to_mesh(d, mesh, spec, "input_ids") for d in data]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    eq = []
+
+    def sharded_step(i):
+        nonlocal ps, opt_s
+        ps, opt_s, loss = step(ps, opt_s, batches[i], batches[i])
+        return loss.item()
+
+    sh, sh_t = timed(sharded_step, lambda: eq.append(
+        replicas_equal(ps) and replicas_equal(opt_s["m"])
+        and replicas_equal(opt_s["v"])))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pieces = SHARDED_DEGREES["dp"] * SHARDED_DEGREES["sharding"]
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    wants = sharded_launches(cfg, pieces, SHARDED_DEGREES["mp"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(sh[:gated], ser[:gated])]
+    m = {"serial_losses": ser, "sharded_losses": sh, "loss_rel": rel,
+         "serial_step_ms": float(np.median(ser_t[1:])) * 1e3,
+         "sharded_step_ms": float(np.median(sh_t[1:])) * 1e3,
+         "serial_step_ms_each": [t * 1e3 for t in ser_t],
+         "sharded_step_ms_each": [t * 1e3 for t in sh_t],
+         "max_memory_allocated_gb": peak / 2 ** 30,
+         "placement_entry_bytes": held, "launches_per_step": per_step}
+    m["serial_tokens_per_s"] = batch * seq / m["serial_step_ms"] * 1e3
+    m["sharded_tokens_per_s"] = batch * seq / m["sharded_step_ms"] * 1e3
+    log(f"  {json.dumps(m)}")
+    check(all(np.isfinite(sh)), f"non-finite sharded loss {sh}")
+    check(max(rel) <= 5e-3, f"sharded losses {sh[:gated]} vs serial "
+          f"{ser[:gated]}: rel {rel}")
+    check(all(eq), f"dp replicas bit-equal after each step: {eq}")
+    check(per_step == wants, f"launches per step {per_step}, expected "
+          f"{wants}")
+    prof = profile_device(lambda: step(ps, opt_s, batches[0], batches[0]),
+                          "sharded training step", top=10)
+    m["profile"] = prof
+    m["seconds"] = time.time() - t0
+    log(f"  phase 36 took {m['seconds']:.1f} s")
+    del ps, opt_s, batches
+    torch.cuda.empty_cache()
+    return m, counts
+
+
+def adam_step_gaps(ps, params, grads):
+    """How far the sharded params lie from the serial ones after one AdamW
+    step: the largest gap over all entries and over the entries whose
+    serial gradient exceeds 1e-4 x its leaf's max|g|, and the entries
+    beyond 1e-3 with the largest |g| among them (relative to max|g|)."""
+    from paddle_tpu_torch.distributed.sharding import assemble
+    from paddle_tpu_torch.models.llama import _named
+    serial = dict(_named(params))
+    out = {"worst": 0.0, "above": 0.0, "n_off": 0, "n": 0, "g_off": 0.0}
+    for n, st in _named(ps):
+        d = (assemble(st) - serial[n]).abs()
+        g = grads[n].abs()
+        gmax = g.max()
+        off = d > 1e-3
+        out["worst"] = max(out["worst"], d.max().item())
+        out["above"] = max(out["above"], d[g > 1e-4 * gmax].max().item())
+        out["n_off"] += int(off.sum())
+        out["n"] += d.numel()
+        if off.any():
+            out["g_off"] = max(out["g_off"], (g[off].max() / gmax).item())
+    return out
+
+
+def sharded_parity_phase(tmp, dev="cuda", cfg=None, batch=4, seq=512):
+    """Phase 37: E's width at fp32 with the kernels (hidden 512, 8 / 4
+    heads, 4 layers, B 4 x S 512) at dp 2 x mp 2 x sharding 2 over ``[dev]
+    * 8`` against the serial step, with the reference's tolerances: the
+    loss within 1e-5, gradients before the update within 1e-4 x max|g|,
+    the params within 1e-3 after one AdamW step at lr 1e-2, 3 steps'
+    losses within 1e-5 x |loss|. The param gate covers the entries whose
+    gradient exceeds the gradient gate's 1e-4 x max|g|: Adam's first step
+    moves every entry by lr x g / (|g| + eps), about lr whatever |g| is,
+    so where |g| lies within the two paths' fp32 noise the steps part by
+    up to 2 lr (the largest gap and the count of such entries are
+    printed). Then the collectives on ``dev`` tensors against
+    the same calls on CPU tensors (exact); a sharded train state through
+    ``AsyncCheckpointer`` into a serial and a sharded state (bit-equal);
+    the ZeRO gate (params + m + v + gradients at a placement entry at dp
+    2 x sharding 4, B 8, below 0.6 x the replicated layout's)."""
+    import torch
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.checkpoint import AsyncCheckpointer
+    from paddle_tpu_torch.distributed.sharding import assemble, shard_to_mesh
+    from paddle_tpu_torch.distributed.topology import build_mesh
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.time()
+    cfg = cfg or train_config(torch.float32, hidden_size=512,
+                              intermediate_size=1376, num_hidden_layers=4,
+                              num_attention_heads=8, num_key_value_heads=4,
+                              use_fused_norm=True)
+    mesh = build_mesh(SHARDED_DEGREES, [dev] * 8)
+    rng = np.random.default_rng(SEED + 37)
+    data = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (batch, seq))).to(dev)
+            for _ in range(3)]
+    spec = L.batch_spec(("dp", "sharding"))
+    init_opt, step = L.make_train_step(cfg, lr=1e-2)
+    base = L.init_params(cfg, seed=SEED + 37, device=dev)
+    params = L._tree_map(lambda t: t.clone(), base)
+    ps = L.shard_params(base, mesh, cfg, mp_axis="mp", fsdp_axis="sharding")
+    leaves = L._leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = L.loss_fn(params, data[0], data[0], cfg)
+    grads = dict(zip([n for n, _ in L._named(params)],
+                     torch.autograd.grad(loss, leaves)))
+    b0 = shard_to_mesh(data[0], mesh, spec, "input_ids")
+    loss_s, grads_s = L._sharded_grads(ps, b0, b0, cfg)
+    loss_gap = abs(loss_s.item() - loss.item())
+    g_worst = 0.0
+    for n, st in L._named(ps):
+        full = torch.empty(st.shape, dtype=st.dtype, device=dev)
+        for idx, c in st.unique():
+            full[tuple(slice(a, b) for a, b, _ in idx)] = grads_s[n][c]
+        g_worst = max(g_worst, ((full - grads[n]).abs().max()
+                                / grads[n].abs().max()).item())
+    del grads_s
+    opt, opt_s = init_opt(params), init_opt(ps)
+    ser, sh = [], []
+    for i, d in enumerate(data):
+        params, opt, l1 = step(params, opt, d, d)
+        bi = shard_to_mesh(d, mesh, spec, "input_ids")
+        ps, opt_s, l2 = step(ps, opt_s, bi, bi)
+        ser.append(l1.item())
+        sh.append(l2.item())
+        if i == 0:
+            p = adam_step_gaps(ps, params, grads)
+            del grads
+    traj = max(abs(a - b) / abs(b) for a, b in zip(sh, ser))
+    log(f"  fp32 sharded vs serial: loss gap {loss_gap:.3g}, worst "
+        f"gradient leaf max|diff|/max|g| {g_worst:.3g}, params after one "
+        f"step: max|diff| {p['worst']:.3g} over all, {p['above']:.3g} "
+        f"where |g| > 1e-4 x max|g|, {p['n_off']} of {p['n']} entries "
+        f"beyond 1e-3 (their largest |g| {p['g_off']:.3g} x max|g|); "
+        f"3-step losses {sh} / {ser} (max gap {traj:.3g} x |loss|)")
+    check(loss_gap <= 1e-5, f"fp32 sharded loss gap {loss_gap}")
+    check(g_worst <= 1e-4, f"fp32 sharded gradients {g_worst}")
+    check(p["above"] <= 1e-3, f"fp32 sharded params {p}")
+    check(traj <= 1e-5, f"fp32 sharded 3-step losses {sh} vs {ser}")
+    check(replicas_equal(ps), "fp32 dp replicas parted")
+
+    ck = AsyncCheckpointer(f"{tmp}/sharded")
+    ck.save({"params": ps, "opt": opt_s}, 3)
+    ck.wait()
+    serial = {"params": L.init_params(cfg, seed=SEED + 38, device=dev)}
+    serial["opt"] = init_opt(serial["params"])
+    fresh = L.shard_params(L.init_params(cfg, seed=SEED + 38, device=dev),
+                           mesh, cfg, mp_axis="mp", fsdp_axis="sharding")
+    sharded = {"params": fresh, "opt": init_opt(fresh)}
+    check(ck.restore(serial) == 3 and ck.restore(sharded) == 3,
+          "the sharded checkpoint did not restore")
+    src = {"params": ps, "opt": {"m": opt_s["m"], "v": opt_s["v"]}}
+    dst_s = {"params": sharded["params"], "opt": {"m": sharded["opt"]["m"],
+                                                  "v": sharded["opt"]["v"]}}
+    dst_1 = {"params": serial["params"], "opt": {"m": serial["opt"]["m"],
+                                                 "v": serial["opt"]["v"]}}
+    for a, b, c in zip(L._leaves(src), L._leaves(dst_s), L._leaves(dst_1)):
+        check(torch.equal(assemble(a), c)
+              and all(torch.equal(a.local(k), b.local(k))
+                      for k in mesh.coords()),
+              "a restored sharded state differs")
+    check(int(serial["opt"]["step"]) == int(sharded["opt"]["step"]) == 3,
+          "restored step counts")
+    log("  AsyncCheckpointer: the sharded state restored bit-equal into a "
+        "serial and a sharded state")
+    del serial, sharded, fresh
+
+    D.set_hybrid_communicate_group(D.HybridCommunicateGroup(
+        dp=8, devices=[dev] * 8))
+    try:
+        x = torch.from_numpy(rng.standard_normal((8, 1024), np.float32))
+        parts = [torch.from_numpy(rng.standard_normal((1024,), np.float32))
+                 for _ in range(8)]
+        calls = {
+            "sum": lambda t: D.all_reduce(t.clone()),
+            "max": lambda t: D.all_reduce(t.clone(), op=D.ReduceOp.MAX),
+            "min": lambda t: D.all_reduce(t.clone(), op=D.ReduceOp.MIN),
+            "gather": lambda t: D.all_gather(t),
+            "alltoall": lambda t: D.alltoall(t),
+            "broadcast": lambda t: D.broadcast(t.clone(), src=5),
+            "scatter": lambda t: D.scatter(torch.zeros_like(t),
+                                           tensor_list=list(t.unbind(0))),
+            "sum_list": lambda t: torch.stack(D.all_reduce(
+                [r.clone() for r in t.unbind(0)])),
+        }
+        for name, call in calls.items():
+            on_dev, on_cpu = call(x.to(dev)), call(x)
+            check(on_dev.device.type == torch.device(dev).type
+                  and torch.equal(on_dev.cpu(), on_cpu),
+                  f"collective {name} on {dev} differs from the CPU")
+        got = D.scatter([torch.empty(1024, device=dev) for _ in range(8)],
+                        tensor_list=parts)
+        check(all(torch.equal(g.cpu(), p) for g, p in zip(got, parts)),
+              "per-rank scatter")
+        log(f"  collectives on {dev} equal the CPU's: {sorted(calls)}")
+    finally:
+        D.set_hybrid_communicate_group(None)
+
+    zmesh = build_mesh({"dp": 2, "sharding": 4}, [dev] * 8)
+    zb = shard_to_mesh(torch.cat(data[:2]), zmesh, spec, "input_ids")
+
+    def footprint(fsdp):
+        zp = L.shard_params(L.init_params(cfg, seed=SEED, device=dev), zmesh,
+                            cfg, mp_axis=None, fsdp_axis=fsdp)
+        zo = init_opt(zp)
+        _, g = L._sharded_grads(zp, zb, zb, cfg)
+        gb = sum(t[(0,) * 6].numel() * 4 for t in g.values())
+        return (L.placement_bytes(zp, (0,) * 6)
+                + L.placement_bytes(zo, (0,) * 6) + gb)
+
+    fs, rp = footprint("sharding"), footprint(None)
+    log(f"  ZeRO at dp 2 x sharding 4: {fs} bytes a placement entry "
+        f"against {rp} replicated ({fs / rp:.3f})")
+    check(fs < 0.6 * rp, f"ZeRO footprint {fs} vs replicated {rp}")
+    secs = time.time() - t0
+    log(f"  phase 37 took {secs:.1f} s")
+    return {"loss_gap": loss_gap, "grad_worst": g_worst, "params": p,
+            "traj": traj, "zero_ratio": fs / rp,
+            "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5478,7 +5844,9 @@ def main() -> int:
           flash_case("(c) packed B=4 S=2048 H=Hk=16 D=128 causal 4 segments",
                      4, 2048, 2048, 16, 16, 128, True, n_segs=4, seed=23),
           flash_case("(d) B=8 Sq=1024 Sk=2048 H=Hk=16 D=128 causal", 8,
-                     1024, 2048, 16, 16, 128, True, seed=24)]
+                     1024, 2048, 16, 16, 128, True, seed=24),
+          flash_case("(e) sharded-step shard B=2 S=2048 H=Hk=8 D=128 causal",
+                     2, 2048, 2048, 8, 8, 128, True, seed=25)]
     torch.cuda.empty_cache()
 
     log("== phase 8: training, full width, bf16, use_kernels + full remat")
@@ -5669,6 +6037,16 @@ def main() -> int:
         ft_parity_phase(tmp)
     torch.cuda.empty_cache()
 
+    log("== phase 36: the sharded train step (cell X), F at dp 2 x mp 2 x "
+        "sharding 2 over cuda:0 x 8, beside the serial step")
+    _, c36 = sharded_phase()
+    log(f"  nvidia-smi: {card}")
+    log("== phase 37: fp32 sharded parity (E's width), the collectives on "
+        "the card, a sharded checkpoint, the ZeRO gate")
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded_parity_phase(tmp)
+    torch.cuda.empty_cache()
+
     log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [
@@ -5685,7 +6063,8 @@ def main() -> int:
                           "paddle_tpu/kernels/flash_attention.py" + line,
                           [rows[which] for rows in fl],
                           c8["flash_attention" + counter]
-                          + c34["flash_attention" + counter])
+                          + c34["flash_attention" + counter]
+                          + c36["flash_attention" + counter])
         if which != "fwd":
             entry["library_note"] = ("scaled_dot_product_attention backward "
                                      "(dq, dk and dv in one call)")
@@ -5695,19 +6074,21 @@ def main() -> int:
         summarize("rms_norm_fwd", csrc + "rms_norm.cu",
                   "paddle_tpu/kernels/rms_norm.py:27",
                   [r["fwd"] for r in norms],
-                  c11["rms_norm"] + c34["rms_norm"]),
+                  c11["rms_norm"] + c34["rms_norm"] + c36["rms_norm"]),
         summarize("rms_norm_bwd", csrc + "rms_norm.cu",
                   "paddle_tpu/kernels/rms_norm.py:35",
                   [r["bwd"] for r in norms if "bwd" in r],
-                  c11["rms_norm_bwd"] + c34["rms_norm_bwd"]),
+                  c11["rms_norm_bwd"] + c34["rms_norm_bwd"]
+                  + c36["rms_norm_bwd"]),
         summarize("apply_rope", csrc + "rope.cu",
                   "paddle_tpu/kernels/rope.py:25", ropes,
-                  c11["apply_rope"] + c11["apply_rope_bwd"]
-                  + c34["apply_rope"] + c34["apply_rope_bwd"]),
+                  sum(c[k] for c in (c11, c34, c36)
+                      for k in ("apply_rope", "apply_rope_bwd"))),
     ]
     kernels[-1]["launches_fwd_bwd"] = [
-        c11["apply_rope"] + c34["apply_rope"],
-        c11["apply_rope_bwd"] + c34["apply_rope_bwd"]]
+        c11["apply_rope"] + c34["apply_rope"] + c36["apply_rope"],
+        c11["apply_rope_bwd"] + c34["apply_rope_bwd"]
+        + c36["apply_rope_bwd"]]
     kernels[-1]["library_note"] = ("no single PyTorch call applies "
                                    "rotate-half RoPE")
     kernels[-3]["library_note"] = ("torch.nn.functional.rms_norm, the "

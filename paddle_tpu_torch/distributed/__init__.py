@@ -1,10 +1,28 @@
 """Distributed pieces of the port — counterpart of ``paddle_tpu/distributed``:
-the MoE routing math, the serving tensor-parallel placement and shard
-helpers, and the checkpoint stack (``checkpoint``: sharded save,
-reshard-on-load, ``AsyncCheckpointer``)."""
+the hybrid topology (``build_mesh``, ``HybridCommunicateGroup``, ``fleet``),
+the collective API over a placement (``all_reduce`` and the rest), tensor
+layouts over a mesh (``shard_to_mesh``, ``ShardedTensor``), the MoE
+routing math, the serving tensor-parallel placement and shard helpers,
+and the checkpoint stack (``checkpoint``: sharded save, reshard-on-load,
+``AsyncCheckpointer``)."""
 
 from . import checkpoint
+from . import fleet
 from .checkpoint import AsyncCheckpointer, load_state_dict, save_state_dict
+from .collective import (ReduceOp, all_gather, all_reduce, alltoall, barrier,
+                         broadcast, get_rank, get_world_size,
+                         init_parallel_env, is_initialized, reduce,
+                         reduce_scatter, scatter)
+from .sharding import ShardedTensor, assemble, shard_to_mesh
+from .topology import (HybridCommunicateGroup, Mesh, ParallelAxis,
+                       build_mesh, get_hybrid_communicate_group,
+                       set_hybrid_communicate_group)
 
-__all__ = ["checkpoint", "save_state_dict", "load_state_dict",
-           "AsyncCheckpointer"]
+__all__ = ["checkpoint", "fleet", "save_state_dict", "load_state_dict",
+           "AsyncCheckpointer", "ReduceOp", "all_reduce", "all_gather",
+           "reduce_scatter", "alltoall", "broadcast", "reduce", "scatter",
+           "barrier", "get_rank", "get_world_size", "is_initialized",
+           "init_parallel_env", "HybridCommunicateGroup", "Mesh",
+           "ParallelAxis", "build_mesh", "get_hybrid_communicate_group",
+           "set_hybrid_communicate_group", "ShardedTensor", "shard_to_mesh",
+           "assemble"]

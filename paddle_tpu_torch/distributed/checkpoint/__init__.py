@@ -12,17 +12,20 @@ step)`` per dimension.
 * Rank and world come from ``torch.distributed`` when it is initialised,
   else 0 and 1. A tensor lives on one device, so it is ONE shard covering
   it (recorded as the JAX package records a single-device array:
-  ``(0, None, 1)`` per dimension).
+  ``(0, None, 1)`` per dimension). A sharded leaf
+  (:class:`~..sharding.ShardedTensor`) writes each distinct slice once,
+  with its index, as JAX walks ``addressable_shards`` and drops replicas.
 * ``load_state_dict`` builds each tensor from whatever shard layout the
   files hold — a JAX save over an 8-device mesh loads too — and fills the
   destination IN PLACE (``dst.copy_``), keeping the destination's device
-  and dtype: the port's reshard-on-load.
+  and dtype: the port's reshard-on-load. A sharded destination gets its
+  slice at every coordinate.
 * bf16, without ``ml_dtypes``: the port writes a bf16 tensor's payload as
   its float32 values (exact) under entry dtype ``"bfloat16"``; the JAX
-  package's ``_assemble`` casts them into its bf16 output exactly, and
-  both packages read the port's files bit-exactly. A JAX payload holds
-  ``ml_dtypes.bfloat16`` arrays; the port reads their bits
-  (``framework.io.unpickle``).
+  package's ``_assemble`` casts them into its bf16 output exactly, so JAX
+  gets ``bfloat16`` as from its own save, and both packages read the
+  port's files bit-exactly. A JAX payload holds ``ml_dtypes.bfloat16``
+  arrays; the port reads their bits (``framework.io.unpickle``).
 
 Fault tolerance (docs/FAULT_TOLERANCE.md), as in the reference: every
 file is written to a temp file, fsynced and renamed; each rank records
@@ -52,6 +55,7 @@ from ...framework.async_writer import default_writer
 from ...framework.integrity import (CheckpointCorruptionError, atomic_stream,
                                     verify_enabled)
 from ...framework.io import from_host, to_host, unpickle
+from ..sharding import ShardedTensor
 from . import manifest
 from .manifest import (latest_committed, list_checkpoints, prune_uncommitted,
                        retain_last_k)
@@ -91,6 +95,15 @@ def _collect(state_dict: Dict, rank: int):
     meta: Dict[str, Dict] = {}
     payload: Dict[str, list] = {}
     for name, v in _flatten(state_dict).items():
+        if isinstance(v, ShardedTensor):
+            shards = [(idx, to_host(v.local(c))) for idx, c in v.unique()]
+            meta[name] = {"kind": "array", "shape": v.shape,
+                          "dtype": ("bfloat16" if v.dtype == torch.bfloat16
+                                    else str(shards[0][1].dtype)),
+                          "shards": [{"file": f"data_{rank}.pkl",
+                                      "index": idx} for idx, _ in shards]}
+            payload[name] = shards
+            continue
         if isinstance(v, torch.Tensor):
             host = to_host(v)                      # device -> host copy
             dtype = ("bfloat16" if v.dtype == torch.bfloat16
@@ -282,7 +295,13 @@ def load_state_dict(state_dict: Dict, path: str, process_group=None,
             raise ValueError(
                 f"shape mismatch for {name!r}: checkpoint {full.shape} vs "
                 f"destination {tuple(dst.shape)}")
-        if isinstance(dst, torch.Tensor):
+        if isinstance(dst, ShardedTensor):
+            src = from_host(full)
+            with torch.no_grad():                  # reshard-on-load
+                for c, t in dst.locals.items():
+                    t.copy_(src[tuple(slice(a, b)
+                                      for a, b, _ in dst.index(c))])
+        elif isinstance(dst, torch.Tensor):
             with torch.no_grad():                  # reshard-on-load
                 dst.copy_(from_host(full))
         else:

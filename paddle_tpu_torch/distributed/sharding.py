@@ -1,5 +1,6 @@
-"""Splitting a tensor over a serving placement — counterpart of
-``shard_dim_spec`` in ``paddle_tpu/distributed/sharding.py``.
+"""Splitting tensors over a placement — counterpart of ``shard_dim_spec``
+in ``paddle_tpu/distributed/sharding.py`` and of ``jax.device_put`` with a
+``NamedSharding``.
 
 Where the JAX package returns a ``PartitionSpec`` and lets ``device_put``
 lay the shards out, the port cuts the tensor itself: one contiguous,
@@ -7,15 +8,27 @@ separately allocated copy per placement entry (a strided view would be
 refused by the CUDA kernels, which take contiguous operands). The dim's
 divisibility is part of the contract and is checked first, with the
 reference's structured errors.
+
+* :func:`shard_tensor` / :func:`unshard`: one dim over a serving
+  placement (tensor-parallel serving).
+* :class:`ShardedTensor` / :func:`shard_to_mesh` / :func:`assemble`: a
+  tensor over a :class:`~.topology.Mesh` by a spec, the reference's
+  ``PartitionSpec`` written as a plain tuple with one entry per leading
+  dim (an axis name, a tuple of names, or None). Every mesh coordinate
+  holds its own local tensor, as JAX lays an array out over its devices:
+  a dim whose entry names axes is cut into their product of parts (part
+  index row-major over those axes), every other axis holds copies.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["shard_dim_spec", "shard_tensor", "unshard"]
+__all__ = ["shard_dim_spec", "shard_tensor", "unshard", "ShardedTensor",
+           "shard_to_mesh", "assemble", "spec_axes"]
 
 
 def shard_dim_spec(shape, n: int, axis: str, dim: int,
@@ -55,3 +68,115 @@ def unshard(parts: Sequence[torch.Tensor], dim: int,
     ``dim`` in shard order, on ``device`` (default: part 0's)."""
     dev = parts[0].device if device is None else device
     return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes one spec entry names: ``None`` -> ``()``, a name ->
+    ``(name,)``, a tuple of names as it is."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+class ShardedTensor:
+    """A tensor of ``shape`` laid out over ``mesh`` by ``spec``: the local
+    tensor of every mesh coordinate (``locals``, coordinate -> tensor on
+    that coordinate's device). Replicas along axes the spec does not name
+    are separate copies."""
+
+    def __init__(self, mesh, spec: tuple, shape: tuple,
+                 locals_: Dict[tuple, torch.Tensor]):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+        self.shape = tuple(shape)
+        self.locals = locals_
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local(self.mesh.coords()[0]).dtype
+
+    @property
+    def lead(self) -> torch.device:
+        """The device of the mesh's first coordinate."""
+        return self.mesh.devices.flat[0]
+
+    def local(self, coord) -> torch.Tensor:
+        return self.locals[tuple(coord)]
+
+    def index(self, coord) -> tuple:
+        """The slice ``coord`` holds, as ``(start, stop, step)`` per dim:
+        ``(0, None, 1)`` for a whole dim, as JAX's shard indices read."""
+        out = []
+        for d, n in enumerate(self.shape):
+            axes = spec_axes(self.spec[d]) if d < len(self.spec) else ()
+            if not axes:
+                out.append((0, None, 1))
+                continue
+            parts = int(np.prod([self.mesh.shape[a] for a in axes]))
+            i, size = self.mesh.rank_in(coord, axes), n // parts
+            out.append((i * size, (i + 1) * size, 1))
+        return tuple(out)
+
+    def unique(self) -> List[Tuple[tuple, tuple]]:
+        """``(index, coordinate)`` of each distinct slice, at the first
+        coordinate (mesh order) that holds it."""
+        seen: Dict[tuple, tuple] = {}
+        for c in self.mesh.coords():
+            seen.setdefault(self.index(c), c)
+        return [(idx, c) for idx, c in seen.items()]
+
+    def nbytes_at(self, coord) -> int:
+        t = self.local(coord)
+        return t.numel() * t.element_size()
+
+    def map_locals(self, fn) -> "ShardedTensor":
+        """The same layout with ``fn(local)`` at every coordinate."""
+        return ShardedTensor(self.mesh, self.spec, self.shape,
+                             {c: fn(t) for c, t in self.locals.items()})
+
+    def __repr__(self):
+        return (f"ShardedTensor(shape={self.shape}, spec={self.spec}, "
+                f"mesh={self.mesh.shape})")
+
+
+def shard_to_mesh(t: torch.Tensor, mesh, spec: tuple,
+                  name: str = "tensor") -> ShardedTensor:
+    """``t`` cut by ``spec`` over ``mesh``: every coordinate gets a
+    contiguous copy of its slice on its device. A spec longer than ``t``'s
+    rank, an axis the mesh lacks or names twice, and an indivisible dim
+    raise ``ValueError`` naming the tensor (the last through
+    :func:`shard_dim_spec`: the axis and the size too)."""
+    spec = tuple(spec)
+    if len(spec) > t.dim():
+        raise ValueError(f"cannot shard {name}: spec {spec} has more "
+                         f"entries than its rank {t.dim()}")
+    used = [a for e in spec for a in spec_axes(e)]
+    for a in used:
+        if a not in mesh.shape:
+            raise ValueError(f"cannot shard {name}: mesh has no axis {a!r} "
+                             f"(axes {mesh.axis_names})")
+    if len(set(used)) != len(used):
+        raise ValueError(f"cannot shard {name}: spec {spec} names an axis "
+                         f"twice")
+    for d, e in enumerate(spec):
+        axes = spec_axes(e)
+        if axes:
+            parts = int(np.prod([mesh.shape[a] for a in axes]))
+            shard_dim_spec(t.shape, parts, e, d, name)
+    st = ShardedTensor(mesh, spec, tuple(t.shape), {})
+    for c in mesh.coords():
+        part = t[tuple(slice(a, b) for a, b, _ in st.index(c))]
+        st.locals[c] = torch.empty(part.shape, dtype=t.dtype,
+                                   device=mesh.devices[c]).copy_(part)
+    return st
+
+
+def assemble(st: ShardedTensor, device=None) -> torch.Tensor:
+    """The inverse of :func:`shard_to_mesh`: the whole tensor on
+    ``device`` (default: the mesh's first coordinate's), each slice taken
+    from the first coordinate that holds it."""
+    dev = st.lead if device is None else torch.device(device)
+    out = torch.empty(st.shape, dtype=st.dtype, device=dev)
+    for idx, c in st.unique():
+        out[tuple(slice(a, b) for a, b, _ in idx)] = st.local(c).detach()
+    return out

@@ -10,11 +10,13 @@ SHA-256 of the pickle and the 8-byte magic ``PTCKSM1\\n``. A file either
 package writes loads in the other.
 
 * bf16: numpy has no bfloat16 without ``ml_dtypes``, which the port never
-  imports. A bf16 tensor is stored as its float32 values (exact) with
-  ``"dtype": "bfloat16"`` in its record: the port restores bf16, the JAX
-  package reads the same values as float32. A JAX file's bf16 arrays
-  (``ml_dtypes.bfloat16``) are read through their bits
-  (:func:`unpickle` maps the type to a 2-byte void, viewed as bf16).
+  imports. A bf16 tensor is written as the array JAX writes: its 2-byte
+  bits under the dtype ``ml_dtypes.bfloat16``, a name the port's pickler
+  (:class:`_Pickler`) puts into the stream without importing its module,
+  so the JAX package loads a bf16 tensor as ``bfloat16``, bit for bit.
+  Reading, :func:`unpickle` maps that type to a 2-byte void, viewed as
+  bf16 (JAX's files and the port's alike); older port files, which held
+  float32 values under ``"dtype": "bfloat16"``, still load as bf16.
 * ``save`` is ATOMIC (temp file, flush + fsync, ``os.replace``) and hashes
   the pickle while it streams to disk; ``load`` verifies the footer when
   present and ``FLAGS_checkpoint_verify`` is on, raising
@@ -63,6 +65,57 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return h.numpy()
 
 
+class _Global:
+    """A module-level name to write into a pickle stream as it is, without
+    importing its module (the C pickler's ``save_global`` imports it)."""
+
+    def __init__(self, module: str, name: str):
+        self.module, self.name = module, name
+
+
+class _BF16Bits:
+    """A bf16 tensor's bits (a uint16 numpy array), pickled as the
+    ``ml_dtypes.bfloat16`` numpy array the JAX package writes."""
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits
+
+
+class _BF16Dtype:
+    """``np.dtype(ml_dtypes.bfloat16)`` in a pickle stream."""
+
+
+# the state numpy pickles for the dtype ml_dtypes.bfloat16 (little-endian,
+# 2 bytes, alignment 2, flags 64)
+_BF16_DTYPE_STATE = (3, "<", None, None, None, 2, 2, 64)
+
+
+class _Pickler(pickle._Pickler):
+    """The pure-Python pickler, which writes :class:`_Global` names with
+    ``STACK_GLOBAL`` and no import, and a :class:`_BF16Bits` array with the
+    opcodes numpy's own reduction gives an ``ml_dtypes.bfloat16`` array."""
+
+    dispatch = dict(pickle._Pickler.dispatch)
+
+    def _save_name(self, obj):
+        self.save(obj.module)
+        self.save(obj.name)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+    dispatch[_Global] = _save_name
+
+    def reducer_override(self, obj):
+        if isinstance(obj, _BF16Bits):
+            fn, args, (ver, shape, _, fortran, raw) = \
+                obj.bits.__reduce_ex__(4)
+            return fn, args, (ver, shape, _BF16Dtype(), fortran, raw)
+        if isinstance(obj, _BF16Dtype):
+            return (np.dtype, (_Global("ml_dtypes", "bfloat16"), False, True),
+                    _BF16_DTYPE_STATE)
+        return NotImplemented
+
+
 def from_host(value, dtype=None, device=None) -> torch.Tensor:
     """The tensor a stored array describes, on ``device`` (on the CPU it
     may share the array's memory). ``dtype == "bfloat16"`` casts stored
@@ -96,17 +149,23 @@ def unpickle(f):
     return _Unpickler(f).load()
 
 
+def _value(t: torch.Tensor):
+    """A host copy of ``t`` to pickle: bf16 as its bits
+    (:class:`_BF16Bits`), anything else as :func:`to_host` gives it."""
+    if t.dtype == torch.bfloat16:
+        bits = t.detach().to("cpu", memory_format=torch.contiguous_format,
+                            copy=True).view(torch.int16).numpy()
+        return _BF16Bits(bits.view(np.uint16))
+    return to_host(t)
+
+
 def _encode(obj):
     if isinstance(obj, torch.Tensor):
         if isinstance(obj, torch.nn.Parameter):
-            rec = {_PARAM_SENTINEL: True, "value": to_host(obj),
-                   "trainable": bool(obj.requires_grad), "name": None}
-        else:
-            rec = {_SENTINEL: True, "value": to_host(obj),
-                   "stop_gradient": not obj.requires_grad, "name": None}
-        if obj.dtype == torch.bfloat16:
-            rec["dtype"] = "bfloat16"
-        return rec
+            return {_PARAM_SENTINEL: True, "value": _value(obj),
+                    "trainable": bool(obj.requires_grad), "name": None}
+        return {_SENTINEL: True, "value": _value(obj),
+                "stop_gradient": not obj.requires_grad, "name": None}
     if isinstance(obj, dict):
         return {k: _encode(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -150,7 +209,7 @@ def _dump_atomic(encoded, path: str, protocol: int) -> None:
     if d:
         os.makedirs(d, exist_ok=True)
     with atomic_stream(path) as w:
-        pickle.dump(encoded, w, protocol=protocol)
+        _Pickler(w, protocol=protocol).dump(encoded)
         w.raw.write(w.sha.digest() + _FOOTER_MAGIC)
 
 

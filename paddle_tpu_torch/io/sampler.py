@@ -4,8 +4,9 @@ BatchSampler, DistributedBatchSampler), the same orders and draws: a
 ``generator`` is a ``numpy.random.Generator``, as in the reference. The
 distributed sampler shards by rank like the reference (padding to even
 length, per-epoch shuffle seed), taking ``num_replicas`` / ``rank`` from
-its arguments or, when they are left out, from ``torch.distributed``
-(1 and 0 when it is not initialised).
+its arguments or, when they are left out, from the hybrid group's data
+parallel degree and rank (``distributed.topology``), as the reference
+does: by default dp over every device the process drives.
 """
 
 from __future__ import annotations
@@ -153,12 +154,12 @@ class DistributedBatchSampler(BatchSampler):
         self.drop_last = bool(drop_last)
         self.shuffle = bool(shuffle)
         if num_replicas is None or rank is None:
-            import torch.distributed as dist
-            live = dist.is_available() and dist.is_initialized()
+            from ..distributed.topology import get_hybrid_communicate_group
+            hcg = get_hybrid_communicate_group()
             if num_replicas is None:
-                num_replicas = dist.get_world_size() if live else 1
+                num_replicas = hcg.get_data_parallel_world_size()
             if rank is None:
-                rank = dist.get_rank() if live else 0
+                rank = hcg.get_data_parallel_rank()
         self.nranks = int(num_replicas)
         self.local_rank = int(rank)
         if not 0 <= self.local_rank < self.nranks:

@@ -6,8 +6,11 @@ through :func:`bert_params_from_jax`):
 the JAX side converts its pytree with ``jax.tree_util.tree_map(np.asarray,
 params)`` and the port takes the numpy tree from there. Both fp trees and
 weight-only-int8 trees (with ``*_s`` scale leaves) convert leaf by leaf;
-so does the AdamW state (:func:`opt_state_from_jax`). :func:`to_numpy`
-goes back, for comparisons.
+so does the AdamW state (:func:`opt_state_from_jax`). A JAX tree sharded
+over a mesh converts the same way (``np.asarray`` of a sharded array is
+its whole value), and :func:`specs_from_jax` reads a ``PartitionSpec``
+tree as the port's spec tuples. :func:`to_numpy` goes back, for
+comparisons (a sharded leaf assembled whole).
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.sharding import ShardedTensor, assemble
 from .llama import LlamaConfig
 
 __all__ = ["params_from_jax", "bert_params_from_jax", "config_from_jax",
-           "opt_state_from_jax", "to_numpy"]
+           "opt_state_from_jax", "to_numpy", "specs_from_jax"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
@@ -82,14 +86,24 @@ def opt_state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, Any]:
 
 
 def to_numpy(tree):
-    """A (nested dict) tree of tensors -> the same tree of numpy arrays on
-    the host (bf16 as fp32: numpy has no bf16)."""
+    """A (nested dict) tree of tensors or sharded leaves -> the same tree
+    of whole numpy arrays on the host (bf16 as fp32: numpy has no bf16)."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, ShardedTensor):
+        tree = assemble(tree, "cpu")
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def specs_from_jax(tree):
+    """A (nested dict) tree of JAX ``PartitionSpec`` (a tuple subclass) ->
+    the same tree of plain tuples, the port's specs."""
+    if isinstance(tree, dict):
+        return {k: specs_from_jax(v) for k, v in tree.items()}
+    return tuple(tree)
 
 
 # JAX config fields whose feature the port does not run, with the value

@@ -19,7 +19,11 @@ RoPE with shared ``[S, D]`` tables to ``kernels.rope.apply_rope``;
 ``cfg.remat`` checkpoints each layer under ``cfg.remat_policy`` (full
 remat or one of the JAX package's seven named policies, see
 :func:`_remat_policy`). :func:`shard_serving_params` lays params out for
-serving tensor parallelism. Context parallelism (``sep_axis``) is not
+serving tensor parallelism. :func:`param_specs`, :func:`batch_spec` and
+:func:`shard_params` lay them out for hybrid-parallel training (dp x mp x
+sharding over a mesh); ``forward``, ``loss_fn`` and ``make_train_step``
+take such a sharded tree and run the sharded path (its design:
+:func:`_sharded_trunk`). Context parallelism (``sep_axis``) is not
 ported and raises ``NotImplementedError``.
 """
 
@@ -34,7 +38,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.collective import (ReduceOp, all_reduce_sum,
+                                      copy_to_group, gather_to, reduce_ranks)
 from ..distributed.moe import gshard_routing
+from ..distributed.sharding import ShardedTensor, shard_to_mesh, spec_axes
 from ..health.sentinel import pack_health, sentinel_check
 from ..kernels.flash_attention import flash_attention, flash_attention_with_lse
 from ..kernels.quant_matmul import quantize_weights, weight_only_matmul
@@ -44,7 +51,8 @@ from ..kernels.rope import apply_rope, rope_cos_sin
 __all__ = ["LlamaConfig", "init_params", "num_params", "forward", "loss_fn",
            "make_train_step", "quantize_params", "validate_quant_mode",
            "ensure_quantized", "QUANTIZE_MODES", "KV_QUANT_MODES",
-           "shard_serving_params", "serving_placement"]
+           "shard_serving_params", "serving_placement", "param_specs",
+           "batch_spec", "shard_params", "is_sharded", "placement_bytes"]
 
 
 @dataclasses.dataclass
@@ -332,6 +340,114 @@ def serving_placement(params: Dict):
 
 
 # ---------------------------------------------------------------------------
+# the hybrid-parallel training layout (dp x mp x sharding over a mesh)
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: LlamaConfig, mp_axis: Optional[str] = "mp",
+                fsdp_axis: Optional[str] = None) -> Dict:
+    """The JAX ``param_specs`` as plain tuples (one entry per leading dim:
+    an axis name or None): Megatron's layout over ``mp_axis`` (heads and
+    the FFN's intermediate dim, the vocab of ``embed`` and ``lm_head``),
+    with ``fsdp_axis`` sharding each matmul's other dim (ZeRO-3). The MoE
+    branch is the JAX one; the port's config has no ``ep_axis`` (expert
+    parallelism is ROADMAP item 10c), so the expert dim is not sharded."""
+    mp, fs, ep = mp_axis, fsdp_axis, None
+    if cfg.moe_num_experts:
+        ffn_in, ffn_out = (None, ep, fs, mp), (None, ep, mp, fs)
+    else:
+        ffn_in, ffn_out = (None, fs, mp), (None, mp, fs)
+    specs = {
+        "embed": (mp, fs),
+        "layers": {
+            "wq": (None, fs, mp),
+            "wk": (None, fs, mp),
+            "wv": (None, fs, mp),
+            "wo": (None, mp, fs),
+            "w_gate": ffn_in,
+            "w_up": ffn_in,
+            "w_down": ffn_out,
+            "ln_attn": (None, None),
+            "ln_mlp": (None, None),
+        },
+        "ln_f": (None,),
+    }
+    if cfg.moe_num_experts:
+        specs["layers"]["moe_gate"] = (None, None, None)
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = (fs, mp)
+    return specs
+
+
+def batch_spec(dp_axes=("dp",), sep_axis: Optional[str] = None) -> tuple:
+    """The spec of a ``[B, S]`` token batch: the batch over the data axes,
+    the sequence over ``sep_axis`` (an entry of one axis is that axis and
+    of none is None, as ``PartitionSpec`` reads them)."""
+    axes = tuple(a for a in dp_axes if a)
+    return (axes[0] if len(axes) == 1 else axes or None, sep_axis)
+
+
+def is_sharded(params: Dict) -> bool:
+    """Whether ``params`` is a :func:`shard_params` tree."""
+    return isinstance(params.get("embed"), ShardedTensor)
+
+
+def _refuse_sharded(cfg: LlamaConfig, mesh=None) -> None:
+    """What the sharded path does not run yet, each naming its ROADMAP
+    item."""
+    if cfg.moe_num_experts:
+        raise NotImplementedError(
+            "shard_params: MoE layouts (moe_num_experts > 0, expert "
+            "parallelism) are not ported yet (ROADMAP.md section A, item "
+            "10c)")
+    if cfg.sep_axis is not None:
+        raise NotImplementedError(
+            "shard_params: sep_axis (context parallelism) is not ported yet "
+            "(ROADMAP.md section A, item 5a)")
+    if mesh is not None and mesh.shape.get("pp", 1) > 1:
+        raise NotImplementedError(
+            "shard_params: a pp degree > 1 (pipeline parallelism) is not "
+            "ported yet (ROADMAP.md section A, item 10b)")
+
+
+def shard_params(params: Dict, mesh, cfg: LlamaConfig, mp_axis="mp",
+                 fsdp_axis=None) -> Dict:
+    """The param dict laid out over ``mesh``
+    (:func:`~paddle_tpu_torch.distributed.topology.build_mesh`) by
+    :func:`param_specs`: the same tree, each leaf a
+    :class:`~paddle_tpu_torch.distributed.sharding.ShardedTensor` holding
+    one local tensor per mesh coordinate (replicas along dp hold their own
+    copies, as JAX's per-device arrays do). Query and kv heads must split
+    over ``mp_axis``; an indivisible dim raises the layout's
+    ``ValueError``. MoE, ``sep_axis`` and a pp degree > 1 raise
+    ``NotImplementedError`` (the sharded step also refuses a named
+    ``remat_policy``)."""
+    _refuse_sharded(cfg, mesh)
+    if mp_axis is not None:
+        n = mesh.shape[mp_axis]
+        for what, heads in (("wq", cfg.num_attention_heads),
+                            ("wk", cfg.kv_heads), ("wv", cfg.kv_heads)):
+            if heads % n:
+                raise ValueError(
+                    f"cannot shard params.layers.{what}: {heads} heads do "
+                    f"not split over mesh axis {mp_axis!r} (size {n})")
+    specs = param_specs(cfg, mp_axis, fsdp_axis)
+
+    def place(tree, spec, path):
+        if isinstance(tree, dict):
+            return {k: place(v, spec[k], f"{path}.{k}")
+                    for k, v in tree.items()}
+        return shard_to_mesh(tree, mesh, spec, name=path)
+    return place(params, specs, "params")
+
+
+def placement_bytes(tree, coord) -> int:
+    """The bytes the sharded leaves of ``tree`` hold at mesh coordinate
+    ``coord`` (one placement entry's share of the state)."""
+    return sum(t.nbytes_at(coord) for t in _leaves(tree)
+               if isinstance(t, ShardedTensor))
+
+
+# ---------------------------------------------------------------------------
 # the training forward
 # ---------------------------------------------------------------------------
 
@@ -607,7 +723,14 @@ def forward(params: Dict, input_ids, cfg: LlamaConfig, segment_ids=None,
     ``(logits, aux)``: the mean MoE load-balancing loss over the layers
     (0.0 for a dense model). ``return_hidden`` returns the final-norm
     hidden states instead.
+
+    A sharded tree (:func:`shard_params`) runs the sharded path
+    (:func:`_sharded_trunk`) and returns the whole logits (or hidden
+    states) on the mesh's first device, the pieces in batch order.
     """
+    if is_sharded(params):
+        return _sharded_forward(params, input_ids, cfg, segment_ids,
+                                position_ids, return_aux, return_hidden)
     _check_training_config(cfg)
     keep = _remat_policy(cfg.remat_policy) if cfg.remat else None
     dev = params["embed"].device
@@ -661,6 +784,21 @@ def _ce_chunk(hc, lc, head, dt):
     return torch.where(m, lse - tgt, 0.0).sum(), m.sum()
 
 
+def _sharded_forward(params, input_ids, cfg, segment_ids, position_ids,
+                     return_aux, return_hidden):
+    plan, hidden, heads = _sharded_trunk(params, input_ids, cfg,
+                                         segment_ids, position_ids)
+    lead = plan.mesh.devices.flat[0]
+    if return_hidden:
+        return torch.cat([h[0].to(lead) for h in hidden])
+    logits = torch.cat([torch.cat([(h @ heads[c].to(cfg.dtype)).to(lead)
+                                   for h, c in zip(hs, cs)], dim=-1)
+                        for hs, cs in zip(hidden, plan.coords)])
+    if return_aux:
+        return logits, torch.zeros((), dtype=torch.float32, device=lead)
+    return logits
+
+
 def loss_fn(params: Dict, input_ids, labels, cfg: LlamaConfig,
             segment_ids=None, position_ids=None):
     """Mean next-token cross-entropy over the tokens whose label is not
@@ -670,7 +808,11 @@ def loss_fn(params: Dict, input_ids, labels, cfg: LlamaConfig,
     ``cfg.ce_chunks > 1`` computes it over token chunks, each checkpointed,
     so the fp32 ``[T, V]`` logits and their gradient never live at once;
     the token count must divide into the chunks. MoE configs ignore it, as
-    the JAX ``loss_fn`` does."""
+    the JAX ``loss_fn`` does. A sharded tree runs :func:`_sharded_loss`
+    (vocab-parallel cross-entropy)."""
+    if is_sharded(params):
+        return _sharded_loss(params, input_ids, labels, cfg, segment_ids,
+                             position_ids)
     dev = params["embed"].device
     labels = torch.as_tensor(labels, device=dev).long()
     if cfg.ce_chunks > 1 and not cfg.moe_num_experts:
@@ -701,6 +843,258 @@ def loss_fn(params: Dict, input_ids, labels, cfg: LlamaConfig,
 
 
 # ---------------------------------------------------------------------------
+# the sharded path: one controller over the mesh
+# ---------------------------------------------------------------------------
+
+class _Plan:
+    """Where the sharded forward runs. The batch ``ids`` (a
+    :class:`ShardedTensor` by :func:`batch_spec`, or a tensor, which is
+    split by ``batch_spec(("dp",))``) is cut into PIECES, one per
+    coordinate of its batch axes; piece ``p`` runs on mp shard ``k`` at
+    ``coords[p][k]``: the piece's batch coordinates, ``k`` on the mp axis,
+    0 on every other axis."""
+
+    def __init__(self, params: Dict, ids, what: str):
+        emb = params["embed"]
+        self.mesh = mesh = emb.mesh
+        self.mp, self.fs = emb.spec[0], emb.spec[1]
+        spec = ids.spec if isinstance(ids, ShardedTensor) else batch_spec()
+        self.batch = spec_axes(spec[0]) if spec else ()
+        if len(spec) > 1 and spec[1] is not None:
+            raise NotImplementedError(
+                "a sequence-sharded batch (sep_axis) is not ported yet "
+                "(ROADMAP.md section A, item 5a)")
+        if self.mp is not None and self.mp in self.batch:
+            raise ValueError(f"{what}: the batch cannot be split over the "
+                             f"model-parallel axis {self.mp!r}")
+        base = (0,) * len(mesh.axis_names)
+        self.coords = [mesh.group(c, (self.mp,) if self.mp else ())
+                       for c in mesh.group(base, self.batch)]
+
+    def pieces(self, t: ShardedTensor, what: str):
+        """``[piece][mp shard]``: each piece of batch-sharded ``t`` on the
+        device of each of its mp shards."""
+        if not isinstance(t, ShardedTensor):
+            t = shard_to_mesh(torch.as_tensor(t), self.mesh,
+                              (self.batch,), what)
+        return [[t.local(cs[0]).to(self.mesh.devices[c]) for c in cs]
+                for cs in self.coords]
+
+    def gather(self, st: ShardedTensor, local: Dict, dim_off: int = 0):
+        """``{compute coordinate: weight}`` with every axis of ``st``'s spec
+        but mp gathered (the fsdp dim: ``all_gather`` over that axis, the
+        gradient reduce-scattered back), from ``local`` (coordinate ->
+        local tensor, its dims ``dim_off`` fewer than ``st``'s)."""
+        want = [c for cs in self.coords for c in cs]
+        fs = [(d - dim_off, spec_axes(e)) for d, e in enumerate(st.spec)
+              if spec_axes(e) and spec_axes(e) != (self.mp,)]
+        if not fs:
+            return {c: local[c] for c in want}
+        (dim, axes), = fs
+        groups: Dict[tuple, list] = {}
+        for c in want:
+            groups.setdefault(self.mesh.group(c, axes)[0], []).append(c)
+        out = {}
+        for head, cs in groups.items():
+            members = self.mesh.group(head, axes)
+            if len(members) == 1:
+                out[head] = local[head]
+                continue
+            got = gather_to([local[m] for m in members], dim,
+                            [self.mesh.rank_in(c, axes) for c in cs])
+            out.update(zip(cs, got))
+        return out
+
+
+def _sharded_layer(plan: _Plan, xs, lw: Dict, w: Dict, tables, cfg):
+    """One decoder block on every piece and mp shard: ``xs[p][k]`` the
+    residual stream, ``w`` the gathered projections and ``lw`` the local
+    norm weights by coordinate. Column-parallel q/k/v and gate/up after a
+    :func:`copy_to_group` of the normed input; row-parallel ``wo`` and
+    ``w_down`` partial sums reduced by ``all_reduce`` over mp."""
+    dt, eps, fused = cfg.dtype, cfg.rms_norm_eps, cfg.use_fused_norm
+    D = cfg.head_dim
+    out = []
+    for x_p, cs in zip(xs, plan.coords):
+        hs = copy_to_group([_rms_norm(x, lw["ln_attn"][c], eps, fused)
+                            for x, c in zip(x_p, cs)])
+        parts = []
+        for h, c in zip(hs, cs):
+            cos, sin = tables[plan.mesh.devices[c]]
+            b, S = h.shape[:2]
+            q, k, v = ((h @ w[n][c].to(dt)).reshape(b, S, -1, D)
+                       for n in ("wq", "wk", "wv"))
+            q, k = _rope(q, cos, sin, fused), _rope(k, cos, sin, fused)
+            o = _attention(q, k, v, cfg).reshape(b, S, -1)
+            parts.append(o @ w["wo"][c].to(dt))
+        x_p = [x + y for x, y in zip(x_p, all_reduce_sum(parts))]
+        hs = copy_to_group([_rms_norm(x, lw["ln_mlp"][c], eps, fused)
+                            for x, c in zip(x_p, cs)])
+        parts = [(F.silu(h @ w["w_gate"][c].to(dt)) * (h @ w["w_up"][c].to(dt)))
+                 @ w["w_down"][c].to(dt) for h, c in zip(hs, cs)]
+        out.append([x + y for x, y in zip(x_p, all_reduce_sum(parts))])
+    return out
+
+
+def _sharded_trunk(params: Dict, input_ids, cfg: LlamaConfig,
+                   segment_ids=None, position_ids=None):
+    """The sharded forward up to the LM head: ``(plan, hidden, heads)``
+    with ``hidden[p][k]`` the final-norm hidden states of piece ``p`` on mp
+    shard ``k`` and ``heads[c]`` that shard's ``[E, V / mp]`` head.
+
+    Every piece of the batch runs, for each mp shard, on that shard's
+    device, and one autograd graph spans the placement:
+
+    * ``embed`` is vocab-parallel: each shard looks its vocab range up (0
+      elsewhere) and ``all_reduce`` sums the shards, exactly (one term is
+      non-zero); an id outside ``[-V, V)`` embeds as NaN, as in
+      :func:`_embed`;
+    * a weight sharded over the fsdp axis is gathered before each use
+      (``all_gather``) and its gradient comes back to each shard as its
+      slice summed over the pieces (``reduce_scatter``);
+    * each layer (:func:`_sharded_layer`) runs Megatron's column- and
+      row-parallel attention and FFN at the local head counts, through
+      the flash kernels with ``use_kernels`` and the fused RMSNorm and
+      RoPE with ``use_fused_norm``; ``cfg.remat`` checkpoints it whole
+      (every piece and shard at once, its gathers inside, so backward
+      gathers the weights again, as ZeRO-3 does).
+
+    Every reduction runs in a fixed rank order, so a run repeats bit for
+    bit. Packed batches (``segment_ids``, ``position_ids``) are not ported
+    under sharding."""
+    _check_training_config(cfg)
+    _refuse_sharded(cfg)
+    if cfg.remat and cfg.remat_policy not in (None, "nothing"):
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} under sharding is not ported "
+            "yet (ROADMAP.md section A, item 10d's rest); full remat "
+            "(remat_policy=None) is")
+    if segment_ids is not None or position_ids is not None:
+        raise NotImplementedError(
+            "segment_ids / position_ids (packed batches) under sharding are "
+            "not ported yet (ROADMAP.md section A, item 10d's rest)")
+    plan = _Plan(params, input_ids, "input_ids")
+    mesh, dt = plan.mesh, cfg.dtype
+    emb = params["embed"]
+    embed = plan.gather(emb, emb.locals)
+    ids = plan.pieces(input_ids, "input_ids")
+    V = emb.shape[0]
+    xs = []
+    for ids_p, cs in zip(ids, plan.coords):
+        es, oks = [], []
+        for k, (i, c) in enumerate(zip(ids_p, cs)):
+            i = i.long()
+            ok = (i >= -V) & (i < V)
+            e_k = embed[c]
+            lo = k * e_k.shape[0]
+            loc = torch.where(i < 0, i + V, i) - lo
+            mine = ok & (loc >= 0) & (loc < e_k.shape[0])
+            es.append(e_k[loc.clamp(0, e_k.shape[0] - 1)].to(dt)
+                      .masked_fill(~mine[..., None], 0))
+            oks.append(ok)
+        xs.append([x.masked_fill(~ok[..., None], float("nan"))
+                   for x, ok in zip(all_reduce_sum(es), oks)])
+    S = xs[0][0].shape[1]
+    tables = {d: rope_cos_sin(S, cfg.head_dim, cfg.rope_theta, device=d)
+              for d in set(mesh.devices.flat)}
+    layers = params["layers"]
+    # unbind once, not one index per layer (see forward)
+    unbound = {n: {c: t.unbind(0) for c, t in st.locals.items()}
+               for n, st in layers.items()}
+    for l in range(cfg.num_hidden_layers):
+        local = {n: {c: ts[l] for c, ts in u.items()}
+                 for n, u in unbound.items()}
+
+        def layer(xs, local=local):
+            lw = {n: local[n] for n in ("ln_attn", "ln_mlp")}
+            w = {n: plan.gather(layers[n], local[n], 1)
+                 for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                           "w_down")}
+            return _sharded_layer(plan, xs, lw, w, tables, cfg)
+
+        xs = (checkpoint(layer, xs, use_reentrant=False) if cfg.remat
+              else layer(xs))
+    ln_f = params["ln_f"]
+    hidden = [copy_to_group([_rms_norm(x, ln_f.local(c), cfg.rms_norm_eps,
+                                       cfg.use_fused_norm)
+                             for x, c in zip(x_p, cs)])
+              for x_p, cs in zip(xs, plan.coords)]
+    if cfg.tie_word_embeddings:
+        heads = {c: e.T for c, e in embed.items()}
+    else:
+        heads = plan.gather(params["lm_head"], params["lm_head"].locals)
+    return plan, hidden, heads
+
+
+def _vocab_parallel_ce(hs, lbl, heads, dt):
+    """(per-shard summed CE, valid-token count) of one token chunk whose
+    logits are split over the mp shards: ``hs[k]`` ``[T, E]`` and
+    ``heads[k]`` ``[E, V / mp]`` on shard ``k``'s device. The logsumexp
+    runs across the shards (their max, then the sum of exps, both reduced
+    in rank order) and the target logit comes from the shard that holds
+    it; every shard ends with the same per-token losses."""
+    logits = [(h @ w.to(dt)).to(torch.float32) for h, w in zip(hs, heads)]
+    m = reduce_ranks([lg.detach().amax(-1) for lg in logits], ReduceOp.MAX)
+    se = all_reduce_sum([torch.exp(lg - mk[..., None]).sum(-1)
+                         for lg, mk in zip(logits, m)])
+    tgts = []
+    for k, lg in enumerate(logits):
+        loc = lbl.to(lg.device) - k * lg.shape[-1]
+        mine = (loc >= 0) & (loc < lg.shape[-1])
+        tgts.append(lg.gather(-1, loc.clamp(0, lg.shape[-1] - 1)[..., None])
+                    [..., 0].masked_fill(~mine, 0.0))
+    valid = lbl >= 0
+    sums = [torch.where(valid.to(s.device), torch.log(s) + mk - t, 0.0).sum()
+            for s, mk, t in zip(se, m, all_reduce_sum(tgts))]
+    return sums, valid.sum()
+
+
+def _sharded_loss(params: Dict, input_ids, labels, cfg: LlamaConfig,
+                  segment_ids=None, position_ids=None):
+    """:func:`loss_fn` of a sharded tree: the global mean, each piece's
+    summed token losses over the global count of labelled tokens.
+
+    Each mp shard holds the same per-token losses; the value returned is
+    shard 0's, and the graph behind it is the sum over the shards (each
+    shard's copy seeded with 1, as every rank of a tensor-parallel group
+    backpropagates its own copy), which the identity adjoint of
+    ``all_reduce`` and :func:`copy_to_group` turn into the gradient of one
+    copy."""
+    plan, hidden, heads = _sharded_trunk(params, input_ids, cfg,
+                                         segment_ids, position_ids)
+    lbls = plan.pieces(labels, "labels")
+    lead = plan.mesh.devices.flat[0]
+    C = cfg.ce_chunks
+    T = sum(l_p[0].numel() for l_p in lbls)
+    if C > 1 and T % C:
+        raise ValueError(f"tokens {T} not divisible by ce_chunks {C}")
+    tot, rep, cnt = 0.0, 0.0, 0
+    for hs, l_p, cs in zip(hidden, lbls, plan.coords):
+        E = hs[0].shape[-1]
+        hs = [h.reshape(-1, E) for h in hs]
+        lb = l_p[0].reshape(-1).long()
+        w = [heads[c] for c in cs]
+        q, r = divmod(lb.numel(), C)
+        ends = [(c + 1) * q + min(c + 1, r) for c in range(C)]
+        for a, b in zip([0] + ends[:-1], ends):
+            if C == 1:
+                sums, n = _vocab_parallel_ce(hs, lb, w, cfg.dtype)
+            elif b > a:
+                sums, n = checkpoint(_vocab_parallel_ce,
+                                     [h[a:b] for h in hs], lb[a:b], w,
+                                     cfg.dtype, use_reentrant=False)
+            else:
+                continue
+            for s_ in sums:
+                tot = tot + s_.to(lead)
+            rep = rep + sums[0].to(lead)
+            cnt = cnt + n.to(lead)
+    count = cnt.clamp(min=1)
+    full = tot / count
+    return (rep / count).detach() + (full - full.detach())
+
+
+# ---------------------------------------------------------------------------
 # the train step (AdamW, fp32 moment arithmetic)
 # ---------------------------------------------------------------------------
 
@@ -717,12 +1111,18 @@ def _leaves(tree):
 
 
 def _adamw_init(params: Dict, opt_dtype=torch.float32) -> Dict:
-    """Zero moments in ``opt_dtype`` and an int32 step counter."""
+    """Zero moments in ``opt_dtype`` and an int32 step counter. The moments
+    of a sharded tree are laid out as the params are (ZeRO: each
+    coordinate holds its own shards' moments); the counter sits on the
+    mesh's first device."""
     def zeros(p):
+        if isinstance(p, ShardedTensor):
+            return p.map_locals(zeros)
         return torch.zeros(p.shape, dtype=opt_dtype, device=p.device)
+    first = _leaves(params)[0]
+    dev = first.lead if isinstance(first, ShardedTensor) else first.device
     return {"m": _tree_map(zeros, params), "v": _tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32,
-                                device=_leaves(params)[0].device)}
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def _adamw_apply(params: Dict, grads: Dict, opt_state: Dict, *, lr, beta1,
@@ -773,6 +1173,84 @@ def _adamw_apply(params: Dict, grads: Dict, opt_state: Dict, *, lr, beta1,
     return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}
 
 
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _named(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _sharded_grads(params: Dict, input_ids, labels, cfg: LlamaConfig,
+                   grad_dtype=None):
+    """``(loss, grads)`` of a sharded tree: ``grads`` maps each leaf's name
+    to ``{coordinate: gradient}``, the gradient of the slice that
+    coordinate holds. A slice's gradient is the sum, in mesh order on its
+    first holder's device, of what its replicas received: every piece that
+    used it contributes (dp, and the sharding axis when the batch is split
+    over it), except that a leaf the mp axis does not shard takes mp shard
+    0's alone, since every mp shard computed that whole gradient. Every
+    holder of the slice gets that one sum."""
+    named = _named(params)
+    locs = [(n, c, t) for n, st in named for c, t in st.locals.items()]
+    for _, _, t in locs:
+        t.requires_grad_(True)
+    loss = loss_fn(params, input_ids, labels, cfg)
+    got = torch.autograd.grad(loss, [t for _, _, t in locs],
+                              allow_unused=True)
+    raw: Dict[str, Dict] = {}
+    for (n, c, _), g in zip(locs, got):
+        raw.setdefault(n, {})[c] = g
+    mp = params["embed"].spec[0]
+    grads = {}
+    for n, st in named:
+        mesh = st.mesh
+        mp_d = (mesh.axis_names.index(mp)
+                if mp is not None and mp not in
+                {a for e in st.spec for a in spec_axes(e)} else None)
+        holders: Dict[tuple, list] = {}
+        for c in mesh.coords():
+            holders.setdefault(st.index(c), []).append(c)
+        out = {}
+        for cs in holders.values():
+            acc = None
+            for c in cs:
+                g = raw[n][c]
+                if g is None or (mp_d is not None and c[mp_d] != 0):
+                    continue
+                g = g.to(mesh.devices[cs[0]])
+                acc = g if acc is None else acc + g
+            if acc is None:
+                acc = torch.zeros_like(st.local(cs[0]))
+            if grad_dtype is not None:
+                acc = acc.to(grad_dtype)
+            for c in cs:
+                out[c] = acc.to(mesh.devices[c])
+        grads[n] = out
+    return loss.detach(), grads
+
+
+def _sharded_adamw(params: Dict, grads: Dict, opt_state: Dict, skip, kw):
+    """One AdamW step on every mesh coordinate: :func:`_adamw_apply` on the
+    coordinate's params, moments and slice gradients (the step count and
+    ``skip`` copied to its device). Returns ``(params, opt_state)`` with
+    the first coordinate's new step count."""
+    named = _named(params)
+    ms, vs = dict(_named(opt_state["m"])), dict(_named(opt_state["v"]))
+    mesh = named[0][1].mesh
+    step = None
+    for c in mesh.coords():
+        dev = mesh.devices[c]
+        p = {n: st.local(c) for n, st in named}
+        g = {n: grads[n][c] for n, _ in named}
+        st_c = {"m": {n: ms[n].local(c) for n, _ in named},
+                "v": {n: vs[n].local(c) for n, _ in named},
+                "step": opt_state["step"].to(dev)}
+        _, new = _adamw_apply(p, g, st_c, skip=None if skip is None
+                              else skip.to(dev), **kw)
+        if step is None:
+            step = new["step"]
+    return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}
+
+
 def make_train_step(cfg: LlamaConfig, lr: float = 3e-4, beta1=0.9,
                     beta2=0.95, eps=1e-8, weight_decay=0.0,
                     opt_dtype=torch.float32, grad_dtype=None,
@@ -798,12 +1276,24 @@ def make_train_step(cfg: LlamaConfig, lr: float = 3e-4, beta1=0.9,
     ``_adamw_apply(skip=bad)``, on the device: a bad step leaves every
     parameter and moment tensor with the bits it had and the step count
     unchanged; a good step is bit-identical to the unguarded step.
+
+    The user's view of a sharded step is the JAX one: ``step(ps,
+    init_opt(ps), ids, labels)`` with ``ps`` from :func:`shard_params` and
+    the batch a :class:`ShardedTensor` by :func:`batch_spec` (a plain
+    tensor is split by ``batch_spec(("dp",))``). The moments are laid out
+    as the params are; the gradient of each slice is summed over its
+    replicas in a fixed order (:func:`_sharded_grads`) and the same sum
+    updates every replica, each through :func:`_adamw_apply` on its own
+    ``m`` and ``v``, so dp replicas stay bit-equal. The sentinel's verdict
+    is taken on the mesh's first device and gates every coordinate.
     """
 
     def init_opt_state(params):
         return _adamw_init(params, opt_dtype)
 
     def loss_and_grads(params, input_ids, labels):
+        if is_sharded(params):
+            return _sharded_grads(params, input_ids, labels, cfg, grad_dtype)
         leaves = _leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -815,11 +1305,12 @@ def make_train_step(cfg: LlamaConfig, lr: float = 3e-4, beta1=0.9,
         return loss.detach(), _tree_map(lambda _: next(it), params)
 
     def update(params, grads, opt_state, skip=None):
+        kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+                  weight_decay=weight_decay, opt_dtype=opt_dtype)
         with torch.no_grad():
-            return _adamw_apply(
-                params, grads, opt_state, lr=lr, beta1=beta1, beta2=beta2,
-                eps=eps, weight_decay=weight_decay, opt_dtype=opt_dtype,
-                skip=skip)
+            if is_sharded(params):
+                return _sharded_adamw(params, grads, opt_state, skip, kw)
+            return _adamw_apply(params, grads, opt_state, skip=skip, **kw)
 
     def train_step(params, opt_state, input_ids, labels):
         loss, grads = loss_and_grads(params, input_ids, labels)

@@ -10,8 +10,8 @@
   bits and never imports ``ml_dtypes``); a LLaMA train state (params and
   AdamW) moves either way through the files. Equality is exact.
 * ``framework.io``: the port's ``save`` loads in JAX's ``paddle.load``
-  (parameters, tensors, nesting, bf16 as its float32 values) and JAX's
-  ``paddle.save`` loads in the port (bf16 restored).
+  (parameters, tensors, nesting, bf16 as JAX's ``bfloat16``, bit for
+  bit) and JAX's ``paddle.save`` loads in the port (bf16 restored).
 * The fast chaos tier of ``tests/test_chaos.py`` (``TestFastChaos``) runs
   on both packages side by side: truncated and bit-flipped shards walk
   back to the same step, a corrupt committed dir raises, an uncommitted
@@ -273,7 +273,13 @@ class TestFrameworkIO:
         assert isinstance(got["w"], paddle.Parameter) and got["w"].trainable
         np.testing.assert_array_equal(got["w"].numpy(), p.detach().numpy())
         np.testing.assert_array_equal(got["b"].numpy(), obj["b"].numpy())
-        np.testing.assert_array_equal(got["h"].numpy(), h.float().numpy())
+        # bf16 crosses as bf16: JAX's dtype, 2 bytes an element, the bits
+        jh = np.asarray(got["h"].numpy())
+        assert jh.dtype.name == "bfloat16" and jh.itemsize == 2
+        np.testing.assert_array_equal(_jax_bf16_bits(jh), _bf16_bits(h))
+        with open(tmp_path / "m.pdparams", "rb") as f:
+            payload = tio.unpickle(f)["h"]["value"]
+        assert payload.dtype.itemsize == 2 and payload.nbytes == 2 * h.numel()
         assert got["b"].stop_gradient and not got["g"].stop_gradient
         assert got["meta"]["step"] == 3
         np.testing.assert_array_equal(got["meta"]["l"][0].numpy(),

@@ -176,10 +176,34 @@ class TestSamplers:
         assert out["port"] == out["jax"]
 
     def test_distributed_sampler_defaults_to_one_rank(self):
-        """No initialised ``torch.distributed``: one replica, rank 0."""
+        """The default replica count is the hybrid group's dp degree, as in
+        the reference: one replica with no group set on a CPU-only host
+        (dp over the one device the process drives); under a dp-8 group
+        (the port's over ``["cpu"] * 8``, JAX's ``fleet.init`` on the
+        8-device mesh) both samplers report 8 replicas and rank 0 and
+        yield ``[0, 8]`` of 10 items at batch 4."""
+        from paddle_tpu.distributed import fleet as jfleet
+        from paddle_tpu.distributed.topology import (
+            set_hybrid_communicate_group as jset)
+        from paddle_tpu_torch.distributed import fleet as tfleet
+        from paddle_tpu_torch.distributed.topology import (
+            set_hybrid_communicate_group as tset)
+        tset(None)
         s = TIO.DistributedBatchSampler(_square(TIO)(10), batch_size=4)
         assert (s.nranks, s.local_rank) == (1, 0)
         assert [i for b in s for i in b] == list(range(10))
+        try:
+            jfleet.init(is_collective=True)
+            tfleet.init(is_collective=True, devices=["cpu"] * 8)
+            got = {}
+            for side, M in (("port", TIO), ("jax", JIO)):
+                s = M.DistributedBatchSampler(_square(M)(10), batch_size=4)
+                got[side] = (s.nranks, s.local_rank,
+                             [i for b in s for i in b])
+            assert got["port"] == got["jax"] == (8, 0, [0, 8])
+        finally:
+            jset(None)
+            tset(None)
         with pytest.raises(ValueError, match="out of range"):
             TIO.DistributedBatchSampler(_square(TIO)(10), batch_size=2,
                                         num_replicas=2, rank=2)
