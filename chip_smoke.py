@@ -26,10 +26,13 @@ Phases (each fails the run on any error; none catches and carries on):
 5. The same trace with ``quantize="int8"`` and ``kv_quant="int8"``.
 6. Parity at fp32 on a shortened trace: the kernel engine against the
    ``paged_kernel="off"`` (gather) engine, token streams equal.
-7. Flash-attention kernel checks at bf16 on five cases (the training
+7. Flash-attention kernel checks at bf16 on seven cases (the training
    step's B 8 x S 2048 x 16 heads x D 128 causal; GQA 32/8 heads; 4
    packed segments per row; causal with Sq 1024 < Sk 2048; one shard of
-   phase 36's sharded step, B 2 x S 2048 x 8 heads): the public
+   phase 36's sharded step, B 2 x S 2048 x 8 heads; one ring block of
+   phase 39, B 4 x S 512 x 16 heads, causal (f) and not (g), with a
+   random cotangent of the lse beside dO, held to the plain backward
+   that takes it): the public
    ``flash_attention_with_lse`` and its gradient against the plain
    forward and backward (norm-relative error over the whole tensor and
    per row), dq and dk/dv each the same bits on two runs, the route one
@@ -377,6 +380,33 @@ Phases (each fails the run on any error; none catches and carries on):
     exact; a sharded train state through ``AsyncCheckpointer`` restored
     bit-equal into a serial and a sharded state; the ZeRO gate at dp 2 x
     sharding 4. Each of phases 36 and 37 prints its seconds.
+38. The pipelined train step: F's step (phase 36's model and flags)
+    through ``make_pp_train_step`` at dp 2 x pp 4 over ``["cuda:0"] *
+    8``, ``circular_repeats`` 3 (one block a chunk) and 4 micro-batches,
+    the params laid out by ``to_pp_layout`` and ``pp_param_specs``,
+    beside the serial step from the same weights and 3 seeded batches:
+    params + m + v at a placement entry equal to what the specs give,
+    every block weight, the embedding and the head at 1/4 an entry; the
+    losses within 5e-3 x |loss| of the serial step's; dp replicas of
+    every leaf and moment bit-equal after every step; exactly
+    ``pp_launches`` a step (the serial counts x 4 micro-batches x 2 dp
+    ranks, the final norm x 2). Step ms and tokens/s of both, peak
+    memory, a profiled pipelined step.
+39. Context-parallel training: F's step on unsharded params with the
+    hybrid group at dp 2 x sep 4 over ``["cuda:0"] * 8`` and
+    ``sep_axis="sep"``, ``cp_impl`` "ring" and "ulysses", each beside
+    the serial step from the same weights and 3 seeded batches laid out
+    by ``batch_spec(("dp",), "sep")``, S 2048 (512 a sequence part): the
+    losses within 5e-3 x |loss| of the serial step's; exactly
+    ``sep_launches`` a step (flash: the ring's 10 block calls a layer
+    call, Ulysses' 4; RMSNorm and RoPE as serial). Step ms, tokens/s,
+    peak memory and a profiled step of each.
+40. E's width at fp32 with the kernels, the loss within 1e-5 and every
+    gradient leaf within 1e-4 x max|g| of the serial step's: the
+    pipelined loss at V 1 (dp 2 x pp 4) and V 2 (dp 4 x pp 2), tied and
+    untied; ring and Ulysses on unsharded params and on ``shard_params``
+    at dp 2 x sep 4 and sharding 2 x sep 4. Each of phases 38-40 prints
+    its seconds.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -398,8 +428,9 @@ kernels line reports the serving launches of phases 4, 5, 13, 14
 drain with migration), 29 (the first server turn), 31 (the bf16 and
 the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
 together,
-the flash launches of phases 8, 34 and 36 and the RMSNorm and RoPE
-launches of phases 11, 34 and 36 (RoPE: forward and backward together).
+the flash launches of phases 8, 34, 36, 38 and 39 and the RMSNorm and
+RoPE launches of phases 11, 34, 36, 38 and 39 (RoPE: forward and
+backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -426,7 +457,8 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "LoRA serving", "dense generation", "host offload tier",
          "supervisor and journal", "embeddings", "serving fleet",
          "serving server and replay", "tensor-parallel serving",
-         "fault-tolerant training", "sharded training")
+         "fault-tolerant training", "sharded training",
+         "pipelined training", "context-parallel training")
 
 
 def check(cond, msg):
@@ -776,15 +808,18 @@ def masked_out(q, k, v, mask, scale):
 
 
 def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
-               probe=False):
+               probe=False, dlse=False):
     """One bf16 case: the public ``flash_attention_with_lse`` (its
     autograd Function, forward and ``torch.autograd.grad``) against the
     plain forward and backward on out, lse, dq, dk and dv; then each
     kernel timed alone through its launcher beside its plain version and
     SDPA. ``probe``: also show that the rule rejects a forward that drops
     one key tile from the long rows and one whose causal diagonal is off
-    by one. Returns {"fwd"|"dq"|"dkv": row}, rows as attention_case gives
-    them."""
+    by one. ``dlse``: a random fp32 cotangent of the lse beside ``dout``
+    (a ring block's gradient: the merge weights depend on the lse), in the
+    gradient, the plain backward and the timed launches (SDPA, which has
+    no lse output, is timed without it). Returns {"fwd"|"dq"|"dkv": row},
+    rows as attention_case gives them."""
     import importlib
     import torch
     import torch.nn.functional as F
@@ -797,6 +832,8 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
                    .to(torch.bfloat16)
                    for shape in ((B, Sq, H, D), (B, Sk, Hk, D),
                                  (B, Sk, Hk, D), (B, Sq, H, D)))
+    dl = (torch.randn((B, H, Sq), generator=g, device=dev) if dlse
+          else None)
     seg = None
     if n_segs:
         seg = torch.from_numpy(packed_ids(np.random.default_rng(seed), B,
@@ -808,8 +845,11 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
     out, lse = FA.flash_attention_with_lse(qg, kg, vg, causal=causal,
                                            segment_ids=seg)
-    dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), do)
-    out = out.detach()
+    if dlse:
+        dq, dk, dv = torch.autograd.grad((out, lse), (qg, kg, vg), (do, dl))
+    else:
+        dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), do)
+    out, lse = out.detach(), lse.detach()
     torch.cuda.synchronize()
     check(out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
           and lse.dtype == torch.float32, f"{name}: output dtypes "
@@ -822,7 +862,7 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
     # error (the plain backward on its own out as much), so the plain
     # backward gets the same saved tensors
     ref = dict(zip(("dq", "dk", "dv"), FA.flash_attention_bwd_plain(
-        q, k, v, seg, seg, out, lse, do, scale, causal)))
+        q, k, v, seg, seg, out, lse, do, scale, causal, dl)))
 
     # bf16 outputs round once more than their fp32 reference; the
     # tensor-core products round p and ds to bf16 first
@@ -871,8 +911,8 @@ def flash_case(name, B, Sq, Sk, H, Hk, D, causal, n_segs=0, seed=0,
                                    retain_graph=True)
 
     # each kernel alone, through its launcher (the Function's own calls)
-    saved = (q, k, v, seg, seg, out, lse, do, scale, causal)
-    ops = FA._bwd_operands(q, k, v, seg, seg, out, lse, do)
+    saved = (q, k, v, seg, seg, out, lse, do, scale, causal, dl)
+    ops = FA._bwd_operands(q, k, v, seg, seg, out, lse, do, dl)
     heavy = Sq * Sk * H * B > 2 ** 28
     it_plain = 3 if heavy else 5
     times = {
@@ -1536,15 +1576,26 @@ def sampler_case(B, V, seed):
         row[name] = (time.perf_counter() - t0) * 1e3 / 20
     for name, fn in (("sample_kernel_ms", sample), ("argmax_kernel_ms",
                                                     argmax)):
-        prof = profile_device(lambda: [fn() for _ in range(20)],
-                              f"20 calls of {name[:-10]} [{B}, {V}]", top=3)
-        row[name] = prof["device_busy_ms"] / 20
-    log(f"  sampler [{B}, {V}] per call: kernels {row['sample_kernel_ms']:.4f}"
-        f" ms, CUDA events (host enqueue included) "
-        f"{row['sample_event_ms']:.4f} ms, wall {row['sample_wall_ms']:.4f}"
-        f" ms; argmax kernels {row['argmax_kernel_ms']:.4f} ms, events "
-        f"{row['argmax_event_ms']:.4f} ms, wall {row['argmax_wall_ms']:.4f}"
-        f" ms")
+        # CUPTI at times records no kernel of a window this short (20
+        # argmax calls, ~0.1 ms of device time): up to three windows, then
+        # "not measured"
+        for _ in range(3):
+            busy = profile_device(lambda: [fn() for _ in range(20)],
+                                  f"20 calls of {name[:-10]} [{B}, {V}]",
+                                  top=3)["device_busy_ms"]
+            if not isinstance(busy, str):
+                break
+        row[name] = busy / 20 if not isinstance(busy, str) \
+            else "not measured"
+
+    def ms(key):
+        v = row[key]
+        return v if isinstance(v, str) else f"{v:.4f} ms"
+    log(f"  sampler [{B}, {V}] per call: kernels {ms('sample_kernel_ms')},"
+        f" CUDA events (host enqueue included) {ms('sample_event_ms')}, "
+        f"wall {ms('sample_wall_ms')}; argmax kernels "
+        f"{ms('argmax_kernel_ms')}, events {ms('argmax_event_ms')}, wall "
+        f"{ms('argmax_wall_ms')}")
     return row
 
 
@@ -5450,17 +5501,6 @@ def sharded_phase(dev="cuda", cfg=None, batch=8, seq=2048, steps=5,
     check(held == want and held <= share + whole,
           f"placement entry bytes {held}, specs {want}, share {share}")
 
-    def timed(run, after=None):
-        losses, times = [], []
-        for i in range(steps):
-            _sync(dev)
-            t = time.time()
-            losses.append(run(i))
-            times.append(time.time() - t)
-            if after is not None:
-                after()
-        return losses, times
-
     opt = init_opt(params)
 
     def serial_step(i):
@@ -5468,7 +5508,7 @@ def sharded_phase(dev="cuda", cfg=None, batch=8, seq=2048, steps=5,
         params, opt, loss = step(params, opt, data[i], data[i])
         return loss.item()
 
-    ser, ser_t = timed(serial_step)
+    ser, ser_t = timed_steps(serial_step, steps, dev)
     del params, opt
     torch.cuda.empty_cache()
     spec = batch_spec(("dp", "sharding"))
@@ -5482,7 +5522,7 @@ def sharded_phase(dev="cuda", cfg=None, batch=8, seq=2048, steps=5,
         ps, opt_s, loss = step(ps, opt_s, batches[i], batches[i])
         return loss.item()
 
-    sh, sh_t = timed(sharded_step, lambda: eq.append(
+    sh, sh_t = timed_steps(sharded_step, steps, dev, lambda: eq.append(
         replicas_equal(ps) and replicas_equal(opt_s["m"])
         and replicas_equal(opt_s["v"])))
     counts = read_counts()
@@ -5586,13 +5626,7 @@ def sharded_parity_phase(tmp, dev="cuda", cfg=None, batch=4, seq=512):
     b0 = shard_to_mesh(data[0], mesh, spec, "input_ids")
     loss_s, grads_s = L._sharded_grads(ps, b0, b0, cfg)
     loss_gap = abs(loss_s.item() - loss.item())
-    g_worst = 0.0
-    for n, st in L._named(ps):
-        full = torch.empty(st.shape, dtype=st.dtype, device=dev)
-        for idx, c in st.unique():
-            full[tuple(slice(a, b) for a, b, _ in idx)] = grads_s[n][c]
-        g_worst = max(g_worst, ((full - grads[n]).abs().max()
-                                / grads[n].abs().max()).item())
+    g_worst = grad_gap(whole_grads(ps, grads_s), grads)
     del grads_s
     opt, opt_s = init_opt(params), init_opt(ps)
     ser, sh = [], []
@@ -5696,6 +5730,384 @@ def sharded_parity_phase(tmp, dev="cuda", cfg=None, batch=4, seq=512):
     return {"loss_gap": loss_gap, "grad_worst": g_worst, "params": p,
             "traj": traj, "zero_ratio": fs / rp,
             "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# phases 38-40: pipeline and context parallelism over a placement
+# ---------------------------------------------------------------------------
+
+PP_DEGREES = {"dp": 2, "pp": 4}
+SEP_DEGREES = {"dp": 2, "sep": 4}
+
+
+def pp_launches(cfg, micro, dp):
+    """Kernel launches a pipelined step: each micro-batch of each dp rank
+    runs every layer as the serial step does (``expected_launches``: the
+    flash kernels once a layer in backward and twice forward under full
+    remat, 2 RMSNorms a layer twice, q and k RoPE a layer twice), at B /
+    (micro x dp) rows; the final norm runs once a dp rank, over all its
+    micro-batches at once. So the serial counts x micro x dp, the final
+    norm's forward and backward x dp."""
+    n = micro * dp
+    want = {k: v * n for k, v in expected_launches(cfg).items()}
+    if cfg.use_fused_norm:
+        for k in ("rms_norm", "rms_norm_bwd"):
+            want[k] += dp - n
+    return want
+
+
+def sep_launches(cfg, impl, n):
+    """Kernel launches a context-parallel step on unsharded params: the
+    serial step's (``expected_launches``; the norms and RoPE run on the
+    whole sequence as there), each flash call of a layer replaced by the
+    ring's n (n + 1) / 2 block calls (causal: rank i attends blocks 0..i,
+    the later ones skipped) or by Ulysses' n (one a rank, on H / n
+    heads)."""
+    calls = n * (n + 1) // 2 if impl == "ring" else n
+    want = expected_launches(cfg)
+    for k in ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        want[k] *= calls
+    return want
+
+
+def timed_steps(run, steps, dev, after=None):
+    """(losses, host seconds) of ``run(i)`` for i < ``steps``, each timed
+    from a synchronized start to its ``loss.item()``; ``after()`` runs
+    after each, untimed."""
+    losses, times = [], []
+    for i in range(steps):
+        _sync(dev)
+        t = time.time()
+        losses.append(run(i))
+        times.append(time.time() - t)
+        if after is not None:
+            after()
+    return losses, times
+
+
+def step_figures(losses, times, batch, seq, dev):
+    """Step ms (median of the steps after the first), tokens/s, the
+    steps' ms and, on a card, the peak memory."""
+    import torch
+    ms = float(np.median(times[1:] or times)) * 1e3
+    out = {"losses": losses, "step_ms": ms,
+           "step_ms_each": [t * 1e3 for t in times],
+           "tokens_per_s": batch * seq / ms * 1e3}
+    if torch.device(dev).type == "cuda":
+        out["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def pp_phase(dev="cuda", cfg=None, batch=8, seq=2048, steps=3, repeats=3,
+             micro=4, gated=3):
+    """Phase 38: F's step (``use_kernels``, ``use_fused_norm``, full remat,
+    bf16 compute, fp32 params and AdamW at lr 1e-4, B 8 x S 2048) through
+    ``make_pp_train_step`` at dp 2 x pp 4 over ``[dev] * 8``,
+    ``circular_repeats`` 3 (12 layers / (4 x 3) = one block a chunk) and
+    4 micro-batches, beside the serial step from the same weights and
+    batches.
+
+    Gates: the first ``gated`` losses within 5e-3 x |loss| of the serial
+    step's (phase 36's rule: the micro-batches' bf16 sums and the
+    vocab-parallel logsumexp run in another order); dp replicas of every
+    leaf and moment bit-equal after every step; exactly ``pp_launches`` a
+    step; params + m + v at a placement entry equal to what
+    ``pp_param_specs`` gives, each block weight and the embedding and head
+    at 1/4 a placement entry. Prints step ms and tokens/s of both (host
+    clock, the steps after the first), peak memory and the device busy
+    share of one profiled pipelined step. One card shows what the
+    schedule costs (B / (M x dp) = 1 row a chunk application, 4 x the
+    serial step's layer calls), not a speed-up."""
+    import torch
+    from paddle_tpu_torch.distributed.pipeline import pipeline_ticks
+    from paddle_tpu_torch.distributed.sharding import shard_tree
+    from paddle_tpu_torch.distributed.topology import build_mesh
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.time()
+    cuda = torch.device(dev).type == "cuda"
+    cfg = cfg or train_config(torch.bfloat16, use_fused_norm=True)
+    S, dp = PP_DEGREES["pp"], PP_DEGREES["dp"]
+    mesh = build_mesh(PP_DEGREES, [dev] * 8)
+    rng = np.random.default_rng(SEED + 38)
+    data = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (batch, seq))).to(dev)
+            for _ in range(steps)]
+    params = L.init_params(cfg, seed=SEED, device=dev)
+    specs = L.pp_param_specs(cfg)
+    ppp = shard_tree(L.to_pp_layout(params, S, repeats), mesh, specs)
+    init_pp, pp_step = L.make_pp_train_step(
+        cfg, mesh, micro_batches=micro, circular_repeats=repeats, lr=1e-4)
+    opt_pp = init_pp(ppp)
+    c0 = (0,) * len(mesh.axis_names)
+    held = L.placement_bytes(ppp, c0) + L.placement_bytes(opt_pp, c0)
+    want, whole = entry_bytes(L.to_pp_layout(params, S, repeats), mesh,
+                              specs)
+    quarter = {n: ppp[n].nbytes_at(c0) * S == params[n].numel() * 4
+               for n in ("embed", "lm_head") if n in ppp}
+    quarter.update({n: st.nbytes_at(c0) * S == params["layers"][n].numel()
+                    * 4 for n, st in ppp["layers"].items()})
+    log(f"  placement entry holds {held} bytes of params + m + v (specs "
+        f"give {want}; ln_f whole: {whole}); every block weight, embed "
+        f"and lm_head at 1/{S} an entry: {all(quarter.values())}")
+    check(held == want and all(quarter.values()),
+          f"pp placement entry bytes {held}, specs {want}, {quarter}")
+
+    init_opt, step = L.make_train_step(cfg, lr=1e-4)
+    opt = init_opt(params)
+
+    def serial_step(i):
+        nonlocal params, opt
+        params, opt, loss = step(params, opt, data[i], data[i])
+        return loss.item()
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ser = step_figures(*timed_steps(serial_step, steps, dev), batch, seq,
+                       dev)
+    del params, opt
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    eq = []
+
+    def pipelined_step(i):
+        nonlocal ppp, opt_pp
+        ppp, opt_pp, loss = pp_step(ppp, opt_pp, data[i], data[i])
+        return loss.item()
+
+    def replicas_held():
+        eq.append(replicas_equal(ppp) and replicas_equal(opt_pp["m"])
+                  and replicas_equal(opt_pp["v"]))
+
+    pp = step_figures(*timed_steps(pipelined_step, steps, dev,
+                                   replicas_held), batch, seq, dev)
+    counts = read_counts()
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    wants = pp_launches(cfg, micro, dp)
+    rel = [abs(a - b) / abs(b) for a, b in zip(pp["losses"][:gated],
+                                               ser["losses"][:gated])]
+    m = {"serial": ser, "pipelined": pp, "loss_rel": rel,
+         "placement_entry_bytes": held, "launches_per_step": per_step,
+         "ticks": pipeline_ticks(micro, S, repeats)}
+    log(f"  {json.dumps(m)}")
+    check(all(np.isfinite(pp["losses"])), f"non-finite pp loss {pp}")
+    check(max(rel) <= 5e-3, f"pp losses {pp['losses']} vs serial "
+          f"{ser['losses']}: rel {rel}")
+    check(all(eq), f"dp replicas bit-equal after each step: {eq}")
+    if cuda:
+        check(per_step == wants, f"launches per step {per_step}, expected "
+              f"{wants}")
+        m["profile"] = profile_device(
+            lambda: pp_step(ppp, opt_pp, data[0], data[0]),
+            "pipelined training step", top=10)
+    m["seconds"] = time.time() - t0
+    log(f"  phase 38 took {m['seconds']:.1f} s")
+    del ppp, opt_pp
+    if cuda:
+        torch.cuda.empty_cache()
+    return m, counts
+
+
+def sep_phase(dev="cuda", cfg=None, batch=8, seq=2048, steps=3, gated=3):
+    """Phase 39: F's step (phase 38's flags) on unsharded params with the
+    hybrid group at dp 2 x sep 4 over ``[dev] * 8`` and ``sep_axis``,
+    set up as ``tests/test_context_parallel.py:163`` sets it up (the batch
+    laid out by ``batch_spec(("dp",), "sep")``), for ``cp_impl`` "ring"
+    and "ulysses" (16 heads / 4), each from the same weights as the serial
+    step and on the same batches, S 2048 (512 a sequence part).
+
+    Gates for each: the first ``gated`` losses within 5e-3 x |loss| of
+    the serial step's (the ring merges bf16 block outputs by their lse;
+    Ulysses runs the serial attention on 4 heads at a time), exactly
+    ``sep_launches`` a step. Prints step ms, tokens/s, peak memory and the
+    busy share of one profiled step of each, beside the serial step's.
+    Unsharded params: the sharded path keeps a copy of the 8.86 GB state
+    a coordinate, and eight do not fit in 80 GB; phase 40 holds the
+    sharded sep path at E's width."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.distributed.sharding import shard_to_mesh
+    from paddle_tpu_torch.distributed.topology import (
+        HybridCommunicateGroup, set_hybrid_communicate_group)
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.time()
+    cuda = torch.device(dev).type == "cuda"
+    cfg = cfg or train_config(torch.bfloat16, use_fused_norm=True)
+    hcg = HybridCommunicateGroup(devices=[dev] * 8, **SEP_DEGREES)
+    n = SEP_DEGREES["sep"]
+    rng = np.random.default_rng(SEED + 39)
+    data = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (batch, seq))).to(dev)
+            for _ in range(steps)]
+    spec = L.batch_spec(("dp",), "sep")
+    batches = [shard_to_mesh(d, hcg.mesh, spec, "input_ids") for d in data]
+    set_hybrid_communicate_group(hcg)
+    runs, total = {}, None
+    try:
+        for impl in (None, "ring", "ulysses"):
+            c = cfg if impl is None else dataclasses.replace(
+                cfg, sep_axis="sep", cp_impl=impl)
+            feed = data if impl is None else batches
+            params = L.init_params(c, seed=SEED, device=dev)
+            init_opt, step = L.make_train_step(c, lr=1e-4)
+            opt = init_opt(params)
+
+            def run(i):
+                nonlocal params, opt
+                params, opt, loss = step(params, opt, feed[i], feed[i])
+                return loss.item()
+
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            fig = step_figures(*timed_steps(run, steps, dev), batch, seq,
+                               dev)
+            counts = read_counts()
+            fig["launches_per_step"] = {k: v / steps for k, v in
+                                        counts.items() if v}
+            name = impl or "serial"
+            if impl is not None:
+                total = counts if total is None else {
+                    k: total[k] + counts[k] for k in total}
+                ref = runs["serial"]["losses"]
+                fig["loss_rel"] = [abs(a - b) / abs(b) for a, b in
+                                   zip(fig["losses"][:gated], ref[:gated])]
+                if cuda:
+                    fig["profile"] = profile_device(
+                        lambda: step(params, opt, feed[0], feed[0]),
+                        f"context-parallel training step ({impl})", top=10)
+            runs[name] = fig
+            log(f"  {name}: {json.dumps(fig)}")
+            if impl is not None:
+                check(all(np.isfinite(fig["losses"])),
+                      f"{impl}: non-finite loss {fig['losses']}")
+                check(max(fig["loss_rel"]) <= 5e-3,
+                      f"{impl} losses {fig['losses']} vs serial {ref}")
+                want = sep_launches(c, impl, n)
+                if cuda:
+                    check(fig["launches_per_step"] == want,
+                          f"{impl}: launches per step "
+                          f"{fig['launches_per_step']}, expected {want}")
+            del params, opt
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        set_hybrid_communicate_group(None)
+    secs = time.time() - t0
+    log(f"  phase 39 took {secs:.1f} s")
+    return {"runs": runs, "seconds": secs}, total
+
+
+def whole_grads(tree, grads):
+    """``{leaf name: whole gradient}`` from ``{name: {coordinate: slice
+    gradient}}`` of a tree of :class:`ShardedTensor` leaves."""
+    import torch
+    from paddle_tpu_torch.models.llama import _named
+    out = {}
+    for n, st in _named(tree):
+        full = torch.empty(st.shape, dtype=st.dtype, device=st.lead)
+        for idx, c in st.unique():
+            full[tuple(slice(a, b) for a, b, _ in idx)] = grads[n][c]
+        out[n] = full
+    return out
+
+
+def grad_gap(got, want):
+    """The largest max|got - want| / max|want| over the leaves."""
+    return max(((got[n].to(w.device) - w).abs().max()
+                / w.abs().max()).item() for n, w in want.items())
+
+
+def cp_parity_phase(dev="cuda", cfg=None, batch=8, seq=512):
+    """Phase 40: E's width at fp32 with the kernels (hidden 512, 8 / 4
+    heads, 4 layers, ``use_fused_norm``, B 8 x S 512) against the serial
+    loss and gradients, with the reference's tolerances (the loss within
+    1e-5, every gradient leaf within 1e-4 x its max|g|):
+
+    * the pipelined loss (``make_pp_train_step``'s, its slices' gradients
+      summed over dp): V 1 at dp 2 x pp 4 (4 micro-batches) and V 2 at dp
+      4 x pp 2 (2 micro-batches: 4 layers make 4 chunks), each with untied
+      and tied embeddings;
+    * ring and Ulysses (hybrid group dp 2 x sep 4) on unsharded params and
+      on ``shard_params`` at dp 2 x sep 4 and sharding 2 x sep 4 (the
+      batch over ``batch_spec(dp_axes, "sep")``)."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.distributed.sharding import (shard_to_mesh,
+                                                       shard_tree)
+    from paddle_tpu_torch.distributed.topology import (
+        HybridCommunicateGroup, build_mesh, set_hybrid_communicate_group)
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.time()
+    cfg = cfg or train_config(torch.float32, hidden_size=512,
+                              intermediate_size=1376, num_hidden_layers=4,
+                              num_attention_heads=8, num_key_value_heads=4,
+                              use_fused_norm=True)
+    ids = torch.from_numpy(np.random.default_rng(SEED + 40).integers(
+        0, cfg.vocab_size, (batch, seq))).to(dev)
+
+    def serial(c):
+        params = L.init_params(c, seed=SEED + 40, device=dev)
+        leaves = L._leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = L.loss_fn(params, ids, ids, c)
+        return loss.item(), dict(zip([n for n, _ in L._named(params)],
+                                     torch.autograd.grad(loss, leaves)))
+
+    gaps = {}
+
+    def hold(name, loss, grads, ref):
+        gaps[name] = (abs(loss - ref[0]), grad_gap(grads, ref[1]))
+        log(f"  {name}: loss gap {gaps[name][0]:.3g}, worst gradient leaf "
+            f"max|diff|/max|g| {gaps[name][1]:.3g}")
+        check(gaps[name][0] <= 1e-5 and gaps[name][1] <= 1e-4,
+              f"fp32 {name}: {gaps[name]}")
+
+    refs = {tie: serial(dataclasses.replace(cfg, tie_word_embeddings=tie))
+            for tie in (False, True)}
+    for V, deg, micro in ((1, {"dp": 2, "pp": 4}, 4),
+                          (2, {"dp": 4, "pp": 2}, 2)):
+        mesh = build_mesh(deg, [dev] * 8)
+        for tie in (False, True):
+            c = dataclasses.replace(cfg, tie_word_embeddings=tie)
+            base = L.init_params(c, seed=SEED + 40, device=dev)
+            ppp = shard_tree(L.to_pp_layout(base, deg["pp"], V), mesh,
+                             L.pp_param_specs(c))
+            rings = L._pp_rings(mesh)
+            loss, g = L._replica_grads(ppp, lambda: L._pp_loss(
+                ppp, ids, ids, c, rings, micro, V), None)
+            g = whole_grads(ppp, g)
+            g = {n: t.reshape(refs[tie][1][n].shape) for n, t in g.items()}
+            hold(f"pp V {V} dp {deg['dp']} x pp {deg['pp']}"
+                 f"{' tied' if tie else ''}", loss.item(), g, refs[tie])
+    hcg = HybridCommunicateGroup(devices=[dev] * 8, **SEP_DEGREES)
+    set_hybrid_communicate_group(hcg)
+    try:
+        for impl in ("ring", "ulysses"):
+            c = dataclasses.replace(cfg, sep_axis="sep", cp_impl=impl)
+            hold(f"{impl} unsharded", *serial(c), refs[False])
+            for deg, fs, dp_axes in (({"dp": 2, "sep": 4}, None, ("dp",)),
+                                     ({"sharding": 2, "sep": 4}, "sharding",
+                                      ("sharding",))):
+                mesh = build_mesh(deg, [dev] * 8)
+                ps = L.shard_params(L.init_params(c, seed=SEED + 40,
+                                                  device=dev),
+                                    mesh, c, mp_axis=None, fsdp_axis=fs)
+                b = shard_to_mesh(ids, mesh, L.batch_spec(dp_axes, "sep"),
+                                  "input_ids")
+                loss, g = L._sharded_grads(ps, b, b, c)
+                where = " x ".join(f"{a} {k}" for a, k in deg.items())
+                hold(f"{impl} sharded {where}", loss.item(),
+                     whole_grads(ps, g), refs[False])
+    finally:
+        set_hybrid_communicate_group(None)
+    secs = time.time() - t0
+    log(f"  phase 40 took {secs:.1f} s")
+    return {"gaps": gaps, "seconds": secs}
 
 
 def main() -> int:
@@ -5846,7 +6258,12 @@ def main() -> int:
           flash_case("(d) B=8 Sq=1024 Sk=2048 H=Hk=16 D=128 causal", 8,
                      1024, 2048, 16, 16, 128, True, seed=24),
           flash_case("(e) sharded-step shard B=2 S=2048 H=Hk=8 D=128 causal",
-                     2, 2048, 2048, 8, 8, 128, True, seed=25)]
+                     2, 2048, 2048, 8, 8, 128, True, seed=25),
+          flash_case("(f) ring block B=4 S=512 H=Hk=16 D=128 causal, dlse",
+                     4, 512, 512, 16, 16, 128, True, seed=26, dlse=True),
+          flash_case("(g) ring block B=4 S=512 H=Hk=16 D=128 non-causal, "
+                     "dlse", 4, 512, 512, 16, 16, 128, False, seed=27,
+                     dlse=True)]
     torch.cuda.empty_cache()
 
     log("== phase 8: training, full width, bf16, use_kernels + full remat")
@@ -6047,6 +6464,23 @@ def main() -> int:
         sharded_parity_phase(tmp)
     torch.cuda.empty_cache()
 
+    log("== phase 38: the pipelined train step, F at dp 2 x pp 4 x V 3 over "
+        "cuda:0 x 8, 4 micro-batches, beside the serial step")
+    _, c38 = pp_phase()
+    log(f"  nvidia-smi: {card}")
+    log("== phase 39: context-parallel training, F on unsharded params at "
+        "dp 2 x sep 4 over cuda:0 x 8, ring and Ulysses, beside the serial "
+        "step")
+    _, c39 = sep_phase()
+    log(f"  nvidia-smi: {card}")
+    log("== phase 40: fp32 pipeline and context-parallel parity (E's "
+        "width): pp V 1 and 2, tied and untied; ring and Ulysses on "
+        "unsharded and sharded params")
+    cp_parity_phase()
+    torch.cuda.empty_cache()
+    trained = (c8, c34, c36, c38, c39)
+    normed = (c11, c34, c36, c38, c39)
+
     log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")
     kernels = [
@@ -6062,9 +6496,8 @@ def main() -> int:
         entry = summarize(name, "paddle_tpu_torch/csrc/flash_attention.cu",
                           "paddle_tpu/kernels/flash_attention.py" + line,
                           [rows[which] for rows in fl],
-                          c8["flash_attention" + counter]
-                          + c34["flash_attention" + counter]
-                          + c36["flash_attention" + counter])
+                          sum(c["flash_attention" + counter]
+                              for c in trained))
         if which != "fwd":
             entry["library_note"] = ("scaled_dot_product_attention backward "
                                      "(dq, dk and dv in one call)")
@@ -6074,21 +6507,19 @@ def main() -> int:
         summarize("rms_norm_fwd", csrc + "rms_norm.cu",
                   "paddle_tpu/kernels/rms_norm.py:27",
                   [r["fwd"] for r in norms],
-                  c11["rms_norm"] + c34["rms_norm"] + c36["rms_norm"]),
+                  sum(c["rms_norm"] for c in normed)),
         summarize("rms_norm_bwd", csrc + "rms_norm.cu",
                   "paddle_tpu/kernels/rms_norm.py:35",
                   [r["bwd"] for r in norms if "bwd" in r],
-                  c11["rms_norm_bwd"] + c34["rms_norm_bwd"]
-                  + c36["rms_norm_bwd"]),
+                  sum(c["rms_norm_bwd"] for c in normed)),
         summarize("apply_rope", csrc + "rope.cu",
                   "paddle_tpu/kernels/rope.py:25", ropes,
-                  sum(c[k] for c in (c11, c34, c36)
+                  sum(c[k] for c in normed
                       for k in ("apply_rope", "apply_rope_bwd"))),
     ]
     kernels[-1]["launches_fwd_bwd"] = [
-        c11["apply_rope"] + c34["apply_rope"] + c36["apply_rope"],
-        c11["apply_rope_bwd"] + c34["apply_rope_bwd"]
-        + c36["apply_rope_bwd"]]
+        sum(c["apply_rope"] for c in normed),
+        sum(c["apply_rope_bwd"] for c in normed)]
     kernels[-1]["library_note"] = ("no single PyTorch call applies "
                                    "rotate-half RoPE")
     kernels[-3]["library_note"] = ("torch.nn.functional.rms_norm, the "

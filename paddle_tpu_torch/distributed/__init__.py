@@ -1,9 +1,11 @@
 """Distributed pieces of the port — counterpart of ``paddle_tpu/distributed``:
 the hybrid topology (``build_mesh``, ``HybridCommunicateGroup``, ``fleet``),
 the collective API over a placement (``all_reduce`` and the rest), tensor
-layouts over a mesh (``shard_to_mesh``, ``ShardedTensor``), the MoE
-routing math, the serving tensor-parallel placement and shard helpers,
-and the checkpoint stack (``checkpoint``: sharded save, reshard-on-load,
+layouts over a mesh (``shard_to_mesh``, ``ShardedTensor``), context
+parallelism (``sep_parallel_attention``: ring and Ulysses attention), the
+pipeline schedule (``pipeline_scan``, ``ring_schedule``), the MoE routing
+math, the serving tensor-parallel placement and shard helpers, and the
+checkpoint stack (``checkpoint``: sharded save, reshard-on-load,
 ``AsyncCheckpointer``)."""
 
 from . import checkpoint
@@ -13,7 +15,10 @@ from .collective import (ReduceOp, all_gather, all_reduce, alltoall, barrier,
                          broadcast, get_rank, get_world_size,
                          init_parallel_env, is_initialized, reduce,
                          reduce_scatter, scatter)
-from .sharding import ShardedTensor, assemble, shard_to_mesh
+from .context_parallel import (ring_flash_attention, sep_parallel_attention,
+                               ulysses_attention)
+from .pipeline import pipeline_scan, pipeline_ticks, ring_schedule
+from .sharding import ShardedTensor, assemble, shard_to_mesh, shard_tree
 from .topology import (HybridCommunicateGroup, Mesh, ParallelAxis,
                        build_mesh, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
@@ -25,4 +30,6 @@ __all__ = ["checkpoint", "fleet", "save_state_dict", "load_state_dict",
            "init_parallel_env", "HybridCommunicateGroup", "Mesh",
            "ParallelAxis", "build_mesh", "get_hybrid_communicate_group",
            "set_hybrid_communicate_group", "ShardedTensor", "shard_to_mesh",
-           "assemble"]
+           "assemble", "shard_tree", "sep_parallel_attention",
+           "ring_flash_attention", "ulysses_attention", "pipeline_scan",
+           "pipeline_ticks", "ring_schedule"]

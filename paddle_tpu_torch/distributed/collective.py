@@ -46,7 +46,7 @@ __all__ = ["all_reduce", "all_gather", "reduce_scatter", "alltoall",
            "broadcast", "reduce", "scatter", "barrier", "ReduceOp",
            "get_rank", "get_world_size", "is_initialized",
            "init_parallel_env", "copy_to_group", "all_reduce_sum",
-           "gather_to", "reduce_ranks"]
+           "gather_to", "reduce_ranks", "alltoall_ranks"]
 
 
 class ReduceOp:
@@ -314,16 +314,26 @@ def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
     return _pack(outs, as_tensor)
 
 
+def alltoall_ranks(xs: Sequence[torch.Tensor], split_dim: int = 0,
+                   concat_dim: int = 0) -> List[torch.Tensor]:
+    """Per-rank list form of ``alltoall`` over any dims (``lax.all_to_all``
+    with ``tiled=True``): rank ``r`` cuts its tensor into ``n`` chunks on
+    ``split_dim`` and sends chunk ``c`` to rank ``c``, which concatenates
+    what it receives on ``concat_dim`` in rank order, on its device. Plain
+    tensor ops, so autograd gives the adjoint: the same exchange with the
+    two dims swapped."""
+    n = len(xs)
+    chunks = [x.chunk(n, split_dim) for x in xs]
+    return [torch.cat([chunks[r][c].to(xs[c].device) for r in range(n)],
+                      dim=concat_dim) for c in range(n)]
+
+
 def alltoall(in_tensor_or_list, out_tensor_list=None, group=None,
              sync_op: bool = True):
     """Rank ``r`` sends chunk ``c`` of its tensor (dim 0, ``n`` chunks) to
     rank ``c``; rank ``c`` concatenates what it receives in rank order."""
     xs, as_tensor = _rows(in_tensor_or_list, group, "alltoall")
-    n = len(xs)
-    chunks = [x.chunk(n, 0) for x in xs]
-    outs = [torch.cat([chunks[r][c].to(xs[c].device) for r in range(n)])
-            for c in range(n)]
-    return _pack(outs, as_tensor)
+    return _pack(alltoall_ranks(xs), as_tensor)
 
 
 def broadcast(tensor, src: int = 0, group=None, sync_op: bool = True):

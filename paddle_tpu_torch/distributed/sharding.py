@@ -11,7 +11,8 @@ reference's structured errors.
 
 * :func:`shard_tensor` / :func:`unshard`: one dim over a serving
   placement (tensor-parallel serving).
-* :class:`ShardedTensor` / :func:`shard_to_mesh` / :func:`assemble`: a
+* :class:`ShardedTensor` / :func:`shard_to_mesh` (:func:`shard_tree`
+  for a tree of them) / :func:`assemble`: a
   tensor over a :class:`~.topology.Mesh` by a spec, the reference's
   ``PartitionSpec`` written as a plain tuple with one entry per leading
   dim (an axis name, a tuple of names, or None). Every mesh coordinate
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["shard_dim_spec", "shard_tensor", "unshard", "ShardedTensor",
-           "shard_to_mesh", "assemble", "spec_axes"]
+           "shard_to_mesh", "shard_tree", "assemble", "spec_axes"]
 
 
 def shard_dim_spec(shape, n: int, axis: str, dim: int,
@@ -169,6 +170,16 @@ def shard_to_mesh(t: torch.Tensor, mesh, spec: tuple,
         st.locals[c] = torch.empty(part.shape, dtype=t.dtype,
                                    device=mesh.devices[c]).copy_(part)
     return st
+
+
+def shard_tree(tree, mesh, specs, name: str = "params"):
+    """:func:`shard_to_mesh` of each leaf of the nested dict ``tree`` by the
+    same-shaped tree of specs ``specs`` (an error names the leaf's path
+    from ``name``)."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, mesh, specs[k], f"{name}.{k}")
+                for k, v in tree.items()}
+    return shard_to_mesh(tree, mesh, specs, name=name)
 
 
 def assemble(st: ShardedTensor, device=None) -> torch.Tensor:

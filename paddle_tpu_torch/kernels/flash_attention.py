@@ -9,7 +9,12 @@ is <= -5e29, rows with no visible key output 0 with ``lse = -1e30``. It
 returns ``out`` in q's dtype and ``lse [B, H, Sq]`` in fp32; the gradient
 recomputes ``p`` from ``lse`` (``delta = rowsum(dO * out)`` from the saved
 ``out`` in its own dtype), ``dq`` in q's dtype, ``dk``/``dv`` accumulated
-in fp32, folded over the GQA group and cast to k's / v's dtype.
+in fp32, folded over the GQA group and cast to k's / v's dtype. Both
+outputs are differentiable: ``lse``'s cotangent ``dlse`` enters as
+``ds = p (dp - (delta - dlse))`` (``d lse / d s = p``), folded into
+``delta`` before the backward kernels run, so ring attention, whose block
+merge weights are ``exp(lse_b - lse)``, gets its exact gradient (the JAX
+kernel's VJP drops ``dlse``; ROADMAP.md section C).
 
 On CUDA tensors the :class:`torch.autograd.Function` launches the three
 hand-written kernels of ``csrc/flash_attention.cu`` (forward, backward dq,
@@ -99,11 +104,18 @@ def flash_attention_fwd_plain(q, k, v, seg_q, seg_k, scale, causal):
     return o.transpose(1, 2).to(q.dtype), (m + torch.log(safe))[..., 0]
 
 
-def _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal):
+def _delta(out, dout, dlse=None):
+    """``rowsum(dO * O) [B, H, Sq]`` fp32, less ``dlse`` when given: the
+    lse cotangent folded into the backward's row term."""
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    return delta if dlse is None else delta - dlse.float()
+
+
+def _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal, dlse=None):
     """(p, ds) of the backward, both fp32 ``[B, H, Sq, Sk]``."""
     p = _probs(q, k, seg_q, seg_k, scale, causal, lse)
     dof = dout.float()
-    delta = (dof * out.float()).sum(dim=-1).transpose(1, 2)     # [B, H, Sq]
+    delta = _delta(out, dout, dlse)                             # [B, H, Sq]
     vf = _expand(v, q.shape[2] // v.shape[2])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     return p, p * (dp - delta[..., None]) * scale
@@ -126,24 +138,25 @@ def _dkv_plain(q, k, v, p, ds, dout):
 
 
 def flash_attention_bwd_plain(q, k, v, seg_q, seg_k, out, lse, dout, scale,
-                              causal):
+                              causal, dlse=None):
     """(dq, dk, dv) from the saved forward: ``p`` recomputed from ``lse``,
-    ``delta = rowsum(dout * out)``, ``ds = p * (dp - delta) * scale``."""
-    p, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal)
+    ``delta = rowsum(dout * out) - dlse`` (``dlse``, the lse cotangent,
+    None for 0), ``ds = p * (dp - delta) * scale``."""
+    p, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal, dlse)
     return (_dq_plain(q, k, ds),) + _dkv_plain(q, k, v, p, ds, dout)
 
 
 def flash_attention_bwd_dq_plain(q, k, v, seg_q, seg_k, out, lse, dout,
-                                 scale, causal):
+                                 scale, causal, dlse=None):
     """dq alone (what the dq kernel computes)."""
-    _, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal)
+    _, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal, dlse)
     return _dq_plain(q, k, ds)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, seg_q, seg_k, out, lse, dout,
-                                  scale, causal):
+                                  scale, causal, dlse=None):
     """(dk, dv) alone (what the dk/dv kernel computes)."""
-    p, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal)
+    p, ds = _ds(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal, dlse)
     return _dkv_plain(q, k, v, p, ds, dout)
 
 
@@ -240,18 +253,19 @@ def flash_attention_fwd_tiled(q, k, v, seg_q, seg_k, scale, causal):
 
 
 def flash_attention_bwd_dq_tiled(q, k, v, seg_q, seg_k, out, lse, dout,
-                                 scale, causal):
+                                 scale, causal, dlse=None):
     """What the bf16 dq kernel computes, tile by tile, on the CPU: the
     forward's blocks of 128 query rows over the forward producer's key
     tiles (:func:`_fwd_key_tiles`) taken as 64-key sub-tiles; ``p`` from
     ``lse``, ``ds = p (dp - delta)`` rounded to the inputs' dtype before
     ``ds . k``, summed in fp32 over the sub-tiles and multiplied by
-    ``scale`` once at the end. Returns dq in q's dtype, as
+    ``scale`` once at the end (``delta`` less ``dlse`` when given, as the
+    kernel receives it). Returns dq in q's dtype, as
     :func:`flash_attention_bwd_dq_plain`."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     G, off = H // Hk, Sk - Sq
-    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    delta = _delta(out, dout, dlse)
     dq = torch.zeros((B, Sq, H, D))
     for q0 in range(0, Sq, _FWD_ROWS):
         i = torch.arange(q0, min(q0 + _FWD_ROWS, Sq))
@@ -280,17 +294,18 @@ def flash_attention_bwd_dq_tiled(q, k, v, seg_q, seg_k, out, lse, dout,
 
 
 def flash_attention_bwd_dkv_tiled(q, k, v, seg_q, seg_k, out, lse, dout,
-                                  scale, causal):
+                                  scale, causal, dlse=None):
     """What the bf16 dk/dv kernel computes, tile by tile, on the CPU: blocks
     of 64 keys, each over the producer's steps (:func:`_dkv_query_steps`:
     G heads x 64-row query tiles), ``p^T`` from ``lse``, ``ds^T = p^T (dp^T
     - delta) scale``, both rounded to the inputs' dtype before their
-    products, dk and dv summed in fp32 over the steps. Returns (dk, dv), as
+    products, dk and dv summed in fp32 over the steps (``delta`` less
+    ``dlse`` when given). Returns (dk, dv), as
     :func:`flash_attention_bwd_dkv_plain`."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     G, off = H // Hk, Sk - Sq
-    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    delta = _delta(out, dout, dlse)
     dk = torch.zeros((B, Sk, Hk, D))
     dv = torch.zeros((B, Sk, Hk, D))
     for b in range(B):
@@ -395,14 +410,15 @@ def _fwd_cuda(q, k, v, seg_q, seg_k, scale, causal):
     return out, lse
 
 
-def _bwd_operands(q, k, v, seg_q, seg_k, out, lse, dout):
+def _bwd_operands(q, k, v, seg_q, seg_k, out, lse, dout, dlse=None):
     """The backward kernels' operands: contiguous tensors and ``delta =
     rowsum(dO * O) [B, H, Sq]`` fp32, computed outside the kernels as in
-    the TPU version (from the saved ``out`` in its own dtype)."""
+    the TPU version (from the saved ``out`` in its own dtype), less
+    ``dlse`` when the lse has a cotangent (the kernels' ``ds = p (dp -
+    delta)`` then carries it)."""
     q, k, v, seg_q, seg_k = _cuda_operands(q, k, v, seg_q, seg_k)
     dout = _aligned(dout.to(q.dtype))
-    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2) \
-        .contiguous()
+    delta = _delta(out, dout, dlse).contiguous()
     return q, k, v, seg_q, seg_k, dout, lse.contiguous(), delta
 
 
@@ -442,8 +458,9 @@ def _dkv_cuda(ops, scale, causal):
     return dk, dv
 
 
-def _bwd_cuda(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal):
-    ops = _bwd_operands(q, k, v, seg_q, seg_k, out, lse, dout)
+def _bwd_cuda(q, k, v, seg_q, seg_k, out, lse, dout, scale, causal,
+              dlse=None):
+    ops = _bwd_operands(q, k, v, seg_q, seg_k, out, lse, dout, dlse)
     return (_dq_cuda(ops, scale, causal),) + _dkv_cuda(ops, scale, causal)
 
 
@@ -456,7 +473,12 @@ class _FlashAttention(torch.autograd.Function):
     only ``seg_q, seg_k, out, lse``, the residuals the JAX kernel's VJP
     names ``flash_out`` and ``flash_lse``, and the backward calls ``regen``
     for the inputs: what a remat policy that keeps the flash residuals but
-    not (all of) q/k/v needs."""
+    not (all of) q/k/v needs.
+
+    Gradients are not materialised: an output nothing differentiates
+    reaches the backward as None, so ``dlse`` costs nothing (no ``delta``
+    update) unless the caller differentiates the lse, and a backward
+    reached through the lse alone takes ``dout`` as zeros."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, scale, causal, regen):
@@ -468,20 +490,22 @@ class _FlashAttention(torch.autograd.Function):
         else:
             ctx.save_for_backward(seg_q, seg_k, out, lse)
         ctx.scale, ctx.causal, ctx.regen = scale, causal, regen
-        ctx.mark_non_differentiable(lse)
+        ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
-    def backward(ctx, dout, _dlse):
+    def backward(ctx, dout, dlse):
         if ctx.regen is None:
             q, k, v, seg_q, seg_k, out, lse = ctx.saved_tensors
         else:
             seg_q, seg_k, out, lse = ctx.saved_tensors
             q, k, v = ctx.regen()
+        if dout is None:
+            dout = torch.zeros_like(out)
         bwd = (_bwd_cuda if on_cuda(q, "flash_attention")
                else flash_attention_bwd_plain)
         dq, dk, dv = bwd(q, k, v, seg_q, seg_k, out, lse, dout, ctx.scale,
-                         ctx.causal)
+                         ctx.causal, dlse)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -501,7 +525,10 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
     ``regen_inputs`` (a callable returning ``(q, k, v)``, run under no
     grad) keeps ``q``/``k``/``v`` out of the saved residuals: the backward
     rebuilds them with it (the remat policies that keep only the flash
-    residuals and part of q/k/v).
+    residuals and part of q/k/v). Both outputs carry gradients: a
+    cotangent of the lse (ring attention's merge) enters the backward
+    through ``delta``; where only ``out`` is differentiated the backward
+    is what it was.
 
     CUDA tensors launch the kernels: each forward adds one to
     ``flash_attention.launches``, each backward one to

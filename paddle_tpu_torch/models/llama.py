@@ -23,8 +23,13 @@ serving tensor parallelism. :func:`param_specs`, :func:`batch_spec` and
 :func:`shard_params` lay them out for hybrid-parallel training (dp x mp x
 sharding over a mesh); ``forward``, ``loss_fn`` and ``make_train_step``
 take such a sharded tree and run the sharded path (its design:
-:func:`_sharded_trunk`). Context parallelism (``sep_axis``) is not
-ported and raises ``NotImplementedError``.
+:func:`_sharded_trunk`). ``cfg.sep_axis`` runs context parallelism: the
+attention of every layer as ring or Ulysses attention (``cfg.cp_impl``)
+over the hybrid group's ``sep`` ranks on unsharded params, and the
+sequence split over ``sep`` in the sharded path. :func:`to_pp_layout`,
+:func:`pp_param_specs` and :func:`make_pp_train_step` run the pipelined
+step (dp x pp over a mesh, the ring schedule of
+``distributed.pipeline``).
 """
 
 from __future__ import annotations
@@ -40,8 +45,13 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..distributed.collective import (ReduceOp, all_reduce_sum,
                                       copy_to_group, gather_to, reduce_ranks)
+from ..distributed.context_parallel import (cp_attention,
+                                            sep_parallel_attention)
 from ..distributed.moe import gshard_routing
-from ..distributed.sharding import ShardedTensor, shard_to_mesh, spec_axes
+from ..distributed.pipeline import ring_schedule
+from ..distributed.sharding import (ShardedTensor, assemble, shard_to_mesh,
+                                    shard_tree, spec_axes)
+from ..distributed.topology import get_hybrid_communicate_group
 from ..health.sentinel import pack_health, sentinel_check
 from ..kernels.flash_attention import flash_attention, flash_attention_with_lse
 from ..kernels.quant_matmul import quantize_weights, weight_only_matmul
@@ -52,7 +62,9 @@ __all__ = ["LlamaConfig", "init_params", "num_params", "forward", "loss_fn",
            "make_train_step", "quantize_params", "validate_quant_mode",
            "ensure_quantized", "QUANTIZE_MODES", "KV_QUANT_MODES",
            "shard_serving_params", "serving_placement", "param_specs",
-           "batch_spec", "shard_params", "is_sharded", "placement_bytes"]
+           "batch_spec", "shard_params", "is_sharded", "placement_bytes",
+           "to_pp_layout", "from_pp_layout", "pp_param_specs",
+           "make_pp_train_step"]
 
 
 @dataclasses.dataclass
@@ -74,8 +86,8 @@ class LlamaConfig:
     remat: bool = False              # checkpoint each decoder layer
     remat_policy: Optional[str] = None  # None / "nothing" = full remat, or
     #                                     a named policy (_remat_policy)
-    sep_axis: Optional[str] = None   # context parallelism: raises (not
-    #                                  ported)
+    sep_axis: Optional[str] = None   # context-parallel mesh axis ("sep")
+    cp_impl: str = "ring"            # "ring" | "ulysses" attention over it
     moe_num_experts: int = 0         # > 0: every FFN is that many
     #                                  GShard-routed SwiGLU experts
     moe_top_k: int = 2
@@ -386,6 +398,14 @@ def batch_spec(dp_axes=("dp",), sep_axis: Optional[str] = None) -> tuple:
     return (axes[0] if len(axes) == 1 else axes or None, sep_axis)
 
 
+def _whole(t, dev) -> torch.Tensor:
+    """A token batch as one tensor on ``dev`` (a :class:`ShardedTensor`
+    assembled)."""
+    if isinstance(t, ShardedTensor):
+        return assemble(t, dev)
+    return torch.as_tensor(t, device=dev)
+
+
 def is_sharded(params: Dict) -> bool:
     """Whether ``params`` is a :func:`shard_params` tree."""
     return isinstance(params.get("embed"), ShardedTensor)
@@ -399,14 +419,12 @@ def _refuse_sharded(cfg: LlamaConfig, mesh=None) -> None:
             "shard_params: MoE layouts (moe_num_experts > 0, expert "
             "parallelism) are not ported yet (ROADMAP.md section A, item "
             "10c)")
-    if cfg.sep_axis is not None:
-        raise NotImplementedError(
-            "shard_params: sep_axis (context parallelism) is not ported yet "
-            "(ROADMAP.md section A, item 5a)")
     if mesh is not None and mesh.shape.get("pp", 1) > 1:
         raise NotImplementedError(
-            "shard_params: a pp degree > 1 (pipeline parallelism) is not "
-            "ported yet (ROADMAP.md section A, item 10b)")
+            "shard_params: a pp degree > 1 has no layout here (JAX's "
+            "param_specs has no pp entry either); lay the params out with "
+            "to_pp_layout and pp_param_specs (distributed.sharding."
+            "shard_tree) and train them with make_pp_train_step")
 
 
 def shard_params(params: Dict, mesh, cfg: LlamaConfig, mp_axis="mp",
@@ -418,9 +436,8 @@ def shard_params(params: Dict, mesh, cfg: LlamaConfig, mp_axis="mp",
     one local tensor per mesh coordinate (replicas along dp hold their own
     copies, as JAX's per-device arrays do). Query and kv heads must split
     over ``mp_axis``; an indivisible dim raises the layout's
-    ``ValueError``. MoE, ``sep_axis`` and a pp degree > 1 raise
-    ``NotImplementedError`` (the sharded step also refuses a named
-    ``remat_policy``)."""
+    ``ValueError``. MoE and a pp degree > 1 raise ``NotImplementedError``
+    (the sharded step also refuses a named ``remat_policy``)."""
     _refuse_sharded(cfg, mesh)
     if mp_axis is not None:
         n = mesh.shape[mp_axis]
@@ -430,14 +447,7 @@ def shard_params(params: Dict, mesh, cfg: LlamaConfig, mp_axis="mp",
                 raise ValueError(
                     f"cannot shard params.layers.{what}: {heads} heads do "
                     f"not split over mesh axis {mp_axis!r} (size {n})")
-    specs = param_specs(cfg, mp_axis, fsdp_axis)
-
-    def place(tree, spec, path):
-        if isinstance(tree, dict):
-            return {k: place(v, spec[k], f"{path}.{k}")
-                    for k, v in tree.items()}
-        return shard_to_mesh(tree, mesh, spec, name=path)
-    return place(params, specs, "params")
+    return shard_tree(params, mesh, param_specs(cfg, mp_axis, fsdp_axis))
 
 
 def placement_bytes(tree, coord) -> int:
@@ -483,25 +493,40 @@ def _remat_policy(name: Optional[str]):
     return _REMAT_POLICIES[name]
 
 
-def _check_training_config(cfg: LlamaConfig) -> None:
-    if cfg.sep_axis is not None:
+def _expand_kv(k, v, H):
+    """GQA: each kv head repeated for its query heads."""
+    Hk = k.shape[2]
+    if Hk == H:
+        return k, v
+    return (k.repeat_interleave(H // Hk, dim=2),
+            v.repeat_interleave(H // Hk, dim=2))
+
+
+def _refuse_packed_sep(segment_ids) -> None:
+    if segment_ids is not None:
         raise NotImplementedError(
-            "sep_axis: context-parallel (ring) attention is not ported yet "
-            "(ROADMAP.md section A, training queue item (iii))")
+            "packed-sequence masking under sep context parallelism is not "
+            "supported yet (the ring schedule assumes a plain causal mask)")
 
 
 def _attention(q, k, v, cfg: LlamaConfig, segment_ids=None):
     """Causal self-attention on ``[B, S, H(k), D]``; ``segment_ids [B, S]``
-    confines attention within packed sequences. ``cfg.use_kernels`` runs
-    the flash kernels; otherwise one fp32 masked softmax, rows with no
-    visible key output 0."""
+    confines attention within packed sequences. ``cfg.sep_axis``: ring or
+    Ulysses attention (``cfg.cp_impl``) over the hybrid group's ``sep``
+    ranks, GQA heads expanded first (packed batches raise). Otherwise
+    ``cfg.use_kernels`` runs the flash kernels, or one fp32 masked
+    softmax, rows with no visible key output 0."""
+    if cfg.sep_axis is not None:
+        _refuse_packed_sep(segment_ids)
+        k, v = _expand_kv(k, v, q.shape[2])
+        return sep_parallel_attention(
+            q, k, v, causal=True, impl=cfg.cp_impl,
+            mesh=get_hybrid_communicate_group().mesh,
+            axis_name=cfg.sep_axis, use_kernels=cfg.use_kernels)
     if cfg.use_kernels:
         return flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
     B, S, H, D = q.shape
-    Hk = k.shape[2]
-    if Hk != H:
-        k = k.repeat_interleave(H // Hk, dim=2)
-        v = v.repeat_interleave(H // Hk, dim=2)
+    k, v = _expand_kv(k, v, H)
     scale = 1.0 / math.sqrt(D)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * scale
@@ -687,7 +712,7 @@ def _policy_layer(lp: Dict, x, cos, sin, cfg: LlamaConfig, seg, keep):
                                  sin, cfg, seg, False))
         return _tail(lp, x, o, cfg)
     names = "".join(n for n, _, name in _QKV if name in keep)
-    if cfg.use_kernels and "flash_out" in keep:
+    if cfg.use_kernels and "flash_out" in keep and cfg.sep_axis is None:
         q, k, v = _rope_qk(_norm_proj(lp, x, "qkv", cfg), cos, sin,
                            cfg).values()
         regen = None
@@ -731,10 +756,9 @@ def forward(params: Dict, input_ids, cfg: LlamaConfig, segment_ids=None,
     if is_sharded(params):
         return _sharded_forward(params, input_ids, cfg, segment_ids,
                                 position_ids, return_aux, return_hidden)
-    _check_training_config(cfg)
     keep = _remat_policy(cfg.remat_policy) if cfg.remat else None
     dev = params["embed"].device
-    ids = torch.as_tensor(input_ids, device=dev)
+    ids = _whole(input_ids, dev)
     B, S = ids.shape
     x = _embed(params, ids, cfg.dtype)
     if position_ids is None:
@@ -790,8 +814,8 @@ def _sharded_forward(params, input_ids, cfg, segment_ids, position_ids,
                                          segment_ids, position_ids)
     lead = plan.mesh.devices.flat[0]
     if return_hidden:
-        return torch.cat([h[0].to(lead) for h in hidden])
-    logits = torch.cat([torch.cat([(h @ heads[c].to(cfg.dtype)).to(lead)
+        return plan.join([h[0] for h in hidden])
+    logits = plan.join([torch.cat([(h @ heads[c].to(cfg.dtype)).to(lead)
                                    for h, c in zip(hs, cs)], dim=-1)
                         for hs, cs in zip(hidden, plan.coords)])
     if return_aux:
@@ -814,7 +838,7 @@ def loss_fn(params: Dict, input_ids, labels, cfg: LlamaConfig,
         return _sharded_loss(params, input_ids, labels, cfg, segment_ids,
                              position_ids)
     dev = params["embed"].device
-    labels = torch.as_tensor(labels, device=dev).long()
+    labels = _whole(labels, dev).long()
     if cfg.ce_chunks > 1 and not cfg.moe_num_experts:
         T, C = labels.numel(), cfg.ce_chunks
         if T % C:
@@ -849,36 +873,86 @@ def loss_fn(params: Dict, input_ids, labels, cfg: LlamaConfig,
 class _Plan:
     """Where the sharded forward runs. The batch ``ids`` (a
     :class:`ShardedTensor` by :func:`batch_spec`, or a tensor, which is
-    split by ``batch_spec(("dp",))``) is cut into PIECES, one per
-    coordinate of its batch axes; piece ``p`` runs on mp shard ``k`` at
-    ``coords[p][k]``: the piece's batch coordinates, ``k`` on the mp axis,
-    0 on every other axis."""
+    split by ``batch_spec(("dp",), cfg.sep_axis)``) is cut into PIECES, one
+    per coordinate of its batch axes and, under ``cfg.sep_axis``, of the
+    sep axis (a part of the sequence); piece ``p`` runs on mp shard ``k``
+    at ``coords[p][k]``: the piece's batch and sep coordinates, ``k`` on
+    the mp axis, 0 on every other axis. The sep rank is innermost, so each
+    ``n_sep`` consecutive pieces are one ring (piece ``p`` holds sequence
+    part ``p % n_sep``)."""
 
-    def __init__(self, params: Dict, ids, what: str):
+    def __init__(self, params: Dict, ids, cfg: LlamaConfig, what: str):
         emb = params["embed"]
         self.mesh = mesh = emb.mesh
         self.mp, self.fs = emb.spec[0], emb.spec[1]
         spec = ids.spec if isinstance(ids, ShardedTensor) else batch_spec()
         self.batch = spec_axes(spec[0]) if spec else ()
-        if len(spec) > 1 and spec[1] is not None:
-            raise NotImplementedError(
-                "a sequence-sharded batch (sep_axis) is not ported yet "
-                "(ROADMAP.md section A, item 5a)")
+        self.sep = cfg.sep_axis
+        seq = spec[1] if len(spec) > 1 else None
+        if seq is not None and seq != self.sep:
+            raise ValueError(f"{what}: the sequence is split over {seq!r} "
+                             f"but cfg.sep_axis is {self.sep!r}")
+        if self.sep is not None and self.sep not in mesh.shape:
+            raise ValueError(f"{what}: cfg.sep_axis {self.sep!r} is not an "
+                             f"axis of the mesh {mesh.axis_names}")
         if self.mp is not None and self.mp in self.batch:
             raise ValueError(f"{what}: the batch cannot be split over the "
                              f"model-parallel axis {self.mp!r}")
+        if self.sep is not None and self.sep in self.batch:
+            raise ValueError(f"{what}: the batch cannot be split over the "
+                             f"sequence axis {self.sep!r}")
+        self.n_sep = mesh.shape[self.sep] if self.sep else 1
+        self.spec = batch_spec(self.batch, self.sep)
         base = (0,) * len(mesh.axis_names)
+        split = self.batch + ((self.sep,) if self.sep else ())
         self.coords = [mesh.group(c, (self.mp,) if self.mp else ())
-                       for c in mesh.group(base, self.batch)]
+                       for c in mesh.group(base, split)]
 
-    def pieces(self, t: ShardedTensor, what: str):
-        """``[piece][mp shard]``: each piece of batch-sharded ``t`` on the
-        device of each of its mp shards."""
-        if not isinstance(t, ShardedTensor):
-            t = shard_to_mesh(torch.as_tensor(t), self.mesh,
-                              (self.batch,), what)
+    def pieces(self, t, what: str):
+        """``[piece][mp shard]``: each piece of ``t`` (laid out by
+        :attr:`spec` first when it is not) on the device of each of its
+        mp shards."""
+        if not isinstance(t, ShardedTensor) or (
+                [spec_axes(e) for e in (tuple(t.spec) + (None,))[:2]]
+                != [spec_axes(e) for e in self.spec]):
+            t = shard_to_mesh(_whole(t, self.mesh.devices.flat[0]),
+                              self.mesh, self.spec, what)
         return [[t.local(cs[0]).to(self.mesh.devices[c]) for c in cs]
                 for cs in self.coords]
+
+    def join(self, per_piece):
+        """One tensor per piece (``[b, s, ...]``) -> the whole batch on the
+        mesh's first device: each ring's pieces concatenated on the
+        sequence, the rings on the batch."""
+        lead = self.mesh.devices.flat[0]
+        t = [x.to(lead) for x in per_piece]
+        n = self.n_sep
+        return torch.cat([torch.cat(t[i:i + n], dim=1)
+                          for i in range(0, len(t), n)])
+
+    def attend(self, qkv, cfg: LlamaConfig):
+        """The attention output ``[piece][mp shard]`` from ``qkv[p][k] =
+        (q, k, v)``: each piece alone, or under ``cfg.sep_axis`` each ring
+        of ``n_sep`` pieces together, one ring per mp shard on its local
+        heads (:func:`ring_flash_attention` or :func:`ulysses_attention`,
+        GQA heads expanded first)."""
+        if self.sep is None:
+            return [[_attention(q, k, v, cfg) for q, k, v in row]
+                    for row in qkv]
+        fn = cp_attention(cfg.cp_impl)
+        n = self.n_sep
+        out = [[None] * len(row) for row in qkv]
+        for g in range(0, len(qkv), n):
+            ring = qkv[g:g + n]
+            for k in range(len(ring[0])):
+                qs = [r[k][0] for r in ring]
+                kvs = [_expand_kv(r[k][1], r[k][2], qs[0].shape[2])
+                       for r in ring]
+                outs = fn(qs, [a for a, _ in kvs], [b for _, b in kvs],
+                          True, cfg.use_kernels)
+                for i, o in enumerate(outs):
+                    out[g + i][k] = o
+        return out
 
     def gather(self, st: ShardedTensor, local: Dict, dim_off: int = 0):
         """``{compute coordinate: weight}`` with every axis of ``st``'s spec
@@ -909,24 +983,30 @@ class _Plan:
 def _sharded_layer(plan: _Plan, xs, lw: Dict, w: Dict, tables, cfg):
     """One decoder block on every piece and mp shard: ``xs[p][k]`` the
     residual stream, ``w`` the gathered projections and ``lw`` the local
-    norm weights by coordinate. Column-parallel q/k/v and gate/up after a
-    :func:`copy_to_group` of the normed input; row-parallel ``wo`` and
-    ``w_down`` partial sums reduced by ``all_reduce`` over mp."""
+    norm weights by coordinate, ``tables[device, part]`` the RoPE rows of
+    a sequence part. Column-parallel q/k/v and gate/up after a
+    :func:`copy_to_group` of the normed input; the attention of every
+    piece (:meth:`_Plan.attend`); row-parallel ``wo`` and ``w_down``
+    partial sums reduced by ``all_reduce`` over mp."""
     dt, eps, fused = cfg.dtype, cfg.rms_norm_eps, cfg.use_fused_norm
     D = cfg.head_dim
-    out = []
-    for x_p, cs in zip(xs, plan.coords):
+    qkv = []
+    for p, (x_p, cs) in enumerate(zip(xs, plan.coords)):
         hs = copy_to_group([_rms_norm(x, lw["ln_attn"][c], eps, fused)
                             for x, c in zip(x_p, cs)])
-        parts = []
+        row = []
         for h, c in zip(hs, cs):
-            cos, sin = tables[plan.mesh.devices[c]]
+            cos, sin = tables[plan.mesh.devices[c], p % plan.n_sep]
             b, S = h.shape[:2]
             q, k, v = ((h @ w[n][c].to(dt)).reshape(b, S, -1, D)
                        for n in ("wq", "wk", "wv"))
-            q, k = _rope(q, cos, sin, fused), _rope(k, cos, sin, fused)
-            o = _attention(q, k, v, cfg).reshape(b, S, -1)
-            parts.append(o @ w["wo"][c].to(dt))
+            row.append((_rope(q, cos, sin, fused), _rope(k, cos, sin, fused),
+                        v))
+        qkv.append(row)
+    out = []
+    for x_p, cs, o_p in zip(xs, plan.coords, plan.attend(qkv, cfg)):
+        parts = [o.reshape(*o.shape[:2], -1) @ w["wo"][c].to(dt)
+                 for o, c in zip(o_p, cs)]
         x_p = [x + y for x, y in zip(x_p, all_reduce_sum(parts))]
         hs = copy_to_group([_rms_norm(x, lw["ln_mlp"][c], eps, fused)
                             for x, c in zip(x_p, cs)])
@@ -957,13 +1037,18 @@ def _sharded_trunk(params: Dict, input_ids, cfg: LlamaConfig,
       the flash kernels with ``use_kernels`` and the fused RMSNorm and
       RoPE with ``use_fused_norm``; ``cfg.remat`` checkpoints it whole
       (every piece and shard at once, its gathers inside, so backward
-      gathers the weights again, as ZeRO-3 does).
+      gathers the weights again, as ZeRO-3 does);
+    * under ``cfg.sep_axis`` a piece holds one part of the sequence: its
+      RoPE rows are those of its global positions, and the pieces of one
+      ring attend together (:meth:`_Plan.attend`). Labels come shifted,
+      so no piece needs its neighbour's tokens.
 
     Every reduction runs in a fixed rank order, so a run repeats bit for
     bit. Packed batches (``segment_ids``, ``position_ids``) are not ported
     under sharding."""
-    _check_training_config(cfg)
     _refuse_sharded(cfg)
+    if cfg.sep_axis is not None:
+        _refuse_packed_sep(segment_ids)
     if cfg.remat and cfg.remat_policy not in (None, "nothing"):
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} under sharding is not ported "
@@ -973,8 +1058,17 @@ def _sharded_trunk(params: Dict, input_ids, cfg: LlamaConfig,
         raise NotImplementedError(
             "segment_ids / position_ids (packed batches) under sharding are "
             "not ported yet (ROADMAP.md section A, item 10d's rest)")
-    plan = _Plan(params, input_ids, "input_ids")
+    plan = _Plan(params, input_ids, cfg, "input_ids")
     mesh, dt = plan.mesh, cfg.dtype
+    if plan.sep is not None and cfg.cp_impl == "ulysses" and plan.mp:
+        local = cfg.num_attention_heads // mesh.shape[plan.mp]
+        if local % plan.n_sep:
+            raise NotImplementedError(
+                f"Ulysses attention on {local} heads a model-parallel "
+                f"shard does not split over sep degree {plan.n_sep}; "
+                "gathering the heads over mp first is not ported yet "
+                "(ROADMAP.md section A, item 5a's rest); cp_impl='ring' "
+                "runs")
     emb = params["embed"]
     embed = plan.gather(emb, emb.locals)
     ids = plan.pieces(input_ids, "input_ids")
@@ -994,9 +1088,13 @@ def _sharded_trunk(params: Dict, input_ids, cfg: LlamaConfig,
             oks.append(ok)
         xs.append([x.masked_fill(~ok[..., None], float("nan"))
                    for x, ok in zip(all_reduce_sum(es), oks)])
-    S = xs[0][0].shape[1]
-    tables = {d: rope_cos_sin(S, cfg.head_dim, cfg.rope_theta, device=d)
-              for d in set(mesh.devices.flat)}
+    S, parts = xs[0][0].shape[1], plan.n_sep
+    tables = {}
+    for d in set(mesh.devices.flat):
+        cos, sin = rope_cos_sin(S * parts, cfg.head_dim, cfg.rope_theta,
+                                device=d)
+        for r in range(parts):
+            tables[d, r] = (cos[r * S:(r + 1) * S], sin[r * S:(r + 1) * S])
     layers = params["layers"]
     # unbind once, not one index per layer (see forward)
     unbound = {n: {c: t.unbind(0) for c, t in st.locals.items()}
@@ -1181,25 +1279,34 @@ def _named(tree, prefix=""):
 
 def _sharded_grads(params: Dict, input_ids, labels, cfg: LlamaConfig,
                    grad_dtype=None):
-    """``(loss, grads)`` of a sharded tree: ``grads`` maps each leaf's name
-    to ``{coordinate: gradient}``, the gradient of the slice that
-    coordinate holds. A slice's gradient is the sum, in mesh order on its
-    first holder's device, of what its replicas received: every piece that
-    used it contributes (dp, and the sharding axis when the batch is split
-    over it), except that a leaf the mp axis does not shard takes mp shard
-    0's alone, since every mp shard computed that whole gradient. Every
-    holder of the slice gets that one sum."""
+    """``(loss, grads)`` of a sharded tree (:func:`_replica_grads` of
+    :func:`loss_fn`, the mp axis that of ``embed``'s spec)."""
+    return _replica_grads(
+        params, lambda: loss_fn(params, input_ids, labels, cfg),
+        params["embed"].spec[0], grad_dtype)
+
+
+def _replica_grads(params: Dict, loss_of, mp: Optional[str],
+                   grad_dtype=None):
+    """``(loss, grads)`` of a tree of :class:`ShardedTensor` leaves, the
+    loss from ``loss_of()``: ``grads`` maps each leaf's name to
+    ``{coordinate: gradient}``, the gradient of the slice that coordinate
+    holds. A slice's gradient is the sum, in mesh order on its first
+    holder's device, of what its replicas received: every piece that used
+    it contributes (dp, and the sharding or sep axis when the batch is
+    split over it), except that a leaf the ``mp`` axis does not shard
+    takes mp shard 0's alone, since every mp shard computed that whole
+    gradient. Every holder of the slice gets that one sum."""
     named = _named(params)
     locs = [(n, c, t) for n, st in named for c, t in st.locals.items()]
     for _, _, t in locs:
         t.requires_grad_(True)
-    loss = loss_fn(params, input_ids, labels, cfg)
+    loss = loss_of()
     got = torch.autograd.grad(loss, [t for _, _, t in locs],
                               allow_unused=True)
     raw: Dict[str, Dict] = {}
     for (n, c, _), g in zip(locs, got):
         raw.setdefault(n, {})[c] = g
-    mp = params["embed"].spec[0]
     grads = {}
     for n, st in named:
         mesh = st.mesh
@@ -1325,3 +1432,214 @@ def make_train_step(cfg: LlamaConfig, lr: float = 3e-4, beta1=0.9,
         return params, opt_state, sent, pack_health(loss, bad, sent)
 
     return init_opt_state, (train_step_sentinel if sentinel else train_step)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined train step: dp x pp over a mesh, one controller
+# ---------------------------------------------------------------------------
+
+def to_pp_layout(params: Dict, num_stages: int,
+                 circular_repeats: int = 1) -> Dict:
+    """The stacked ``[L, ...]`` layer leaves reshaped to pipeline layout
+    ``[V, S, bpc, ...]`` (chunk ``c = v*S + s`` on stage ``s``, lap ``v``;
+    ``bpc`` blocks a chunk), the other leaves as they are (JAX's
+    ``to_pp_layout``). Lay the result out over the mesh by
+    :func:`pp_param_specs` (``shard_tree(pp, mesh, pp_param_specs(cfg))``),
+    so that block weights live only on their stage's entries."""
+    S, V = num_stages, circular_repeats
+    out = dict(params)
+    out["layers"] = {
+        k: p.reshape((V, S, p.shape[0] // (S * V)) + tuple(p.shape[1:]))
+        for k, p in params["layers"].items()}
+    return out
+
+
+def from_pp_layout(params: Dict) -> Dict:
+    """The inverse of :func:`to_pp_layout` (stacked ``[L, ...]`` layer
+    leaves); each :class:`ShardedTensor` leaf is assembled on its mesh's
+    first device first, so a laid-out tree comes back as a serial one."""
+    def whole(t):
+        return assemble(t) if isinstance(t, ShardedTensor) else t
+    out = {k: whole(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: whole(p).reshape((-1,) + tuple(p.shape[3:]))
+                     for k, p in params["layers"].items()}
+    return out
+
+
+def pp_param_specs(cfg: LlamaConfig, pp_axis: str = "pp",
+                   ep_axis: Optional[str] = None) -> Dict:
+    """JAX's ``pp_param_specs`` as plain tuples for pp-layout params:
+    blocks cut over ``pp_axis`` on their stage dim, ``embed`` and
+    ``lm_head`` vocab-sharded over the same axis (the first and last
+    stages' work is tensor-parallel over the pp ranks), ``ln_f`` whole.
+    MoE expert weights ``[V, S, bpc, Ex, ...]`` name ``ep_axis`` on the
+    expert dim (the port runs no ``ep`` axis: ROADMAP.md item 10c)."""
+    layer_keys = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "ln_attn", "ln_mlp")
+    specs = {
+        "embed": (pp_axis, None),
+        "layers": {k: (None, pp_axis) for k in layer_keys},
+        "ln_f": (None,),
+    }
+    if cfg.moe_num_experts:
+        for k in ("w_gate", "w_up", "w_down"):
+            specs["layers"][k] = (None, pp_axis, None, ep_axis)
+        specs["layers"]["moe_gate"] = (None, pp_axis)
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = (None, pp_axis)
+    return specs
+
+
+def _pp_chunk(cfg: LlamaConfig, tables: Dict, names):
+    """One chunk's blocks in order on ``h`` (``cp`` leaves ``[bpc,
+    ...]``): ``h``, or ``(h, the blocks' summed aux)`` under MoE."""
+    def chunk(cp, h):
+        cos, sin = tables[h.device]
+        auxes = []
+        for ws in zip(*(cp[n].unbind(0) for n in names)):
+            h, aux = decoder_layer(dict(zip(names, ws)), h, cos, sin, cfg)
+            auxes.append(aux)
+        if cfg.moe_num_experts:
+            return h, torch.stack(auxes).sum()
+        return h
+    return chunk
+
+
+def _pp_rings(mesh, pp_axis: str = "pp", dp_axis: Optional[str] = "dp"):
+    """The pipelined step's rings: for each coordinate of ``dp_axis`` (in
+    mesh order; one ring without it), the pp coordinates of its stages,
+    every other axis at 0."""
+    dpn = dp_axis if (dp_axis and dp_axis in mesh.axis_names) else None
+    base = (0,) * len(mesh.axis_names)
+    return [mesh.group(c, (pp_axis,))
+            for c in mesh.group(base, (dpn,) if dpn else ())]
+
+
+def _pp_loss(params: Dict, input_ids, labels, cfg: LlamaConfig, rings,
+             M: int, V: int):
+    """The pipelined step's loss: for each dp rank's ring of pp
+    coordinates (``rings``), its rows of every micro-batch through the
+    vocab-parallel embedding (each stage looks its vocab range up, 0
+    elsewhere, the parts summed on stage 0), the ring schedule over the
+    decoder blocks (``distributed.pipeline.ring_schedule``; ``cfg.remat``
+    checkpoints each chunk application whole, as the JAX step does), the
+    final norm on the last stage, and the vocab-parallel head and
+    cross-entropy over the stages (:func:`_vocab_parallel_ce`); the global
+    mean over labelled tokens (the sum over the ranks' copies in the
+    graph, rank 0's value reported, as :func:`_sharded_loss` does). MoE:
+    plus ``moe_aux_weight`` x the aux summed over every (layer,
+    micro-batch) application / ``L * M``, averaged over dp."""
+    emb = params["embed"]
+    mesh, dt = emb.mesh, cfg.dtype
+    lead = mesh.devices.flat[0]
+    ids, lbl = _whole(input_ids, lead).long(), _whole(labels, lead).long()
+    B = ids.shape[0]
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by micro_batches {M}")
+    if (B // M) % len(rings):
+        raise ValueError(f"micro-batch {B // M} rows not divisible by the "
+                         f"dp degree {len(rings)}")
+    ids_d = ids.reshape(M, B // M, -1).chunk(len(rings), dim=1)
+    lbl_d = lbl.reshape(M, B // M, -1).chunk(len(rings), dim=1)
+    names = list(params["layers"])
+    tot, rep, cnt, aux = 0.0, 0.0, 0, 0.0
+    for cs, i_d, l_d in zip(rings, ids_d, lbl_d):
+        devs = [mesh.devices[c] for c in cs]
+        embed = [emb.local(c) for c in cs]
+        Vs = embed[0].shape[0]
+        x = None
+        for s, (e_s, d) in enumerate(zip(embed, devs)):
+            idx = i_d.to(d) - s * Vs
+            ok = (idx >= 0) & (idx < Vs)
+            part = e_s[idx.clamp(0, Vs - 1)].masked_fill(~ok[..., None], 0)
+            x = part.to(devs[0]) if x is None else x + part.to(devs[0])
+        x = x.to(dt)                                         # [M, mb, T, E]
+        tables = {d: rope_cos_sin(x.shape[2], cfg.head_dim, cfg.rope_theta,
+                                  device=d) for d in set(devs)}
+        chunk = _pp_chunk(cfg, tables, names)
+        fn = ((lambda p, h: checkpoint(chunk, p, h, use_reentrant=False))
+              if cfg.remat else chunk)
+        local = [{n: params["layers"][n].local(c).squeeze(1) for n in names}
+                 for c in cs]
+        res = ring_schedule(fn, local, x, devices=devs, circular_repeats=V,
+                            with_aux=bool(cfg.moe_num_experts))
+        outs, aux_d = res if cfg.moe_num_experts else (res, None)
+        h = _rms_norm(outs, params["ln_f"].local(cs[-1]), cfg.rms_norm_eps,
+                      cfg.use_fused_norm)
+        h = h.reshape(-1, h.shape[-1])
+        heads = ([e.T for e in embed] if cfg.tie_word_embeddings
+                 else [params["lm_head"].local(c) for c in cs])
+        sums, n = _vocab_parallel_ce([h.to(d) for d in devs],
+                                     l_d.reshape(-1), heads, dt)
+        for s_ in sums:
+            tot = tot + s_.to(lead)
+        rep = rep + sums[0].to(lead)
+        cnt = cnt + n.to(lead)
+        if aux_d is not None:
+            aux = aux + aux_d.to(lead)
+    count = cnt.clamp(min=1)
+    full = tot / count
+    loss = (rep / count).detach() + (full - full.detach())
+    if cfg.moe_num_experts:
+        L = cfg.num_hidden_layers
+        loss = loss + cfg.moe_aux_weight * (aux / (L * M) / len(rings))
+    return loss
+
+
+def make_pp_train_step(cfg: LlamaConfig, mesh, *, micro_batches: int,
+                       pp_axis: str = "pp", dp_axis: Optional[str] = "dp",
+                       circular_repeats: int = 1, lr: float = 3e-4,
+                       beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.0,
+                       opt_dtype=torch.float32):
+    """Pipeline-parallel LLaMA training, JAX's ``make_pp_train_step`` over
+    a placement: returns ``(init_opt_state, train_step)`` with
+    ``train_step(params, opt_state, ids [B, T], labels) -> (params,
+    opt_state, loss)``, ``B`` split into ``micro_batches`` and each
+    micro-batch's rows over the dp ranks.
+
+    ``params`` is a pp-layout tree (:func:`to_pp_layout`) laid out over
+    ``mesh`` by :func:`pp_param_specs`, so block weights live only on
+    their stage's entries. The forward is :func:`_pp_loss`; the gradient
+    of each slice is summed over its dp replicas in mesh order and the
+    same sum updates every replica through AdamW (fp32 moment arithmetic,
+    in place), so the replicas stay bit-equal. The layer count must split
+    into ``stages * circular_repeats`` chunks and the vocab over the
+    stages (the JAX errors); ``circular_repeats > 1`` needs
+    ``micro_batches >= stages``. MoE with an ``ep`` axis > 1 raises
+    ``NotImplementedError`` (pp x ep, ROADMAP.md item 10c)."""
+    S = int(mesh.shape[pp_axis])
+    V = int(circular_repeats)
+    M = int(micro_batches)
+    L, Vo = cfg.num_hidden_layers, cfg.vocab_size
+    if L % (S * V):
+        raise ValueError(f"num_hidden_layers {L} not divisible by "
+                         f"stages*circular_repeats = {S}*{V}")
+    if Vo % S:
+        raise ValueError(f"vocab_size {Vo} not divisible by pp degree {S}")
+    if cfg.moe_num_experts and mesh.shape.get("ep", 1) > 1:
+        raise NotImplementedError(
+            "make_pp_train_step: pp x ep (expert weights sharded over 'ep' "
+            "inside the pipeline) is not ported yet (ROADMAP.md section A, "
+            "item 10c)")
+    rings = _pp_rings(mesh, pp_axis, dp_axis)
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, opt_dtype=opt_dtype)
+
+    def init_opt_state(params):
+        return _adamw_init(params, opt_dtype)
+
+    def train_step(params, opt_state, input_ids, labels):
+        if not is_sharded(params):
+            raise ValueError(
+                "make_pp_train_step: params must be a pp-layout tree laid "
+                "out over the mesh (to_pp_layout, then shard_tree by "
+                "pp_param_specs)")
+        loss, grads = _replica_grads(
+            params, lambda: _pp_loss(params, input_ids, labels, cfg, rings,
+                                     M, V), None)
+        with torch.no_grad():
+            params, opt_state = _sharded_adamw(params, grads, opt_state,
+                                               None, kw)
+        return params, opt_state, loss
+
+    return init_opt_state, train_step

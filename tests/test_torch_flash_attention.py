@@ -22,6 +22,10 @@ causal Sq < Sk, packed segments cut inside and on tile edges, and query
 segments with no key: at fp32 the emulations round nothing the JAX kernels
 keep, so the two differ only by the order of fp32 sums (and dq by where the
 scale multiplies, ~1e-7 relative), far inside 1e-5.
+
+The lse's cotangent (which ring attention's merge produces and the JAX
+kernel's VJP drops) is held to JAX's autodiff of its plain attention at
+dq / dk / dv atol 1e-4, through the Function and the tiled emulations.
 """
 
 import importlib
@@ -255,6 +259,46 @@ def test_tiled_emulations_match_jax(name):
         assert (got_o.numpy()[masked] == 0).all()
         assert (got_lse.numpy().transpose(0, 2, 1)[masked]
                 == np.float32(-1e30)).all()
+
+
+@pytest.mark.parametrize("causal,Sq,Sk", [(False, 40, 40), (True, 40, 40),
+                                          (True, 24, 40)])
+def test_lse_cotangent_matches_jax_autodiff(causal, Sq, Sk):
+    """Both outputs carry gradients: with cotangents on ``out`` and on
+    ``lse``, the Function's gradient (its plain backward, ``dlse`` folded
+    into ``delta``) and the tiled dq / dk/dv emulations given the same
+    ``dlse`` equal JAX's autodiff of its plain attention
+    (``distributed.context_parallel._sdpa``, which returns the lse) at
+    dq / dk / dv atol 1e-4; through the lse alone (no cotangent on out)
+    as well. The JAX kernel's VJP drops ``dlse`` (ROADMAP.md section C),
+    so its plain attention is the oracle here."""
+    from paddle_tpu.distributed.context_parallel import _sdpa
+    q, k, v, do = _inputs(Sq + Sk + causal, 2, Sq, Sk, 4, 4, 16)
+    dl = np.random.default_rng(Sq).standard_normal((2, 4, Sq)).astype(
+        np.float32)
+    for dout in (do, None):
+        def f(a, b, c):
+            o, lse = _sdpa(a, b, c, causal)
+            out = (lse * dl).sum()
+            return out if dout is None else out + (o * dout).sum()
+
+        want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                      for a in (q, k, v))
+        o, lse = flash_attention_with_lse(tq, tk, tv, causal=causal)
+        outs, cots = ((lse,), (torch.from_numpy(dl),)) if dout is None else (
+            (o, lse), (torch.from_numpy(dout), torch.from_numpy(dl)))
+        got = torch.autograd.grad(outs, (tq, tk, tv), cots)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+    od, ld = o.detach(), lse.detach()
+    args = (tq.detach(), tk.detach(), tv.detach(), None, None, od, ld,
+            torch.from_numpy(do), 0.25, causal, torch.from_numpy(dl))
+    plain = flash_attention_bwd_plain(*args)
+    tiled = (flash_attention_bwd_dq_tiled(*args),
+             *flash_attention_bwd_dkv_tiled(*args))
+    for a, b in zip(tiled, plain):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -327,8 +327,7 @@ def test_config_from_jax_carries_training_fields():
             cfg.dtype) == (True, True, "nothing", 4, torch.bfloat16)
 
 
-@pytest.mark.parametrize("field,value", [("sep_axis", "sep"),
-                                         ("ep_axis", "ep"),
+@pytest.mark.parametrize("field,value", [("ep_axis", "ep"),
                                          ("tp_axis", "tp")])
 def test_config_from_jax_refuses_unported_fields(field, value):
     with pytest.raises(ValueError, match=field):
@@ -336,14 +335,21 @@ def test_config_from_jax_refuses_unported_fields(field, value):
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(sep_axis="sep"), "sep_axis"),
+    (dict(sep_axis="sep"), "packed"),
 ])
 def test_unported_paths_raise(change, what):
-    _, tcfg, _, tp = _setup(0)
-    cfg = dataclasses.replace(tcfg, **change)
-    ids, labels, *_ = _batch(0)
-    with pytest.raises(NotImplementedError, match=what):
-        TL.loss_fn(tp, torch.from_numpy(ids), torch.from_numpy(labels), cfg)
+    """Packed batches under sep context parallelism raise the JAX
+    ``NotImplementedError`` (``tests/test_llama.py:265``), word for
+    word."""
+    jcfg, tcfg, jp, tp = _setup(0)
+    ids, labels, seg, pos = _batch(0, packed=True)
+    with pytest.raises(NotImplementedError, match=what) as want:
+        JL.loss_fn(jp, jnp.asarray(ids), jnp.asarray(labels),
+                   dataclasses.replace(jcfg, **change), jnp.asarray(seg))
+    with pytest.raises(NotImplementedError, match=what) as got:
+        TL.loss_fn(tp, torch.from_numpy(ids), torch.from_numpy(labels),
+                   dataclasses.replace(tcfg, **change), torch.from_numpy(seg))
+    assert str(got.value) == str(want.value)
 
 
 def test_unknown_remat_policy_and_sentinel():

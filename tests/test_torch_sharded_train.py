@@ -318,8 +318,10 @@ def test_sentinel_skips_a_nan_batch_and_oov_gives_nan():
 
 
 def test_unported_layouts_refused():
-    """MoE (item 10c), sep_axis (5a), pp > 1 (10b) and a named
-    remat_policy raise NotImplementedError naming the queue item."""
+    """MoE (item 10c) and a named remat_policy raise NotImplementedError
+    naming what is not ported; a pp degree > 1 has no ``shard_params``
+    layout (JAX's ``param_specs`` has none either) and the error names the
+    pp layout."""
     _, tmesh = _meshes()
     jcfg, tcfg, jp = _setup()
     p = _port(jp)
@@ -328,15 +330,44 @@ def test_unported_layouts_refused():
     with pytest.raises(NotImplementedError, match="10c"):
         TL.shard_params(moe_p, tmesh, config_from_jax(moe_j))
     import dataclasses
-    with pytest.raises(NotImplementedError, match="5a"):
-        TL.shard_params(p, tmesh, dataclasses.replace(tcfg, sep_axis="sep"))
-    with pytest.raises(NotImplementedError, match="10b"):
+    with pytest.raises(NotImplementedError, match="to_pp_layout and "
+                       "pp_param_specs"):
         TL.shard_params(p, build_mesh({"pp": 2, "dp": 4}, CPU8), tcfg)
     ps = TL.shard_params(p, tmesh, tcfg)
     ids = torch.from_numpy(_ids())
     pol = dataclasses.replace(tcfg, remat=True, remat_policy="save_flash")
     with pytest.raises(NotImplementedError, match="remat_policy"):
         TL.loss_fn(ps, ids, ids, pol)
+
+
+def test_sep_layout_matches_serial():
+    """``sep_axis`` in the sharded path (it was refused): at dp 2 x sep 4,
+    the batch over ``batch_spec(("dp",), "sep")`` and S 32 (8 tokens a
+    sequence part, so a part's RoPE rows from the wrong offset would
+    show), the loss within 1e-5 of the serial step's and every gradient
+    slice within 1e-5 x max|g|, ring and Ulysses."""
+    import dataclasses
+    jcfg, tcfg, jp = _setup(num_key_value_heads=4)
+    p = _port(jp)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 96, (2, 32)).astype(np.int32))
+    for p_ in TL._leaves(p):
+        p_.requires_grad_(True)
+    loss = TL.loss_fn(p, ids, ids, tcfg)
+    want = dict(zip([n for n, _ in TL._named(p)],
+                    torch.autograd.grad(loss, TL._leaves(p))))
+    mesh = build_mesh({"dp": 2, "sep": 4}, CPU8)
+    for impl in ("ring", "ulysses"):
+        cfg = dataclasses.replace(tcfg, sep_axis="sep", cp_impl=impl)
+        ps = TL.shard_params(_port(jp), mesh, cfg, mp_axis=None)
+        b = shard_to_mesh(ids, mesh, TL.batch_spec(("dp",), "sep"))
+        got, grads = TL._sharded_grads(ps, b, b, cfg)
+        assert abs(got.item() - loss.item()) <= 1e-5
+        for n, st in TL._named(ps):
+            g = want[n]
+            for c, gc in grads[n].items():
+                sl = tuple(slice(a, b_) for a, b_, _ in st.index(c))
+                assert (gc - g[sl]).abs().max() <= 1e-5 * g.abs().max(), n
 
 
 def test_zero_bytes_a_placement_entry():
