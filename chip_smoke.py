@@ -407,6 +407,48 @@ Phases (each fails the run on any error; none catches and carries on):
     untied; ring and Ulysses on unsharded params and on ``shard_params``
     at dp 2 x sep 4 and sharding 2 x sep 4. Each of phases 38-40 prints
     its seconds.
+41. The launched job (cell LA): ``python -m
+    paddle_tpu_torch.distributed.launch --nproc_per_node 2`` on a script
+    this file writes, both ranks on ``cuda:0`` joined by
+    ``init_parallel_env`` into gloo's process group (the parent frees its
+    cached memory first). Each rank checks every collective of the port
+    (all_reduce sum / avg / max / min / prod, reduce, all_gather in both
+    forms, broadcast, reduce_scatter, alltoall, scatter in both forms,
+    barrier) on CUDA tensors across the processes; runs F's loss and gradient (phase 34's model and flags) on
+    its half of a B 8 x S 2048 batch with exactly ``expected_launches``,
+    averages the gradient with ``all_reduce(..., op=AVG)`` as one flat
+    buffer of 738 M entries (timed: ms and GB/s), and rank 0 holds the
+    result to the serial step on the whole batch in the same child (the
+    bf16 loss within 5e-3 x |loss|); then the same at E's width in fp32
+    (the loss within 1e-5, every gradient leaf within 1e-4 x max|g|).
+    No child rebuilds a kernel. Each rank's peak memory is printed.
+42. Elastic restarts on the card: E's width at fp32, data parallel over
+    2 launched ranks on ``cuda:0`` (gradients averaged over gloo), 8
+    steps, every rank saving through ``AsyncCheckpointer`` after steps 2,
+    4 and 6; an unfaulted job, then a job at ``--max_restart 2
+    --elastic_timeout 5`` where rank 1 is SIGKILLed after the first
+    commit (round 0) and rank 0's heartbeat is stalled by
+    ``stall_heartbeat`` (round 1, the launcher's ``HUNG_RC``); each next
+    round resumes from the newest commit, and the final loss must equal
+    the unfaulted job's within 1e-5 x |loss|. The detection latency of each fault (against the
+    timeout for the stall) and each restart's wall time are printed.
+43. Expert parallelism (cell EP): L (phase 4's widths, 8 experts, top-2,
+    capacity factor 1.25, cut to 2 layers; ``use_kernels``,
+    ``use_fused_norm``, full remat, bf16 compute, fp32 params) at dp 2 x
+    ep 4 over ``["cuda:0"] * 8``, the batch B 8 x S 2048 over dp, beside
+    the serial step from the same weights and 3 seeded batches. The state
+    is reckoned from the specs first; each expert leaf at 1/4 of its bytes
+    an entry; the router's kept counts equal the serial router's (the
+    router runs over the global batch); losses within 5e-3 x |loss|; dp
+    replicas bit-equal after every step; exactly ``sharded_launches`` a
+    step (the serial counts x 2 pieces). Step ms, tokens/s, peak memory of
+    both, and a profiled expert-parallel step.
+44. E's width at fp32 with the kernels and 8 experts against the serial
+    loss and gradients (loss 1e-5, every gradient leaf 1e-4 x max|g|):
+    dp 2 x ep 4 through ``shard_params``, and the pipelined loss at pp 2 x
+    ep 2 and dp 2 x pp 2 x ep 2 at V 2 against the serial micro-batched
+    oracle (each micro-batch's dp piece routed alone, as the pp step
+    routes it).
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -428,9 +470,9 @@ kernels line reports the serving launches of phases 4, 5, 13, 14
 drain with migration), 29 (the first server turn), 31 (the bf16 and
 the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
 together,
-the flash launches of phases 8, 34, 36, 38 and 39 and the RMSNorm and
-RoPE launches of phases 11, 34, 36, 38 and 39 (RoPE: forward and
-backward together).
+the flash launches of phases 8, 34, 36, 38, 39, 41 (both ranks' F
+steps) and 43 and the RMSNorm and RoPE launches of phases 11, 34, 36,
+38, 39, 41 and 43 (RoPE: forward and backward together).
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -458,7 +500,8 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "supervisor and journal", "embeddings", "serving fleet",
          "serving server and replay", "tensor-parallel serving",
          "fault-tolerant training", "sharded training",
-         "pipelined training", "context-parallel training")
+         "pipelined training", "context-parallel training",
+         "launched training", "elastic restarts", "expert-parallel training")
 
 
 def check(cond, msg):
@@ -6110,6 +6153,675 @@ def cp_parity_phase(dev="cuda", cfg=None, batch=8, seq=512):
     return {"gaps": gaps, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phases 41-44: the launched job (cell LA), elastic restarts on the card,
+# expert parallelism (cell EP) and its fp32 parity
+# ---------------------------------------------------------------------------
+
+LAUNCH_TIMEOUT_S = 420
+EP_DEGREES = {"dp": 2, "ep": 4}
+
+
+def e_config(dtype, **kw):
+    """E: phase 9's fp32 parity width (hidden 512, 8 / 4 heads, 4 layers)
+    with the kernels and ``use_fused_norm``."""
+    return train_config(dtype, hidden_size=512, intermediate_size=1376,
+                        num_hidden_layers=4, num_attention_heads=8,
+                        num_key_value_heads=4, use_fused_norm=True, **kw)
+
+
+def run_launcher(body, tmp, nproc, *flags, env=None, timeout=None):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node
+    nproc`` on a script holding ``body`` (after a line that imports this
+    file), run from the checkout's root. Each line the launcher writes to
+    stderr is stamped with the host clock as it arrives. Returns ``(rc,
+    [(time, line)], seconds)``; the launcher's whole process group is
+    killed when ``timeout`` passes (rc None then)."""
+    import signal as _signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "train.py")
+    with open(path, "w") as f:
+        f.write("import chip_smoke as cs\n" + body)
+    e = dict(os.environ, **(env or {}))
+    e["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [e.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nproc), "--log_dir",
+           os.path.join(tmp, "log"), *flags, path]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=root, env=e, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    lines = []
+
+    def read():
+        for line in proc.stderr:
+            lines.append((time.time(), line.rstrip()))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=timeout or LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, _signal.SIGKILL)
+        proc.wait()
+        rc = None
+    reader.join(10)
+    return rc, lines, time.time() - t0
+
+
+def worker_logs(tmp, nproc):
+    out = []
+    for r in range(nproc):
+        p = os.path.join(tmp, "log", f"workerlog.{r}")
+        with open(p) as f:
+            out.append(f.read()[-4000:])
+    return out
+
+
+def _stamp(out, name, value=None):
+    with open(os.path.join(out, name), "w") as f:
+        f.write(repr(time.time() if value is None else value))
+
+
+def _read_stamp(out, name):
+    with open(os.path.join(out, name)) as f:
+        return float(f.read())
+
+
+def _loss_grads(params, ids, cfg):
+    """(detached loss, gradients in leaf order) of ``loss_fn`` on ``ids``
+    (labels = ids)."""
+    import torch
+    from paddle_tpu_torch.models import llama as L
+    leaves = L._leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = L.loss_fn(params, ids, ids, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return loss.detach(), list(grads)
+
+
+def _launched_build():
+    """(every library already built, the seconds ``build_all`` took): a
+    launched child loads what the parent built."""
+    from paddle_tpu_torch.kernels import build
+    prebuilt = all(os.path.exists(build._target(n)) for n in build.SOURCES)
+    return prebuilt, build.build_all()
+
+
+def port_collectives(dev, r):
+    """Every collective of the port run once across the two processes of
+    a launched world on tensors on ``dev`` (each on gloo's own op):
+    ``{op: right}``, each result held to its value on two ranks."""
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+
+    def t(*v):
+        return torch.tensor(v, device=dev)
+
+    out = {}
+    for op, want in ((C.ReduceOp.SUM, [3.0, 10.0]),
+                     (C.ReduceOp.AVG, [1.5, 5.0]),
+                     (C.ReduceOp.MAX, [2.0, 10.0]),
+                     (C.ReduceOp.MIN, [1.0, 0.0]),
+                     (C.ReduceOp.PROD, [2.0, 0.0])):
+        x = t(r + 1.0, 10.0 * r)
+        C.all_reduce(x, op=op)
+        out[f"all_reduce_{op}"] = x.tolist() == want and x.device == dev
+    x = t(r + 1.0)
+    C.reduce(x)
+    out["reduce"] = x.tolist() == [3.0]
+    out["all_gather"] = C.all_gather(t(float(r), 5.0)).tolist() == \
+        [0.0, 5.0, 1.0, 5.0]
+    got = []
+    C.all_gather(got, t(2.0 * r))
+    out["all_gather_list"] = [g.tolist() for g in got] == [[0.0], [2.0]]
+    b = t(r * 7.0, 1.0)
+    C.broadcast(b, src=1)
+    out["broadcast"] = b.tolist() == [7.0, 1.0]
+    rs = C.reduce_scatter(torch.arange(4.0, device=dev) * (r + 1))
+    out["reduce_scatter"] = rs.tolist() == [[0.0, 3.0], [6.0, 9.0]][r] \
+        and rs.device == dev
+    a2a = C.alltoall(torch.arange(4.0, device=dev) + 10 * r)
+    out["alltoall"] = a2a.tolist() == [[0.0, 1.0, 10.0, 11.0],
+                                       [2.0, 3.0, 12.0, 13.0]][r]
+    sc = torch.empty(1, device=dev)
+    C.scatter(sc, [t(10.0 * r + 1), t(10.0 * r + 2)], src=1)
+    out["scatter"] = sc.tolist() == [11.0 + r]
+    part = C.scatter(torch.arange(4.0, device=dev) + 100 * r, src=0)
+    out["scatter_split"] = part.tolist() == [2.0 * r, 2.0 * r + 1]
+    C.barrier()
+    out["barrier"] = True
+    return out
+
+
+def _peak_gb(dev):
+    import torch
+    if torch.device(dev).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _reset_peak(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def launched_rank(out, dev="cuda:0", small=False):
+    """One rank of phase 41's launched job (both ranks on ``cuda:0``,
+    gloo): every collective of the port on CUDA tensors across
+    the two processes, F's loss and gradient on this rank's half of a B 8
+    x S 2048 batch averaged by ``all_reduce(..., op=AVG)`` as one flat
+    buffer (timed), rank 0 holding it to the serial gradient of the whole
+    batch; then the same at E's width in fp32. Writes ``rank<r>.json``
+    into ``out``. ``dev="cpu"`` and ``small`` (tiny widths) rehearse it
+    without a card."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models import llama as L
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    prebuilt, build_s = _launched_build() if cuda else (True, 0.0)
+    C.init_parallel_env(timeout=180)
+    r, n = C.get_rank(), C.get_world_size()
+    res = {"rank": r, "world": n, "prebuilt": prebuilt, "build_s": build_s,
+           "device": torch.cuda.get_device_name(0) if cuda else "cpu",
+           "collectives": port_collectives(dev, r)}
+    runs = (("F", train_config(torch.bfloat16, use_fused_norm=True), 8, 2048),
+            ("E", e_config(torch.float32), 8, 512))
+    if small:
+        runs = tuple((tag, _small(c), b, 16) for tag, c, b, _ in runs)
+    for tag, cfg, batch, seq in runs:
+        params = L.init_params(cfg, seed=SEED + 41, device=dev)
+        ids = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+            0, cfg.vocab_size, (batch, seq))).to(dev)
+        half = batch // n
+        _reset_peak(dev)
+        reset_counts()
+        loss, grads = _loss_grads(params, ids[r * half:(r + 1) * half], cfg)
+        _sync(dev)
+        counts = {k: v for k, v in read_counts().items() if v}
+        flat = torch.cat([t.reshape(-1) for t in grads]
+                         + [loss.reshape(1).float()])
+        del grads
+        dist.barrier()
+        _sync(dev)
+        t0 = time.time()
+        C.all_reduce(flat, op=C.ReduceOp.AVG)
+        _sync(dev)
+        ar_s = time.time() - t0
+        rec = {"launches": counts, "launches_want": expected_launches(cfg),
+               "local_loss": loss.item(), "loss": flat[-1].item(),
+               "entries": flat.numel() - 1,
+               "all_reduce_ms": ar_s * 1e3,
+               "all_reduce_gb_per_s": flat.numel() * 4 / ar_s / 1e9,
+               "peak_memory_gb": _peak_gb(dev)}
+        if r == 0:
+            reset_counts()
+            ref, ref_g = _loss_grads(params, ids, cfg)
+            rec["serial_launches"] = {k: v for k, v in read_counts().items()
+                                      if v}
+            rec["serial_loss"] = ref.item()
+            gaps, off = [], 0
+            for t in ref_g:
+                k = t.numel()
+                got = flat[off:off + k].reshape(t.shape)
+                gaps.append(((got - t).abs().max()
+                             / t.abs().max().clamp(min=1e-30)).item())
+                off += k
+            rec["grad_gap"] = max(gaps)
+            del ref_g
+        res[tag] = rec
+        del params, flat
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+    with open(os.path.join(out, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _small(cfg):
+    """``cfg`` at a CPU rehearsal's widths."""
+    import dataclasses
+    return dataclasses.replace(cfg, vocab_size=256, hidden_size=64,
+                               intermediate_size=96, num_hidden_layers=2,
+                               num_attention_heads=4, num_key_value_heads=2)
+
+
+def launch_phase(tmp, dev="cuda:0", small=False):
+    """Phase 41 (cell LA): ``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 2`` on :func:`launched_rank`, both ranks on ``cuda:0``
+    over gloo, after the parent frees its cached memory.
+
+    Gates: rc 0; both ranks report world 2 and their rank; no kernel
+    rebuilt in a child; every collective of the port
+    (:func:`port_collectives`) right on CUDA tensors; each rank's flash,
+    RMSNorm and RoPE launches equal ``expected_launches`` (rank 0's serial
+    step's too);
+    F's averaged bf16 loss within 5e-3 x |loss| of the serial loss on the
+    whole batch; at E's width in fp32 the loss within 1e-5 and every
+    gradient leaf within 1e-4 x max|g|. Prints the collectives checked, the
+    all-reduce's ms and GB/s for F's 738 M-entry gradient and each rank's
+    peak memory. Returns ``(metrics, launches summed over the ranks' F
+    steps)``."""
+    import torch
+    t0 = time.time()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    rc, lines, secs = run_launcher(
+        f"cs.launched_rank({tmp!r}, {dev!r}, {small!r})\n", tmp, 2)
+    check(rc == 0, f"launched job rc {rc}: {lines[-5:]} "
+          f"{worker_logs(tmp, 2)}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    for r, x in enumerate(res):
+        log(f"  rank {r}: {json.dumps(x)}")
+        check((x["rank"], x["world"]) == (r, 2), f"rank {r}: {x['rank']}")
+        check(x["prebuilt"] and x["build_s"] < 5,
+              f"rank {r} rebuilt the kernels ({x['build_s']} s)")
+        wrong = [op for op, ok in x["collectives"].items() if not ok]
+        check(not wrong, f"rank {r}: collectives wrong on {dev}: {wrong}")
+        for tag in ("F", "E"):
+            check(x[tag]["launches"] == x[tag]["launches_want"],
+                  f"rank {r} {tag}: launches {x[tag]['launches']}, expected "
+                  f"{x[tag]['launches_want']}")
+    f0, e0 = res[0]["F"], res[0]["E"]
+    check(f0["serial_launches"] == f0["launches_want"],
+          f"serial launches {f0['serial_launches']}")
+    rel = abs(f0["loss"] - f0["serial_loss"]) / abs(f0["serial_loss"])
+    check(rel <= 5e-3, f"F: launched loss {f0['loss']} vs serial "
+          f"{f0['serial_loss']} (rel {rel})")
+    e_gap = abs(e0["loss"] - e0["serial_loss"])
+    check(e_gap <= 1e-5 and e0["grad_gap"] <= 1e-4,
+          f"E fp32: loss gap {e_gap}, gradient gap {e0['grad_gap']}")
+    m = {"seconds_launcher": secs, "F_loss_rel": rel,
+         "F_grad_gap_bf16": f0["grad_gap"], "E_loss_gap": e_gap,
+         "E_grad_gap": e0["grad_gap"],
+         "all_reduce_ms": [x["F"]["all_reduce_ms"] for x in res],
+         "all_reduce_gb_per_s": [x["F"]["all_reduce_gb_per_s"] for x in res],
+         "entries": f0["entries"],
+         "peak_memory_gb": [x["F"]["peak_memory_gb"] for x in res],
+         "collectives": sorted(res[0]["collectives"])}
+    m["seconds"] = time.time() - t0
+    log(f"  {json.dumps(m)}")
+    log(f"  phase 41 took {m['seconds']:.1f} s")
+    counts = {k: sum(x["F"]["launches"].get(k, 0) for x in res)
+              for k in read_counts()}
+    return m, counts
+
+
+ELASTIC_STEPS = 8
+
+
+def _elastic_batch(step, cfg, rows=4, seq=512):
+    import torch
+    return torch.from_numpy(np.random.default_rng(SEED + 4200 + step)
+                            .integers(0, cfg.vocab_size, (rows, seq)))
+
+
+def elastic_rank(out, dev="cuda:0", small=False):
+    """One rank of phase 42's elastic job: E's width at fp32 (the
+    kernels), data parallel over the launched world (each rank's half of
+    a B 4 x S 512 batch a step, gradients averaged by ``all_reduce`` over
+    gloo, AdamW at lr 1e-3), ``ELASTIC_STEPS`` steps, every rank saving
+    ``{"params", "opt"}`` through ``AsyncCheckpointer`` after steps 2, 4
+    and 6 (a
+    commit covers both ranks' files; a restore walks back past one whose
+    other rank's files are torn), the heartbeat started by
+    ``init_parallel_env``. With ``CHAOS_FAULT=chaos``:
+    in round 0 rank 1 SIGKILLs itself at step 5 once a commit exists; in
+    round 1 rank 0 stalls its heartbeat at step 6 and sleeps. Stamps the
+    host clock at each event into ``out``; rank 0 writes the final loss
+    (a fixed batch, no update). ``dev="cpu"`` and ``small`` rehearse it
+    without a card."""
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.checkpoint import (AsyncCheckpointer,
+                                                         manifest)
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.testing import chaos
+    dev = torch.device(dev)
+    prebuilt, build_s = (_launched_build() if dev.type == "cuda"
+                         else (True, 0.0))
+    rnd = int(os.environ["PADDLE_RESTART_ROUND"])
+    fault = os.environ.get("CHAOS_FAULT", "")
+    C.init_parallel_env(timeout=180)
+    r, n = C.get_rank(), C.get_world_size()
+    _stamp(out, f"start.{rnd}.{r}")
+    if not prebuilt or build_s > 5:
+        raise RuntimeError(f"rank {r} rebuilt the kernels ({build_s} s)")
+    cfg = e_config(torch.float32)
+    seq = 512
+    if small:
+        cfg, seq = _small(cfg), 16
+    params = L.init_params(cfg, seed=SEED + 42, device=dev)
+    opt = L._adamw_init(params)
+    ck = AsyncCheckpointer(keep_last_k=2)
+    start = ck.restore({"params": params, "opt": opt}) or 0
+    _stamp(out, f"resumed.{rnd}.{r}", start)
+    _stamp(out, f"resumed_at.{rnd}.{r}")
+    names = [k for k, _ in L._named(params)]
+    for step in range(start, ELASTIC_STEPS):
+        ids = _elastic_batch(step, cfg, seq=seq).to(dev)
+        half = ids.shape[0] // n
+        loss, grads = _loss_grads(params, ids[r * half:(r + 1) * half], cfg)
+        flat = torch.cat([t.reshape(-1) for t in grads])
+        C.all_reduce(flat, op=C.ReduceOp.AVG)
+        avg, off = {}, 0
+        for k, t in zip(names, grads):
+            avg[k] = flat[off:off + t.numel()].reshape(t.shape)
+            off += t.numel()
+        it = iter(avg[k] for k in names)
+        with torch.no_grad():
+            params, opt = L._adamw_apply(
+                params, L._tree_map(lambda _: next(it), params), opt,
+                lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.0,
+                opt_dtype=torch.float32)
+        if (step + 1) % 2 == 0 and step + 1 < ELASTIC_STEPS:
+            ck.save({"params": params, "opt": opt}, step + 1)
+        if fault == "chaos" and rnd == 0 and r == 1 and step == 4:
+            while manifest.latest_committed(ck.root) is None:
+                time.sleep(0.05)
+            _stamp(out, "kill_at")
+            chaos.kill_self()
+        if fault == "chaos" and rnd == 1 and r == 0 and step == 6:
+            ck.wait()
+            _stamp(out, "stall_at")
+            stall = chaos.stall_heartbeat()
+            stall.__enter__()
+            time.sleep(120)                       # alive but hung
+    ck.wait()
+    if r == 0:
+        with torch.no_grad():
+            ids = _elastic_batch(99, cfg, seq=seq).to(dev)
+            final = L.loss_fn(params, ids, ids, cfg).item()
+        _stamp(out, f"final.{fault or 'clean'}", final)
+
+
+def elastic_phase(tmp, dev="cuda:0", small=False):
+    """Phase 42: :func:`elastic_rank` launched at 2 ranks on ``cuda:0``,
+    first unfaulted, then with ``CHAOS_FAULT=chaos`` at ``--max_restart 2
+    --elastic_timeout 5`` (heartbeats every 0.5 s): the SIGKILLed rank
+    ends round 0, the stalled heartbeat ends round 1 as hung (the
+    launcher's ``HUNG_RC``), round 2 resumes and finishes.
+
+    Gates: both jobs rc 0; round 1 resumes from a commit >= 2 and round 2
+    from a commit >= round 1's; the launcher reports the crash and the
+    hung rank; the final loss within 1e-5 x |loss| of the unfaulted
+    run's. Prints the detection latency of each fault (the launcher's
+    line against the child's stamp; the stall against the timeout), each
+    restart's wall time (from that line to the next round's ranks
+    started and resumed) and each job's seconds."""
+    from paddle_tpu_torch.distributed.launch.main import HUNG_RC
+    t0 = time.time()
+    env = {"PADDLE_HEARTBEAT_INTERVAL": "0.5"}
+    runs = {}
+    for fault, flags in (("", ()), ("chaos", ("--max_restart", "2",
+                                              "--elastic_timeout", "5"))):
+        d = os.path.join(tmp, fault or "clean")
+        os.makedirs(d)
+        rc, lines, secs = run_launcher(
+            f"cs.elastic_rank({d!r}, {dev!r}, {small!r})\n", d, 2,
+            "--ckpt_dir",
+            os.path.join(d, "ckpt"), *flags,
+            env=dict(env, CHAOS_FAULT=fault))
+        check(rc == 0, f"elastic job {fault or 'clean'} rc {rc}: "
+              f"{lines[-6:]} {worker_logs(d, 2)}")
+        runs[fault or "clean"] = (d, lines, secs)
+    clean = _read_stamp(runs["clean"][0], "final.clean")
+    d, lines, secs = runs["chaos"]
+    final = _read_stamp(d, "final.chaos")
+
+    def first(word):
+        hit = [t for t, line in lines if word in line]
+        check(hit, f"the launcher never printed {word!r}: {lines}")
+        return hit[0]
+
+    crash_t, hung_t = first("exited nonzero"), first("missed heartbeats")
+    check(any(f"the last round's rc {HUNG_RC}" in line for _, line in lines),
+          f"no round ended with HUNG_RC: {lines}")
+    resumed = [_read_stamp(d, f"resumed.{k}.0") for k in (1, 2)]
+    check(resumed[0] >= 2 and resumed[1] >= resumed[0],
+          f"resumed from {resumed}")
+    m = {"clean_final_loss": clean, "chaos_final_loss": final,
+         "final_rel": abs(final - clean) / abs(clean),
+         "resumed_from": resumed,
+         "kill_detect_s": crash_t - _read_stamp(d, "kill_at"),
+         "stall_detect_s": hung_t - _read_stamp(d, "stall_at"),
+         "elastic_timeout_s": 5.0,
+         "restart_s": {
+             "after_kill_started": _read_stamp(d, "start.1.0") - crash_t,
+             "after_kill_resumed": _read_stamp(d, "resumed_at.1.0")
+             - crash_t,
+             "after_stall_started": _read_stamp(d, "start.2.0") - hung_t,
+             "after_stall_resumed": _read_stamp(d, "resumed_at.2.0")
+             - hung_t},
+         "job_seconds": {k: v[2] for k, v in runs.items()},
+         "launcher_lines": [line for _, line in lines]}
+    check(m["final_rel"] <= 1e-5, f"resumed final loss {final} vs clean "
+          f"{clean}")
+    m["seconds"] = time.time() - t0
+    log(f"  {json.dumps(m)}")
+    log(f"  phase 42 took {m['seconds']:.1f} s")
+    return m
+
+
+def ep_config(dtype, **kw):
+    """L: the MoE model (phase 4's widths with 8 experts, top-2, capacity
+    factor 1.25), cut to 2 layers, with ``ep_axis="ep"``."""
+    base = dict(num_hidden_layers=2, moe_num_experts=8, moe_top_k=2,
+                ep_axis="ep", use_fused_norm=True)
+    base.update(kw)
+    return train_config(dtype, **base)
+
+
+def ep_phase(dev="cuda", cfg=None, batch=8, seq=2048, steps=3):
+    """Phase 43 (cell EP): L's step (``use_kernels``, ``use_fused_norm``,
+    full remat, bf16 compute, fp32 params and AdamW at lr 1e-4) at dp 2 x
+    ep 4 over ``[dev] * 8``, the batch B 8 x S 2048 over dp, beside the
+    serial step from the same weights and ``steps`` seeded batches.
+
+    The bytes are reckoned from the specs before the layout is made: the
+    state (params + m + v + gradients) of the 8 entries and of the serial
+    step. Gates: each expert leaf at 1/4 of its bytes on an entry and
+    params + m + v at an entry equal to the specs'; the router's kept
+    counts on the first batch equal the serial router's; the losses
+    within 5e-3 x |loss| of the serial step's; dp replicas of every leaf
+    and moment bit-equal after every step; exactly ``sharded_launches``
+    a step (the serial counts x 2 pieces). Prints step ms and tokens/s of
+    both, the peak memory of each and a profiled sharded step."""
+    import torch
+    from paddle_tpu_torch.distributed.sharding import shard_to_mesh
+    from paddle_tpu_torch.distributed.topology import build_mesh
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.time()
+    cfg = cfg or ep_config(torch.bfloat16)
+    mesh = build_mesh(EP_DEGREES, [dev] * 8)
+    rng = np.random.default_rng(SEED + 43)
+    data = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (batch, seq))).to(dev)
+            for _ in range(steps)]
+    init_opt, step = L.make_train_step(cfg, lr=1e-4)
+    params = L.init_params(cfg, seed=SEED + 43, device=dev)
+    specs = L.param_specs(cfg, mp_axis=None)
+    want, whole = entry_bytes(params, mesh, specs)
+    serial_bytes = 4 * sum(t.numel() * t.element_size()
+                           for t in _state_leaves(params))
+    log(f"  reckoned: params + m + v + gradients {want * 4 // 3} bytes an "
+        f"entry, {mesh.size} entries {want * 4 // 3 * mesh.size / 1e9:.2f} "
+        f"GB; the serial step {serial_bytes / 1e9:.2f} GB")
+    _sync(dev)
+    kept_serial = L.moe_kept(params, data[0], cfg)
+    ps = L.shard_params(params, mesh, cfg, mp_axis=None)
+    opt_s = init_opt(ps)
+    c0 = (0,) * len(mesh.axis_names)
+    held = L.placement_bytes(ps, c0) + L.placement_bytes(opt_s, c0)
+    quarter = {k: ps["layers"][k].nbytes_at(c0) * 4
+               == params["layers"][k].numel() * 4
+               for k in ("w_gate", "w_up", "w_down")}
+    kept = L.moe_kept(ps, shard_to_mesh(data[0], mesh, L.batch_spec(),
+                                        "input_ids"), cfg)
+    log(f"  placement entry holds {held} bytes of params + m + v (specs "
+        f"give {want}); expert leaves at 1/4 an entry: {quarter}; kept "
+        f"(token, choice) pairs a layer {kept}, serial {kept_serial} of "
+        f"{batch * seq * cfg.moe_top_k}")
+    check(held == want and all(quarter.values()),
+          f"entry bytes {held} (specs {want}), quarters {quarter}")
+    check(kept == kept_serial, f"kept {kept} vs serial {kept_serial}")
+
+    opt = init_opt(params)
+    torch.cuda.reset_peak_memory_stats()
+
+    def serial_step(i):
+        nonlocal params, opt
+        params, opt, loss = step(params, opt, data[i], data[i])
+        return loss.item()
+
+    ser, ser_t = timed_steps(serial_step, steps, dev)
+    serial_peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    torch.cuda.empty_cache()
+    batches = [shard_to_mesh(d, mesh, L.batch_spec(), "input_ids")
+               for d in data]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    eq = []
+
+    def sharded_step(i):
+        nonlocal ps, opt_s
+        ps, opt_s, loss = step(ps, opt_s, batches[i], batches[i])
+        return loss.item()
+
+    sh, sh_t = timed_steps(sharded_step, steps, dev, lambda: eq.append(
+        replicas_equal(ps) and replicas_equal(opt_s["m"])
+        and replicas_equal(opt_s["v"])))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    wants = sharded_launches(cfg, EP_DEGREES["dp"], 1)
+    rel = [abs(a - b) / abs(b) for a, b in zip(sh, ser)]
+    m = {"serial_losses": ser, "ep_losses": sh, "loss_rel": rel,
+         "kept": kept, "serial_step_ms": float(np.median(ser_t[1:])) * 1e3,
+         "ep_step_ms": float(np.median(sh_t[1:])) * 1e3,
+         "serial_step_ms_each": [t * 1e3 for t in ser_t],
+         "ep_step_ms_each": [t * 1e3 for t in sh_t],
+         "serial_peak_gb": serial_peak / 2 ** 30, "ep_peak_gb": peak / 2 ** 30,
+         "placement_entry_bytes": held, "launches_per_step": per_step}
+    m["serial_tokens_per_s"] = batch * seq / m["serial_step_ms"] * 1e3
+    m["ep_tokens_per_s"] = batch * seq / m["ep_step_ms"] * 1e3
+    log(f"  {json.dumps(m)}")
+    check(all(np.isfinite(sh)), f"non-finite ep loss {sh}")
+    check(max(rel) <= 5e-3, f"ep losses {sh} vs serial {ser}: rel {rel}")
+    check(all(eq), f"dp replicas bit-equal after each step: {eq}")
+    check(per_step == wants, f"launches per step {per_step}, expected "
+          f"{wants}")
+    m["profile"] = profile_device(
+        lambda: step(ps, opt_s, batches[0], batches[0]),
+        "expert-parallel training step", top=10)
+    m["seconds"] = time.time() - t0
+    log(f"  phase 43 took {m['seconds']:.1f} s")
+    del ps, opt_s, batches
+    torch.cuda.empty_cache()
+    return m, counts
+
+
+def pp_moe_oracle(params, ids, cfg, micro, dp):
+    """The serial micro-batched loss of a pipelined MoE step: every
+    micro-batch's rows of each dp rank routed alone (as the pp step
+    routes them), the summed CE over the tokens plus ``moe_aux_weight`` x
+    the mean of the pieces' aux (``tests/test_llama.py:393``'s oracle,
+    with dp)."""
+    import torch
+    from paddle_tpu_torch.models import llama as L
+    B = ids.shape[0]
+    tot, cnt, auxes = 0.0, 0, []
+    for m_ in ids.reshape(micro, B // micro, -1).unbind(0):
+        for piece in m_.chunk(dp, dim=0):
+            logits, aux = L.forward(params, piece, cfg, return_aux=True)
+            logits = logits.float()
+            lse = torch.logsumexp(logits, -1)
+            tgt = logits.gather(-1, piece.long()[..., None])[..., 0]
+            tot = tot + (lse - tgt).sum()
+            cnt += piece.numel()
+            auxes.append(aux)
+    return tot / cnt + cfg.moe_aux_weight * torch.stack(auxes).mean()
+
+
+def ep_parity_phase(dev="cuda", cfg=None, batch=8, seq=512):
+    """Phase 44: E's width at fp32 with the kernels and 8 experts, top-2,
+    against the serial loss and gradients (the loss within 1e-5, every
+    gradient leaf within 1e-4 x its max|g|): dp 2 x ep 4 through
+    ``shard_params`` (the router over the global batch: the serial
+    ``loss_fn``); pp 2 x ep 2 (2 micro-batches) and dp 2 x pp 2 x ep 2 at
+    V 2 (4 micro-batches) through the pipelined loss, against
+    :func:`pp_moe_oracle`."""
+    import torch
+    from paddle_tpu_torch.distributed.sharding import (shard_to_mesh,
+                                                       shard_tree)
+    from paddle_tpu_torch.distributed.topology import build_mesh
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.time()
+    cfg = cfg or e_config(torch.float32, moe_num_experts=8, moe_top_k=2,
+                          ep_axis="ep")
+    ids = torch.from_numpy(np.random.default_rng(SEED + 44).integers(
+        0, cfg.vocab_size, (batch, seq))).to(dev)
+
+    def serial(loss_of):
+        params = L.init_params(cfg, seed=SEED + 44, device=dev)
+        leaves = L._leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = loss_of(params)
+        return loss.item(), dict(zip([n for n, _ in L._named(params)],
+                                     torch.autograd.grad(loss, leaves)))
+
+    gaps = {}
+
+    def hold(name, loss, grads, ref):
+        gaps[name] = (abs(loss - ref[0]), grad_gap(grads, ref[1]))
+        log(f"  {name}: loss gap {gaps[name][0]:.3g}, worst gradient leaf "
+            f"max|diff|/max|g| {gaps[name][1]:.3g}")
+        check(gaps[name][0] <= 1e-5 and gaps[name][1] <= 1e-4,
+              f"fp32 {name}: {gaps[name]}")
+
+    mesh = build_mesh(EP_DEGREES, [dev] * 8)
+    ps = L.shard_params(L.init_params(cfg, seed=SEED + 44, device=dev), mesh,
+                        cfg, mp_axis=None)
+    b = shard_to_mesh(ids, mesh, L.batch_spec(), "input_ids")
+    loss, g = L._sharded_grads(ps, b, b, cfg)
+    hold("dp 2 x ep 4", loss.item(), whole_grads(ps, g),
+         serial(lambda p: L.loss_fn(p, ids, ids, cfg)))
+    del ps, g
+    for deg, V, micro in (({"pp": 2, "ep": 2}, 1, 2),
+                          ({"dp": 2, "pp": 2, "ep": 2}, 2, 4)):
+        n = int(np.prod(list(deg.values())))
+        mesh = build_mesh(deg, [dev] * n)
+        dp = deg.get("dp", 1)
+        base = L.init_params(cfg, seed=SEED + 44, device=dev)
+        ppp = shard_tree(L.to_pp_layout(base, deg["pp"], V), mesh,
+                         L.pp_param_specs(cfg, "pp", "ep"))
+        rings = L._pp_rings(mesh)
+        loss, g = L._replica_grads(ppp, lambda: L._pp_loss(
+            ppp, ids, ids, cfg, rings, micro, V), None)
+        ref = serial(lambda p: pp_moe_oracle(p, ids, cfg, micro, dp))
+        g = {k: t.reshape(ref[1][k].shape)
+             for k, t in whole_grads(ppp, g).items()}
+        hold(" x ".join(f"{a} {k}" for a, k in deg.items()) + f" V {V}",
+             loss.item(), g, ref)
+    secs = time.time() - t0
+    log(f"  phase 44 took {secs:.1f} s")
+    return {"gaps": gaps, "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6478,8 +7190,27 @@ def main() -> int:
         "unsharded and sharded params")
     cp_parity_phase()
     torch.cuda.empty_cache()
-    trained = (c8, c34, c36, c38, c39)
-    normed = (c11, c34, c36, c38, c39)
+
+    log("== phase 41: the launched job (cell LA): python -m "
+        "paddle_tpu_torch.distributed.launch --nproc_per_node 2, both ranks "
+        "on cuda:0 over gloo, F's gradient averaged across the processes")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, c41 = launch_phase(tmp)
+    log(f"  nvidia-smi: {card}")
+    log("== phase 42: elastic restarts on the card: a SIGKILLed rank and a "
+        "stalled heartbeat, each round resumed from AsyncCheckpointer")
+    with tempfile.TemporaryDirectory() as tmp:
+        elastic_phase(tmp)
+    log("== phase 43: expert parallelism (cell EP): L (8 experts, 2 layers) "
+        "at dp 2 x ep 4 over cuda:0 x 8, beside the serial step")
+    _, c43 = ep_phase()
+    log(f"  nvidia-smi: {card}")
+    log("== phase 44: fp32 expert-parallel parity (E's width, 8 experts): "
+        "dp 2 x ep 4, pp 2 x ep 2, dp 2 x pp 2 x ep 2 at V 2")
+    ep_parity_phase()
+    torch.cuda.empty_cache()
+    trained = (c8, c34, c36, c38, c39, c41, c43)
+    normed = (c11, c34, c36, c38, c39, c41, c43)
 
     log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")

@@ -4,17 +4,24 @@ the collective API over a placement (``all_reduce`` and the rest), tensor
 layouts over a mesh (``shard_to_mesh``, ``ShardedTensor``), context
 parallelism (``sep_parallel_attention``: ring and Ulysses attention), the
 pipeline schedule (``pipeline_scan``, ``ring_schedule``), the MoE routing
-math, the serving tensor-parallel placement and shard helpers, and the
-checkpoint stack (``checkpoint``: sharded save, reshard-on-load,
-``AsyncCheckpointer``)."""
+math and the expert-parallel ops (``moe_utils``), the serving
+tensor-parallel placement and shard helpers, the checkpoint stack
+(``checkpoint``: sharded save, reshard-on-load, ``AsyncCheckpointer``),
+and the multi-process side: the launcher (``python -m
+paddle_tpu_torch.distributed.launch``), the rendezvous store and elastic
+heartbeats (``elastic``)."""
 
 from . import checkpoint
+from . import elastic
 from . import fleet
 from .checkpoint import AsyncCheckpointer, load_state_dict, save_state_dict
 from .collective import (ReduceOp, all_gather, all_reduce, alltoall, barrier,
                          broadcast, get_rank, get_world_size,
                          init_parallel_env, is_initialized, reduce,
                          reduce_scatter, scatter)
+from .moe_utils import (assign_pos, expert_count, global_gather,
+                        global_scatter, limit_by_capacity, number_count,
+                        prune_gate_by_capacity, random_routing)
 from .context_parallel import (ring_flash_attention, sep_parallel_attention,
                                ulysses_attention)
 from .pipeline import pipeline_scan, pipeline_ticks, ring_schedule
@@ -23,7 +30,7 @@ from .topology import (HybridCommunicateGroup, Mesh, ParallelAxis,
                        build_mesh, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
 
-__all__ = ["checkpoint", "fleet", "save_state_dict", "load_state_dict",
+__all__ = ["checkpoint", "elastic", "fleet", "save_state_dict", "load_state_dict",
            "AsyncCheckpointer", "ReduceOp", "all_reduce", "all_gather",
            "reduce_scatter", "alltoall", "broadcast", "reduce", "scatter",
            "barrier", "get_rank", "get_world_size", "is_initialized",
@@ -32,4 +39,7 @@ __all__ = ["checkpoint", "fleet", "save_state_dict", "load_state_dict",
            "set_hybrid_communicate_group", "ShardedTensor", "shard_to_mesh",
            "assemble", "shard_tree", "sep_parallel_attention",
            "ring_flash_attention", "ulysses_attention", "pipeline_scan",
-           "pipeline_ticks", "ring_schedule"]
+           "pipeline_ticks", "ring_schedule", "number_count",
+           "expert_count", "assign_pos", "limit_by_capacity",
+           "prune_gate_by_capacity", "random_routing", "global_scatter",
+           "global_gather"]

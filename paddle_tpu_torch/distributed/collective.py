@@ -29,12 +29,22 @@ they are.
 
 Group argument: a :class:`~.topology.ParallelAxis`, an axis name, a tuple
 of names, or None (every non-trivial axis of the hybrid group, the
-reference's default world). Multi-process groups are the launcher's
-(ROADMAP item 10a): :func:`init_parallel_env` refuses them.
+reference's default world).
+
+A launched world (``python -m paddle_tpu_torch.distributed.launch
+--nproc_per_node N``) is the other encoding: :func:`init_parallel_env`
+joins ``torch.distributed``'s gloo process group from the launcher's
+environment, and then a collective given this process's own tensor (not a
+per-rank list) with no group runs the matching ``torch.distributed`` op
+across the processes. Gloo, not NCCL, because several ranks may share one
+card. Gloo runs every op the port calls on CUDA tensors too (its CUDA
+work copies through host memory itself). ``ReduceOp.AVG`` is a sum
+divided by the world size.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import List, Optional, Sequence
 
@@ -59,20 +69,30 @@ class ReduceOp:
 
 _initialized = False
 
+_DIST_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN", "prod": "PRODUCT"}
 
-def init_parallel_env():
-    """Mark the collective API initialised (one process drives every
-    rank). A launcher's multi-process environment (``PADDLE_TRAINERS_NUM``
-    above 1, or an elastic store) raises ``NotImplementedError``: the
-    launcher is ROADMAP item 10a."""
+
+def init_parallel_env(timeout: Optional[float] = None):
+    """Initialise the collective API. In a launched world
+    (``PADDLE_TRAINERS_NUM`` above 1) this joins ``torch.distributed``'s
+    gloo process group at ``tcp://`` + ``PADDLE_MASTER`` as rank
+    ``PADDLE_TRAINER_ID``, with ``timeout`` seconds for every collective
+    (None: torch's default). With the launcher's
+    ``PADDLE_ELASTIC_STORE`` set it starts the liveness heartbeat first
+    (:func:`~.elastic.start_heartbeat`). One process (no launcher) drives
+    every rank of a placement, and only the flag is set."""
     global _initialized
-    if os.environ.get("PADDLE_TRAINERS_NUM", "1") not in ("", "1") or \
-            os.environ.get("PADDLE_ELASTIC_STORE"):
-        raise NotImplementedError(
-            "init_parallel_env: multi-process training (PADDLE_TRAINERS_NUM "
-            f"={os.environ.get('PADDLE_TRAINERS_NUM')!r}) is not ported yet "
-            "(ROADMAP.md section A, item 10a: the launcher); one process "
-            "drives a placement of devices instead")
+    if os.environ.get("PADDLE_ELASTIC_STORE"):
+        from .elastic import start_heartbeat
+        start_heartbeat()
+    world = int(os.environ.get("PADDLE_TRAINERS_NUM") or 1)
+    import torch.distributed as dist
+    if world > 1 and not dist.is_initialized():
+        dist.init_process_group(
+            "gloo", init_method="tcp://" + os.environ["PADDLE_MASTER"],
+            rank=int(os.environ["PADDLE_TRAINER_ID"]), world_size=world,
+            timeout=None if timeout is None
+            else datetime.timedelta(seconds=timeout))
     _initialized = True
 
 
@@ -80,13 +100,60 @@ def is_initialized() -> bool:
     return _initialized
 
 
+def _launched() -> bool:
+    """Whether this process is one rank of an initialised multi-process
+    world."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_world_size() > 1
+
+
+def _own(t, group) -> bool:
+    """Whether a call gets this process's own tensor in a launched world
+    (no group, a plain tensor)."""
+    return group is None and isinstance(t, torch.Tensor) and _launched()
+
+
 def get_rank(group=None) -> int:
-    """The process's rank: 0 (one process drives every rank)."""
+    """The process's rank: its rank in a launched world, else 0 (one
+    process drives every rank)."""
+    if group is None and _launched():
+        import torch.distributed as dist
+        return dist.get_rank()
     return 0
 
 
 def get_world_size(group=None) -> int:
+    """The process count of a launched world (``group`` None), else the
+    group's rank count on the placement."""
+    if group is None and _launched():
+        import torch.distributed as dist
+        return dist.get_world_size()
     return _resolve_axis(group).nranks
+
+
+def _dist_all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+    import torch.distributed as dist
+    if op not in _DIST_OPS and op != ReduceOp.AVG:
+        raise ValueError(f"unknown reduce op {op!r}; options: sum, max, "
+                         f"min, prod, avg")
+    dist.all_reduce(t, op=getattr(dist.ReduceOp, _DIST_OPS.get(op, "SUM")))
+    if op == ReduceOp.AVG:
+        t.div_(dist.get_world_size())
+    return t
+
+
+def _dist_all_gather(t: torch.Tensor) -> List[torch.Tensor]:
+    import torch.distributed as dist
+    outs = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(outs, t.contiguous())
+    return outs
+
+
+def _dist_broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
+    import torch.distributed as dist
+    dist.broadcast(t, src=src)
+    return t
 
 
 def _resolve_axis(group) -> ParallelAxis:
@@ -284,7 +351,10 @@ def all_reduce(tensor, op: str = ReduceOp.SUM, group=None,
                sync_op: bool = True):
     """Every rank's tensor becomes the reduction over the ranks (in rank
     order), in place; returns ``tensor``. ``prod`` multiplies, exact for
-    any sign and zero."""
+    any sign and zero. In a launched world, this process's tensor is
+    reduced across the processes."""
+    if _own(tensor, group):
+        return _dist_all_reduce(tensor, op)
     xs, as_tensor = _rows(tensor, group, "all_reduce")
     return _update(tensor, reduce_ranks(xs, op), as_tensor)
 
@@ -292,7 +362,14 @@ def all_reduce(tensor, op: str = ReduceOp.SUM, group=None,
 def all_gather(tensor_or_list, tensor=None, group=None, sync_op: bool = True):
     """Both call conventions: ``all_gather(out_list, t)`` appends each
     rank's tensor to ``out_list`` and returns it; ``all_gather(t)``
-    returns every rank's concatenation of all ranks' tensors on dim 0."""
+    returns every rank's concatenation of all ranks' tensors on dim 0 (in
+    a launched world: this process's, across the processes)."""
+    if isinstance(tensor_or_list, list) and tensor is not None and \
+            _own(tensor, group):
+        tensor_or_list.extend(_dist_all_gather(tensor))
+        return tensor_or_list
+    if _own(tensor_or_list, group):
+        return torch.cat(_dist_all_gather(tensor_or_list), dim=0)
     if isinstance(tensor_or_list, list) and tensor is not None:
         xs, _ = _rows(tensor, group, "all_gather")
         tensor_or_list.extend(xs)
@@ -304,7 +381,18 @@ def all_gather(tensor_or_list, tensor=None, group=None, sync_op: bool = True):
 def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
                    sync_op: bool = True):
     """Rank ``r`` gets slice ``r`` on dim 0 of the sum of every rank's
-    tensor (the reference sums whatever ``op`` says)."""
+    tensor (the reference sums whatever ``op`` says). In a launched world:
+    process ``r`` gets slice ``r`` of the sum over the processes."""
+    if _own(tensor, group):
+        import torch.distributed as dist
+        n = dist.get_world_size()
+        if tensor.shape[0] % n:
+            raise ValueError(f"reduce_scatter: dim 0 of size "
+                             f"{tensor.shape[0]} does not split over {n} "
+                             f"ranks")
+        out = tensor.new_empty((tensor.shape[0] // n,) + tensor.shape[1:])
+        dist.reduce_scatter_tensor(out, tensor.contiguous())
+        return out
     xs, as_tensor = _rows(tensor, group, "reduce_scatter")
     n = len(xs)
     if xs[0].shape[0] % n:
@@ -331,13 +419,27 @@ def alltoall_ranks(xs: Sequence[torch.Tensor], split_dim: int = 0,
 def alltoall(in_tensor_or_list, out_tensor_list=None, group=None,
              sync_op: bool = True):
     """Rank ``r`` sends chunk ``c`` of its tensor (dim 0, ``n`` chunks) to
-    rank ``c``; rank ``c`` concatenates what it receives in rank order."""
+    rank ``c``; rank ``c`` concatenates what it receives in rank order
+    (in a launched world: across the processes)."""
+    if _own(in_tensor_or_list, group):
+        import torch.distributed as dist
+        x = in_tensor_or_list.contiguous()
+        if x.shape[0] % dist.get_world_size():
+            raise ValueError(f"alltoall: dim 0 of size {x.shape[0]} does "
+                             f"not split over {dist.get_world_size()} "
+                             f"ranks")
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        return out
     xs, as_tensor = _rows(in_tensor_or_list, group, "alltoall")
     return _pack(alltoall_ranks(xs), as_tensor)
 
 
 def broadcast(tensor, src: int = 0, group=None, sync_op: bool = True):
-    """Every rank's tensor becomes rank ``src``'s, in place."""
+    """Every rank's tensor becomes rank ``src``'s, in place (in a launched
+    world: process ``src``'s)."""
+    if _own(tensor, group):
+        return _dist_broadcast(tensor, src)
     xs, as_tensor = _rows(tensor, group, "broadcast")
     if not 0 <= src < len(xs):
         raise ValueError(f"broadcast: src {src} out of range for "
@@ -359,7 +461,30 @@ def scatter(tensor, tensor_list=None, src: int = 0, group=None,
     per-rank list, or as a tensor of the result's shape, is filled in
     place and returned. With no ``tensor_list``, ``tensor`` is the full
     value ``src`` holds, split evenly on dim 0 into the ranks' rows (the
-    ``[n, m, ...]`` view of it is returned)."""
+    ``[n, m, ...]`` view of it is returned). In a launched world,
+    ``tensor`` is this process's output buffer, filled with
+    ``tensor_list[rank]`` of process ``src``; with no ``tensor_list``,
+    process ``src``'s ``tensor`` split on dim 0, this process's part
+    returned."""
+    if _own(tensor, group):
+        import torch.distributed as dist
+        n, r = dist.get_world_size(), dist.get_rank()
+        if tensor_list is None:
+            if tensor.shape[0] % n:
+                raise ValueError(f"scatter: leading dim {tensor.shape[0]} "
+                                 f"not divisible by group size {n}")
+            parts = [c.contiguous() for c in tensor.chunk(n)] \
+                if r == src else None
+            out = tensor.new_empty((tensor.shape[0] // n,)
+                                   + tensor.shape[1:])
+            dist.scatter(out, parts, src=src)
+            return out
+        parts = None
+        if r == src:
+            parts = [torch.as_tensor(p).to(tensor.device, tensor.dtype)
+                     .contiguous() for p in tensor_list]
+        dist.scatter(tensor, parts, src=src)
+        return tensor
     n = _resolve_axis(group).nranks
     if tensor_list is None:
         t = torch.as_tensor(tensor)
@@ -380,7 +505,12 @@ def scatter(tensor, tensor_list=None, src: int = 0, group=None,
 
 
 def barrier(group=None):
-    """Wait until every device of the group finished its queued work."""
+    """Wait until every device of the group finished its queued work (in
+    a launched world with no group: until every process reaches it)."""
+    if group is None and _launched():
+        import torch.distributed as dist
+        dist.barrier()
+        return
     for d in set(_resolve_axis(group).devices()):
         if d.type == "cuda":
             torch.cuda.synchronize(d)

@@ -343,6 +343,11 @@ define_flag("FLAGS_checkpoint_verify", True,
             "on paddle.load / distributed checkpoint load; corruption raises "
             "CheckpointCorruptionError instead of unpickling garbage "
             "(docs/FAULT_TOLERANCE.md).", bool)
+define_flag("FLAGS_emergency_ckpt_deadline_s", 10.0,
+            "Default deadline (s) for the SIGTERM emergency checkpoint in "
+            "elastic.install_preemption_handler when the launcher's "
+            "PADDLE_PREEMPT_GRACE is not set; must sit inside the "
+            "infrastructure's kill grace.", float)
 
 # ---------------------------------------------------------------------------
 # Run health (paddle_tpu_torch.health, the DataLoader's self-healing): the

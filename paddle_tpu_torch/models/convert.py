@@ -107,17 +107,17 @@ def specs_from_jax(tree):
 
 
 # JAX config fields whose feature the port does not run, with the value
-# that means "off"
-_UNPORTED = {"ep_axis": None, "tp_axis": None}
+# that means "off" (the serving tensor-parallel axis of a local config;
+# the port's serving engine takes ServingConfig(tp=...))
+_UNPORTED = {"tp_axis": None}
 
 
 def config_from_jax(cfg) -> LlamaConfig:
     """The port's :class:`LlamaConfig` for a JAX ``LlamaConfig`` (read by
     attribute; dtypes mapped through numpy). Raises ``ValueError`` naming
     the field when the JAX config turns on a feature the port does not
-    run (expert parallelism, or the serving tensor-parallel axis of a
-    local config), rather than returning a config that computes something
-    else."""
+    run (the serving tensor-parallel axis of a local config), rather than
+    returning a config that computes something else."""
     for name, off in _UNPORTED.items():
         value = getattr(cfg, name, off)
         if value != off:
@@ -139,4 +139,5 @@ def config_from_jax(cfg) -> LlamaConfig:
         sep_axis=cfg.sep_axis, cp_impl=cfg.cp_impl,
         moe_num_experts=cfg.moe_num_experts, moe_top_k=cfg.moe_top_k,
         moe_capacity_factor=cfg.moe_capacity_factor,
-        moe_aux_weight=cfg.moe_aux_weight, ce_chunks=cfg.ce_chunks)
+        moe_aux_weight=cfg.moe_aux_weight, ep_axis=cfg.ep_axis,
+        ce_chunks=cfg.ce_chunks)

@@ -23,20 +23,23 @@ serving tensor parallelism. :func:`param_specs`, :func:`batch_spec` and
 :func:`shard_params` lay them out for hybrid-parallel training (dp x mp x
 sharding over a mesh); ``forward``, ``loss_fn`` and ``make_train_step``
 take such a sharded tree and run the sharded path (its design:
-:func:`_sharded_trunk`). ``cfg.sep_axis`` runs context parallelism: the
+:func:`_sharded_trunk`); under MoE, ``cfg.ep_axis`` lays the experts out
+E/ep over the expert-parallel axis, and the router runs over the global
+batch (:func:`_sharded_moe`). ``cfg.sep_axis`` runs context parallelism: the
 attention of every layer as ring or Ulysses attention (``cfg.cp_impl``)
 over the hybrid group's ``sep`` ranks on unsharded params, and the
 sequence split over ``sep`` in the sharded path. :func:`to_pp_layout`,
 :func:`pp_param_specs` and :func:`make_pp_train_step` run the pipelined
-step (dp x pp over a mesh, the ring schedule of
-``distributed.pipeline``).
+step (dp x pp, and pp x ep under MoE, over a mesh, the ring schedule of
+``distributed.pipeline``). :func:`moe_kept` counts what each MoE layer's
+router kept.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -64,7 +67,7 @@ __all__ = ["LlamaConfig", "init_params", "num_params", "forward", "loss_fn",
            "shard_serving_params", "serving_placement", "param_specs",
            "batch_spec", "shard_params", "is_sharded", "placement_bytes",
            "to_pp_layout", "from_pp_layout", "pp_param_specs",
-           "make_pp_train_step"]
+           "make_pp_train_step", "moe_kept"]
 
 
 @dataclasses.dataclass
@@ -93,6 +96,8 @@ class LlamaConfig:
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
+    ep_axis: Optional[str] = None    # expert-parallel mesh axis ("ep"):
+    #                                  experts sharded E/ep over it
     ce_chunks: int = 1               # > 1: token-chunked cross-entropy, each
     #                                  chunk's logits recomputed in backward
 
@@ -360,10 +365,11 @@ def param_specs(cfg: LlamaConfig, mp_axis: Optional[str] = "mp",
     """The JAX ``param_specs`` as plain tuples (one entry per leading dim:
     an axis name or None): Megatron's layout over ``mp_axis`` (heads and
     the FFN's intermediate dim, the vocab of ``embed`` and ``lm_head``),
-    with ``fsdp_axis`` sharding each matmul's other dim (ZeRO-3). The MoE
-    branch is the JAX one; the port's config has no ``ep_axis`` (expert
-    parallelism is ROADMAP item 10c), so the expert dim is not sharded."""
-    mp, fs, ep = mp_axis, fsdp_axis, None
+    with ``fsdp_axis`` sharding each matmul's other dim (ZeRO-3). Under MoE
+    the expert weights ``[L, Ex, ...]`` carry ``cfg.ep_axis`` on the expert
+    dim (E/ep experts an entry) and mp / fsdp on their matmul dims, as in
+    JAX."""
+    mp, fs, ep = mp_axis, fsdp_axis, cfg.ep_axis
     if cfg.moe_num_experts:
         ffn_in, ffn_out = (None, ep, fs, mp), (None, ep, mp, fs)
     else:
@@ -412,13 +418,7 @@ def is_sharded(params: Dict) -> bool:
 
 
 def _refuse_sharded(cfg: LlamaConfig, mesh=None) -> None:
-    """What the sharded path does not run yet, each naming its ROADMAP
-    item."""
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "shard_params: MoE layouts (moe_num_experts > 0, expert "
-            "parallelism) are not ported yet (ROADMAP.md section A, item "
-            "10c)")
+    """What the sharded path has no layout for."""
     if mesh is not None and mesh.shape.get("pp", 1) > 1:
         raise NotImplementedError(
             "shard_params: a pp degree > 1 has no layout here (JAX's "
@@ -436,9 +436,19 @@ def shard_params(params: Dict, mesh, cfg: LlamaConfig, mp_axis="mp",
     one local tensor per mesh coordinate (replicas along dp hold their own
     copies, as JAX's per-device arrays do). Query and kv heads must split
     over ``mp_axis``; an indivisible dim raises the layout's
-    ``ValueError``. MoE and a pp degree > 1 raise ``NotImplementedError``
-    (the sharded step also refuses a named ``remat_policy``)."""
+    ``ValueError`` (under MoE the experts must split over ``cfg.ep_axis``).
+    A pp degree > 1 raises ``NotImplementedError`` (the sharded step also
+    refuses a named ``remat_policy``)."""
     _refuse_sharded(cfg, mesh)
+    if cfg.moe_num_experts and cfg.ep_axis is not None:
+        if cfg.ep_axis not in mesh.shape:
+            raise ValueError(f"cfg.ep_axis {cfg.ep_axis!r} is not an axis "
+                             f"of the mesh {mesh.axis_names}")
+        if cfg.moe_num_experts % mesh.shape[cfg.ep_axis]:
+            raise ValueError(
+                f"cannot shard the experts: {cfg.moe_num_experts} do not "
+                f"split over mesh axis {cfg.ep_axis!r} (size "
+                f"{mesh.shape[cfg.ep_axis]})")
     if mp_axis is not None:
         n = mesh.shape[mp_axis]
         for what, heads in (("wq", cfg.num_attention_heads),
@@ -552,21 +562,65 @@ def _moe_ffn(lp: Dict, h, cfg: LlamaConfig):
     SwiGLU per expert. ``kept`` (a 0-d fp32 tensor) counts the (token,
     choice) pairs that found a place in their expert's queue; JAX returns
     the dropped ones, ``T * top_k - kept``, which the paged entry points
-    compute once over all layers (``generation._dropped``)."""
+    compute once over all layers (``generation._dropped``).
+
+    Expert weights given as a tuple of ep shards (``[Ex / ep, ...]`` each
+    on its device: the pipelined step's pp x ep) run expert-parallel: each
+    shard's rows of the dispatched ``[Ex, C, M]`` go to its device and the
+    outputs come back (:func:`_experts`)."""
     B, S, M = h.shape
     T = B * S
-    Ex = cfg.moe_num_experts
-    cap = max(1, math.ceil(T * cfg.moe_capacity_factor * cfg.moe_top_k / Ex))
+    cap = _capacity(T, cfg)
     h2 = h.reshape(T, M)
     logits = h2.to(torch.float32) @ lp["moe_gate"].to(torch.float32)
     combine, dispatch, aux = gshard_routing(logits, cfg.moe_top_k, cap)
+    kept = dispatch.sum()
     dt = h2.dtype
     einp = torch.einsum("tec,tm->ecm", dispatch.to(dt), h2)
-    g = F.silu(torch.bmm(einp, lp["w_gate"].to(dt))) * \
-        torch.bmm(einp, lp["w_up"].to(dt))
-    eout = torch.bmm(g, lp["w_down"].to(dt))
+    eout = _experts(lp, einp, dt)
     y = torch.einsum("tec,ecm->tm", combine.to(dt), eout)
-    return y.reshape(B, S, M), aux, dispatch.sum()
+    return y.reshape(B, S, M), aux, kept
+
+
+def _capacity(T: int, cfg: LlamaConfig) -> int:
+    """An expert's queue length for ``T`` routed tokens (JAX's
+    ``_moe_ffn``)."""
+    return max(1, math.ceil(T * cfg.moe_capacity_factor * cfg.moe_top_k
+                            / cfg.moe_num_experts))
+
+
+def _swiglu(x, wg, wu, wd, dt):
+    """One SwiGLU per expert: ``x [e, C, M]`` through ``[e, M, I]`` /
+    ``[e, I, M]`` weights."""
+    g = F.silu(torch.bmm(x, wg.to(dt))) * torch.bmm(x, wu.to(dt))
+    return torch.bmm(g, wd.to(dt))
+
+
+def _experts(lp: Dict, einp, dt):
+    """The experts' outputs ``[Ex, C, M]`` for the dispatched ``einp``: one
+    SwiGLU per expert, or, with the expert weights a tuple of ep shards,
+    each shard's experts on its device (the outputs concatenated back on
+    ``einp``'s)."""
+    wg, wu, wd = lp["w_gate"], lp["w_up"], lp["w_down"]
+    if not isinstance(wg, tuple):
+        return _swiglu(einp, wg, wu, wd, dt)
+    out, lo = [], 0
+    for g_, u_, d_ in zip(wg, wu, wd):
+        n = g_.shape[0]
+        out.append(_swiglu(einp[lo:lo + n].to(g_.device), g_, u_, d_, dt)
+                   .to(einp.device))
+        lo += n
+    return torch.cat(out)
+
+
+def moe_kept(params: Dict, input_ids, cfg: LlamaConfig) -> List[int]:
+    """The (token, choice) pairs each MoE layer's router kept in one
+    forward of ``input_ids`` (``T * top_k`` less its drops), layer by
+    layer, for a serial or a sharded tree: the sharded router runs over
+    the global batch, so its counts equal the serial ones."""
+    with torch.no_grad():
+        _, kept = forward(params, input_ids, cfg, return_kept=True)
+    return [int(k) for k in kept]
 
 
 def _ffn_tail(lp: Dict, x, cfg: LlamaConfig):
@@ -584,10 +638,9 @@ def _ffn_tail(lp: Dict, x, cfg: LlamaConfig):
 
 
 def _tail(lp: Dict, x, o, cfg: LlamaConfig):
-    """``x + o @ wo``, then the FFN half: ``(block output, aux)``, the
-    MoE load-balancing loss (``0.0`` for a dense FFN)."""
-    out, aux, _ = _ffn_tail(lp, x + _mm(o, lp, "wo", cfg.dtype), cfg)
-    return out, aux
+    """``x + o @ wo``, then the FFN half: ``(block output, aux, kept)``
+    (:func:`_ffn_tail`)."""
+    return _ffn_tail(lp, x + _mm(o, lp, "wo", cfg.dtype), cfg)
 
 
 # the attention inputs: (name, projection weight, the JAX name that keeps
@@ -604,8 +657,9 @@ def _heads(t, name: str, cfg: LlamaConfig):
 def decoder_layer(lp: Dict, x, cos, sin, cfg: LlamaConfig, segment_ids=None):
     """One pre-norm decoder block on un-stacked layer params ``lp``; the
     residual stream ``x [B, S, E]`` stays in ``cfg.dtype``. Returns
-    ``(output, aux)``: the MoE load-balancing loss, ``0.0`` for a dense
-    FFN (JAX's dense layer returns the output alone)."""
+    ``(output, aux, kept)``: the MoE load-balancing loss and the (token,
+    choice) pairs the router kept (:func:`_moe_ffn`), each ``0.0`` for a
+    dense FFN (JAX's dense layer returns the output alone)."""
     return _attend(lp, x, {}, cos, sin, cfg, segment_ids, True)
 
 
@@ -734,7 +788,7 @@ def _policy_layer(lp: Dict, x, cos, sin, cfg: LlamaConfig, seg, keep):
 
 def forward(params: Dict, input_ids, cfg: LlamaConfig, segment_ids=None,
             position_ids=None, return_aux: bool = False,
-            return_hidden: bool = False):
+            return_hidden: bool = False, return_kept: bool = False):
     """``input_ids [B, S] -> logits [B, S, V]`` in ``cfg.dtype``.
 
     ``segment_ids [B, S]`` confines attention within packed sequences;
@@ -746,8 +800,10 @@ def forward(params: Dict, input_ids, cfg: LlamaConfig, segment_ids=None,
     re-runs the whole layer, the flash forward included), a named policy
     keeps what it names (:func:`_policy_layer`). ``return_aux`` returns
     ``(logits, aux)``: the mean MoE load-balancing loss over the layers
-    (0.0 for a dense model). ``return_hidden`` returns the final-norm
-    hidden states instead.
+    (0.0 for a dense model). ``return_kept`` appends to what is returned
+    the list of each layer's kept (token, choice) pairs (0-d tensors under
+    MoE, ``0.0`` for a dense layer). ``return_hidden`` returns the
+    final-norm hidden states instead.
 
     A sharded tree (:func:`shard_params`) runs the sharded path
     (:func:`_sharded_trunk`) and returns the whole logits (or hidden
@@ -755,7 +811,8 @@ def forward(params: Dict, input_ids, cfg: LlamaConfig, segment_ids=None,
     """
     if is_sharded(params):
         return _sharded_forward(params, input_ids, cfg, segment_ids,
-                                position_ids, return_aux, return_hidden)
+                                position_ids, return_aux, return_hidden,
+                                return_kept)
     keep = _remat_policy(cfg.remat_policy) if cfg.remat else None
     dev = params["embed"].device
     ids = _whole(input_ids, dev)
@@ -774,17 +831,18 @@ def forward(params: Dict, input_ids, cfg: LlamaConfig, segment_ids=None,
     # each add a zero-filled full-size gradient into the leaf
     names = list(params["layers"])
     slices = zip(*(params["layers"][n].unbind(0) for n in names))
-    auxes = []
+    auxes, keeps = [], []
     for l, ws in zip(range(cfg.num_hidden_layers), slices):
         lp = dict(zip(names, ws))
         if not cfg.remat:
-            x, aux = decoder_layer(lp, x, cos, sin, cfg, seg)
+            x, aux, kept = decoder_layer(lp, x, cos, sin, cfg, seg)
         elif keep is None:
-            x, aux = checkpoint(decoder_layer, lp, x, cos, sin, cfg, seg,
-                                use_reentrant=False)
+            x, aux, kept = checkpoint(decoder_layer, lp, x, cos, sin, cfg,
+                                      seg, use_reentrant=False)
         else:
-            x, aux = _policy_layer(lp, x, cos, sin, cfg, seg, keep)
+            x, aux, kept = _policy_layer(lp, x, cos, sin, cfg, seg, keep)
         auxes.append(aux)
+        keeps.append(kept)
     x = _rms_norm(x, params["ln_f"], cfg.rms_norm_eps, cfg.use_fused_norm)
     if return_hidden:
         return x
@@ -792,11 +850,13 @@ def forward(params: Dict, input_ids, cfg: LlamaConfig, segment_ids=None,
         logits = x @ params["embed"].T.to(cfg.dtype)
     else:
         logits = _mm(x, params, "lm_head", cfg.dtype)
+    out = (logits,)
     if return_aux:
-        aux = (torch.stack(auxes).mean() if cfg.moe_num_experts else
-               torch.zeros((), dtype=torch.float32, device=dev))
-        return logits, aux
-    return logits
+        out += (torch.stack(auxes).mean() if cfg.moe_num_experts else
+                torch.zeros((), dtype=torch.float32, device=dev)),
+    if return_kept:
+        out += keeps,
+    return out if len(out) > 1 else logits
 
 
 def _ce_chunk(hc, lc, head, dt):
@@ -809,18 +869,22 @@ def _ce_chunk(hc, lc, head, dt):
 
 
 def _sharded_forward(params, input_ids, cfg, segment_ids, position_ids,
-                     return_aux, return_hidden):
-    plan, hidden, heads = _sharded_trunk(params, input_ids, cfg,
-                                         segment_ids, position_ids)
+                     return_aux, return_hidden, return_kept):
+    plan, hidden, heads, aux, keeps = _sharded_trunk(
+        params, input_ids, cfg, segment_ids, position_ids)
     lead = plan.mesh.devices.flat[0]
     if return_hidden:
         return plan.join([h[0] for h in hidden])
     logits = plan.join([torch.cat([(h @ heads[c].to(cfg.dtype)).to(lead)
                                    for h, c in zip(hs, cs)], dim=-1)
                         for hs, cs in zip(hidden, plan.coords)])
+    out = (logits,)
     if return_aux:
-        return logits, torch.zeros((), dtype=torch.float32, device=lead)
-    return logits
+        out += (aux[0].to(lead) if aux is not None else
+                torch.zeros((), dtype=torch.float32, device=lead)),
+    if return_kept:
+        out += keeps,
+    return out if len(out) > 1 else logits
 
 
 def loss_fn(params: Dict, input_ids, labels, cfg: LlamaConfig,
@@ -879,7 +943,9 @@ class _Plan:
     at ``coords[p][k]``: the piece's batch and sep coordinates, ``k`` on
     the mp axis, 0 on every other axis. The sep rank is innermost, so each
     ``n_sep`` consecutive pieces are one ring (piece ``p`` holds sequence
-    part ``p % n_sep``)."""
+    part ``p % n_sep``). Under MoE, ``ep`` is ``cfg.ep_axis``: the experts'
+    axis, on which a piece's coordinate says nothing (each ep coordinate
+    runs its own experts, :func:`_sharded_moe`)."""
 
     def __init__(self, params: Dict, ids, cfg: LlamaConfig, what: str):
         emb = params["embed"]
@@ -902,6 +968,10 @@ class _Plan:
             raise ValueError(f"{what}: the batch cannot be split over the "
                              f"sequence axis {self.sep!r}")
         self.n_sep = mesh.shape[self.sep] if self.sep else 1
+        self.ep = cfg.ep_axis if cfg.moe_num_experts else None
+        if self.ep is not None and self.ep not in mesh.shape:
+            raise ValueError(f"{what}: cfg.ep_axis {self.ep!r} is not an "
+                             f"axis of the mesh {mesh.axis_names}")
         self.spec = batch_spec(self.batch, self.sep)
         base = (0,) * len(mesh.axis_names)
         split = self.batch + ((self.sep,) if self.sep else ())
@@ -920,15 +990,27 @@ class _Plan:
         return [[t.local(cs[0]).to(self.mesh.devices[c]) for c in cs]
                 for cs in self.coords]
 
-    def join(self, per_piece):
-        """One tensor per piece (``[b, s, ...]``) -> the whole batch on the
-        mesh's first device: each ring's pieces concatenated on the
-        sequence, the rings on the batch."""
-        lead = self.mesh.devices.flat[0]
+    def join(self, per_piece, dev=None):
+        """One tensor per piece (``[b, s, ...]``) -> the whole batch on
+        ``dev`` (default: the mesh's first device): each ring's pieces
+        concatenated on the sequence, the rings on the batch."""
+        lead = self.mesh.devices.flat[0] if dev is None else dev
         t = [x.to(lead) for x in per_piece]
         n = self.n_sep
         return torch.cat([torch.cat(t[i:i + n], dim=1)
                           for i in range(0, len(t), n)])
+
+    def split(self, whole, shapes):
+        """The inverse of :meth:`join`: ``whole [B, S, ...]`` cut into the
+        pieces, piece ``p`` of ``shapes[p] = (b, s)``."""
+        out, row, n = [], 0, self.n_sep
+        for i in range(0, len(shapes), n):
+            col = 0
+            for b, s_ in shapes[i:i + n]:
+                out.append(whole[row:row + b, col:col + s_])
+                col += s_
+            row += shapes[i][0]
+        return out
 
     def attend(self, qkv, cfg: LlamaConfig):
         """The attention output ``[piece][mp shard]`` from ``qkv[p][k] =
@@ -954,14 +1036,18 @@ class _Plan:
                     out[g + i][k] = o
         return out
 
-    def gather(self, st: ShardedTensor, local: Dict, dim_off: int = 0):
+    def gather(self, st: ShardedTensor, local: Dict, dim_off: int = 0,
+               want=None):
         """``{compute coordinate: weight}`` with every axis of ``st``'s spec
-        but mp gathered (the fsdp dim: ``all_gather`` over that axis, the
-        gradient reduce-scattered back), from ``local`` (coordinate ->
-        local tensor, its dims ``dim_off`` fewer than ``st``'s)."""
-        want = [c for cs in self.coords for c in cs]
+        but mp and ep gathered (the fsdp dim: ``all_gather`` over that
+        axis, the gradient reduce-scattered back), from ``local``
+        (coordinate -> local tensor, its dims ``dim_off`` fewer than
+        ``st``'s), at ``want`` (default: every piece's mp shards)."""
+        if want is None:
+            want = [c for cs in self.coords for c in cs]
         fs = [(d - dim_off, spec_axes(e)) for d, e in enumerate(st.spec)
-              if spec_axes(e) and spec_axes(e) != (self.mp,)]
+              if spec_axes(e) and spec_axes(e) not in ((self.mp,),
+                                                       (self.ep,))]
         if not fs:
             return {c: local[c] for c in want}
         (dim, axes), = fs
@@ -983,11 +1069,15 @@ class _Plan:
 def _sharded_layer(plan: _Plan, xs, lw: Dict, w: Dict, tables, cfg):
     """One decoder block on every piece and mp shard: ``xs[p][k]`` the
     residual stream, ``w`` the gathered projections and ``lw`` the local
-    norm weights by coordinate, ``tables[device, part]`` the RoPE rows of
-    a sequence part. Column-parallel q/k/v and gate/up after a
-    :func:`copy_to_group` of the normed input; the attention of every
+    norm (and router) weights by coordinate, ``tables[device, part]`` the
+    RoPE rows of a sequence part. Column-parallel q/k/v and gate/up after
+    a :func:`copy_to_group` of the normed input; the attention of every
     piece (:meth:`_Plan.attend`); row-parallel ``wo`` and ``w_down``
-    partial sums reduced by ``all_reduce`` over mp."""
+    partial sums reduced by ``all_reduce`` over mp. Under MoE the FFN is
+    :func:`_sharded_moe` over every piece at once. Returns ``(xs, aux,
+    kept)``: ``aux`` the MoE load-balancing loss of each mp shard's router
+    and ``kept`` the (token, choice) pairs it kept (None and 0.0 for a
+    dense FFN)."""
     dt, eps, fused = cfg.dtype, cfg.rms_norm_eps, cfg.use_fused_norm
     D = cfg.head_dim
     qkv = []
@@ -1008,19 +1098,133 @@ def _sharded_layer(plan: _Plan, xs, lw: Dict, w: Dict, tables, cfg):
         parts = [o.reshape(*o.shape[:2], -1) @ w["wo"][c].to(dt)
                  for o, c in zip(o_p, cs)]
         x_p = [x + y for x, y in zip(x_p, all_reduce_sum(parts))]
+        if cfg.moe_num_experts:
+            out.append(x_p)
+            continue
         hs = copy_to_group([_rms_norm(x, lw["ln_mlp"][c], eps, fused)
                             for x, c in zip(x_p, cs)])
         parts = [(F.silu(h @ w["w_gate"][c].to(dt)) * (h @ w["w_up"][c].to(dt)))
                  @ w["w_down"][c].to(dt) for h, c in zip(hs, cs)]
         out.append([x + y for x, y in zip(x_p, all_reduce_sum(parts))])
-    return out
+    if not cfg.moe_num_experts:
+        return out, None, 0.0
+    hn = [[_rms_norm(x, lw["ln_mlp"][c], eps, fused) for x, c in zip(x_p, cs)]
+          for x_p, cs in zip(out, plan.coords)]
+    ys, aux, kept = _sharded_moe(plan, hn, lw["moe_gate"], w, cfg)
+    return [[x + y for x, y in zip(x_p, y_p)]
+            for x_p, y_p in zip(out, ys)], aux, kept
+
+
+def _expert_coords(plan: _Plan):
+    """``[piece][ep shard][mp shard]``: where each piece's slice of the
+    dispatched slots runs each ep shard's experts — the piece's
+    coordinate with the ep axis set to the shard."""
+    mesh = plan.mesh
+    d = mesh.axis_names.index(plan.ep) if plan.ep else None
+    n_ep = mesh.shape[plan.ep] if plan.ep else 1
+
+    def at(c, j):
+        if d is None:
+            return c
+        c = list(c)
+        c[d] = j
+        return tuple(c)
+
+    return [[[at(c, j) for c in cs] for j in range(n_ep)]
+            for cs in plan.coords]
+
+
+def _sharded_moe(plan: _Plan, hn, gate: Dict, w: Dict, cfg: LlamaConfig):
+    """The MoE FFN of every piece at once, ``hn[p][k]`` the normed input of
+    piece ``p`` on mp shard ``k``; returns ``(ys, aux, kept)``:
+    ``ys[p][k]`` the FFN output, ``aux[k]`` shard ``k``'s load-balancing
+    loss, ``kept`` the (token, choice) pairs the router kept (every
+    shard's router keeps the same).
+
+    The router runs over the GLOBAL batch, as JAX's sharded step routes
+    the logical ``[B, S]``: each piece's ``[b, s, Ex]`` fp32 logits are
+    joined in the batch's order (:meth:`_Plan.join`), routed once with the
+    capacity of all ``T = B * S`` tokens (queue positions over the global
+    token order, the aux loss global), and the dispatch and combine cut
+    back into the pieces. Each piece contracts its tokens into the
+    ``[Ex, C, M]`` slots (each slot holds one token, so the sum over the
+    pieces is exact); ep shard ``j`` runs only its experts' SwiGLU, on
+    the slots split over the pieces (the piece's coordinate with ep =
+    ``j``, its dp replica of the experts), and the outputs come back to
+    every piece for the combine: the all-to-all GSPMD inserts in JAX.
+
+    Under mp, each shard routes its own copy of the input (the router is
+    replicated, so that path skips :func:`copy_to_group`), the experts'
+    intermediate dim is column- and row-parallel as the dense FFN's, and
+    their partial outputs are summed over mp by ``all_reduce``."""
+    mesh, dt = plan.mesh, cfg.dtype
+    Ex = cfg.moe_num_experts
+    K = len(plan.coords[0])
+    shapes = [tuple(h[0].shape[:2]) for h in hn]
+    M = hn[0][0].shape[-1]
+    B = sum(b for b, _ in shapes[::plan.n_sep])
+    S = hn[0][0].shape[1] * plan.n_sep
+    cap = _capacity(B * S, cfg)
+    ex = _expert_coords(plan)
+    n_ep = len(ex[0])
+    blk = Ex // n_ep
+    hx = [copy_to_group(h_p) for h_p in hn]
+    q, rem = divmod(cap, len(hn))           # the slots each piece runs
+    spans = [(p * q + min(p, rem), (p + 1) * q + min(p + 1, rem))
+             for p in range(len(hn))]
+    einp, combs, auxes = [], [], []
+    for k in range(K):
+        lead = mesh.devices[plan.coords[0][k]]
+        logits = [h[k].to(torch.float32) @ gate[cs[k]].to(torch.float32)
+                  for h, cs in zip(hn, plan.coords)]
+        combine, dispatch, aux = gshard_routing(
+            plan.join(logits, lead).reshape(-1, Ex), cfg.moe_top_k, cap)
+        if k == 0:
+            kept = dispatch.sum()
+        auxes.append(aux)
+        cut = [plan.split(t.reshape(B, S, Ex, cap), shapes)
+               for t in (combine, dispatch)]
+        combs.append(cut[0])
+        acc = None
+        for h_p, d_p, cs in zip(hx, cut[1], plan.coords):
+            dev = mesh.devices[cs[k]]
+            e = torch.einsum("tec,tm->ecm", d_p.reshape(-1, Ex, cap).to(dev)
+                             .to(dt), h_p[k].reshape(-1, M)).to(lead)
+            acc = e if acc is None else acc + e
+        einp.append(acc)
+    outs = [[[] for _ in range(K)] for _ in range(n_ep)]   # [j][k]: chunks
+    for p, (lo, hi) in enumerate(spans):
+        if lo == hi:
+            continue
+        for j in range(n_ep):
+            parts = []
+            for k, c in enumerate(ex[p][j]):
+                x = einp[k][j * blk:(j + 1) * blk, lo:hi].to(mesh.devices[c])
+                parts.append(_swiglu(x, w["w_gate"][c], w["w_up"][c],
+                                     w["w_down"][c], dt))
+            for k, o in enumerate(all_reduce_sum(parts)):
+                outs[j][k].append(o.to(mesh.devices[plan.coords[0][k]]))
+    ys = [[None] * K for _ in hn]
+    for k in range(K):
+        eout = torch.cat([torch.cat(outs[j][k], dim=1) for j in range(n_ep)])
+        for p, (cs, comb) in enumerate(zip(plan.coords, combs[k])):
+            dev = mesh.devices[cs[k]]
+            b, s_ = shapes[p]
+            ys[p][k] = torch.einsum(
+                "tec,ecm->tm", comb.reshape(-1, Ex, cap).to(dev).to(dt),
+                eout.to(dev)).reshape(b, s_, M)
+    return ys, auxes, kept
 
 
 def _sharded_trunk(params: Dict, input_ids, cfg: LlamaConfig,
                    segment_ids=None, position_ids=None):
-    """The sharded forward up to the LM head: ``(plan, hidden, heads)``
-    with ``hidden[p][k]`` the final-norm hidden states of piece ``p`` on mp
-    shard ``k`` and ``heads[c]`` that shard's ``[E, V / mp]`` head.
+    """The sharded forward up to the LM head: ``(plan, hidden, heads,
+    aux, kept)`` with ``hidden[p][k]`` the final-norm hidden states of
+    piece ``p`` on mp shard ``k``, ``heads[c]`` that shard's ``[E, V /
+    mp]`` head and, under MoE, ``aux[k]`` the load-balancing loss of mp
+    shard ``k``'s routers, the mean over the layers (None for a dense
+    model), and ``kept`` each layer's kept (token, choice) pairs (0.0 for
+    a dense layer).
 
     Every piece of the batch runs, for each mp shard, on that shard's
     device, and one autograd graph spans the placement:
@@ -1041,12 +1245,13 @@ def _sharded_trunk(params: Dict, input_ids, cfg: LlamaConfig,
     * under ``cfg.sep_axis`` a piece holds one part of the sequence: its
       RoPE rows are those of its global positions, and the pieces of one
       ring attend together (:meth:`_Plan.attend`). Labels come shifted,
-      so no piece needs its neighbour's tokens.
+      so no piece needs its neighbour's tokens;
+    * under MoE, each layer's FFN routes the global batch once and runs
+      each ep shard's experts on its own entries (:func:`_sharded_moe`).
 
     Every reduction runs in a fixed rank order, so a run repeats bit for
     bit. Packed batches (``segment_ids``, ``position_ids``) are not ported
     under sharding."""
-    _refuse_sharded(cfg)
     if cfg.sep_axis is not None:
         _refuse_packed_sep(segment_ids)
     if cfg.remat and cfg.remat_policy not in (None, "nothing"):
@@ -1099,19 +1304,26 @@ def _sharded_trunk(params: Dict, input_ids, cfg: LlamaConfig,
     # unbind once, not one index per layer (see forward)
     unbound = {n: {c: t.unbind(0) for c, t in st.locals.items()}
                for n, st in layers.items()}
+    moe = cfg.moe_num_experts > 0
+    ffn = ("w_gate", "w_up", "w_down")
+    at = [c for per in _expert_coords(plan) for cs in per for c in cs]
+    auxes, keeps = [], []
     for l in range(cfg.num_hidden_layers):
         local = {n: {c: ts[l] for c, ts in u.items()}
                  for n, u in unbound.items()}
 
         def layer(xs, local=local):
-            lw = {n: local[n] for n in ("ln_attn", "ln_mlp")}
-            w = {n: plan.gather(layers[n], local[n], 1)
-                 for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
-                           "w_down")}
+            lw = {n: local[n] for n in ("ln_attn", "ln_mlp", "moe_gate")
+                  if n in local}
+            w = {n: plan.gather(layers[n], local[n], 1,
+                                at if moe and n in ffn else None)
+                 for n in ("wq", "wk", "wv", "wo") + ffn}
             return _sharded_layer(plan, xs, lw, w, tables, cfg)
 
-        xs = (checkpoint(layer, xs, use_reentrant=False) if cfg.remat
-              else layer(xs))
+        xs, aux, kept = (checkpoint(layer, xs, use_reentrant=False)
+                         if cfg.remat else layer(xs))
+        auxes.append(aux)
+        keeps.append(kept)
     ln_f = params["ln_f"]
     hidden = [copy_to_group([_rms_norm(x, ln_f.local(c), cfg.rms_norm_eps,
                                        cfg.use_fused_norm)
@@ -1121,7 +1333,9 @@ def _sharded_trunk(params: Dict, input_ids, cfg: LlamaConfig,
         heads = {c: e.T for c, e in embed.items()}
     else:
         heads = plan.gather(params["lm_head"], params["lm_head"].locals)
-    return plan, hidden, heads
+    aux = ([torch.stack([a[k].to(auxes[0][k].device) for a in auxes]).mean()
+            for k in range(len(auxes[0]))] if moe else None)
+    return plan, hidden, heads, aux, keeps
 
 
 def _vocab_parallel_ce(hs, lbl, heads, dt):
@@ -1157,9 +1371,10 @@ def _sharded_loss(params: Dict, input_ids, labels, cfg: LlamaConfig,
     shard's copy seeded with 1, as every rank of a tensor-parallel group
     backpropagates its own copy), which the identity adjoint of
     ``all_reduce`` and :func:`copy_to_group` turn into the gradient of one
-    copy."""
-    plan, hidden, heads = _sharded_trunk(params, input_ids, cfg,
-                                         segment_ids, position_ids)
+    copy. MoE adds ``moe_aux_weight`` x the routers' loss the same way:
+    shard 0's value, every shard's copy in the graph."""
+    plan, hidden, heads, aux, _ = _sharded_trunk(params, input_ids, cfg,
+                                                 segment_ids, position_ids)
     lbls = plan.pieces(labels, "labels")
     lead = plan.mesh.devices.flat[0]
     C = cfg.ce_chunks
@@ -1188,8 +1403,12 @@ def _sharded_loss(params: Dict, input_ids, labels, cfg: LlamaConfig,
             rep = rep + sums[0].to(lead)
             cnt = cnt + n.to(lead)
     count = cnt.clamp(min=1)
-    full = tot / count
-    return (rep / count).detach() + (full - full.detach())
+    full, rep = tot / count, rep / count
+    if aux is not None:
+        w = cfg.moe_aux_weight
+        full = full + w * sum(a.to(lead) for a in aux)
+        rep = rep + w * aux[0].to(lead)
+    return rep.detach() + (full - full.detach())
 
 
 # ---------------------------------------------------------------------------
@@ -1473,7 +1692,8 @@ def pp_param_specs(cfg: LlamaConfig, pp_axis: str = "pp",
     ``lm_head`` vocab-sharded over the same axis (the first and last
     stages' work is tensor-parallel over the pp ranks), ``ln_f`` whole.
     MoE expert weights ``[V, S, bpc, Ex, ...]`` name ``ep_axis`` on the
-    expert dim (the port runs no ``ep`` axis: ROADMAP.md item 10c)."""
+    expert dim (E/ep experts an entry; :func:`make_pp_train_step` runs
+    each shard's experts on its entry)."""
     layer_keys = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                   "ln_attn", "ln_mlp")
     specs = {
@@ -1490,14 +1710,24 @@ def pp_param_specs(cfg: LlamaConfig, pp_axis: str = "pp",
     return specs
 
 
+def _blocks(leaf):
+    """A chunk leaf ``[bpc, ...]`` (or a tuple of ep shards of one) as its
+    ``bpc`` blocks."""
+    if isinstance(leaf, tuple):
+        return list(zip(*(t.unbind(0) for t in leaf)))
+    return leaf.unbind(0)
+
+
 def _pp_chunk(cfg: LlamaConfig, tables: Dict, names):
     """One chunk's blocks in order on ``h`` (``cp`` leaves ``[bpc,
-    ...]``): ``h``, or ``(h, the blocks' summed aux)`` under MoE."""
+    ...]``, expert leaves a tuple of ep shards under pp x ep): ``h``, or
+    ``(h, the blocks' summed aux)`` under MoE."""
     def chunk(cp, h):
         cos, sin = tables[h.device]
         auxes = []
-        for ws in zip(*(cp[n].unbind(0) for n in names)):
-            h, aux = decoder_layer(dict(zip(names, ws)), h, cos, sin, cfg)
+        for ws in zip(*(_blocks(cp[n]) for n in names)):
+            h, aux, _ = decoder_layer(dict(zip(names, ws)), h, cos, sin,
+                                      cfg)
             auxes.append(aux)
         if cfg.moe_num_experts:
             return h, torch.stack(auxes).sum()
@@ -1515,6 +1745,17 @@ def _pp_rings(mesh, pp_axis: str = "pp", dp_axis: Optional[str] = "dp"):
             for c in mesh.group(base, (dpn,) if dpn else ())]
 
 
+def _stage_leaf(st: ShardedTensor, c):
+    """A pp-layout leaf's chunks on stage coordinate ``c`` (``[V, bpc,
+    ...]``), or, for expert weights split over an ep axis (their spec's
+    expert dim), the tuple of the ep shards at ``c``'s other
+    coordinates."""
+    ep = spec_axes(st.spec[3]) if len(st.spec) > 3 else ()
+    if not ep:
+        return st.local(c).squeeze(1)
+    return tuple(st.local(e).squeeze(1) for e in st.mesh.group(c, ep))
+
+
 def _pp_loss(params: Dict, input_ids, labels, cfg: LlamaConfig, rings,
              M: int, V: int):
     """The pipelined step's loss: for each dp rank's ring of pp
@@ -1528,7 +1769,11 @@ def _pp_loss(params: Dict, input_ids, labels, cfg: LlamaConfig, rings,
     mean over labelled tokens (the sum over the ranks' copies in the
     graph, rank 0's value reported, as :func:`_sharded_loss` does). MoE:
     plus ``moe_aux_weight`` x the aux summed over every (layer,
-    micro-batch) application / ``L * M``, averaged over dp."""
+    micro-batch) application / ``L * M``, averaged over dp; each
+    micro-batch routes alone, as JAX's pp region does. Expert leaves laid
+    out over an ep axis reach each stage as the tuple of its ep shards
+    (its dp replica's), so every shard's experts run on their entry
+    (:func:`_experts`)."""
     emb = params["embed"]
     mesh, dt = emb.mesh, cfg.dtype
     lead = mesh.devices.flat[0]
@@ -1559,7 +1804,7 @@ def _pp_loss(params: Dict, input_ids, labels, cfg: LlamaConfig, rings,
         chunk = _pp_chunk(cfg, tables, names)
         fn = ((lambda p, h: checkpoint(chunk, p, h, use_reentrant=False))
               if cfg.remat else chunk)
-        local = [{n: params["layers"][n].local(c).squeeze(1) for n in names}
+        local = [{n: _stage_leaf(params["layers"][n], c) for n in names}
                  for c in cs]
         res = ring_schedule(fn, local, x, devices=devs, circular_repeats=V,
                             with_aux=bool(cfg.moe_num_experts))
@@ -1605,8 +1850,9 @@ def make_pp_train_step(cfg: LlamaConfig, mesh, *, micro_batches: int,
     in place), so the replicas stay bit-equal. The layer count must split
     into ``stages * circular_repeats`` chunks and the vocab over the
     stages (the JAX errors); ``circular_repeats > 1`` needs
-    ``micro_batches >= stages``. MoE with an ``ep`` axis > 1 raises
-    ``NotImplementedError`` (pp x ep, ROADMAP.md item 10c)."""
+    ``micro_batches >= stages``. Under MoE the expert weights may be laid
+    out over an ep axis (``pp_param_specs(cfg, pp_axis, "ep")``): pp x ep,
+    each ep shard's experts running on its entry."""
     S = int(mesh.shape[pp_axis])
     V = int(circular_repeats)
     M = int(micro_batches)
@@ -1616,11 +1862,6 @@ def make_pp_train_step(cfg: LlamaConfig, mesh, *, micro_batches: int,
                          f"stages*circular_repeats = {S}*{V}")
     if Vo % S:
         raise ValueError(f"vocab_size {Vo} not divisible by pp degree {S}")
-    if cfg.moe_num_experts and mesh.shape.get("ep", 1) > 1:
-        raise NotImplementedError(
-            "make_pp_train_step: pp x ep (expert weights sharded over 'ep' "
-            "inside the pipeline) is not ported yet (ROADMAP.md section A, "
-            "item 10c)")
     rings = _pp_rings(mesh, pp_axis, dp_axis)
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
               weight_decay=weight_decay, opt_dtype=opt_dtype)

@@ -22,6 +22,9 @@ injector                   fault it models
                            writer thread
 ``kill_self``              the process dying mid-step (preemption without
                            grace, OOM kill)
+``stall_heartbeat``        a worker alive but frozen: its liveness stamps
+                           stop, and the launcher's monitor declares it
+                           hung past ``--elastic_timeout``
 ``nan_payload``            NaN/Inf landing in a batch, an activation or a
                            parameter (the sentinel's bad-step fault)
 ``bad_sample``             a corrupt record: ``Dataset.__getitem__``
@@ -57,9 +60,8 @@ injector                   fault it models
 ``adapter_churn``          hostile LoRA-adapter locality
 =========================  ==============================================
 
-The reference's ``stall_heartbeat`` drives its elastic launcher's
-heartbeats, which the port does not have yet (ROADMAP item 10a): it is
-not here, and :data:`INJECTORS` holds the ported names only. The timeline half (:class:`ChaosEvent`,
+:data:`INJECTORS` holds every injector of the reference's registry. The
+timeline half (:class:`ChaosEvent`,
 :class:`ChaosTimeline`, :func:`chaos_timeline` and the kind tuples) is
 the reference's, draw for draw: one seed gives one schedule in both
 packages, so a replay manifest moves between them.
@@ -76,8 +78,8 @@ import time
 from typing import Optional
 
 __all__ = ["truncate_file", "flip_bits", "fail_nth", "async_writer_fault",
-           "kill_self", "nan_payload", "bad_sample", "dead_worker",
-           "stalled_consumer", "poison_prompt", "flood_tenant",
+           "kill_self", "stall_heartbeat", "nan_payload", "bad_sample",
+           "dead_worker", "stalled_consumer", "poison_prompt", "flood_tenant",
            "engine_crash", "disconnect_mid_stream", "slow_client",
            "replica_kill", "slow_replica", "flaky_probe", "host_pressure",
            "corrupt_offload_block", "kill_prefill_replica",
@@ -164,6 +166,29 @@ def async_writer_fault(exc: Optional[BaseException] = None):
         yield err
     finally:
         async_writer.set_fault(None)
+
+
+class stall_heartbeat:
+    """Freeze the worker's liveness stamping (the thread keeps running but
+    stops SETting): to the launcher's monitor this process is alive but
+    hung, and past ``--elastic_timeout`` it is killed and the round
+    restarts. Models a native deadlock or a swap storm.
+
+    A plain class, not a generator context manager: a stall is often armed
+    fire-and-forget just before the process freezes, and a collected
+    generator would run its ``finally`` and un-pause."""
+
+    def __enter__(self):
+        from ..distributed import elastic
+        self._ev = elastic._pause_event()
+        if self._ev is not None:
+            self._ev.set()
+        return self
+
+    def __exit__(self, *exc):
+        if self._ev is not None:
+            self._ev.clear()
+        return False
 
 
 def kill_self(sig: int = signal.SIGKILL) -> None:
@@ -929,14 +954,14 @@ def chaos_timeline(seed: int, horizon_steps: int,
     return ChaosTimeline(out)
 
 
-# name -> injector: every ported injector (the reference's registry
-# minus stall_heartbeat)
+# name -> injector: the reference's registry
 INJECTORS = {
     "truncate_file": truncate_file,
     "flip_bits": flip_bits,
     "fail_nth": fail_nth,
     "async_writer_fault": async_writer_fault,
     "kill_self": kill_self,
+    "stall_heartbeat": stall_heartbeat,
     "nan_payload": nan_payload,
     "bad_sample": bad_sample,
     "dead_worker": dead_worker,

@@ -16,8 +16,10 @@ bit for bit, ``kill_self`` and ``adapter_churn``.
 
 import asyncio
 import os
+import signal
 import subprocess
 import sys
+import textwrap
 import time
 import types
 
@@ -346,9 +348,9 @@ class TestFrontlineChaos:
 
 class TestFleetChaos:
     def test_injector_registry_has_fleet_trio(self):
-        """The port's registry holds every reference injector but the
-        launcher's ``stall_heartbeat``, and the kind tuples are the
-        reference's."""
+        """The port's registry holds every reference injector (the
+        launcher's ``stall_heartbeat`` too, since the launcher is ported),
+        and the kind tuples are the reference's."""
         for name in ("replica_kill", "slow_replica", "flaky_probe"):
             assert name in tchaos.INJECTORS
         for kinds in ("TIER", "DISAGG", "DURABLE", "LORA"):
@@ -358,9 +360,9 @@ class TestFleetChaos:
                 assert name in tchaos.INJECTORS
                 assert name not in tchaos.TIMELINE_INJECTORS
         assert tchaos.TIMELINE_INJECTORS == jchaos.TIMELINE_INJECTORS
-        assert set(tchaos.INJECTORS) == set(jchaos.INJECTORS) - {
-            "stall_heartbeat"}
-        assert len(tchaos.INJECTORS) == 25
+        assert set(tchaos.INJECTORS) == set(jchaos.INJECTORS)
+        assert "stall_heartbeat" in tchaos.INJECTORS
+        assert len(tchaos.INJECTORS) == 26
 
     @staticmethod
     def balanced(r):
@@ -499,3 +501,215 @@ class TestInjectorUnits:
         got = both(scenario, s)
         assert got[1] == got[3]
         assert got[0][1] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the elastic layer's chaos: the in-process stall (tests/test_chaos.py:366)
+# and the launcher-driven faults (tests/test_chaos.py:475-620), with the
+# port's launcher, elastic layer, injectors and AsyncCheckpointer
+# ---------------------------------------------------------------------------
+
+class TestElasticChaos:
+    def test_stalled_rank_reported_by_watchdog_not_hanging(self):
+        """``stall_heartbeat`` in-process: the monitor's watchdog names the
+        frozen rank instead of hanging on it."""
+        from paddle_tpu_torch.distributed import elastic
+        monitor = elastic.HeartbeatMonitor("chaos-wd")
+        try:
+            os.environ["PADDLE_ELASTIC_STORE"] = monitor.addr
+            os.environ["PADDLE_JOB_ID"] = "chaos-wd"
+            elastic.start_heartbeat(rank=0, interval=0.1)
+            deadline = time.time() + 5.0
+            while monitor.last_beat(0) is None:       # first stamp landed
+                assert time.time() < deadline
+                time.sleep(0.02)
+            wd = monitor.start_watchdog([0], ttl=0.6, poll=0.1)
+            try:
+                with tchaos.stall_heartbeat():
+                    with pytest.raises(TimeoutError, match=r"\[0\]"):
+                        wd.wait(timeout=5.0)
+                assert wd.hung == [0]
+            finally:
+                wd.stop()
+        finally:
+            elastic.stop_heartbeat()
+            os.environ.pop("PADDLE_ELASTIC_STORE", None)
+            os.environ.pop("PADDLE_JOB_ID", None)
+            monitor.close()
+
+
+_TRAIN = """
+    import os, sys, time
+    sys.path.insert(0, {repo!r})
+    import torch
+    torch.set_num_threads(1)
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    rnd = int(os.environ["PADDLE_RESTART_ROUND"])
+    fault = os.environ.get("CHAOS_FAULT", "")
+    from paddle_tpu_torch.distributed.checkpoint import AsyncCheckpointer
+    from paddle_tpu_torch.distributed.checkpoint import manifest
+    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch.testing import chaos
+    elastic.start_heartbeat(interval=0.25)
+    out = {out!r}
+    ck = AsyncCheckpointer(keep_last_k=3)   # root: PADDLE_CHECKPOINT_DIR
+    state = {{"w": torch.zeros(3, 1), "step": torch.zeros(())}}
+    restored = ck.restore(state)
+    start = int(float(state["step"])) if restored is not None else 0
+    if restored is not None and rank == 0:
+        open(os.path.join(out, "resumed.%d" % rnd), "w").write(str(start))
+    g = torch.Generator().manual_seed(0)
+    X = torch.randn(32, 3, generator=g)
+    y = X @ torch.tensor([[1.5], [-2.0], [0.5]])
+    w = state["w"].clone()
+    holder = {{"w": w, "step": start}}
+    if fault.startswith("preempt"):
+        elastic.install_preemption_handler(save_fn=lambda: ck.save_sync(
+            {{"w": holder["w"], "step": torch.tensor(float(holder["step"]))}},
+            holder["step"]))
+    nsteps = int(os.environ.get("CHAOS_STEPS", "8"))
+    open(os.path.join(out, "started.%d.%d" % (rnd, rank)), "w").write("1")
+    for step in range(start, nsteps):
+        w = w - 0.1 * (2 * X.T @ (X @ w - y) / X.shape[0])
+        holder["w"], holder["step"] = w, step + 1
+        if fault == "preempt_worker" and rnd == 0 and step == 3:
+            import signal as _sig
+            os.kill(os.getpid(), _sig.SIGTERM)   # infra preempts the WORKER
+            time.sleep(30)   # the handler exits the process first
+        if rank == 0 and not fault.startswith("preempt"):
+            ck.save({{"w": w, "step": torch.tensor(step + 1.0)}}, step + 1)
+        if rnd == 0 and step >= 3:
+            if fault == "kill" and rank == 1:
+                # die mid-step once a commit exists, so the restart
+                # provably resumes from it
+                while manifest.latest_committed(
+                        os.environ["PADDLE_CHECKPOINT_DIR"]) is None:
+                    time.sleep(0.05)
+                chaos.kill_self()               # SIGKILL mid-step
+            if fault == "stall" and rank == 0 and step == 3:
+                _stall = chaos.stall_heartbeat()
+                _stall.__enter__()              # freeze liveness stamping
+                time.sleep(60)                  # alive but hung
+        time.sleep(0.25 if fault == "preempt" else 0.05)
+    ck.wait()
+    final = float(((X @ w - y) ** 2).mean())
+    open(os.path.join(out, "final.%d" % rank), "w").write(repr(final))
+"""
+
+
+def _write_train(tmp_path):
+    p = tmp_path / "train.py"
+    p.write_text(textwrap.dedent(_TRAIN.format(repo=REPO,
+                                               out=str(tmp_path))))
+    return str(p)
+
+
+def _run_launcher(tmp_path, script, fault, *extra, env_extra=None):
+    from paddle_tpu_torch.distributed.launch.main import _parse, launch_procs
+    env_bak = dict(os.environ)
+    os.environ["CHAOS_FAULT"] = fault
+    os.environ["PADDLE_HEARTBEAT_INTERVAL"] = "0.25"
+    os.environ.update(env_extra or {})
+    try:
+        return launch_procs(_parse(
+            [*extra, "--log_dir", str(tmp_path / f"log_{fault}"),
+             "--ckpt_dir", str(tmp_path / f"ckpt_{fault}"), script]))
+    finally:
+        os.environ.clear()
+        os.environ.update(env_bak)
+
+
+def _final_loss(tmp_path, rank=0):
+    return float((tmp_path / f"final.{rank}").read_text())
+
+
+class TestLauncherChaos:
+    def test_rank_kill_mid_step_resumes_and_converges(self, tmp_path):
+        """Rank 1 is SIGKILLed mid-step after the first commit; the
+        launcher restarts the round, the job resumes from the last commit
+        and ends at the unfaulted run's loss."""
+        ref_dir = tmp_path / "ref"
+        ref_dir.mkdir()
+        assert _run_launcher(ref_dir, _write_train(ref_dir), "",
+                             "--nproc_per_node", "2") == 0
+        rc = _run_launcher(tmp_path, _write_train(tmp_path), "kill",
+                           "--nproc_per_node", "2", "--max_restart", "2")
+        assert rc == 0, (tmp_path / "log_kill" / "workerlog.1").read_text()
+        assert int((tmp_path / "resumed.1").read_text()) >= 1
+        np.testing.assert_allclose(_final_loss(tmp_path),
+                                   _final_loss(ref_dir), rtol=1e-5,
+                                   atol=1e-6)
+
+    def test_stalled_heartbeat_detected_restarts_and_converges(self,
+                                                               tmp_path):
+        """``stall_heartbeat`` freezes the stamps mid-training: the watch
+        declares the rank hung, restarts, and the resumed run ends at the
+        unfaulted loss."""
+        ref_dir = tmp_path / "ref"
+        ref_dir.mkdir()
+        assert _run_launcher(ref_dir, _write_train(ref_dir), "") == 0
+        rc = _run_launcher(tmp_path, _write_train(tmp_path), "stall",
+                           "--max_restart", "2", "--elastic_timeout", "2.5")
+        assert rc == 0, (tmp_path / "log_stall" / "workerlog.0").read_text()
+        assert (tmp_path / "resumed.1").exists()
+        np.testing.assert_allclose(_final_loss(tmp_path),
+                                   _final_loss(ref_dir), rtol=1e-5,
+                                   atol=1e-6)
+
+    def test_worker_sigterm_emergency_exit_is_preemption_not_crash(
+            self, tmp_path):
+        """The infrastructure SIGTERMs a worker directly: it commits an
+        emergency checkpoint and exits ``EMERGENCY_EXIT_RC``; the launcher
+        reads that as a preemption (``PREEMPT_RC``, no restart round)."""
+        from paddle_tpu_torch.distributed.checkpoint import manifest
+        from paddle_tpu_torch.distributed.launch.main import PREEMPT_RC
+        rc = _run_launcher(tmp_path, _write_train(tmp_path),
+                           "preempt_worker", "--max_restart", "2")
+        assert rc == PREEMPT_RC, rc
+        got = manifest.latest_committed(str(tmp_path /
+                                            "ckpt_preempt_worker"))
+        assert got is not None and got[0] >= 1
+        assert not list(tmp_path.glob("resumed.*"))
+
+    @pytest.mark.slow
+    def test_sigterm_preemption_emergency_save_then_resume_converges(
+            self, tmp_path):
+        """SIGTERM to the launcher: the workers get the grace window, the
+        handler commits an emergency checkpoint, the job exits
+        ``PREEMPT_RC``; the rescheduled job resumes from that commit and
+        ends at the unfaulted loss. (Slow: 40 steps of 0.25 s, three
+        times.)"""
+        from paddle_tpu_torch.distributed.checkpoint import manifest
+        from paddle_tpu_torch.distributed.launch.main import PREEMPT_RC
+        ref_dir = tmp_path / "ref"
+        ref_dir.mkdir()
+        assert _run_launcher(ref_dir, _write_train(ref_dir), "",
+                             env_extra={"CHAOS_STEPS": "40"}) == 0
+        script = _write_train(tmp_path)
+        env = dict(os.environ, PYTHONPATH=REPO, CHAOS_FAULT="preempt",
+                   CHAOS_STEPS="40")
+        ckpt = str(tmp_path / "ckpt_preempt")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--log_dir", str(tmp_path / "log_p0"), "--ckpt_dir", ckpt,
+             "--preempt_grace", "10", script], cwd=REPO, env=env)
+        deadline = time.time() + 90
+        while not (tmp_path / "started.0.0").exists():
+            assert time.time() < deadline, "worker never started training"
+            assert proc.poll() is None, "job died before being preempted"
+            time.sleep(0.2)
+        time.sleep(2.0)                  # a few 0.25 s steps into the run
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == PREEMPT_RC
+        got = manifest.latest_committed(ckpt)
+        assert got is not None, "emergency save never committed"
+        step = got[0]
+        assert 1 <= step < 40
+        rc = _run_launcher(tmp_path, script, "preempt",
+                           env_extra={"CHAOS_STEPS": "40"})
+        assert rc == 0, (tmp_path / "log_preempt" /
+                         "workerlog.0").read_text()
+        assert int((tmp_path / "resumed.0").read_text()) == step
+        np.testing.assert_allclose(_final_loss(tmp_path),
+                                   _final_loss(ref_dir), rtol=1e-5,
+                                   atol=1e-6)

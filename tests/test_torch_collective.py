@@ -233,13 +233,25 @@ def test_fleet_topology_matches_jax(case):
 
 def test_default_group_and_multi_process_refused(monkeypatch):
     """With no group set, the port's default is dp over the devices the
-    process drives (one CPU here); a launcher's multi-process environment
-    is refused with the queue item that ports it."""
+    process drives (one CPU here). A launcher's multi-process environment
+    (it was refused before the launcher was ported) joins
+    ``torch.distributed``'s gloo group at the launcher's rendezvous, as
+    that rank; the two-process run is ``tests/test_torch_launch.py``."""
     hcg = tdist.get_hybrid_communicate_group()
     assert hcg.get_data_parallel_world_size() == 1
     assert [str(d) for d in hcg.mesh.devices.flat] == ["cpu"]
     tdist.init_parallel_env()
     assert tdist.is_initialized()
+    calls = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda *a, **kw: calls.append((a, kw)))
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-    with pytest.raises(NotImplementedError, match="10a"):
-        tdist.init_parallel_env()
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "1")
+    monkeypatch.setenv("PADDLE_MASTER", "127.0.0.1:6170")
+    tdist.init_parallel_env(timeout=30)
+    (args, kw), = calls
+    assert args == ("gloo",)
+    assert (kw["init_method"], kw["rank"], kw["world_size"]) == \
+        ("tcp://127.0.0.1:6170", 1, 2)
+    assert kw["timeout"].total_seconds() == 30

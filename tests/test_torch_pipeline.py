@@ -399,16 +399,26 @@ def test_moe_without_ep_matches_jax(pp_mesh):
 
 
 def test_pp_by_ep_and_shard_params_refused(pp_mesh):
-    """pp x ep raises naming item 10c; ``shard_params`` on a pp mesh keeps
-    refusing (JAX's ``param_specs`` has no pp entry) and names the pp
-    layout."""
+    """pp x ep (refused until expert parallelism was ported) runs: at pp 4
+    x ep 2 the loss equals the same pp step with the experts whole on
+    every entry (``tests/test_torch_ep.py`` holds it to JAX);
+    ``shard_params`` on a pp mesh keeps refusing (JAX's ``param_specs``
+    has no pp entry) and names the pp layout."""
     jcfg = JL.LlamaConfig(vocab_size=128, hidden_size=32,
                           intermediate_size=32, num_hidden_layers=4,
                           num_attention_heads=2, moe_num_experts=4)
     tcfg = config_from_jax(jcfg)
-    with pytest.raises(NotImplementedError, match="10c"):
-        TL.make_pp_train_step(tcfg, build_mesh({"pp": 4, "ep": 2}, CPU8),
-                              micro_batches=4)
+    ep_mesh = build_mesh({"pp": 4, "ep": 2}, CPU8)
+    moe_p = TL.init_params(tcfg, seed=0, device="cpu")
+    ids = torch.from_numpy(_batch(3)[0])
+    losses = []
+    for ep in ("ep", None):
+        pp = shard_tree(TL.to_pp_layout(moe_p, 4), ep_mesh,
+                        TL.pp_param_specs(tcfg, "pp", ep))
+        init_t, step_t = TL.make_pp_train_step(tcfg, ep_mesh,
+                                               micro_batches=4)
+        losses.append(float(step_t(pp, init_t(pp), ids, ids)[2]))
+    assert abs(losses[0] - losses[1]) < 1e-6, losses
     dense = config_from_jax(JL.LlamaConfig(
         vocab_size=128, hidden_size=32, intermediate_size=32,
         num_hidden_layers=4, num_attention_heads=2))

@@ -318,17 +318,19 @@ def test_sentinel_skips_a_nan_batch_and_oov_gives_nan():
 
 
 def test_unported_layouts_refused():
-    """MoE (item 10c) and a named remat_policy raise NotImplementedError
-    naming what is not ported; a pp degree > 1 has no ``shard_params``
-    layout (JAX's ``param_specs`` has none either) and the error names the
-    pp layout."""
+    """A named remat_policy raises NotImplementedError naming what is not
+    ported; a pp degree > 1 has no ``shard_params`` layout (JAX's
+    ``param_specs`` has none either) and the error names the pp layout.
+    MoE layouts (refused until expert parallelism was ported) lay out:
+    the experts whole on every entry without an ``ep_axis``
+    (``tests/test_torch_ep.py`` holds the sharded MoE step)."""
     _, tmesh = _meshes()
     jcfg, tcfg, jp = _setup()
     p = _port(jp)
     moe_j = tiny_cfg(moe_num_experts=4)
     moe_p = _port(JL.init_params(moe_j, jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="10c"):
-        TL.shard_params(moe_p, tmesh, config_from_jax(moe_j))
+    moe_s = TL.shard_params(moe_p, tmesh, config_from_jax(moe_j))
+    assert moe_s["layers"]["w_gate"].spec == (None, None, None, "mp")
     import dataclasses
     with pytest.raises(NotImplementedError, match="to_pp_layout and "
                        "pp_param_specs"):
