@@ -449,6 +449,33 @@ Phases (each fails the run on any error; none catches and carries on):
     ep 2 and dp 2 x pp 2 x ep 2 at V 2 against the serial micro-batched
     oracle (each micro-batch's dp piece routed alone, as the pp step
     routes it).
+45. The eager API (``import paddle_tpu_torch as paddle``) on the card:
+    (a) ``LlamaForCausalLM`` at F's configuration on ``init_params``
+    seed 0, ``AdamW(1e-4)`` on B 8 x S 2048, one warm-up and two timed
+    ``loss.backward(); opt.step(); opt.clear_grad()`` steps: exactly F's
+    launches a step, the first loss within 5e-3 x |loss| of the
+    functional ``loss_fn`` on the same params; step ms beside phase 11's,
+    peak memory, and one profiled step. (b) E's width at fp32 with the kernels, the weights
+    loaded by name through ``set_state_dict``: the eager loss (1e-5) and
+    every ``.grad`` (1e-4 x max|g|) against ``loss_fn`` and
+    ``torch.autograd.grad``, and one AdamW step (weight decay 0.01)
+    against the reference formula written out (1e-6 x max|p|). (c)
+    ``net.generate`` greedy at full width equal to the functional
+    ``generate`` on the same params. (d) The eager kernel callers on the
+    card, each against its plain path: ``F.scaled_dot_product_attention``
+    at bf16 B 2 x S 2048 x 16 heads x D 128 causal, forward and backward,
+    flash launches 1 / 1 / 1 and phase 7's rule (and the same call with a
+    boolean mask: the plain path, no flash launch, its output under phase
+    7's rule and its bf16 autograd gradients under the rule's 1e-2
+    norm-relative part); ``F.rms_norm``,
+    ``nn.RMSNorm`` and ``fused_rms_norm`` on 8 x 2048 rows of 2048 and
+    ``fused_rotary_position_embedding`` on q and k [8, 2048, 16, 128],
+    each within one bf16 step, forward and backward; ``weight_only_linear``
+    at M 8 and 2048, K 2048, N 5504 within 1e-2 x max|ref|, its gradient
+    with respect to x against the plain version's.
+
+Each phase's wall seconds print as the next phase (or the closing line)
+begins.
 
 Then the kernels JSON line, the card line and the result line. Phases 4
 and 5 each serve one short warm-up request first (first-call set-up stays
@@ -470,9 +497,11 @@ kernels line reports the serving launches of phases 4, 5, 13, 14
 drain with migration), 29 (the first server turn), 31 (the bf16 and
 the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
 together,
+and 45 (d),
 the flash launches of phases 8, 34, 36, 38, 39, 41 (both ranks' F
-steps) and 43 and the RMSNorm and RoPE launches of phases 11, 34, 36,
-38, 39, 41 and 43 (RoPE: forward and backward together).
+steps), 43 and 45 and the RMSNorm and RoPE launches of phases 11, 34,
+36, 38, 39, 41, 43 and 45 (RoPE: forward and backward together; 45: the
+timed eager steps and the eager callers of (d)).
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -501,7 +530,8 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "serving server and replay", "tensor-parallel serving",
          "fault-tolerant training", "sharded training",
          "pipelined training", "context-parallel training",
-         "launched training", "elastic restarts", "expert-parallel training")
+         "launched training", "elastic restarts", "expert-parallel training",
+         "eager API")
 
 
 def check(cond, msg):
@@ -509,8 +539,21 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_PHASE = {}
+
+
 def log(*a):
-    print(*a, flush=True)
+    """Print a line; a line opening a phase (``== phase n``) or the
+    closing ``== main paths`` line first prints the open phase's wall
+    seconds."""
+    text = " ".join(str(x) for x in a)
+    if text.startswith(("== phase", "== main paths")):
+        if _PHASE:
+            print(f"   (phase {_PHASE['n']}: "
+                  f"{time.time() - _PHASE['t0']:.1f} s)", flush=True)
+        if text.startswith("== phase"):
+            _PHASE.update(n=text.split()[2].rstrip(":"), t0=time.time())
+    print(text, flush=True)
 
 
 _FLUSH = []
@@ -6822,6 +6865,312 @@ def ep_parity_phase(dev="cuda", cfg=None, batch=8, seq=512):
     return {"gaps": gaps, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 45: the eager API on the card
+# ---------------------------------------------------------------------------
+
+def eager_step_phase(m11, batch=8, seq=2048, steps=2):
+    """Phase 45 (a): ``LlamaForCausalLM`` at F's configuration on the
+    port's ``init_params`` seed 0 (registered by sorted name), AdamW(1e-4):
+    a warm-up step, then ``steps`` timed steps with the counters set to 0
+    just before them. Returns (metrics, launches, net)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               _sorted_leaves, loss_fn)
+    paddle.set_device("gpu:0")
+    cfg = train_config(torch.bfloat16, use_fused_norm=True)
+    net = LlamaForCausalLM(cfg, seed=SEED)
+    params = net.params_pytree()
+    check([n for n, _ in net.named_parameters()] ==
+          [f"p{i}" for i in range(len(_sorted_leaves(params)))],
+          "the eager parameters are not named p0 ... pN")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    with torch.no_grad():
+        ref = loss_fn(params, ids, ids, cfg).item()
+    x = paddle.to_tensor(ids)
+    opt = paddle.optimizer.AdamW(1e-4, parameters=net.parameters())
+
+    def step():
+        loss = net(x, x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+
+    losses = [step()]                                   # the warm-up
+    first_rel = abs(losses[0] - ref) / abs(ref)
+    check(first_rel <= 5e-3, f"eager first loss {losses[0]} vs functional "
+          f"{ref} (rel {first_rel})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(step())
+        times.append(time.time() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    step_ms = float(np.median(times)) * 1e3
+    m = {"step_ms": step_ms, "step_ms_each": [t * 1e3 for t in times],
+         "phase11_step_ms": m11["step_ms"],
+         "tokens_per_s": batch * seq / step_ms * 1e3,
+         "max_memory_allocated_gb": peak / 2 ** 30, "losses": losses,
+         "functional_first_loss": ref, "first_loss_rel": first_rel,
+         "launches_per_step": per_step}
+    log(f"  (a) {json.dumps(m)}")
+    check(all(np.isfinite(losses)), f"non-finite eager loss {losses}")
+    check(losses[-1] < losses[0], f"eager loss did not fall: {losses}")
+    want = expected_launches(cfg)
+    check(per_step == want, f"eager launches per step {per_step}, "
+          f"expected {want}")
+    m["profile"] = profile_device(step, "eager training step", top=10)
+    return m, counts, net
+
+
+def eager_parity_phase():
+    """Phase 45 (b): E's width at fp32 with the kernels; the weights of
+    ``init_params`` loaded by name into a net built from another seed."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               _sorted_leaves, _unflatten,
+                                               init_params, loss_fn)
+    cfg = train_config(torch.float32, hidden_size=512, intermediate_size=1376,
+                       num_hidden_layers=4, num_attention_heads=8,
+                       num_key_value_heads=4, use_fused_norm=True)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 32000, (2, 512))).cuda()
+    flat = _sorted_leaves(init_params(cfg, seed=SEED + 2, device="cuda"))
+    leaves = [t.clone().requires_grad_(True) for _, t in flat]
+    reset_counts()
+    ref = loss_fn(_unflatten([p for p, _ in flat], leaves), ids, ids, cfg)
+    ref_grads = torch.autograd.grad(ref, leaves)
+    net = LlamaForCausalLM(cfg, seed=SEED + 99)
+    missing, unexpected = net.set_state_dict(
+        {f"p{i}": t for i, (_, t) in enumerate(flat)})
+    check(not missing and not unexpected, f"set_state_dict missing "
+          f"{missing}, unexpected {unexpected}")
+    check(all(torch.equal(p._value, t) for p, (_, t)
+              in zip(net.parameters(), flat)), "weights not loaded by name")
+    x = paddle.to_tensor(ids)
+    loss = net(x, x)
+    loss.backward()
+    launches = read_counts()
+    rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    worst = max(((p.grad._value - g).abs().max() / g.abs().max()).item()
+                for p, g in zip(net.parameters(), ref_grads))
+    # one AdamW step against optimizer.py:255-318 written out
+    lr, wd, b1, b2, eps = 1e-3, 0.01, 0.9, 0.999, 1e-8
+    want = []
+    for p in net.parameters():
+        w, g = p._value.detach(), p.grad._value
+        v = w * (1.0 - lr * wd)
+        mhat = ((1 - b1) * g) / (1 - b1)
+        vhat = ((1 - b2) * torch.square(g)) / (1 - b2)
+        want.append(v - lr * mhat / (torch.sqrt(vhat) + eps))
+    paddle.optimizer.AdamW(lr, parameters=net.parameters(),
+                           weight_decay=wd).step()
+    adam_gap = max(((p._value - w).abs().max() / w.abs().max()).item()
+                   for p, w in zip(net.parameters(), want))
+    m = {"loss": loss.item(), "functional_loss": ref.item(), "loss_rel": rel,
+         "grad_worst": worst, "adamw_gap": adam_gap,
+         "launches": {k: v for k, v in launches.items() if v}}
+    log(f"  (b) {json.dumps(m)}")
+    check(rel <= 1e-5, f"fp32 eager loss rel {rel}")
+    check(worst <= 1e-4, f"fp32 eager gradient {worst} x max|g|")
+    check(adam_gap <= 1e-6, f"eager AdamW step {adam_gap} x max|p| from "
+          f"the reference formula")
+    check(launches["flash_attention_bwd_dkv"] > 0
+          and launches["rms_norm_bwd"] > 0 and launches["apply_rope_bwd"] > 0,
+          f"the fp32 eager step missed a kernel: {launches}")
+    return m
+
+
+def eager_generate_phase(net):
+    """Phase 45 (c): greedy ``net.generate`` at full width against the
+    functional ``generate`` on the same params."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import generation as G
+    cfg, params = net.config, net.params_pytree()
+    ids = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                            (2, 32)).astype(np.int32)
+    got = net.generate(paddle.to_tensor(ids), max_new_tokens=4)
+    with torch.no_grad():
+        want = G.generate(params, ids, cfg, max_new_tokens=4)
+    log(f"  (c) eager generate {got.numpy().tolist()}, functional "
+        f"{want.cpu().numpy().tolist()}")
+    check(torch.equal(got._value.cpu(), want.cpu()),
+          "eager generate differs from the functional stream")
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def eager_callers_phase():
+    """Phase 45 (d): each eager caller on the card takes its kernel (the
+    counts rise) and matches its plain path. Returns the callers' launches
+    (the plain references launch nothing)."""
+    import importlib
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.kernels.rms_norm import (rms_norm_bwd_plain,
+                                                   rms_norm_fwd_plain)
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quantize_weights, weight_only_matmul_plain)
+    from paddle_tpu_torch.kernels.rope import apply_rope_plain, rope_cos_sin
+    g = torch.Generator(device="cuda").manual_seed(SEED + 45)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    reset_counts()
+    out = {}
+    # scaled_dot_product_attention: the flash route, then a boolean mask.
+    # The plain references are phase 7's: the plain forward, and the plain
+    # backward fed the call's own bf16 out (delta = rowsum(dO * O) moves
+    # with that rounding in short causal rows) and the plain lse
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    B, S, H, D = 2, 2048, 16, 128
+    q, k, v, dout = (randn(B, S, H, D) for _ in range(4))
+    scale = 1.0 / D ** 0.5
+    ref, ref_lse = FA.flash_attention_fwd_plain(q, k, v, None, None, scale,
+                                                True)
+    mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+    # the masked call runs the plain formula in bf16 (autograd through its
+    # bf16 einsums): its gradients' worst row is held to MASK_ROW, which a
+    # mask one diagonal off (the control, "shifted") must exceed. On an
+    # H100 80GB HBM3 at 700 W: dq's worst row 5.4e-2 under the right mask,
+    # the gradients' 1.7-2.8 under the shifted one
+    MASK_ROW = 0.15
+    for name, m in (("flash", None), ("mask", mask[None, None]),
+                    ("shifted", torch.ones_like(mask).tril(1)[None, None])):
+        before = read_counts()
+        ts = [paddle.to_tensor(t, stop_gradient=False) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(
+            *ts, attn_mask=None if m is None else paddle.to_tensor(m),
+            is_causal=m is None)
+        o.backward(paddle.to_tensor(dout))
+        torch.cuda.synchronize()
+        d = _delta(before, read_counts())
+        ref_grads = FA.flash_attention_bwd_plain(
+            q, k, v, None, None, o._value.detach(), ref_lse, dout, scale,
+            True)
+        got = [o._value] + [t.grad._value for t in ts]
+        errs = [rel_errors(a, b) for a, b in zip(got, [ref, *ref_grads])]
+        out[f"sdpa_{name}"] = {"launches": d, "fro_row": errs}
+        log(f"  (d) sdpa {name}: launches {d}, (rel, worst row) of out / "
+            f"dq / dk / dv {errs}")
+        want = ({"flash_attention": 1, "flash_attention_bwd_dq": 1,
+                 "flash_attention_bwd_dkv": 1} if m is None else {})
+        check(d == want, f"sdpa {name}: launches {d}, expected {want}")
+        if name == "shifted":
+            check(all(row > MASK_ROW for _, row in errs[1:]),
+                  f"a mask one diagonal off passes the masked gate: {errs}")
+            continue
+        for (fro, row), part in zip(errs, ("out", "dq", "dk", "dv")):
+            row_lim = BF16_ROW if m is None or part == "out" else MASK_ROW
+            check(fro <= BF16_FRO and row <= row_lim,
+                  f"sdpa {name} {part}: rel {fro:.3g}, worst row {row:.3g}")
+    del q, k, v, dout, ref, ref_lse, ref_grads
+    # RMSNorm's three callers on 8 x 2048 rows of 2048
+    x = randn(8 * 2048, 2048)
+    w = (1.0 + 0.1 * randn(2048, dtype=torch.float32))
+    gout = randn(8 * 2048, 2048)
+    ref_out, rstd = rms_norm_fwd_plain(x, w, 1e-6)
+    ref_dx, ref_dw = rms_norm_bwd_plain(x, w, rstd, gout)
+    layer = paddle.nn.RMSNorm(2048, epsilon=1e-6)
+    layer.weight.set_value(w)
+    callers = {"F.rms_norm": lambda a, b: F.rms_norm(a, b, 1e-6),
+               "nn.RMSNorm": lambda a, b: layer(a),
+               "fused_rms_norm": lambda a, b: IF.fused_rms_norm(a, b, None,
+                                                                1e-6)}
+    for name, fn in callers.items():
+        before = read_counts()
+        xt = paddle.to_tensor(x, stop_gradient=False)
+        wt = layer.weight if name == "nn.RMSNorm" else \
+            paddle.to_tensor(w, stop_gradient=False)
+        o = fn(xt, wt)
+        o.backward(paddle.to_tensor(gout))
+        torch.cuda.synchronize()
+        d = _delta(before, read_counts())
+        out[name] = {"launches": d, "max_abs_err": [
+            hold(f"{name} out", o._value, ref_out, 1e-5),
+            hold(f"{name} dx", xt.grad._value, ref_dx, 1e-5),
+            hold(f"{name} dw", wt.grad._value, ref_dw, 1e-4)]}
+        check(d == {"rms_norm": 1, "rms_norm_bwd": 1},
+              f"{name}: launches {d}")
+    del x, gout, ref_out, rstd, ref_dx, ref_dw
+    # fused RoPE on q and k [8, 2048, 16, 128]
+    q, k, gq, gk = (randn(8, 2048, 16, 128) for _ in range(4))
+    cos, sin = rope_cos_sin(2048, 128, 10000.0, device="cuda")
+    before = read_counts()
+    qt, kt = (paddle.to_tensor(t, stop_gradient=False) for t in (q, k))
+    oq, ok, _ = IF.fused_rotary_position_embedding(qt, kt)
+    dq, dk = paddle.grad([oq, ok], [qt, kt],
+                         [paddle.to_tensor(gq), paddle.to_tensor(gk)])
+    torch.cuda.synchronize()
+    d = _delta(before, read_counts())
+    out["fused_rope"] = {"launches": d, "max_abs_err": [
+        hold("rope q", oq._value, apply_rope_plain(q, cos, sin), 1e-5),
+        hold("rope k", ok._value, apply_rope_plain(k, cos, sin), 1e-5),
+        hold("rope dq", dq._value, apply_rope_plain(gq, cos, -sin), 1e-5),
+        hold("rope dk", dk._value, apply_rope_plain(gk, cos, -sin), 1e-5)]}
+    check(d == {"apply_rope": 2, "apply_rope_bwd": 2},
+          f"fused_rope: launches {d}")
+    del q, k, gq, gk, oq, ok, dq, dk
+    # weight_only_linear at the serving step's M and the prefill's
+    wq, sc = quantize_weights(randn(2048, 5504, dtype=torch.float32))
+    for M in (8, 2048):
+        x, dout = randn(M, 2048), randn(M, 5504)
+        before = read_counts()
+        xt = paddle.to_tensor(x, stop_gradient=False)
+        o = paddle.weight_only_linear(xt, paddle.to_tensor(wq),
+                                      paddle.to_tensor(sc))
+        o.backward(paddle.to_tensor(dout))
+        torch.cuda.synchronize()
+        d = _delta(before, read_counts())
+        xr = x.clone().requires_grad_(True)
+        ref = weight_only_matmul_plain(xr, wq, sc, torch.bfloat16)
+        (gx,) = torch.autograd.grad(ref, (xr,), dout)
+        errs = [((a.float() - b.float()).abs().max()
+                 / b.float().abs().max()).item()
+                for a, b in ((o._value, ref), (xt.grad._value, gx))]
+        out[f"weight_only_linear M={M}"] = {"launches": d,
+                                            "rel_max_err": errs}
+        check(d == {"weight_only_matmul": 1},
+              f"weight_only_linear M={M}: launches {d}")
+        check(max(errs) <= 1e-2, f"weight_only_linear M={M}: out / dx "
+              f"{errs} x max|ref|")
+    launches = read_counts()
+    log(f"  (d) {json.dumps(out)}")
+    log(f"  (d) launches: {json.dumps(launches)}")
+    return out, launches
+
+
+def eager_phase(m11):
+    """Phase 45: the eager API on the card, (a)-(d). Returns the launches
+    of (a)'s timed steps and of (d)'s callers."""
+    import torch
+    m, c_steps, net = eager_step_phase(m11)
+    eager_generate_phase(net)
+    del net
+    torch.cuda.empty_cache()
+    eager_parity_phase()
+    torch.cuda.empty_cache()
+    _, c_callers = eager_callers_phase()
+    torch.cuda.empty_cache()
+    return c_steps, c_callers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7209,8 +7558,14 @@ def main() -> int:
         "dp 2 x ep 4, pp 2 x ep 2, dp 2 x pp 2 x ep 2 at V 2")
     ep_parity_phase()
     torch.cuda.empty_cache()
-    trained = (c8, c34, c36, c38, c39, c41, c43)
-    normed = (c11, c34, c36, c38, c39, c41, c43)
+
+    log("== phase 45: the eager API on the card: LlamaForCausalLM at F, "
+        "E's fp32 parity, eager generate, the eager kernel callers")
+    c45, c45d = eager_phase(m11)
+    launches = {k: launches[k] + c45d[k] for k in launches}
+    log(f"  nvidia-smi: {card}")
+    trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d)
+    normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d)
 
     log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")

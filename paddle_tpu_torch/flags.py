@@ -8,8 +8,9 @@ knobs the ported engine, offload tier, journal, supervisor, fleet router
 and front-end server resolve when a field is left unset (every
 ``FLAGS_serving_*`` of the reference, so a replay manifest records the
 same set), the checkpoint verification switch, the health ladder's
-knobs (sentinel, monitor, the DataLoader's retries and worker restarts)
-and the hang watchdog's timeout.
+knobs (sentinel, monitor, the DataLoader's retries and worker restarts),
+the hang watchdog's timeout, and the two core flags the eager tier reads
+(``FLAGS_check_nan_inf``, ``FLAGS_retain_grad_for_all_tensor``).
 """
 
 from __future__ import annotations
@@ -91,6 +92,16 @@ def set_flags(flags_dict: Dict[str, Any]) -> None:
             raise ValueError(f"unknown flag {name!r}; known flags: "
                              f"{sorted(_registry)}")
         d.value = _coerce(d, value)
+
+
+# ---------------------------------------------------------------------------
+# The eager tier (core/dispatch.py): the reference's core flags it honours.
+# ---------------------------------------------------------------------------
+define_flag("FLAGS_check_nan_inf", False,
+            "Scan every eager op's output for NaN/Inf and raise naming the "
+            "op (ref: FLAGS_check_nan_inf / nan_inf_utils_detail).", bool)
+define_flag("FLAGS_retain_grad_for_all_tensor", False,
+            "Keep .grad on non-leaf eager tensors too.", bool)
 
 
 # ---------------------------------------------------------------------------

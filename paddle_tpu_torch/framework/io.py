@@ -27,6 +27,10 @@ package writes loads in the other.
   with compute.
 * ``load(path, device=None)`` returns tensors on the card; pass
   ``device="cpu"`` for the CPU.
+* The eager tier's ``Tensor`` and ``Parameter`` (and a ``Layer`` or
+  optimizer ``state_dict`` of them) save as the JAX package saves its
+  own, name and flags included; they load as ``torch.Tensor`` values,
+  which ``Layer.set_state_dict`` and ``Optimizer.set_state_dict`` take.
 """
 
 from __future__ import annotations
@@ -160,6 +164,13 @@ def _value(t: torch.Tensor):
 
 
 def _encode(obj):
+    from ..core.tensor import Parameter, Tensor
+    if isinstance(obj, Parameter):
+        return {_PARAM_SENTINEL: True, "value": _value(obj._value),
+                "trainable": obj.trainable, "name": obj.name}
+    if isinstance(obj, Tensor):
+        return {_SENTINEL: True, "value": _value(obj._value),
+                "stop_gradient": obj.stop_gradient, "name": obj.name}
     if isinstance(obj, torch.Tensor):
         if isinstance(obj, torch.nn.Parameter):
             return {_PARAM_SENTINEL: True, "value": _value(obj),

@@ -1,5 +1,9 @@
 """JAX parameter trees -> the port's tensors (through numpy, never jax).
 
+An eager layer's weights cross the same way: :func:`state_dict_from_jax`
+reads a JAX ``Layer`` (or its ``state_dict``) into numpy arrays keyed by
+name, and the port twin's ``Layer.set_state_dict`` takes them.
+
 The one way the tests hand the JAX package and the port the same weights
 (the LLaMA tree through :func:`params_from_jax`, the BERT encoder's
 through :func:`bert_params_from_jax`):
@@ -25,7 +29,8 @@ from ..distributed.sharding import ShardedTensor, assemble
 from .llama import LlamaConfig
 
 __all__ = ["params_from_jax", "bert_params_from_jax", "config_from_jax",
-           "opt_state_from_jax", "to_numpy", "specs_from_jax"]
+           "opt_state_from_jax", "to_numpy", "specs_from_jax",
+           "state_dict_from_jax"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
@@ -83,6 +88,22 @@ def opt_state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, Any]:
             "v": params_from_jax(state["v"], dev),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32, device=dev)}
+
+
+def state_dict_from_jax(layer_or_state_dict) -> Dict[str, np.ndarray]:
+    """``{name: value}`` of a layer's ``state_dict()`` (or of a state dict):
+    a JAX ``Tensor`` / array or any numpy-convertible value as a numpy
+    array (bf16 stays ``ml_dtypes`` bf16 where JAX made it so), a value
+    that is already torch (the port's ``Tensor`` or a ``torch.Tensor``)
+    as the torch tensor, uncopied."""
+    sd = layer_or_state_dict
+    if not isinstance(sd, dict) and hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    out = {}
+    for k, v in sd.items():
+        val = getattr(v, "_value", v)
+        out[k] = val if isinstance(val, torch.Tensor) else np.asarray(val)
+    return out
 
 
 def to_numpy(tree):

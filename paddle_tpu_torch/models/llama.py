@@ -67,7 +67,7 @@ __all__ = ["LlamaConfig", "init_params", "num_params", "forward", "loss_fn",
            "shard_serving_params", "serving_placement", "param_specs",
            "batch_spec", "shard_params", "is_sharded", "placement_bytes",
            "to_pp_layout", "from_pp_layout", "pp_param_specs",
-           "make_pp_train_step", "moe_kept"]
+           "make_pp_train_step", "moe_kept", "LlamaForCausalLM"]
 
 
 @dataclasses.dataclass
@@ -1884,3 +1884,119 @@ def make_pp_train_step(cfg: LlamaConfig, mesh, *, micro_batches: int,
         return params, opt_state, loss
 
     return init_opt_state, train_step
+
+
+# ---------------------------------------------------------------------------
+# eager nn.Layer wrapper (imperative API parity)
+# ---------------------------------------------------------------------------
+
+def _sorted_leaves(tree: Dict, prefix=()) -> List:
+    """``[(path, leaf)]`` in ``jax.tree_util.tree_flatten``'s order for a
+    dict tree: keys sorted at every level."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _sorted_leaves(v, prefix + (k,))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def _unflatten(paths, leaves) -> Dict:
+    tree: Dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+class LlamaForCausalLM:
+    """The eager wrapper of the functional model as an ``nn.Layer``
+    (counterpart of ``paddle_tpu/models/llama.py:1018``).
+
+    The parameters are the leaves of ``init_params(config, seed)`` on the
+    current place, registered as ``p0 ... pN`` in the order JAX's
+    ``tree_flatten`` gives the JAX model's (dict keys sorted), so a JAX ``LlamaForCausalLM``'s
+    ``state_dict()`` loads into this one with ``set_state_dict`` key for
+    key. ``forward(ids)`` returns the logits and ``forward(ids, labels)``
+    the loss, each one ``forward_op`` around the functional ``forward`` /
+    ``loss_fn``, so ``use_kernels``, ``use_fused_norm`` and remat act as
+    in ``make_train_step``. The class body is built on first use, as the
+    reference's, so importing this module stays light.
+    """
+
+    def __new__(cls, config: LlamaConfig, seed: int = 0):
+        from ..core.dispatch import forward_op
+        from ..core.place import torch_device
+        from ..core.tensor import Parameter, Tensor
+        from ..nn.layer import Layer
+        from ..ops._helpers import ensure_tensor
+
+        class _Llama(Layer):
+            def __init__(self, cfg, seed):
+                super().__init__()
+                self.config = cfg
+                flat = _sorted_leaves(init_params(cfg, seed=seed,
+                                                  device=torch_device()))
+                self._paths = [p for p, _ in flat]
+                self._flat_params = []
+                for i, (_, leaf) in enumerate(flat):
+                    p = Parameter(leaf)
+                    self.add_parameter(f"p{i}", p)
+                    self._flat_params.append(p)
+
+            def params_pytree(self):
+                return _unflatten(self._paths,
+                                  [p._value for p in self._flat_params])
+
+            def forward(self, input_ids, labels=None):
+                cfg = self.config
+                paths = self._paths
+                ids = ensure_tensor(input_ids)
+                if labels is None:
+                    def f(ids, *leaves):
+                        return forward(_unflatten(paths, leaves), ids, cfg)
+                    return forward_op("llama_forward", f,
+                                      [ids, *self._flat_params])
+
+                def f(ids, lbl, *leaves):
+                    return loss_fn(_unflatten(paths, leaves), ids, lbl, cfg)
+                return forward_op("llama_loss", f,
+                                  [ids, ensure_tensor(labels),
+                                   *self._flat_params])
+
+            def generate(self, input_ids, *, max_new_tokens=None,
+                         prompt_lens=None, temperature=None,
+                         top_k="unset", top_p="unset",
+                         eos_token_id="unset",
+                         pad_token_id=None, seed=None,
+                         generation_config=None):
+                """KV-cache decoding through the functional ``generate``
+                (greedy when ``temperature == 0``), the knobs resolved
+                through ``GenerationConfig`` as the reference resolves
+                them: ``generation_config`` supplies defaults, keyword
+                arguments override its fields (an explicit ``None`` for
+                ``eos_token_id`` / ``top_k`` / ``top_p`` disables one)."""
+                from .generation import GenerationConfig
+                from .generation import generate as _gen
+                g = GenerationConfig.resolve(
+                    generation_config, max_new_tokens=max_new_tokens,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+                    seed=seed)
+                ids = getattr(input_ids, "_value", input_ids)
+                lens = getattr(prompt_lens, "_value", prompt_lens)
+                with torch.no_grad():
+                    out = _gen(self.params_pytree(), ids, self.config,
+                               max_new_tokens=g.max_new_tokens,
+                               prompt_lens=lens, temperature=g.temperature,
+                               top_k=g.top_k, top_p=g.top_p,
+                               eos_token_id=g.eos_token_id,
+                               pad_token_id=g.pad_token_id, seed=g.seed)
+                return Tensor(out)
+
+        _Llama.__name__ = "LlamaForCausalLM"
+        return _Llama(config, seed)

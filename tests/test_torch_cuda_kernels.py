@@ -1045,3 +1045,178 @@ def test_prefetch_to_device_on_card(dev):
     p = chaos.nan_payload(x, frac=0.5, seed=2)
     assert p.is_cuda and int(torch.isnan(p).sum()) == 8
     assert not torch.isnan(x).any()
+
+
+# -- the eager tier's kernel callers (paddle_tpu_torch.nn / incubate / ops) --
+
+def _counts():
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_matmul
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.kernels.rope import apply_rope
+    return {"flash": (flash_attention.launches,
+                      flash_attention.launches_bwd_dq,
+                      flash_attention.launches_bwd_dkv),
+            "rms_norm": (rms_norm.launches, rms_norm.launches_bwd),
+            "rope": (apply_rope.launches, apply_rope.launches_bwd),
+            "matmul": (weight_only_matmul.launches,)}
+
+
+def _risen(before, after):
+    return {k: tuple(b - a for a, b in zip(before[k], after[k]))
+            for k in after if after[k] != before[k]}
+
+
+@pytest.fixture
+def paddle_gpu(dev):
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu:0")
+    return paddle
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_eager_sdpa_takes_flash(paddle_gpu, causal):
+    paddle = paddle_gpu
+    from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((2, 256, 4, 128), generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    ts = [paddle.to_tensor(t, stop_gradient=False) for t in (q, k, v)]
+    before = _counts()
+    out = paddle.nn.functional.scaled_dot_product_attention(
+        *ts, is_causal=causal)
+    out.backward(paddle.to_tensor(do))
+    torch.cuda.synchronize()
+    assert _risen(before, _counts()) == {"flash": (1, 1, 1)}
+    fs = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = _sdpa_ref(*fs, causal=causal)
+    grads = torch.autograd.grad(ref, fs, do.float())
+    for got, want in zip([out._value] + [t.grad._value for t in ts],
+                         [ref, *grads]):
+        assert _rel(got, want) <= 1e-2
+
+
+def test_eager_sdpa_with_mask_takes_the_plain_path(paddle_gpu):
+    paddle = paddle_gpu
+    q = paddle.to_tensor(torch.randn(1, 128, 2, 128, device="cuda"))
+    mask = paddle.to_tensor(torch.ones(128, 128, dtype=torch.bool,
+                                       device="cuda").tril()[None, None])
+    before = _counts()
+    a = paddle.nn.functional.scaled_dot_product_attention(q, q, q,
+                                                          attn_mask=mask)
+    assert _risen(before, _counts()) == {}
+    b = paddle.nn.functional.scaled_dot_product_attention(q, q, q,
+                                                          is_causal=True)
+    assert _rel(a._value, b._value) <= 1e-5
+
+
+def test_eager_rms_norm_callers_take_the_kernel(paddle_gpu):
+    paddle = paddle_gpu
+    from paddle_tpu_torch.kernels.rms_norm import (rms_norm_bwd_plain,
+                                                   rms_norm_fwd_plain)
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((64, 2048), generator=g, device="cuda").bfloat16()
+    w = 1 + 0.1 * torch.randn(2048, generator=g, device="cuda")
+    go = torch.randn((64, 2048), generator=g, device="cuda").bfloat16()
+    ref, rstd = rms_norm_fwd_plain(x, w, 1e-6)
+    rdx, rdw = rms_norm_bwd_plain(x, w, rstd, go)
+    layer = paddle.nn.RMSNorm(2048)
+    layer.weight.set_value(w)
+    for name in ("F", "layer", "fused"):
+        xt = paddle.to_tensor(x, stop_gradient=False)
+        wt = layer.weight if name == "layer" else \
+            paddle.to_tensor(w, stop_gradient=False)
+        before = _counts()
+        out = {"F": lambda: paddle.nn.functional.rms_norm(xt, wt),
+               "layer": lambda: layer(xt),
+               "fused": lambda: IF.fused_rms_norm(xt, wt)}[name]()
+        out.backward(paddle.to_tensor(go))
+        torch.cuda.synchronize()
+        assert _risen(before, _counts()) == {"rms_norm": (1, 1)}, name
+        for got, want in ((out._value, ref), (xt.grad._value, rdx)):
+            step = 2.0 ** -7 * want.float().abs().clamp(min=1e-3)
+            assert ((got.float() - want.float()).abs() <= step).all(), name
+        assert torch.allclose(wt.grad._value, rdw, rtol=0,
+                              atol=1e-4 * rdw.abs().max().item()), name
+
+
+def test_eager_fused_rope_takes_the_kernel(paddle_gpu):
+    paddle = paddle_gpu
+    from paddle_tpu_torch.kernels.rope import apply_rope_plain, rope_cos_sin
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, gq, gk = (torch.randn((2, 128, 4, 64), generator=g,
+                                device="cuda").bfloat16() for _ in range(4))
+    cos, sin = rope_cos_sin(128, 64, 10000.0, device="cuda")
+    qt, kt = (paddle.to_tensor(t, stop_gradient=False) for t in (q, k))
+    before = _counts()
+    oq, ok, _ = IF.fused_rotary_position_embedding(qt, kt)
+    dq, dk = paddle.grad([oq, ok], [qt, kt],
+                         [paddle.to_tensor(gq), paddle.to_tensor(gk)])
+    torch.cuda.synchronize()
+    assert _risen(before, _counts()) == {"rope": (2, 2)}
+    for got, want in ((oq, apply_rope_plain(q, cos, sin)),
+                      (ok, apply_rope_plain(k, cos, sin)),
+                      (dq, apply_rope_plain(gq, cos, -sin)),
+                      (dk, apply_rope_plain(gk, cos, -sin))):
+        step = 2.0 ** -7 * want.float().abs().clamp(min=1e-3)
+        assert ((got._value.float() - want.float()).abs() <= step).all()
+
+
+@pytest.mark.parametrize("M", [8, 256])
+def test_eager_weight_only_linear_takes_the_kernel(paddle_gpu, M):
+    paddle = paddle_gpu
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quantize_weights, weight_only_matmul_plain)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    wq, sc = quantize_weights(torch.randn((512, 384), generator=g,
+                                          device="cuda"))
+    x = torch.randn((M, 512), generator=g, device="cuda").bfloat16()
+    do = torch.randn((M, 384), generator=g, device="cuda").bfloat16()
+    xt = paddle.to_tensor(x, stop_gradient=False)
+    st = paddle.to_tensor(sc, stop_gradient=False)
+    before = _counts()
+    out = paddle.weight_only_linear(xt, paddle.to_tensor(wq), st)
+    out.backward(paddle.to_tensor(do))
+    torch.cuda.synchronize()
+    assert _risen(before, _counts()) == {"matmul": (1,)}
+    xr, sr = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
+    ref = weight_only_matmul_plain(xr, wq, sr, torch.bfloat16)
+    gx, gs = torch.autograd.grad(ref, (xr, sr), do)
+    for got, want in ((out._value, ref), (xt.grad._value, gx),
+                      (st.grad._value, gs)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-2 * want.float().abs().max().item()
+
+
+def test_eager_llama_step_matches_functional(paddle_gpu):
+    """A small LlamaForCausalLM with the kernels: the eager loss and
+    every gradient against the functional loss_fn at fp32."""
+    paddle = paddle_gpu
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               LlamaForCausalLM,
+                                               _sorted_leaves, _unflatten,
+                                               loss_fn)
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=2, use_kernels=True,
+                      use_fused_norm=True, remat=True)
+    net = LlamaForCausalLM(cfg, seed=0)
+    flat = _sorted_leaves(net.params_pytree())
+    leaves = [t.detach().clone().requires_grad_(True) for _, t in flat]
+    ids = torch.randint(0, 256, (2, 128), device="cuda")
+    ref = loss_fn(_unflatten([p for p, _ in flat], leaves), ids, ids, cfg)
+    grads = torch.autograd.grad(ref, leaves)
+    before = _counts()
+    loss = net(paddle.to_tensor(ids), paddle.to_tensor(ids))
+    loss.backward()
+    risen = _risen(before, _counts())
+    assert risen["flash"] == (4, 2, 2) and risen["rms_norm"] == (9, 5)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    for p, g in zip(net.parameters(), grads):
+        assert (p.grad._value - g).abs().max() <= 1e-4 * g.abs().max()
