@@ -473,6 +473,24 @@ Phases (each fails the run on any error; none catches and carries on):
     each within one bf16 step, forward and backward; ``weight_only_linear``
     at M 8 and 2048, K 2048, N 5504 within 1e-2 x max|ref|, its gradient
     with respect to x against the plain version's.
+46. The eager hybrid-parallel API (``paddle_tpu_torch.distributed``),
+    each part's seconds printed. (a) A Megatron-style decoder built in
+    the script from the public layers (:func:`megatron`) at F's widths,
+    bf16, 12 layers, at mp 2 over ``["cuda:0"] * 2``, F's weights by
+    name, ``fleet.distributed_model`` and ``distributed_optimizer(AdamW)``
+    on B 8 x S 2048: a warm-up step, the first loss within 5e-3 x |loss|
+    of the functional ``loss_fn``, timed steps (each step's ms, the
+    median, peak memory), exactly ``megatron_launches(12, 2)`` a step and
+    one profiled step; at E's width in fp32 the same decoder at mp 2
+    against its serial twin (loss 1e-5, every ``.grad`` 1e-4 x max|g|).
+    (b) F's ``LlamaForCausalLM`` at dp 2 x sharding 2 through
+    ``distributed_model`` / ``distributed_optimizer`` (``DataParallel``:
+    one call on the whole batch): the first loss within 5e-3 of phase
+    45's, the replicas bit-equal after a step, each optimizer state's
+    locals half its leaf. (c) ``PipelineParallel.train_batch`` at pp 2, 4
+    micro-batches, on (a)'s blocks at E fp32 against serial gradient
+    accumulation (losses 1e-5). (d) The eager ``MoELayer`` at ep 4 against
+    the replicated layer (out and gradients 1e-5 x max).
 
 Each phase's wall seconds print as the next phase (or the closing line)
 begins.
@@ -499,9 +517,10 @@ the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
 together,
 and 45 (d),
 the flash launches of phases 8, 34, 36, 38, 39, 41 (both ranks' F
-steps), 43 and 45 and the RMSNorm and RoPE launches of phases 11, 34,
-36, 38, 39, 41, 43 and 45 (RoPE: forward and backward together; 45: the
-timed eager steps and the eager callers of (d)).
+steps), 43, 45 and 46 and the RMSNorm and RoPE launches of phases 11,
+34, 36, 38, 39, 41, 43, 45 and 46 (RoPE: forward and backward together;
+45: the timed eager steps and the eager callers of (d); 46: the timed
+steps of (a) and (b)).
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -531,7 +550,7 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "fault-tolerant training", "sharded training",
          "pipelined training", "context-parallel training",
          "launched training", "elastic restarts", "expert-parallel training",
-         "eager API")
+         "eager API", "eager hybrid parallel")
 
 
 def check(cond, msg):
@@ -1310,6 +1329,77 @@ PORT_KERNELS = ("paged_attention", "weight_only_matmul",
                 "rms_norm_bwd", "rms_norm_dw_kernel", "rope_kernel")
 
 
+def profile_sums(prof):
+    """What ``prof.key_averages()`` gives for a trace, summed in one pass
+    over the profiler's raw events (the full parse builds an object per
+    event, most of a serving phase's seconds): ``(device, host)``,
+    each ``{name: [us, count]}``; ``device`` the duration of every device
+    event (kernels, copies) by name, ``host`` the self time of every
+    synchronous host event by name, its host children subtracted after
+    ``key_averages``' own rules: children nest by interval on their
+    thread, a runtime call (``cudaLaunchKernel``) sits on the thread of
+    the op that issued it, and an event that is the only child of a
+    parent of its name is merged into that parent."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    res = prof.profiler.kineto_results
+    device, host, names = {}, [], {}
+    issuer = {}
+    for e in res.events():
+        raw = e.name()
+        if _filter_name(raw) or getattr(e, "is_hidden_event",
+                                        lambda: False)():
+            continue
+        if e.is_async() or e.start_thread_id() != e.end_thread_id():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = _rewrite_name(raw, with_wildcard=True)
+        if e.device_type() == DeviceType.CPU:
+            # [name, start, end, thread, linked id, parent, children]
+            host.append([name, e.start_ns(), e.end_ns(), e.start_thread_id(),
+                         e.linked_correlation_id(), None, []])
+            if e.linked_correlation_id() == 0:
+                issuer[e.correlation_id()] = e.start_thread_id()
+        else:
+            d = device.setdefault(name, [0.0, 0])
+            d[0] += (e.end_ns() - e.start_ns()) / 1e3
+            d[1] += 1
+    by_thread = {}
+    for h in host:
+        if h[4] > 0 and h[4] in issuer:
+            h[3] = issuer[h[4]]
+        by_thread.setdefault(h[3], []).append(h)
+    for evs in by_thread.values():
+        stack = []
+        for h in sorted(evs, key=lambda h: (h[1], -h[2])):
+            while stack and (h[1] >= stack[-1][2] or h[2] > stack[-1][2]):
+                stack.pop()
+            if stack:
+                stack[-1][6].append(h)
+                h[5] = stack[-1]
+            stack.append(h)
+    while True:
+        gone = set()
+        for h in host:
+            up = h[5]
+            if up is not None and up[0] == h[0] and len(up[6]) == 1:
+                up[6] = h[6]
+                for c in h[6]:
+                    c[5] = up
+                gone.add(id(h))
+        if not gone:
+            break
+        host = [h for h in host if id(h) not in gone]
+    sums = {}
+    for h in host:
+        self_ns = (h[2] - h[1]) - sum(c[2] - c[1] for c in h[6])
+        t = sums.setdefault(h[0], [0.0, 0])
+        t[0] += self_ns / 1e3
+        t[1] += 1
+    return device, sums
+
+
 def profile_device(run, label, top=6):
     """Run ``run()`` under ``torch.profiler``: the wall time, the device
     time of every kernel (CUPTI) and its share of the wall time, the time
@@ -1318,7 +1408,6 @@ def profile_device(run, label, top=6):
     took the most self CPU time (ms and calls; the profiler's own cost
     included)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1327,20 +1416,17 @@ def profile_device(run, label, top=6):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
+    device, host_sums = profile_sums(prof)
     kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            name = e.key
-            for short in PORT_KERNELS:
-                if short in name:
-                    name = short
-            # summed by the printed (60-character) name: instantiations of
-            # one PyTorch kernel template share it
-            name = name[:60]
-            kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU),
+    for name, (us, _) in device.items():
+        for short in PORT_KERNELS:
+            if short in name:
+                name = short
+        # summed by the printed (60-character) name: instantiations of
+        # one PyTorch kernel template share it
+        name = name[:60]
+        kernels[name] = kernels.get(name, 0.0) + us
+    host = sorted(((k, us / 1e3, n) for k, (us, n) in host_sums.items()),
                   key=lambda r: -r[1])[:top]
     busy_ms = sum(kernels.values()) / 1e3
     # PyTorch's own elementwise kernels (casts, norms and RoPE on the plain
@@ -2297,7 +2383,6 @@ def kernel_window(run, iters):
     calls under ``torch.profiler``, with the device ms by kernel name;
     None where the profiler saw no device event."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2306,11 +2391,9 @@ def kernel_window(run, iters):
             run()
         torch.cuda.synchronize()
     by, n = {}, 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            by[e.key[:60]] = by.get(e.key[:60], 0.0) + \
-                e.self_device_time_total / 1e3 / iters
-            n += e.count
+    for name, (us, count) in profile_sums(prof)[0].items():
+        by[name[:60]] = by.get(name[:60], 0.0) + us / 1e3 / iters
+        n += count
     if not n:
         return None
     return {"launches": n / iters, "device_ms": sum(by.values()),
@@ -7157,8 +7240,8 @@ def eager_callers_phase():
 
 
 def eager_phase(m11):
-    """Phase 45: the eager API on the card, (a)-(d). Returns the launches
-    of (a)'s timed steps and of (d)'s callers."""
+    """Phase 45: the eager API on the card, (a)-(d). Returns (a)'s metrics,
+    the launches of (a)'s timed steps and of (d)'s callers."""
     import torch
     m, c_steps, net = eager_step_phase(m11)
     eager_generate_phase(net)
@@ -7168,7 +7251,624 @@ def eager_phase(m11):
     torch.cuda.empty_cache()
     _, c_callers = eager_callers_phase()
     torch.cuda.empty_cache()
-    return c_steps, c_callers
+    return m, c_steps, c_callers
+
+
+# ---------------------------------------------------------------------------
+# phase 46: the eager hybrid-parallel API
+# ---------------------------------------------------------------------------
+
+_MEGATRON_NAMES = {"wq": "wq.weight", "wk": "wk.weight",
+                   "wv": "wv.weight", "wo": "wo.weight",
+                   "w_gate": "w_gate.weight", "w_up": "w_up.weight",
+                   "w_down": "w_down.weight", "ln_attn": "ln_attn",
+                   "ln_mlp": "ln_mlp"}
+_MEGATRON_CACHE = {}
+
+
+def megatron():
+    """Phase 46's Megatron-style LLaMA decoder, the standard hybrid-parallel
+    script's model, written with the port's public eager API only: a
+    ``VocabParallelEmbedding``; per layer ``fused_rms_norm`` ->
+    ``ColumnParallelLinear`` q / k / v (``gather_output=False``) ->
+    ``fused_rotary_position_embedding`` -> ``F.scaled_dot_product_attention``
+    (causal) -> ``RowParallelLinear`` o, then the SwiGLU FFN with the gate
+    and up projections column-parallel and the down projection
+    row-parallel; the final norm, a column-parallel ``lm_head`` and
+    ``ParallelCrossEntropy``; each layer under ``recompute`` while
+    training. It computes ``llama.forward`` / ``loss_fn``'s function for a
+    dense, untied config, so a functional tree loads into it by name
+    (``state_dict``) and the two give the same loss.
+
+    Under mp > 1 the attention core (RoPE and the attention) runs in a
+    per-coordinate region over the mp group, its inputs cut on the head
+    dim: each mp coordinate rotates and attends over its own heads, so
+    the flash kernels launch once a shard. ``parallel=False`` builds the
+    same decoder from ``nn.Embedding``, ``nn.Linear`` and
+    ``nn.CrossEntropyLoss`` (the serial oracle).
+
+    Returns a namespace (``Llama``, ``DecoderLayer``, ``Embedding``,
+    ``Head``, ``token_mean_ce``, ``attention_core``, ``state_dict``),
+    built on the first call so that importing this script needs only
+    numpy."""
+    if "ns" in _MEGATRON_CACHE:
+        return _MEGATRON_CACHE["ns"]
+    import types
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.dist_tensor import (PartitionSpec,
+                                                          anchor, shard_map)
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import (
+        ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+        VocabParallelEmbedding)
+    from paddle_tpu_torch.distributed.fleet.recompute import recompute
+    from paddle_tpu_torch.distributed.topology import (
+        Mesh, get_hybrid_communicate_group)
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import initializer as I
+
+    heads = PartitionSpec(None, None, "mp", None)
+
+    def mp_group_mesh():
+        """The mp group eager code runs at, as a one-axis mesh (None at
+        mp 1)."""
+        mesh = get_hybrid_communicate_group().mesh
+        if int(mesh.shape.get("mp", 1)) == 1:
+            return None
+        coords = mesh.group(anchor(mesh), ("mp",))
+        devs = np.empty(len(coords), dtype=object)
+        for i, c in enumerate(coords):
+            devs[i] = mesh.devices[c]
+        return Mesh(devs, ("mp",))
+
+    def attention_core(q, k, v, theta):
+        q, k, _ = IF.fused_rotary_position_embedding(q, k,
+                                                     rotary_emb_base=theta)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def linears(parallel):
+        if parallel:
+            return (lambda i, o: ColumnParallelLinear(i, o, has_bias=False,
+                                                      gather_output=False),
+                    lambda i, o: RowParallelLinear(i, o, has_bias=False,
+                                                   input_is_parallel=True))
+        lin = lambda i, o: nn.Linear(i, o, bias_attr=False)  # noqa: E731
+        return lin, lin
+
+    class DecoderLayer(nn.Layer):
+        """One pre-norm decoder block on ``x [B, S, E]``."""
+
+        def __init__(self, cfg, parallel=True):
+            super().__init__()
+            E, I_, D = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+            H, Hk = cfg.num_attention_heads, cfg.kv_heads
+            col, row = linears(parallel)
+            self.cfg, self.parallel = cfg, parallel
+            self.ln_attn = self.create_parameter(
+                [E], default_initializer=I.Constant(1.0))
+            self.wq, self.wk, self.wv = col(E, H * D), col(E, Hk * D), \
+                col(E, Hk * D)
+            self.wo = row(H * D, E)
+            self.ln_mlp = self.create_parameter(
+                [E], default_initializer=I.Constant(1.0))
+            self.w_gate, self.w_up = col(E, I_), col(E, I_)
+            self.w_down = row(I_, E)
+
+        def forward(self, x):
+            cfg = self.cfg
+            B, S, D = x.shape[0], x.shape[1], cfg.head_dim
+            h = IF.fused_rms_norm(x, self.ln_attn, epsilon=cfg.rms_norm_eps)
+            q, k, v = (f(h).reshape([B, S, -1, D])
+                       for f in (self.wq, self.wk, self.wv))
+            mesh = mp_group_mesh() if self.parallel else None
+            if mesh is None:
+                o = attention_core(q, k, v, cfg.rope_theta)
+            else:
+                o = shard_map(lambda a, b, c: attention_core(
+                    a, b, c, cfg.rope_theta), mesh, (heads, heads, heads),
+                    heads)(q, k, v)
+            x = x + self.wo(o.reshape([B, S, -1]))
+            h = IF.fused_rms_norm(x, self.ln_mlp, epsilon=cfg.rms_norm_eps)
+            return x + self.w_down(F.silu(self.w_gate(h)) * self.w_up(h))
+
+    class Embedding(nn.Layer):
+        """The token embedding, cast to ``cfg.dtype`` (a pipeline's first
+        stage)."""
+
+        def __init__(self, cfg, parallel=True):
+            super().__init__()
+            self.cfg = cfg
+            self.embed = VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size) if parallel else \
+                nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+
+        def forward(self, ids):
+            return self.embed(ids).astype(self.cfg.dtype)
+
+    class Head(nn.Layer):
+        """The final norm and the output projection: logits ``[B, S, V]``
+        (a pipeline's last stage)."""
+
+        def __init__(self, cfg, parallel=True):
+            super().__init__()
+            self.cfg = cfg
+            self.ln_f = self.create_parameter(
+                [cfg.hidden_size], default_initializer=I.Constant(1.0))
+            self.lm_head = linears(parallel)[0](cfg.hidden_size,
+                                                cfg.vocab_size)
+
+        def forward(self, x):
+            x = IF.fused_rms_norm(x, self.ln_f, epsilon=self.cfg.rms_norm_eps)
+            return self.lm_head(x)
+
+    def token_mean_ce(ce, logits, labels, parallel):
+        """The mean of ``ce``'s per-token loss (float32 logits) over the
+        labels that are not -100."""
+        lg = logits.astype("float32")
+        if parallel:
+            per = ce(lg, labels)[..., 0]
+        else:
+            V = lg.shape[-1]
+            per = ce(lg.reshape([-1, V]), labels.reshape([-1])).reshape(
+                labels.shape)
+        mask = (labels >= 0).astype("float32")
+        return (per * mask).sum() / mask.sum().clip(min=1.0)
+
+    class Llama(nn.Layer):
+        """The decoder over ``cfg`` (dense, untied); ``forward(ids)`` gives
+        the logits, ``forward(ids, labels)`` the mean cross-entropy over
+        the labels that are not -100 (labels already shifted), in
+        float32."""
+
+        def __init__(self, cfg, parallel=True, use_recompute=True):
+            super().__init__()
+            if cfg.moe_num_experts or cfg.tie_word_embeddings:
+                raise ValueError("the decoder builds dense, untied configs")
+            self.cfg, self.parallel = cfg, parallel
+            self.use_recompute = use_recompute
+            self.embedding = Embedding(cfg, parallel)
+            self.layers = nn.LayerList([DecoderLayer(cfg, parallel)
+                                        for _ in range(cfg.num_hidden_layers)])
+            self.head = Head(cfg, parallel)
+            self.ce = ParallelCrossEntropy() if parallel else \
+                nn.CrossEntropyLoss(reduction="none")
+
+        def forward(self, ids, labels=None):
+            x = self.embedding(ids)
+            for layer in self.layers:
+                x = recompute(layer, x) if self.use_recompute and \
+                    self.training else layer(x)
+            logits = self.head(x)
+            if labels is None:
+                return logits
+            return token_mean_ce(self.ce, logits, labels, self.parallel)
+
+    def state_dict(params):
+        """A functional LLaMA tree (``llama.init_params``: stacked
+        ``[L, ...]`` layers, dense and untied) under ``Llama``'s state-dict
+        names, one entry per layer (views, uncopied); ``set_state_dict``
+        lays each out as its layer does (an mp layer's entry is its full
+        logical weight)."""
+        out = {"embedding.embed.weight": params["embed"],
+               "head.ln_f": params["ln_f"],
+               "head.lm_head.weight": params["lm_head"]}
+        for name, leaf in params["layers"].items():
+            for l in range(leaf.shape[0]):
+                out[f"layers.{l}.{_MEGATRON_NAMES[name]}"] = leaf[l]
+        return out
+
+    ns = types.SimpleNamespace(
+        Llama=Llama, DecoderLayer=DecoderLayer, Embedding=Embedding,
+        Head=Head, token_mean_ce=token_mean_ce,
+        attention_core=attention_core, state_dict=state_dict)
+    _MEGATRON_CACHE["ns"] = ns
+    return ns
+
+
+def megatron_launches(L, mp):
+    """Kernel launches per training step of :func:`megatron`'s decoder
+    (phase 46 (a)) at depth ``L`` and mp degree ``mp``, after the first
+    step (whose recompute state check runs every layer once more, under
+    no_grad).
+    Every layer runs under non-reentrant recompute, so its forward runs
+    twice (the forward, then the recompute before its backward), its
+    backward once. Per layer: the attention core runs once per mp shard
+    on that shard's heads (the region), so the flash forward launches
+    2 x mp times, dq and dk/dv mp times each, RoPE 2 x 2 x mp forward (q
+    and k) and 2 x mp backward; the two RMSNorms launch 2 x 2 forward and
+    2 backward; the final norm once each way."""
+    return {"flash_attention": 2 * mp * L, "flash_attention_bwd_dq": mp * L,
+            "flash_attention_bwd_dkv": mp * L, "rms_norm": 4 * L + 1,
+            "rms_norm_bwd": 2 * L + 1, "apply_rope": 4 * mp * L,
+            "apply_rope_bwd": 2 * mp * L}
+
+
+def _fleet(dev, n, **degrees):
+    """``fleet.init`` of the port over ``[dev] * n`` with ``degrees``."""
+    from paddle_tpu_torch.distributed import fleet
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+                         "sharding_degree": 1, "sep_degree": 1,
+                         "ep_degree": 1, **degrees}
+    fleet.init(is_collective=True, strategy=st, devices=[dev] * n)
+    return st
+
+
+def _small_mha(cfg):
+    """:func:`_small` with as many kv heads as heads: a CPU rehearsal
+    takes the plain attention, which has no GQA (the reference's neither;
+    the flash kernels have)."""
+    import dataclasses
+    small = _small(cfg)
+    return dataclasses.replace(small, num_key_value_heads=small.num_attention_heads)
+
+
+def _drop_fleet():
+    from paddle_tpu_torch.distributed.topology import \
+        set_hybrid_communicate_group
+    set_hybrid_communicate_group(None)
+
+
+def _sync_dev(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def megatron_mp_phase(dev="cuda:0", small=False, batch=8, seq=2048,
+                      steps=6):
+    """Phase 46 (a): :func:`megatron`'s decoder at F's widths (bf16, 12
+    layers) at mp 2 over ``[dev] * 2``, its weights F's ``init_params``
+    seed 0 by name; ``fleet.distributed_model`` and a
+    ``distributed_optimizer(AdamW(multi_precision=True))``; a warm-up step,
+    then ``steps`` timed steps with the counters set to 0 just before them
+    (exact launches: :func:`megatron_launches`), one profiled step. Returns
+    (metrics, launches)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.llama import init_params, loss_fn
+    M = megatron()
+    paddle.set_device(dev)
+    cfg = train_config(torch.bfloat16, use_fused_norm=True)
+    if small:
+        cfg = _small_mha(cfg)
+        batch, seq = 2, 64
+    params = init_params(cfg, seed=SEED, device=dev)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq))).to(dev)
+    with torch.no_grad():
+        ref = loss_fn(params, ids, ids, cfg).item()
+    _fleet(dev, 2, mp_degree=2)
+    net = M.Llama(cfg)
+    missing, unexpected = net.set_state_dict(M.state_dict(params))
+    check(not missing and not unexpected, f"set_state_dict missing "
+          f"{missing}, unexpected {unexpected}")
+    del params
+    net.bfloat16()
+    w = net.layers[0].wq.weight
+    check({tuple(v.shape) for v in w.locals.values()} ==
+          {(cfg.hidden_size, cfg.hidden_size // 2)},
+          "the q projection is not cut over mp 2")
+    model = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(paddle.optimizer.AdamW(
+        1e-4, parameters=net.parameters(), multi_precision=True))
+    x = paddle.to_tensor(ids)
+
+    def step():
+        loss = model(x, x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+
+    losses = [step()]
+    first_rel = abs(losses[0] - ref) / abs(ref)
+    check(first_rel <= 5e-3, f"mp eager first loss {losses[0]} vs "
+          f"functional {ref} (rel {first_rel})")
+    _sync_dev(dev)
+    if not small:
+        torch.cuda.reset_peak_memory_stats()
+    def allocator():
+        """The caching allocator's device allocations and OOM retries so
+        far (a step that calls cudaMalloc or retries runs slow)."""
+        if torch.device(dev).type != "cuda":
+            return [0, 0]
+        st = torch.cuda.memory_stats()
+        return [st.get("num_device_alloc", 0), st.get("num_alloc_retries", 0)]
+
+    reset_counts()
+    times, allocs = [], []
+    for _ in range(steps):
+        _sync_dev(dev)
+        a0 = allocator()
+        t0 = time.time()
+        losses.append(step())
+        times.append(time.time() - t0)
+        allocs.append([b - a for a, b in zip(a0, allocator())])
+    counts = read_counts()
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    step_ms = float(np.median(times)) * 1e3
+    m = {"depth": cfg.num_hidden_layers, "mp": 2, "step_ms": step_ms,
+         "step_ms_each": [t * 1e3 for t in times],
+         "device_allocs_and_retries_each": allocs,
+         "tokens_per_s": batch * seq / step_ms * 1e3, "losses": losses,
+         "functional_first_loss": ref, "first_loss_rel": first_rel,
+         "launches_per_step": per_step}
+    check(all(np.isfinite(losses)), f"non-finite mp eager loss {losses}")
+    if not small:
+        m["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() \
+            / 2 ** 30
+        want = megatron_launches(cfg.num_hidden_layers, 2)
+        check(per_step == want, f"mp eager launches per step {per_step}, "
+              f"expected {want}")
+        m["profile"] = profile_device(step, "mp eager training step", top=8)
+    log(f"  (a) {json.dumps(m)}")
+    _drop_fleet()
+    return m, counts
+
+
+def _grad_worst(got, want):
+    return max(float(np.abs(got[k] - want[k]).max() /
+                     max(np.abs(want[k]).max(), 1e-30)) for k in want)
+
+
+def megatron_parity_phase(dev="cuda:0", small=False):
+    """Phase 46 (a), fp32 at E's width: :func:`megatron`'s decoder at mp 2
+    over ``[dev] * 2`` against the serial twin (``nn.Linear`` /
+    ``nn.Embedding`` / ``nn.CrossEntropyLoss``) on one device, same
+    weights: the loss within 1e-5 x |loss|, every gradient within 1e-4 x
+    max|g|."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.llama import init_params
+    M = megatron()
+    paddle.set_device(dev)
+    cfg = e_config(torch.float32)
+    if small:
+        cfg = _small_mha(cfg)
+    sd = M.state_dict(init_params(cfg, seed=SEED + 5, device=dev))
+    ids = paddle.to_tensor(torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 64 if small else 512))).to(dev))
+    out = []
+    for parallel in (True, False):
+        if parallel:
+            _fleet(dev, 2, mp_degree=2)
+        net = M.Llama(cfg, parallel=parallel)
+        net.set_state_dict(sd)
+        loss = net(ids, ids)
+        loss.backward()
+        out.append((loss.item(), {k: p.grad.numpy() for k, p in
+                                  net.named_parameters()}))
+        _drop_fleet()
+    rel = abs(out[0][0] - out[1][0]) / abs(out[1][0])
+    worst = _grad_worst(out[0][1], out[1][1])
+    m = {"loss_mp2": out[0][0], "loss_serial": out[1][0], "loss_rel": rel,
+         "grad_worst": worst}
+    log(f"  (a) fp32 parity {json.dumps(m)}")
+    check(rel <= 1e-5, f"fp32 mp decoder loss rel {rel}")
+    check(worst <= 1e-4, f"fp32 mp decoder gradient {worst} x max|g|")
+    return m
+
+
+def fleet_llama_phase(m45, dev="cuda:0", small=False, batch=8, seq=2048,
+                      steps=4):
+    """Phase 46 (b): F's ``LlamaForCausalLM`` (phase 45's net, seed 0)
+    through ``fleet.init`` (dp 2 x sharding 2 over ``[dev] * 4``) ->
+    ``distributed_model`` -> ``distributed_optimizer(AdamW)`` (the ``os``
+    layout). The first loss within 5e-3 x |loss| of phase 45's on the same
+    batch; after a step the dp replicas (and the sharding copies) are
+    bit-equal and each optimizer state's locals hold half its leaf on the
+    sharding axis. Returns (metrics, launches of the timed steps)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import DataParallel, fleet
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    paddle.set_device(dev)
+    cfg = train_config(torch.bfloat16, use_fused_norm=True)
+    if small:
+        cfg = _small_mha(cfg)
+        batch, seq = 4, 64
+    _fleet(dev, 4, dp_degree=2, sharding_degree=2)
+    net = LlamaForCausalLM(cfg, seed=SEED)
+    opt = paddle.optimizer.AdamW(1e-4, parameters=net.parameters())
+    model = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(opt)
+    check(isinstance(model, DataParallel), "distributed_model under dp "
+          "did not give DataParallel")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq))).to(dev)
+    x = paddle.to_tensor(ids)
+
+    def step():
+        loss = model(x, x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+
+    losses = [step()]
+    want = m45["losses"][0] if m45 else losses[0]
+    rel = abs(losses[0] - want) / abs(want)
+    check(rel <= 5e-3, f"dp x sharding first loss {losses[0]} vs phase 45's "
+          f"{want} (rel {rel})")
+    unequal, halves = [], True
+    for p in net.parameters():
+        vals = list(p.locals.values())
+        if not all(torch.equal(v, vals[0]) for v in vals[1:]):
+            unequal.append(p.name)
+        st = opt._accumulators["moment1"][p.name]
+        for c, v in st.locals.items():
+            if v.numel() * 2 != p._st.locals[c].numel():
+                halves = False
+    check(not unequal, f"replicas differ after a step: {unequal}")
+    check(halves, "an optimizer state's local is not half its leaf")
+    _sync_dev(dev)
+    reset_counts()
+    times = []
+    for _ in range(steps):
+        _sync_dev(dev)
+        t0 = time.time()
+        losses.append(step())
+        times.append(time.time() - t0)
+    counts = read_counts()
+    step_ms = float(np.median(times)) * 1e3
+    m = {"step_ms": step_ms, "step_ms_each": [t * 1e3 for t in times],
+         "phase45_step_ms": m45["step_ms"] if m45 else None,
+         "losses": losses, "phase45_first_loss": want, "first_loss_rel": rel,
+         "launches_per_step": {k: v / steps for k, v in counts.items() if v}}
+    check(all(np.isfinite(losses)), f"non-finite dp loss {losses}")
+    log(f"  (b) {json.dumps(m)}")
+    _drop_fleet()
+    return m, counts
+
+
+def pipeline_layer_phase(dev="cuda:0", small=False, steps=2):
+    """Phase 46 (c): ``PipelineParallel.train_batch`` at pp 2 over
+    ``[dev] * 2``, 4 micro-batches, on (a)'s decoder blocks as a
+    ``PipelineLayer`` (embedding, E's 4 blocks, the head) at E's width in
+    fp32, SGD, against the serial decoder with the same weights and serial
+    gradient accumulation: the stacked route (the blocks stacked two a
+    stage through ``pipeline_scan``'s ring, the embedding and head as
+    prologue and epilogue), each step's loss within 1e-5 x |loss|."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import \
+        ParallelCrossEntropy
+    from paddle_tpu_torch.distributed.pipeline import (LayerDesc,
+                                                       PipelineLayer)
+    from paddle_tpu_torch.models.llama import init_params
+    M = megatron()
+    paddle.set_device(dev)
+    cfg = e_config(torch.float32)
+    if small:
+        cfg = _small_mha(cfg)
+    L = cfg.num_hidden_layers
+    sd = M.state_dict(init_params(cfg, seed=SEED + 6, device=dev))
+    st = _fleet(dev, 2, pp_degree=2)
+    st.pipeline_configs = {"accumulate_steps": 4, "micro_batch_size": 2}
+    ce = ParallelCrossEntropy()
+    pl = PipelineLayer(
+        [LayerDesc(M.Embedding, cfg)] +
+        [LayerDesc(M.DecoderLayer, cfg) for _ in range(L)] +
+        [LayerDesc(M.Head, cfg)], num_stages=2,
+        loss_fn=lambda lg, lb: M.token_mean_ce(ce, lg, lb, True))
+    rename = {"embedding.": "0.", "head.": f"{L + 1}."}
+    rename.update({f"layers.{l}.": f"{l + 1}." for l in range(L)})
+
+    def pp_name(k):
+        for a, b in rename.items():
+            if k.startswith(a):
+                return b + k[len(a):]
+        return k
+
+    pl.set_state_dict({pp_name(k): v for k, v in sd.items()})
+    model = fleet.distributed_model(pl)
+    serial = M.Llama(cfg, parallel=False, use_recompute=False)
+    serial.set_state_dict(sd)
+    opt_pp = paddle.optimizer.SGD(0.1, parameters=model.parameters())
+    opt_s = paddle.optimizer.SGD(0.1, parameters=serial.parameters())
+    rng = np.random.default_rng(3)
+    gaps, pairs = [], []
+    for _ in range(steps):
+        ids = paddle.to_tensor(torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (8, 64 if small else 256))).to(dev))
+        lp = float(model.train_batch((ids, ids), opt_pp))
+        total = 0.0
+        for k in range(4):
+            part = ids[k * 2:(k + 1) * 2]
+            loss = serial(part, part)
+            (loss / 4).backward()
+            total += loss.item()
+        opt_s.step()
+        opt_s.clear_grad()
+        pairs.append((lp, total / 4))
+        gaps.append(abs(lp - total / 4) / abs(total / 4))
+    m = {"losses_pp_serial": pairs, "loss_rel": gaps,
+         "path": model.last_path}
+    log(f"  (c) {json.dumps(m)}")
+    check(model.last_path == "compiled", f"pp train_batch took the "
+          f"{model.last_path} route, not the stacked ring")
+    check(max(gaps) <= 1e-5, f"pp train_batch losses part by {gaps}")
+    _drop_fleet()
+    return m
+
+
+def moe_layer_phase(dev="cuda:0", small=False):
+    """Phase 46 (d): the eager ``MoELayer`` (8 experts, GShard top-2,
+    capacity factor 1.25) at ep 4 over ``[dev] * 4`` against the
+    replicated layer on the same weights, fp32 at E's width (tokens B 4 x
+    S 512): the output and every gradient within 1e-5 x max|ref|."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.dist_tensor import DistParameter
+    from paddle_tpu_torch.distributed.moe import MoELayer
+    paddle.set_device(dev)
+    d, inner, E = (64, 96, 8) if small else (512, 1376, 8)
+    _fleet(dev, 4, ep_degree=4)
+    layers = []
+    for group in ("ep", None):
+        paddle.seed(SEED + 7)
+        experts = [paddle.nn.Sequential(paddle.nn.Linear(d, inner),
+                                        paddle.nn.GELU(),
+                                        paddle.nn.Linear(inner, d))
+                   for _ in range(E)]
+        layers.append(MoELayer(d_model=d, experts=experts,
+                               gate={"type": "gshard",
+                                     "capacity_factor": 1.25},
+                               moe_group=group))
+    ep, rep = layers
+    rep.gate.weight.set_value(ep.gate.weight.numpy())
+    check(all(isinstance(p, DistParameter) and
+              {v.shape[0] for v in p.locals.values()} == {E // 4}
+              for p in ep._stacked), "the experts are not laid out E/ep")
+    a = np.random.default_rng(4).standard_normal(
+        (4, 64 if small else 512, d)).astype(np.float32)
+    res = []
+    for layer in (ep, rep):
+        xt = paddle.to_tensor(torch.from_numpy(a).to(dev),
+                              stop_gradient=False)
+        y = layer(xt)
+        ((y ** 2).mean() + 0.01 * layer.aux_loss).backward()
+        res.append([y.numpy(), xt.grad.numpy(), layer.gate.weight.grad.numpy()]
+                   + [p.grad.numpy() for p in layer._stacked])
+    worst = max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+                for g, w in zip(res[0], res[1]))
+    m = {"worst_rel_to_max": worst, "aux": [float(ep.aux_loss),
+                                            float(rep.aux_loss)]}
+    log(f"  (d) {json.dumps(m)}")
+    check(worst <= 1e-5, f"ep 4 MoELayer parts from the replicated one by "
+          f"{worst} x max")
+    _drop_fleet()
+    return m
+
+
+def hybrid_phase(m45, dev="cuda:0", small=False):
+    """Phase 46: the eager hybrid-parallel API, (a)-(d), each part's
+    seconds printed. Returns the launches of (a)'s and (b)'s timed
+    steps."""
+    import torch
+    secs = {}
+    t0 = time.time()
+    _, ca = megatron_mp_phase(dev, small)
+    megatron_parity_phase(dev, small)
+    secs["a"] = time.time() - t0
+    if not small:
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    _, cb = fleet_llama_phase(m45, dev, small)
+    secs["b"] = time.time() - t0
+    if not small:
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    pipeline_layer_phase(dev, small)
+    secs["c"] = time.time() - t0
+    t0 = time.time()
+    moe_layer_phase(dev, small)
+    secs["d"] = time.time() - t0
+    log(f"  part seconds: {json.dumps(secs)}")
+    return ca, cb
 
 
 def main() -> int:
@@ -7561,11 +8261,17 @@ def main() -> int:
 
     log("== phase 45: the eager API on the card: LlamaForCausalLM at F, "
         "E's fp32 parity, eager generate, the eager kernel callers")
-    c45, c45d = eager_phase(m11)
+    m45, c45, c45d = eager_phase(m11)
     launches = {k: launches[k] + c45d[k] for k in launches}
     log(f"  nvidia-smi: {card}")
-    trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d)
-    normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d)
+    log("== phase 46: the eager hybrid-parallel API: a Megatron decoder at "
+        "F's widths at mp 2 over cuda:0 x 2, F's LlamaForCausalLM through "
+        "fleet at dp 2 x sharding 2, PipelineParallel at pp 2, MoELayer at "
+        "ep 4")
+    c46a, c46b = hybrid_phase(m45)
+    log(f"  nvidia-smi: {card}")
+    trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b)
+    normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b)
 
     log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")

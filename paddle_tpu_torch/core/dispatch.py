@@ -42,6 +42,12 @@ class OpDef:
 OP_REGISTRY: Dict[str, OpDef] = {}
 
 
+class _Regions:
+    """The per-coordinate region ``forward_op`` maps over
+    (``distributed.dist_tensor.shard_map`` sets it), or None."""
+    active = None
+
+
 def register_op(name: str, fn: Callable, doc: str = "", n_outputs: int = 1,
                 differentiable: bool = True, category: str = "",
                 public: Optional[Callable] = None) -> OpDef:
@@ -56,6 +62,8 @@ def forward_op(name: str, fn: Callable, args: Sequence[Any],
     returns a Tensor, or a tuple of them mirroring ``fn``'s outputs."""
     from .tensor import Tensor
     kwargs = kwargs or {}
+    if _Regions.active is not None:
+        return _Regions.active.run(name, fn, args, kwargs, differentiable)
     vals = [a._value if isinstance(a, Tensor) else a for a in args]
     try:
         if differentiable:

@@ -34,6 +34,16 @@ __all__ = ["Tensor", "Parameter", "to_tensor", "_wrap", "as_torch"]
 
 _name_counter = itertools.count()
 
+# While set (a dict), every in-place write records the tensor's value and
+# version before its first write: recompute's state discovery, which
+# restores them afterwards.
+_write_watch = None
+
+
+def _note_write(t: "Tensor"):
+    if _write_watch is not None and id(t) not in _write_watch:
+        _write_watch[id(t)] = (t, t._value, t._version)
+
 
 def _auto_name(prefix="generated_tensor"):
     return f"{prefix}_{next(_name_counter)}"
@@ -228,6 +238,7 @@ class Tensor:
     def _rebind(self, new: "Tensor") -> "Tensor":
         """Adopt another tensor's value and graph position (the in-place
         protocol)."""
+        _note_write(self)
         self._value = new._value
         self._sg = new._sg
         self._bump()
@@ -244,6 +255,7 @@ class Tensor:
         ``fill_``: a fresh copy of ``v`` in this tensor's dtype and place
         (in ``v``'s when ``cast``: ``Layer.to``); a leaf that needs a
         gradient stays one and keeps its ``.grad`` (dropped on a cast)."""
+        _note_write(self)
         old = self._value
         new = v.detach().to(device=v.device if cast else old.device,
                             dtype=v.dtype if cast else old.dtype, copy=True)

@@ -7,13 +7,28 @@ pipeline schedule (``pipeline_scan``, ``ring_schedule``), the MoE routing
 math and the expert-parallel ops (``moe_utils``), the serving
 tensor-parallel placement and shard helpers, the checkpoint stack
 (``checkpoint``: sharded save, reshard-on-load, ``AsyncCheckpointer``),
-and the multi-process side: the launcher (``python -m
+the multi-process side: the launcher (``python -m
 paddle_tpu_torch.distributed.launch``), the rendezvous store and elastic
-heartbeats (``elastic``)."""
+heartbeats (``elastic``), ``rpc`` over the store; and the eager
+hybrid-parallel API: distributed eager tensors and the per-coordinate
+region (``dist_tensor``: ``DistParameter``, ``shard_map``), the
+auto-parallel API (``ProcessMesh``, ``shard_tensor``, ``reshard``, ...),
+``DataParallel``, the ZeRO stages (``group_sharded_parallel``) and
+``fleet``'s mpu layers, recompute, sequence parallelism and
+``distributed_model`` / ``distributed_optimizer``."""
 
 from . import checkpoint
 from . import elastic
 from . import fleet
+from . import rpc
+from . import sharding
+from .auto_parallel import (Partial, Placement, ProcessMesh, Replicate, Shard,
+                            dtensor_from_fn, get_mesh, reshard, set_mesh,
+                            shard_layer, shard_tensor)
+from .dist_tensor import (DistParameter, DistTensor, PartitionSpec,
+                          shard_map)
+from .parallel import DataParallel, ParallelEnv
+from .sharding import group_sharded_parallel
 from .checkpoint import AsyncCheckpointer, load_state_dict, save_state_dict
 from .collective import (ReduceOp, all_gather, all_reduce, alltoall, barrier,
                          broadcast, get_rank, get_world_size,
@@ -24,13 +39,23 @@ from .moe_utils import (assign_pos, expert_count, global_gather,
                         prune_gate_by_capacity, random_routing)
 from .context_parallel import (ring_flash_attention, sep_parallel_attention,
                                ulysses_attention)
-from .pipeline import pipeline_scan, pipeline_ticks, ring_schedule
+from .moe import GShardGate, MoELayer, NaiveGate, SwitchGate
+from .pipeline import (LayerDesc, PipelineLayer, PipelineParallel,
+                       SharedLayerDesc, pipeline_scan, pipeline_ticks,
+                       ring_schedule)
 from .sharding import ShardedTensor, assemble, shard_to_mesh, shard_tree
 from .topology import (HybridCommunicateGroup, Mesh, ParallelAxis,
                        build_mesh, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
 
-__all__ = ["checkpoint", "elastic", "fleet", "save_state_dict", "load_state_dict",
+__all__ = ["Partial", "Placement", "ProcessMesh", "Replicate", "Shard",
+           "dtensor_from_fn", "get_mesh", "reshard", "set_mesh",
+           "shard_layer", "shard_tensor", "DistParameter", "DistTensor",
+           "PartitionSpec", "shard_map", "DataParallel", "ParallelEnv",
+           "group_sharded_parallel", "rpc", "sharding", "MoELayer",
+           "NaiveGate", "SwitchGate", "GShardGate", "LayerDesc",
+           "SharedLayerDesc", "PipelineLayer", "PipelineParallel",
+           "checkpoint", "elastic", "fleet", "save_state_dict", "load_state_dict",
            "AsyncCheckpointer", "ReduceOp", "all_reduce", "all_gather",
            "reduce_scatter", "alltoall", "broadcast", "reduce", "scatter",
            "barrier", "get_rank", "get_world_size", "is_initialized",

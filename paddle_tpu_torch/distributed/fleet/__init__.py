@@ -5,9 +5,12 @@ topology part of ``paddle_tpu/distributed/fleet/__init__.py``
 
 ``init`` builds the :class:`~..topology.HybridCommunicateGroup` from the
 strategy's degrees over ``devices`` (default: every device the process
-drives) and installs it. ``distributed_model`` and
-``distributed_optimizer`` wrap ``nn.Layer`` models and optimizers, which
-the port has not got yet (ROADMAP.md section A, item 11).
+drives) and installs it. ``distributed_model`` wraps an ``nn.Layer`` for
+the active axes (``PipelineParallel`` under pp, ``DataParallel`` under dp
+or sharding; mp layers carry their own layouts) and
+``distributed_optimizer`` shards the optimizer states over the sharding
+axis (ZeRO stage 1). The sub-namespaces ``layers``, ``utils``,
+``meta_parallel`` and ``recompute`` load on first use.
 """
 
 from __future__ import annotations
@@ -18,9 +21,19 @@ from .. import collective as _collective
 from ..topology import (HybridCommunicateGroup, get_hybrid_communicate_group,
                         local_devices, set_hybrid_communicate_group)
 
-__all__ = ["DistributedStrategy", "init", "get_hybrid_communicate_group",
+__all__ = ["DistributedStrategy", "init", "distributed_model",
+           "distributed_optimizer", "get_hybrid_communicate_group",
            "worker_num", "worker_index", "is_first_worker",
-           "barrier_worker"]
+           "barrier_worker", "layers", "utils", "meta_parallel", "recompute"]
+
+
+def __getattr__(name):
+    if name in ("layers", "utils", "meta_parallel", "recompute"):
+        import importlib
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class DistributedStrategy:
@@ -79,6 +92,32 @@ def init(role_maker=None, is_collective: bool = True,
     set_hybrid_communicate_group(hcg)
     _fleet_state["initialized"] = True
     _fleet_state["strategy"] = strategy
+
+
+def distributed_model(model):
+    """Wrap ``model`` for the active parallel axes: ``PipelineParallel``
+    when pp > 1, ``DataParallel`` when dp or sharding > 1, else the model
+    itself."""
+    hcg = get_hybrid_communicate_group()
+    if hcg.get_pipe_parallel_world_size() > 1:
+        from ..pipeline import PipelineParallel
+        return PipelineParallel(model, hcg, _fleet_state.get("strategy"))
+    if hcg.get_data_parallel_world_size() > 1 or \
+            hcg.get_sharding_parallel_world_size() > 1:
+        from ..parallel import DataParallel
+        return DataParallel(model)
+    return model
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    """The optimizer, its states sharded over the sharding axis when it is
+    larger than 1 (ZeRO stage 1); the dp gradient sums are the
+    distributed parameters' own."""
+    hcg = get_hybrid_communicate_group()
+    if hcg.get_sharding_parallel_world_size() > 1:
+        from ..sharding import shard_optimizer_states
+        shard_optimizer_states(optimizer, hcg)
+    return optimizer
 
 
 def worker_num() -> int:

@@ -19,6 +19,14 @@ reference's structured errors.
   holds its own local tensor, as JAX lays an array out over its devices:
   a dim whose entry names axes is cut into their product of parts (part
   index row-major over those axes), every other axis holds copies.
+* The eager ZeRO stages (``group_sharded_parallel`` at ``os``, ``os_g``
+  and ``p_g_os``; :func:`shard_optimizer_states`, :func:`shard_params`):
+  stage 1 lays each optimizer state out over the ``sharding`` axis on
+  the first dim that splits evenly (so each coordinate holds 1/n of it,
+  and updates only that slice: ``dist_tensor.laid_out_step``); stage 3
+  also makes each parameter a ``DistParameter`` cut the same way, joined
+  where it is used. Stage 2 is stage 1 here: a gradient follows its
+  parameter's layout.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ import numpy as np
 import torch
 
 __all__ = ["shard_dim_spec", "shard_tensor", "unshard", "ShardedTensor",
-           "shard_to_mesh", "shard_tree", "assemble", "spec_axes"]
+           "shard_to_mesh", "shard_tree", "assemble", "spec_axes",
+           "group_sharded_parallel", "shard_optimizer_states", "shard_params"]
 
 
 def shard_dim_spec(shape, n: int, axis: str, dim: int,
@@ -191,3 +200,75 @@ def assemble(st: ShardedTensor, device=None) -> torch.Tensor:
     for idx, c in st.unique():
         out[tuple(slice(a, b) for a, b, _ in idx)] = st.local(c).detach()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the eager ZeRO stages
+# ---------------------------------------------------------------------------
+
+def _first_split(shape, n: int) -> tuple:
+    """The spec cutting the first dim of ``shape`` that splits evenly into
+    ``n`` over ``sharding`` (replicated when none does)."""
+    for d, size in enumerate(shape):
+        if size > 0 and size % n == 0:
+            return (None,) * d + ("sharding",)
+    return ()
+
+
+def shard_optimizer_states(optimizer, hcg=None):
+    """Stage 1: lay the optimizer's states (and master weights) out over
+    the ``sharding`` axis; states made later follow at creation."""
+    from .dist_tensor import DistTensor, dist_tensor, state_layout
+    from .topology import get_hybrid_communicate_group
+    hcg = hcg or get_hybrid_communicate_group()
+    optimizer._sharding_axis = "sharding"
+    optimizer._sharding_mesh = hcg.mesh
+    params = {p.name: p for p in optimizer._params()}
+
+    def relay(t, p):
+        layout = state_layout(optimizer, p)
+        if layout is None or isinstance(t, DistTensor):
+            return t
+        mesh, spec = layout
+        return dist_tensor(t._value, mesh, spec if t.ndim else ())
+
+    for store in optimizer._accumulators.values():
+        for pname in list(store):
+            if pname in params:
+                store[pname] = relay(store[pname], params[pname])
+    for pname in list(optimizer._master_weights):
+        if pname in params:
+            optimizer._master_weights[pname] = relay(
+                optimizer._master_weights[pname], params[pname])
+    return optimizer
+
+
+def shard_params(model, hcg=None):
+    """Stage 3: each parameter becomes a ``DistParameter`` cut over the
+    ``sharding`` axis on its first evenly splitting dim (replicated when
+    none does)."""
+    from .dist_tensor import DistTensor, distribute
+    from .topology import get_hybrid_communicate_group
+    hcg = hcg or get_hybrid_communicate_group()
+    n = hcg.get_sharding_parallel_world_size()
+    for p in model.parameters():
+        if not isinstance(p, DistTensor):
+            distribute(p, hcg.mesh, _first_split(p.shape, n))
+    return model
+
+
+def group_sharded_parallel(model, optimizer, level: str = "os", scaler=None,
+                           group=None, offload=False, sync_buffers=False,
+                           buffer_max_size=2 ** 23, segment_size=2 ** 20,
+                           sync_comm=False, dp_group=None,
+                           exclude_layer=None):
+    """``paddle.distributed.sharding.group_sharded_parallel``: ``level``
+    "os" (stage 1), "os_g" (stage 2) or "p_g_os" (stage 3)."""
+    if level not in ("os", "os_g", "p_g_os"):
+        raise ValueError(f"unknown group_sharded level {level!r}")
+    from .topology import get_hybrid_communicate_group
+    hcg = get_hybrid_communicate_group()
+    shard_optimizer_states(optimizer, hcg)
+    if level == "p_g_os":
+        shard_params(model, hcg)
+    return model, optimizer, scaler

@@ -17,7 +17,8 @@ from .common import (alpha_dropout, cosine_similarity, dropout, dropout2d,
                      zeropad2d)
 from .loss import cross_entropy, mse_loss
 from .norm import (batch_norm, group_norm, instance_norm, layer_norm,
-                   local_response_norm, rms_norm, spectral_norm)
+                   local_response_norm, rms_norm, spectral_norm,
+                   sync_batch_norm)
 
 
 # The functional surface in the op schema registry, as the reference

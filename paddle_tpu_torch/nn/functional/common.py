@@ -20,13 +20,28 @@ from ...ops._helpers import ensure_tensor, forward_op
 from ...ops.random import generator
 
 
+def _promoted(*vs):
+    """The operands in their promoted dtype, as ``jnp``'s matmul promotes
+    (an fp32 input times a bf16 weight computes in fp32)."""
+    dt = vs[0].dtype
+    for v in vs[1:]:
+        dt = torch.promote_types(dt, v.dtype)
+    return [v.to(dt) for v in vs]
+
+
 def linear(x, weight, bias=None, name=None):
     """y = x @ W + b with paddle weight layout [in, out] (ref: nn.functional.linear)."""
     x, weight = ensure_tensor(x), ensure_tensor(weight)
     if bias is not None:
-        return forward_op("linear", lambda v, w, b: v @ w + b,
-                          [x, weight, ensure_tensor(bias)])
-    return forward_op("linear", lambda v, w: v @ w, [x, weight])
+        def f(v, w, b):
+            v, w, b = _promoted(v, w, b)
+            return v @ w + b
+        return forward_op("linear", f, [x, weight, ensure_tensor(bias)])
+
+    def g(v, w):
+        v, w = _promoted(v, w)
+        return v @ w
+    return forward_op("linear", g, [x, weight])
 
 
 def _keep_mask(v, p, shape):

@@ -9,8 +9,13 @@ the TPU kernel wanted ``d % 128 == 0`` and ``rows % 8 == 0``), it runs
 ``kernels.rms_norm.rms_norm``, whose forward and backward launch the
 kernels; otherwise the plain formula below.
 
-``sync_batch_norm`` (the cross-process statistics) is still to be ported
-with the distributed eager wrappers (ROADMAP §A item 11).
+``sync_batch_norm`` normalizes by the statistics of the whole batch
+across the processes of a launched world (``init_parallel_env`` over
+gloo): each process's per-channel sum and sum of squares and its row
+count are all-reduced (an autograd ``Function`` whose backward
+all-reduces the gradients, since every process's output depends on every
+process's input), and the running statistics take the global mean and
+unbiased variance. In one process it is ``batch_norm``.
 """
 
 from __future__ import annotations
@@ -223,3 +228,72 @@ def spectral_norm(weight, u, v, dim=0, power_iters=1, eps=1e-12, name=None):
         return w / sigma
 
     return forward_op("spectral_norm", impl, [weight, u, v])
+
+
+class _AllReduceProcesses(torch.autograd.Function):
+    """Sum over the launched world's processes; backward, the sum of the
+    processes' gradients."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+        out = x.detach().clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        out = g.detach().clone()
+        dist.all_reduce(out)
+        return out
+
+
+def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None,
+                    training: bool = False, momentum: float = 0.9,
+                    epsilon: float = 1e-5, data_format="NCHW", name=None):
+    """Batch norm over the global batch of a launched multi-process world
+    (see the module note); ``batch_norm`` otherwise."""
+    from ...distributed import collective as C
+    if not (training and C._launched() and C.get_world_size() > 1):
+        return batch_norm(x, running_mean, running_var, weight=weight,
+                          bias=bias, training=training, momentum=momentum,
+                          epsilon=epsilon, data_format=data_format)
+    x = ensure_tensor(x)
+    ch_axis = x.ndim - 1 if data_format[-1] == "C" and len(data_format) > 2 else 1
+    axes = tuple(i for i in range(x.ndim) if i != ch_axis)
+    stat_shape = [1] * x.ndim
+    stat_shape[ch_axis] = x.shape[ch_axis]
+    wb = [ensure_tensor(a) for a in (weight, bias) if a is not None]
+
+    def impl(v, *wbv):
+        n_local = 1
+        for a in axes:
+            n_local *= v.shape[a]
+        vf = v.to(torch.float32)
+        packed = torch.cat([vf.sum(dim=axes), (vf * vf).sum(dim=axes),
+                            torch.tensor([float(n_local)], device=v.device)])
+        total = _AllReduceProcesses.apply(packed)
+        C_ = v.shape[ch_axis]
+        n = total[-1].detach()
+        mean = total[:C_] / n
+        var = total[C_:2 * C_] / n - mean * mean
+        out = ((vf - mean.reshape(stat_shape)) *
+               torch.rsqrt(var.reshape(stat_shape) + epsilon)).to(v.dtype)
+        i = 0
+        if weight is not None:
+            out = out * wbv[i].reshape(stat_shape)
+            i += 1
+        if bias is not None:
+            out = out + wbv[i].reshape(stat_shape)
+        return out, mean, var, n
+
+    out, mean, var, n = forward_op("sync_batch_norm", impl, [x] + wb)
+    nv = float(n._value)
+    if running_mean is not None:
+        running_mean.set_value(momentum * running_mean._value +
+                               (1 - momentum) * mean._value.detach())
+    if running_var is not None:
+        running_var.set_value(momentum * running_var._value + (1 - momentum)
+                              * var._value.detach() * (nv / max(nv - 1, 1)))
+    return out

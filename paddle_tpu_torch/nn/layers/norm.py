@@ -80,9 +80,16 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica batch norm (ref: paddle.nn.SyncBatchNorm). In one
-    process it is BatchNorm; the cross-process statistics come with the
-    distributed eager wrappers (ROADMAP §A item 11)."""
+    """Cross-replica batch norm (ref: paddle.nn.SyncBatchNorm): the
+    statistics of the global batch in a launched multi-process world
+    (``F.sync_batch_norm``), BatchNorm in one process."""
+
+    def forward(self, x):
+        return F.sync_batch_norm(x, self._mean, self._variance, self.weight,
+                                 self.bias, training=self.training and
+                                 not self.use_global_stats,
+                                 momentum=self.momentum, epsilon=self.epsilon,
+                                 data_format=self.data_format)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

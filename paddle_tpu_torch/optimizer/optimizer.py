@@ -40,6 +40,10 @@ def _as_value(v, like: Optional[torch.Tensor] = None) -> torch.Tensor:
 
 
 class Optimizer:
+    # the update is elementwise, so it runs on any slice of a parameter
+    # (a distributed or ZeRO-sharded update runs per mesh coordinate)
+    _elementwise = True
+
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None, multi_precision=False):
         self._lr = learning_rate
@@ -75,12 +79,19 @@ class Optimizer:
         if param.name not in store:
             pending = getattr(self, "_pending_state", None)
             key = f"{param.name}_{name}"
-            shp = shape if shape is not None else param._value.shape
             dt = dtype or (torch.float32 if self._multi_precision
-                           else param._value.dtype)
-            t = _full(shp, fill_value, dt, param._value.device)
-            if pending and key in pending:
-                t._value = _as_value(pending.pop(key), t._value)
+                           else param.dtype)
+            layout = self._layout(param)
+            if layout is not None:     # laid out like the parameter's update
+                from ..distributed.dist_tensor import state_tensor
+                t = state_tensor(param, layout, fill_value, dt, shape)
+                if pending and key in pending:
+                    t.set_value(as_torch(pending.pop(key)))
+            else:
+                shp = shape if shape is not None else param._value.shape
+                t = _full(shp, fill_value, dt, param._value.device)
+                if pending and key in pending:
+                    t._value = _as_value(pending.pop(key), t._value)
             store[param.name] = t
         return store[param.name]
 
@@ -90,11 +101,17 @@ class Optimizer:
     def _master(self, p: Parameter):
         """fp32 master weight for low-precision params (ref: multi_precision /
         master_weights in paddle optimizers + amp O2)."""
-        if not self._multi_precision or p._value.dtype == torch.float32:
+        if not self._multi_precision or p.dtype == torch.float32:
             return None
         if p.name not in self._master_weights:
-            self._master_weights[p.name] = _wrap(
-                p._value.detach().to(torch.float32))
+            layout = self._layout(p)
+            if layout is not None:
+                from ..distributed.dist_tensor import state_tensor
+                self._master_weights[p.name] = state_tensor(p, layout,
+                                                            master=True)
+            else:
+                self._master_weights[p.name] = _wrap(
+                    p._value.detach().to(torch.float32))
         return self._master_weights[p.name]
 
     # -- the step ------------------------------------------------------------
@@ -111,26 +128,47 @@ class Optimizer:
 
     @autograd.no_grad()
     def step(self):
-        params_grads = [(p, p.grad) for p in self._params()
-                        if not p.stop_gradient and p.grad is not None]
+        params_grads = [(p, g) for p in self._params() if not p.stop_gradient
+                        for g in (p.grad,) if g is not None]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         lr = self.get_lr()
         self._step_count += 1
         for p, g in params_grads:
             param_lr = lr * getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
-            g_val = g._value
-            wd, l1 = self._decay_value(p)
-            if wd:  # fold into gradient (paddle regularizer semantics)
-                pv = p._value.to(g_val.dtype)
-                g_val = g_val + wd * (torch.sign(pv) if l1 else pv)
-            master = self._master(p)
-            base = master._value if master is not None else p._value
-            new_base = self._apply_one(p, base, g_val.to(base.dtype), param_lr)
-            if master is not None:
-                master._value = new_base
+            layout = self._layout(p)
+            if layout is not None:
+                from ..distributed.dist_tensor import laid_out_step
+                laid_out_step(self, p, g, param_lr, layout)
+                continue
+            new_base = self._update_value(p, p._value, g._value, param_lr)
             p._value.copy_(new_base.to(p._value.dtype))
             p._version += 1
+
+    def _update_value(self, p, value, g_val, lr):
+        """The new value of ``value`` (the parameter, or its slice) from
+        the gradient ``g_val``: the regularizer folded in, the update on the
+        master weight when there is one."""
+        wd, l1 = self._decay_value(p)
+        if wd:  # fold into gradient (paddle regularizer semantics)
+            pv = value.to(g_val.dtype)
+            g_val = g_val + wd * (torch.sign(pv) if l1 else pv)
+        master = self._master(p)
+        base = master._value if master is not None else value
+        new_base = self._apply_one(p, base, g_val.to(base.dtype), lr)
+        if master is not None:
+            master._value = new_base
+        return new_base
+
+    def _layout(self, p):
+        """The mesh layout ``(mesh, spec)`` of ``p``'s optimizer state when
+        ``p`` is distributed or the states are sharded (ZeRO stage 1), else
+        None (the serial update)."""
+        if not (getattr(p, "is_distributed", False) or
+                getattr(self, "_sharding_axis", None)):
+            return None
+        from ..distributed.dist_tensor import state_layout
+        return state_layout(self, p)
 
     def _decay_value(self, p):
         """Returns (coeff, is_l1). Per-param regularizer wins over the optimizer's
@@ -362,6 +400,8 @@ class RMSProp(Optimizer):
 
 class Lamb(Optimizer):
     """ref: python/paddle/optimizer/lamb.py"""
+
+    _elementwise = False    # the trust ratio takes whole-parameter norms
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
                  beta2=0.999, epsilon=1e-6, parameters=None, grad_clip=None,

@@ -1220,3 +1220,103 @@ def test_eager_llama_step_matches_functional(paddle_gpu):
     assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
     for p, g in zip(net.parameters(), grads):
         assert (p.grad._value - g).abs().max() <= 1e-4 * g.abs().max()
+
+
+# -- the eager hybrid-parallel decoder (chip_smoke.py phase 46) at mp 2 ----
+
+def _megatron():
+    """``chip_smoke.megatron()``: phase 46's decoder from the public
+    layers."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke.megatron()
+
+
+def _mp2_decoder(paddle, cfg, dev, parallel=True):
+    from paddle_tpu_torch.distributed import fleet
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {"dp_degree": 1, "mp_degree": 2 if parallel else 1}
+    fleet.init(is_collective=True, strategy=st,
+               devices=[dev] * (2 if parallel else 1))
+    return _megatron().Llama(cfg, parallel=parallel, use_recompute=False)
+
+
+def test_megatron_mp2_takes_the_kernels_and_matches_plain(paddle_gpu):
+    """The decoder at mp 2 over cuda:0 x 2, fp32: each mp shard's attention
+    core launches the flash and RoPE kernels on its heads, every RMSNorm
+    the norm kernel; the loss within 1e-5 x |loss| and every gradient
+    within 1e-4 x max|g| of the serial twin on the plain path (the CPU)."""
+    paddle = paddle_gpu
+    from paddle_tpu_torch.distributed.topology import \
+        set_hybrid_communicate_group
+    from paddle_tpu_torch.models.llama import LlamaConfig, init_params
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=4)
+    sd = _megatron().state_dict(init_params(cfg, seed=4, device="cpu"))
+    ids = np.random.default_rng(0).integers(0, 512, (2, 128))
+    try:
+        net = _mp2_decoder(paddle, cfg, "cuda:0")
+        net.set_state_dict(sd)
+        x = paddle.to_tensor(torch.from_numpy(ids).cuda())
+        before = _counts()
+        loss = net(x, x)
+        loss.backward()
+        torch.cuda.synchronize()
+        risen = _risen(before, _counts())
+        grads = {k: p.grad.numpy() for k, p in net.named_parameters()}
+        # per layer: 2 shards x (q, k) RoPE, 2 flash calls; 2 norms a layer
+        # and the final one
+        assert risen == {"flash": (4, 4, 4), "rope": (8, 8),
+                         "rms_norm": (5, 5)}, risen
+        paddle.set_device("cpu")
+        ser = _mp2_decoder(paddle, cfg, "cpu", parallel=False)
+        ser.set_state_dict(sd)
+        xc = paddle.to_tensor(ids)
+        ref = ser(xc, xc)
+        ref.backward()
+    finally:
+        paddle.set_device("gpu:0")
+        set_hybrid_communicate_group(None)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    for k, p in ser.named_parameters():
+        want = p.grad.numpy()
+        assert np.abs(grads[k] - want).max() <= 1e-4 * np.abs(want).max(), k
+
+
+def test_megatron_mp2_attention_core_bf16(paddle_gpu):
+    """The region's attention core in bf16 at mp 2 (RoPE then causal
+    flash on each shard's heads) against the plain RoPE and attention in
+    fp32 on the whole heads: output and the q/k/v gradients within 1e-2
+    norm-relative (phase 7's rule)."""
+    paddle = paddle_gpu
+    from paddle_tpu_torch.distributed import PartitionSpec as P, shard_map
+    from paddle_tpu_torch.distributed.topology import Mesh
+    from paddle_tpu_torch.kernels.rope import apply_rope_plain, rope_cos_sin
+    from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((2, 256, 4, 128), generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    devs = np.empty(2, dtype=object)
+    devs[:] = [torch.device("cuda", 0)] * 2
+    mesh = Mesh(devs, ("mp",))
+    spec = P(None, None, "mp", None)
+    ts = [paddle.to_tensor(t, stop_gradient=False) for t in (q, k, v)]
+    before = _counts()
+    core = _megatron().attention_core
+    out = shard_map(lambda a, b, c: core(a, b, c, 10000.0), mesh,
+                    (spec, spec, spec), spec)(*ts)
+    out.backward(paddle.to_tensor(do))
+    torch.cuda.synchronize()
+    assert _risen(before, _counts()) == {"flash": (2, 2, 2),
+                                         "rope": (4, 4)}
+    cos, sin = rope_cos_sin(256, 128, 10000.0, device="cuda")
+    fs = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = _sdpa_ref(apply_rope_plain(fs[0], cos, sin),
+                    apply_rope_plain(fs[1], cos, sin), fs[2], causal=True)
+    grads = torch.autograd.grad(ref, fs, do.float())
+    for got, want in zip([out._value] + [t.grad._value for t in ts],
+                         [ref, *grads]):
+        assert _rel(got, want) <= 1e-2
