@@ -18,7 +18,10 @@ Phases (each fails the run on any error; none catches and carries on):
    norm-relative rule (a dropped K tile can pass a max-abs rule). Three of
    the attention cases are the speculative verify's shape (Q = 5,
    draft_lens taking every value 0..4): bf16 and int8 pools at 16/16
-   heads (the split route) and GQA 32/8 (the multi-query route).
+   heads (the split route) and GQA 32/8 (the multi-query route). The
+   matmul also runs at BERT-base's quantized linears (phase 47): (K, N) =
+   (768, 768), (768, 3072), (3072, 768) at M = 4096 and the 2-class
+   head's (768, 2) at M = 32.
 4. Serving engine at full width (the 12-layer, hidden-2048 LLaMA the
    repository's TPU benchmark serves; random weights from a seed), bf16,
    default ServingConfig: ~24 greedy requests, half sharing a 64-token
@@ -26,13 +29,14 @@ Phases (each fails the run on any error; none catches and carries on):
 5. The same trace with ``quantize="int8"`` and ``kv_quant="int8"``.
 6. Parity at fp32 on a shortened trace: the kernel engine against the
    ``paged_kernel="off"`` (gather) engine, token streams equal.
-7. Flash-attention kernel checks at bf16 on seven cases (the training
+7. Flash-attention kernel checks at bf16 on eight cases (the training
    step's B 8 x S 2048 x 16 heads x D 128 causal; GQA 32/8 heads; 4
    packed segments per row; causal with Sq 1024 < Sk 2048; one shard of
    phase 36's sharded step, B 2 x S 2048 x 8 heads; one ring block of
    phase 39, B 4 x S 512 x 16 heads, causal (f) and not (g), with a
    random cotangent of the lse beside dO, held to the plain backward
-   that takes it): the public
+   that takes it; (h) BERT-base's attention, B 32 x S 128 x 12 heads x
+   D 64, non-causal, one key tile a row): the public
    ``flash_attention_with_lse`` and its gradient against the plain
    forward and backward (norm-relative error over the whole tensor and
    per row), dq and dk/dv each the same bits on two runs, the route one
@@ -491,6 +495,41 @@ Phases (each fails the run on any error; none catches and carries on):
     micro-batches, on (a)'s blocks at E fp32 against serial gradient
     accumulation (losses 1e-5). (d) The eager ``MoELayer`` at ep 4 against
     the replicated layer (out and gradients 1e-5 x max).
+47. BERT fine-tuning through ``paddle.Model`` (cell BT):
+    ``examples/finetune_bert.py``'s loop at BERT-base width
+    (``BertConfig()``: vocab 30522, hidden 768, 12 layers of 12 heads,
+    intermediate 3072; random weights from the seed) with
+    ``prepare(AdamW(3e-4), CrossEntropyLoss(), Accuracy(),
+    amp_configs="O1")`` and ``fit`` over the script's synthetic task at B
+    32 x S 128: a warm-up step and 6 timed ones (step ms, samples/s, MFU
+    over 989 TFLOP/s from the config's FLOPs, peak memory), one profiled
+    step (busy share, launch calls). Dropout 0.1 trains through the plain
+    attention. Then ``evaluate`` under ``auto_cast("O1")`` on a held-out
+    split: exactly 12 flash forwards a batch (bf16, D 64, non-causal),
+    ``Accuracy`` equal to a numpy recount of the logits it saw; then
+    ``quantize_linears`` on the fine-tuned net and ``predict``: exactly
+    74 ``weight_only_matmul`` launches a forward (6 a layer, the pooler,
+    the head), each ``WeightOnlyLinear`` output within 1e-2 x max|ref| of
+    its plain dequant-then-matmul and phase 3's norm-relative rule, the
+    logits within 5e-2 x max|logit| of the fp model's.
+48. fp32 parity of ``Model.train_batch`` on the card (flash kernels,
+    exactly 4 / 4 / 4 launches: hidden 256, 4 heads of D 64, 4 layers,
+    dropout 0) against the same net, weights and batches on the CPU: the
+    loss within 1e-5 x |loss|, every gradient within 1e-4 x max|g|, three
+    AdamW steps' losses within 1e-4 x |loss|; the O1 bf16 loss within
+    5e-3 of fp32; ``GradScaler`` under ``auto_cast(dtype="float16")``
+    (attention on the plain formula, no flash launch): an injected inf
+    skips the step and halves the scale; a ``PyLayer`` on CUDA tensors
+    against its analytic gradient (1e-6).
+49. ``examples/train_recsys.py`` on the card (cell RS), not cut: vocab
+    1,000,000 x 32 (128 MB fp32), 8 slots, batch 256, 20 steps, an Adam
+    tower over ``SparseAdam``, ``AsyncLookup`` on the host table; a host
+    table (0 device bytes) and a device table from one seed, their losses
+    within 1e-6 x |loss|, a backward on the device table growing memory
+    by less than half the table; step ms, the host gather ms and the
+    share ``AsyncLookup`` hides. Then the 2-rank vocab-sharded job
+    through the launcher (both ranks on ``cuda:0``, gloo), its looked-up
+    rows and trained table within 1e-6 of the whole table in one process.
 
 Each phase's wall seconds print as the next phase (or the closing line)
 begins.
@@ -517,7 +556,9 @@ the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
 together,
 and 45 (d),
 the flash launches of phases 8, 34, 36, 38, 39, 41 (both ranks' F
-steps), 43, 45 and 46 and the RMSNorm and RoPE launches of phases 11,
+steps), 43, 45, 46, 47 (evaluate and predict) and 48 (the card's
+``train_batch``), the int8 matmul launches of phase 47's quantized
+predict, and the RMSNorm and RoPE launches of phases 11,
 34, 36, 38, 39, 41, 43, 45 and 46 (RoPE: forward and backward together;
 45: the timed eager steps and the eager callers of (d); 46: the timed
 steps of (a) and (b)).
@@ -550,7 +591,8 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "fault-tolerant training", "sharded training",
          "pipelined training", "context-parallel training",
          "launched training", "elastic restarts", "expert-parallel training",
-         "eager API", "eager hybrid parallel")
+         "eager API", "eager hybrid parallel", "BERT fine-tuning (hapi)",
+         "parameter-server tables")
 
 
 def check(cond, msg):
@@ -1406,7 +1448,7 @@ def profile_device(run, label, top=6):
     of PyTorch's elementwise kernels and of each of the port's kernels,
     the kernels that took the most device time, and the host ops that
     took the most self CPU time (ms and calls; the profiler's own cost
-    included)."""
+    included), and the kernel launch calls (``launch_calls``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1433,8 +1475,12 @@ def profile_device(run, label, top=6):
     # route, SiLU, AdamW's passes, the CE), summed
     elementwise_ms = sum(v for k, v in kernels.items()
                          if "elementwise_kernel" in k) / 1e3
+    launch_calls = sum(n for k, (_, n) in host_sums.items()
+                       if k in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                "cudaLaunchKernelExC"))
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms,
+           "launch_calls": launch_calls,
            "elementwise_ms": elementwise_ms,
            "port_kernels_ms": {k: kernels[k] / 1e3 for k in PORT_KERNELS
                                if k in kernels},
@@ -7871,6 +7917,491 @@ def hybrid_phase(m45, dev="cuda:0", small=False):
     return ca, cb
 
 
+# ---------------------------------------------------------------------------
+# phases 47-49: BERT fine-tuning through paddle.Model, its fp32 parity,
+# the parameter-server tables
+# ---------------------------------------------------------------------------
+
+BERT_BATCH, BERT_SEQ = 32, 128
+# examples/train_recsys.py's configuration, not cut
+RECSYS = dict(vocab=1_000_000, dim=32, slots=8, batch=256, steps=20)
+
+
+def bert_flops_per_step(cfg, batch, seq):
+    """Training FLOPs of one BertForSequenceClassification step (forward
+    and backward, 3x the forward's matmuls): per token and layer the four
+    E x E projections, the two FFN matmuls and attention's two products;
+    per sequence the pooler and the 2-class head."""
+    E, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    per_token = L * (2 * (4 * E * E + 2 * E * I) + 4 * seq * E)
+    per_seq = 2 * E * E + 2 * E * 2
+    return 3 * (batch * seq * per_token + batch * per_seq)
+
+
+def bert_data(cfg, n, seq, seed):
+    """``examples/finetune_bert.py``'s synthetic task: class = whether
+    token 0 is in the upper vocab half."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (n, seq)).astype("int64")
+    return ids, (ids[:, 0] >= cfg.vocab_size // 2).astype("int64")
+
+
+def _bert_model(paddle, net, amp_configs=None, lr=3e-4):
+    class Net(paddle.nn.Layer):
+        def __init__(self, bert):
+            super().__init__()
+            self.bert = bert
+
+        def forward(self, x):
+            return self.bert(x)
+
+    model = paddle.Model(Net(net))
+    model.prepare(optimizer=paddle.optimizer.AdamW(
+        learning_rate=lr, parameters=net.parameters()),
+        loss=paddle.nn.CrossEntropyLoss(), metrics=paddle.metric.Accuracy(),
+        amp_configs=amp_configs)
+    return model
+
+
+def bert_phase(steps=6, eval_batches=4, batch=BERT_BATCH, seq=BERT_SEQ):
+    """Phase 47 (cell BT): ``examples/finetune_bert.py``'s loop at BERT-base
+    width through ``paddle.Model``. Returns (metrics, launches of its
+    evaluate / predict / quantized predict)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels.quant_matmul import weight_only_matmul_plain
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.nn.quant import WeightOnlyLinear
+    t0 = time.time()
+    paddle.set_device("gpu:0")
+    paddle.seed(SEED)
+    cfg = BertConfig()
+    net = BertForSequenceClassification(cfg, num_classes=2)
+    model = _bert_model(paddle, net, amp_configs="O1")
+    n_train = (steps + 1) * batch
+    ids, labels = bert_data(cfg, n_train + eval_batches * batch, seq, SEED)
+    train = paddle.io.TensorDataset([ids[:n_train], labels[:n_train]])
+    val = paddle.io.TensorDataset([ids[n_train:], labels[n_train:]])
+
+    class Clock(paddle.callbacks.Callback):
+        """Host-clock batch ends (``train_batch`` reads the loss, so each
+        end follows the step's device work) and the loss of each."""
+
+        def __init__(self):
+            super().__init__()
+            self.ends, self.losses = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == 1:               # after the warm-up step
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                self.ends.append(time.time())
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            if step >= 1:
+                self.ends.append(time.time())
+
+    clock = Clock()
+    hist = model.fit(train, batch_size=batch, epochs=1, verbose=0,
+                     shuffle=True, callbacks=[clock])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    times = np.diff(clock.ends)
+    check(len(times) == steps, f"timed {len(times)} steps, not {steps}")
+    check(all(np.isfinite(clock.losses)), f"losses {clock.losses}")
+    step_ms = float(np.median(times)) * 1e3
+    flops = bert_flops_per_step(cfg, batch, seq)
+    m = {"step_ms": step_ms, "step_ms_each": [t * 1e3 for t in times],
+         "samples_per_s": batch / step_ms * 1e3,
+         "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS["bf16"],
+         "flops_per_step": flops, "max_memory_allocated_gb": peak,
+         "losses": clock.losses, "epoch_loss": hist["loss"]}
+    log(f"  fit: {json.dumps(m)}")
+    xb = torch.from_numpy(ids[:batch]).cuda()
+    yb = torch.from_numpy(labels[:batch]).cuda()
+    m["profile"] = profile_device(lambda: model.train_batch([xb], [yb]),
+                                  "BERT-base fit step (O1)", top=8)
+
+    # evaluate under O1: every attention call takes the bf16 flash kernel
+    captured = []
+    hook = model.network.register_forward_post_hook(
+        lambda layer, ins, out: captured.append(out.numpy()))
+    reset_counts()
+    with paddle.amp.auto_cast(level="O1"):
+        ev = model.evaluate(val, batch_size=batch, verbose=0)
+    c_eval = read_counts()
+    hook.remove()
+    y_val = labels[n_train:]
+    recount = float((np.concatenate(captured).argmax(-1) == y_val).mean())
+    log(f"  evaluate: {json.dumps(ev)}; numpy recount of its predictions: "
+        f"acc {recount}; launches {json.dumps(c_eval)}")
+    check(c_eval["flash_attention"] == cfg.num_hidden_layers * eval_batches,
+          f"evaluate: {c_eval['flash_attention']} flash forwards for "
+          f"{eval_batches} batches, expected {cfg.num_hidden_layers} a batch")
+    check(ev["acc"] == recount, f"Accuracy {ev['acc']} != numpy {recount}")
+    reset_counts()
+    with paddle.amp.auto_cast(level="O1"):
+        fp_logits = model.predict(val, batch_size=batch,
+                                  stack_outputs=True)[0]
+    c_pred = read_counts()
+    check(c_pred["flash_attention"] == cfg.num_hidden_layers * eval_batches,
+          f"predict: {c_pred['flash_attention']} flash forwards")
+
+    # the quantized network: every Linear through the int8 matmul kernel
+    swapped = paddle.nn.quant.quantize_linears(model.network)
+    per_forward = 6 * cfg.num_hidden_layers + 2
+    check(swapped == per_forward, f"quantize_linears swapped {swapped}")
+    caps = {}
+
+    def keep_first(layer, ins, out):
+        if id(layer) not in caps:
+            caps[id(layer)] = (layer, ins[0]._value.detach(),
+                               out._value.detach())
+    hooks = [layer.register_forward_post_hook(keep_first)
+             for layer in model.network.sublayers()
+             if isinstance(layer, WeightOnlyLinear)]
+    reset_counts()
+    with paddle.amp.auto_cast(level="O1"):
+        q_logits = model.predict(val, batch_size=batch,
+                                 stack_outputs=True)[0]
+    c_q = read_counts()
+    for h in hooks:
+        h.remove()
+    check(c_q["flash_attention"] == cfg.num_hidden_layers * eval_batches,
+          f"quantized predict: {c_q['flash_attention']} flash forwards")
+    check(c_q["weight_only_matmul"] == per_forward * eval_batches,
+          f"quantized predict: {c_q['weight_only_matmul']} int8 matmul "
+          f"launches for {eval_batches} forwards, expected {per_forward} a "
+          f"forward")
+    worst = {"max_abs_rel": 0.0, "rel_fro": 0.0, "rel_row": 0.0}
+    for layer, x, got in caps.values():
+        x2 = x.reshape(-1, x.shape[-1])
+        ref = weight_only_matmul_plain(x2, layer.weight._value,
+                                       layer.weight_scale._value, x2.dtype)
+        if layer.bias is not None:
+            ref = ref + layer.bias._value
+        got = got.reshape(ref.shape)
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = err / max(ref.float().abs().max().item(), 1e-30)
+        fro, row = rel_errors(got, ref)
+        worst = {"max_abs_rel": max(worst["max_abs_rel"], rel),
+                 "rel_fro": max(worst["rel_fro"], fro),
+                 "rel_row": max(worst["rel_row"], row)}
+        check(rel <= 1e-2 and fro <= BF16_FRO and row <= BF16_ROW,
+              f"WeightOnlyLinear {tuple(x2.shape)} x {tuple(ref.shape)} "
+              f"({x2.dtype}): {rel:.3g} x max|ref|, rel_fro {fro:.3g}, "
+              f"rel_row {row:.3g}")
+    check(len(caps) == per_forward, f"{len(caps)} WeightOnlyLinear layers ran")
+    gap = float(np.abs(q_logits - fp_logits).max())
+    scale = float(np.abs(fp_logits).max())
+    log(f"  quantized predict: {swapped} layers swapped, int8 matmul "
+        f"launches {c_q['weight_only_matmul']} ({per_forward} a forward); "
+        f"each layer against its plain dequant-then-matmul: "
+        f"{json.dumps(worst)}; logits {gap:.4g} from the fp model's (max "
+        f"|logit| {scale:.4g})")
+    check(gap <= 5e-2 * scale, f"quantized logits {gap} > 5e-2 x {scale}")
+    m.update({"evaluate": ev, "accuracy_recount": recount,
+              "eval_flash_fwd_per_batch":
+              c_eval["flash_attention"] / eval_batches,
+              "int8_matmul_per_forward":
+              c_q["weight_only_matmul"] / eval_batches,
+              "int8_layers_worst": worst, "int8_logit_gap": gap / scale,
+              "seconds": time.time() - t0})
+    launches = {k: c_eval[k] + c_pred[k] + c_q[k] for k in c_eval}
+    del model, net, caps
+    torch.cuda.empty_cache()
+    return m, launches
+
+
+def _grad_map(net):
+    return {n: q.grad._value.detach().float().cpu().numpy()
+            for n, q in net.named_parameters() if q.grad is not None}
+
+
+def bert_parity_phase(batch=8, seq=128, steps=3):
+    """Phase 48: fp32 parity of ``Model.train_batch`` on the card (flash
+    kernels) against the same net on the CPU (the plain path); O1 against
+    fp32; ``GradScaler`` at float16; a ``PyLayer`` on CUDA tensors.
+    Returns the card run's launches."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForSequenceClassification)
+    cfg = BertConfig(hidden_size=256, num_hidden_layers=4,
+                     num_attention_heads=4, intermediate_size=1024,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    ids, labels = bert_data(cfg, (steps + 1) * batch, seq, SEED + 48)
+    paddle.set_device("gpu:0")
+    paddle.seed(SEED + 48)
+    nets, models = {}, {}
+    for place in ("gpu:0", "cpu"):
+        paddle.set_device(place)
+        nets[place] = BertForSequenceClassification(cfg, num_classes=2)
+        if place == "cpu":
+            nets[place].set_state_dict(nets["gpu:0"].state_dict())
+        models[place] = _bert_model(paddle, nets[place], lr=1e-3)
+
+    def batch_of(i, place):
+        paddle.set_device(place)
+        return ([ids[i * batch:(i + 1) * batch]],
+                [labels[i * batch:(i + 1) * batch]])
+
+    res = {}
+    for place in ("cpu", "gpu:0"):
+        x, y = batch_of(0, place)
+        if place != "cpu":
+            reset_counts()
+        first = models[place].train_batch(x, y, update=False)[0][0]
+        if place != "cpu":
+            counts = read_counts()
+        res[place] = (first, _grad_map(nets[place]))
+        models[place]._optimizer.clear_grad()
+    paddle.set_device("gpu:0")
+    L = cfg.num_hidden_layers
+    check((counts["flash_attention"], counts["flash_attention_bwd_dq"],
+           counts["flash_attention_bwd_dkv"]) == (L, L, L),
+          f"card train_batch flash launches {counts}, expected {L} each")
+    (lc, gc), (lg, gg) = res["cpu"], res["gpu:0"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    check(loss_rel <= 1e-5, f"fp32 loss card {lg} vs CPU {lc}")
+    check(gg.keys() == gc.keys(), "gradient leaves differ")
+    floor = 1e-2 * max(float(np.abs(g).max()) for g in gc.values())
+    grad_gap = max(float(np.abs(gg[n] - gc[n]).max()) /
+                   max(float(np.abs(gc[n]).max()), floor) for n in gc)
+    check(grad_gap <= 1e-4, f"fp32 gradients card vs CPU: {grad_gap} x "
+          f"max|g|")
+    step_losses = {}
+    for place in ("cpu", "gpu:0"):
+        step_losses[place] = [models[place].train_batch(
+            *batch_of(i + 1, place))[0][0] for i in range(steps)]
+    paddle.set_device("gpu:0")
+    step_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(step_losses["gpu:0"], step_losses["cpu"]))
+    # AdamW's first step moves an entry by ~lr whatever its gradient's
+    # size, so entries whose gradient lies in the fp32 noise part by up
+    # to 2 lr (ROADMAP §C): the losses after updates are held to 1e-4
+    check(step_rel <= 1e-4, f"AdamW step losses card {step_losses['gpu:0']}"
+          f" vs CPU {step_losses['cpu']}")
+
+    net = nets["gpu:0"]
+    x = paddle.to_tensor(ids[:batch])
+    y = paddle.to_tensor(labels[:batch])
+    ce = paddle.nn.CrossEntropyLoss()
+    with paddle.no_grad():
+        l32 = float(ce(net(x), y))
+        with paddle.amp.auto_cast(level="O1"):
+            l16 = float(ce(net(x), y))
+    o1_rel = abs(l16 - l32) / abs(l32)
+    check(o1_rel <= 5e-3, f"O1 bf16 loss {l16} vs fp32 {l32}")
+
+    # GradScaler at float16: an injected inf skips the step, halves the
+    # scale; attention takes the plain formula (the flash kernels take
+    # fp32 and bf16 only)
+    opt = paddle.optimizer.AdamW(parameters=net.parameters())
+    scaler = paddle.amp.GradScaler(init_loss_scaling=1024.0)
+    reset_counts()
+    with paddle.amp.auto_cast(level="O1", dtype="float16"):
+        loss = ce(net(x), y)
+    fp16_flash = read_counts()["flash_attention"]
+    check(fp16_flash == 0, f"float16 attention launched flash {fp16_flash}x")
+    scaler.scale(loss).backward()
+    params = [q for q in net.parameters() if q.grad is not None]
+    before = [q._value.detach().clone() for q in params]
+    params[0].grad.set_value(np.full(params[0].shape, np.inf, np.float32))
+    scaler.step(opt)
+    scaler.update()
+    check(all(torch.equal(a, q._value) for a, q in zip(before, params)),
+          "GradScaler stepped on an inf gradient")
+    check(scaler.get_init_loss_scaling() == 512.0,
+          f"scale {scaler.get_init_loss_scaling()} after an inf, not 512")
+    opt.clear_grad()
+
+    class Cube(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, t):
+            ctx.save_for_backward(t)
+            return t * t * t
+
+        @staticmethod
+        def backward(ctx, g):
+            (t,) = ctx.saved_tensor()
+            return g * 3.0 * t * t
+
+    a = np.random.default_rng(48).standard_normal(4096).astype(np.float32)
+    t = paddle.to_tensor(a, stop_gradient=False)
+    out = Cube.apply(t)
+    out.sum().backward()
+    check(t.grad._value.is_cuda, "PyLayer gradient left the card")
+    py_gap = float(np.abs(t.grad.numpy() - 3.0 * a * a).max() /
+                   np.abs(3.0 * a * a).max())
+    check(py_gap <= 1e-6 and np.allclose(out.numpy(), a ** 3, rtol=1e-6),
+          f"PyLayer on CUDA: gradient gap {py_gap}")
+    m = {"loss_rel": loss_rel, "grad_gap": grad_gap,
+         "step_losses_card": step_losses["gpu:0"],
+         "step_losses_cpu": step_losses["cpu"], "step_loss_rel": step_rel,
+         "o1_loss_rel": o1_rel, "fp16_skip_scale": 512.0,
+         "pylayer_grad_gap": py_gap, "card_launches": counts}
+    log(f"  {json.dumps(m)}")
+    del nets, models, net
+    torch.cuda.empty_cache()
+    return counts
+
+
+def recsys_run(host, tower_state, steps=RECSYS["steps"]):
+    """``examples/train_recsys.py``'s loop on the card (a ``host`` or a
+    device table): losses, step ms, the host gather and AsyncLookup's
+    wait, the backward's memory growth."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.distributed.ps import (AsyncLookup, SparseAdam,
+                                                 SparseEmbedding)
+    V, D, S, B = (RECSYS[k] for k in ("vocab", "dim", "slots", "batch"))
+    paddle.set_device("gpu:0")
+    rng = np.random.default_rng(0)
+    emb = SparseEmbedding(V, D, host=host, seed=1)
+    tower = nn.Sequential(nn.Linear(S * D, 64), nn.ReLU(), nn.Linear(64, 1))
+    tower.set_state_dict(tower_state)
+    opt_dense = paddle.optimizer.Adam(learning_rate=1e-3,
+                                      parameters=tower.parameters())
+    opt_sparse = SparseAdam(emb, learning_rate=1e-2)
+    prefetch = AsyncLookup(emb) if host else None
+
+    def batch():
+        ids = rng.integers(0, V, (B, S)).astype(np.int64)
+        y = ((ids.sum(1) % 97) / 96.0).astype(np.float32)[:, None]
+        return ids, y
+
+    ids_np, y_np = batch()
+    losses, times, waits, growth = [], [], [], 0
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ids_next, y_next = batch()
+        if prefetch is not None:
+            prefetch.prefetch(ids_next)
+        out = emb(paddle.to_tensor(ids_np))
+        pred = tower(paddle.reshape(out, [B, S * D]))
+        loss = ((pred - paddle.to_tensor(y_np)) ** 2).mean()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss.backward()
+        torch.cuda.synchronize()
+        growth = max(growth, torch.cuda.max_memory_allocated() - base)
+        opt_sparse.step(emb.sparse_grad())
+        opt_dense.step()
+        opt_dense.clear_grad()
+        losses.append(float(loss))
+        if prefetch is not None:
+            w0 = time.time()
+            prefetch.take()
+            waits.append(time.time() - w0)
+        times.append(time.time() - t0)
+        ids_np, y_np = ids_next, y_next
+    m = {"host": host, "losses": losses,
+         "step_ms": float(np.median(times[1:])) * 1e3,
+         "device_bytes": emb.device_bytes(),
+         "table_bytes": V * D * 4, "backward_growth_bytes": growth}
+    if host:
+        gathers = []
+        for _ in range(5):
+            flat = batch()[0].reshape(-1)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            emb._gather(flat)
+            torch.cuda.synchronize()
+            gathers.append(time.time() - t0)
+        g_ms = float(np.median(gathers)) * 1e3
+        w_ms = float(np.median(waits[1:])) * 1e3
+        m.update({"host_gather_ms": g_ms, "take_wait_ms": w_ms,
+                  "hidden_share": max(0.0, 1.0 - w_ms / g_ms)})
+    return m
+
+
+def ps_rank(out, place="gpu:0", steps=3):
+    """One rank of phase 49's vocab-sharded job: a host
+    ``DistributedSparseEmbedding`` at the recsys vocabulary over the gloo
+    group, lookups and pushes (SparseSGD) beside the whole table in this
+    process (the single-process run), the gaps written to
+    ``out/ps{rank}.json``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.ps import (DistributedSparseEmbedding,
+                                                 SparseEmbedding, SparseSGD,
+                                                 distributed_push_sparse)
+    V, D, S, B = (RECSYS[k] for k in ("vocab", "dim", "slots", "batch"))
+    paddle.set_device(place)
+    C.init_parallel_env(timeout=300)
+    r = C.get_rank()
+    table = DistributedSparseEmbedding(V, D, host=True, seed=1)
+    whole = SparseEmbedding(V, D, host=True, seed=1)
+    rng = np.random.default_rng(49)
+    row_gap = 0.0
+    for _ in range(steps):
+        ids = paddle.to_tensor(rng.integers(0, V, (B, S)))
+        got, want = table(ids), whole(ids)
+        row_gap = max(row_gap, float((got._value - want._value).abs().max()))
+        (got * got).sum().backward()
+        distributed_push_sparse(table, SparseSGD(table.local, 0.1))
+        (want * want).sum().backward()
+        SparseSGD(whole, 0.1).step()
+    full = table.weight_full()
+    res = {"rank": r, "world": C.get_world_size(), "row_gap": row_gap,
+           "table_gap": float(np.abs(full - whole.weight).max()),
+           "shard_rows": table.shard, "rows_on": str(got._value.device)}
+    with open(os.path.join(out, f"ps{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def recsys_phase(tmp, place="gpu:0"):
+    """Phase 49 (cell RS): ``examples/train_recsys.py`` on the card with a
+    host and a device table, then its 2-rank vocab-sharded job."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as nn
+    paddle.set_device("gpu:0")
+    paddle.seed(SEED)
+    S, D = RECSYS["slots"], RECSYS["dim"]
+    tower = nn.Sequential(nn.Linear(S * D, 64), nn.ReLU(), nn.Linear(64, 1))
+    state = {k: v.numpy().copy() for k, v in tower.state_dict().items()}
+    runs = {h: recsys_run(h, state) for h in (True, False)}
+    hm, dm = runs[True], runs[False]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hm["losses"],
+                                                   dm["losses"]))
+    log(f"  host table: {json.dumps(hm)}")
+    log(f"  device table: {json.dumps(dm)}")
+    check(rel <= 1e-6, f"host and device tables' losses part by {rel}")
+    check(hm["device_bytes"] == 0, f"host table on the card: "
+          f"{hm['device_bytes']} bytes")
+    check(dm["backward_growth_bytes"] < dm["table_bytes"] / 2,
+          f"a backward grew memory by {dm['backward_growth_bytes']} bytes "
+          f"(table {dm['table_bytes']}): a dense gradient?")
+    check(hm["losses"][-1] < hm["losses"][0], f"recsys loss did not fall: "
+          f"{hm['losses']}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rc, lines, secs = run_launcher(f"cs.ps_rank({tmp!r}, {place!r})\n",
+                                   tmp, 2)
+    check(rc == 0, f"sharded job rc {rc}: {lines[-5:]} "
+          f"{worker_logs(tmp, 2)}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"ps{r}.json")) as f:
+            res.append(json.load(f))
+        log(f"  rank {r}: {json.dumps(res[-1])}")
+        check((res[-1]["rank"], res[-1]["world"]) == (r, 2),
+              f"rank {r}: {res[-1]}")
+        check(res[-1]["row_gap"] <= 1e-6 and res[-1]["table_gap"] <= 1e-6,
+              f"rank {r}: sharded rows / table part from the single-process "
+              f"run by {res[-1]['row_gap']} / {res[-1]['table_gap']}")
+    m = {"loss_rel_host_device": rel, "sharded_job_s": secs}
+    log(f"  {json.dumps(m)}")
+    return m
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7932,6 +8463,11 @@ def main() -> int:
           for M in (8, 2048)
           for K, N in ((2048, 2048), (2048, 5504), (5504, 2048),
                        (2048, 32000))]
+    # BERT-base's quantized linears (phase 47): the encoder's at M = B 32
+    # x S 128, the pooler's and the 2-class head's at M = 32
+    mm += [matmul_case(M, K, N, seed=M + K + N)
+           for M, K, N in ((4096, 768, 768), (4096, 768, 3072),
+                           (4096, 3072, 768), (32, 768, 2))]
     torch.cuda.synchronize()
 
     log("== phase 4: serving engine, full width, bf16")
@@ -8024,7 +8560,9 @@ def main() -> int:
                      4, 512, 512, 16, 16, 128, True, seed=26, dlse=True),
           flash_case("(g) ring block B=4 S=512 H=Hk=16 D=128 non-causal, "
                      "dlse", 4, 512, 512, 16, 16, 128, False, seed=27,
-                     dlse=True)]
+                     dlse=True),
+          flash_case("(h) BERT-base B=32 S=128 H=Hk=12 D=64 non-causal",
+                     32, 128, 128, 12, 12, 64, False, seed=28)]
     torch.cuda.empty_cache()
 
     log("== phase 8: training, full width, bf16, use_kernels + full remat")
@@ -8270,7 +8808,23 @@ def main() -> int:
         "ep 4")
     c46a, c46b = hybrid_phase(m45)
     log(f"  nvidia-smi: {card}")
-    trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b)
+
+    log("== phase 47: BERT-base fine-tuning through paddle.Model (cell BT), "
+        "O1, B 32 x S 128; evaluate and predict; the int8 network")
+    _, c47 = bert_phase()
+    launches = {k: launches[k] + c47[k] for k in launches}
+    log(f"  nvidia-smi: {card}")
+    log("== phase 48: fp32 parity of Model.train_batch on the card against "
+        "the CPU (hidden 256, 4 heads of D 64, 4 layers), O1, GradScaler at "
+        "float16, PyLayer")
+    c48 = bert_parity_phase()
+    log("== phase 49: examples/train_recsys.py on the card (cell RS): host "
+        "and device tables, AsyncLookup, the 2-rank vocab-sharded job")
+    with tempfile.TemporaryDirectory() as tmp:
+        recsys_phase(tmp)
+    log(f"  nvidia-smi: {card}")
+    trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c47,
+               c48)
     normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b)
 
     log("== main paths driven: " + ", ".join(PATHS))

@@ -14,6 +14,10 @@ never ``jax`` and nothing of ``paddle_tpu``. It holds:
   its fleet, front end and tensor-parallel tier (``inference/serving``);
 * fault tolerance (checkpoints, the health ladder, the DataLoader) and
   the distributed launcher;
+* ``amp`` (``auto_cast``, ``GradScaler``), ``autograd.PyLayer``, the
+  high-level API (``Model`` and ``summary``, ``metric``, ``callbacks``),
+  BERT's layers and the parameter-server tables
+  (``distributed/ps.py``);
 * the hand-written CUDA C++ kernels for Hopper (``csrc/``: paged
   attention, the int8 matmul, flash attention forward and backward,
   RMSNorm, RoPE), built with ``nvcc`` at first use (``kernels/build.py``).
@@ -52,6 +56,7 @@ from .ops import seed  # paddle.seed is the RNG seed
 _LAZY_SUBMODULES = (
     "nn", "optimizer", "io", "distributed", "framework", "incubate",
     "kernels", "regularizer", "inference", "models", "testing", "health",
+    "amp", "autograd", "metric", "callbacks", "hapi",
 )
 
 
@@ -66,6 +71,14 @@ def __getattr__(name):
         fn = getattr(mod, name)
         globals()[name] = fn
         return fn
+    if name == "summary":
+        from .hapi import summary as fn
+        globals()[name] = fn
+        return fn
+    if name == "Model":
+        from .hapi import Model as cls
+        globals()[name] = cls
+        return cls
     if name == "disable_static":
         return lambda *a, **k: None
     if name == "in_dynamic_mode":

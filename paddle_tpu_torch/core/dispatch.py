@@ -5,11 +5,14 @@ the torch values of the Tensor arguments, runs ``fn`` on them, and wraps
 the outputs. PyTorch's autograd records the graph as ``fn`` runs (under
 ``torch.no_grad()`` when ``differentiable=False``), so there is no tape
 here. It keeps the reference's ``FLAGS_check_nan_inf`` scan
-(:func:`_maybe_check_nan`) and its typed, op-named errors
-(``enforce.translate_op_error``).
+(:func:`_maybe_check_nan`), its typed, op-named errors
+(``enforce.translate_op_error``) and its AMP hook: under
+``amp.auto_cast`` the op's input values are cast by
+``amp.auto_cast.amp_cast_inputs`` before ``fn`` sees them, on every route
+(in a distributed region, per coordinate).
 
-Left out for now, with their packages (ROADMAP §A item 11): the AMP
-autocast hook (``amp/``) and the static-Program recorder (``static/``).
+Left out for now, with its package (ROADMAP §A item 11): the
+static-Program recorder (``static/``).
 
 ``OP_REGISTRY`` is the schema registry in the spirit of the reference's
 ``ops.yaml``: the op modules register under the reference's names and
@@ -62,6 +65,8 @@ def forward_op(name: str, fn: Callable, args: Sequence[Any],
     returns a Tensor, or a tuple of them mirroring ``fn``'s outputs."""
     from .tensor import Tensor
     kwargs = kwargs or {}
+    if _amp_state().enable:
+        fn = _amp_cast(name, fn)
     if _Regions.active is not None:
         return _Regions.active.run(name, fn, args, kwargs, differentiable)
     vals = [a._value if isinstance(a, Tensor) else a for a in args]
@@ -76,6 +81,28 @@ def forward_op(name: str, fn: Callable, args: Sequence[Any],
         raise translate_op_error(e, name, vals) from e
     _maybe_check_nan(name, out)
     return _wrap_outputs(out)
+
+
+_AMP = []
+
+
+def _amp_state():
+    """``amp.auto_cast``'s thread-local state (imported on first use: the
+    amp package imports the tensor core)."""
+    if not _AMP:
+        from ..amp.auto_cast import _amp_state as st
+        _AMP.append(st)
+    return _AMP[0]
+
+
+def _amp_cast(name: str, fn: Callable) -> Callable:
+    """``fn`` with its positional values cast by the active auto_cast
+    state (the reference's generated AMP checks)."""
+    from ..amp.auto_cast import amp_cast_inputs
+
+    def cast_fn(*vals, **kw):
+        return fn(*amp_cast_inputs(name, vals), **kw)
+    return cast_fn
 
 
 def _wrap_outputs(out):

@@ -15,11 +15,14 @@ region (``dist_tensor``: ``DistParameter``, ``shard_map``), the
 auto-parallel API (``ProcessMesh``, ``shard_tensor``, ``reshard``, ...),
 ``DataParallel``, the ZeRO stages (``group_sharded_parallel``) and
 ``fleet``'s mpu layers, recompute, sequence parallelism and
-``distributed_model`` / ``distributed_optimizer``."""
+``distributed_model`` / ``distributed_optimizer``; and the
+parameter-server tables (``ps``: ``SparseEmbedding``, the sparse
+optimizers, ``DistributedSparseEmbedding``, ``AsyncLookup``)."""
 
 from . import checkpoint
 from . import elastic
 from . import fleet
+from . import ps
 from . import rpc
 from . import sharding
 from .auto_parallel import (Partial, Placement, ProcessMesh, Replicate, Shard,
@@ -40,6 +43,8 @@ from .moe_utils import (assign_pos, expert_count, global_gather,
 from .context_parallel import (ring_flash_attention, sep_parallel_attention,
                                ulysses_attention)
 from .moe import GShardGate, MoELayer, NaiveGate, SwitchGate
+from .ps import (AsyncLookup, DistributedSparseEmbedding, SelectedRows,
+                 SparseAdagrad, SparseAdam, SparseEmbedding, SparseSGD)
 from .pipeline import (LayerDesc, PipelineLayer, PipelineParallel,
                        SharedLayerDesc, pipeline_scan, pipeline_ticks,
                        ring_schedule)
@@ -52,7 +57,9 @@ __all__ = ["Partial", "Placement", "ProcessMesh", "Replicate", "Shard",
            "dtensor_from_fn", "get_mesh", "reshard", "set_mesh",
            "shard_layer", "shard_tensor", "DistParameter", "DistTensor",
            "PartitionSpec", "shard_map", "DataParallel", "ParallelEnv",
-           "group_sharded_parallel", "rpc", "sharding", "MoELayer",
+           "group_sharded_parallel", "rpc", "sharding", "MoELayer", "ps",
+           "SelectedRows", "SparseEmbedding", "DistributedSparseEmbedding",
+           "SparseSGD", "SparseAdagrad", "SparseAdam", "AsyncLookup",
            "NaiveGate", "SwitchGate", "GShardGate", "LayerDesc",
            "SharedLayerDesc", "PipelineLayer", "PipelineParallel",
            "checkpoint", "elastic", "fleet", "save_state_dict", "load_state_dict",

@@ -365,6 +365,12 @@ define_flag("FLAGS_emergency_ckpt_deadline_s", 10.0,
 # knobs sentinel_check, HealthMonitor and DataLoader read when their caller
 # leaves them unset.
 # ---------------------------------------------------------------------------
+define_flag("FLAGS_health_sentinel", False,
+            "Default for Model.prepare's sentinel knob: fuse the on-device "
+            "NaN/Inf/loss-spike detector into the fused train step and skip "
+            "bad updates. The fused step needs the jit package (ROADMAP "
+            "section A, item 4); until then Model.prepare warns and ignores "
+            "the knob.", bool)
 define_flag("FLAGS_health_spike_factor", 0.0,
             "Loss-spike threshold: a step is bad when loss > factor * |EMA| "
             "(after FLAGS_health_spike_warmup good steps). 0 disables the "

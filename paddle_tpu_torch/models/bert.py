@@ -1,11 +1,21 @@
-"""BERT encoder, functional half — the serving engine's embeddings model.
+"""BERT — counterpart of ``paddle_tpu/models/bert.py``.
 
-Counterpart of the functional part of ``paddle_tpu/models/bert.py``
-(``BertConfig``, ``bert_init_params``, ``_bert_ln``, ``bert_encode``): a
-pure ``(params, ids, lengths) -> pooled [B, E]`` function over STACKED
-per-layer params. Post-norm BERT blocks, bidirectional length-masked
-attention, first-token tanh pooler; no dropout (inference) and no
-token-type embeddings (single-segment requests).
+The eager ``Layer`` classes (``BertEmbeddings``, ``BertPooler``,
+``BertModel``, ``BertForSequenceClassification``,
+``BertForPretraining``; PaddleNLP's BERT, the fine-tune model) are built
+on the port's ``nn.TransformerEncoder``: post-norm blocks whose attention
+is ``nn.functional.scaled_dot_product_attention``, so a call on the card
+with no mask and no active dropout takes the flash kernels. An
+``attention_mask`` ``[B, S]`` of 1/0 becomes the reference's additive
+``[B, 1, 1, S]`` mask (0 visible, -1e4 masked), which takes the plain
+attention.
+
+The functional half (``bert_init_params``, ``_bert_ln``, ``bert_encode``)
+is the serving engine's embeddings model: a pure ``(params, ids,
+lengths) -> pooled [B, E]`` function over STACKED per-layer params.
+Post-norm BERT blocks, bidirectional length-masked attention, first-token
+tanh pooler; no dropout (inference) and no token-type embeddings
+(single-segment requests).
 
 The reference reaches no Pallas kernel here (einsum, softmax, GELU,
 LayerNorm), so the matrix products stay ``torch.matmul`` in fp32. The
@@ -14,24 +24,25 @@ reference's numerics are kept on purpose: GELU is the tanh approximation
 ``layer_norm_eps``, the key mask is an additive -1e9, and pad rows
 (``lengths == 0``) see their own position 0. TF32 is never enabled
 here: a product runs at full fp32 unless the caller turned TF32 on.
-
-The eager ``Layer`` classes of the reference (``BertModel`` and the heads)
-are not ported yet (ROADMAP.md section A item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..nn import (Dropout, Embedding, LayerNorm, Linear, Tanh,
+                  TransformerEncoder, TransformerEncoderLayer)
+from ..nn.layer import Layer
 
-__all__ = ["BertConfig", "bert_init_params", "bert_encode"]
+__all__ = ["BertConfig", "BertModel", "BertForSequenceClassification",
+           "BertForPretraining", "bert_init_params", "bert_encode"]
 
 
 @dataclasses.dataclass
@@ -48,6 +59,125 @@ class BertConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     pad_token_id: int = 0
+
+
+class BertEmbeddings(Layer):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings,
+                                             cfg.hidden_size)
+        self.token_type_embeddings = Embedding(cfg.type_vocab_size,
+                                               cfg.hidden_size)
+        self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+        from ..ops.creation import arange, zeros_like
+        from ..ops.manipulation import expand
+        B, S = input_ids.shape
+        if position_ids is None:
+            position_ids = expand(arange(S, dtype="int64"), [B, S])
+        if token_type_ids is None:
+            token_type_ids = zeros_like(input_ids)
+        x = (self.word_embeddings(input_ids)
+             + self.position_embeddings(position_ids)
+             + self.token_type_embeddings(token_type_ids))
+        return self.dropout(self.layer_norm(x))
+
+
+class BertPooler(Layer):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.activation = Tanh()
+
+    def forward(self, hidden):
+        return self.activation(self.dense(hidden[:, 0]))
+
+
+class BertModel(Layer):
+    """ref: paddlenlp BertModel (embeddings + encoder + pooler); returns
+    ``(sequence [B, S, E], pooled [B, E])``."""
+
+    def __init__(self, config: BertConfig = None, **kwargs):
+        super().__init__()
+        cfg = config or BertConfig(**kwargs)
+        self.config = cfg
+        self.embeddings = BertEmbeddings(cfg)
+        enc_layer = TransformerEncoderLayer(
+            cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size,
+            dropout=cfg.hidden_dropout_prob, activation=cfg.hidden_act,
+            attn_dropout=cfg.attention_probs_dropout_prob,
+            act_dropout=0.0, layer_norm_eps=cfg.layer_norm_eps)
+        self.encoder = TransformerEncoder(enc_layer, cfg.num_hidden_layers)
+        self.pooler = BertPooler(cfg)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        x = self.embeddings(input_ids, token_type_ids, position_ids)
+        if attention_mask is not None:
+            # [B, S] 1/0 mask -> additive [B, 1, 1, S]: 0 visible, -1e4 masked
+            from ..ops.manipulation import reshape
+            from ..ops.math import cast
+            m = cast(attention_mask, "float32")
+            B, S = input_ids.shape
+            attention_mask = (reshape(m, [B, 1, 1, S]) - 1.0) * 1e4
+        seq = self.encoder(x, attention_mask)
+        return seq, self.pooler(seq)
+
+
+class BertForSequenceClassification(Layer):
+    def __init__(self, config: BertConfig = None, num_classes: int = 2,
+                 dropout: Optional[float] = None, **kwargs):
+        super().__init__()
+        self.bert = BertModel(config, **kwargs)
+        cfg = self.bert.config
+        self.dropout = Dropout(dropout if dropout is not None
+                               else cfg.hidden_dropout_prob)
+        self.classifier = Linear(cfg.hidden_size, num_classes)
+        self.num_classes = num_classes
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None, labels=None):
+        _, pooled = self.bert(input_ids, token_type_ids, position_ids,
+                              attention_mask)
+        logits = self.classifier(self.dropout(pooled))
+        if labels is not None:
+            from ..nn import functional as F
+            return F.cross_entropy(logits, labels), logits
+        return logits
+
+
+class BertForPretraining(Layer):
+    """MLM + NSP heads (ref: BertForPretraining)."""
+
+    def __init__(self, config: BertConfig = None, **kwargs):
+        super().__init__()
+        self.bert = BertModel(config, **kwargs)
+        cfg = self.bert.config
+        self.transform = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.transform_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.decoder = Linear(cfg.hidden_size, cfg.vocab_size)
+        self.seq_relationship = Linear(cfg.hidden_size, 2)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                masked_lm_labels=None, next_sentence_labels=None):
+        from ..nn import functional as F
+        seq, pooled = self.bert(input_ids, token_type_ids,
+                                attention_mask=attention_mask)
+        h = self.transform_ln(F.gelu(self.transform(seq)))
+        mlm_logits = self.decoder(h)
+        nsp_logits = self.seq_relationship(pooled)
+        if masked_lm_labels is None:
+            return mlm_logits, nsp_logits
+        mlm = F.cross_entropy(
+            mlm_logits.reshape([-1, mlm_logits.shape[-1]]),
+            masked_lm_labels.reshape([-1]), ignore_index=-100)
+        loss = mlm
+        if next_sentence_labels is not None:
+            loss = loss + F.cross_entropy(nsp_logits, next_sentence_labels)
+        return loss
 
 
 def bert_init_params(cfg: BertConfig, seed: int = 0,

@@ -1,8 +1,8 @@
 """paddle.nn — counterpart of ``paddle_tpu/nn``: ``Layer``, ``ParamAttr``,
-the initializers, gradient clipping, and the layers ported so far. The
-reference's conv, pooling, RNN, transformer and the remaining loss and
-common layers, ``nn.utils``, ``nn.quant`` and the layout helpers are
-ROADMAP §A item 11."""
+the initializers, gradient clipping, the layers ported so far (the
+transformer layers among them) and ``nn.quant``. The reference's conv,
+pooling, RNN and the remaining loss and common layers, ``nn.utils`` and
+the layout helpers are ROADMAP §A item 11."""
 
 from . import functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
@@ -21,3 +21,8 @@ from .layers.norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                           GroupNorm, InstanceNorm1D, InstanceNorm2D, InstanceNorm3D,
                           LayerNorm, LocalResponseNorm, RMSNorm, SpectralNorm,
                           SyncBatchNorm)
+from .layers.transformer import (MultiHeadAttention, Transformer,
+                                 TransformerDecoder, TransformerDecoderLayer,
+                                 TransformerEncoder, TransformerEncoderLayer)
+
+from . import quant  # noqa: E402

@@ -14,6 +14,8 @@ heads a multiple of the kv heads, causal only with ``Sq <= Sk``). The
 TPU gate (``D % 128``, ``Sq % 128``) belonged to that kernel's tiles. Every
 other call runs :func:`_sdpa_ref`, as the reference does. The route is
 an explicit condition; the kernel's launch counters show which ran.
+It is taken on the values the op runs on, after ``amp.auto_cast`` has
+cast them: under ``dtype="float16"`` attention runs the plain formula.
 """
 
 from __future__ import annotations
@@ -86,11 +88,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
         shape = (q0.shape[0], q0.shape[2], q0.shape[1], k0.shape[1])
         keep = torch.empty(shape, device=q0.device).uniform_(
             generator=generator(q0.device)) < (1.0 - p)
-    use_flash = flash_route(query._value, key._value, value._value, is_causal,
-                            attn_mask, p)
 
     def impl(q, k, v, *m):
-        if use_flash:
+        # decided on the values the op runs on (an auto_cast may have cast
+        # them: float16 takes the plain formula)
+        if flash_route(q, k, v, is_causal, m[0] if m else None, p):
             from ...kernels.flash_attention import flash_attention
             return flash_attention(q, k, v, causal=is_causal)
         return _sdpa_ref(q, k, v, m[0] if m else None, p, is_causal, keep=keep)

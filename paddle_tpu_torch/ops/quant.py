@@ -1,8 +1,10 @@
-"""Weight-only int8 linear — the eager caller of the int8 matmul kernel,
-counterpart of ``paddle_tpu/ops/quant.py:299-328`` (``weight_only_linear``).
-The reference's fake-quant observers, ``quantize_linear`` /
-``dequantize_linear``, ``weight_quantize`` / ``weight_dequantize`` and
-``llm_int8_linear`` are still to be ported (ROADMAP §A item 11).
+"""Weight-only int8 quantization — counterpart of
+``paddle_tpu/ops/quant.py:270-328``: ``weight_quantize`` /
+``weight_dequantize`` (per-output-column symmetric int8 scales) and
+``weight_only_linear``, the eager caller of the int8 matmul kernel. The
+reference's fake-quant observers, ``quantize_linear`` /
+``dequantize_linear`` and ``llm_int8_linear`` are still to be ported
+(ROADMAP §A item 11).
 
 On a CUDA tensor the product launches ``csrc/quant_matmul.cu`` through
 ``kernels.quant_matmul.weight_only_matmul``; on a CPU tensor it runs that
@@ -20,7 +22,7 @@ import torch
 from ..device import on_cuda
 from ._helpers import ensure_tensor, forward_op
 
-__all__ = ["weight_only_linear"]
+__all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear"]
 
 
 class _WeightOnlyLinear(torch.autograd.Function):
@@ -47,6 +49,32 @@ class _WeightOnlyLinear(torch.autograd.Function):
         if x is not None:
             dscale = ((x.to(g.dtype).T @ g) * w.to(g.dtype)).sum(0)
         return dx, None, dscale
+
+
+def weight_quantize(w, algo: str = "weight_only_int8", name=None):
+    """Per-output-column symmetric int8 quantization of ``w [K, N]``:
+    ``(int8 [K, N], scales [N] fp32)`` with ``w ~ q * scale`` (ref:
+    paddle.incubate.nn.functional.weight_quantize; the kernel reads the
+    natural [K, N] layout, so there is no repack)."""
+    if algo not in ("weight_only_int8", "llm.int8"):
+        raise ValueError(f"unsupported algo {algo!r} (int4 packing has no "
+                         "kernel here)")
+
+    def impl(wv):
+        scale = torch.clamp(wv.abs().amax(dim=0), min=1e-8)          # [N]
+        q = torch.clamp(torch.round(wv / scale[None, :] * 127.0), -127, 127)
+        return q.to(torch.int8), (scale / 127.0).to(torch.float32)
+
+    return forward_op("weight_quantize", impl, [ensure_tensor(w)],
+                      differentiable=False)
+
+
+def weight_dequantize(w, scale, name=None):
+    """Inverse of :func:`weight_quantize`: ``w_int8 * scale`` as fp32."""
+    return forward_op(
+        "weight_dequantize",
+        lambda wv, sv: wv.to(torch.float32) * sv[None, :],
+        [ensure_tensor(w), ensure_tensor(scale)], differentiable=False)
 
 
 def weight_only_linear(x, weight, scale, bias=None, weight_dtype="int8",

@@ -25,10 +25,14 @@ import numpy as np
 import pytest
 
 import paddle_tpu as J
+import paddle_tpu.distributed.ps  # noqa: F401 — registers its ops
 import paddle_tpu.incubate.nn.functional  # noqa: F401 — registers its ops
+import paddle_tpu.metric  # noqa: F401
 import paddle_tpu.nn.functional  # noqa: F401
 import paddle_tpu_torch as T
+import paddle_tpu_torch.distributed.ps  # noqa: F401
 import paddle_tpu_torch.incubate.nn.functional  # noqa: F401
+import paddle_tpu_torch.metric  # noqa: F401
 import paddle_tpu_torch.nn.functional  # noqa: F401
 from paddle_tpu.core.dispatch import OP_REGISTRY as JR
 from paddle_tpu.ops.sweep_specs import attach_specs
@@ -309,6 +313,11 @@ NOT_SWEPT = {
     "to_tensor": "creation, covered by test_torch_tensor.py",
     "nextafter": "float32 nextafter differs by design between backends "
                  "(XLA flushes denormals)",
+    **{n: "takes or returns SelectedRows; held to JAX in test_torch_ps.py"
+       for n in ("merge_selected_rows", "get_tensor_from_selected_rows")},
+    **{n: "takes a DistributedSparseEmbedding table; held to JAX in "
+          "test_torch_ps.py"
+       for n in ("distributed_lookup_table", "distributed_push_sparse")},
 }
 
 DOMAINS = {
