@@ -531,6 +531,43 @@ Phases (each fails the run on any error; none catches and carries on):
     through the launcher (both ranks on ``cuda:0``, gloo), its looked-up
     rows and trained table within 1e-6 of the whole table in one process.
 
+50. The captured train step (``paddle_tpu_torch.jit``: one CUDA graph a
+    step). (a) Phase 45's ``LlamaForCausalLM`` at F's configuration
+    through ``make_train_step(net, AdamW(1e-4), loss)``: three eager steps
+    from ``init_params`` seed 0, then a fresh net from the same seed
+    through the captured step on the same batches (an eager warm-up, the
+    capture, a replay): each loss within 5e-3 x |loss| of the eager one
+    (bit-equality printed); four timed replays (step ms beside phase 45's,
+    peak memory beside phase 45's), exactly F's launches a step counted on
+    the replays, one profiled replay (busy share, ``cudaGraphLaunch``
+    against ``cudaLaunchKernel`` calls, each port kernel's device ms).
+    (b) E's width at fp32 with the kernels: a ``to_static``
+    forward-backward's loss (1e-5) and every ``.grad`` (1e-4 x max|g|)
+    against eager; four AdamW steps under a ``StepDecay`` stepped between
+    replays against eager (losses 1e-5, weights 1e-5 x max|p|); dropout
+    masks that differ between replays; ``sentinel=True`` on a NaN batch
+    (an out-of-vocab id) leaving every parameter and moment bit-unchanged,
+    and the sentinel's cost a step. (c) On CUDA tensors against eager: a
+    tensor ``if`` (dy2static), a ``return`` in a tensor branch
+    (``backend="sot"``) and a tensor ``while_loop``. The eager fallbacks
+    the reference also takes (GradScaler, ``enable_to_static(False)``,
+    SOT's graph break, a nested ``to_static``) are counted and printed.
+51. Cell BT through ``prepare(..., jit=True)``: phase 47's loop (BERT-base,
+    B 32 x S 128, O1, AdamW 3e-4, dropout 0.1) on the captured step: step
+    ms, samples/s, MFU, peak, a profiled step's busy share and launch
+    calls, beside phase 47's; then dropout 0: three ``train_batch`` losses
+    within 5e-3 x |loss| of the eager ``train_batch``'s from the same
+    weights, the metrics equal.
+52. Deployment: ``Model.save(path, training=False)`` of phase 51's
+    network (fp32; ``jit.save``'s ``torch.export`` program), the network
+    dropped, ``inference.create_predictor(Config(...))`` over 4 batches
+    through the handles: exactly 12 flash forwards a batch, logits within
+    1e-4 x max|logit| of the fp32 eval forward, a batch of 8 served by the
+    same artifact; then its ``quantize_linears`` network: 74
+    ``weight_only_matmul`` launches a forward, logits within 1e-4 x
+    max|logit| of the eager int8 network's. The exports' seconds and the
+    predictors' ms a batch beside the eager forwards'.
+
 Each phase's wall seconds print as the next phase (or the closing line)
 begins.
 
@@ -556,12 +593,14 @@ the int8 replays) and 33 (the first tp-2 turn and the int8 tp-2 drain)
 together,
 and 45 (d),
 the flash launches of phases 8, 34, 36, 38, 39, 41 (both ranks' F
-steps), 43, 45, 46, 47 (evaluate and predict) and 48 (the card's
-``train_batch``), the int8 matmul launches of phase 47's quantized
-predict, and the RMSNorm and RoPE launches of phases 11,
-34, 36, 38, 39, 41, 43, 45 and 46 (RoPE: forward and backward together;
-45: the timed eager steps and the eager callers of (d); 46: the timed
-steps of (a) and (b)).
+steps), 43, 45, 46, 47 (evaluate and predict), 48 (the card's
+``train_batch``), 50 (the timed replays of (a), the forward-backward
+calls of (b)), 51 (the dropout-0 captured run) and 52 (both
+predictors), the int8 matmul launches of phases 47 (quantized predict)
+and 52 (the int8 predictor), and the RMSNorm and RoPE launches of phases
+11, 34, 36, 38, 39, 41, 43, 45, 46 and 50 (RoPE: forward and backward
+together; 45: the timed eager steps and the eager callers of (d); 46: the
+timed steps of (a) and (b); 50: as for the flash launches).
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -592,7 +631,8 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "pipelined training", "context-parallel training",
          "launched training", "elastic restarts", "expert-parallel training",
          "eager API", "eager hybrid parallel", "BERT fine-tuning (hapi)",
-         "parameter-server tables")
+         "parameter-server tables", "captured train step (jit)",
+         "BERT fine-tuning (hapi, jit)", "deployment predictor")
 
 
 def check(cond, msg):
@@ -1448,7 +1488,8 @@ def profile_device(run, label, top=6):
     of PyTorch's elementwise kernels and of each of the port's kernels,
     the kernels that took the most device time, and the host ops that
     took the most self CPU time (ms and calls; the profiler's own cost
-    included), and the kernel launch calls (``launch_calls``)."""
+    included), the kernel launch calls (``launch_calls``) and the CUDA
+    graph launches (``graph_launch_calls``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1478,9 +1519,11 @@ def profile_device(run, label, top=6):
     launch_calls = sum(n for k, (_, n) in host_sums.items()
                        if k in ("cudaLaunchKernel", "cuLaunchKernelEx",
                                 "cudaLaunchKernelExC"))
+    graph_calls = sum(n for k, (_, n) in host_sums.items()
+                      if k == "cudaGraphLaunch")
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms,
-           "launch_calls": launch_calls,
+           "launch_calls": launch_calls, "graph_launch_calls": graph_calls,
            "elementwise_ms": elementwise_ms,
            "port_kernels_ms": {k: kernels[k] / 1e3 for k in PORT_KERNELS
                                if k in kernels},
@@ -7946,7 +7989,7 @@ def bert_data(cfg, n, seq, seed):
     return ids, (ids[:, 0] >= cfg.vocab_size // 2).astype("int64")
 
 
-def _bert_model(paddle, net, amp_configs=None, lr=3e-4):
+def _bert_model(paddle, net, amp_configs=None, lr=3e-4, jit=False):
     class Net(paddle.nn.Layer):
         def __init__(self, bert):
             super().__init__()
@@ -7959,7 +8002,7 @@ def _bert_model(paddle, net, amp_configs=None, lr=3e-4):
     model.prepare(optimizer=paddle.optimizer.AdamW(
         learning_rate=lr, parameters=net.parameters()),
         loss=paddle.nn.CrossEntropyLoss(), metrics=paddle.metric.Accuracy(),
-        amp_configs=amp_configs)
+        amp_configs=amp_configs, jit=jit)
     return model
 
 
@@ -8402,6 +8445,532 @@ def recsys_phase(tmp, place="gpu:0"):
     return m
 
 
+# ---------------------------------------------------------------------------
+# phases 50-52: the captured step (jit), hapi's jit path, deployment
+# ---------------------------------------------------------------------------
+
+def _jit_fallbacks():
+    from paddle_tpu_torch.jit import fallbacks
+    return dict(fallbacks)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def captured_llama_phase(m45, batch=8, seq=2048, timed=4):
+    """Phase 50 (a): phase 45's ``LlamaForCausalLM`` at F's configuration
+    through ``make_train_step``: three eager steps from ``init_params``
+    seed 0, then a fresh net from the same seed through the captured step
+    on the same batches (an eager warm-up, the capture, a replay), then
+    ``timed`` timed replays and a profiled one. Returns (metrics, the
+    timed replays' launches)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    paddle.set_device("gpu:0")
+    cfg = train_config(torch.bfloat16, use_fused_norm=True)
+    rng = np.random.default_rng(SEED + 50)
+    ids = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+           .cuda() for _ in range(3)]
+
+    net = LlamaForCausalLM(cfg, seed=SEED)
+    opt = paddle.optimizer.AdamW(1e-4, parameters=net.parameters())
+    eager = []
+    for b in ids:
+        x = paddle.to_tensor(b)
+        loss = net(x, x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        eager.append(loss.item())
+    del net, opt, loss
+    torch.cuda.empty_cache()
+
+    net = LlamaForCausalLM(cfg, seed=SEED)
+    opt = paddle.optimizer.AdamW(1e-4, parameters=net.parameters())
+    step = paddle.jit.make_train_step(net, opt, lambda loss: loss)
+    check(step.donate, "the captured step does not donate on the card")
+    captured, secs = [], []
+    for b in ids:
+        x = paddle.to_tensor(b)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        captured.append(step([x, x]).item())
+        secs.append(time.time() - t0)
+    rels = [_rel(c, e) for c, e in zip(captured, eager)]
+    log(f"  (a) losses eager {eager}, captured {captured} (warm-up, "
+        f"capture + replay, replay; {[round(s, 3) for s in secs]} s); rel "
+        f"{rels}; bit-equal {[c == e for c, e in zip(captured, eager)]}")
+    for r in rels:
+        check(r <= 5e-3, f"captured F loss rel {r} from eager")
+
+    x = paddle.to_tensor(ids[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step([x, x]).item()
+        times.append(time.time() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # a replay allocates nothing: the graph's pool is reserved memory
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    per_step = {k: v / timed for k, v in counts.items() if v}
+    want = expected_launches(cfg)
+    check(per_step == want, f"captured F launches per step {per_step}, "
+          f"expected {want}")
+    step_ms = float(np.median(times)) * 1e3
+    m = {"step_ms": step_ms, "step_ms_each": [t * 1e3 for t in times],
+         "phase45_step_ms": m45["step_ms"],
+         "tokens_per_s": batch * seq / step_ms * 1e3,
+         "max_memory_allocated_gb": peak, "memory_reserved_gb": reserved,
+         "phase45_max_memory_allocated_gb": m45["max_memory_allocated_gb"],
+         "launches_per_step": per_step, "losses_eager": eager,
+         "losses_captured": captured, "loss_rel": rels,
+         "build_s": secs[1]}
+    log(f"  (a) {json.dumps(m)}")
+    m["profile"] = profile_device(lambda: step([x, x]).item(),
+                                  "captured F step", top=10)
+    check(m["profile"].get("graph_launch_calls", 0) >= 1,
+          "the profiled captured step launched no CUDA graph")
+    del step, net, opt
+    torch.cuda.empty_cache()
+    return m, counts
+
+
+def _e_width_cfg():
+    import torch
+    return train_config(torch.float32, hidden_size=512,
+                        intermediate_size=1376, num_hidden_layers=4,
+                        num_attention_heads=8, num_key_value_heads=4,
+                        use_fused_norm=True)
+
+
+def captured_parity_phase(steps=4):
+    """Phase 50 (b): E's width at fp32 with the kernels, captured against
+    eager from the same weights: the loss and every gradient of a
+    ``to_static`` forward-backward, AdamW steps under a ``StepDecay``
+    scheduler stepped between replays, fresh dropout masks, the fused
+    sentinel on a NaN batch and its cost. Returns the launches of the
+    captured calls."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cfg = _e_width_cfg()
+    rng = np.random.default_rng(SEED + 51)
+    ids = [torch.from_numpy(rng.integers(0, 32000, (2, 512))).cuda()
+           for _ in range(steps)]
+    xs = [paddle.to_tensor(b) for b in ids]
+
+    # loss and gradients
+    ref_net = LlamaForCausalLM(cfg, seed=SEED + 2)
+    net = LlamaForCausalLM(cfg, seed=SEED + 2)
+
+    @paddle.jit.to_static
+    def fwd_bwd(x):
+        loss = net(x, x)
+        loss.backward()
+        return loss
+
+    reset_counts()
+    for x in xs[:3]:             # warm-up, capture + replay, replay
+        net.clear_gradients()
+        loss = fwd_bwd(x)
+    counts = read_counts()
+    ref = ref_net(xs[2], xs[2])
+    ref.backward()
+    rel = _rel(loss.item(), ref.item())
+    worst = max(((p.grad._value - q.grad._value).abs().max()
+                 / q.grad._value.abs().max()).item()
+                for p, q in zip(net.parameters(), ref_net.parameters()))
+    log(f"  (b) to_static loss {loss.item()} vs eager {ref.item()} (rel "
+        f"{rel}); gradients {worst} x max|g|")
+    check(rel <= 1e-5, f"captured fp32 loss rel {rel}")
+    check(worst <= 1e-4, f"captured fp32 gradient {worst} x max|g|")
+    del ref_net, net, fwd_bwd
+    torch.cuda.empty_cache()
+
+    # AdamW under a scheduler stepped between replays
+    nets, losses = [], {}
+    for compiled in (False, True):
+        n = LlamaForCausalLM(cfg, seed=SEED + 2)
+        sched = paddle.optimizer.lr.StepDecay(1e-3, step_size=1, gamma=0.5)
+        opt = paddle.optimizer.AdamW(sched, parameters=n.parameters(),
+                                     weight_decay=0.01)
+        step = paddle.jit.make_train_step(n, opt, lambda l: l)
+        out = []
+        for x in xs:
+            if compiled:
+                out.append(step([x, x]).item())
+            else:
+                l = n(x, x)
+                l.backward()
+                opt.step()
+                opt.clear_grad()
+                out.append(l.item())
+            sched.step()
+        losses[compiled] = out
+        nets.append(n)
+    loss_rel = max(_rel(a, b) for a, b in zip(losses[True], losses[False]))
+    w_gap = max(((p._value - q._value).abs().max()
+                 / q._value.abs().max()).item()
+                for p, q in zip(nets[1].parameters(), nets[0].parameters()))
+    log(f"  (b) AdamW, StepDecay between replays: losses eager "
+        f"{losses[False]}, captured {losses[True]} (worst rel {loss_rel}); "
+        f"weights {w_gap} x max|p| from eager's")
+    check(loss_rel <= 1e-5, f"captured AdamW losses rel {loss_rel}")
+    check(w_gap <= 1e-5, f"captured AdamW weights {w_gap} x max|p|")
+    del nets, step, opt
+    torch.cuda.empty_cache()
+
+    # dropout draws fresh masks on every replay
+    drop = paddle.nn.Dropout(0.5)
+    f = paddle.jit.to_static(lambda x: drop(x))
+    ones = paddle.to_tensor(torch.ones(8, 1024, device="cuda"))
+    masks = [f(ones).numpy() for _ in range(4)]
+    check(not np.array_equal(masks[2], masks[3]),
+          "two replays drew the same dropout mask")
+    check(all(abs((m != 0).mean() - 0.5) < 0.05 for m in masks),
+          "dropout keep rate off 0.5")
+
+    # the fused sentinel: a NaN batch (an out-of-vocab id embeds as NaN)
+    def guarded(sentinel):
+        n = LlamaForCausalLM(cfg, seed=SEED + 3)
+        opt = paddle.optimizer.AdamW(1e-3, parameters=n.parameters())
+        return n, opt, paddle.jit.make_train_step(n, opt, lambda l: l,
+                                                  sentinel=sentinel)
+
+    net, opt, step = guarded(True)
+    for x in xs[:3]:
+        step([x, x])
+    check(not step.sentinel.last_bad, "the sentinel flagged a clean step")
+    before = [t._value.clone() for t in
+              paddle.health.health_state_tensors(net, opt)]
+    bad_ids = ids[3].clone()
+    bad_ids[0, 0] = cfg.vocab_size
+    loss = step([paddle.to_tensor(bad_ids), xs[3]]).item()
+    after = paddle.health.health_state_tensors(net, opt)
+    intact = all(torch.equal(a._value, b) for a, b in zip(after, before))
+    log(f"  (b) sentinel: NaN batch loss {loss}, last_bad "
+        f"{step.sentinel.last_bad}, {len(before)} state tensors bit-"
+        f"unchanged: {intact}")
+    check(not np.isfinite(loss) and step.sentinel.last_bad,
+          "the sentinel missed the NaN batch")
+    check(intact, "a skipped step changed the state")
+    check(np.isfinite(step([xs[3], xs[3]]).item())
+          and not step.sentinel.last_bad, "no recovery after the NaN batch")
+
+    def replay_ms(st):
+        t = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            st([xs[0], xs[0]]).item()
+            t.append(time.time() - t0)
+        return float(np.median(t)) * 1e3
+
+    on = replay_ms(step)
+    del net, opt, step
+    torch.cuda.empty_cache()
+    net, opt, plain = guarded(False)
+    for x in xs[:2]:
+        plain([x, x])
+    off = replay_ms(plain)
+    log(f"  (b) sentinel cost: {on:.3f} ms a step guarded, {off:.3f} ms "
+        f"unguarded ({on - off:.3f} ms)")
+    del net, opt, plain
+    torch.cuda.empty_cache()
+    return counts, {"sentinel_ms": on, "unguarded_ms": off}
+
+
+def captured_control_flow_phase():
+    """Phase 50 (c): on CUDA tensors against eager — a tensor ``if``
+    (dy2static), a ``return`` inside a tensor branch (SOT) and a tensor
+    ``while_loop``, each over inputs that take every path."""
+    import torch
+    import paddle_tpu_torch as paddle
+
+    @paddle.jit.to_static
+    def branch(x):
+        if x.mean() > 0:
+            y = x * 2.0
+        else:
+            y = x - 1.0
+        return y.sum()
+
+    def early(x):
+        if x.mean() > 0:
+            return x * 2.0
+        return x - 1.0
+
+    sot = paddle.jit.to_static(early, backend="sot")
+
+    @paddle.jit.to_static
+    def grow(x):
+        n, s = paddle.jit.while_loop(
+            lambda n, s: s.sum() < 100.0, lambda n, s: (n + 1, s * 2.0),
+            [paddle.to_tensor(torch.zeros((), dtype=torch.int64,
+                                          device="cuda")), x.abs() + 1.0])
+        return n, s
+
+    rng = np.random.default_rng(SEED + 52)
+    trips = set()
+    for i in range(6):
+        a = rng.standard_normal(16).astype(np.float32) * (i + 1)
+        if i % 2:
+            a = -np.abs(a)
+        x = paddle.to_tensor(torch.from_numpy(a).cuda())
+        want = (a * 2.0 if a.mean() > 0 else a - 1.0)
+        check(abs(branch(x).item() - want.sum()) <= 1e-5 * abs(want.sum())
+              + 1e-6, f"dy2static branch on {a.mean()}")
+        check(np.allclose(sot(x).numpy(), want, rtol=1e-6),
+              "SOT return branch")
+        n, s = grow(x)
+        z, k = np.abs(a) + 1.0, 0
+        while z.sum() < 100.0:
+            z, k = z * 2.0, k + 1
+        check(int(n.item()) == k and np.allclose(s.numpy(), z, rtol=1e-6),
+              f"while_loop: {int(n.item())} trips, eager {k}")
+        trips.add(k)
+    check(branch._ast_fn is not None, "the dy2static rewrite did not engage")
+    entry = next(iter(sot._entries.values()))[0]
+    check(len(entry.paths) == 2, f"SOT paths {len(entry.paths)}")
+    log(f"  (c) dy2static if, SOT return branch (2 paths), tensor "
+        f"while_loop (trips {sorted(trips)}) equal eager on CUDA tensors")
+
+
+def captured_phase(m45):
+    """Phase 50: (a)-(c); prints the eager fallbacks the reference itself
+    takes. Returns (a)'s metrics and launches, (b)'s launches."""
+    import torch
+    f0 = _jit_fallbacks()
+    t0 = time.time()
+    m, c_a = captured_llama_phase(m45)
+    log(f"  (a) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    c_b, sent = captured_parity_phase()
+    m["sentinel"] = sent
+    log(f"  (b) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    captured_control_flow_phase()
+    log(f"  (c) {time.time() - t0:.1f} s")
+    f1 = _jit_fallbacks()
+    log(f"  eager fallbacks the reference also takes (GradScaler, "
+        f"enable_to_static(False), SOT graph break, nested to_static): "
+        f"{json.dumps({k: f1[k] - f0[k] for k in f1})}")
+    torch.cuda.empty_cache()
+    return m, c_a, c_b
+
+
+def bert_jit_phase(m47, steps=6, batch=BERT_BATCH, seq=BERT_SEQ):
+    """Phase 51 (cell BT through the captured step): phase 47's loop with
+    ``prepare(..., jit=True)``, then a dropout-0 run against the eager
+    ``train_batch`` from the same weights. Returns (metrics, the
+    fine-tuned network, the dropout-0 run's launches)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForSequenceClassification)
+    paddle.set_device("gpu:0")
+    paddle.seed(SEED)
+    cfg = BertConfig()
+    net = BertForSequenceClassification(cfg, num_classes=2)
+    model = _bert_model(paddle, net, amp_configs="O1", jit=True)
+    n_train = (steps + 2) * batch
+    ids, labels = bert_data(cfg, n_train, seq, SEED)
+    train = paddle.io.TensorDataset([ids, labels])
+
+    class Clock(paddle.callbacks.Callback):
+        """Batch ends after the warm-up and the capture."""
+
+        def __init__(self):
+            super().__init__()
+            self.ends, self.losses = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == 2:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                self.ends.append(time.time())
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            if step >= 2:
+                self.ends.append(time.time())
+
+    clock = Clock()
+    model.fit(train, batch_size=batch, epochs=1, verbose=0, shuffle=True,
+              callbacks=[clock])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    times = np.diff(clock.ends)
+    check(len(times) == steps, f"timed {len(times)} steps, not {steps}")
+    check(all(np.isfinite(clock.losses)), f"losses {clock.losses}")
+    step_ms = float(np.median(times)) * 1e3
+    flops = bert_flops_per_step(cfg, batch, seq)
+    m = {"step_ms": step_ms, "step_ms_each": [t * 1e3 for t in times],
+         "phase47_step_ms": m47["step_ms"], "memory_reserved_gb": reserved,
+         "samples_per_s": batch / step_ms * 1e3,
+         "phase47_samples_per_s": m47["samples_per_s"],
+         "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS["bf16"],
+         "phase47_mfu": m47["mfu"], "max_memory_allocated_gb": peak,
+         "phase47_max_memory_allocated_gb": m47["max_memory_allocated_gb"],
+         "losses": clock.losses}
+    log(f"  fit (jit): {json.dumps(m)}")
+    xb = torch.from_numpy(ids[:batch]).cuda()
+    yb = torch.from_numpy(labels[:batch]).cuda()
+    # the fit's batches came through the loader: the same program
+    m["profile"] = profile_device(lambda: model.train_batch([xb], [yb]),
+                                  "BERT-base captured fit step (O1)", top=8)
+    p47 = m47["profile"]
+    log(f"  beside phase 47: busy share {m['profile']['device_busy_share']}"
+        f" (eager {p47['device_busy_share']}), launch calls "
+        f"{m['profile']['launch_calls']} + {m['profile']['graph_launch_calls']}"
+        f" graph launches (eager {p47['launch_calls']})")
+    del model
+
+    # dropout 0: the captured train_batch against the eager one
+    cfg0 = BertConfig(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    runs = {}
+    reset_counts()
+    for jit in (False, True):
+        paddle.seed(SEED + 1)
+        n0 = BertForSequenceClassification(cfg0, num_classes=2)
+        mod = _bert_model(paddle, n0, amp_configs="O1", jit=jit)
+        runs[jit] = [mod.train_batch([torch.from_numpy(ids[i:i + batch])
+                                      .cuda()],
+                                     [torch.from_numpy(labels[i:i + batch])
+                                      .cuda().reshape(-1, 1)])
+                     for i in range(0, 3 * batch, batch)]
+        if not jit:
+            reset_counts()
+        del mod, n0
+    counts = read_counts()
+    rels = [_rel(a[0][0], b[0][0]) for a, b in zip(runs[True], runs[False])]
+    same = [a[1] == b[1] for a, b in zip(runs[True], runs[False])]
+    log(f"  dropout 0: captured {runs[True]}, eager {runs[False]}; loss rel "
+        f"{rels}; metrics equal {same}; captured launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for r in rels:
+        check(r <= 5e-3, f"captured BERT loss rel {r}")
+    check(all(same), "captured BERT metrics differ from eager's")
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return m, net, counts
+
+
+def deploy_phase(net, batches=4, batch=BERT_BATCH, seq=BERT_SEQ, small=8):
+    """Phase 52: ``Model.save(training=False)`` of the fine-tuned BERT
+    (fp32), the network dropped, ``create_predictor`` serving ``batches``
+    batches through the handles and one of ``small`` rows; then the same
+    for its ``quantize_linears`` network. Returns the predictors'
+    launches."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForSequenceClassification)
+    layers = BertConfig().num_hidden_layers
+    ids, _ = bert_data(BertConfig(), batches * batch, seq, SEED + 52)
+    feeds = [ids[i * batch:(i + 1) * batch] for i in range(batches)]
+    feeds.append(ids[:small])
+    spec = [paddle.jit.InputSpec([None, seq], "int64", "input_ids")]
+    sd = {k: v.numpy() for k, v in net.state_dict().items()}
+    total = {}
+
+    def eager_logits(n, profile=False):
+        n.eval()
+        with paddle.no_grad():
+            outs = [n(paddle.to_tensor(torch.from_numpy(f).cuda())).numpy()
+                    for f in feeds]
+        t = []
+        x = paddle.to_tensor(torch.from_numpy(feeds[0]).cuda())
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with paddle.no_grad():
+                n(x).numpy()
+            t.append(time.time() - t0)
+        if profile:
+            with paddle.no_grad():
+                profile_device(lambda: n(x).numpy(),
+                               "eager fp32 BERT-base forward", top=6)
+        return outs, float(np.median(t)) * 1e3
+
+    def serve(path, want, per_batch, label):
+        pred = inference.create_predictor(inference.Config(
+            path + ".pdmodel", path + ".pdiparams"))
+        name = pred.get_input_names()[0]
+        outs, t = [], []
+        for i, f in enumerate(feeds):
+            if i == batches:
+                c = read_counts()
+            h = pred.get_input_handle(name)
+            h.reshape(f.shape)
+            h.copy_from_cpu(f)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pred.run()
+            outs.append(pred.get_output_handle(
+                pred.get_output_names()[0]).copy_to_cpu())
+            t.append(time.time() - t0)
+        got = {k: v / batches for k, v in c.items() if v}
+        if label == "fp32":
+            profile_device(pred.run, "fp32 predictor batch", top=6)
+        scale = max(float(np.abs(w).max()) for w in want)
+        gap = max(float(np.abs(o - w).max()) for o, w in zip(outs, want))
+        for k, v in per_batch.items():
+            check(got.get(k) == v, f"{label} predictor: {got.get(k)} {k} "
+                  f"launches a batch, expected {v}")
+        check(gap <= 1e-4 * scale, f"{label} predictor logits {gap} > 1e-4 "
+              f"x {scale}")
+        check(outs[-1].shape == (small, 2), f"{label} at batch {small}")
+        for k, v in read_counts().items():
+            total[k] = total.get(k, 0) + v
+        return {"launches_per_batch": got, "logit_gap": gap / scale,
+                "predictor_ms": float(np.median(t[1:batches])) * 1e3}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        want, eager_ms = eager_logits(net, profile=True)
+        path = os.path.join(tmp, "bert")
+        t0 = time.time()
+        paddle.Model(net, inputs=spec).save(path, training=False)
+        export_s = time.time() - t0
+        del net
+        torch.cuda.empty_cache()
+        reset_counts()
+        out["fp32"] = serve(path, want, {"flash_attention": layers}, "fp32")
+        out["fp32"].update({"export_s": export_s, "eager_ms": eager_ms})
+        log(f"  fp32: {json.dumps(out['fp32'])}")
+
+        qnet = BertForSequenceClassification(BertConfig(), num_classes=2)
+        qnet.set_state_dict(sd)
+        swapped = paddle.nn.quant.quantize_linears(qnet)
+        check(swapped == 6 * layers + 2, f"quantize_linears {swapped}")
+        want, eager_ms = eager_logits(qnet)
+        qpath = os.path.join(tmp, "bert_int8")
+        t0 = time.time()
+        paddle.Model(qnet, inputs=spec).save(qpath, training=False)
+        export_s = time.time() - t0
+        del qnet
+        torch.cuda.empty_cache()
+        reset_counts()
+        out["int8"] = serve(qpath, want,
+                            {"flash_attention": layers,
+                             "weight_only_matmul": 6 * layers + 2}, "int8")
+        out["int8"].update({"export_s": export_s, "eager_ms": eager_ms})
+        log(f"  int8: {json.dumps(out['int8'])}")
+    torch.cuda.empty_cache()
+    return out, total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8811,7 +9380,7 @@ def main() -> int:
 
     log("== phase 47: BERT-base fine-tuning through paddle.Model (cell BT), "
         "O1, B 32 x S 128; evaluate and predict; the int8 network")
-    _, c47 = bert_phase()
+    m47, c47 = bert_phase()
     launches = {k: launches[k] + c47[k] for k in launches}
     log(f"  nvidia-smi: {card}")
     log("== phase 48: fp32 parity of Model.train_batch on the card against "
@@ -8823,9 +9392,24 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         recsys_phase(tmp)
     log(f"  nvidia-smi: {card}")
+    log("== phase 50: the captured train step (jit): F's LlamaForCausalLM "
+        "through make_train_step, E's fp32 parity (scheduler, dropout, "
+        "sentinel), control flow on CUDA tensors")
+    _, c50a, c50b = captured_phase(m45)
+    log(f"  nvidia-smi: {card}")
+    log("== phase 51: BERT-base fine-tuning through Model.prepare(jit=True) "
+        "(cell BT captured), O1, B 32 x S 128; the dropout-0 parity run")
+    _, bt_net, c51 = bert_jit_phase(m47)
+    log("== phase 52: deployment: Model.save(training=False) of phase 51's "
+        "network, create_predictor, fp32 and int8")
+    _, c52 = deploy_phase(bt_net)
+    del bt_net
+    launches = {k: launches[k] + c52.get(k, 0) for k in launches}
+    log(f"  nvidia-smi: {card}")
     trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c47,
-               c48)
-    normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b)
+               c48, c50a, c50b, c51, c52)
+    normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c50a,
+              c50b)
 
     log("== main paths driven: " + ", ".join(PATHS))
     log(f"== done in {time.time() - t_start:.1f} s")

@@ -18,6 +18,10 @@ never ``jax`` and nothing of ``paddle_tpu``. It holds:
   high-level API (``Model`` and ``summary``, ``metric``, ``callbacks``),
   BERT's layers and the parameter-server tables
   (``distributed/ps.py``);
+* ``jit`` (``to_static`` as a captured CUDA graph, the fused
+  ``TrainStep``, dy2static and SOT, ``jit.save`` / ``jit.load`` through
+  ``torch.export``), the deployment ``inference.Predictor`` and
+  ``profiler``;
 * the hand-written CUDA C++ kernels for Hopper (``csrc/``: paged
   attention, the int8 matmul, flash attention forward and backward,
   RMSNorm, RoPE), built with ``nvcc`` at first use (``kernels/build.py``).
@@ -56,7 +60,7 @@ from .ops import seed  # paddle.seed is the RNG seed
 _LAZY_SUBMODULES = (
     "nn", "optimizer", "io", "distributed", "framework", "incubate",
     "kernels", "regularizer", "inference", "models", "testing", "health",
-    "amp", "autograd", "metric", "callbacks", "hapi",
+    "amp", "autograd", "metric", "callbacks", "hapi", "jit", "profiler",
 )
 
 

@@ -45,6 +45,19 @@ def _note_write(t: "Tensor"):
         _write_watch[id(t)] = (t, t._value, t._version)
 
 
+# While set, every host read of a tensor's value (``bool`` / ``int`` /
+# ``float`` / ``item`` / ``numpy`` / ``tolist``) calls it with
+# ``(kind, tensor)`` and returns what it returns: ``jit/trace.py`` raises
+# there (no host read inside a captured program), ``jit/sot.py`` records
+# or replays the outcome.
+_materialize_hook = None
+
+
+def _materialize(kind: str, t: "Tensor", read: Callable):
+    hook = _materialize_hook
+    return read() if hook is None else hook(kind, t, read)
+
+
 def _auto_name(prefix="generated_tensor"):
     return f"{prefix}_{next(_name_counter)}"
 
@@ -167,6 +180,9 @@ class Tensor:
     # -- conversion ---------------------------------------------------------
     def numpy(self) -> np.ndarray:
         """A host copy; bf16 comes back as float32 (numpy has no bf16)."""
+        return _materialize("numpy", self, self._numpy)
+
+    def _numpy(self) -> np.ndarray:
         v = self._value.detach()
         if v.dtype == torch.bfloat16:
             v = v.float()
@@ -177,10 +193,10 @@ class Tensor:
         return a if dtype is None else a.astype(dtype)
 
     def item(self):
-        return self._value.item()
+        return _materialize("item", self, lambda: self._value.item())
 
     def tolist(self):
-        return self.numpy().tolist()
+        return _materialize("tolist", self, lambda: self._numpy().tolist())
 
     def numel(self) -> int:
         return self.size
@@ -340,6 +356,8 @@ class Tensor:
             return out
 
         val = value if isinstance(value, Tensor) else \
+            device_scalar(value, self._value.device) \
+            if isinstance(value, (bool, int, float, complex)) else \
             torch.as_tensor(value, device=self._value.device)
         self._rebind(forward_op("set_value_", put, [self, val]))
 
@@ -354,16 +372,17 @@ class Tensor:
             yield self[i]
 
     def __bool__(self):
-        return bool(self._value.detach())
+        return _materialize("bool", self, lambda: bool(self._value.detach()))
 
     def __int__(self):
-        return int(self._value.detach())
+        return _materialize("int", self, lambda: int(self._value.detach()))
 
     def __float__(self):
-        return float(self._value.detach())
+        return _materialize("float", self,
+                            lambda: float(self._value.detach()))
 
     def __index__(self):
-        return int(self._value.detach())
+        return _materialize("int", self, lambda: int(self._value.detach()))
 
     def __format__(self, spec):
         if self.ndim == 0:
@@ -464,3 +483,74 @@ def _flatten(seq):
             yield from _flatten(x)
         else:
             yield x
+
+
+# -- the value watch of a program capture (jit/trace.py) -----------------------
+
+_VALUE_SLOT = Tensor.__dict__["_value"]
+
+
+def capturing() -> bool:
+    """True while a program is being captured (``jit/trace.py``): a value
+    made from Python data must then be made on the device (a fill), not
+    copied from the host."""
+    return Tensor.__dict__["_value"] is not _VALUE_SLOT
+
+
+def device_scalar(v, device) -> torch.Tensor:
+    """``torch.tensor(v, device=device)`` for a Python scalar — made by a
+    fill on the device while a program is captured (a pageable
+    host-to-device copy cannot be captured)."""
+    if capturing():
+        return torch.full((), v, device=device)
+    return torch.tensor(v, device=device)
+
+
+def raw_value(t: Tensor):
+    """``t._value`` past any watch; raises AttributeError on a Tensor
+    whose value was never set (one being built)."""
+    return _VALUE_SLOT.__get__(t, Tensor)
+
+
+def set_raw_value(t: Tensor, v: torch.Tensor) -> None:
+    """``t._value = v`` past any watch."""
+    _VALUE_SLOT.__set__(t, v)
+
+
+class _WatchedValue:
+    """Stands in for the ``_value`` slot while a program is captured: every
+    read reaches ``watch.on_read(t, v)`` and every write
+    ``watch.on_write(t, v)``, whose result is what the slot takes. The
+    slot is swapped only for the capture, so the eager path pays nothing."""
+
+    def __init__(self, watch):
+        self.watch = watch
+
+    def __get__(self, obj, typ=None):
+        if obj is None:
+            return self
+        v = _VALUE_SLOT.__get__(obj, typ)
+        self.watch.on_read(obj, v)
+        return v
+
+    def __set__(self, obj, v):
+        _VALUE_SLOT.__set__(obj, self.watch.on_write(obj, v))
+
+
+class watch_values:
+    """``with watch_values(watch):`` routes every Tensor's ``_value``
+    reads and writes through ``watch`` (see :class:`_WatchedValue`)."""
+
+    def __init__(self, watch):
+        self.watch = watch
+
+    def __enter__(self):
+        if Tensor.__dict__["_value"] is not _VALUE_SLOT:
+            raise RuntimeError("a program capture is already watching "
+                               "tensor values")
+        Tensor._value = _WatchedValue(self.watch)
+        return self.watch
+
+    def __exit__(self, *exc):
+        Tensor._value = _VALUE_SLOT
+        return False

@@ -405,3 +405,7 @@ define_flag("FLAGS_health_watchdog_timeout_s", 0.0,
             "health.watchdog.install() default: seconds without a progress "
             "tick before the in-process hang watchdog fires (stack-dump "
             "diagnosis; fatal=True exits HUNG_EXIT_RC). 0 = off.", float)
+define_flag("FLAGS_profile_annotations", False,
+            "Emit torch.profiler.record_function spans ('step') around the "
+            "fused train step, jit_step and hapi's jit step so a trace "
+            "attributes host time (profiler.annotate).", bool)

@@ -8,12 +8,12 @@ The batch loops run eagerly: ``train_batch`` is the network's forward
 ``Dataset``) through ``io.prefetch_to_device``, which pins each batch and
 copies it to the card ahead of the step that reads it.
 
-Two things need ``jit/`` (ROADMAP §A item 4) and raise
-``NotImplementedError`` naming it: ``prepare(jit=True)`` (the
-reference's fused ``jit.train_step.TrainStep``) and
-``save(training=False)`` (``jit.api.save``). ``prepare(sentinel=...)``
-guards only that fused step, so without ``jit`` it warns and is
-ignored, as in the reference.
+``prepare(jit=True)`` trains through the fused ``jit.TrainStep`` (one
+captured CUDA graph a step, with ``sentinel=`` fused into it);
+``prepare(sentinel=...)`` guards only that fused step, so without
+``jit`` it warns and is ignored, as in the reference.
+``save(training=False)`` writes the inference program through
+``jit.save`` with ``Model(inputs=...)`` as its input spec.
 """
 
 from __future__ import annotations
@@ -33,10 +33,6 @@ from ..metric import Metric
 from ..nn.layer import Layer
 
 __all__ = ["Model"]
-
-_JIT_ITEM = ("needs the jit package, which is not ported yet (ROADMAP "
-             "section A, item 4)")
-
 
 def _as_list(x):
     if x is None:
@@ -70,25 +66,32 @@ class Model:
         self._metrics: List[Metric] = []
         self.stop_training = False
         self._amp_level = None
+        self._jit = False
+        self._sentinel = None
+        self._train_step = None
 
     # -- setup ---------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit: bool = False, sentinel=None):
         """``amp_configs``: the reference's level string ("O1"/"O2") or a
         dict with a "level" key, applied to ``train_batch``. ``jit=True``
-        raises (the fused step needs ``jit/``); ``sentinel`` guards only
-        that step, so here it warns and is ignored."""
-        if jit:
-            raise NotImplementedError(f"Model.prepare(jit=True) {_JIT_ITEM}")
+        fuses forward, backward and the optimizer update into one captured
+        program per input signature (``jit.TrainStep``); ``sentinel``
+        (None -> FLAGS_health_sentinel) is fused into that step, so
+        without ``jit`` it warns and is ignored."""
         self._optimizer = optimizer
         self._loss = loss
-        if sentinel:
+        self._jit = bool(jit)
+        if sentinel and not self._jit:
             import warnings
             warnings.warn(
                 "Model.prepare(sentinel=...) only guards the fused jit "
                 "train step — pass jit=True, or use the "
                 "callbacks.AnomalyMonitor callback for the eager path; "
                 "ignoring sentinel.")
+            sentinel = None
+        self._sentinel = sentinel
+        self._train_step = None
         if amp_configs is None:
             self._amp_level = None
         elif isinstance(amp_configs, str):
@@ -125,6 +128,18 @@ class Model:
         watchdog.touch()   # hang-watchdog progress tick (free when off)
         self.network.train()
         ins, labs = _as_tensors(inputs), _as_tensors(labels)
+        if self._jit and update and self._loss is not None:
+            # the fused path: one captured program per signature
+            if self._train_step is None:
+                from ..jit.train_step import TrainStep
+                self._train_step = TrainStep(
+                    self.network, self._optimizer, self._loss,
+                    amp=self._amp_level is not None,
+                    amp_level=self._amp_level or "O1",
+                    return_outputs=True, sentinel=self._sentinel)
+            loss, outputs = self._train_step(ins, labs)
+            metrics = self._update_metrics(outputs, labs)
+            return ([float(loss)], metrics) if metrics else [float(loss)]
         cm = (amp.auto_cast(level=self._amp_level) if self._amp_level
               else contextlib.nullcontext())
         with cm:
@@ -306,11 +321,13 @@ class Model:
     def save(self, path: str, training: bool = True,
              async_save: bool = False):
         """``path.pdparams`` (and ``path.pdopt``) through ``framework.io``,
-        the files the reference writes; ``training=False`` (an inference
-        program) raises."""
+        the files the reference writes; ``training=False`` writes the
+        inference program (``path.pdmodel`` / ``path.pdiparams``) through
+        ``jit.save`` with ``Model(inputs=...)`` as its input spec."""
         if not training:
-            raise NotImplementedError(
-                f"Model.save(training=False) {_JIT_ITEM}")
+            from ..jit import api as jit_api
+            jit_api.save(self.network, path, input_spec=self._inputs)
+            return
         from ..framework import io as fio
         _save = fio.async_save if async_save else fio.save
         _save(self.network.state_dict(), path + ".pdparams")

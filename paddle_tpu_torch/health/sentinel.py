@@ -19,16 +19,17 @@ Two spellings, one core:
   in-place LLaMA step: that step has already overwritten the old values
   by the time the verdict exists, so it takes ``sentinel=True`` instead.
 
-Ported: ``sentinel_init``, ``sentinel_check``, ``pack_health``,
-``unpack_health``, ``tree_where`` and ``guard_step``. The imperative
-``Sentinel`` and ``health_state_tensors`` work on ``nn.Layer`` and
-optimizer accumulators, which the port does not have yet (ROADMAP item
-11).
+* the imperative :class:`Sentinel` guards an ``nn.Layer`` and its
+  optimizer in the fused ``jit.TrainStep(sentinel=...)``: it copies
+  :func:`health_state_tensors` before the step and gates them with
+  ``torch.where`` after it. The reference keeps its snapshot by reference
+  (JAX arrays are immutable); the port's optimizers write parameters in
+  place, so the port's snapshot copies.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,7 +37,8 @@ from ..device import resolve_device
 from ..flags import flag as _flag
 
 __all__ = ["sentinel_init", "sentinel_check", "tree_where", "guard_step",
-           "pack_health", "unpack_health"]
+           "pack_health", "unpack_health", "health_state_tensors",
+           "Sentinel"]
 
 
 def sentinel_init(device=None) -> Dict[str, torch.Tensor]:
@@ -129,3 +131,140 @@ def unpack_health(health) -> Tuple[float, bool, float]:
     device-to-host read."""
     h = health.detach().cpu().tolist()
     return float(h[0]), bool(h[1] > 0.5), float(h[2])
+
+
+def health_state_tensors(model=None, optimizer=None) -> List:
+    """The mutable-state tensor set a skipped step must leave intact:
+    parameters, BN running stats (buffers), optimizer accumulators and
+    fp32 master weights. Collected fresh per step — lazily-created
+    accumulators (first eager warmup call) join on the next call."""
+    out, seen = [], set()
+
+    def add(t):
+        if t is not None and id(t) not in seen:
+            seen.add(id(t))
+            out.append(t)
+
+    if model is not None:
+        for p in model.parameters():
+            add(p)
+        if hasattr(model, "buffers"):
+            for b in model.buffers():
+                add(b)
+    if optimizer is not None:
+        for store in getattr(optimizer, "_accumulators", {}).values():
+            for t in store.values():
+                add(t)
+        for t in getattr(optimizer, "_master_weights", {}).values():
+            add(t)
+    return out
+
+
+class Sentinel:
+    """Imperative/fused-path sentinel (``jit.train_step.TrainStep``).
+
+    Holds its device state (EMA, count, last health vector) as framework
+    Tensors, so a captured step carries them as program state; after the
+    step runs, the host reads the verdict from them with no extra sync
+    inside the step.
+
+    Usage inside a step function (captured or eager)::
+
+        snap = sentinel.snapshot(health_state_tensors(model, opt))
+        ... forward / backward / optimizer.step() ...
+        sentinel.gate(snap, loss)     # torch.where-gated rollback on bad
+
+    Host side, after the step ran: :attr:`last_bad`, :attr:`last_loss`,
+    :meth:`last_record`.
+    """
+
+    def __init__(self, spike_factor: Optional[float] = None,
+                 warmup: Optional[int] = None, ema_alpha: float = 0.1):
+        from ..core.place import torch_device
+        from ..core.tensor import _wrap
+        dev = torch_device()
+        self.spike_factor = spike_factor
+        self.warmup = warmup
+        self.ema_alpha = ema_alpha
+        # made here, not lazily inside a capture, so the capture sees them
+        # as pre-existing state
+        self._ema = _wrap(torch.zeros((), dtype=torch.float32, device=dev))
+        self._count = _wrap(torch.zeros((), dtype=torch.int32, device=dev))
+        self._health = _wrap(torch.zeros((3,), dtype=torch.float32,
+                                         device=dev))
+        self.steps = 0            # host-side call count (records only)
+
+    # -- in-step (capture-safe) ---------------------------------------------
+    def snapshot(self, tensors: Sequence) -> List[Tuple]:
+        """``(tensor, copy of its value)`` pairs, taken BEFORE the
+        mutating update: the optimizers write parameters in place, so a
+        reference to the value would roll nothing back."""
+        with torch.no_grad():
+            return [(t, t._value.detach().clone()) for t in tensors]
+
+    def gate(self, snapshot: Sequence[Tuple], loss,
+             post_tensors: Optional[Sequence] = None):
+        """Verdict + gated rollback, on the device; returns the 0-d bool
+        ``bad``.
+
+        ``post_tensors``: the state tensor set AFTER the update. Tensors in
+        it that the snapshot never saw were CREATED during this step
+        (lazily-built optimizer accumulators / master weights on the very
+        first call) — they roll back to their unborn state: the creation
+        fill the optimizer stamped on them (``_acc_init``), or the
+        rolled-back source parameter for master weights (``_master_of``).
+        Every tensor is written in place, so a parameter stays its leaf."""
+        lv = loss._value if hasattr(loss, "_value") else loss
+        lv = lv.detach()
+        sent = {"ema": self._ema._value, "count": self._count._value}
+        bad, new_sent = sentinel_check(
+            lv, sent, spike_factor=self.spike_factor, warmup=self.warmup,
+            ema_alpha=self.ema_alpha)
+        self._ema._value = new_sent["ema"]
+        self._count._value = new_sent["count"]
+        self._health._value = pack_health(lv, bad, new_sent)
+        seen = set()
+        with torch.no_grad():
+            for t, old in snapshot:
+                seen.add(id(t))
+                v = t._value
+                v.copy_(torch.where(bad, old, v))
+                t._version += 1
+            for t in (post_tensors or ()):
+                if id(t) in seen:
+                    continue
+                v = t._value
+                src = getattr(t, "_master_of", None)
+                if src is not None:   # after params gated: src rolled back
+                    unborn = src._value.to(v.dtype)
+                else:
+                    unborn = torch.full_like(
+                        v, float(getattr(t, "_acc_init", 0.0)))
+                v.copy_(torch.where(bad, unborn, v))
+                t._version += 1
+        return bad
+
+    # -- host side -----------------------------------------------------------
+    @property
+    def last_loss(self) -> float:
+        return self.last_record()[0]
+
+    @property
+    def last_bad(self) -> bool:
+        return self.last_record()[1]
+
+    @property
+    def ema(self) -> float:
+        return float(self._ema._value)
+
+    def last_record(self):
+        """The last step's verdict as ``(loss, bad, ema)`` — one host read
+        of the packed health vector."""
+        return unpack_health(self._health._value)
+
+    def reset(self):
+        # rebind VALUES (not tensors): captured programs hold the tensor
+        # identities as state, and copy a rebound value in
+        self._ema._value = torch.zeros_like(self._ema._value)
+        self._count._value = torch.zeros_like(self._count._value)
+        self._health._value = torch.zeros_like(self._health._value)

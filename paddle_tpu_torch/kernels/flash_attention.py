@@ -36,6 +36,7 @@ import torch
 
 from ..device import on_cuda
 from . import build
+from .ops import exporting
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
@@ -534,7 +535,9 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
     ``flash_attention.launches``, each backward one to
     ``flash_attention.launches_bwd_dq`` (and to its route's count in
     ``.launches_bwd_dq_by_route``) and ``.launches_bwd_dkv``. CPU tensors
-    run the plain versions.
+    run the plain versions. While ``torch.export`` traces, a call without
+    segments or ``regen_inputs`` is the
+    ``paddle_tpu_torch::flash_attention_fwd`` op (``ops.py``).
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -557,6 +560,9 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
         seg_q = torch.as_tensor(segment_ids, device=q.device)
         seg_k = torch.as_tensor(kv_segment_ids, device=q.device)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    if exporting() and seg_q is None and regen_inputs is None:
+        return torch.ops.paddle_tpu_torch.flash_attention_fwd(
+            q, k, v, scale, bool(causal))
     return _FlashAttention.apply(q, k, v, seg_q, seg_k, scale, bool(causal),
                                  regen_inputs)
 

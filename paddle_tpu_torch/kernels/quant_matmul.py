@@ -34,6 +34,7 @@ import torch
 
 from ..device import on_cuda, sm_count
 from . import build
+from .ops import exporting
 
 __all__ = ["quantize_weights", "weight_only_matmul",
            "weight_only_matmul_plain", "weight_only_matmul_split_plain"]
@@ -127,7 +128,11 @@ def weight_only_matmul(x: torch.Tensor, w_q: torch.Tensor,
     """``x [M, K] @ dequant(w_q [K, N] int8, scale [N] fp32) -> [M, N]``
     in ``out_dtype``. CUDA tensors launch the kernel (one count on
     ``weight_only_matmul.launches`` per launch); CPU tensors run the plain
-    version."""
+    version. While ``torch.export`` traces, the call is the
+    ``paddle_tpu_torch::weight_only_matmul`` op (``ops.py``)."""
+    if exporting():
+        return torch.ops.paddle_tpu_torch.weight_only_matmul(x, w_q, scale,
+                                                             out_dtype)
     if not on_cuda(x, "weight_only_matmul"):
         return weight_only_matmul_plain(x, w_q, scale, out_dtype)
     if x.dim() != 2 or w_q.dim() != 2 or scale.dim() != 1:

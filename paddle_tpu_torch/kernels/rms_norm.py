@@ -40,6 +40,7 @@ import torch
 
 from ..device import on_cuda, sm_count
 from . import build
+from .ops import exporting
 
 __all__ = ["rms_norm", "rms_norm_fwd_plain", "rms_norm_bwd_plain",
            "rms_norm_bwd_tiled"]
@@ -347,10 +348,13 @@ def rms_norm(x, weight, eps: float = 1e-6):
     ``rms_norm.launches_by_route``, each backward (its row kernel and the dw
     reduction) one to ``rms_norm.launches_bwd`` and to its route's count in
     ``rms_norm.launches_bwd_by_route``. CPU tensors run the plain
-    versions."""
+    versions. While ``torch.export`` traces, the call is the
+    ``paddle_tpu_torch::rms_norm_fwd`` op (``ops.py``)."""
     if weight.shape != x.shape[-1:]:
         raise ValueError(f"rms_norm: weight {tuple(weight.shape)} does not "
                          f"match the last axis of x {tuple(x.shape)}")
+    if exporting():
+        return torch.ops.paddle_tpu_torch.rms_norm_fwd(x, weight, float(eps))
     return _RMSNorm.apply(x, weight, float(eps))
 
 

@@ -26,6 +26,7 @@ import torch
 
 from ..device import on_cuda
 from . import build
+from .ops import exporting
 
 __all__ = ["rope_cos_sin", "apply_rope", "apply_rope_plain"]
 
@@ -136,8 +137,12 @@ def apply_rope(x, cos, sin):
     """Rotate-half RoPE ``x * cos + rotate_half(x) * sin`` on ``x [B, S,
     H, D]`` (D even) with ``cos``/``sin [S, D]``; anything else raises.
     CUDA tensors launch the kernel (float32 or bfloat16 x; tables taken in
-    fp32), CPU tensors run :func:`apply_rope_plain`."""
+    fp32), CPU tensors run :func:`apply_rope_plain`. While
+    ``torch.export`` traces, the call is the ``paddle_tpu_torch::apply_rope``
+    op (``ops.py``)."""
     _check(x, cos, sin)
+    if exporting():
+        return torch.ops.paddle_tpu_torch.apply_rope(x, cos, sin)
     return _ApplyRope.apply(x, cos, sin)
 
 

@@ -10,7 +10,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..core.dispatch import forward_op, register_op
-from ..core.tensor import Tensor, to_tensor
+from ..core.tensor import Tensor, device_scalar, to_tensor
 
 __all__ = ["ensure_tensor", "unary_factory", "binary_factory", "patch_methods",
            "forward_op", "register_op", "Tensor", "axes_arg", "dims_of"]
@@ -44,7 +44,7 @@ def _binary_operand(y, like: Tensor):
     torch promotes as weakly as ``jnp`` promotes a Python scalar (a float
     scalar keeps a bf16 tensor bf16); anything else becomes a Tensor."""
     if isinstance(y, (bool, int, float, complex)):
-        return torch.tensor(y, device=like._value.device)
+        return device_scalar(y, like._value.device)
     return ensure_tensor(y)
 
 

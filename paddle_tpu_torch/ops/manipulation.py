@@ -16,7 +16,10 @@ def _shape_arg(shape):
         return tuple(int(s) for s in shape.numpy().reshape(-1))
     out = []
     for s in (shape if isinstance(shape, (list, tuple)) else [shape]):
-        out.append(int(s.item()) if isinstance(s, Tensor) else int(s))
+        if isinstance(s, Tensor):
+            s = s.item()
+        # a symbolic size (torch.export) stays symbolic
+        out.append(s if isinstance(s, torch.SymInt) else int(s))
     return tuple(out)
 
 

@@ -64,6 +64,17 @@ class Optimizer:
     def get_lr(self):
         return self._lr_value()
 
+    def _step_lr(self):
+        """The lr one ``step`` applies: inside a captured program
+        (``jit/trace.py``) a device scalar the program refills before every
+        replay — a float would be baked into the graph, and a scheduler's
+        later lr would never reach it — else the host value."""
+        from ..jit.trace import current_ctx
+        ctx = current_ctx()
+        if ctx is None:
+            return self._lr_value()
+        return ctx.host_scalar(("lr", id(self)), self._lr_value)
+
     def set_lr(self, value: float):
         if isinstance(self._lr, LRScheduler):
             raise RuntimeError("cannot set_lr when using an LRScheduler")
@@ -92,6 +103,7 @@ class Optimizer:
                 t = _full(shp, fill_value, dt, param._value.device)
                 if pending and key in pending:
                     t._value = _as_value(pending.pop(key), t._value)
+            t._acc_init = float(fill_value)   # a skipped first step's fill
             store[param.name] = t
         return store[param.name]
 
@@ -112,6 +124,8 @@ class Optimizer:
             else:
                 self._master_weights[p.name] = _wrap(
                     p._value.detach().to(torch.float32))
+            # a skipped first step re-derives it from the rolled-back param
+            self._master_weights[p.name]._master_of = p
         return self._master_weights[p.name]
 
     # -- the step ------------------------------------------------------------
@@ -132,10 +146,11 @@ class Optimizer:
                         for g in (p.grad,) if g is not None]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        lr = self.get_lr()
+        lr = self._step_lr()
         self._step_count += 1
         for p, g in params_grads:
-            param_lr = lr * getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+            scale = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+            param_lr = lr if scale == 1.0 else lr * scale
             layout = self._layout(p)
             if layout is not None:
                 from ..distributed.dist_tensor import laid_out_step
@@ -200,11 +215,11 @@ class Optimizer:
         return None, [(p, p.grad) for p in self._params()]
 
     def fuse(self, model, loss_fn, **kwargs):
-        """The reference's fused train step needs ``jit/``, which is not
-        ported yet."""
-        raise NotImplementedError(
-            "Optimizer.fuse needs the jit package, which is not ported yet "
-            "(ROADMAP section A, item 11)")
+        """The fused train step over this optimizer
+        (``jit.train_step.TrainStep``: forward, backward and this update as
+        one captured program)."""
+        from ..jit.train_step import TrainStep
+        return TrainStep(model, self, loss_fn, **kwargs)
 
     # -- state dict ----------------------------------------------------------
     def state_dict(self) -> Dict:

@@ -1320,3 +1320,76 @@ def test_megatron_mp2_attention_core_bf16(paddle_gpu):
     for got, want in zip([out._value] + [t.grad._value for t in ts],
                          [ref, *grads]):
         assert _rel(got, want) <= 1e-2
+
+
+# -- the captured step (jit) -------------------------------------------------
+
+def _bn_net(paddle):
+    nn = paddle.nn
+    return nn.Sequential(nn.Linear(12, 8), nn.BatchNorm1D(8), nn.ReLU(),
+                         nn.Linear(8, 4))
+
+
+def test_captured_step_replays_equal_eager(paddle_gpu):
+    """A Linear + BatchNorm1D + Adam step captured into a CUDA graph and
+    replayed against the eager step from the same weights: every loss and
+    every state entry within 1e-5, exactly one graph a replay."""
+    paddle = paddle_gpu
+    paddle.seed(7)
+    eager, fused = _bn_net(paddle), _bn_net(paddle)
+    fused.set_state_dict({k: v.numpy() for k, v in eager.state_dict().items()})
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    o1 = paddle.optimizer.Adam(0.01, parameters=eager.parameters())
+    o2 = paddle.optimizer.Adam(0.01, parameters=fused.parameters())
+    step = paddle.jit.make_train_step(fused, o2, loss_fn)
+    assert step.donate is True
+    rng = np.random.default_rng(7)
+    for _ in range(5):
+        x = paddle.to_tensor(rng.standard_normal((4, 12)).astype("float32"))
+        y = paddle.to_tensor(rng.integers(0, 4, (4,)).astype("int64"))
+        eager.train()
+        loss = loss_fn(eager(x), y)
+        loss.backward()
+        o1.step()
+        o1.clear_grad()
+        np.testing.assert_allclose(float(step(x, y)), float(loss), rtol=1e-5)
+    (prog,) = step._sf._programs.values()
+    assert len(prog._steps) == 1 and prog.cuda
+    s1, s2 = eager.state_dict(), fused.state_dict()
+    for k in s1:
+        np.testing.assert_allclose(s2[k].numpy(), s1[k].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
+def test_captured_dropout_and_scheduler(paddle_gpu):
+    """Fresh dropout masks on every replay, and a scheduler's lr reaching
+    the replays (the update shrinks with it)."""
+    paddle = paddle_gpu
+    drop = paddle.nn.Dropout(0.5)
+    f = paddle.jit.to_static(lambda x: drop(x))
+    x = paddle.to_tensor(np.ones((4, 256), np.float32))
+    f(x)
+    a, b = f(x).numpy(), f(x).numpy()
+    assert (a != b).any()
+    model = paddle.nn.Linear(4, 1)
+    sched = paddle.optimizer.lr.StepDecay(0.5, step_size=1, gamma=0.1)
+    opt = paddle.optimizer.SGD(sched, parameters=model.parameters())
+
+    @paddle.jit.to_static
+    def train(x):
+        loss = model(x).sum()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    x = paddle.to_tensor(np.ones((2, 4), np.float32))
+    train(x)
+    w0 = model.weight.numpy().copy()
+    train(x)
+    d1 = np.abs(model.weight.numpy() - w0).max()
+    sched.step()
+    w0 = model.weight.numpy().copy()
+    train(x)
+    d2 = np.abs(model.weight.numpy() - w0).max()
+    np.testing.assert_allclose(d2, d1 * 0.1, rtol=1e-5)

@@ -18,8 +18,9 @@
   deep-copied encoder layers share names and with them AdamW's state
   (ROADMAP §C).
 * The functional metrics against JAX's, ``prepare(jit=True)`` and
-  ``save(training=False)`` raising ``NotImplementedError`` naming
-  ROADMAP item 4, ``prepare(sentinel=True)`` warning, and
+  ``save(training=False)`` (which raised naming ROADMAP item 4 before
+  ``jit/`` was ported) against the JAX package's, ``prepare(sentinel=True)``
+  warning, and
   ``ModelCheckpoint`` files (``keep_last_k``, ``async_save``) loading in
   the JAX package's ``framework.io``.
 """
@@ -443,15 +444,29 @@ def test_finetune_bert_matches_jax():
 # -- refusals, sentinel, checkpoints ----------------------------------------
 
 def test_jit_paths_raise_naming_item_4(tmp_path):
-    net = T.nn.Sequential(T.nn.Linear(8, 1))
-    model = T.Model(net)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        model.prepare(T.optimizer.SGD(parameters=net.parameters()),
-                      T.nn.MSELoss(), jit=True)
-    model.prepare(T.optimizer.SGD(parameters=net.parameters()),
-                  T.nn.MSELoss())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        model.save(str(tmp_path / "infer"), training=False)
+    """The two paths that raised naming ROADMAP item 4 before ``jit/`` was
+    ported now work: ``prepare(jit=True)`` trains through the fused step
+    (losses equal the JAX package's jit ``Model`` within 1e-5) and
+    ``save(training=False)`` writes the inference pair, which ``jit.load``
+    serves equal to the network (1e-5)."""
+    J.seed(0)
+    jnet = J.nn.Sequential(J.nn.Linear(8, 1))
+    tnet = T.nn.Sequential(T.nn.Linear(8, 1))
+    tnet.set_state_dict({k: v.numpy() for k, v in jnet.state_dict().items()})
+    x = np.random.default_rng(0).standard_normal((4, 8)).astype("float32")
+    y = x.sum(axis=1, keepdims=True)
+    losses = []
+    for p, net in ((J, jnet), (T, tnet)):
+        model = p.Model(net, inputs=[p.jit.InputSpec([None, 8], "float32")])
+        model.prepare(p.optimizer.SGD(0.1, parameters=net.parameters()),
+                      p.nn.MSELoss(), jit=True)
+        losses.append([model.train_batch([x], [y])[0] for _ in range(4)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=RTOL)
+    path = str(tmp_path / "infer")
+    model.save(path, training=False)
+    loaded = T.jit.load(path)
+    np.testing.assert_allclose(loaded(x).numpy(),
+                               tnet(T.to_tensor(x)).numpy(), rtol=RTOL)
 
 
 def test_sentinel_without_jit_warns_and_is_ignored():

@@ -453,8 +453,11 @@ class TestOptimizers:
         opt = T.optimizer.SGD(0.5, parameters=[p])
         opt.minimize((p * p).sum())
         np.testing.assert_allclose(np_(p), [0.0, 0.0])
-        with pytest.raises(NotImplementedError, match="item 11"):
-            opt.fuse(None, None)
+        # fuse is the fused train step (it raised before jit/ was ported)
+        net = T.nn.Linear(2, 1)
+        opt = T.optimizer.SGD(0.5, parameters=net.parameters())
+        step = opt.fuse(net, T.nn.MSELoss())
+        assert isinstance(step, T.jit.TrainStep) and step.optimizer is opt
 
 
 class TestMLPTraining:
