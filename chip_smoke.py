@@ -567,6 +567,49 @@ Phases (each fails the run on any error; none catches and carries on):
     ``weight_only_matmul`` launches a forward, logits within 1e-4 x
     max|logit| of the eager int8 network's. The exports' seconds and the
     predictors' ms a batch beside the eager forwards'.
+53. ResNet-50 training (cell RN), as ``bench.py:bench_resnet`` runs it:
+    ``resnet50(num_classes=1000)`` from ``paddle.seed(0)``,
+    ``Momentum(0.1, 0.9)``, ``CrossEntropyLoss``, ``make_train_step(...,
+    amp=True)``, B 32 x 3 x 224 x 224, widths not cut; NCHW, then under
+    ``nn.ChannelsLast`` from the same weights. Each: three eager steps,
+    then a fresh net through the captured step on the same batches (the
+    losses within 5e-3 x |loss|, bit-equality printed), 8 timed replays
+    (step ms, images/s, peak memory, MFU over 989 TFLOP/s from the conv
+    and linear shapes' multiply-adds, ~4.1 G an image forward, checked
+    within 5 %), a profiled replay (busy share, launch calls against
+    graph launches, the copy kernels). ChannelsLast's first loss within
+    5e-3 of NCHW's. Then ``examples/train_resnet.py``'s loop: the
+    ``FakeImageDataset`` through ``DataLoader(num_workers=2,
+    use_shared_memory=True)`` and ``prefetch_to_device`` into the
+    captured ChannelsLast step, the data wait a step beside the step time.
+54. fp32 parity of vision on the card against the CPU (TF32 off):
+    ResNet-18 (10 classes) at B 4 x 3 x 32 x 32 from the same weights,
+    NCHW and NHWC: the loss within 1e-5 x |loss|, every gradient within
+    1e-3 x max|g|, the running statistics within 1e-5; three captured
+    Momentum steps (lr 1e-3, three batches of 32) in fp64, NCHW and NHWC,
+    their losses and the whole state after them within 1e-10 of the
+    CPU's, NHWC's losses within 1e-10 of NCHW's; the same steps in fp32,
+    the first loss within 1e-5 x |loss|, every layer's forward output
+    within 1e-4 x max of the fp64 run's, the losses and the ReLU inputs
+    whose sign differs from fp64's printed; conv2d (groups, dilation,
+    SAME and asymmetric pads at stride 2, NHWC), conv2d_transpose
+    (output_padding, groups), and each pooling route (ceil_mode,
+    exclusive, SAME, divisor, return_mask, adaptive, NHWC, a max pool
+    over all-tie windows after a ReLU) with its gradient within 1e-5 x
+    max|ref|, indices equal.
+55. The PP-YOLOE detector (cell DT), as ``bench.py:bench_detect`` runs
+    it: ``ppyoloe_mbv3(num_classes=80, image_size=320)`` from
+    ``paddle.seed(0)``, ``Momentum(0.01, 0.9)``, ``make_train_step(...,
+    amp=True)`` over ``detection_loss`` called as ``step([x], [gt_b,
+    gt_l])``, B 8, the ground truth as ``bench.py:371-379`` makes it:
+    eager against captured losses within 5e-3, 8 timed replays and a
+    profiled one (phase 53's metrics); then
+    ``examples/train_detector.py``'s inference at 64 px:
+    ``multiclass_nms``, ``matrix_nms`` and ``static_nms`` on the card
+    EQUAL to the same calls on the CPU from the same logits and boxes,
+    each one's CUDA-event ms and launch calls a call.
+    Phases 53-55 launch none of the port's kernels: each asserts every
+    kernel counter is still 0 at its end.
 
 Each phase's wall seconds print as the next phase (or the closing line)
 begins.
@@ -609,6 +652,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -632,7 +676,9 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "launched training", "elastic restarts", "expert-parallel training",
          "eager API", "eager hybrid parallel", "BERT fine-tuning (hapi)",
          "parameter-server tables", "captured train step (jit)",
-         "BERT fine-tuning (hapi, jit)", "deployment predictor")
+         "BERT fine-tuning (hapi, jit)", "deployment predictor",
+         "ResNet-50 training (vision)", "vision parity",
+         "detector training and NMS (vision)")
 
 
 def check(cond, msg):
@@ -1489,7 +1535,9 @@ def profile_device(run, label, top=6):
     the kernels that took the most device time, and the host ops that
     took the most self CPU time (ms and calls; the profiler's own cost
     included), the kernel launch calls (``launch_calls``) and the CUDA
-    graph launches (``graph_launch_calls``)."""
+    graph launches (``graph_launch_calls``), and the device events that
+    copy or re-lay memory (``copy_kernels``: calls by name, and
+    ``copy_kernel_calls``, ``copy_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1530,6 +1578,12 @@ def profile_device(run, label, top=6):
            "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
                kernels.items(), key=lambda kv: -kv[1])[:top]},
            "top_host_ops_ms_calls": {k: [ms, n] for k, ms, n in host}}
+    moves = {k: v for k, v in device.items()
+             if re.search(r"copy|memcpy|nchwToNhwc|nhwcToNchw|transpose", k,
+                          re.I)}
+    out["copy_kernels"] = {k[:60]: n for k, (_, n) in moves.items()}
+    out["copy_kernel_calls"] = sum(n for _, n in moves.values())
+    out["copy_ms"] = sum(us for us, _ in moves.values()) / 1e3
     if busy_ms == 0:
         out = {"wall_ms": wall_ms, "device_busy_ms": "not measured "
                "(the profiler saw no device events)"}
@@ -8971,6 +9025,608 @@ def deploy_phase(net, batches=4, batch=BERT_BATCH, seq=BERT_SEQ, small=8):
     return out, total
 
 
+# phases 53-55: vision (cells RN and DT) — conv, pooling and the layout
+# pass reach cuDNN through torch.nn.functional; no port kernel runs
+
+RN_BATCH, RN_IMAGE = 32, 224
+DT_BATCH, DT_IMAGE, DT_CLASSES = 8, 320, 80
+
+
+def conv_linear_macs(net, *inputs):
+    """Multiply-adds of one eval forward of ``net`` on ``inputs``, from the
+    output shape of every Conv and Linear layer (forward post-hooks): a
+    conv output element costs (in_channels / groups) x prod(kernel), a
+    transposed conv's input element (out_channels / groups) x
+    prod(kernel), a Linear output element in_features."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn.layers.conv import _ConvNd
+    total = [0]
+
+    def numel(t):
+        return int(np.prod(t.shape))
+
+    def hook(layer, ins, out):
+        if isinstance(layer, _ConvNd):
+            k = int(np.prod(layer.kernel_size))
+            if layer._transpose:
+                total[0] += numel(ins[0]) * layer.out_channels // \
+                    layer.groups * k
+            else:
+                total[0] += numel(out) * layer.in_channels // \
+                    layer.groups * k
+        else:
+            total[0] += numel(out) * layer.in_features
+
+    handles = [l.register_forward_post_hook(hook)
+               for l in net.sublayers(include_self=True)
+               if isinstance(l, (_ConvNd, paddle.nn.Linear))]
+    was_training = net.training
+    net.eval()
+    try:
+        with paddle.no_grad():
+            net(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+        if was_training:
+            net.train()
+    return total[0]
+
+
+def _vision_counts_zero(counts, phase):
+    launched = {k: v for k, v in counts.items() if v}
+    check(not launched, f"phase {phase} launched port kernels {launched}")
+
+
+def _snapshot(net):
+    return {k: v._value.detach().clone() for k, v in net.state_dict().items()}
+
+
+def _eager_vs_captured(make_net, opt_fn, loss_fn, batches):
+    """Three eager steps on one net, then a fresh net from the same weights
+    through ``make_train_step`` on the same batches (an eager warm-up, the
+    capture and a replay). Returns (eager losses, captured losses, the
+    captured step's seconds, the step, its net, and the peak memory
+    allocated over the eager steps and over the captured ones: a replay
+    allocates nothing, its activations live in the graph's pool)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    net = make_net()
+    opt = opt_fn(net)
+    eager = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for ins, labs in batches:
+        net.train()
+        with paddle.amp.auto_cast():
+            out = net(*ins)
+            outs = list(out) if isinstance(out, (list, tuple)) else [out]
+            loss = loss_fn(*outs, *labs)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        eager.append(loss.item())
+    peaks = {"eager_peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del net, opt, loss, out, outs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = make_net()
+    step = paddle.jit.make_train_step(net, opt_fn(net), loss_fn, amp=True)
+    check(step.donate, "the captured step does not donate on the card")
+    captured, secs = [], []
+    for ins, labs in batches:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        captured.append(step(ins, labs).item())
+        secs.append(time.time() - t0)
+    peaks["capture_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return eager, captured, secs, step, net, peaks
+
+
+def _timed_replays(step, ins, labs, timed, label, flops_per_step,
+                   batch):
+    """``timed`` replays (host clock to ``loss.item()``), peak memory, MFU
+    over the bf16 peak, one profiled replay (with its copy kernels)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step(ins, labs).item()
+        times.append(time.time() - t0)
+    step_ms = float(np.median(times)) * 1e3
+    m = {"step_ms": step_ms, "step_ms_each": [t * 1e3 for t in times],
+         "images_per_s": batch / step_ms * 1e3,
+         "flops_per_step": flops_per_step,
+         "mfu": flops_per_step / (step_ms / 1e3) / PEAK_FLOPS["bf16"],
+         "max_memory_allocated_gb":
+             torch.cuda.max_memory_allocated() / 2 ** 30,
+         "memory_reserved_gb": torch.cuda.memory_reserved() / 2 ** 30}
+    m["profile"] = profile_device(lambda: step(ins, labs).item(), label,
+                                  top=8)
+    check(m["profile"].get("graph_launch_calls", 0) >= 1,
+          f"the profiled {label} launched no CUDA graph")
+    return m
+
+
+def resnet_phase(timed=8, batch=RN_BATCH, image=RN_IMAGE, loader_steps=8):
+    """Phase 53 (cell RN): ``bench.py:bench_resnet`` in the port —
+    ResNet-50 (1000 classes, random weights from ``paddle.seed(0)``),
+    ``Momentum(0.1, 0.9)``, ``CrossEntropyLoss``, ``make_train_step(...,
+    amp=True)`` at B 32 x 3 x 224 x 224, NCHW and under ChannelsLast from
+    the same weights; then ``examples/train_resnet.py``'s loop (the
+    FakeImageDataset through the DataLoader's two workers). Returns its
+    metrics."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet50
+    paddle.set_device("gpu:0")
+    reset_counts()
+    paddle.seed(0)
+    sd = _snapshot(resnet50(num_classes=1000))
+    macs = conv_linear_macs(resnet50(num_classes=1000), paddle.to_tensor(
+        np.zeros((1, 3, image, image), np.float32)))
+    log(f"  ResNet-50 forward at {image}^2: {macs / 1e9:.4f} G multiply-"
+        f"adds an image (published: ~4.1 G)")
+    check(image != 224 or abs(macs / 4.1e9 - 1) < 0.05,
+          f"ResNet-50 MACs {macs}")
+    flops = 3 * 2 * macs * batch       # forward + backward (2x), 2 a MAC
+    rng = np.random.default_rng(SEED + 53)
+    batches = [([paddle.to_tensor(torch.from_numpy(rng.standard_normal(
+        (batch, 3, image, image)).astype(np.float32)).cuda())],
+        [paddle.to_tensor(torch.from_numpy(rng.integers(
+            0, 1000, (batch,))).cuda())]) for _ in range(3)]
+    in_mb = batch * 3 * image * image * 4 / 1e6
+
+    def opt_fn(net):
+        return paddle.optimizer.Momentum(0.1, momentum=0.9,
+                                         parameters=net.parameters())
+
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    out = {"input_batch_mb": in_mb}
+    steps = {}
+    for layout in ("nchw", "channels_last"):
+        def make_net():
+            net = resnet50(num_classes=1000)
+            net.set_state_dict(sd)
+            return paddle.nn.ChannelsLast(net) if layout != "nchw" else net
+        eager, captured, secs, step, net, peaks = _eager_vs_captured(
+            make_net, opt_fn, loss_fn, batches)
+        rels = [_rel(c, e) for c, e in zip(captured, eager)]
+        log(f"  {layout}: losses eager {eager}, captured {captured} "
+            f"(warm-up, capture + replay, replay; "
+            f"{[round(t, 3) for t in secs]} s); rel {rels}; bit-equal "
+            f"{[c == e for c, e in zip(captured, eager)]}")
+        # the gate: the warm-up and the first captured loss (the third
+        # step's follows two Momentum updates at lr 0.1 and is printed)
+        for r in rels[:2]:
+            check(r <= 5e-3, f"{layout} captured loss rel {r} from eager")
+        m = _timed_replays(step, *batches[0], timed,
+                           f"ResNet-50 {layout} step", flops, batch)
+        m.update(losses_eager=eager, losses_captured=captured,
+                 loss_rel=rels, capture_s=secs[1], **peaks)
+        log(f"  {layout}: {json.dumps(m)}")
+        log(f"  {layout}: input batch {in_mb:.1f} MB beside peak "
+            f"{peaks['capture_peak_gb']:.2f} GiB allocated over the "
+            f"capture ({peaks['eager_peak_gb']:.2f} GiB eager, "
+            f"{m['memory_reserved_gb']:.2f} GiB reserved while replaying)")
+        out[layout] = m
+        steps[layout] = (step, net)
+        if layout == "nchw":
+            del step, net
+            steps.pop(layout)
+            torch.cuda.empty_cache()
+    first = out["nchw"]["losses_captured"][0]
+    cl = out["channels_last"]["losses_captured"][0]
+    check(_rel(cl, first) <= 5e-3, f"ChannelsLast loss {cl} against NCHW "
+          f"{first}")
+    out["channels_last_vs_nchw"] = {
+        "step_ms": [out["channels_last"]["step_ms"], out["nchw"]["step_ms"]],
+        "copy_kernel_calls": [out["channels_last"]["profile"].get(
+            "copy_kernel_calls"), out["nchw"]["profile"].get(
+            "copy_kernel_calls")],
+        "first_loss_rel": _rel(cl, first)}
+    log(f"  ChannelsLast against NCHW: {json.dumps(out['channels_last_vs_nchw'])}")
+
+    # examples/train_resnet.py's loop: the DataLoader's workers feed the
+    # captured ChannelsLast step
+    step, _ = steps["channels_last"]
+    ds = paddle.vision.datasets.FakeImageDataset(
+        (loader_steps + 2) * batch, (3, image, image), 1000)
+    loader = paddle.io.DataLoader(ds, batch_size=batch, num_workers=2,
+                                  use_shared_memory=True)
+    it = paddle.io.prefetch_to_device(loader)
+    waits, times, losses = [], [], []
+    t_loop = time.time()
+    for i in range(loader_steps + 1):
+        t0 = time.time()
+        x, y = next(it)
+        t1 = time.time()
+        losses.append(step([x], [y]).item())
+        t2 = time.time()
+        if i:                               # the first batch starts workers
+            waits.append((t1 - t0) * 1e3)
+            times.append((t2 - t1) * 1e3)
+    del it, loader
+    loop = {"data_wait_ms_per_step": float(np.mean(waits)),
+            "data_wait_ms_each": waits,
+            "step_ms_per_step": float(np.mean(times)),
+            "images_per_s_with_loader": batch * loader_steps /
+            (sum(waits) + sum(times)) * 1e3,
+            "loop_s": time.time() - t_loop, "losses": losses}
+    check(all(np.isfinite(losses)), f"loader losses {losses}")
+    log(f"  train_resnet.py loop (2 workers, shared memory): "
+        f"{json.dumps(loop)}")
+    out["loader"] = loop
+    del steps, step
+    torch.cuda.empty_cache()
+    _vision_counts_zero(read_counts(), 53)
+    return out
+
+
+def _max_rel(got, want):
+    got = got.detach().float().cpu().numpy() if hasattr(got, "detach") \
+        else np.asarray(got)
+    want = want.detach().float().cpu().numpy() if hasattr(want, "detach") \
+        else np.asarray(want)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def vision_parity_phase():
+    """Phase 54: fp32 vision on the card against the CPU (TF32 off):
+    ResNet-18's loss, gradients and running statistics, NHWC against
+    NCHW, three captured Momentum steps (in fp64 and fp32); the conv and
+    pooling routes."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet18
+    F = paddle.nn.functional
+    reset_counts()
+    rng = np.random.default_rng(SEED + 54)
+    paddle.set_device("cpu")
+    paddle.seed(54)
+    sd = {k: v.numpy() for k, v in resnet18(num_classes=10).state_dict()
+          .items()}
+    x = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    y = rng.integers(0, 10, (4,)).astype(np.int64)
+    res = {}
+    for place, layout in (("cpu", "nchw"), ("gpu:0", "nchw"),
+                          ("gpu:0", "nhwc")):
+        paddle.set_device(place)
+        net = resnet18(num_classes=10)
+        net.set_state_dict(sd)
+        m = paddle.nn.ChannelsLast(net) if layout == "nhwc" else net
+        m.train()
+        loss = paddle.nn.CrossEntropyLoss()(m(paddle.to_tensor(x)),
+                                            paddle.to_tensor(y))
+        loss.backward()
+        res[(place, layout)] = (
+            loss.item(),
+            {n: p.grad.numpy() for n, p in net.named_parameters()},
+            {k: v.numpy() for k, v in net.state_dict().items()
+             if k.endswith(("_mean", "_variance"))})
+    ref = res[("cpu", "nchw")]
+    worst = {}
+    for key in (("gpu:0", "nchw"), ("gpu:0", "nhwc")):
+        got = res[key]
+        rel = _rel(got[0], ref[0])
+        g = max(_max_rel(got[1][k], ref[1][k]) for k in ref[1])
+        st = max(float(np.abs(got[2][k] - ref[2][k]).max()) for k in ref[2])
+        worst[key[1]] = {"loss_rel": rel, "grad_worst_of_max": g,
+                         "running_stats_max_abs": st}
+    # three captured Momentum steps at lr 1e-3 (the CPU tests' value) on
+    # three batches of 32 (at B 4 the net is ill-conditioned in fp32: the
+    # CPU tests' docstring, tests/test_torch_vision_models.py). The gate
+    # runs them in fp64, where the card and the CPU compute the same steps
+    # to rounding: every loss, and after the steps every parameter and
+    # running statistic, within 1e-10 of the CPU's. In fp32 the program
+    # does not decide the trajectory to 1e-4: a ReLU whose input lies
+    # within the fp32 forward error of 0 may fall on the other side on the
+    # card, and BatchNorm over layer4's 1 x 1 maps spreads that one
+    # gradient over its channel's whole batch. The fp32 run is held to
+    # what fp32 decides (its first loss, and every layer's forward output
+    # against the fp64 run's, which a TF32 or other reduced-precision
+    # kernel would miss by ~1e-3); its three losses and its ReLU sign
+    # flips against fp64 are printed.
+    batches = [(rng.standard_normal((32, 3, 32, 32)).astype(np.float32),
+                rng.integers(0, 10, (32,)).astype(np.int64))
+               for _ in range(3)]
+
+    def on(place, layout, dtype, fn):
+        paddle.set_device(place)
+        prev = paddle.get_default_dtype()
+        paddle.set_default_dtype(dtype)
+        try:
+            net = resnet18(num_classes=10)
+            net.set_state_dict({k: v.astype(dtype) for k, v in sd.items()})
+            return fn(net, paddle.nn.ChannelsLast(net) if layout == "nhwc"
+                      else net, layout, dtype)
+        finally:
+            paddle.set_default_dtype(prev)
+
+    def trajectory(net, m, layout, dtype):
+        step = paddle.jit.make_train_step(
+            m, paddle.optimizer.Momentum(1e-3, momentum=0.9,
+                                         parameters=m.parameters()),
+            paddle.nn.CrossEntropyLoss())
+        losses = [step(paddle.to_tensor(a.astype(dtype)),
+                       paddle.to_tensor(b)).item() for a, b in batches]
+        return losses, {k: v.numpy().astype(np.float64)
+                        for k, v in net.state_dict().items()}
+
+    def forward(net, m, layout, dtype):
+        """Every leaf layer's output (NCHW) and every ReLU's input of a
+        train-mode forward on the first batch, in call order."""
+        outs, relu_in = [], []
+
+        def nchw(t):
+            v = t._value.detach()
+            if layout == "nhwc" and v.dim() == 4:
+                v = v.permute(0, 3, 1, 2)
+            return v.double().cpu().numpy()
+
+        def hook(layer, ins, out):
+            outs.append(nchw(out))
+            if isinstance(layer, paddle.nn.ReLU):
+                relu_in.append(nchw(ins[0]))
+
+        for _, sub in net.named_sublayers():
+            if not sub.sublayers():
+                sub.register_forward_post_hook(hook)
+        m.train()
+        m(paddle.to_tensor(batches[0][0].astype(dtype)))
+        return outs, relu_in
+
+    runs = (("cpu", "nchw"), ("gpu:0", "nchw"), ("gpu:0", "nhwc"))
+    traj = {(p, l, d): on(p, l, d, trajectory) for d in ("float64", "float32")
+            for p, l in runs}
+    fwd = {(p, l, d): on(p, l, d, forward) for p, l, d in (
+        ("cpu", "nchw", "float64"), ("gpu:0", "nchw", "float32"),
+        ("gpu:0", "nhwc", "float32"))}
+    ref64, ref32 = traj[("cpu", "nchw", "float64")], \
+        traj[("cpu", "nchw", "float32")]
+    ref_out, ref_relu = fwd[("cpu", "nchw", "float64")]
+    for place, layout in runs[1:]:
+        w = worst[layout]
+        losses, state = traj[(place, layout, "float64")]
+        w["fp64_three_step_loss_rel"] = [_rel(a, b)
+                                         for a, b in zip(losses, ref64[0])]
+        w["fp64_state_after_worst_of_max"] = max(
+            _max_rel(state[k], ref64[1][k]) for k in ref64[1])
+        losses32 = traj[(place, layout, "float32")][0]
+        w["fp32_three_step_loss_rel"] = [_rel(a, b)
+                                         for a, b in zip(losses32, ref32[0])]
+        w["fp32_three_step_loss_rel_to_fp64"] = [
+            _rel(a, b) for a, b in zip(losses32, ref64[0])]
+        outs, relu_in = fwd[(place, layout, "float32")]
+        w["fp32_forward_worst_of_max"] = max(
+            _max_rel(a, b) for a, b in zip(outs, ref_out))
+        flips = []
+        for i, (z, z64) in enumerate(zip(relu_in, ref_relu)):
+            bad = np.argwhere((z > 0) != (z64 > 0))
+            flips += [{"relu_call": i, "at": e.tolist(),
+                       "fp64_input_of_max": float(z64[tuple(e)] /
+                                                  np.abs(z64).max()),
+                       "fp32_input_of_max": float(z[tuple(e)] /
+                                                  np.abs(z64).max())}
+                      for e in bad]
+        w["fp32_relu_sign_flips"] = flips
+    worst["nhwc"]["fp64_three_step_loss_rel_to_nchw"] = [
+        _rel(a, b) for a, b in zip(traj[("gpu:0", "nhwc", "float64")][0],
+                                   traj[("gpu:0", "nchw", "float64")][0])]
+    log(f"  ResNet-18 card against CPU (fp32; three steps also fp64): "
+        f"{json.dumps(worst)}")
+    for layout, w in worst.items():
+        check(w["loss_rel"] <= 1e-5, f"ResNet-18 {layout} loss {w}")
+        check(w["grad_worst_of_max"] <= 1e-3, f"ResNet-18 {layout} grad {w}")
+        check(w["running_stats_max_abs"] <= 1e-5,
+              f"ResNet-18 {layout} running stats {w}")
+        check(max(w["fp64_three_step_loss_rel"]) <= 1e-10,
+              f"ResNet-18 {layout} three fp64 steps {w}")
+        check(w["fp64_state_after_worst_of_max"] <= 1e-10,
+              f"ResNet-18 {layout} state after three fp64 steps {w}")
+        check(w["fp32_three_step_loss_rel"][0] <= 1e-5,
+              f"ResNet-18 {layout} first fp32 step's loss {w}")
+        check(w["fp32_forward_worst_of_max"] <= 1e-4,
+              f"ResNet-18 {layout} fp32 forward against fp64 {w}")
+    check(max(worst["nhwc"]["fp64_three_step_loss_rel_to_nchw"]) <= 1e-10,
+          f"ResNet-18 NHWC against NCHW, three fp64 steps {worst['nhwc']}")
+
+    # the conv and pooling routes, card against CPU, with gradients
+    def both(fn, arrays, **kw):
+        outs = []
+        for place in ("cpu", "gpu:0"):
+            paddle.set_device(place)
+            ts = [paddle.to_tensor(a, stop_gradient=False) for a in arrays]
+            out = fn(*ts, **kw)
+            res = out if isinstance(out, tuple) else (out,)
+            r = np.random.default_rng(1).standard_normal(
+                res[0].shape).astype(np.float32)
+            fin = np.isfinite(res[0].numpy())
+            (res[0] * paddle.to_tensor(np.where(fin, r, 0).astype(
+                np.float32))).sum().backward()
+            outs.append([o.numpy() for o in res] +
+                        [t.grad.numpy() for t in ts])
+        errs = []
+        for a, b in zip(*outs):
+            if a.dtype.kind in "iu":
+                check(np.array_equal(a, b), f"{fn.__name__} {kw} indices")
+                errs.append(0.0)
+                continue
+            fin = np.isfinite(a)
+            check(np.array_equal(fin, np.isfinite(b)), f"{fn.__name__} inf")
+            errs.append(_max_rel(b[fin], a[fin]) if fin.any() else 0.0)
+        check(max(errs) <= 1e-5, f"{fn.__name__} {kw}: {errs}")
+        return max(errs)
+
+    def xs(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    cases = {
+        "conv2d groups 2 dilation 2 SAME stride 2": both(
+            F.conv2d, [xs(2, 8, 17, 19), xs(12, 4, 3, 3), xs(12)], stride=2,
+            padding="SAME", dilation=2, groups=2),
+        "conv2d asymmetric pads stride 2": both(
+            F.conv2d, [xs(2, 8, 17, 19), xs(12, 8, 3, 3)], stride=2,
+            padding=[1, 2, 0, 3]),
+        "conv2d NHWC": both(F.conv2d, [xs(2, 17, 19, 8), xs(12, 4, 3, 3)],
+                            stride=2, padding=1, groups=2,
+                            data_format="NHWC"),
+        "conv2d_transpose output_padding groups": both(
+            F.conv2d_transpose, [xs(2, 8, 9, 10), xs(8, 3, 3, 3), xs(6)],
+            stride=2, padding=1, output_padding=1, groups=2),
+        "conv2d_transpose output_padding past torch's": both(
+            F.conv2d_transpose, [xs(2, 8, 9, 10), xs(8, 6, 3, 3)], stride=1,
+            padding=1, output_padding=2),
+    }
+    x7 = xs(2, 3, 15, 17)
+    relu = np.maximum(x7, 0)
+    relu[:, :, :6, :6] = 0.0                   # all-tie windows
+    for name, fn, arr, kw in (
+            ("max ceil", F.max_pool2d, x7, dict(kernel_size=3, stride=2,
+                                                padding=1, ceil_mode=True)),
+            ("max asymmetric", F.max_pool2d, x7, dict(
+                kernel_size=3, stride=2, padding=[1, 2, 0, 1])),
+            ("max return_mask", F.max_pool2d, x7, dict(
+                kernel_size=3, stride=2, padding=1, return_mask=True)),
+            ("max ceil return_mask", F.max_pool2d, x7, dict(
+                kernel_size=2, stride=2, ceil_mode=True, return_mask=True)),
+            ("max ReLU ties", F.max_pool2d, relu, dict(kernel_size=3,
+                                                       stride=2, padding=1)),
+            ("avg exclusive ceil", F.avg_pool2d, x7, dict(
+                kernel_size=3, stride=2, padding=1, ceil_mode=True)),
+            ("avg inclusive ceil", F.avg_pool2d, x7, dict(
+                kernel_size=3, stride=2, padding=1, ceil_mode=True,
+                exclusive=False)),
+            ("avg SAME", F.avg_pool2d, x7, dict(kernel_size=3, stride=2,
+                                                 padding="SAME")),
+            ("avg divisor", F.avg_pool2d, x7, dict(kernel_size=3, stride=2,
+                                                    divisor_override=4)),
+            ("adaptive avg", F.adaptive_avg_pool2d, x7, dict(
+                output_size=(4, 5))),
+            ("adaptive max", F.adaptive_max_pool2d, x7, dict(
+                output_size=(3, 4))),
+            ("max NHWC", F.max_pool2d, np.ascontiguousarray(
+                x7.transpose(0, 2, 3, 1)), dict(kernel_size=3, stride=2,
+                                                padding=1,
+                                                data_format="NHWC"))):
+        cases[name] = both(fn, [arr], **kw)
+    log(f"  conv and pooling, card against CPU (max error of max|ref|, "
+        f"outputs and gradients): {json.dumps(cases)}")
+    paddle.set_device("gpu:0")
+    _vision_counts_zero(read_counts(), 54)
+    return {"resnet18": worst, "routes": cases}
+
+
+def detector_phase(timed=8, batch=DT_BATCH, image=DT_IMAGE):
+    """Phase 55 (cell DT): ``bench.py:bench_detect`` in the port — the
+    PP-YOLOE detector over MobileNetV3-small at 320 px, 80 classes,
+    ``Momentum(0.01, 0.9)``, ``make_train_step(..., amp=True)`` over
+    ``detection_loss`` at B 8 with ``bench.py``'s ground truth; then
+    ``examples/train_detector.py``'s inference at 64 px, the three NMS
+    ops on the card against the same calls on the CPU."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.detection import (detection_loss,
+                                                   ppyoloe_mbv3, static_nms)
+    from paddle_tpu_torch.vision.ops import matrix_nms, multiclass_nms
+    paddle.set_device("gpu:0")
+    reset_counts()
+    paddle.seed(0)
+    det = ppyoloe_mbv3(num_classes=DT_CLASSES, image_size=image)
+    sd = _snapshot(det)
+    pts, strides = det.anchor_points()
+    macs = conv_linear_macs(det, paddle.to_tensor(
+        np.zeros((1, 3, image, image), np.float32)))
+    del det
+    flops = 3 * 2 * macs * batch
+    log(f"  detector forward at {image}^2: {macs / 1e9:.4f} G multiply-adds "
+        f"an image")
+    rng = np.random.default_rng(0)
+
+    def mk(b):                          # bench.py:371-379
+        x = rng.standard_normal((b, 3, image, image)).astype(np.float32)
+        lo = rng.uniform(0, image - 64, (b, 4, 2)).astype(np.float32)
+        wh = rng.uniform(16, 64, (b, 4, 2)).astype(np.float32)
+        gt_b = np.concatenate([lo, lo + wh], -1)
+        gt_l = rng.integers(0, DT_CLASSES, (b, 4)).astype(np.int32)
+        return ([paddle.to_tensor(x)],
+                [paddle.to_tensor(gt_b), paddle.to_tensor(gt_l)])
+
+    batches = [mk(batch) for _ in range(3)]
+
+    def make_net():
+        net = ppyoloe_mbv3(num_classes=DT_CLASSES, image_size=image)
+        net.set_state_dict(sd)
+        return net
+
+    def opt_fn(net):
+        return paddle.optimizer.Momentum(0.01, momentum=0.9,
+                                         parameters=net.parameters())
+
+    def loss_fn(cls, boxes, gt_b, gt_l):
+        return detection_loss(cls, boxes, gt_b, gt_l, pts, strides,
+                              DT_CLASSES)
+
+    eager, captured, secs, step, net, peaks = _eager_vs_captured(
+        make_net, opt_fn, loss_fn, batches)
+    rels = [_rel(c, e) for c, e in zip(captured, eager)]
+    log(f"  losses eager {eager}, captured {captured} (warm-up, capture + "
+        f"replay, replay; {[round(t, 3) for t in secs]} s); rel {rels}; "
+        f"bit-equal {[c == e for c, e in zip(captured, eager)]}")
+    for r in rels[:2]:              # the warm-up and the first captured
+        check(r <= 5e-3, f"captured detector loss rel {r} from eager")
+    m = _timed_replays(step, *batches[0], timed, "detector step",
+                       flops, batch)
+    m.update(losses_eager=eager, losses_captured=captured, loss_rel=rels,
+             capture_s=secs[1], **peaks)
+    log(f"  {json.dumps(m)}")
+    del step, net
+    torch.cuda.empty_cache()
+
+    # examples/train_detector.py's inference at 64 px: the three NMS ops
+    # on the card and on the CPU from the same logits and boxes
+    paddle.seed(1)
+    small = ppyoloe_mbv3(num_classes=3, image_size=64)
+    small.eval()
+    cls, boxes = small(paddle.to_tensor(rng.standard_normal(
+        (2, 3, 64, 64)).astype(np.float32)))
+    scores = torch.sigmoid(cls._value).permute(0, 2, 1).contiguous()
+    calls = {
+        "multiclass_nms": lambda b, s: multiclass_nms(
+            b, s, score_threshold=0.05, nms_top_k=32, keep_top_k=8,
+            nms_threshold=0.6),
+        "matrix_nms": lambda b, s: matrix_nms(
+            b, s, score_threshold=0.05, nms_top_k=32, keep_top_k=8),
+        # one image, each anchor's best class
+        "static_nms": lambda b, s: static_nms(b, s, top_k=32,
+                                              iou_threshold=0.6),
+    }
+    nms = {}
+    for name, fn in calls.items():
+        b, s = boxes._value.detach(), scores
+        if name == "static_nms":
+            b, s = b[0], s[0].amax(0)
+        args = {d: (paddle.to_tensor(b.to(d)), paddle.to_tensor(s.to(d)))
+                for d in ("cpu", "cuda")}
+        want = [o.numpy() for o in fn(*args["cpu"])]
+        got = [o.numpy() for o in fn(*args["cuda"])]
+        for i, (a, b) in enumerate(zip(want, got)):
+            check(a.shape == b.shape and np.array_equal(a, b),
+                  f"{name} output {i}: card {b} against CPU {a}")
+        ms = cuda_ms(lambda: fn(*args["cuda"]), iters=10, warmup=2)
+        prof = profile_device(lambda: fn(*args["cuda"]), name, top=3)
+        nms[name] = {"ms": ms, "launch_calls": prof.get("launch_calls"),
+                     "kept": int(np.asarray(got[-1]).sum()) if
+                     name == "static_nms" else got[-1].tolist()}
+    log(f"  NMS on the card, equal to the CPU's: {json.dumps(nms)}")
+    m["nms"] = nms
+    _vision_counts_zero(read_counts(), 55)
+    return m
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9405,6 +10061,20 @@ def main() -> int:
     _, c52 = deploy_phase(bt_net)
     del bt_net
     launches = {k: launches[k] + c52.get(k, 0) for k in launches}
+    log(f"  nvidia-smi: {card}")
+    log("== phase 53: ResNet-50 training (cell RN) as bench_resnet runs it: "
+        "B 32 x 3 x 224^2, bf16 auto_cast, Momentum, make_train_step; NCHW "
+        "and ChannelsLast; examples/train_resnet.py's DataLoader loop")
+    resnet_phase()
+    log(f"  nvidia-smi: {card}")
+    log("== phase 54: fp32 parity of vision on the card against the CPU: "
+        "ResNet-18, NHWC, three captured steps, the conv and pooling routes")
+    vision_parity_phase()
+    log("== phase 55: the PP-YOLOE detector (cell DT) as bench_detect runs "
+        "it: MobileNetV3-small, 320 px, B 8, bf16 auto_cast, Momentum, "
+        "make_train_step over detection_loss; NMS on the card against the "
+        "CPU")
+    detector_phase()
     log(f"  nvidia-smi: {card}")
     trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c47,
                c48, c50a, c50b, c51, c52)

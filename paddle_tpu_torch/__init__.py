@@ -18,6 +18,9 @@ never ``jax`` and nothing of ``paddle_tpu``. It holds:
   high-level API (``Model`` and ``summary``, ``metric``, ``callbacks``),
   BERT's layers and the parameter-server tables
   (``distributed/ps.py``);
+* ``vision`` (conv and pooling in ``nn``, the channels-last layout
+  pass, the model zoo with ResNet and MobileNetV3, datasets,
+  transforms, the box and NMS ops and the PP-YOLOE detector);
 * ``jit`` (``to_static`` as a captured CUDA graph, the fused
   ``TrainStep``, dy2static and SOT, ``jit.save`` / ``jit.load`` through
   ``torch.export``), the deployment ``inference.Predictor`` and
@@ -61,6 +64,7 @@ _LAZY_SUBMODULES = (
     "nn", "optimizer", "io", "distributed", "framework", "incubate",
     "kernels", "regularizer", "inference", "models", "testing", "health",
     "amp", "autograd", "metric", "callbacks", "hapi", "jit", "profiler",
+    "vision",
 )
 
 

@@ -318,6 +318,9 @@ NOT_SWEPT = {
     **{n: "takes a DistributedSparseEmbedding table; held to JAX in "
           "test_torch_ps.py"
        for n in ("distributed_lookup_table", "distributed_push_sparse")},
+    "yolo_box": "the reference's boxes are scrambled (ROADMAP §C); held to "
+                "a numpy decode and its scores to JAX in "
+                "test_torch_vision_ops.py",
 }
 
 DOMAINS = {

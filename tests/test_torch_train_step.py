@@ -5,11 +5,12 @@ case and ``TestHapiJit``, and ``tests/test_health.py``'s
 ``TestSentinelFused``, each run through both packages from the same
 weights (the port's net loaded from the JAX net's ``state_dict()``).
 
-The twin net is ``BNNet`` (Linear + BatchNorm1D + ReLU + Linear): like
-the reference's ``ConvNet`` it carries parameters, optimizer
-accumulators and buffers the forward mutates; the port's ``Conv2D``
-waits for ``vision/`` (ROADMAP item 5), with ``TestNHWCLayout`` and the
-ResNet cases. Tolerances are the reference's: fused against eager
+``TestDonationParity`` and ``TestNHWCLayout`` run the reference's
+``ConvNet`` (conv + BatchNorm2D + pool + fc: parameters, optimizer
+accumulators and buffers the forward mutates); the other classes a
+``BNNet`` (Linear + BatchNorm1D + ReLU + Linear). ``TestNHWCLayout``'s
+eight cases compare the port's ChannelsLast net with its NCHW twin, as
+the reference's compare its own. Tolerances are the reference's: fused against eager
 ``rtol=1e-4, atol=1e-6`` at fp32 (``1e-3`` / ``5e-3`` under bf16 AMP),
 donated against undonated bitwise. On the CPU the program is a
 recording of the step's ATen operations replayed per call
@@ -78,6 +79,48 @@ def _batches(k=4, batch=4, seed=0):
              rng.integers(0, 4, (batch,)).astype("int64")) for _ in range(k)]
 
 
+def _convnet(P):
+    """``tests/test_train_step.py``'s ``ConvNet``: conv + BatchNorm (its
+    running statistics rebound by the forward) + pool + fc, so a step
+    carries parameters, optimizer accumulators and mutated buffers."""
+    nn = P.nn
+
+    class ConvNet(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2D(3, 8, 3, padding=1)
+            self.bn = nn.BatchNorm2D(8)
+            self.relu = nn.ReLU()
+            self.pool = nn.AdaptiveAvgPool2D((1, 1))
+            self.fc = nn.Linear(8, 4)
+
+        def forward(self, x):
+            x = self.pool(self.relu(self.bn(self.conv(x))))
+            return self.fc(P.flatten(x, 1))
+
+    return ConvNet()
+
+
+def _conv_twins(seed=0, n=2):
+    """``n`` port ConvNets and one JAX ConvNet, all from the JAX net's
+    weights."""
+    J.seed(seed)
+    jn = _convnet(J)
+    sd = {k: v.numpy() for k, v in jn.state_dict().items()}
+    tns = []
+    for _ in range(n):
+        t = _convnet(T)
+        t.set_state_dict(sd)
+        tns.append(t)
+    return jn, tns
+
+
+def _conv_batches(k=4, batch=4, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((batch, 3, 8, 8)).astype("float32"),
+             rng.integers(0, 4, (batch,)).astype("int64")) for _ in range(k)]
+
+
 def _acc_arrays(opt):
     order = {p.name: i for i, p in enumerate(opt._params())}
     return {(a, order[p]): t.numpy() for a, store in
@@ -92,7 +135,7 @@ class TestDonationParity:
     def test_fp32_fused_matches_eager(self):
         """K fused steps vs K eager steps (the port's), and vs the JAX
         package's fused steps: params, accumulators, BN running stats."""
-        jn, (t1, t2) = _twins()
+        jn, (t1, t2) = _conv_twins()
         loss_fn = T.nn.CrossEntropyLoss()
         o1 = T.optimizer.Momentum(0.1, momentum=0.9,
                                   parameters=t1.parameters())
@@ -102,7 +145,7 @@ class TestDonationParity:
                                   parameters=jn.parameters())
         step = T.jit.make_train_step(t2, o2, loss_fn)
         jstep = J.jit.make_train_step(jn, oj, J.nn.CrossEntropyLoss())
-        for x, y in _batches():
+        for x, y in _conv_batches():
             t1.train()
             loss = loss_fn(t1(T.to_tensor(x)), T.to_tensor(y))
             loss.backward()
@@ -127,13 +170,13 @@ class TestDonationParity:
             np.testing.assert_allclose(a2[k], aj[k], rtol=1e-4, atol=1e-6)
 
     def test_donated_bitwise_equals_undonated(self):
-        jn, (t1, t2) = _twins(seed=1)
+        jn, (t1, t2) = _conv_twins(seed=1)
         loss_fn = T.nn.CrossEntropyLoss()
         o1 = T.optimizer.Adam(0.01, parameters=t1.parameters())
         o2 = T.optimizer.Adam(0.01, parameters=t2.parameters())
         s_undonated = T.jit.make_train_step(t1, o1, loss_fn, donate=False)
         s_donated = T.jit.make_train_step(t2, o2, loss_fn, donate=True)
-        for x, y in _batches(seed=1):
+        for x, y in _conv_batches(seed=1):
             l1 = s_undonated(T.to_tensor(x), T.to_tensor(y))
             l2 = s_donated(T.to_tensor(x), T.to_tensor(y))
             assert float(l1) == float(l2)
@@ -145,14 +188,14 @@ class TestDonationParity:
             assert np.array_equal(v1, v2), (k1, k2)
 
     def test_amp_bf16_fused_matches_eager(self):
-        jn, (t1, t2) = _twins(seed=2)
+        jn, (t1, t2) = _conv_twins(seed=2)
         loss_fn = T.nn.CrossEntropyLoss()
         o1 = T.optimizer.Momentum(0.05, momentum=0.9,
                                   parameters=t1.parameters())
         o2 = T.optimizer.Momentum(0.05, momentum=0.9,
                                   parameters=t2.parameters())
         step = T.jit.make_train_step(t2, o2, loss_fn, amp=True)
-        for x, y in _batches(k=3, seed=2):
+        for x, y in _conv_batches(k=3, seed=2):
             t1.train()
             with T.amp.auto_cast():
                 loss = loss_fn(t1(T.to_tensor(x)), T.to_tensor(y))
@@ -168,13 +211,13 @@ class TestDonationParity:
                                        err_msg=k)
 
     def test_amp_donated_bitwise_equals_undonated(self):
-        jn, (t1, t2) = _twins(seed=3)
+        jn, (t1, t2) = _conv_twins(seed=3)
         loss_fn = T.nn.CrossEntropyLoss()
         o1 = T.optimizer.Momentum(0.05, parameters=t1.parameters())
         o2 = T.optimizer.Momentum(0.05, parameters=t2.parameters())
         s1 = T.jit.make_train_step(t1, o1, loss_fn, amp=True, donate=False)
         s2 = T.jit.make_train_step(t2, o2, loss_fn, amp=True, donate=True)
-        for x, y in _batches(k=3, seed=3):
+        for x, y in _conv_batches(k=3, seed=3):
             s1(T.to_tensor(x), T.to_tensor(y))
             s2(T.to_tensor(x), T.to_tensor(y))
         d1, d2 = _state(t1), _state(t2)
@@ -187,11 +230,11 @@ class TestDonationParity:
         the new state into the buffers the next replay reads, so every
         state Tensor keeps its value's storage and sees the update."""
         T.seed(4)
-        net = _bnnet(T)
+        net = _convnet(T)
         opt = T.optimizer.Momentum(0.1, parameters=net.parameters())
         step = T.jit.make_train_step(net, opt, T.nn.CrossEntropyLoss(),
                                      donate=True)
-        batches = _batches(k=3, seed=4)
+        batches = _conv_batches(k=3, seed=4)
         for x, y in batches[:2]:   # warm-up eager + capture
             step(T.to_tensor(x), T.to_tensor(y))
         before = {k: (t._value.data_ptr(), t.numpy().copy())
@@ -212,14 +255,14 @@ class TestDonationParity:
     def test_backend_auto_donation_off_cpu(self, P):
         assert P.jit.donation_supported("cpu") is False
         assert P.jit.donation_supported("tpu" if P is J else "cuda") is True
-        step = P.jit.TrainStep(_bnnet(P), P.optimizer.Momentum(parameters=[]),
+        step = P.jit.TrainStep(_convnet(P), P.optimizer.Momentum(parameters=[]),
                                lambda o, y: o)
         assert step.donate is False      # these runs are on the CPU
 
     @BOTH
     def test_scaler_falls_back_to_eager(self, P):
         P.seed(5)
-        net = _bnnet(P)
+        net = _convnet(P)
         opt = P.optimizer.Momentum(0.1, parameters=net.parameters())
         scaler = P.amp.GradScaler(init_loss_scaling=2.0 ** 8)
         step = P.jit.make_train_step(net, opt, P.nn.CrossEntropyLoss(),
@@ -227,7 +270,7 @@ class TestDonationParity:
         assert step._sf is None  # eager-only
         before = T.jit.fallbacks["scaler"]
         losses = [float(step(P.to_tensor(x), P.to_tensor(y)))
-                  for x, y in _batches(k=3, seed=5)]
+                  for x, y in _conv_batches(k=3, seed=5)]
         assert all(np.isfinite(l) for l in losses)
         assert losses[-1] < losses[0]
         if P is T:
@@ -263,12 +306,178 @@ class TestDonationParity:
     @BOTH
     def test_optimizer_fuse_spelling(self, P):
         P.seed(6)
-        net = _bnnet(P)
+        net = _convnet(P)
         opt = P.optimizer.Momentum(0.1, parameters=net.parameters())
         step = opt.fuse(net, P.nn.CrossEntropyLoss())
         assert isinstance(step, P.jit.TrainStep)
-        for x, y in _batches(k=2, seed=6):
+        for x, y in _conv_batches(k=2, seed=6):
             assert np.isfinite(float(step(P.to_tensor(x), P.to_tensor(y))))
+
+
+class TestNHWCLayout:
+    """``tests/test_train_step.py::TestNHWCLayout`` on the port: its
+    ChannelsLast nets against its own NCHW twins from the same weights.
+    The reference's eval forward is bitwise; the port's NHWC convs run
+    other kernels than its NCHW ones (cuDNN's or oneDNN's channels-last
+    kernels), so its bound is ``1e-6 * max|ref|``; the per-layout parity
+    with JAX is ``tests/test_torch_layout.py``."""
+
+    def _twins(self, factory, seed=7):
+        T.seed(seed)
+        m1 = factory()
+        m2 = T.nn.ChannelsLast(factory())
+        m2.set_state_dict(m1.state_dict())
+        return m1, m2
+
+    def test_resnet_eval_forward_nhwc_matches_nchw(self):
+        from paddle_tpu_torch.vision.models import resnet18
+        m1, m2 = self._twins(lambda: resnet18(num_classes=10))
+        x = T.to_tensor(np.random.default_rng(0).standard_normal(
+            (2, 3, 32, 32)).astype("float32"))
+        m1.eval()
+        m2.eval()
+        a, b = m1(x).numpy(), m2(x).numpy()
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6 * np.abs(a).max())
+
+    def test_resnet_train_forward_backward_parity(self):
+        """Train mode: BN batch statistics and the backward through the
+        whole stack, within the reference's bounds."""
+        from paddle_tpu_torch.vision.models import resnet18
+        m1, m2 = self._twins(lambda: resnet18(num_classes=10), seed=8)
+        rng = np.random.default_rng(1)
+        x = T.to_tensor(rng.standard_normal((4, 3, 32, 32)).astype("float32"))
+        y = T.to_tensor(rng.integers(0, 10, (4,)).astype("int64"))
+        loss_fn = T.nn.CrossEntropyLoss()
+        m1.train()
+        m2.train()
+        o1, o2 = m1(x), m2(x)
+        np.testing.assert_allclose(o1.numpy(), o2.numpy(), rtol=1e-3,
+                                   atol=1e-4)
+        loss_fn(o1, y).backward()
+        loss_fn(o2, y).backward()
+        g1 = m1.conv1.weight.grad.numpy()
+        g2 = m2.net.conv1.weight.grad.numpy()
+        np.testing.assert_allclose(g1, g2, rtol=1e-2,
+                                   atol=1e-3 * np.abs(g1).max())
+        np.testing.assert_allclose(m1.bn1._mean.numpy(),
+                                   m2.net.bn1._mean.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+    def test_mobilenet_feature_maps_transposed_back(self):
+        from paddle_tpu_torch.vision.models import mobilenet_v3_small
+        m1, m2 = self._twins(
+            lambda: mobilenet_v3_small(feature_only=True), seed=9)
+        x = T.to_tensor(np.random.default_rng(2).standard_normal(
+            (1, 3, 64, 64)).astype("float32"))
+        m1.eval()
+        m2.eval()
+        f1, f2 = m1(x), m2(x)
+        assert len(f1) == len(f2) == 3
+        for a, b in zip(f1, f2):
+            assert a.shape == b.shape  # NCHW both
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+
+    def test_adaptive_max_pool_channels_last(self):
+        """The layout pass sets data_format on AdaptiveMaxPool layers; their
+        forward passes it to the functional."""
+        class P(T.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.pool = T.nn.AdaptiveMaxPool2D(1)
+
+            def forward(self, x):
+                return self.pool(x)
+
+        m1, m2 = P(), T.nn.ChannelsLast(P())
+        x = T.to_tensor(np.random.default_rng(4).standard_normal(
+            (2, 3, 8, 8)).astype("float32"))
+        a, b = m1(x), m2(x)
+        assert a.shape == b.shape == [2, 3, 1, 1]
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+    def test_container_inputs_transposed(self):
+        class M(T.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.conv = T.nn.Conv2D(3, 4, 1, bias_attr=False)
+
+            def forward(self, d):
+                return self.conv(d["img"])
+
+        T.seed(14)
+        m1 = M()
+        m2 = T.nn.ChannelsLast(M())
+        m2.set_state_dict(m1.state_dict())
+        x = T.to_tensor(np.random.default_rng(5).standard_normal(
+            (2, 3, 6, 6)).astype("float32"))
+        np.testing.assert_allclose(m1({"img": x}).numpy(),
+                                   m2({"img": x}).numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+    def test_data_format_flip_and_inverse(self):
+        net = _convnet(T)
+        assert net.conv.data_format == "NCHW"
+        T.nn.to_channels_last(net)
+        assert net.conv.data_format == "NHWC"
+        assert net.bn.data_format == "NHWC"
+        assert net.pool.data_format == "NHWC"  # adaptive pool (None before)
+        T.nn.to_channels_first(net)
+        assert net.conv.data_format == "NCHW"
+        assert net.bn.data_format == "NCHW"
+
+    def test_state_dict_interchange(self):
+        T.seed(10)
+        nchw = _convnet(T)
+        wrapped = T.nn.ChannelsLast(_convnet(T))
+        sd = wrapped.state_dict()
+        assert set(sd) == set(nchw.state_dict())
+        assert list(sd["conv.weight"].shape) == [8, 3, 3, 3]
+        nchw.set_state_dict(sd)
+        wrapped.set_state_dict(nchw.state_dict())
+
+    def test_fused_nhwc_train_step(self):
+        """A ChannelsLast net under the captured step tracks the NCHW
+        twin's loss, and BatchNorm's running statistics written back by
+        the replays match."""
+        _, (n1, n2) = _conv_twins(seed=11)
+        wrapped = T.nn.ChannelsLast(n2)
+        loss_fn = T.nn.CrossEntropyLoss()
+        o1 = T.optimizer.Momentum(0.1, parameters=n1.parameters())
+        o2 = T.optimizer.Momentum(0.1, parameters=wrapped.parameters())
+        s1 = T.jit.make_train_step(n1, o1, loss_fn)
+        s2 = T.jit.make_train_step(wrapped, o2, loss_fn)
+        for x, y in _conv_batches(k=3, seed=11):
+            l1 = s1(T.to_tensor(x), T.to_tensor(y))
+            l2 = s2(T.to_tensor(x), T.to_tensor(y))
+        np.testing.assert_allclose(float(l1), float(l2), rtol=1e-3,
+                                   atol=1e-4)
+        np.testing.assert_allclose(n1.bn._mean.numpy(), n2.bn._mean.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+class TestBatchNormWriteBack:
+    def test_running_stats_after_three_captured_steps_equal_eager(self):
+        """The captured step rebinds BatchNorm's ``_mean`` / ``_variance``
+        every replay (the CPU recording, ``jit/trace.py``): after three
+        steps (eager, capture, replay) they equal three eager steps'."""
+        _, (t1, t2) = _conv_twins(seed=15)
+        loss_fn = T.nn.CrossEntropyLoss()
+        o1 = T.optimizer.Momentum(0.1, momentum=0.9,
+                                  parameters=t1.parameters())
+        o2 = T.optimizer.Momentum(0.1, momentum=0.9,
+                                  parameters=t2.parameters())
+        step = T.jit.make_train_step(t2, o2, loss_fn)
+        for x, y in _conv_batches(k=3, seed=15):
+            t1.train()
+            loss = loss_fn(t1(T.to_tensor(x)), T.to_tensor(y))
+            loss.backward()
+            o1.step()
+            o1.clear_grad()
+            step(T.to_tensor(x), T.to_tensor(y))
+        for name in ("_mean", "_variance"):
+            np.testing.assert_array_equal(getattr(t2.bn, name).numpy(),
+                                          getattr(t1.bn, name).numpy())
 
 
 class TestPrefetch:
