@@ -29,14 +29,18 @@ Phases (each fails the run on any error; none catches and carries on):
 5. The same trace with ``quantize="int8"`` and ``kv_quant="int8"``.
 6. Parity at fp32 on a shortened trace: the kernel engine against the
    ``paged_kernel="off"`` (gather) engine, token streams equal.
-7. Flash-attention kernel checks at bf16 on eight cases (the training
+7. Flash-attention kernel checks at bf16 on twelve cases (the training
    step's B 8 x S 2048 x 16 heads x D 128 causal; GQA 32/8 heads; 4
    packed segments per row; causal with Sq 1024 < Sk 2048; one shard of
    phase 36's sharded step, B 2 x S 2048 x 8 heads; one ring block of
    phase 39, B 4 x S 512 x 16 heads, causal (f) and not (g), with a
    random cotangent of the lse beside dO, held to the plain backward
    that takes it; (h) BERT-base's attention, B 32 x S 128 x 12 heads x
-   D 64, non-causal, one key tile a row): the public
+   D 64, non-causal, one key tile a row; and the SDXL UNet's attention,
+   non-causal at 10 heads: (i) level-1 self-attention, B 2 x S 4096 x D
+   64, (j) its cross-attention over 77 text tokens, a key length off the
+   64-row tile, (k) level-2 / mid self-attention, B 2 x S 1024 x D 128,
+   and (k') its cross-attention at Sk 77): the public
    ``flash_attention_with_lse`` and its gradient against the plain
    forward and backward (norm-relative error over the whole tensor and
    per row), dq and dk/dv each the same bits on two runs, the route one
@@ -610,6 +614,45 @@ Phases (each fails the run on any error; none catches and carries on):
     each one's CUDA-event ms and launch calls a call.
     Phases 53-55 launch none of the port's kernels: each asserts every
     kernel counter is still 0 at its end.
+56. The SDXL UNet at SDXL base's published widths
+    (``UNet2DConditionModel(in_channels=4, block_out_channels=(320, 640,
+    1280), ctx_dim=2048, heads=10, layers_per_block=2)``, 472.5 M
+    parameters, random weights from ``paddle.seed(0)``), trained through
+    ``make_train_step(..., amp=True)`` with AdamW on ``tests/
+    test_unet.py``'s DDPM objective at B 2 x 4 x 128 x 128 latents and a
+    [2, 77, 2048] context: the eager warm-up and the capture, 6 timed
+    replays and a profiled one (step ms, samples/s, MFU, peak memory
+    beside the graph's pool, busy share, launch and graph-launch calls),
+    exactly 18 flash forwards, 18 dq (all on the ``wgmma`` route) and 18
+    dk/dv launches a step (9 CrossAttnBlocks x self + cross, no remat);
+    then 4 no-grad eps evaluations under ``auto_cast``, each timed, 18
+    flash forwards each.
+57. fp32 UNet parity on the card against the CPU: the same layout at
+    widths (64, 128, 256) and 2 heads (head_dim 64 and 128: the fp32
+    flash kernels, 18 / 18 / 18 launches a step), latents 2 x 4 x 32 x
+    32, context [2, 77, 128], weights from one seed: the loss within
+    1e-5, every gradient within 1e-4 x max|g|, three AdamW steps' losses
+    within 1e-5.
+58. PP-OCR's recognizer: ``CRNN(num_classes=6625, in_channels=3,
+    image_height=48, hidden_size=96)`` (ppocr_keys_v1's 6623 characters +
+    space + blank; PP-OCRv4's rec_image_shape 3 x 48 x 320, T 80; the
+    BiLSTM neck's hidden 96), B 128 with labels of 1-25 tokens from the
+    seed, Adam: the eager step (ms, launch calls, busy share), then
+    ``make_train_step(..., amp=True)`` with the CTC loss in fp32 (the
+    captured first loss within 5e-3 of eager's), 8 timed replays and a
+    profiled one; the RNN route (the per-step loop of
+    ``nn/layers/rnn.py:run_layer``); ``ctc_greedy_decode`` of the
+    trained net's fp32 logits on the card EQUAL to the CPU's tokens and
+    lengths, and its ms a call.
+59. The op families of this slice on the card against the CPU at fp32:
+    ``grid_sample`` in every mode, padding mode and ``align_corners``,
+    ``affine_grid``, ``temporal_shift``, ``bilinear``, ``unfold`` /
+    ``fold``, ``fusion_gru`` / ``fusion_lstm`` / ``multi_gru`` /
+    ``gru_unit`` / ``lstm_unit``, ``ctc_loss`` (an empty label among the
+    rows), and the 18 detection-training ops of ``vision/det_ops.py``:
+    outputs within 1e-5 x max|ref|, gradients of the first output's sum
+    within 1e-4 x max|g|, indices, matches, labels, masks and counts
+    equal. Phases 58 and 59 launch none of the port's kernels.
 
 Each phase's wall seconds print as the next phase (or the closing line)
 begins.
@@ -638,8 +681,8 @@ and 45 (d),
 the flash launches of phases 8, 34, 36, 38, 39, 41 (both ranks' F
 steps), 43, 45, 46, 47 (evaluate and predict), 48 (the card's
 ``train_batch``), 50 (the timed replays of (a), the forward-backward
-calls of (b)), 51 (the dropout-0 captured run) and 52 (both
-predictors), the int8 matmul launches of phases 47 (quantized predict)
+calls of (b)), 51 (the dropout-0 captured run), 52 (both
+predictors) and 56 (the timed and profiled replays), the int8 matmul launches of phases 47 (quantized predict)
 and 52 (the int8 predictor), and the RMSNorm and RoPE launches of phases
 11, 34, 36, 38, 39, 41, 43, 45, 46 and 50 (RoPE: forward and backward
 together; 45: the timed eager steps and the eager callers of (d); 46: the
@@ -678,7 +721,9 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "parameter-server tables", "captured train step (jit)",
          "BERT fine-tuning (hapi, jit)", "deployment predictor",
          "ResNet-50 training (vision)", "vision parity",
-         "detector training and NMS (vision)")
+         "detector training and NMS (vision)", "SDXL UNet training",
+         "UNet parity", "OCR recognizer training and decoding",
+         "recurrent, vision-functional and detection-training ops")
 
 
 def check(cond, msg):
@@ -9627,6 +9672,542 @@ def detector_phase(timed=8, batch=DT_BATCH, image=DT_IMAGE):
     return m
 
 
+# ---------------------------------------------------------------------------
+# phases 56-59: the SDXL UNet, PP-OCR's recognizer, the op families
+# ---------------------------------------------------------------------------
+
+# SDXL base's UNet widths (stabilityai/stable-diffusion-xl-base-1.0,
+# unet/config.json): block_out_channels [320, 640, 1280], layers_per_block
+# 2, cross_attention_dim 2048, in_channels 4, sample_size 128; heads 10
+# gives head_dim 64 at 640 channels and 128 at 1280
+SDXL = dict(in_channels=4, block_out_channels=(320, 640, 1280),
+            ctx_dim=2048, heads=10, layers_per_block=2)
+SDXL_BATCH, SDXL_LATENT, SDXL_CTX = 2, 128, 77
+# PP-OCR's recognizer: the ppocr_keys_v1 dictionary (6623) + space + the
+# CTC blank; PP-OCRv4's rec_image_shape 3 x 48 x 320; the SequenceEncoder
+# BiLSTM neck's hidden_size 96; max_text_length 25
+OCR = dict(num_classes=6625, in_channels=3, image_height=48, hidden_size=96)
+OCR_BATCH, OCR_WIDTH, OCR_MAX_TEXT = 128, 320, 25
+
+
+def unet_attention_flops(net, batch, hw, ctx_len):
+    """Multiply-adds of one forward's attention products (QK^T and PV,
+    self and cross) over every CrossAttnBlock, from the level each sits
+    at."""
+    from paddle_tpu_torch.models.unet import CrossAttnBlock
+    total = 0
+    for name, layer in net.named_sublayers():
+        if not isinstance(layer, CrossAttnBlock):
+            continue
+        # the level is in the block's name (dattn{li}_{bi}, uattn..., mid)
+        li = len(SDXL["block_out_channels"]) - 1 if "mid" in name else \
+            int(re.search(r"attn(\d+)_", name).group(1))
+        s = (hw >> li) ** 2
+        c = layer.to_q1.weight.shape[1]
+        total += 2 * batch * s * s * c + 2 * batch * s * ctx_len * c
+    return total
+
+
+def ddpm_batch(rng, batch, latent, ctx_len, ctx_dim, dev):
+    """``tests/test_unet.py:62-82``'s DDPM objective: x_t = sqrt(a) x0 +
+    sqrt(1 - a) eps at a = 0.7, timesteps and a context from the seed."""
+    import paddle_tpu_torch as paddle
+    import torch
+    x0 = rng.standard_normal((batch, 4, latent, latent)).astype(np.float32)
+    eps = rng.standard_normal((batch, 4, latent, latent)).astype(np.float32)
+    t = rng.integers(1, 1000, (batch,)).astype(np.float32)
+    ctx = rng.standard_normal((batch, ctx_len, ctx_dim)).astype(np.float32)
+    xt = (x0 * 0.7 ** 0.5 + eps * 0.3 ** 0.5).astype(np.float32)
+
+    def put(a):
+        return paddle.to_tensor(torch.from_numpy(a).to(dev))
+    return [put(xt), put(t), put(ctx)], [put(eps)]
+
+
+def ddpm_loss(pred, eps):
+    return ((pred - eps) ** 2).mean()
+
+
+def sdxl_phase(timed=6, evals=4):
+    """Phase 56: the SDXL-width UNet (472.5 M parameters) trained on the
+    card through ``make_train_step`` under bf16 ``auto_cast`` with AdamW;
+    its attention on the flash kernels (18 forward, 18 dq and 18 dk/dv
+    launches a step, exactly); then no-grad ε evaluations as a sampler
+    calls the UNet. Returns (metrics, the timed replays' launch counts)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.models.unet import UNet2DConditionModel
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    B, HW, L = SDXL_BATCH, SDXL_LATENT, SDXL_CTX
+    net = UNet2DConditionModel(**SDXL)
+    n_params = sum(int(np.prod(p.shape)) for p in net.parameters())
+    log(f"  UNet2DConditionModel({SDXL}): {n_params} parameters")
+    check(abs(n_params / 472.5e6 - 1) < 0.001, f"SDXL-width UNet has "
+          f"{n_params} parameters, not 472.5 M")
+    rng = np.random.default_rng(SEED + 56)
+    ins, labs = ddpm_batch(rng, B, HW, L, SDXL["ctx_dim"], "cuda")
+    macs = conv_linear_macs(net, *ins)
+    attn = unet_attention_flops(net, B, HW, L)
+    # forward + backward = 3 x the forward's 2 flops a multiply-add
+    flops = 3 * 2 * (macs + attn)
+    log(f"  forward: {macs / 1e12:.4f} T multiply-adds in convs and "
+        f"linears, {attn / 1e12:.4f} T in attention products, B {B}")
+    opt = paddle.optimizer.AdamW(1e-4, parameters=net.parameters())
+    step = paddle.jit.make_train_step(net, opt, ddpm_loss, amp=True)
+    check(step.donate, "the captured step does not donate on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(2):                    # the eager warm-up, the capture
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(step(ins, labs).item())
+        secs.append(time.time() - t0)
+    peak_capture = torch.cuda.max_memory_allocated() / 2 ** 30
+    reset_counts()
+    by_route0 = dict(flash_attention.launches_bwd_dq_by_route)
+    m = _timed_replays(step, ins, labs, timed, "SDXL UNet step", flops, B)
+    counts = read_counts()
+    per = timed + 1                       # the timed replays + the profiled
+    want = {"flash_attention": 18 * per, "flash_attention_bwd_dq": 18 * per,
+            "flash_attention_bwd_dkv": 18 * per}
+    for k, v in counts.items():
+        check(v == want.get(k, 0), f"phase 56: {k} launched {v} times in "
+              f"{per} steps, expected {want.get(k, 0)}")
+    wg = flash_attention.launches_bwd_dq_by_route["wgmma"] - by_route0["wgmma"]
+    check(wg == 18 * per, f"phase 56: {wg} of {18 * per} dq launches took "
+          f"the wgmma route")
+    losses += [step(ins, labs).item() for _ in range(2)]
+    check(all(np.isfinite(losses)), f"SDXL losses {losses}")
+    m.update(parameters=n_params, samples_per_s=m.pop("images_per_s"),
+             losses=losses, warmup_s=secs[0], capture_s=secs[1],
+             capture_peak_gb=peak_capture,
+             flash_launches_per_step={"fwd": 18, "dq": 18, "dkv": 18})
+    log(f"  {json.dumps(m)}")
+    log(f"  peak {m['max_memory_allocated_gb']:.2f} GiB allocated while "
+        f"replaying ({peak_capture:.2f} GiB over the warm-up and capture), "
+        f"the graph's pool inside {m['memory_reserved_gb']:.2f} GiB "
+        f"reserved")
+    del step, opt
+    release()
+    # a sampler's loop: no-grad eps evaluations, each timed alone
+    net.eval()
+    reset_counts()
+    ev = []
+    with paddle.no_grad(), paddle.amp.auto_cast():
+        for i in range(evals):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            e = net(*ins)
+            torch.cuda.synchronize()
+            ev.append((time.time() - t0) * 1e3)
+            check(e.shape == [B, 4, HW, HW] and bool(torch.isfinite(
+                e._value.float()).all()), f"eval {i}: eps {e.shape}")
+    c = read_counts()
+    check(c["flash_attention"] == 18 * evals and
+          c["flash_attention_bwd_dq"] == 0,
+          f"phase 56 evals launched {c}")
+    m["eval_ms_each"] = ev
+    log(f"  {evals} no-grad eps evaluations (bf16 auto_cast): "
+        f"{[round(t, 2) for t in ev]} ms; 18 flash forwards each")
+    del net, e, ins, labs
+    release()
+    return m, {k: counts[k] for k in counts}
+
+
+def unet_parity_phase(steps=3):
+    """Phase 57: fp32 UNet on the card against the CPU: widths (64, 128,
+    256), 2 heads (head_dim 64 and 128: the fp32 flash kernels), latents
+    2 x 4 x 32 x 32, context [2, 77, 128]; the loss within 1e-5, every
+    gradient within 1e-4 x max|g|, three AdamW steps' losses within
+    1e-5."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.unet import UNet2DConditionModel
+    kw = dict(SDXL, block_out_channels=(64, 128, 256), ctx_dim=128, heads=2)
+    paddle.set_device("cpu")
+    paddle.seed(57)
+    sd = {k: v.numpy() for k, v in UNet2DConditionModel(**kw).state_dict()
+          .items()}
+    rng = np.random.default_rng(SEED + 57)
+    batch = ddpm_batch(rng, 2, 32, SDXL_CTX, 128, "cpu")
+    res = {}
+    for place in ("cpu", "gpu:0"):
+        paddle.set_device(place)
+        net = UNet2DConditionModel(**kw)
+        net.set_state_dict(sd)
+        dev = "cpu" if place == "cpu" else "cuda"
+        ins = [paddle.to_tensor(t._value.to(dev)) for t in batch[0]]
+        eps = paddle.to_tensor(batch[1][0]._value.to(dev))
+        reset_counts()
+        loss = ddpm_loss(net(*ins), eps)
+        loss.backward()
+        grads = {k: p.grad._value.cpu().numpy()
+                 for k, p in net.named_parameters()}
+        c = read_counts()
+        if place != "cpu":
+            check(c["flash_attention"] == 18 and
+                  c["flash_attention_bwd_dq"] == 18 and
+                  c["flash_attention_bwd_dkv"] == 18,
+                  f"phase 57 fp32 step launched {c}")
+        net.clear_gradients()
+        opt = paddle.optimizer.AdamW(1e-3, parameters=net.parameters())
+        losses = []
+        for _ in range(steps):
+            l = ddpm_loss(net(*ins), eps)
+            l.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(l))
+        res[place] = (float(loss), grads, losses)
+        del net, opt
+    paddle.set_device("gpu:0")
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = res["cpu"], res["gpu:0"]
+    gmax = max(float(np.abs(g).max()) for g in g_cpu.values())
+    worst = max(float(np.abs(g_gpu[k] - g_cpu[k]).max()) for k in g_cpu)
+    out = {"loss": [l_gpu, l_cpu], "loss_rel": _rel(l_gpu, l_cpu),
+           "grad_worst_over_max": worst / gmax,
+           "steps_gpu": s_gpu, "steps_cpu": s_cpu,
+           "steps_rel": [_rel(a, b) for a, b in zip(s_gpu, s_cpu)]}
+    log(f"  {json.dumps(out)}")
+    check(out["loss_rel"] <= 1e-5, f"phase 57 loss {l_gpu} vs {l_cpu}")
+    check(out["grad_worst_over_max"] <= 1e-4,
+          f"phase 57 gradient {worst} vs max|g| {gmax}")
+    check(max(out["steps_rel"]) <= 1e-5, f"phase 57 AdamW losses {s_gpu} "
+          f"vs {s_cpu}")
+    release()
+    return out
+
+
+def ocr_batch(rng, dev):
+    """PP-OCRv4-shaped recognition batch from the seed: images B x 3 x 48
+    x 320, labels of 1-25 tokens over the 6624 non-blank classes (padded
+    with 0 to 25), T = 80 input steps a row."""
+    import paddle_tpu_torch as paddle
+    import torch
+    B, C = OCR_BATCH, OCR["num_classes"]
+    x = rng.standard_normal((B, 3, OCR["image_height"], OCR_WIDTH)).astype(
+        np.float32)
+    lens = rng.integers(1, OCR_MAX_TEXT + 1, (B,)).astype(np.int64)
+    lab = rng.integers(1, C, (B, OCR_MAX_TEXT)).astype(np.int64)
+    lab[np.arange(OCR_MAX_TEXT)[None, :] >= lens[:, None]] = 0
+    il = np.full((B,), OCR_WIDTH // 4, np.int64)
+
+    def put(a):
+        return paddle.to_tensor(torch.from_numpy(a).to(dev))
+    return [put(x)], [put(lab), put(il), put(lens)]
+
+
+def ocr_loss(logits, lab, il, ll):
+    import paddle_tpu_torch as paddle
+    return paddle.nn.functional.ctc_loss(paddle.cast(logits, "float32"), lab,
+                                         il, ll)
+
+
+def ocr_phase(timed=8):
+    """Phase 58: PP-OCR's CRNN recognizer trained on the card: eager and
+    captured (bf16 ``auto_cast``, the CTC loss in fp32, Adam), then
+    ``ctc_greedy_decode`` on the card against the CPU's."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.ocr import CRNN, ctc_greedy_decode
+    paddle.set_device("gpu:0")
+    reset_counts()
+    paddle.seed(58)
+    sd = _snapshot(CRNN(**OCR))
+    rng = np.random.default_rng(SEED + 58)
+    batches = [ocr_batch(rng, "cuda") for _ in range(3)]
+    macs = conv_linear_macs(CRNN(**OCR), *batches[0][0])
+    # the LSTM's per-step products: 2 directions x T x B x 4H x (I + H)
+    H, I = OCR["hidden_size"], 96 * OCR["image_height"] // 16
+    lstm = 2 * (OCR_WIDTH // 4) * OCR_BATCH * 4 * H * (I + H)
+    flops = 3 * 2 * (macs + lstm)
+
+    def make_net():
+        net = CRNN(**OCR)
+        net.set_state_dict(sd)
+        return net
+
+    def opt_fn(net):
+        return paddle.optimizer.Adam(1e-3, parameters=net.parameters())
+
+    # the eager step, timed alone: launch calls and wall ms
+    net = make_net()
+    opt = opt_fn(net)
+
+    def eager_step():
+        with paddle.amp.auto_cast():
+            loss = ocr_loss(net(*batches[0][0]), *batches[0][1])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+    eager_step()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eager_step()
+        times.append((time.time() - t0) * 1e3)
+    eager_prof = profile_device(eager_step, "CRNN eager step")
+    del net, opt
+    release()
+    eager, captured, secs, step, net, peaks = _eager_vs_captured(
+        make_net, opt_fn, ocr_loss, batches)
+    rels = [_rel(c, e) for c, e in zip(captured, eager)]
+    log(f"  losses eager {eager}, captured {captured} (warm-up, capture + "
+        f"replay, replay; {[round(t, 3) for t in secs]} s); rel {rels}")
+    check(rels[1] <= 5e-3, f"captured first loss rel {rels[1]} from eager")
+    m = _timed_replays(step, *batches[0], timed, "CRNN step", flops,
+                       OCR_BATCH)
+    m.update(eager_step_ms=float(np.median(times)),
+             eager_step_ms_each=times,
+             eager_launch_calls=eager_prof.get("launch_calls"),
+             eager_busy_share=eager_prof.get("device_busy_share"),
+             losses_eager=eager, losses_captured=captured, loss_rel=rels,
+             rnn_route="per-step loop (nn/layers/rnn.py:run_layer: one "
+                       "input GEMM, then a baddbmm over both directions "
+                       "and the LSTM formula a step)", **peaks)
+    log(f"  {json.dumps(m)}")
+    # greedy decoding on the card against the CPU on the same fp32 logits,
+    # from the seed's weights (three steps on random labels already push
+    # every frame to the blank)
+    del step, net
+    release()
+    net = make_net()
+    net.eval()
+    with paddle.no_grad():
+        logits = paddle.cast(net(*batches[1][0]), "float32")
+    reset_counts()
+    tok, lens = ctc_greedy_decode(logits)
+    tok_c, lens_c = ctc_greedy_decode(paddle.to_tensor(logits._value.cpu(),
+                                                       place="cpu"))
+    check(torch.equal(tok._value.cpu(), tok_c._value) and
+          torch.equal(lens._value.cpu(), lens_c._value),
+          "ctc_greedy_decode on the card differs from the CPU's")
+    dec_ms = cuda_ms(lambda: ctc_greedy_decode(logits), iters=5)
+    log(f"  ctc_greedy_decode [80, 128, 6625]: tokens and lengths equal to "
+        f"the CPU's (mean length {float(lens._value.float().mean()):.2f}), "
+        f"{dec_ms:.4f} ms a call")
+    check(float(lens._value.float().mean()) > 1, "the decode kept no token")
+    m["decode_ms"] = dec_ms
+    del net, logits
+    release()
+    _vision_counts_zero(read_counts(), 58)
+    return m
+
+
+def _op_cases(rng):
+    """(family, function path, arrays, kwargs, differentiable) of phase
+    59: the vision functionals, unfold / fold, the fused RNN ops, the CTC
+    loss and the 18 detection-training ops, at the CPU tests' shapes."""
+    def rn(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    def boxes(n, scale=10.0):
+        lo = rng.random((n, 2)).astype(np.float32) * scale
+        return np.concatenate([lo, lo + rng.random((n, 2)).astype(
+            np.float32) * scale + 1], -1)
+
+    def grid(n=8, step=4.0, size=8.0):
+        c = (np.arange(n, dtype=np.float32) + 0.5) * step
+        cy, cx = np.meshgrid(c, c, indexing="ij")
+        return np.stack([cx - size / 2, cy - size / 2, cx + size / 2,
+                         cy + size / 2], -1).reshape(-1, 4).astype(np.float32)
+
+    gts = np.array([[2, 2, 10, 10], [12, 4, 22, 14], [3, 3, 9, 9]],
+                   np.float32)
+    F, V = "nn.functional.", "vision.ops."
+    cases = []
+    for mode in ("bilinear", "nearest"):
+        for pad in ("zeros", "border", "reflection"):
+            for ac in (True, False):
+                cases.append(("vision", F + "grid_sample", [rn(2, 3, 9, 10), (
+                    rng.random((2, 6, 7, 2)).astype(np.float32) * 5 - 2.5)],
+                    dict(mode=mode, padding_mode=pad, align_corners=ac),
+                    True))
+    theta = rn(2, 2, 3) * 0.3 + np.array([[1, 0, 0], [0, 1, 0]], np.float32)
+    cases += [
+        ("vision", F + "affine_grid", [theta, [2, 3, 6, 5]], {}, True),
+        ("vision", F + "temporal_shift", [rn(6, 8, 3, 3), 3, 0.25], {}, True),
+        ("vision", F + "bilinear", [rn(8, 5), rn(8, 6), rn(4, 5, 6),
+                                    rn(1, 4)], {}, True),
+        ("unfold/fold", F + "unfold", [rn(2, 3, 9, 8), (3, 2)],
+         dict(strides=(2, 1), paddings=1, dilations=(1, 2)), True),
+        ("unfold/fold", F + "fold", [rn(2, 12, 40), [9, 8], 2],
+         dict(strides=(1, 2), paddings=(1, 0)), True),
+        ("fused RNN", F + "fusion_gru", [rn(4, 9, 5), rn(5, 24), rn(8, 24),
+                                         rn(24), rn(4, 8)], {}, True),
+        ("fused RNN", F + "fusion_gru", [rn(4, 9, 5), rn(5, 24), rn(8, 24)],
+         dict(is_reverse=True, origin_mode=True), True),
+        ("fused RNN", F + "fusion_lstm", [rn(4, 9, 5), rn(5, 32), rn(8, 32),
+                                          rn(32), rn(4, 8), rn(4, 8)], {},
+         True),
+        ("fused RNN", F + "multi_gru", [rn(4, 9, 5), [rn(5, 24), rn(5, 24)],
+                                        [rn(8, 24), rn(8, 24)]], {}, True),
+        ("fused RNN", F + "gru_unit", [rn(4, 24), rn(4, 8), rn(8, 24),
+                                       rn(24)], {}, True),
+        ("fused RNN", F + "lstm_unit", [rn(4, 32), rn(4, 8)],
+         dict(forget_bias=0.5), True),
+        ("ctc_loss", F + "ctc_loss", [rn(20, 6, 12), rng.integers(
+            1, 12, (6, 5)), np.array([20, 18, 20, 9, 20, 4]),
+            np.array([5, 3, 0, 4, 1, 2])], dict(reduction="none"), True),
+        ("ctc_loss", F + "ctc_loss", [rn(20, 6, 12), rng.integers(
+            1, 12, (6, 5)), np.full(6, 20), np.array([5, 3, 2, 4, 1, 2])],
+         dict(norm_by_times=True), True),
+    ]
+    offs = rn(2, 36, 6, 6) * 1.5
+    anchors = [10, 13, 16, 30, 33, 23]
+    gt = np.zeros((2, 4, 4), np.float32)
+    gt[0, :3] = [[0.5, 0.5, 0.3, 0.3], [0.2, 0.7, 0.1, 0.2],
+                 [0.8, 0.3, 0.05, 0.08]]
+    gt[1, :2] = [[0.4, 0.4, 0.6, 0.5], [0.9, 0.9, 0.2, 0.1]]
+    P = 12
+    pri = rng.random((P, 2)).astype(np.float32) * 0.6
+    priors = np.concatenate([pri, pri + 0.2 + rng.random((P, 2)).astype(
+        np.float32) * 0.2], -1)
+    ssd_gt = np.array([[0, 0, 0.4, 0.4], [0.5, 0.5, 0.9, 0.9],
+                       [0.2, 0.5, 0.5, 0.9]], np.float32)
+    iou = np.random.default_rng(5).random((3, 7)).astype(np.float32)
+    cases += [
+        ("det_ops", V + "deform_conv2d", [rn(2, 4, 6, 6), offs,
+                                          rn(6, 2, 3, 3), rn(6)],
+         dict(padding=2, dilation=2, deformable_groups=2, groups=2), True),
+        ("det_ops", V + "psroi_pool", [rn(1, 18, 9, 9), np.array(
+            [[0, 0, 8, 8], [1.5, 2, 7, 6.5]], np.float32)],
+         dict(output_size=3), True),
+        ("det_ops", V + "yolo_loss", [rn(2, 24, 4, 4) * 0.5, gt,
+                                      rng.integers(0, 3, (2, 4)), anchors,
+                                      [0, 1, 2], 3],
+         dict(downsample_ratio=16), True),
+        ("det_ops", V + "distribute_fpn_proposals", [np.array(
+            [[0, 0, 10, 10], [0, 0, 200, 200], [0, 0, 60, 60],
+             [5, 5, 120, 90]], np.float32), 2, 5, 4, 224], {}, False),
+        ("det_ops", V + "collect_fpn_proposals", [
+            [boxes(5), boxes(4)], [rng.random(5).astype(np.float32),
+                                   rng.random(4).astype(np.float32)], 6],
+         {}, False),
+        ("det_ops", V + "bipartite_match", [iou], {}, False),
+        ("det_ops", V + "bipartite_match", [iou, "per_prediction", 0.3], {},
+         False),
+        ("det_ops", V + "target_assign", [rn(3, 2, 2), np.array(
+            [2, -1, 0, 1])], dict(mismatch_value=-1.0), False),
+        ("det_ops", V + "mine_hard_examples", [rng.random(16).astype(
+            np.float32), np.array([0, -1, -1, 1] + [-1] * 12)], {}, False),
+        ("det_ops", V + "ssd_loss", [rn(P, 4) * 0.1, rn(P, 4), ssd_gt,
+                                     np.array([1, 2, 3]), priors], {}, True),
+        ("det_ops", V + "detection_output", [rn(2, P, 4) * 0.1, rng.random(
+            (2, P, 3)).astype(np.float32), priors],
+         dict(nms_threshold=0.3, keep_top_k=6, score_threshold=0.2), False),
+        ("det_ops", V + "prroi_pool", [rn(1, 3, 8, 8), np.array(
+            [[0.3, 0.2, 7.1, 6.6], [2, 2, 2.5, 5]], np.float32)],
+         dict(output_size=(3, 2)), True),
+        ("det_ops", V + "bilateral_slice", [rn(2, 3, 6, 5), rng.random(
+            (2, 6, 5)).astype(np.float32), rn(2, 12, 3, 3, 2)],
+         dict(has_offset=True), True),
+        ("det_ops", V + "correlation", [rn(2, 3, 6, 7), rn(2, 3, 6, 7)],
+         dict(max_displacement=2, stride2=2), True),
+        ("det_ops", V + "retinanet_detection_output", [
+            [rn(2, 6, 4) * 0.1, rn(2, 4, 4) * 0.1],
+            [rng.random((2, 6, 3)).astype(np.float32),
+             rng.random((2, 4, 3)).astype(np.float32)],
+            [boxes(6, 20.0), boxes(4, 40.0)], None],
+         dict(score_threshold=0.3, keep_top_k=5), False),
+        ("det_ops", V + "rpn_target_assign", [grid(), gts],
+         dict(rpn_batch_size_per_im=8, rpn_fg_fraction=0.25), False),
+        ("det_ops", V + "retinanet_target_assign", [grid(), gts,
+                                                    np.array([1, 3, 2])],
+         {}, False),
+        ("det_ops", V + "generate_proposal_labels", [
+            np.concatenate([grid(6, 4.0, 7.0), gts + 0.5]), gts,
+            np.array([1, 2, 3])], dict(batch_size_per_im=8,
+                                       fg_fraction=0.5), False),
+        ("det_ops", V + "roi_perspective_transform", [rn(1, 2, 10, 12),
+                                                      np.array(
+            [[1, 1, 8, 2, 9, 7, 2, 8]], np.float32), 4, 6], {}, True),
+    ]
+    return cases
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [l for e in x for l in _leaves(e)]
+    return [x]
+
+
+def _run_op(paddle, path, arrays, kw, grad, dev):
+    """One op call at ``dev``: its output leaves and the gradients of the
+    sum of its first output over its float inputs (as torch tensors)."""
+    import torch
+    fn = paddle
+    for part in path.split("."):
+        fn = getattr(fn, part)
+
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return paddle.to_tensor(t, stop_gradient=not (
+            grad and a.dtype.kind == "f"))
+    ins = [put(a) if isinstance(a, np.ndarray) else
+           [put(x) for x in a] if isinstance(a, list) and a and
+           isinstance(a[0], np.ndarray) else a for a in arrays]
+    outs = _leaves(fn(*ins, **kw))
+    grads = []
+    if grad:
+        outs[0].sum().backward()
+        for t in _leaves(ins):
+            if hasattr(t, "stop_gradient") and not t.stop_gradient:
+                grads.append(torch.zeros(t.shape) if t.grad is None
+                             else t.grad._value.cpu())
+    return [o._value.detach().cpu() for o in outs], grads
+
+
+def op_families_phase():
+    """Phase 59: every op family of this slice on the card against the
+    CPU at fp32, from the same numpy inputs: outputs within 1e-5 x
+    max|ref|, gradients within 1e-4 x max|g|, integer and bool outputs
+    (indices, matches, labels, masks, counts) equal."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.vision.ops  # noqa: F401
+    reset_counts()
+    cases = _op_cases(np.random.default_rng(SEED + 59))
+    worst = {}
+    for fam, path, arrays, kw, grad in cases:
+        paddle.set_device("cpu")
+        ref, ref_g = _run_op(paddle, path, arrays, kw, grad, "cpu")
+        paddle.set_device("gpu:0")
+        got, got_g = _run_op(paddle, path, arrays, kw, grad, "cuda")
+        check(len(got) == len(ref), f"{path}: {len(got)} outputs, "
+              f"{len(ref)} on the CPU")
+        w = worst.setdefault(fam, {"cases": 0, "out": 0.0, "grad": 0.0})
+        w["cases"] += 1
+        for i, (a, b) in enumerate(zip(got, ref)):
+            check(a.shape == b.shape, f"{path} out {i}: {a.shape} vs "
+                  f"{b.shape}")
+            if not b.is_floating_point():
+                check(torch.equal(a.to(b.dtype), b), f"{path} out {i} "
+                      f"differs from the CPU's ({kw})")
+                continue
+            err = float((a - b).abs().max()) if b.numel() else 0.0
+            scale = float(b.abs().max()) if b.numel() else 0.0
+            w["out"] = max(w["out"], err / max(scale, 1e-30))
+            check(err <= 1e-5 * max(scale, 1e-30), f"{path} out {i}: "
+                  f"{err} > 1e-5 x {scale} ({kw})")
+        for i, (a, b) in enumerate(zip(got_g, ref_g)):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            w["grad"] = max(w["grad"], err / max(scale, 1e-30))
+            check(err <= 1e-4 * max(scale, 1e-30), f"{path} grad {i}: "
+                  f"{err} > 1e-4 x {scale} ({kw})")
+    paddle.set_device("gpu:0")
+    log(f"  {len(cases)} cases, worst relative error by family (outputs / "
+        f"gradients): {json.dumps(worst)}")
+    _vision_counts_zero(read_counts(), 59)
+    return worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9787,7 +10368,19 @@ def main() -> int:
                      "dlse", 4, 512, 512, 16, 16, 128, False, seed=27,
                      dlse=True),
           flash_case("(h) BERT-base B=32 S=128 H=Hk=12 D=64 non-causal",
-                     32, 128, 128, 12, 12, 64, False, seed=28)]
+                     32, 128, 128, 12, 12, 64, False, seed=28),
+          flash_case("(i) SDXL level-1 self B=2 S=4096 H=Hk=10 D=64 "
+                     "non-causal", 2, 4096, 4096, 10, 10, 64, False,
+                     seed=29),
+          flash_case("(j) SDXL level-1 cross B=2 Sq=4096 Sk=77 H=Hk=10 "
+                     "D=64 non-causal", 2, 4096, 77, 10, 10, 64, False,
+                     seed=30),
+          flash_case("(k) SDXL level-2 / mid self B=2 S=1024 H=Hk=10 D=128 "
+                     "non-causal", 2, 1024, 1024, 10, 10, 128, False,
+                     seed=31),
+          flash_case("(k') SDXL level-2 / mid cross B=2 Sq=1024 Sk=77 "
+                     "H=Hk=10 D=128 non-causal", 2, 1024, 77, 10, 10, 128,
+                     False, seed=32)]
     torch.cuda.empty_cache()
 
     log("== phase 8: training, full width, bf16, use_kernels + full remat")
@@ -10076,8 +10669,28 @@ def main() -> int:
         "CPU")
     detector_phase()
     log(f"  nvidia-smi: {card}")
+    log("== phase 56: the SDXL-width UNet (472.5 M parameters) trained: B 2 "
+        "x 4 x 128^2 latents, context [2, 77, 2048], bf16 auto_cast, AdamW, "
+        "make_train_step over the DDPM objective; 18 / 18 / 18 flash "
+        "launches a step; then no-grad eps evaluations")
+    _, c56 = sdxl_phase()
+    log(f"  nvidia-smi: {card}")
+    log("== phase 57: fp32 UNet parity on the card against the CPU: widths "
+        "(64, 128, 256), 2 heads (head_dim 64 and 128), latents 2 x 4 x "
+        "32^2, context [2, 77, 128]; three AdamW steps")
+    unet_parity_phase()
+    log("== phase 58: PP-OCR's CRNN recognizer trained: 6625 classes, B 128 "
+        "x 3 x 48 x 320 (T 80), BiLSTM neck 96, bf16 auto_cast with the CTC "
+        "loss in fp32, eager and make_train_step; ctc_greedy_decode on the "
+        "card against the CPU")
+    ocr_phase()
+    log("== phase 59: the op families on the card against the CPU at fp32: "
+        "nn.functional.vision, unfold / fold, the fused RNN ops, ctc_loss, "
+        "the 18 detection-training ops")
+    op_families_phase()
+    log(f"  nvidia-smi: {card}")
     trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c47,
-               c48, c50a, c50b, c51, c52)
+               c48, c50a, c50b, c51, c52, c56)
     normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c50a,
               c50b)
 

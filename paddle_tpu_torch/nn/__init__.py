@@ -14,11 +14,11 @@ from .layers.activation import (CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigm
                                 Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU)
 from .layers.common import (AlphaDropout, Bilinear, CosineSimilarity, Dropout,
                             Dropout2D, Dropout3D, Embedding, Flatten, Identity,
-                            Linear, Pad1D, Pad2D, Pad3D, ZeroPad2D)
+                            Linear, Pad1D, Pad2D, Pad3D, Unfold, ZeroPad2D)
 from .layers.conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
                           Conv3D, Conv3DTranspose)
 from .layers.container import LayerDict, LayerList, ParameterList, Sequential
-from .layers.loss import CrossEntropyLoss, MSELoss
+from .layers.loss import CrossEntropyLoss, CTCLoss, MSELoss
 from .layers.norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                           GroupNorm, InstanceNorm1D, InstanceNorm2D, InstanceNorm3D,
                           LayerNorm, LocalResponseNorm, RMSNorm, SpectralNorm,
@@ -28,6 +28,8 @@ from .layers.pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                              AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
                              AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D,
                              MaxPool3D)
+from .layers.rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, SimpleRNN,
+                         SimpleRNNCell)
 from .layers.transformer import (MultiHeadAttention, Transformer,
                                  TransformerDecoder, TransformerDecoderLayer,
                                  TransformerEncoder, TransformerEncoderLayer)

@@ -1,8 +1,7 @@
 """paddle.nn.functional — counterpart of ``paddle_tpu/nn/functional``. The
-functionals ported so far (``conv`` and ``pooling`` among them); the
-reference's ``vision`` and ``fused_rnn`` modules are ROADMAP §A item 5b,
-the rest of ``loss`` and the interpolation / pixel / unfold functionals
-of ``common`` item 7."""
+functionals ported so far (``conv``, ``pooling``, ``vision`` and
+``fused_rnn`` among them); the rest of ``loss`` and the interpolation and
+pixel functionals of ``common`` are ROADMAP §A item 7."""
 
 from .activation import (celu, elu, gelu, glu, gumbel_softmax, hardshrink,
                          hardsigmoid, hardswish, hardtanh, leaky_relu, log_sigmoid,
@@ -18,8 +17,8 @@ from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_fusion,
 from .common import (alpha_dropout, cosine_similarity, dropout, dropout2d,
                      dropout3d, embedding, label_smooth, linear, normalize,
                      one_hot, pad, pad2d, pad3d, pairwise_distance, softmax2d,
-                     zeropad2d)
-from .loss import cross_entropy, mse_loss
+                     unfold, zeropad2d)
+from .loss import cross_entropy, ctc_loss, mse_loss
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
@@ -29,6 +28,9 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       max_pool3d, max_pool3d_with_index, max_unpool1d,
                       max_unpool2d, max_unpool3d, pool2d, pool3d, spp,
                       unpool, unpool3d)
+from .vision import (affine_grid, bilinear, feature_alpha_dropout, fold,
+                     grid_sample, temporal_shift)
+from .fused_rnn import fusion_gru, fusion_lstm, gru_unit, lstm_unit, multi_gru
 from .norm import (batch_norm, group_norm, instance_norm, layer_norm,
                    local_response_norm, rms_norm, spectral_norm,
                    sync_batch_norm)

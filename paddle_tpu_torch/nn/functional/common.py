@@ -6,7 +6,8 @@ generator of the input's device (``ops/random.py``).
 
 Still to be ported (ROADMAP §A item 11): ``interpolate`` / ``upsample`` and
 the ``*_interp`` modes, ``pixel_shuffle`` / ``pixel_unshuffle``,
-``channel_shuffle``, ``unfold`` and ``sparse_attention``.
+``channel_shuffle`` and ``sparse_attention``. ``unfold`` is here; its
+adjoint ``fold`` is in ``vision.py``, as in the reference.
 """
 
 from __future__ import annotations
@@ -243,3 +244,15 @@ def softmax2d(x, name=None):
         raise ValueError(f"softmax2d expects CHW or NCHW input, got rank "
                          f"{x.ndim}")
     return forward_op("softmax2d", lambda v: torch.softmax(v, dim=-3), [x])
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col (ref: nn.functional.unfold): [N, C, H, W] -> [N, C*kh*kw,
+    L], channel-major as the reference's patches."""
+    def pair(v):
+        return (int(v), int(v)) if isinstance(v, int) else \
+            tuple(int(a) for a in v)
+
+    return forward_op("unfold", lambda v: TF.unfold(
+        v, pair(kernel_sizes), dilation=pair(dilations),
+        padding=pair(paddings), stride=pair(strides)), [ensure_tensor(x)])

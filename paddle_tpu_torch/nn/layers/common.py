@@ -1,8 +1,8 @@
 """Common layers — counterpart of ``paddle_tpu/nn/layers/common.py``
 (python/paddle/nn/layer/common.py in Paddle). ``Upsample`` /
 ``UpsamplingBilinear2D`` / ``UpsamplingNearest2D``, ``PixelShuffle`` /
-``PixelUnshuffle``, ``ChannelShuffle`` and ``Unfold`` wait with their
-functionals (ROADMAP §A item 11)."""
+``PixelUnshuffle`` and ``ChannelShuffle`` wait with their functionals
+(ROADMAP §A item 7)."""
 
 from __future__ import annotations
 
@@ -179,8 +179,17 @@ class Bilinear(Layer):
                                           is_bias=True)
 
     def forward(self, x1, x2):
-        from ...ops.linalg import einsum
-        out = einsum("bi,oij,bj->bo", x1, self.weight, x2)
-        if self.bias is not None:
-            out = out + self.bias
-        return out
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)

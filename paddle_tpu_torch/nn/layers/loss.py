@@ -1,6 +1,6 @@
-"""Loss layers — the part of ``paddle_tpu/nn/layers/loss.py`` this slice
-ports (``CrossEntropyLoss``, ``MSELoss``); the rest wait with their
-functionals (ROADMAP §A item 11)."""
+"""Loss layers — the part of ``paddle_tpu/nn/layers/loss.py`` the port has
+so far (``CrossEntropyLoss``, ``MSELoss``, ``CTCLoss``); the rest wait
+with their functionals (ROADMAP §A item 7)."""
 
 from __future__ import annotations
 
@@ -34,3 +34,15 @@ class MSELoss(Layer):
 
     def forward(self, input, label):  # noqa: A002
         return F.mse_loss(input, label, self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)

@@ -3,9 +3,10 @@ models, datasets, the detection ops).
 
 Transforms and datasets are host numpy (safe inside DataLoader worker
 processes); the models build on the port's layers; ``vision.ops`` holds
-the box and NMS ops and ``vision.detection`` the PP-YOLOE detector.
-Downloaders raise: no dataset or weight is fetched. The reference's
-``ocr`` module waits (ROADMAP §A item 5b).
+the box, NMS and detection-training ops, ``vision.detection`` the
+PP-YOLOE detector and ``vision.ocr`` the CRNN recognizer (imported on
+use, as in the reference). Downloaders raise: no dataset or weight is
+fetched.
 """
 
 from . import datasets, models, ops, transforms  # noqa: F401

@@ -1,7 +1,7 @@
 """``paddle.vision.ops`` — counterpart of ``paddle_tpu/vision/ops.py``
 (python/paddle/vision/ops.py in Paddle): ``box_iou``, ``nms``,
 ``roi_align``, ``roi_pool``, ``box_coder``, ``read_file`` and
-``decode_jpeg``, with the inference and anchor half of ``det_ops``
+``decode_jpeg``, with the legacy detection family of ``det_ops``
 re-exported.
 
 ``roi_align`` / ``roi_pool`` gather every RoI's sample grid in one
@@ -228,8 +228,8 @@ for _n, _d in [("box_iou", "pairwise IoU matrix"),
                 public=globals()[_n])
 
 
-# the inference and anchor half of the legacy detection family (the
-# training-target half waits: ROADMAP §A item 5b)
+# the legacy detection family (prior / anchor generation, the NMS
+# variants, SSD matching, the training-target assigners)
 from .det_ops import *  # noqa: F401,E402,F403
 from .det_ops import __all__ as _det_all  # noqa: E402
 __all__ = list(__all__) + list(_det_all)

@@ -370,6 +370,21 @@ def test_flash_attention_matches_plain(dev, dtype, D, causal, B, Sq, Sk, H,
     assert lse_err <= (1e-3 if dtype == torch.bfloat16 else 1e-4), lse_err
 
 
+# the SDXL UNet's attention (chip_smoke.py phase 7 cases (i)-(k)):
+# level-1 self-attention at D 64, cross-attention over 77 text tokens (a
+# key length off the 64-row tile), level-2 / mid at D 128
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,D", [
+    (2, 4096, 4096, 10, 64),     # (i)
+    (2, 4096, 77, 10, 64),       # (j)
+    (2, 1024, 1024, 10, 128),    # (k) self
+    (2, 1024, 77, 10, 128),      # (k) cross
+])
+def test_flash_attention_sdxl_shapes(dev, dtype, B, Sq, Sk, H, D):
+    test_flash_attention_matches_plain(dev, dtype, D, False, B, Sq, Sk, H, H,
+                                       None)
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_dq_same_bits_twice(dev, D):
     # dq: each block owns its rows and sums its key tiles in order, no

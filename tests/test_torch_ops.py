@@ -29,11 +29,13 @@ import paddle_tpu.distributed.ps  # noqa: F401 — registers its ops
 import paddle_tpu.incubate.nn.functional  # noqa: F401 — registers its ops
 import paddle_tpu.metric  # noqa: F401
 import paddle_tpu.nn.functional  # noqa: F401
+import paddle_tpu.vision.ops  # noqa: F401 — registers the detection ops
 import paddle_tpu_torch as T
 import paddle_tpu_torch.distributed.ps  # noqa: F401
 import paddle_tpu_torch.incubate.nn.functional  # noqa: F401
 import paddle_tpu_torch.metric  # noqa: F401
 import paddle_tpu_torch.nn.functional  # noqa: F401
+import paddle_tpu_torch.vision.ops  # noqa: F401
 from paddle_tpu.core.dispatch import OP_REGISTRY as JR
 from paddle_tpu.ops.sweep_specs import attach_specs
 from paddle_tpu_torch.core.dispatch import OP_REGISTRY as TR
@@ -305,8 +307,8 @@ NOT_SWEPT = {
         "randint_like", "randperm", "bernoulli", "bernoulli_", "poisson",
         "multinomial", "exponential_", "uniform_", "normal_", "rand_like",
         "randn_like", "seed", "get_rng_state", "set_rng_state", "dropout",
-        "dropout2d", "dropout3d", "alpha_dropout", "gumbel_softmax",
-        "rrelu")},
+        "dropout2d", "dropout3d", "alpha_dropout", "feature_alpha_dropout",
+        "gumbel_softmax", "rrelu")},
     "empty": "uninitialized in Paddle; both give zeros, checked by value",
     "empty_like": "as empty",
     "create_parameter": "random init",
