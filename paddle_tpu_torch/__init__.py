@@ -21,6 +21,10 @@ never ``jax`` and nothing of ``paddle_tpu``. It holds:
 * ``vision`` (conv and pooling in ``nn``, the channels-last layout
   pass, the model zoo with ResNet and MobileNetV3, datasets,
   transforms, the box and NMS ops and the PP-YOLOE detector);
+* the whole op library of the reference (special functions, windows,
+  sets, sequences, CRF and beam decoding, the legacy ops, the rest of
+  linalg and quant, the in-place family) and the ``linalg``, ``fft`` and
+  ``signal`` namespaces;
 * ``jit`` (``to_static`` as a captured CUDA graph, the fused
   ``TrainStep``, dy2static and SOT, ``jit.save`` / ``jit.load`` through
   ``torch.export``), the deployment ``inference.Predictor`` and
@@ -64,7 +68,7 @@ _LAZY_SUBMODULES = (
     "nn", "optimizer", "io", "distributed", "framework", "incubate",
     "kernels", "regularizer", "inference", "models", "testing", "health",
     "amp", "autograd", "metric", "callbacks", "hapi", "jit", "profiler",
-    "vision",
+    "vision", "linalg", "fft", "signal",
 )
 
 

@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["forward_op", "register_op", "OP_REGISTRY", "OpDef"]
+__all__ = ["forward_op", "register_op", "op_module", "OP_REGISTRY", "OpDef"]
 
 
 @dataclass
@@ -57,6 +57,13 @@ def register_op(name: str, fn: Callable, doc: str = "", n_outputs: int = 1,
     d = OpDef(name, fn, doc, n_outputs, differentiable, category, public)
     OP_REGISTRY[name] = d
     return d
+
+
+def op_module(name: str) -> str:
+    """The module that defines op ``name``: that of its ``public`` wrapper,
+    else of its registered ``fn`` (the factory ops carry their caller's)."""
+    d = OP_REGISTRY[name]
+    return getattr(d.public or d.fn, "__module__", None) or ""
 
 
 def forward_op(name: str, fn: Callable, args: Sequence[Any],

@@ -326,6 +326,10 @@ class Tensor:
     def cuda(self, device_id=0) -> "Tensor":
         return self.to(f"gpu:{device_id}")
 
+    def tpu(self, device_id=0) -> "Tensor":
+        """The reference's name for "to the accelerator": the card here."""
+        return self.cuda(device_id)
+
     def pin_memory(self) -> "Tensor":
         return self
 

@@ -1,17 +1,16 @@
 """The op surface — counterpart of ``paddle_tpu/ops/__init__.py``.
 
-The modules ported so far populate ``core.dispatch.OP_REGISTRY`` under the
+The op modules populate ``core.dispatch.OP_REGISTRY`` under the
 reference's names and patch their methods onto ``Tensor``, as the
-reference assembles its tensor namespace. The reference's other op
-modules (``array``, ``decode``, ``extended``, ``extras``, ``legacy``,
-``sequence``, ``sets``, ``special``, ``windows``, the generated
-``inplace`` family, the rest of ``linalg`` and ``quant``) are ROADMAP §A
-item 11.
+reference assembles its tensor namespace; the generated in-place family
+(``inplace``) reads the assembled surface, so it is imported last.
 """
 
 import types as _types
 
-from . import creation, linalg, logic, manipulation, math, quant, random, search
+from . import (array, creation, decode, extended, extras, legacy, linalg,
+               logic, manipulation, math, quant, random, search, sequence,
+               sets, special, windows)
 
 _EXCLUDE = {"Tensor", "Parameter", "to_tensor", "ensure_tensor", "forward_op",
             "register_op", "patch_methods", "unary_factory", "binary_factory",
@@ -39,6 +38,12 @@ def _export(module):
 
 __all__ = sorted(set(
     _export(creation) + _export(math) + _export(manipulation) + _export(linalg)
-    + _export(logic) + _export(search) + _export(random) + _export(quant)))
+    + _export(logic) + _export(search) + _export(random) + _export(extras)
+    + _export(extended) + _export(sets) + _export(special)
+    + _export(windows) + _export(sequence) + _export(quant)
+    + _export(decode) + _export(legacy) + _export(array)))
+# the inplace generator reads the assembled surface above — import it last
+from . import inplace  # noqa: E402
+__all__ = sorted(set(__all__ + _export(inplace)))
 from .random import Generator, default_generator  # noqa: E402
 from .creation import to_tensor  # noqa: E402

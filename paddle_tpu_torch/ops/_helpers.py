@@ -5,6 +5,7 @@ function."""
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, Sequence
 
 import torch
@@ -48,6 +49,12 @@ def _binary_operand(y, like: Tensor):
     return ensure_tensor(y)
 
 
+def _caller_module() -> str:
+    """The module whose top level called the factory: a generated op
+    belongs to the module that defines it (``dispatch.op_module``)."""
+    return sys._getframe(2).f_globals.get("__name__", __name__)
+
+
 def unary_factory(name: str, tfn: Callable, doc: str = ""):
     register_op(name, tfn, doc, category="unary")
 
@@ -57,6 +64,7 @@ def unary_factory(name: str, tfn: Callable, doc: str = ""):
     op.__name__ = name
     op.__qualname__ = name
     op.__doc__ = doc or f"Elementwise {name} (Paddle API parity)."
+    op.__module__ = _caller_module()
     return op
 
 
@@ -73,6 +81,7 @@ def binary_factory(name: str, tfn: Callable, doc: str = ""):
     op.__name__ = name
     op.__qualname__ = name
     op.__doc__ = doc or f"Elementwise broadcasting {name} (Paddle API parity)."
+    op.__module__ = _caller_module()
     return op
 
 
