@@ -153,8 +153,9 @@ Phases (each fails the run on any error; none catches and carries on):
     trace through an engine with ``lora_rank=16, lora_slots=4,
     lora_pool=8`` and 8 registered adapters (``lora_init_params(cfg, 16,
     seed=i)``), every third request base and the rest cycling over the
-    adapters, in turns with phase 4's LoRA-less engine (A, LoRA, LoRA,
-    A): tokens/s, TTFT p50 and max, ms per decode iteration. Every
+    adapters, after phase 4's LoRA-less engine (A, then LoRA: two turns,
+    as four no longer fit the time limit): tokens/s,
+    TTFT p50 and max, ms per decode iteration. Every
     request completes, no block leaks, no pin is left, at least 8 loads
     and 4 evictions, 12 paged-attention launches per decode iteration
     and per mixed dispatch. Base traffic through a LoRA engine holding
@@ -241,8 +242,9 @@ Phases (each fails the run on any error; none catches and carries on):
 27. Fleet cache pulls and disaggregated prefill (cell S), A's model at
     bf16. Two replicas, 16 families of a 256-token prefix: a placement
     wave pinned to replica 0, then a sharing wave (fresh 16-token tails)
-    pinned to replica 1, ``fleet_cache`` off and on in turns (off, on,
-    on, off): the sharing wave's TTFT p50 and max, pulls, pulled blocks
+    pinned to replica 1, ``fleet_cache`` off, then on (two turns, as four
+    no longer fit the time limit): the sharing wave's TTFT p50 and max,
+    pulls, pulled blocks
     (256 with the cache on, no fallback, no prefix token recomputed),
     export and graft ms a block and the host CRC32's share of each;
     then one more family with replica 0's
@@ -250,7 +252,7 @@ Phases (each fails the run on any error; none catches and carries on):
     equal to the cache-off turns'. Then phase 4's trace plus 8 prompts of
     512-1024 tokens from 16 streaming clients (one decode iteration a
     step), ``RouterConfig(replicas=2, prefill_replicas=1,
-    prefill_len_threshold=256)`` in turns with 3 unified replicas:
+    prefill_len_threshold=256)`` after 3 unified replicas (two turns):
     tokens/s, TTFT, the short requests' time per output token p50 and
     p99; the split fleet routes the long prompts to prefill and hands
     them off with no fallback and no recomputed token.
@@ -689,6 +691,50 @@ Phases (each fails the run on any error; none catches and carries on):
     one step's loss within 1e-5 and every gradient within 1e-4 x max|g|,
     three captured steps' losses within 1e-5. Phases 60 and 61 launch
     none of the port's kernels.
+62. Cell FT: BERT-base's encoder (``BertConfig()``'s widths: 12 layers,
+    hidden 768, 12 heads, FFN 3072, GELU; pre-LN; biases and LayerNorm
+    affine drawn from the seed) through ``incubate.nn.functional.
+    fused_multi_transformer`` with q, k, v in the fused ``[E, 3E]`` layout,
+    against 12 ``incubate.nn.FusedTransformerEncoderLayer(normalize_before=
+    True, activation="gelu", dropout=0)`` with the same weights, B 32 x S
+    128, in inference: at fp32 the two within 1e-4 x max|ref|, at bf16
+    within rel_fro 1e-2 and rel_row 3e-2 of each other and rel_fro 5e-2 of
+    fp32; every forward of either route launches exactly 12 flash forwards
+    and nothing else; ms a bf16 forward of each route (median of 6) and a
+    profiled fused forward. Then ``masked_multihead_attention`` at
+    LLaMA-7B's attention widths (B 8, 32 heads, D 128, cache 2048): 32
+    bf16 decode steps (ms a step), and the same 32 steps at fp32 on 2 of
+    the rows against the CPU (outputs within 1e-4 x max|ref|, the cache
+    equal).
+63. Cell ML: PaddleNLP's multi-label text classification
+    (``applications/text_classification/multi_label``): ``BertModel`` +
+    ``Linear(768, 20)`` + ``nn.BCEWithLogitsLoss``, B 32 x S 128 of
+    synthetic tokens and labels from the seed, ``amp.auto_cast`` O1,
+    ``incubate.LookAhead(AdamW(1e-4), alpha=0.5, k=5)`` (the recipe's
+    learning rate is 3e-5; 1e-4 shows the fall in 10 steps) for 10 steps (two
+    slow syncs) and ``incubate.ModelAverage`` over the parameters: the
+    loss finite and falling (mean of the last 3 under the first 3's), the
+    slow weights after step 10 equal to the anchor moved halfway to the
+    fast weights at each sync (recomputed on the card), the parameters
+    equal to them; one sync step of the two wrappers profiled: device work
+    and no device-to-host copy; ``apply()`` for one evaluate batch (12 flash
+    forwards), ``restore()`` giving back the weights bit for bit; ms a step
+    and a profiled step. Then the recipe at fp32, hidden 256, 4 layers, no
+    dropout, card against CPU from the same weights: each loss within
+    1e-5, the parameters, slow weights and average sums within 1e-4 x the
+    CPU's largest entry.
+64. Every op this slice registers (the losses, resampling and shuffles,
+    incubate's fused names, the MoE plumbing ops, the update rules), the
+    16 new layers and ``nn.utils`` on the card against the CPU at fp32:
+    outputs within 1e-5 x max|ref| (1e-4 for attention through the flash
+    kernels), the gradient of the first output's sum within 1e-4 x
+    max(max|g|, 1e-2), integers equal; ``class_center_sample`` by its
+    properties, ``block_multihead_attention`` by its error. Each card call
+    launches exactly: one flash forward, dq and dk/dv for
+    ``fused_multi_head_attention`` and ``fused_attention`` (B 2 x S 128 x
+    2 heads x D 64), two each for the 2-layer ``fused_multi_transformer``,
+    the RMSNorm and RoPE kernels once each way for ``fused_rms_norm`` and
+    ``fused_rotary_position_embedding``, nothing for the others.
 
 Each phase's wall seconds print as the next phase (or the closing line)
 begins.
@@ -718,7 +764,9 @@ the flash launches of phases 8, 34, 36, 38, 39, 41 (both ranks' F
 steps), 43, 45, 46, 47 (evaluate and predict), 48 (the card's
 ``train_batch``), 50 (the timed replays of (a), the forward-backward
 calls of (b)), 51 (the dropout-0 captured run), 52 (both
-predictors) and 56 (the timed and profiled replays), the int8 matmul launches of phases 47 (quantized predict)
+predictors), 56 (the timed and profiled replays), 62 (every forward
+of both routes), 63 (the evaluate batch) and 64 (its card calls), the
+int8 matmul launches of phases 47 (quantized predict)
 and 52 (the int8 predictor), and the RMSNorm and RoPE launches of phases
 11, 34, 36, 38, 39, 41, 43, 45, 46 and 50 (RoPE: forward and backward
 together; 45: the timed eager steps and the eager callers of (d); 46: the
@@ -760,7 +808,10 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "detector training and NMS (vision)", "SDXL UNet training",
          "UNet parity", "OCR recognizer training and decoding",
          "recurrent, vision-functional and detection-training ops",
-         "op library and sequence labelling")
+         "op library and sequence labelling",
+         "BERT-base through fused_multi_transformer",
+         "multi-label fine-tuning with LookAhead and ModelAverage",
+         "losses, resampling, fused names and update rules")
 
 
 def check(cond, msg):
@@ -2708,7 +2759,7 @@ def lora_serving_phase(prompts, news, greedy4, greedy5):
         return eng
 
     turns, main = [], None
-    for kind in ("A", "LoRA", "LoRA", "A"):
+    for kind in ("A", "LoRA"):
         eng = fresh(kind == "LoRA")
         reset_counts()
         _, m = drive(eng, prompts, news, knobs if kind == "LoRA" else None)
@@ -2737,7 +2788,7 @@ def lora_serving_phase(prompts, news, greedy4, greedy5):
                   f"{m['mixed_dispatches']} mixed dispatches")
         del eng
         torch.cuda.empty_cache()
-    log(f"  in turns (A, LoRA, LoRA, A): {json.dumps(turns)}")
+    log(f"  in turns (A, LoRA): {json.dumps(turns)}")
     launches = main[1]
     # base traffic through a LoRA engine holding all 8 adapters equals the
     # LoRA-less engine's streams, bf16 (phase 4) and int8 (phase 5)
@@ -4130,7 +4181,7 @@ def cache_phase(prompts, news):
     params = init_params(cfg, seed=SEED, device="cuda")
     waves = share_waves(cfg.vocab_size, SEED + 27)
     turns, xs, launches = [], {}, None
-    for on in (False, True, True, False):
+    for on in (False, True):
         t, _, xstream, c = pull_turn(params, cfg, on, waves)
         xs.setdefault(on, []).append(xstream)
         if on:
@@ -4147,7 +4198,7 @@ def cache_phase(prompts, news):
     check(all(x == xs[False][0] for x in xs[True] + xs[False]),
           "the corrupt pull's recomputed stream differs from the stream "
           "without the fleet cache")
-    log(f"  pulls in turns (off, on, on, off): {json.dumps(turns)}")
+    log(f"  pulls in turns (off, on): {json.dumps(turns)}")
     log(f"  a corrupt export: one pull fallback, its stream equal to the "
         f"fleet-cache-off turns'")
     # disaggregated prefill against the unified fleet, 16 clients
@@ -4160,7 +4211,7 @@ def cache_phase(prompts, news):
             tp.append(lp.pop())
             tn.append(ln.pop())
     dis = []
-    for split in (False, True, True, False):
+    for split in (False, True):
         rc = (RouterConfig(replicas=2, prefill_replicas=1,
                            prefill_len_threshold=256) if split
               else RouterConfig(replicas=3))
@@ -4199,8 +4250,8 @@ def cache_phase(prompts, news):
         balanced_fleet(r)
         del r
         release()
-    log(f"  disaggregated prefill in turns (unified, split, split, "
-        f"unified; 16 clients, {len(tp)} requests): {json.dumps(dis)}")
+    log(f"  disaggregated prefill in turns (unified, split; 16 clients, "
+        f"{len(tp)} requests): {json.dumps(dis)}")
     del params
     release()
     return {"pull_turns": turns, "disagg_turns": dis}, launches
@@ -11299,6 +11350,851 @@ def lexical_phase(timed=8, parity_batch=32):
     return m
 
 
+# ---------------------------------------------------------------------------
+# phases 62-64: BERT-base through fused_multi_transformer (FT), multi-label
+# fine-tuning with LookAhead and ModelAverage (ML), the 7b ops
+# ---------------------------------------------------------------------------
+
+FT_BATCH, FT_SEQ = 32, 128
+# masked_multihead_attention at LLaMA-7B's attention widths
+MMHA = dict(batch=8, heads=32, head_dim=128, cache=2048, steps=32,
+            parity_rows=2)
+ML_LABELS = 20
+
+
+def _ft_layers(paddle, cfg, rng):
+    """``cfg.num_hidden_layers`` pre-LN ``FusedTransformerEncoderLayer``s at
+    ``cfg``'s widths, GELU, no dropout, in eval mode: Xavier weights from
+    ``paddle.seed``, and the biases and LayerNorm affine drawn from ``rng``
+    (not left at zero and one)."""
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        lay = paddle.incubate.nn.FusedTransformerEncoderLayer(
+            cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size,
+            dropout=0.0, activation="gelu", normalize_before=True)
+        for name, p in lay.named_parameters():
+            if len(p.shape) == 1:
+                base = 1.0 if name.startswith("norm") and \
+                    name.endswith("weight") else 0.0
+                p.set_value((base + 0.1 * rng.standard_normal(p.shape))
+                            .astype(np.float32))
+        lay.eval()
+        layers.append(lay)
+    return layers
+
+
+def _ft_fused(paddle, layers):
+    """The layers' weights as ``fused_multi_transformer``'s lists: q, k, v
+    side by side in the fused ``[E, 3E]`` layout."""
+    out = [[] for _ in range(12)]
+    for lay in layers:
+        a = lay.self_attn
+        for i, t in enumerate((
+                lay.norm1.weight, lay.norm1.bias,
+                paddle.concat([a.q_proj.weight, a.k_proj.weight,
+                               a.v_proj.weight], axis=1),
+                paddle.concat([a.q_proj.bias, a.k_proj.bias, a.v_proj.bias]),
+                a.out_proj.weight, a.out_proj.bias, lay.norm2.weight,
+                lay.norm2.bias, lay.linear1.weight, lay.linear1.bias,
+                lay.linear2.weight, lay.linear2.bias)):
+            out[i].append(t)
+    return out
+
+
+def _only_flash(c, n, what):
+    check(c["flash_attention"] == n and
+          all(v == 0 for k, v in c.items() if k != "flash_attention"),
+          f"{what}: launches {c}, expected {n} flash forwards and nothing "
+          f"else")
+
+
+def _median_ms(fn, n, dev):
+    times = []
+    for _ in range(n):
+        _sync(dev)
+        t0 = time.time()
+        fn()
+        _sync(dev)
+        times.append((time.time() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def ft_phase(dev="cuda", cfg=None, batch=FT_BATCH, seq=FT_SEQ, timed=6,
+             mmha=None):
+    """Phase 62 (cell FT): BERT-base's encoder through
+    ``incubate.nn.functional.fused_multi_transformer`` (pre-LN, GELU, the
+    fused ``[E, 3E]`` qkv) against the same weights as a stack of
+    ``incubate.nn.FusedTransformerEncoderLayer``, in inference; then
+    ``masked_multihead_attention`` decode steps. Returns (metrics, the
+    launches of its forwards)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import BertConfig
+    IF = paddle.incubate.nn.functional
+    t0 = time.time()
+    cfg = cfg or BertConfig()
+    mmha = mmha or MMHA
+    cuda = dev != "cpu"
+    paddle.set_device("gpu:0" if cuda else "cpu")
+    paddle.seed(SEED + 62)
+    rng = np.random.default_rng(SEED + 62)
+    layers = _ft_layers(paddle, cfg, rng)
+    L, H = cfg.num_hidden_layers, cfg.num_attention_heads
+    x32 = rng.standard_normal((batch, seq, cfg.hidden_size)).astype(np.float32)
+    outs, launches, m = {}, {}, {"layers": L, "batch": batch, "seq": seq}
+    for dtype in ("float32", "bfloat16"):
+        for lay in layers:
+            lay.to(dtype=dtype)
+        w = _ft_fused(paddle, layers)
+        x = paddle.to_tensor(x32).astype(dtype)
+
+        def fused():
+            return IF.fused_multi_transformer(x, *w, pre_layer_norm=True,
+                                              num_heads=H)
+
+        def stacked():
+            h = x
+            for lay in layers:
+                h = lay(h)
+            return h
+        for route, fn in (("fused", fused), ("layers", stacked)):
+            with paddle.no_grad():
+                reset_counts()
+                out = fn()
+                _sync(dev)
+                c = read_counts()
+            if cuda:
+                _only_flash(c, L, f"{dtype} {route} forward")
+            launches[(dtype, route)] = c
+            outs[(dtype, route)] = out._value.float()
+            check(bool(torch.isfinite(outs[(dtype, route)]).all()),
+                  f"{dtype} {route}: non-finite output")
+            if dtype == "bfloat16":
+                with paddle.no_grad():
+                    m[f"{route}_ms_per_forward"] = _median_ms(fn, timed, dev)
+    ref = outs[("float32", "layers")]
+    fp32_gap = float((outs[("float32", "fused")] - ref).abs().max()) / \
+        float(ref.abs().max())
+    check(fp32_gap <= 1e-4, f"fp32 fused against the layers: {fp32_gap} x "
+          f"max|ref|")
+    fro, row = rel_errors(outs[("bfloat16", "fused")],
+                          outs[("bfloat16", "layers")])
+    bf16_max = float((outs[("bfloat16", "fused")] - outs[("bfloat16",
+                                                          "layers")]
+                      ).abs().max()) / float(outs[("bfloat16", "layers")]
+                                             .abs().max())
+    bf16_fp32 = rel_errors(outs[("bfloat16", "fused")], ref)[0]
+    check(fro <= BF16_FRO and row <= BF16_ROW,
+          f"bf16 fused against the layers: rel_fro {fro}, rel_row {row}")
+    check(bf16_fp32 <= 5e-2, f"bf16 fused against fp32: rel_fro {bf16_fp32}")
+    m.update({"fp32_gap": fp32_gap, "bf16_rel_fro": fro, "bf16_rel_row": row,
+              "bf16_max_abs_rel": bf16_max, "bf16_vs_fp32_rel_fro": bf16_fp32,
+              "flash_fwd_per_forward": launches[("bfloat16", "fused")]
+              ["flash_attention"]})
+    if cuda:
+        with paddle.no_grad():
+            m["profile"] = profile_device(
+                lambda: IF.fused_multi_transformer(
+                    x, *w, pre_layer_norm=True, num_heads=H),
+                "FT fused_multi_transformer forward (bf16)")
+    log(f"  fused_multi_transformer: {json.dumps(m)}")
+    del layers, w, outs
+    if cuda:
+        torch.cuda.empty_cache()
+    m["mmha"] = mmha_case(paddle, dev, **mmha)
+    total = {}
+    for c in launches.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    m["seconds"] = time.time() - t0
+    return m, total
+
+
+def _mmha_steps(paddle, xs, cache, starts, dev, dtype, warm=False):
+    """``masked_multihead_attention`` over the steps of ``xs`` from the
+    cache positions ``starts``, every input put on ``dev`` first: each
+    step's output, the last cache (torch values on ``dev``) and the ms a
+    step (after one warm-up step on a copy of the cache when ``warm``)."""
+    IF = paddle.incubate.nn.functional
+    c = paddle.to_tensor(cache).astype(dtype)
+    xs_t = [paddle.to_tensor(x).astype(dtype) for x in xs]
+    lens = [paddle.to_tensor(starts + i) for i in range(len(xs))]
+    with paddle.no_grad():
+        if warm:
+            IF.masked_multihead_attention(xs_t[0], c.clone(), seq_lens=lens[0])
+        _sync(dev)
+        t0 = time.time()
+        outs = []
+        for x, n in zip(xs_t, lens):
+            o, c = IF.masked_multihead_attention(x, c, seq_lens=n)
+            outs.append(o._value)
+        _sync(dev)
+    return outs, c._value, (time.time() - t0) * 1e3 / len(xs)
+
+
+def mmha_case(paddle, dev, batch, heads, head_dim, cache, steps,
+              parity_rows):
+    """``steps`` decode steps of ``masked_multihead_attention`` at bf16
+    (ms a step, the inputs already on the card, after a warm-up step), and
+    the same steps at fp32 for ``parity_rows`` rows on
+    ``dev`` against the CPU: outputs within 1e-4 x max|ref|, the cache
+    equal."""
+    import torch
+    rng = np.random.default_rng(SEED + 620)
+    E3 = 3 * heads * head_dim
+    xs = (0.5 * rng.standard_normal((steps, batch, E3))).astype(np.float32)
+    kv = (0.5 * rng.standard_normal((2, batch, heads, cache, head_dim))
+          ).astype(np.float32)
+    starts = rng.integers(0, cache - steps, batch).astype(np.int64)
+    place = "gpu:0" if dev != "cpu" else "cpu"
+    paddle.set_device(place)
+    outs, _, ms = _mmha_steps(paddle, xs, kv, starts, dev, "bfloat16",
+                              warm=True)
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+          "bf16 masked_multihead_attention: non-finite output")
+    r = parity_rows
+    got, got_c, _ = _mmha_steps(paddle, xs[:, :r], kv[:, :r], starts[:r],
+                                dev, "float32")
+    paddle.set_device("cpu")
+    want, want_c, _ = _mmha_steps(paddle, xs[:, :r], kv[:, :r], starts[:r],
+                                  "cpu", "float32")
+    paddle.set_device(place)
+    gap = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(got, want))
+    check(gap <= 1e-4, f"fp32 masked_multihead_attention: {gap} x max|ref| "
+          f"from the CPU")
+    check(torch.equal(got_c.cpu(), want_c), "fp32 cache differs from the "
+          "CPU's")
+    m = {"shape": [batch, heads, head_dim, cache], "steps": steps,
+         "bf16_ms_per_step": ms, "fp32_rows": r, "fp32_gap": gap}
+    log(f"  masked_multihead_attention: {json.dumps(m)}")
+    return m
+
+
+def _ml_net(paddle, cfg):
+    class MultiLabel(paddle.nn.Layer):
+        """PaddleNLP's multi-label classifier: BERT's pooled output through
+        one Linear to the label logits."""
+
+        def __init__(self):
+            super().__init__()
+            self.bert = paddle.models.BertModel(cfg)
+            self.head = paddle.nn.Linear(cfg.hidden_size, ML_LABELS)
+
+        def forward(self, ids):
+            return self.head(self.bert(ids)[1])
+    return MultiLabel()
+
+
+def ml_data(cfg, n, seq, seed):
+    """Synthetic multi-label data: label j is set when one of the first 4
+    tokens falls in residue class j mod 20 (about 19 % of the labels)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (n, seq)).astype(np.int64)
+    hits = ids[:, :4, None] % ML_LABELS == np.arange(ML_LABELS)
+    return ids, hits.any(1).astype(np.float32)
+
+
+def _ml_train(paddle, net, ids, labels, batch, steps, dev, amp, lr, eps,
+              k=5, profile=False):
+    """``steps`` steps of ``LookAhead(AdamW, alpha=0.5, k)`` with a
+    ``ModelAverage`` over the parameters: the losses, each step's host ms,
+    the anchor and the fast weights at each sync (captured on the device),
+    the wrappers, and (``profile``) a profile of one step's
+    ``LookAhead`` + ``ModelAverage`` at a sync."""
+    import contextlib
+    params = net.parameters()
+    opt = paddle.optimizer.AdamW(learning_rate=lr, epsilon=eps,
+                                 parameters=params)
+    la = paddle.incubate.LookAhead(opt, alpha=0.5, k=k)
+    ma = paddle.incubate.ModelAverage(0.15, parameters=params,
+                                      min_average_window=2,
+                                      max_average_window=4)
+    inner = opt.step
+    fast = []
+
+    def step_and_keep():
+        inner()
+        if (len(fast) + 1) * k == la._step_count + 1:
+            fast.append([p._value.detach().clone() for p in params])
+    opt.step = step_and_keep
+    anchor = [p._value.detach().clone() for p in params]
+    loss_fn = paddle.nn.BCEWithLogitsLoss()
+    losses, times, prof = [], [], None
+    for i in range(steps):
+        xb = paddle.to_tensor(ids[i * batch:(i + 1) * batch])
+        yb = paddle.to_tensor(labels[i * batch:(i + 1) * batch])
+        _sync(dev)
+        t0 = time.time()
+        ctx = paddle.amp.auto_cast(level="O1") if amp else \
+            contextlib.nullcontext()
+        with ctx:
+            loss = loss_fn(net(xb), yb)
+        loss.backward()
+        if profile and (i + 1) % k == 0 and prof is None:
+            prof = profile_device(lambda: (la.step(), ma.step()),
+                                  "ML LookAhead sync + ModelAverage step")
+        else:
+            la.step()
+            ma.step()
+        la.clear_grad()
+        losses.append(float(loss))
+        times.append((time.time() - t0) * 1e3)
+    opt.step = inner
+    return losses, times, anchor, fast, la, ma, prof
+
+
+def ml_phase(dev="cuda", cfg=None, batch=FT_BATCH, seq=FT_SEQ, steps=10,
+             lr=1e-4):
+    """Phase 63 (cell ML): multi-label fine-tuning of BERT-base
+    (PaddleNLP's ``applications/text_classification/multi_label``
+    recipe), then its fp32 parity at hidden 256 against the CPU. Returns
+    (metrics, the launches of its evaluate batch)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import BertConfig
+    t0 = time.time()
+    cuda = dev != "cpu"
+    place = "gpu:0" if cuda else "cpu"
+    paddle.set_device(place)
+    paddle.seed(SEED + 63)
+    cfg = cfg or BertConfig()
+    net = _ml_net(paddle, cfg)
+    ids, labels = ml_data(cfg, (steps + 1) * batch, seq, SEED + 63)
+    losses, times, anchor, fast, la, ma, prof = _ml_train(
+        paddle, net, ids, labels, batch, steps, dev, amp=True, lr=lr,
+        eps=1e-8, profile=cuda)
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"the loss does not fall: {losses}")
+    # the slow weights: the anchor moved halfway to the fast weights at
+    # each sync, recomputed on the device
+    check(len(fast) == steps // 5, f"{len(fast)} syncs, not {steps // 5}")
+    slow = anchor
+    for f in fast:
+        slow = [s.add(fw - s, alpha=0.5) for s, fw in zip(slow, f)]
+    check(all(torch.equal(a, b) for a, b in zip(la._slow, slow)),
+          "LookAhead's slow weights differ from the recomputation")
+    check(all(torch.equal(p._value, s) for p, s in zip(net.parameters(),
+                                                       slow)),
+          "the parameters after the last sync are not the slow weights")
+    if prof is not None:
+        d2h = {k: v for k, v in prof.get("copy_kernels", {}).items()
+               if "DtoH" in k or "Device -> Pageable" in k or
+               "Device -> Pinned" in k}
+        check(isinstance(prof.get("device_busy_ms"), float),
+              "the wrappers' step showed no device work")
+        check(not d2h, f"a LookAhead / ModelAverage step copied to the "
+              f"host: {d2h}")
+    # evaluate one batch on the averaged weights, then restore them
+    net.eval()
+    before = [p._value.detach().clone() for p in net.parameters()]
+    xe = paddle.to_tensor(ids[steps * batch:])
+    reset_counts()
+    ma.apply()
+    with paddle.no_grad(), paddle.amp.auto_cast(level="O1"):
+        logits = net(xe)
+    _sync(dev)
+    c_eval = read_counts()
+    ma.restore()
+    if cuda:
+        _only_flash(c_eval, cfg.num_hidden_layers, "ML evaluate")
+    check(bool(torch.isfinite(logits._value.float()).all()),
+          "evaluate: non-finite logits")
+    check(all(torch.equal(a, p._value) for a, p in zip(before,
+                                                       net.parameters())),
+          "restore() did not give back the weights bit for bit")
+    step_ms = float(np.median(times[1:]))
+    m = {"losses": losses, "step_ms": step_ms, "step_ms_each": times,
+         "samples_per_s": batch / step_ms * 1e3, "syncs": len(fast),
+         "average_window": [ma._num, ma._old_num],
+         "eval_flash_fwd": c_eval["flash_attention"],
+         "wrapper_step": prof}
+    log(f"  BERT-base multi-label: {json.dumps(m)}")
+    del net, la, ma, anchor, fast, slow, before
+    if cuda:
+        torch.cuda.empty_cache()
+        # the step's busy share, on a fresh net at the same recipe
+        m["profile"] = _ml_profile(paddle, cfg, ids, labels, batch, dev)
+    m["parity"] = ml_parity(paddle, dev, seq=seq)
+    m["seconds"] = time.time() - t0
+    return m, c_eval
+
+
+def _ml_profile(paddle, cfg, ids, labels, batch, dev):
+    import torch
+    paddle.seed(SEED + 63)
+    net = _ml_net(paddle, cfg)
+    _, _, _, _, la, ma, _ = _ml_train(paddle, net, ids, labels, batch, 1,
+                                      dev, amp=True, lr=1e-4, eps=1e-8)
+    xb, yb = (paddle.to_tensor(a[:batch]) for a in (ids, labels))
+    loss_fn = paddle.nn.BCEWithLogitsLoss()
+
+    def step():
+        with paddle.amp.auto_cast(level="O1"):
+            loss = loss_fn(net(xb), yb)
+        loss.backward()
+        la.step()
+        ma.step()
+        la.clear_grad()
+        float(loss)
+    out = profile_device(step, "ML step (O1, LookAhead + ModelAverage)",
+                         top=8)
+    del net, la, ma
+    torch.cuda.empty_cache()
+    return out
+
+
+def ml_parity(paddle, dev, seq=FT_SEQ, batch=8, steps=10):
+    """The ML recipe at fp32, hidden 256, 4 layers, no dropout, on ``dev``
+    against the CPU from the same weights: each step's loss within 1e-5,
+    and the final parameters, slow weights and average sums within 1e-4 x
+    the largest entry of the CPU's. AdamW takes epsilon 1e-4 here: with a
+    smaller one an entry whose gradient is fp32 noise moves by ~lr with
+    the noise's sign, so the two devices could part by 2 lr there
+    (ROADMAP §C, "expected and bounded")."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    cfg = BertConfig(hidden_size=256, num_hidden_layers=4,
+                     num_attention_heads=4, intermediate_size=1024,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    ids, labels = ml_data(cfg, steps * batch, seq, SEED + 631)
+    runs = {}
+    place = "gpu:0" if dev != "cpu" else "cpu"
+    paddle.set_device(place)
+    paddle.seed(SEED + 631)
+    state = _ml_net(paddle, cfg).state_dict()
+    for pl, dv in ((place, dev), ("cpu", "cpu")):
+        paddle.set_device(pl)
+        net = _ml_net(paddle, cfg)
+        net.set_state_dict(state)
+        losses, _, _, _, la, ma, _ = _ml_train(
+            paddle, net, ids, labels, batch, steps, dv, amp=False, lr=1e-3,
+            eps=1e-4)
+        runs[pl] = (losses, [p._value.detach().cpu() for p in
+                             net.parameters()],
+                    [s.cpu() for s in la._slow],
+                    [s.cpu() for s in ma._sum.values()])
+    paddle.set_device(place)
+    (lc, *state_c), (lg, *state_g) = runs["cpu"], runs[place]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    check(loss_gap <= 1e-5, f"fp32 losses card {lg} against CPU {lc}")
+    gaps = {}
+    for name, got, want in zip(("params", "slow", "sums"), state_g, state_c):
+        scale = max(float(w.abs().max()) for w in want)
+        gaps[name] = max(float((g - w).abs().max()) for g, w in
+                         zip(got, want)) / scale
+        check(gaps[name] <= 1e-4, f"fp32 {name}: {gaps[name]} x max from "
+              f"the CPU")
+    m = {"loss_gap": loss_gap, "state_gaps": gaps, "losses_card": lg,
+         "losses_cpu": lc}
+    log(f"  fp32 parity, hidden 256 x 4 layers: {json.dumps(m)}")
+    return m
+
+
+# the modules this slice adds ops from, and the earlier ops of those
+# modules (swept in phase 45 (d) and by the training phases)
+B7_MODULES = ("paddle_tpu_torch.nn.functional.loss",
+              "paddle_tpu_torch.nn.functional.common",
+              "paddle_tpu_torch.incubate.nn.functional",
+              "paddle_tpu_torch.distributed.moe_utils",
+              "paddle_tpu_torch.optimizer.ops")
+B7_RESAMPLE = {"interpolate", "upsample", "linear_interp", "bilinear_interp",
+               "nearest_interp", "bicubic_interp", "trilinear_interp",
+               "pixel_shuffle", "pixel_unshuffle", "channel_shuffle"}
+B7_EARLIER = {"cross_entropy", "mse_loss", "ctc_loss"}
+# how phase 64 names each module's group of ops
+B7_GROUPS = {"loss": "losses", "common": "resampling",
+             "functional": "incubate", "moe_utils": "moe",
+             "ops": "update rules"}
+# the port kernels each card call launches (with its gradient); every
+# other op launches none
+_FLASH_1 = {"flash_attention": 1, "flash_attention_bwd_dq": 1,
+            "flash_attention_bwd_dkv": 1}
+B7_KERNEL_OPS = {
+    "fused_multi_head_attention": _FLASH_1, "fused_attention": _FLASH_1,
+    "fused_multi_transformer": {k: 2 for k in _FLASH_1},
+    "fused_rms_norm": {"rms_norm": 1, "rms_norm_bwd": 1},
+    "fused_rotary_position_embedding": {"apply_rope": 1,
+                                        "apply_rope_bwd": 1}}
+# held by their properties / their error, not by the CPU's values
+B7_SPECIAL = {"class_center_sample", "block_multihead_attention"}
+
+
+def _b7_required():
+    import paddle_tpu_torch.distributed.moe_utils  # noqa: F401
+    import paddle_tpu_torch.incubate.nn.functional  # noqa: F401
+    import paddle_tpu_torch.nn.functional  # noqa: F401
+    import paddle_tpu_torch.optimizer.ops  # noqa: F401
+    from paddle_tpu_torch.core.dispatch import OP_REGISTRY as TR, op_module
+    req = {}
+    for n in TR:
+        mod = op_module(n)
+        if mod not in B7_MODULES or n in B7_EARLIER:
+            continue
+        if mod.endswith(".common") and n not in B7_RESAMPLE:
+            continue
+        req[n] = B7_GROUPS[mod.rpartition(".")[2]]
+    return req
+
+
+def _b7_cases(rng):
+    """One example call for each op of :func:`_b7_required`: ``{name:
+    (args, kwargs, flags)}``; flags: ``g`` compare the gradient of the first
+    output's sum, ``f`` attention through the flash kernels (outputs held
+    to 1e-4, the fp32 kernel's accumulation order against the plain
+    formula's)."""
+    f32, i64 = np.float32, np.int64
+
+    def rn(*s, scale=1.0):
+        return (scale * rng.standard_normal(s)).astype(f32)
+
+    def un(lo, hi, *s):
+        return rng.uniform(lo, hi, s).astype(f32)
+
+    def ii(lo, hi, *s):
+        return rng.integers(lo, hi, s).astype(i64)
+
+    def sign(*s):
+        return (rng.integers(0, 2, s) * 2 - 1).astype(f32)
+
+    def bern(*s):
+        return rng.integers(0, 2, s).astype(f32)
+
+    P = (3, 4)
+    pw, gr, mo, sq = rn(*P), rn(*P), rn(*P), un(0.1, 1.0, *P)
+    b1, b2 = f32(0.9), f32(0.999)
+    E, Hh, S = 128, 2, 128          # a flash shape: D 64, fp32
+    x_att = rn(2, S, E)
+    return {
+        # losses
+        "adaptive_log_softmax_with_loss": (
+            (rn(4, 8), ii(0, 5, 4), rn(8, 3), [(rn(8, 4), rn(4, 3))],
+             [2, 5]), {}, "g"),
+        "binary_cross_entropy": ((un(.05, .95, 3, 4), bern(3, 4)), {}, "g"),
+        "binary_cross_entropy_with_logits": (
+            (rn(3, 4), bern(3, 4)), {"pos_weight": un(.5, 2, 4)}, "g"),
+        "bpr_loss": ((rn(3, 5), ii(0, 5, 3)), {}, "g"),
+        "center_loss": ((rn(4, 8), ii(0, 3, 4), rn(3, 8)), {}, "g"),
+        "cos_sim": ((rn(3, 4), rn(3, 4)), {}, "g"),
+        "cosine_embedding_loss": ((rn(2, 4), rn(2, 4), sign(2)), {}, "g"),
+        "dice_loss": ((un(0, 1, 2, 4, 3), ii(0, 3, 2, 4, 1)), {}, "g"),
+        "gaussian_nll_loss": ((rn(4), rn(4), un(.1, 1, 4)), {}, "g"),
+        "hinge_embedding_loss": ((rn(4), sign(4)), {}, "g"),
+        "hsigmoid_loss": ((rn(3, 6), ii(0, 4, 3), 4, rn(3, 6)), {}, "g"),
+        "huber_loss": ((rn(3, 4), rn(3, 4)), {"delta": 0.5}, "g"),
+        "identity_loss": ((rn(3, 4),), {"reduction": "sum"}, "g"),
+        "kl_div": ((rn(3, 4), un(.1, 1, 3, 4)), {}, "g"),
+        "l1_loss": ((rn(3, 4), rn(3, 4)), {}, "g"),
+        "log_loss": ((un(.05, .95, 4, 1), bern(4, 1)), {}, "g"),
+        "margin_cross_entropy": ((un(-.9, .9, 4, 6), ii(0, 6, 4)),
+                                 {"return_softmax": True}, "g"),
+        "margin_ranking_loss": ((rn(4), rn(4), sign(4)), {}, "g"),
+        "modified_huber_loss": ((rn(4), bern(4)), {}, "g"),
+        "multi_label_soft_margin_loss": ((rn(2, 4), bern(2, 4)), {}, "g"),
+        "multi_margin_loss": ((rn(4, 5), ii(0, 5, 4)), {}, "g"),
+        "nll_loss": ((rn(6, 5), ii(0, 5, 6)), {}, "g"),
+        "npair_loss": ((rn(4, 8), rn(4, 8), ii(0, 2, 4)), {}, "g"),
+        "poisson_nll_loss": ((rn(4), un(.1, 2, 4)), {}, "g"),
+        "rank_loss": ((bern(4), rn(4), rn(4)), {}, "g"),
+        "rnnt_loss": ((rn(2, 6, 4, 5), ii(1, 5, 2, 3),
+                       np.array([6, 4], i64), np.array([3, 2], i64)), {},
+                      "g"),
+        "sigmoid_focal_loss": ((rn(4, 3), bern(4, 3)), {}, "g"),
+        "smooth_l1_loss": ((rn(3, 4), rn(3, 4)), {}, "g"),
+        "soft_margin_loss": ((rn(4), sign(4)), {}, "g"),
+        "softmax_with_cross_entropy": ((rn(4, 5), ii(0, 5, 4, 1)), {}, "g"),
+        "square_error_cost": ((rn(4), rn(4)), {}, "g"),
+        "squared_l2_distance": ((rn(3, 4), rn(3, 4)), {}, "g"),
+        "squared_l2_norm": ((rn(3, 4),), {}, "g"),
+        "teacher_student_sigmoid_loss": ((rn(4), un(0, 1, 4)), {}, "g"),
+        "triplet_margin_loss": ((rn(4, 8), rn(4, 8), rn(4, 8)), {}, "g"),
+        "triplet_margin_with_distance_loss": (
+            (rn(4, 8), rn(4, 8), rn(4, 8)), {"swap": True}, "g"),
+        # resampling
+        "interpolate": ((rn(1, 2, 8, 8),), {"size": [5, 5],
+                                            "mode": "bilinear"}, "g"),
+        "upsample": ((rn(1, 2, 4, 4),), {"scale_factor": 2}, "g"),
+        "linear_interp": ((rn(1, 2, 6),), {"size": [9]}, "g"),
+        "bilinear_interp": ((rn(1, 2, 4, 4),), {"size": [7, 7],
+                                                "align_corners": True}, "g"),
+        "nearest_interp": ((rn(1, 2, 4, 4),), {"scale_factor": 2}, "g"),
+        "bicubic_interp": ((rn(1, 2, 6, 6),), {"size": [11, 11]}, "g"),
+        "trilinear_interp": ((rn(1, 2, 4, 4, 4),), {"size": [3, 5, 6]},
+                             "g"),
+        "pixel_shuffle": ((rn(1, 8, 3, 3), 2), {}, "g"),
+        "pixel_unshuffle": ((rn(1, 2, 4, 4), 2), {}, "g"),
+        "channel_shuffle": ((rn(1, 4, 3, 3), 2), {}, "g"),
+        # incubate's fused names
+        "fused_rotary_position_embedding": ((rn(1, 16, 2, 64),), {}, "g"),
+        "fused_rms_norm": ((rn(4, 256), un(.5, 1.5, 256)), {}, "g"),
+        "fused_layer_norm": ((rn(2, 4, 8), un(.5, 1.5, 8), rn(8)), {}, "g"),
+        "fused_multi_head_attention": (
+            (x_att, rn(E, 3 * E, scale=0.1)), {"num_heads": Hh}, "gf"),
+        "swiglu": ((rn(3, 8),), {}, "g"),
+        "fused_linear": ((rn(3, 4), rn(4, 5)), {}, "g"),
+        "fused_bias_dropout_residual_layer_norm": (
+            (rn(2, 3, 8), rn(2, 3, 8)), {"dropout_rate": 0.0}, "g"),
+        "fused_dropout_add": ((rn(3, 4), rn(3, 4)), {"p": 0.0}, "g"),
+        "fused_bias_act": ((rn(3, 8), rn(8)), {"act_method": "geglu"}, "g"),
+        "fused_matmul_bias": ((rn(3, 4), rn(4, 5), rn(5)), {}, "g"),
+        "fused_gemm_epilogue": ((rn(3, 4), rn(4, 5), rn(5)),
+                                {"activation": "relu"}, "g"),
+        "fused_linear_activation": ((rn(3, 4), rn(4, 5), rn(5)), {}, "g"),
+        "fused_feedforward": ((rn(2, 3, 8), rn(8, 16), rn(16, 8)),
+                              {"dropout1_rate": 0.0, "dropout2_rate": 0.0,
+                               "pre_layer_norm": True}, "g"),
+        "fused_attention": (
+            (x_att, rn(3, Hh, E // Hh, E, scale=0.1), rn(E, E, scale=0.1)),
+            {"dropout_rate": 0.0, "attn_dropout_rate": 0.0,
+             "pre_layer_norm": True}, "gf"),
+        "fused_gate_attention": ((rn(2, 3, 8),),
+                                 {"qkv_weight": rn(3, 2, 4, 8),
+                                  "merge_qkv": True, "has_gating": False},
+                                 "g"),
+        "softmax_mask_fuse": ((rn(1, 2, 3, 4), rn(1, 1, 3, 4)), {}, "g"),
+        "softmax_mask_fuse_upper_triangle": ((rn(1, 2, 4, 4),), {}, "g"),
+        "fused_bn_add_act": ((rn(1, 3, 4, 4), rn(1, 3, 4, 4), rn(3),
+                              un(.5, 2, 3), un(.5, 2, 3), rn(3)), {}, "g"),
+        "resnet_unit": ((rn(1, 2, 5, 5), rn(3, 2, 3, 3), un(.5, 2, 3), rn(3),
+                         rn(3), un(.5, 2, 3)), {"z": rn(1, 3, 5, 5)}, "g"),
+        "masked_multihead_attention": (
+            (rn(2, 24), rn(2, 2, 2, 6, 4)),
+            {"seq_lens": np.array([2, 5], i64)}, "g"),
+        "variable_length_memory_efficient_attention": (
+            (rn(2, 2, 5, 8), rn(2, 2, 5, 8), rn(2, 2, 5, 8)),
+            {"seq_lens": np.array([5, 3], i64),
+             "kv_seq_lens": np.array([2, 4], i64),
+             "mask": rn(2, 1, 5, 5)}, "g"),
+        "fused_multi_transformer": (
+            (x_att, [un(.5, 1.5, E)] * 2, [rn(E)] * 2,
+             [rn(3, Hh, E // Hh, E, scale=0.1)] * 2, None,
+             [rn(E, E, scale=0.1)] * 2, None, [un(.5, 1.5, E)] * 2,
+             [rn(E)] * 2, [rn(E, 2 * E, scale=0.1)] * 2, None,
+             [rn(2 * E, E, scale=0.1)] * 2, None), {"num_heads": Hh}, "gf"),
+        "fused_moe": ((rn(2, 3, 8), rn(8, 4), rn(4, 8, 16), rn(4, 16, 8)),
+                      {}, "g"),
+        "fused_ec_moe": ((rn(2, 3, 8), rn(8, 4), rn(4, 8, 16),
+                          rn(4, 16, 8)), {}, "g"),
+        # the MoE plumbing ops
+        "number_count": ((ii(0, 4, 8), 4), {}, ""),
+        "expert_count": ((ii(-1, 3, 8), 3), {}, ""),
+        "assign_pos": ((ii(0, 3, 6), np.array([2, 4, 6], i64)), {}, ""),
+        "limit_by_capacity": ((np.array([5, 1, 3], i64),
+                               np.array([2, 2, 2], i64)), {}, ""),
+        "prune_gate_by_capacity": ((ii(0, 2, 6), np.array([3, 3], i64), 2),
+                                   {}, ""),
+        "random_routing": ((ii(0, 4, 4, 2), un(0, 1, 4, 2), un(0, 1, 4)), {},
+                           ""),
+        "global_scatter": ((rn(4, 3), None, None), {}, ""),
+        "global_gather": ((rn(4, 3), None, None), {}, ""),
+        # the update rules
+        "sgd_update": ((pw, gr), {}, ""),
+        "momentum_update": ((pw, gr, mo), {"use_nesterov": True}, ""),
+        "adagrad_update": ((pw, gr, sq), {}, ""),
+        "rmsprop_update": ((pw, gr, mo, sq), {"momentum": 0.5}, ""),
+        "adam_update": ((pw, gr, mo, sq, b1, b2), {}, ""),
+        "adamw_update": ((pw, gr, mo, sq, b1, b2), {}, ""),
+        "adamax_update": ((pw, gr, mo, sq, b1), {}, ""),
+        "adadelta_update": ((pw, gr, sq, sq), {}, ""),
+        "lamb_update": ((pw, gr, mo, sq, b1, b2), {}, ""),
+        "nadam_update": ((pw, gr, mo, sq, b1, b2), {}, ""),
+        "radam_update": ((pw, gr, mo, sq, f32(0.9 ** 7), f32(0.999 ** 7),
+                          f32(7.0)), {}, ""),
+        "ftrl_update": ((pw, gr, sq, mo), {"l1": 0.01, "l2": 0.1}, ""),
+        "lars_momentum_update": ((pw, gr, mo), {}, ""),
+        "proximal_adagrad_update": ((pw, gr, sq), {"l1": 0.01}, ""),
+        "proximal_gd_update": ((pw, gr), {"l1": 0.01}, ""),
+        "decayed_adagrad_update": ((pw, gr, sq), {}, ""),
+        "sparse_momentum_update": ((pw, rn(2, 4), mo,
+                                    np.array([0, 2], i64)), {}, ""),
+        "dgc_momentum_update": ((pw, gr, mo, rn(*P)), {}, ""),
+    }
+
+
+def _b7_layers(rng):
+    """The new layers, each with an example call: (class, kwargs, args)."""
+    f32 = np.float32
+
+    def rn(*s):
+        return rng.standard_normal(s).astype(f32)
+
+    def sign(*s):
+        return (rng.integers(0, 2, s) * 2 - 1).astype(f32)
+    return [
+        ("BCELoss", {}, (rng.uniform(.05, .95, (3, 4)).astype(f32),
+                         rng.integers(0, 2, (3, 4)).astype(f32))),
+        ("BCEWithLogitsLoss", {}, (rn(3, 4),
+                                   rng.integers(0, 2, (3, 4)).astype(f32))),
+        ("NLLLoss", {}, (rn(6, 5), rng.integers(0, 5, 6))),
+        ("L1Loss", {}, (rn(3, 4), rn(3, 4))),
+        ("SmoothL1Loss", {}, (rn(3, 4), rn(3, 4))),
+        ("KLDivLoss", {}, (rn(3, 4), rng.uniform(.1, 1, (3, 4)).astype(f32))),
+        ("MarginRankingLoss", {}, (rn(4), rn(4), sign(4))),
+        ("HingeEmbeddingLoss", {}, (rn(4), sign(4))),
+        ("CosineEmbeddingLoss", {}, (rn(2, 4), rn(2, 4), sign(2))),
+        ("TripletMarginLoss", {}, (rn(4, 8), rn(4, 8), rn(4, 8))),
+        ("Upsample", {"size": [7, 5], "mode": "bicubic"}, (rn(1, 2, 4, 4),)),
+        ("UpsamplingBilinear2D", {"scale_factor": 2}, (rn(1, 2, 4, 4),)),
+        ("UpsamplingNearest2D", {"size": [6, 6]}, (rn(1, 2, 4, 4),)),
+        ("PixelShuffle", {"upscale_factor": 2}, (rn(1, 8, 3, 3),)),
+        ("PixelUnshuffle", {"downscale_factor": 2}, (rn(1, 2, 4, 4),)),
+        ("ChannelShuffle", {"groups": 2}, (rn(1, 4, 3, 3),)),
+    ]
+
+
+def _b7_utils(paddle, dev):
+    """``nn.utils`` on ``dev`` against the CPU: a Linear under weight norm
+    and one under spectral norm (``u`` carried from the card to the CPU),
+    three forwards each with their gradients, and
+    ``parameters_to_vector``: the worst error over max|ref|."""
+    rng = np.random.default_rng(SEED + 643)
+    w, b = (rng.standard_normal(s).astype(np.float32) for s in ((6, 4), (4,)))
+    x = rng.standard_normal((3, 6)).astype(np.float32)
+    worst = 0.0
+    for how in ("weight_norm", "spectral_norm"):
+        res = []
+        u = None
+        for pl in ("gpu:0" if dev != "cpu" else "cpu", "cpu"):
+            paddle.set_device(pl)
+            lin = paddle.nn.Linear(6, 4)
+            lin.weight.set_value(w)
+            lin.bias.set_value(b)
+            getattr(paddle.nn.utils, how)(lin)
+            if how == "spectral_norm":
+                if u is None:
+                    u = lin.weight_u.numpy()
+                lin.weight_u.set_value(u)
+            outs = []
+            for _ in range(3):
+                out = lin(paddle.to_tensor(x))
+                gs = paddle.grad([(out * out).sum()], lin.parameters())
+                outs += [out._value.detach().cpu()] + \
+                    [g._value.cpu() for g in gs]
+            outs.append(paddle.nn.utils.parameters_to_vector(
+                lin.parameters())._value.detach().cpu())
+            if how == "spectral_norm":
+                outs.append(lin.weight_u._value.cpu())
+            res.append(outs)
+        got, want = res
+        err = max(_lib_close(a, b_) for a, b_ in zip(got, want))
+        check(err <= 1e-4, f"nn.utils.{how}: {err} x max|ref| from the CPU")
+        worst = max(worst, err)
+    paddle.set_device("gpu:0" if dev != "cpu" else "cpu")
+    return worst
+
+
+def b7_ops_phase(dev="cuda"):
+    """Phase 64: every op this slice registers (``_b7_required``), its new
+    layers and ``nn.utils`` on ``dev`` against the CPU at fp32: outputs
+    within 1e-5 x max|ref| (1e-4 for attention through the flash kernels),
+    the gradient of the first output's sum within 1e-4 x max(max|g|, 1e-2),
+    integer outputs equal; ``class_center_sample`` by its properties and
+    ``block_multihead_attention`` by its error. On the card each op's
+    kernel launches must be ``B7_KERNEL_OPS``' (row 6 for the fused
+    attention names, rows 3-5 for the RMSNorm and RoPE callers, none for
+    the others). Returns (metrics, the launches of its card calls)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    t0 = time.time()
+    cuda = dev != "cpu"
+    place = "gpu:0" if cuda else "cpu"
+    req = _b7_required()
+    cases = _b7_cases(np.random.default_rng(SEED + 64))
+    missing = sorted(set(req) - set(cases) - B7_SPECIAL)
+    check(not missing, f"no example call for {missing}")
+    worst, kernel_calls = {}, {}
+
+    def fn_of(name):
+        from paddle_tpu_torch.core.dispatch import OP_REGISTRY as TR
+        return TR[name].public
+
+    for name in sorted(req, key=lambda n: (req[n], n)):
+        if name in B7_SPECIAL:
+            continue
+        args, kw, flags = cases[name]
+        before = read_counts()
+        paddle.set_device(place)
+        outs, grads, _ = _lib_call(paddle, fn_of(name), args, kw, dev,
+                                   "g" in flags)
+        if cuda:
+            after = read_counts()
+            launched = {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+            check(launched == B7_KERNEL_OPS.get(name, {}),
+                  f"{name}: launched port kernels {launched}")
+            for k, v in launched.items():
+                kernel_calls[k] = kernel_calls.get(k, 0) + v
+        for o in outs:
+            if hasattr(o, "_value"):
+                check(o._value.device.type == torch.device(dev).type,
+                      f"{name}: an output on {o._value.device}")
+        paddle.set_device("cpu")
+        ref, ref_g, _ = _lib_call(paddle, fn_of(name), args, kw, "cpu",
+                                  "g" in flags)
+        paddle.set_device(place)
+        # an absent output (RoPE's k and v when not given) is None in both
+        outs, ref = ([o for o in v if o is not None] for v in (outs, ref))
+        check(len(outs) == len(ref), f"{name}: {len(outs)} outputs")
+        w = worst.setdefault(req[name], {"ops": 0, "out": 0.0, "grad": 0.0})
+        w["ops"] += 1
+        tol = 1e-4 if "f" in flags else 1e-5
+        for i, (a, b) in enumerate(zip(outs, ref)):
+            err = _lib_close(_lib_value(a), _lib_value(b))
+            w["out"] = max(w["out"], err)
+            check(err <= tol, f"{name} out {i}: {err} x max|ref|")
+        check(len(grads) == len(ref_g), f"{name}: gradients")
+        for i, (a, b) in enumerate(zip(grads, ref_g)):
+            err = _lib_close(a, b, floor=1e-2)
+            w["grad"] = max(w["grad"], err)
+            check(err <= 1e-4, f"{name} grad {i}: {err} x max(max|g|, 1e-2)")
+    # class_center_sample by its properties, on the card
+    paddle.set_device(place)
+    lab = np.array([3, 7, 3, 0, 9, 7], np.int64)
+    paddle.seed(64)
+    remapped, centers = paddle.nn.functional.class_center_sample(
+        paddle.to_tensor(lab), 20, 8)
+    c = centers.numpy()
+    check(centers._value.device.type == torch.device(dev).type and
+          len(set(c.tolist())) == 8 and c[:4].tolist() == [0, 3, 7, 9] and
+          np.array_equal(c[remapped.numpy()], lab),
+          f"class_center_sample: centers {c}, remapped {remapped.numpy()}")
+    try:
+        paddle.incubate.nn.functional.block_multihead_attention(*[None] * 6)
+        check(False, "block_multihead_attention did not raise")
+    except NotImplementedError:
+        pass
+    # the layers
+    layer_worst = 0.0
+    for cls, kw, args in _b7_layers(np.random.default_rng(SEED + 642)):
+        res = []
+        for pl, dv in ((place, dev), ("cpu", "cpu")):
+            paddle.set_device(pl)
+            out = getattr(paddle.nn, cls)(**kw)(
+                *[paddle.to_tensor(a) for a in args])
+            check(out._value.device.type == torch.device(dv).type,
+                  f"nn.{cls}: output off {dv}")
+            res.append(out._value.detach().cpu())
+        err = _lib_close(*res)
+        check(err <= 1e-5, f"nn.{cls}: {err} x max|ref| from the CPU")
+        layer_worst = max(layer_worst, err)
+    paddle.set_device(place)
+    utils_worst = _b7_utils(paddle, dev)
+    by_mod = {}
+    for n, mod in req.items():
+        by_mod[mod] = by_mod.get(mod, 0) + 1
+    secs = time.time() - t0
+    m = {"ops": len(req), "by_module": by_mod, "worst": worst,
+         "layers": 16, "layers_worst": layer_worst,
+         "nn_utils_worst": utils_worst, "kernel_launches": kernel_calls,
+         "seconds": secs}
+    log(f"  7b ops on {dev} against the CPU: {json.dumps(m)}")
+    if cuda:
+        check(kernel_calls.get("flash_attention", 0) == 4,
+              f"flash forwards {kernel_calls}")
+    return m, {k: kernel_calls.get(k, 0) for k in read_counts()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -11794,8 +12690,23 @@ def main() -> int:
         "make_train_step; crf_decoding and chunk_eval against the CPU")
     lexical_phase()
     log(f"  nvidia-smi: {card}")
+    log("== phase 62: BERT-base (12 layers, hidden 768, 12 heads, FFN 3072, "
+        "GELU, pre-LN) through incubate fused_multi_transformer against 12 "
+        "FusedTransformerEncoderLayers, B 32 x S 128, bf16 and fp32, "
+        "inference; masked_multihead_attention at LLaMA-7B's widths")
+    _, c62 = ft_phase()
+    log("== phase 63: BERT-base multi-label fine-tuning (cell ML): BertModel "
+        "+ Linear(768, 20) + BCEWithLogitsLoss, B 32 x S 128, O1, "
+        "LookAhead(AdamW, 0.5, 5) x 10 steps, ModelAverage applied for one "
+        "evaluate batch; fp32 parity at hidden 256")
+    _, c63 = ml_phase()
+    log("== phase 64: the 7b ops on the card against the CPU at fp32: the "
+        "losses, resampling and shuffles, incubate's fused names, the MoE "
+        "plumbing ops, the update rules, the new layers and nn.utils")
+    _, c64 = b7_ops_phase()
+    log(f"  nvidia-smi: {card}")
     trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c47,
-               c48, c50a, c50b, c51, c52, c56)
+               c48, c50a, c50b, c51, c52, c56, c62, c63, c64)
     normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c50a,
               c50b)
 

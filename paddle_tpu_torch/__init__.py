@@ -98,5 +98,9 @@ def __getattr__(name):
     raise AttributeError(f"module 'paddle_tpu_torch' has no attribute {name!r}")
 
 
+def is_grad_enabled_():
+    return is_grad_enabled()
+
+
 # numpy-style dtype aliases used throughout reference scripts
 bool = bool8  # noqa: A001

@@ -21,6 +21,7 @@ optimizers, ``DistributedSparseEmbedding``, ``AsyncLookup``)."""
 
 from . import checkpoint
 from . import elastic
+from .elastic import install_preemption_handler, preempted, start_heartbeat
 from . import fleet
 from . import ps
 from . import rpc
@@ -74,4 +75,24 @@ __all__ = ["Partial", "Placement", "ProcessMesh", "Replicate", "Shard",
            "pipeline_ticks", "ring_schedule", "number_count",
            "expert_count", "assign_pos", "limit_by_capacity",
            "prune_gate_by_capacity", "random_routing", "global_scatter",
-           "global_gather"]
+           "global_gather", "install_preemption_handler", "preempted",
+           "start_heartbeat", "spawn", "launch"]
+
+
+def spawn(func, args=(), nprocs=-1, **kwargs):
+    """paddle.distributed.spawn, with the reference's contract: one process
+    drives every local device, so ``func(*args)`` runs here. A world of
+    processes comes from ``python -m paddle_tpu_torch.distributed.launch``."""
+    return func(*args)
+
+
+# the launcher package is loaded before ``launch`` below is bound, so the
+# name stays the function: loading a submodule later rebinds its parent's
+# attribute to the module
+from . import launch as _launcher  # noqa: E402
+
+
+def launch():
+    """paddle.distributed.launch: the launcher's command line
+    (``launch.main``) on ``sys.argv``."""
+    return _launcher.main()

@@ -32,7 +32,7 @@ from ....topology import get_hybrid_communicate_group
 from .....nn import functional as F
 from .....nn import initializer as I
 from .....nn.layer import Layer
-from .....ops._helpers import ensure_tensor, forward_op
+from .....ops._helpers import ensure_tensor, forward_op, register_op
 from . import mp_ops
 from .mp_ops import (axis_index, c_concat, c_identity, in_mp_region,
                      mp_allreduce, mp_axis_name)
@@ -379,3 +379,9 @@ def c_softmax_with_cross_entropy(logits, label, group=None,
         return ParallelCrossEntropy(ignore_index=ignore_index)(logits, label)
     return F.cross_entropy(logits, label, reduction="none",
                            ignore_index=ignore_index)
+
+
+for _n, _f in (("c_embedding", c_embedding),
+               ("c_softmax_with_cross_entropy", c_softmax_with_cross_entropy)):
+    register_op(_n, _f, (_f.__doc__ or "").strip().split("\n")[0],
+                category="distributed", public=_f)

@@ -1,8 +1,7 @@
 """paddle.nn — counterpart of ``paddle_tpu/nn``: ``Layer``, ``ParamAttr``,
 the initializers, gradient clipping, the layers ported so far (the
 transformer, conv and pooling layers among them), the channels-last
-layout pass and ``nn.quant``. The reference's RNN layers are ROADMAP §A
-item 5b; the remaining loss and common layers and ``nn.utils`` item 7."""
+layout pass, ``nn.quant`` and ``nn.utils``."""
 
 from . import functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
@@ -12,13 +11,19 @@ from .layers.activation import (CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigm
                                 LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6, RReLU,
                                 Sigmoid, SiLU, Softmax, Softplus, Softshrink,
                                 Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU)
-from .layers.common import (AlphaDropout, Bilinear, CosineSimilarity, Dropout,
-                            Dropout2D, Dropout3D, Embedding, Flatten, Identity,
-                            Linear, Pad1D, Pad2D, Pad3D, Unfold, ZeroPad2D)
+from .layers.common import (AlphaDropout, Bilinear, ChannelShuffle,
+                            CosineSimilarity, Dropout, Dropout2D, Dropout3D,
+                            Embedding, Flatten, Identity, Linear, Pad1D,
+                            Pad2D, Pad3D, PixelShuffle, PixelUnshuffle,
+                            Unfold, Upsample, UpsamplingBilinear2D,
+                            UpsamplingNearest2D, ZeroPad2D)
 from .layers.conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
                           Conv3D, Conv3DTranspose)
 from .layers.container import LayerDict, LayerList, ParameterList, Sequential
-from .layers.loss import CrossEntropyLoss, CTCLoss, MSELoss
+from .layers.loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
+                          CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss,
+                          KLDivLoss, L1Loss, MarginRankingLoss, MSELoss,
+                          NLLLoss, SmoothL1Loss, TripletMarginLoss)
 from .layers.norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                           GroupNorm, InstanceNorm1D, InstanceNorm2D, InstanceNorm3D,
                           LayerNorm, LocalResponseNorm, RMSNorm, SpectralNorm,
@@ -37,3 +42,4 @@ from .layers.transformer import (MultiHeadAttention, Transformer,
 from .layout import ChannelsLast, to_channels_first, to_channels_last  # noqa: E402
 
 from . import quant  # noqa: E402
+from . import utils  # noqa: E402

@@ -1,7 +1,6 @@
-"""paddle.nn.functional — counterpart of ``paddle_tpu/nn/functional``. The
-functionals ported so far (``conv``, ``pooling``, ``vision`` and
-``fused_rnn`` among them); the rest of ``loss`` and the interpolation and
-pixel functionals of ``common`` are ROADMAP §A item 7."""
+"""paddle.nn.functional — counterpart of ``paddle_tpu/nn/functional``:
+every functional of the reference but ``sparse_attention``, which comes
+with ``sparse`` (ROADMAP §A item 7c)."""
 
 from .activation import (celu, elu, gelu, glu, gumbel_softmax, hardshrink,
                          hardsigmoid, hardswish, hardtanh, leaky_relu, log_sigmoid,
@@ -14,11 +13,27 @@ from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_fusion,
                    conv2d_transpose, conv3d, conv3d_transpose,
                    conv_transpose1d, conv_transpose2d, conv_transpose3d,
                    depthwise_conv2d, depthwise_conv2d_transpose)
-from .common import (alpha_dropout, cosine_similarity, dropout, dropout2d,
-                     dropout3d, embedding, label_smooth, linear, normalize,
-                     one_hot, pad, pad2d, pad3d, pairwise_distance, softmax2d,
-                     unfold, zeropad2d)
-from .loss import cross_entropy, ctc_loss, mse_loss
+from .common import (alpha_dropout, bicubic_interp, bilinear_interp,
+                     channel_shuffle, cosine_similarity, dropout, dropout2d,
+                     dropout3d, embedding, interpolate, label_smooth, linear,
+                     linear_interp, nearest_interp, normalize, one_hot, pad,
+                     pad2d, pad3d, pairwise_distance, pixel_shuffle,
+                     pixel_unshuffle, softmax2d, trilinear_interp, unfold,
+                     upsample, zeropad2d)
+from .loss import (adaptive_log_softmax_with_loss, binary_cross_entropy,
+                   binary_cross_entropy_with_logits, bpr_loss, center_loss,
+                   class_center_sample, cos_sim, cosine_embedding_loss,
+                   cross_entropy, ctc_loss, dice_loss, gaussian_nll_loss,
+                   hinge_embedding_loss, hsigmoid_loss, huber_loss,
+                   identity_loss, kl_div, l1_loss, log_loss,
+                   margin_cross_entropy, margin_ranking_loss,
+                   modified_huber_loss, mse_loss, multi_label_soft_margin_loss,
+                   multi_margin_loss, nll_loss, npair_loss, poisson_nll_loss,
+                   rank_loss, rnnt_loss, sigmoid_focal_loss, smooth_l1_loss,
+                   soft_margin_loss, softmax_with_cross_entropy,
+                   square_error_cost, squared_l2_distance, squared_l2_norm,
+                   teacher_student_sigmoid_loss, triplet_margin_loss,
+                   triplet_margin_with_distance_loss)
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,

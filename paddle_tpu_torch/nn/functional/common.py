@@ -1,13 +1,20 @@
 """Common functionals — counterpart of ``paddle_tpu/nn/functional/common.py``
 (``python/paddle/nn/functional/common.py`` + ``input.py`` in Paddle):
 linear, the dropouts, padding, embedding, one-hot, similarity and
-normalization helpers, label smoothing. Dropout masks draw from the global
-generator of the input's device (``ops/random.py``).
+normalization helpers, label smoothing, resampling (``interpolate`` /
+``upsample`` and the ``*_interp`` modes) and the pixel and channel
+shuffles. Dropout masks draw from the global generator of the input's
+device (``ops/random.py``). ``unfold`` is here; its adjoint ``fold`` is in
+``vision.py``, as in the reference. ``sparse_attention`` comes with
+``sparse`` (ROADMAP §A item 7c).
 
-Still to be ported (ROADMAP §A item 11): ``interpolate`` / ``upsample`` and
-the ``*_interp`` modes, ``pixel_shuffle`` / ``pixel_unshuffle``,
-``channel_shuffle`` and ``sparse_attention``. ``unfold`` is here; its
-adjoint ``fold`` is in ``vision.py``, as in the reference.
+``interpolate`` computes Paddle's contract (``interp_v2`` kernels), which
+the reference's ``jax.image.resize`` departs from in places (ROADMAP §C):
+nearest takes ``floor(dst * in / out)``; the linear modes take half-pixel
+centres clamped at 0 (``align_mode=0``) or ``dst * in / out``
+(``align_mode=1``), with no antialiasing; bicubic uses a = -0.75; ``area``
+is an adaptive average pool; a given ``scale_factor`` sets the ratio to
+its inverse.
 """
 
 from __future__ import annotations
@@ -256,3 +263,195 @@ def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
     return forward_op("unfold", lambda v: TF.unfold(
         v, pair(kernel_sizes), dilation=pair(dilations),
         padding=pair(paddings), stride=pair(strides)), [ensure_tensor(x)])
+
+
+# -- resampling ----------------------------------------------------------------
+
+_CHANNELS_LAST = ("NWC", "NLC", "NHWC", "NDHWC")
+_LINEAR_MODES = ("linear", "bilinear", "trilinear")
+
+
+def _int_list(v):
+    if isinstance(v, Tensor):
+        return [int(s) for s in v.numpy().reshape(-1)]
+    if isinstance(v, (list, tuple)):
+        return [int(s.item()) if isinstance(s, Tensor) else int(s) for s in v]
+    return [int(v.item()) if isinstance(v, Tensor) else int(v)]
+
+
+def _float_list(v, n):
+    if isinstance(v, Tensor):
+        v = [float(s) for s in v.numpy().reshape(-1)]
+    elif isinstance(v, (list, tuple)):
+        v = [float(s.item()) if isinstance(s, Tensor) else float(s)
+             for s in v]
+    else:
+        v = [float(v)] * n
+    return v if len(v) == n else v * n
+
+
+def _asymmetric_linear(v, out_sizes, scales):
+    """Separable linear resize of the trailing axes of ``v`` with source
+    position ``dst * ratio`` (Paddle's ``align_mode=1``): ``ratio`` is
+    ``1 / scale`` when a scale was given, else ``in / out``."""
+    n = len(out_sizes)
+    for i, osz in enumerate(out_sizes):
+        ax = v.dim() - n + i
+        isz = v.shape[ax]
+        ratio = 1.0 / scales[i] if scales else isz / osz
+        pos = torch.arange(osz, dtype=torch.float32, device=v.device) * ratio
+        i0 = torch.clamp(pos.floor().long(), 0, isz - 1)
+        i1 = torch.clamp(i0 + 1, max=isz - 1)
+        shape = [1] * v.dim()
+        shape[ax] = osz
+        w = (pos - i0.to(pos.dtype)).to(v.dtype).reshape(shape)
+        v = torch.index_select(v, ax, i0) * (1 - w) + \
+            torch.index_select(v, ax, i1) * w
+    return v
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW", name=None):
+    """Resize the spatial axes (ref: nn.functional.interpolate → Paddle's
+    ``*_interp_v2`` kernels; see the module note for the contract)."""
+    x = ensure_tensor(x)
+    mode = mode.lower()
+    if mode not in ("nearest", "linear", "bilinear", "trilinear", "bicubic",
+                    "area"):
+        raise ValueError(f"interpolate: unknown mode {mode!r}")
+    if align_corners and mode in ("nearest", "area"):
+        raise ValueError("align_corners option can only be set with the "
+                         "interpolating modes: linear | bilinear | bicubic "
+                         "| trilinear")
+    if align_mode not in (0, 1):
+        raise ValueError("align_mode can only be 0 or 1")
+    if (size is None) == (scale_factor is None):
+        raise ValueError("interpolate: give exactly one of size and "
+                         "scale_factor")
+    n = x.ndim - 2
+    channels_last = data_format in _CHANNELS_LAST
+    spatial = list(x.shape[1:-1]) if channels_last else list(x.shape[2:])
+    scales = None
+    if size is not None:
+        out_sizes = _int_list(size)
+    else:
+        scales = _float_list(scale_factor, n)
+        out_sizes = [int(s * f) for s, f in zip(spatial, scales)]
+    if len(out_sizes) != n:
+        raise ValueError(f"interpolate: {len(out_sizes)} sizes for {n} "
+                         f"spatial axes")
+
+    def impl(v):
+        if channels_last:
+            v = v.movedim(-1, 1)
+        if mode in _LINEAR_MODES and not align_corners and align_mode == 1:
+            out = _asymmetric_linear(v, out_sizes, scales)
+        else:
+            # with a scale, torch's output size is floor(in * scale), as
+            # out_sizes, and its ratio 1 / scale, as Paddle's
+            kw = {"scale_factor": scales} if scales else {"size": out_sizes}
+            if mode in ("linear", "bilinear", "trilinear", "bicubic"):
+                kw["align_corners"] = bool(align_corners)
+            out = TF.interpolate(v, mode=mode, **kw)
+        return out.movedim(1, -1) if channels_last else out
+
+    return forward_op("interpolate", impl, [x])
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest", align_corners=False,
+             align_mode=0, data_format="NCHW", name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners, align_mode,
+                       data_format)
+
+
+def linear_interp(x, size=None, scale_factor=None, align_corners=False,
+                  data_format="NCW", name=None):
+    """1-D linear resize (ref: linear_interp_v2 kernel)."""
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="linear", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def bilinear_interp(x, size=None, scale_factor=None, align_corners=False,
+                    data_format="NCHW", name=None):
+    """2-D bilinear resize (ref: bilinear_interp_v2 kernel)."""
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="bilinear", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def nearest_interp(x, size=None, scale_factor=None, align_corners=False,
+                   data_format="NCHW", name=None):
+    """Nearest-neighbor resize (ref: nearest_interp_v2 kernel)."""
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="nearest", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def bicubic_interp(x, size=None, scale_factor=None, align_corners=False,
+                   data_format="NCHW", name=None):
+    """Bicubic resize (ref: bicubic_interp_v2 kernel)."""
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="bicubic", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def trilinear_interp(x, size=None, scale_factor=None, align_corners=False,
+                     data_format="NCDHW", name=None):
+    """3-D trilinear resize (ref: trilinear_interp_v2 kernel)."""
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="trilinear", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    """[N, C r², H, W] -> [N, C, H r, W r]; NHWC as Paddle's kernel lays
+    it out (the NCHW result transposed; the reference orders the NHWC
+    channels otherwise, ROADMAP §C)."""
+    r = int(upscale_factor)
+
+    def impl(v):
+        if data_format == "NCHW":
+            n, c, h, w = v.shape
+            v = v.reshape(n, c // (r * r), r, r, h, w)
+            return v.permute(0, 1, 4, 2, 5, 3).reshape(n, c // (r * r),
+                                                       h * r, w * r)
+        n, h, w, c = v.shape
+        v = v.reshape(n, h, w, c // (r * r), r, r)
+        return v.permute(0, 1, 4, 2, 5, 3).reshape(n, h * r, w * r,
+                                                   c // (r * r))
+
+    return forward_op("pixel_shuffle", impl, [ensure_tensor(x)])
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    """The inverse of :func:`pixel_shuffle`: [N, C, H r, W r] ->
+    [N, C r², H, W] (NHWC likewise)."""
+    r = int(downscale_factor)
+
+    def impl(v):
+        if data_format == "NCHW":
+            n, c, h, w = v.shape
+            v = v.reshape(n, c, h // r, r, w // r, r)
+            return v.permute(0, 1, 3, 5, 2, 4).reshape(n, c * r * r,
+                                                       h // r, w // r)
+        n, h, w, c = v.shape
+        v = v.reshape(n, h // r, r, w // r, r, c)
+        return v.permute(0, 1, 3, 5, 2, 4).reshape(n, h // r, w // r,
+                                                   c * r * r)
+
+    return forward_op("pixel_unshuffle", impl, [ensure_tensor(x)])
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    """Interleave the channels of ``groups`` groups (ShuffleNet)."""
+    def impl(v):
+        if data_format == "NCHW":
+            n, c, h, w = v.shape
+            return v.reshape(n, groups, c // groups, h, w).transpose(1, 2) \
+                .reshape(n, c, h, w)
+        n, h, w, c = v.shape
+        return v.reshape(n, h, w, groups, c // groups).transpose(3, 4) \
+            .reshape(n, h, w, c)
+
+    return forward_op("channel_shuffle", impl, [ensure_tensor(x)])

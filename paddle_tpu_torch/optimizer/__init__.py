@@ -1,7 +1,10 @@
-"""paddle.optimizer — counterpart of ``paddle_tpu/optimizer``. The
-reference's functional ``optimizer.ops`` are ROADMAP §A item 11."""
+"""paddle.optimizer — counterpart of ``paddle_tpu/optimizer``: the
+optimizer classes, ``lr`` and the functional update rules ``ops`` (also
+``optimizer_ops``, the reference's name)."""
 
 from . import lr
+from . import ops
+from . import ops as optimizer_ops
 from .optimizer import (ASGD, LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
                         AdamW, Lamb, Momentum, NAdam, Optimizer, RAdam,
                         RMSProp, Rprop)

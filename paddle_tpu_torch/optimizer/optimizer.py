@@ -6,7 +6,9 @@ the LR-scheduler hook and ``multi_precision`` fp32 master weights;
 accumulators are Tensors keyed by parameter name (Paddle's convention,
 and the ``state_dict`` keys the reference writes).
 
-Each update is the reference's formula in torch operations. ``step`` runs
+Each update is the reference's formula in torch operations; the rules
+that ``optimizer.ops`` also exposes as ``*_update`` ops are written once,
+there (``ops._sgd`` ... ``ops._lamb``). ``step`` runs
 under ``no_grad`` and writes each parameter in place (``copy_`` into the
 leaf's storage), so parameter memory stays flat; nothing autograd saved
 is a parameter written this way once the step's backward has run.
@@ -21,6 +23,7 @@ import torch
 
 from ..core.tensor import Parameter, Tensor, _wrap, as_torch
 from ..core import autograd
+from . import ops as R
 from .lr import LRScheduler
 
 
@@ -265,7 +268,7 @@ class SGD(Optimizer):
     """ref: python/paddle/optimizer/sgd.py"""
 
     def _apply_one(self, p, value, grad, lr):
-        return value - lr * grad
+        return R._sgd(value, grad, lr)
 
 
 class Momentum(Optimizer):
@@ -281,11 +284,9 @@ class Momentum(Optimizer):
 
     def _apply_one(self, p, value, grad, lr):
         vel = self._add_accumulator("velocity", p, dtype=value.dtype)
-        new_v = self._momentum * vel._value + grad
-        vel._value = new_v
-        if self._nesterov:
-            return value - lr * (grad + self._momentum * new_v)
-        return value - lr * new_v
+        new, vel._value = R._momentum(value, grad, vel._value, lr,
+                                      self._momentum, self._nesterov)
+        return new
 
 
 class Adam(Optimizer):
@@ -315,16 +316,14 @@ class Adam(Optimizer):
                                     dtype=torch.float32, shape=())
         b1p._value = b1p._value * b1
         b2p._value = b2p._value * b2
-        m._value = b1 * m._value + (1 - b1) * grad
-        v._value = b2 * v._value + (1 - b2) * torch.square(grad)
-        mhat = m._value / (1 - b1p._value)
-        if self._amsgrad:
-            vmax = self._add_accumulator("moment2_max", p, dtype=value.dtype)
-            vmax._value = torch.maximum(vmax._value, v._value)
-            vhat = vmax._value / (1 - b2p._value)
-        else:
-            vhat = v._value / (1 - b2p._value)
-        return value - lr * mhat / (torch.sqrt(vhat) + self._eps)
+        vmax = self._add_accumulator("moment2_max", p, dtype=value.dtype) \
+            if self._amsgrad else None
+        new, m._value, v._value, vm = R._adam(
+            value, grad, m._value, v._value, b1p._value, b2p._value, lr, b1,
+            b2, self._eps, None if vmax is None else vmax._value)
+        if vmax is not None:
+            vmax._value = vm
+        return new
 
 
 class AdamW(Adam):
@@ -367,9 +366,10 @@ class Adamax(Optimizer):
         b1p = self._add_accumulator("beta1_pow_acc", p, fill_value=1.0,
                                     dtype=torch.float32, shape=())
         b1p._value = b1p._value * self._beta1
-        m._value = self._beta1 * m._value + (1 - self._beta1) * grad
-        u._value = torch.maximum(self._beta2 * u._value, torch.abs(grad))
-        return value - lr / (1 - b1p._value) * m._value / (u._value + self._eps)
+        new, m._value, u._value = R._adamax(
+            value, grad, m._value, u._value, b1p._value, lr, self._beta1,
+            self._beta2, self._eps)
+        return new
 
 
 class Adagrad(Optimizer):
@@ -385,8 +385,8 @@ class Adagrad(Optimizer):
     def _apply_one(self, p, value, grad, lr):
         acc = self._add_accumulator("moment", p, fill_value=self._init_acc,
                                     dtype=value.dtype)
-        acc._value = acc._value + torch.square(grad)
-        return value - lr * grad / (torch.sqrt(acc._value) + self._eps)
+        new, acc._value = R._adagrad(value, grad, acc._value, lr, self._eps)
+        return new
 
 
 class RMSProp(Optimizer):
@@ -402,15 +402,14 @@ class RMSProp(Optimizer):
     def _apply_one(self, p, value, grad, lr):
         ms = self._add_accumulator("mean_square", p, dtype=value.dtype)
         mom = self._add_accumulator("momentum", p, dtype=value.dtype)
-        ms._value = self._rho * ms._value + (1 - self._rho) * torch.square(grad)
-        denom = ms._value
-        if self._centered:
-            mg = self._add_accumulator("mean_grad", p, dtype=value.dtype)
-            mg._value = self._rho * mg._value + (1 - self._rho) * grad
-            denom = denom - torch.square(mg._value)
-        mom._value = self._momentum * mom._value + \
-            lr * grad / torch.sqrt(denom + self._eps)
-        return value - mom._value
+        mg = self._add_accumulator("mean_grad", p, dtype=value.dtype) \
+            if self._centered else None
+        new, mom._value, ms._value, g_mean = R._rmsprop(
+            value, grad, mom._value, ms._value, lr, self._rho, self._eps,
+            self._momentum, None if mg is None else mg._value)
+        if mg is not None:
+            mg._value = g_mean
+        return new
 
 
 class Lamb(Optimizer):
@@ -437,19 +436,12 @@ class Lamb(Optimizer):
                                     dtype=torch.float32, shape=())
         b1p._value = b1p._value * self._beta1
         b2p._value = b2p._value * self._beta2
-        m._value = self._beta1 * m._value + (1 - self._beta1) * grad
-        v._value = self._beta2 * v._value + (1 - self._beta2) * torch.square(grad)
-        mhat = m._value / (1 - b1p._value)
-        vhat = v._value / (1 - b2p._value)
-        r = mhat / (torch.sqrt(vhat) + self._eps)
         wd = 0.0 if (self._exclude_fn is not None and self._exclude_fn(p)) \
             else self._lamb_wd
-        update = r + wd * value
-        w_norm = torch.linalg.vector_norm(value)
-        u_norm = torch.linalg.vector_norm(update)
-        trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
-                            torch.ones_like(w_norm))
-        return value - lr * trust * update
+        new, m._value, v._value = R._lamb(
+            value, grad, m._value, v._value, b1p._value, b2p._value, lr,
+            self._beta1, self._beta2, self._eps, wd)
+        return new
 
 
 class Adadelta(Optimizer):
@@ -469,13 +461,10 @@ class Adadelta(Optimizer):
                                          dtype=value.dtype)
         avg_sq_u = self._add_accumulator("avg_squared_update", p,
                                          dtype=value.dtype)
-        g2 = self._rho * avg_sq_g._value + (1 - self._rho) * torch.square(grad)
-        update = -torch.sqrt((avg_sq_u._value + self._eps)
-                           / (g2 + self._eps)) * grad
-        u2 = self._rho * avg_sq_u._value + (1 - self._rho) * torch.square(update)
-        avg_sq_g._value = g2
-        avg_sq_u._value = u2
-        return value + lr * update
+        new, avg_sq_g._value, avg_sq_u._value = R._adadelta(
+            value, grad, avg_sq_g._value, avg_sq_u._value, lr, self._rho,
+            self._eps)
+        return new
 
 
 class Rprop(Optimizer):

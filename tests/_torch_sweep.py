@@ -24,17 +24,23 @@ share the load.
 import numpy as np
 
 import paddle_tpu as J
+import paddle_tpu.distributed.fleet.layers.mpu.mp_layers  # noqa: F401
+import paddle_tpu.distributed.moe_utils  # noqa: F401 — registers its ops
 import paddle_tpu.distributed.ps  # noqa: F401 — registers its ops
 import paddle_tpu.incubate.nn.functional  # noqa: F401 — registers its ops
 import paddle_tpu.metric  # noqa: F401
 import paddle_tpu.nn.functional  # noqa: F401
+import paddle_tpu.optimizer.ops  # noqa: F401
 import paddle_tpu.vision.ops  # noqa: F401 — registers the detection ops
 import paddle_tpu_torch as T
+import paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers  # noqa: F401
+import paddle_tpu_torch.distributed.moe_utils  # noqa: F401
 import paddle_tpu_torch.distributed.ps  # noqa: F401
 import paddle_tpu_torch.fft  # noqa: F401
 import paddle_tpu_torch.incubate.nn.functional  # noqa: F401
 import paddle_tpu_torch.metric  # noqa: F401
 import paddle_tpu_torch.nn.functional  # noqa: F401
+import paddle_tpu_torch.optimizer.ops  # noqa: F401
 import paddle_tpu_torch.signal  # noqa: F401
 import paddle_tpu_torch.vision.ops  # noqa: F401
 from paddle_tpu.core.dispatch import OP_REGISTRY as JR
@@ -105,6 +111,12 @@ NOT_SWEPT = {
     "yolo_box": "the reference's boxes are scrambled (ROADMAP §C); held to "
                 "a numpy decode and its scores to JAX in "
                 "test_torch_vision_ops.py",
+    **{n: "the example call downsamples, where the reference's "
+          "jax.image.resize antialiases (and its cubic takes a = -0.5): "
+          "ROADMAP §C; held to Paddle's formulas, and to JAX where JAX "
+          "follows them, in test_torch_resample.py"
+       for n in ("interpolate", "linear_interp", "bilinear_interp",
+                 "bicubic_interp", "trilinear_interp")},
 }
 
 DOMAINS = {
@@ -222,11 +234,28 @@ FAMILIES = {
         ("inplace", "extended"), ("legacy", "legacy"),
         ("sequence", "legacy"), ("decode", "legacy"), ("linalg", "linalg"),
         ("quant", "linalg"))},
-    "paddle_tpu_torch.fft": "special", "paddle_tpu_torch.signal": "special"}
+    "paddle_tpu_torch.fft": "special", "paddle_tpu_torch.signal": "special",
+    "paddle_tpu_torch.nn.functional.loss": "losses",
+    "paddle_tpu_torch.incubate.nn.functional": "incubate",
+    "paddle_tpu_torch.distributed.moe_utils": "incubate",
+    # the two registered model-parallel ops sweep beside the MoE ones
+    "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers": "incubate",
+    "paddle_tpu_torch.optimizer.ops": "optimizer"}
+# by name, where a module's ops are split: the resampling ops of
+# nn.functional.common, and the losses test_torch_ops.py swept before
+# the rest of their module was ported
+OP_FAMILIES = {
+    **{n: "resample" for n in (
+        "interpolate", "upsample", "linear_interp", "bilinear_interp",
+        "nearest_interp", "bicubic_interp", "trilinear_interp",
+        "pixel_shuffle", "pixel_unshuffle", "channel_shuffle")},
+    **{n: None for n in ("cross_entropy", "mse_loss", "ctc_loss")}}
 
 
 def family(name):
     """The sweep file of ``name`` (None: test_torch_ops.py)."""
+    if name in OP_FAMILIES:
+        return OP_FAMILIES[name]
     return FAMILIES.get(op_module(name))
 
 

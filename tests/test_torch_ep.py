@@ -408,6 +408,18 @@ MOE_UTILS = {
 }
 
 
+@pytest.fixture
+def _port_on_cpu():
+    """The ops take and return Tensors, which the port places on the card
+    unless the caller asks for the CPU."""
+    import paddle_tpu_torch as T
+    prev = T.get_device()
+    T.set_device("cpu")
+    yield
+    T.set_device(prev)
+
+
+@pytest.mark.usefixtures("_port_on_cpu")
 @pytest.mark.parametrize("name", sorted(MOE_UTILS))
 def test_moe_utils_match_jax(name):
     """``TestMoEInfraOps``'s inputs through both packages: equal values."""
@@ -417,6 +429,7 @@ def test_moe_utils_match_jax(name):
     assert got.tolist() == _np(MOE_UTILS[name](TM)).tolist()
 
 
+@pytest.mark.usefixtures("_port_on_cpu")
 def test_global_scatter_gather_match_jax():
     """Under dp 8 (JAX: ``fleet.init``; the port: ``["cpu"] * 8``) the
     grouped all-to-all equals JAX's and ``global_gather`` inverts it; the
