@@ -735,6 +735,55 @@ Phases (each fails the run on any error; none catches and carries on):
     2 heads x D 64), two each for the 2-layer ``fused_multi_transformer``,
     the RMSNorm and RoPE kernels once each way for ``fused_rms_norm`` and
     ``fused_rotary_position_embedding``, nothing for the others.
+65. Cell ST: BERT-base (``BertConfig()``'s widths) as a ``paddle.static``
+    Program on ``static.data("input_ids", [32, 128], "int64")``, no
+    attention mask. (a) ``BertModel`` in bf16, eval mode, built under
+    ``paddle.enable_static()`` and run by ``Executor.run`` on 4 feeds:
+    each run within rel_fro 1e-2 and rel_row 3e-2 of the eager forward on
+    the same feed (bit for bit reported), exactly 12 flash forwards a run
+    and nothing else; ms a run against ms an eager forward (median of 3),
+    a profiled run, the recorded ops. (b) ``BertForSequenceClassification``
+    (2 labels, both dropout rates 0, fp32) with ``AdamW(5e-5)`` through
+    ``opt.minimize(loss)`` in static mode: 5 runs on one seeded batch, the
+    loss finite and falling, the losses and final parameters within 1e-4
+    x max of the same 5 eager steps from the same weights, exactly 12
+    launches each of the flash forward, dq and dk/dv kernels a step; ms a
+    step against eager. (c) ``MissingFeedError`` names a mistyped feed;
+    ``in_dynamic_mode()`` is False in static mode, and after
+    ``paddle.disable_static()`` an eager op is not recorded.
+66. Cell SP: SECOND's sparse middle encoder (``second_layers``: Paddle3D's
+    SparseNet3D / OpenPCDet's VoxelBackBone8x, widths 16-32-64-64-128,
+    each conv followed by sparse BatchNorm(0.99, 1e-3) and ReLU) on KITTI's
+    grid [41, 1600, 1408] with 4 input channels, B 4 x 16 000 voxels from
+    ``lidar_voxels`` (an HDL-64E sweep cast against a seeded street: the
+    ground's scan-ring arcs and the faces of buildings, cars, people and
+    poles), fp32: the first forward's rulebook ms, the first submanifold
+    conv's pairs a kernel offset and neighbours a voxel, and the first
+    strided conv's outputs an input; a profiled forward's device-to-host copies equal to the counted
+    nnz syncs; the first submanifold and the first strided conv within
+    1e-4 x max|ref| of ``torch.nn.functional.conv3d`` (cuDNN, TF32 off) on
+    the densified input at their active sites; 5 Momentum steps over an
+    MSE loss from the BEV map [4, 256, 200, 176] to a seeded target, each
+    on a fresh indices tensor (the rulebooks built again), the loss finite
+    and falling, ms a forward and a step, a profiled step; the encoder's
+    BEV at 2 000 voxels within 1e-4 x max of the CPU's, in fp32 and fp64,
+    and the BEV, every gradient and the running statistics within 1e-4 x
+    max of the CPU's when each ReLU takes the CPU run's signs (a ReLU
+    input within rounding of 0 may take another sign on the card, where
+    the matmuls and reductions sum in another order: the flips and the
+    gradient gap they make are printed, and whether two card runs are
+    bit for bit the same). Then ``nn.functional.sparse_attention`` at B
+    2 x 12 heads x S 1024 x D 64 with Paddle's per-head offsets and
+    columns over a block pattern (64-wide blocks, a window of 3 blocks, 2
+    global blocks) within 1e-4 x max|ref| of the CPU, and its ms.
+67. Every ``sparse_*`` name this slice registers (the unary family and
+    ``relu`` on COO and CSR), ``nn.functional.sparse_attention``,
+    ``paddle.static.nn``'s ``fc`` / ``batch_norm`` / ``conv2d`` /
+    ``sequence_pool`` through a replayed Program, and the sparse layers
+    on the card against the CPU at fp32: outputs within 1e-5 x max|ref|
+    (the layers' 1e-4), indices equal, gradients of the float outputs'
+    sum within 1e-4 x max(max|g|, 1e-2); no call launches a port kernel.
+    Phases 66 and 67 launch none of the port's kernels.
 
 Each phase's wall seconds print as the next phase (or the closing line)
 begins.
@@ -765,7 +814,8 @@ steps), 43, 45, 46, 47 (evaluate and predict), 48 (the card's
 ``train_batch``), 50 (the timed replays of (a), the forward-backward
 calls of (b)), 51 (the dropout-0 captured run), 52 (both
 predictors), 56 (the timed and profiled replays), 62 (every forward
-of both routes), 63 (the evaluate batch) and 64 (its card calls), the
+of both routes), 63 (the evaluate batch), 64 (its card calls) and 65
+(the inference runs and training steps it counts), the
 int8 matmul launches of phases 47 (quantized predict)
 and 52 (the int8 predictor), and the RMSNorm and RoPE launches of phases
 11, 34, 36, 38, 39, 41, 43, 45, 46 and 50 (RoPE: forward and backward
@@ -777,6 +827,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -811,7 +862,9 @@ PATHS = ("serving kernels", "serving engine", "training step",
          "op library and sequence labelling",
          "BERT-base through fused_multi_transformer",
          "multi-label fine-tuning with LookAhead and ModelAverage",
-         "losses, resampling, fused names and update rules")
+         "losses, resampling, fused names and update rules",
+         "static Programs (BERT-base)", "sparse voxel encoder (SECOND)",
+         "sparse and static ops")
 
 
 def check(cond, msg):
@@ -9400,9 +9453,10 @@ def resnet_phase(timed=8, batch=RN_BATCH, image=RN_IMAGE, loader_steps=8):
 
 
 def _max_rel(got, want):
-    got = got.detach().float().cpu().numpy() if hasattr(got, "detach") \
+    """max |got - want| / max |want|, in float64 (exact for fp64 inputs)."""
+    got = got.detach().double().cpu().numpy() if hasattr(got, "detach") \
         else np.asarray(got)
-    want = want.detach().float().cpu().numpy() if hasattr(want, "detach") \
+    want = want.detach().double().cpu().numpy() if hasattr(want, "detach") \
         else np.asarray(want)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
@@ -12195,6 +12249,985 @@ def b7_ops_phase(dev="cuda"):
     return m, {k: kernel_calls.get(k, 0) for k in read_counts()}
 
 
+# -- phases 65-67: paddle.static and paddle.sparse (item 7c) -------------------
+
+ST_BATCH, ST_SEQ = 32, 128
+# SECOND (Paddle3D configs/second, OpenPCDet's VoxelBackBone8x): KITTI's
+# point_cloud_range [0, -40, -3, 70.4, 40, 1] at voxel size [0.05, 0.05,
+# 0.1] gives the grid x 1408, y 1600, z 40, and the sparse shape z + 1
+SECOND_GRID = (41, 1600, 1408)                       # (z, y, x)
+SECOND_WIDTHS = (16, 32, 64, 64, 128)
+SP = dict(batch=4, voxels=16000, steps=5, parity_voxels=2000, lr=0.05)
+SP_ATTN = dict(batch=2, heads=12, seq=1024, head_dim=64, block=64, window=3,
+               globals=2)
+
+
+def second_layers(widths=SECOND_WIDTHS, in_channels=4):
+    """SECOND's sparse middle encoder as ``(kind, cin, cout, kernel, stride,
+    padding)`` rows: two submanifold convs at full resolution, then three
+    levels of a strided conv and two submanifold convs, then the (3, 1, 1)
+    conv that halves z once more; ``widths`` are the five levels'."""
+    c1, c2, c3, c4, c5 = widths
+    rows = [("subm", in_channels, c1, 3, 1, 1), ("subm", c1, c1, 3, 1, 1)]
+    for cin, cout, pad in ((c1, c2, 1), (c2, c3, 1), (c3, c4, (0, 1, 1))):
+        rows += [("conv", cin, cout, 3, 2, pad), ("subm", cout, cout, 3, 1, 1),
+                 ("subm", cout, cout, 3, 1, 1)]
+    return rows + [("conv", c4, c5, (3, 1, 1), (2, 1, 1), 0)]
+
+
+def second_encoder(sp_nn, rows, seed=0):
+    """The flat layer list of ``rows`` from a ``sparse.nn`` namespace (the
+    port's or the reference's): each conv without bias (BatchNorm follows,
+    as in SECOND) and seeded by its position, then ``BatchNorm(momentum
+    0.99, epsilon 1e-3)`` and ``ReLU``."""
+    out = []
+    for i, (kind, cin, cout, k, s, p) in enumerate(rows):
+        if kind == "subm":
+            out.append(sp_nn.SubmConv3D(cin, cout, k, padding=p,
+                                        bias_attr=False, seed=seed + i))
+        else:
+            out.append(sp_nn.Conv3D(cin, cout, k, stride=s, padding=p,
+                                    bias_attr=False, seed=seed + i))
+        out += [sp_nn.BatchNorm(cout, momentum=0.99, epsilon=1e-3),
+                sp_nn.ReLU()]
+    return out
+
+
+def second_bev(paddle, out):
+    """The encoder's output ``[B, D, H, W, C]`` as SECOND's BEV map ``[B,
+    C * D, H, W]`` (OpenPCDet's HeightCompression)."""
+    d = out.to_dense()
+    B, D, H, W, C = (int(s) for s in d.shape)
+    return paddle.reshape(paddle.transpose(d, [0, 4, 1, 2, 3]),
+                          [B, C * D, H, W])
+
+
+# KITTI's Velodyne HDL-64E, 1.73 m above the ground: 64 beams (the upper
+# block's 32 from +2 to -8.33 degrees, the lower block's 32 from -8.83 to
+# -24.33), about 2 000 azimuth steps a turn at 10 Hz, and the camera's
+# 90-degree field of view that SECOND's KITTI config keeps
+KITTI_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)     # x, y, z min; max
+HDL64 = dict(height=1.73, upper=(2.0, -8.33), lower=(-8.83, -24.33),
+             az_step=0.17, fov=90.0, max_range=120.0)
+
+
+def street_scene(rng):
+    """Axis-aligned boxes ``[nb, 2, 3]`` (min and max corners, metres, in
+    the sensor's frame) of one seeded street: building fronts and fences
+    in segments along both sides, cars parked at both kerbs, cars in the
+    lanes, pedestrians and poles on the pavements."""
+    g = -HDL64["height"]
+    boxes = []
+
+    def box(x, y, lx, ly, h, z0=g):
+        boxes.append([[x - lx / 2, y - ly / 2, z0], [x + lx / 2, y + ly / 2,
+                                                     z0 + h]])
+    for side in (-1, 1):
+        y_wall = side * rng.uniform(7, 13)
+        x = rng.uniform(-5, 5)
+        while x < 80:
+            ln = rng.uniform(8, 30)
+            box(x + ln / 2, y_wall + side * 0.5, ln, 1.0, rng.uniform(2, 9))
+            x += ln + rng.uniform(1, 8)
+        y_kerb = side * rng.uniform(3.5, 5.0)
+        x = rng.uniform(2, 8)
+        while x < 75:
+            if rng.random() < 0.7:
+                box(x, y_kerb + side * 0.8, rng.uniform(3.6, 4.6),
+                    rng.uniform(1.55, 1.8), rng.uniform(1.4, 1.7))
+            x += rng.uniform(5, 9)
+        for _ in range(rng.integers(2, 6)):
+            box(rng.uniform(3, 70), (y_kerb + y_wall) / 2, 0.6, 0.6,
+                rng.uniform(1.6, 1.85))
+        for _ in range(rng.integers(4, 10)):
+            box(rng.uniform(3, 70), y_wall - side * 0.8, 0.3, 0.3, 5.0)
+    for _ in range(rng.integers(2, 6)):
+        box(rng.uniform(8, 70), rng.choice([-1.7, 1.7]),
+            rng.uniform(3.8, 4.8), 1.7, rng.uniform(1.4, 1.7))
+    return np.array(boxes)
+
+
+def lidar_sweep(rng, boxes, az_step):
+    """One HDL-64E sweep over the field of view, cast against ``boxes``
+    and the ground (a gentle height field under 2 cm noise): the points
+    ``[P, 3]``, metres."""
+    h = HDL64
+    el = np.deg2rad(np.concatenate([np.linspace(*h["upper"], 32),
+                                    np.linspace(*h["lower"], 32)]))
+    az = np.deg2rad(np.arange(-h["fov"] / 2, h["fov"] / 2, az_step))
+    A, E = np.meshgrid(az, el, indexing="ij")
+    d = np.stack([np.cos(E) * np.cos(A), np.cos(E) * np.sin(A),
+                  np.sin(E)], -1).reshape(-1, 3)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(d[:, 2] < 0, -h["height"] / d[:, 2], np.inf)
+        inv = 1.0 / d
+        t1 = boxes[None, :, 0] * inv[:, None]                   # [R, nb, 3]
+        t2 = boxes[None, :, 1] * inv[:, None]
+        near = np.nanmax(np.minimum(t1, t2), -1)
+        far = np.nanmin(np.maximum(t1, t2), -1)
+    hit = (far >= near) & (near > 0)
+    tb = np.where(hit, near, np.inf).min(1, initial=np.inf)
+    keep = np.minimum(t, tb) < h["max_range"]
+    ground = (t < tb)[keep]
+    t = np.minimum(t, tb)[keep] + rng.normal(0, 0.02, int(keep.sum()))
+    p = d[keep] * t[:, None]
+    p[ground, 2] = (-h["height"] + 0.004 * p[ground, 0] + 0.15 * np.sin(
+        p[ground, 1] / 12) + rng.normal(0, 0.02, int(ground.sum())))
+    return p
+
+
+def lidar_voxels(rng, batch, n, grid=SECOND_GRID, channels=4):
+    """Voxel coordinates of simulated LiDAR sweeps, ``n`` a sample: an
+    HDL-64E (``HDL64``) cast against a seeded street (``street_scene``),
+    voxelised over KITTI's point-cloud range at ``grid``'s voxel size. The
+    ground comes out as scan-ring arcs, the objects as the faces that
+    face the sensor. Where a sweep holds more than ``n`` voxels, the ``n``
+    nearest the middle of the view stay (a sector); where it holds fewer,
+    the azimuth step halves. Returns (indices ``[4, batch * n]`` int64,
+    features ``[batch * n, channels]`` float32: x, y, z scaled to [0, 1)
+    and an intensity)."""
+    D, H, W = grid
+    lo, hi = np.array(KITTI_RANGE[:3]), np.array(KITTI_RANGE[3:])
+    size = (hi - lo) / np.array([W, H, D - 1])      # D is z + 1 (SECOND)
+    idx = []
+    for b in range(batch):
+        boxes = street_scene(rng)
+        step = HDL64["az_step"]
+        while True:
+            p = lidar_sweep(rng, boxes, step)
+            inside = ((p >= lo) & (p < hi)).all(1)
+            v = np.floor((p[inside] - lo) / size).astype(np.int64)
+            keys = np.unique((v[:, 2] * H + v[:, 1]) * W + v[:, 0])
+            if keys.size >= n:
+                break
+            check(step > HDL64["az_step"] / 64,
+                  f"a sweep of {keys.size} voxels for {n}")
+            step /= 2
+        z, rest = np.divmod(keys, H * W)
+        y, x = np.divmod(rest, W)
+        mid = np.abs(np.arctan2(lo[1] + (y + 0.5) * size[1],
+                                lo[0] + (x + 0.5) * size[0]))
+        sel = rng.permutation(np.argsort(mid, kind="stable")[:n])
+        idx.append(np.stack([np.full(n, b), z[sel], y[sel], x[sel]]))
+    idx = np.concatenate(idx, 1).astype(np.int64)
+    feats = np.concatenate(
+        [(idx[1:][::-1] / np.array([W, H, D])[:, None]).T,
+         rng.random((idx.shape[1], channels - 3))], 1).astype(np.float32)
+    return idx, feats
+
+
+def _only_counts(c, want, what):
+    """Every kernel counter of ``c`` equal to ``want``'s (0 elsewhere)."""
+    got = {k: v for k, v in c.items() if v}
+    check(got == {k: v for k, v in want.items() if v},
+          f"{what}: launches {got}, expected {want}")
+
+
+def static_phase(dev="cuda", cfg=None, batch=ST_BATCH, seq=ST_SEQ, runs=4,
+                 steps=5, timed=3):
+    """Phase 65 (ST): BERT-base as a ``paddle.static`` Program. (a)
+    ``BertModel`` in bf16 and eval mode, built on ``static.data(
+    "input_ids", [batch, seq])`` under ``enable_static``, run by
+    ``Executor.run`` on ``runs`` feeds against the eager forward on each;
+    (b) ``BertForSequenceClassification`` (2 labels, dropout 0, fp32) with
+    AdamW(5e-5) through ``opt.minimize`` in static mode, ``steps`` runs
+    against the same steps eagerly from the same weights; (c) the
+    contracts: ``MissingFeedError`` names a mistyped feed, and after
+    ``paddle.disable_static()`` an eager op is not recorded. Returns
+    (metrics, the launches of (a)'s runs and (b)'s steps)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import (BertConfig, BertModel,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.static.program import reset_programs
+    t0 = time.time()
+    cuda = dev != "cpu"
+    paddle.set_device("gpu:0" if cuda else "cpu")
+    cfg = cfg or BertConfig()
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 65)
+    m, total = {"layers": L, "batch": batch, "seq": seq}, {}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) inference, bf16
+    paddle.seed(SEED + 65)
+    net = BertModel(cfg)
+    net.eval()
+    net.to(dtype="bfloat16")
+    feeds = [rng.integers(1, cfg.vocab_size, (batch, seq)).astype(np.int64)
+             for _ in range(runs)]
+    reset_programs()
+    paddle.enable_static()
+    with paddle.no_grad():
+        ids = paddle.static.data("input_ids", [batch, seq], "int64")
+        seq_out, pooled = net(ids)
+    paddle.disable_static()
+    prog = paddle.static.default_main_program()
+    exe = paddle.static.Executor()
+    bitwise, worst = True, {"rel_fro": 0.0, "rel_row": 0.0}
+    for f in feeds:
+        reset_counts()
+        got = exe.run(feed={"input_ids": f}, fetch_list=[seq_out, pooled],
+                      return_numpy=False)
+        _sync(dev)
+        c = read_counts()
+        add(c)
+        if cuda:
+            _only_flash(c, L, "static inference run")
+        with paddle.no_grad():
+            want = net(paddle.to_tensor(f))
+        for g, w in zip(got, want):
+            check(g._value.device.type == torch.device(dev).type,
+                  "a fetch off the device")
+            fro, row = rel_errors(g._value.float(), w._value.float())
+            worst["rel_fro"] = max(worst["rel_fro"], fro)
+            worst["rel_row"] = max(worst["rel_row"], row)
+            bitwise = bitwise and torch.equal(g._value, w._value)
+    # the replay runs the same ops on the same device as the eager forward,
+    # so it equals it bit for bit
+    check(bitwise, f"static inference against eager: not bit for bit, "
+          f"{worst}")
+    f0 = paddle.to_tensor(feeds[0])
+    with paddle.no_grad():
+        ms_static = _median_ms(lambda: exe.run(
+            feed={"input_ids": feeds[0]}, fetch_list=[seq_out],
+            return_numpy=False), timed, dev)
+        ms_eager = _median_ms(lambda: net(f0), timed, dev)
+    m["inference"] = {"recorded_ops": len(prog.ops), "bitwise": bitwise,
+                      **worst, "ms_static_run": ms_static,
+                      "ms_eager_forward": ms_eager,
+                      "flash_fwd_per_run": L if cuda else 0}
+    if cuda:
+        m["inference"]["profile"] = profile_device(
+            lambda: exe.run(feed={"input_ids": feeds[0]},
+                            fetch_list=[seq_out], return_numpy=False),
+            "ST static BERT-base inference run (bf16)")
+    log(f"  static inference: {json.dumps(m['inference'])}")
+    del net, seq_out, pooled, prog, exe, f0
+    reset_programs()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) training, fp32, AdamW through minimize
+    tcfg = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    paddle.seed(SEED + 651)
+    net_s = BertForSequenceClassification(tcfg, num_classes=2, dropout=0.0)
+    net_e = BertForSequenceClassification(tcfg, num_classes=2, dropout=0.0)
+    net_e.set_state_dict(net_s.state_dict())
+    x = rng.integers(1, cfg.vocab_size, (batch, seq)).astype(np.int64)
+    y = rng.integers(0, 2, (batch,)).astype(np.int64)
+    opt_s = paddle.optimizer.AdamW(5e-5, parameters=net_s.parameters())
+    paddle.enable_static()
+    ids = paddle.static.data("input_ids", [batch, seq], "int64")
+    labels = paddle.static.data("labels", [batch], "int64")
+    loss, _ = net_s(ids, labels=labels)
+    opt_s.minimize(loss)
+    paddle.disable_static()
+    prog = paddle.static.default_main_program()
+    exe = paddle.static.Executor()
+    want = {"flash_attention": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    s_losses, s_ms = [], []
+    for _ in range(steps):
+        reset_counts()
+        _sync(dev)
+        t1 = time.time()
+        s_losses.append(float(exe.run(feed={"input_ids": x, "labels": y},
+                                      fetch_list=[loss])[0]))
+        s_ms.append((time.time() - t1) * 1e3)
+        c = read_counts()
+        add(c)
+        if cuda:
+            _only_counts(c, want, "static training step")
+    opt_e = paddle.optimizer.AdamW(5e-5, parameters=net_e.parameters())
+    xe, ye = paddle.to_tensor(x), paddle.to_tensor(y)
+    e_losses, e_ms = [], []
+    for _ in range(steps):
+        _sync(dev)
+        t1 = time.time()
+        le, _ = net_e(xe, labels=ye)
+        le.backward()
+        opt_e.step()
+        opt_e.clear_grad()
+        e_losses.append(float(le))
+        e_ms.append((time.time() - t1) * 1e3)
+    check(all(np.isfinite(s_losses)) and s_losses[-1] < s_losses[0],
+          f"static training losses {s_losses}")
+    lgap = max(abs(a - b) for a, b in zip(s_losses, e_losses)) / \
+        max(abs(v) for v in e_losses)
+    ps, pe = net_s.state_dict(), net_e.state_dict()
+    top = max(float(v._value.detach().abs().max()) for v in pe.values())
+    pgap = max(float((ps[k]._value - pe[k]._value).detach().abs().max())
+               for k in pe) / top
+    pbit = all(torch.equal(ps[k]._value, pe[k]._value) for k in pe)
+    check(lgap <= 1e-4 and pgap <= 1e-4,
+          f"static against eager training: losses {lgap}, params {pgap} "
+          f"x max")
+    m["training"] = {"recorded_ops": len(prog.ops), "losses": s_losses,
+                     "eager_losses": e_losses, "loss_gap": lgap,
+                     "param_gap": pgap, "params_bitwise": pbit,
+                     "ms_static_step": float(np.median(s_ms[1:])),
+                     "ms_eager_step": float(np.median(e_ms[1:])),
+                     "launches_per_step": want if cuda else {}}
+    log(f"  static training: {json.dumps(m['training'])}")
+
+    # (c) the contracts
+    try:
+        exe.run(feed={"input_idz": x, "labels": y}, fetch_list=[loss])
+        check(False, "a mistyped feed did not raise")
+    except paddle.static.MissingFeedError as e:
+        check(e.missing == ["input_ids"], f"MissingFeedError {e.missing}")
+    paddle.enable_static()
+    check(not paddle.in_dynamic_mode(), "in_dynamic_mode under static")
+    paddle.disable_static()
+    n = len(prog.ops)
+    eager = paddle.to_tensor(np.ones(4, np.float32)) + 1.0
+    check(len(prog.ops) == n and paddle.in_dynamic_mode() and
+          float(eager.sum()) == 8.0, "an eager op after disable_static")
+    m["contracts"] = "MissingFeedError names input_ids; disable_static " \
+        "stops the recording"
+    del net_s, net_e, opt_s, opt_e, prog, exe, loss
+    reset_programs()
+    if cuda:
+        torch.cuda.empty_cache()
+    m["seconds"] = time.time() - t0
+    return m, total
+
+
+def _sp_input(paddle, idx_t, feats_t, batch, grid):
+    """A new COO input over the same voxels: a fresh indices tensor (a copy
+    on the device), so every conv builds its rulebook again."""
+    return paddle.sparse.sparse_coo_tensor(
+        paddle.to_tensor(idx_t), feats_t, [batch, *grid, 4])
+
+
+def _sp_run(net, x):
+    for lay in net:
+        x = lay(x)
+    return x
+
+
+def _forward_dtoh(forward):
+    """The device-to-host copies (CUPTI's memcpy records) and the counted
+    host reads (``sparse._keys.syncs``) of one ``forward()`` on the card.
+    A first ``forward()`` runs under the profiler's warm-up, so CUPTI is
+    tracing before the measured one starts (a record of the first
+    activities after it is switched on can be lost)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from paddle_tpu_torch.sparse import _keys
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        forward()
+        torch.cuda.synchronize()
+        prof.step()
+        s0 = _keys.syncs
+        forward()
+        torch.cuda.synchronize()
+        counted = _keys.syncs - s0
+        prof.step()
+    device, _ = profile_sums(prof)
+    dtoh = sum(n for k, (_, n) in device.items() if "DtoH" in k or
+               "Device -> Pageable" in k or "Device -> Pinned" in k)
+    return dtoh, counted
+
+
+def _dense_conv_gate(paddle, conv, x, stride, padding):
+    """The sparse conv ``conv`` on ``x`` against ``torch.nn.functional.
+    conv3d`` (cuDNN on the card) of the densified input, at the sparse
+    output's sites: max |diff| / max |ref| there."""
+    import torch
+    import torch.nn.functional as TF
+    out = conv(x)
+    dense = x.to_dense()._value.permute(0, 4, 1, 2, 3).contiguous()
+    w = conv.weight._value.permute(4, 3, 0, 1, 2).contiguous()
+    pad = tuple(padding) if isinstance(padding, (tuple, list)) else \
+        (padding,) * 3
+    with torch.no_grad():
+        ref = TF.conv3d(dense, w, stride=stride, padding=pad)
+    del dense
+    i = out.indices()._value.long()
+    at = ref[i[0], :, i[1], i[2], i[3]]
+    del ref
+    return _max_rel(out.values()._value, at), int(i.shape[1])
+
+
+def sparse_phase(dev="cuda", grid=SECOND_GRID, widths=SECOND_WIDTHS,
+                 batch=SP["batch"], voxels=SP["voxels"], steps=SP["steps"],
+                 parity_voxels=SP["parity_voxels"], attn=None):
+    """Phase 66 (SP): SECOND's sparse voxel encoder (``second_layers``) on
+    KITTI's grid, trained: B ``batch`` x ``voxels`` voxels from
+    ``lidar_voxels``, fp32, Momentum over an MSE loss to a seeded BEV
+    target; the first submanifold and the first strided conv against
+    cuDNN's dense conv3d; the encoder's forward and gradients on ``dev``
+    against the CPU at ``parity_voxels``; the rulebook's device-to-host
+    copies against the counted syncs; then ``nn.functional.
+    sparse_attention`` at ``attn`` against the CPU. Returns (metrics, the
+    launches)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.sparse import _keys, nn_conv
+    t0 = time.time()
+    cuda = dev != "cpu"
+    place = "gpu:0" if cuda else "cpu"
+    paddle.set_device(place)
+    rows = second_layers(widths)
+    rng = np.random.default_rng(SEED + 66)
+    idx, feats = lidar_voxels(rng, batch, voxels, grid)
+    idx_t = torch.from_numpy(idx).to(dev)
+    feats_t = paddle.to_tensor(feats)
+    net = paddle.nn.Sequential(*second_encoder(paddle.sparse.nn, rows,
+                                               seed=SEED))
+    state0 = {k: v._value.detach().cpu().clone()
+              for k, v in net.state_dict().items()}
+    m = {"batch": batch, "voxels_per_sample": voxels, "grid": list(grid),
+         "widths": list(widths)}
+    reset_counts()
+    _sp_run(net, _sp_input(paddle, idx_t, feats_t, batch, grid))  # warm-up
+    # the rulebook alone: one forward's rulebook calls, timed
+    spent = []
+
+    def timed_rulebook(*a, **k):
+        _sync(dev)
+        t1 = time.time()
+        r = orig(*a, **k)
+        _sync(dev)
+        spent.append((time.time() - t1) * 1e3)
+        return r
+    orig = nn_conv.rulebook
+    nn_conv.rulebook = timed_rulebook
+    try:
+        x0 = _sp_input(paddle, idx_t, feats_t, batch, grid)
+        s0 = _keys.syncs
+        out = _sp_run(net, x0)
+        _sync(dev)
+        fwd_syncs = _keys.syncs - s0
+    finally:
+        nn_conv.rulebook = orig
+    m["rulebook_ms"] = float(np.sum(spent))
+    m["rulebooks"] = len(spent)
+    m["syncs_per_forward"] = fwd_syncs
+    rb = nn_conv.rulebook(x0, (3, 3, 3), (1, 1, 1), (1, 1, 1), True)
+    m["first_subm_pairs_per_offset"] = rb.counts
+    m["first_subm_neighbours_per_voxel"] = \
+        (sum(rb.counts) - rb.counts[len(rb.counts) // 2]) / int(x0.nnz())
+    m["out_shape"] = out.shape
+    m["active"] = {"input": int(x0.nnz()), "output": int(out.nnz())}
+    bev = second_bev(paddle, out)
+    C = int(bev.shape[1])
+    check(list(bev.shape) == [batch, C, out.shape[2], out.shape[3]],
+          f"BEV shape {bev.shape}")
+    if cuda:
+        dtoh, counted = _forward_dtoh(
+            lambda: _sp_run(net, _sp_input(paddle, idx_t, feats_t, batch,
+                                           grid)))
+        m["forward_dtoh_copies"] = dtoh
+        m["forward_counted_syncs"] = counted
+        check(dtoh == counted, f"device-to-host copies {dtoh} against "
+              f"{counted} counted syncs in a forward")
+    # (i) the first submanifold and strided convs against cuDNN
+    layers = list(net)
+    gap0, n0 = _dense_conv_gate(paddle, layers[0], x0, 1, 1)
+    x = x0
+    for lay in layers[:6]:
+        x = lay(x)
+    gap1, n1 = _dense_conv_gate(paddle, layers[6], x, 2, 1)
+    check(gap0 <= 1e-4 and gap1 <= 1e-4, f"sparse convs against the "
+          f"dense conv3d: {gap0}, {gap1} x max|ref|")
+    m["dense_conv_gate"] = {"subm": gap0, "subm_sites": n0,
+                            "strided": gap1, "strided_sites": n1}
+    m["first_strided_out_per_in"] = n1 / int(x.nnz())
+    if cuda:
+        torch.cuda.empty_cache()
+    del out, bev, x0
+    # (iii) training
+    tgt = paddle.to_tensor((0.5 * np.random.default_rng(SEED + 661)
+                            .standard_normal((batch, C, *[
+                                int(s) for s in m["out_shape"][2:4]])))
+                           .astype(np.float32))
+    opt = paddle.optimizer.Momentum(SP["lr"], momentum=0.9,
+                                    parameters=net.parameters())
+    losses, step_ms, fwd_ms = [], [], []
+    for i in range(steps):
+        x = _sp_input(paddle, idx_t, feats_t, batch, grid)
+        _sync(dev)
+        t1 = time.time()
+        bev = second_bev(paddle, _sp_run(net, x))
+        _sync(dev)
+        fwd_ms.append((time.time() - t1) * 1e3)
+        loss = ((bev - tgt) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        step_ms.append((time.time() - t1) * 1e3)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"encoder losses {losses}")
+    m["losses"] = losses
+    m["ms_forward"] = float(np.median(fwd_ms[1:]))
+    m["ms_step"] = float(np.median(step_ms[1:]))
+    if cuda:
+        def one_step():
+            xs = _sp_input(paddle, idx_t, feats_t, batch, grid)
+            lo = ((second_bev(paddle, _sp_run(net, xs)) - tgt) ** 2).mean()
+            lo.backward()
+            opt.step()
+            opt.clear_grad()
+        m["profile"] = profile_device(one_step, "SP encoder training step")
+    c = read_counts()
+    _only_counts(c, {}, "the sparse encoder")
+    del net, opt, tgt, bev, x, loss
+    if cuda:
+        torch.cuda.empty_cache()
+    # (ii) card against CPU at parity_voxels, fp32 and fp64. Both devices
+    # compute the same sums in other orders (cuBLAS's and the CPU's matmul
+    # tiling, BatchNorm's reductions), so a ReLU input within rounding of 0
+    # may take another sign on the card, and the gradients behind it move
+    # by far more than rounding. So the card runs twice: as it is (its BEV
+    # gated, its gradient gap reported), and with every ReLU taking the
+    # CPU run's signs (all of it gated): that the second falls to
+    # rounding shows the first's gap is the flipped sites'.
+    if cuda:
+        m["cpu_parity"] = {"voxels": parity_voxels}
+        sample = lidar_voxels(np.random.default_rng(SEED + 662), 1,
+                              parity_voxels, grid)
+        for dt in ("float32", "float64"):
+            want, cpu_signs = _sp_parity_run(paddle, rows, state0, sample,
+                                             grid, dt, "cpu")
+            got, signs = _sp_parity_run(paddle, rows, state0, sample, grid,
+                                        dt, place)
+            again, _ = _sp_parity_run(paddle, rows, state0, sample, grid,
+                                      dt, place)
+            pinned, _ = _sp_parity_run(paddle, rows, state0, sample, grid,
+                                       dt, place, masks=cpu_signs)
+            flips = sum(int((a != b).sum()) for a, b in zip(signs,
+                                                            cpu_signs))
+            gaps = [_max_rel(a, b) for a, b in zip(got, want)]
+            pgaps = [_max_rel(a, b) for a, b in zip(pinned, want)]
+            m["cpu_parity"][dt] = {
+                "relu_sign_flips": flips, "bev": gaps[0],
+                "card_repeat_bitwise": all(torch.equal(a, b) for a, b in
+                                           zip(got, again)),
+                "worst_grad_or_stat": max(gaps[1:]),
+                "cpu_signs": {"bev": pgaps[0],
+                              "worst_grad_or_stat": max(pgaps[1:])}}
+            check(gaps[0] <= 1e-4 and max(pgaps) <= 1e-4,
+                  f"encoder card against CPU ({dt}): BEV {gaps[0]}, with "
+                  f"the CPU's ReLU signs {max(pgaps)} x max (sign flips "
+                  f"{flips}, gradients as run {max(gaps[1:])})")
+        paddle.set_device(place)
+    log(f"  SECOND encoder: {json.dumps(m)}")
+    m["attention"] = sparse_attention_case(paddle, dev, **(attn or SP_ATTN))
+    m["seconds"] = time.time() - t0
+    return m, read_counts()
+
+
+def _sp_parity_run(paddle, rows, state, sample, grid, dtype, place,
+                   masks=None):
+    """The encoder from ``state`` at ``dtype`` on ``place``, in training
+    mode, over ``sample`` (indices, features of one sample): ([its BEV,
+    the gradients of an MSE loss, the running statistics] on the host,
+    each ReLU's input signs). With ``masks`` (another run's signs), each
+    ReLU multiplies its input by those signs in place of its own."""
+    pidx, pfeats = sample
+    paddle.set_device(place)
+    pnet = paddle.nn.Sequential(*second_encoder(paddle.sparse.nn, rows))
+    pnet.set_state_dict(state)
+    pnet.to(dtype=dtype)
+    x = paddle.sparse.sparse_coo_tensor(pidx, pfeats.astype(dtype),
+                                        [1, *grid, 4])
+    signs = []
+    for lay in pnet:
+        if isinstance(lay, paddle.sparse.nn.ReLU):
+            signs.append(x.values()._value.detach().cpu() > 0)
+            if masks is not None:
+                keep = paddle.to_tensor(
+                    masks[len(signs) - 1].numpy().astype(dtype))
+                x = type(x)(x.indices_, x.values() * keep, x.shape,
+                            x._coalesced)
+                continue
+        x = lay(x)
+    bev = second_bev(paddle, x)
+    tgt = 0.5 * np.random.default_rng(SEED + 663).standard_normal(bev.shape)
+    loss = ((bev - paddle.to_tensor(tgt.astype(dtype))) ** 2).mean()
+    gs = paddle.grad([loss], pnet.parameters())
+    return ([bev._value.detach().cpu()] + [g._value.cpu() for g in gs] +
+            [b._value.cpu() for b in pnet.buffers()]), signs
+
+
+def block_pattern(seq, block, window, n_global):
+    """A block-sparse pattern ``[seq, seq]``: each query block sees the
+    ``window`` blocks around it and the first ``n_global`` blocks, which
+    see everything (a BigBird-style layout)."""
+    nb = seq // block
+    i = np.arange(nb)
+    bm = np.abs(i[:, None] - i[None]) <= window // 2
+    bm[:, :n_global] = True
+    bm[:n_global, :] = True
+    return np.kron(bm, np.ones((block, block), bool))
+
+
+def sparse_attention_case(paddle, dev, batch, heads, seq, head_dim, block,
+                          window, globals):
+    """``nn.functional.sparse_attention`` with Paddle's per-head layout
+    (offsets ``[B, H, S + 1]``, columns ``[B, H, nnz]``) over
+    ``block_pattern`` on ``dev`` against the CPU at fp32: the error over
+    max|ref| and the ms a call."""
+    import torch
+    pat = block_pattern(seq, block, window, globals)
+    offs = np.concatenate([[0], np.cumsum(pat.sum(1))]).astype(np.int64)
+    cols = np.nonzero(pat)[1].astype(np.int64)
+    rng = np.random.default_rng(SEED + 664)
+    q, k, v = (rng.standard_normal((batch, heads, seq, head_dim))
+               .astype(np.float32) for _ in range(3))
+    off_b = np.broadcast_to(offs, (batch, heads, seq + 1)).copy()
+    col_b = np.broadcast_to(cols, (batch, heads, cols.size)).copy()
+    outs, ms = [], None
+    for pl, dv in ((("gpu:0", dev), ("cpu", "cpu")) if dev != "cpu"
+                   else (("cpu", "cpu"),)):
+        paddle.set_device(pl)
+        args = [paddle.to_tensor(a) for a in (q, k, v, off_b, col_b)]
+        before = read_counts()
+        out = paddle.nn.functional.sparse_attention(*args)
+        check(read_counts() == before, "sparse_attention launched a kernel")
+        outs.append(out._value.cpu())
+        if dv != "cpu":
+            ms = _median_ms(lambda: paddle.nn.functional.sparse_attention(
+                *args), 5, dv)
+    paddle.set_device("gpu:0" if dev != "cpu" else "cpu")
+    r = {"shape": [batch, heads, seq, head_dim], "density":
+         float(pat.mean()), "nnz_per_head": int(cols.size), "ms": ms}
+    if len(outs) == 2:
+        r["max_rel_err"] = _max_rel(outs[0], outs[1])
+        check(r["max_rel_err"] <= 1e-4, f"sparse_attention against the CPU: "
+              f"{r['max_rel_err']}")
+    log(f"  sparse_attention: {json.dumps(r)}")
+    return r
+
+
+C7_UNARY = ("abs", "asin", "asinh", "atan", "atanh", "deg2rad", "expm1",
+            "log1p", "neg", "rad2deg", "sin", "sinh", "sqrt", "square", "tan",
+            "tanh")
+
+
+def _c7_cases(rng):
+    """Phase 67's example calls: ``{label: (op of a package, args, kwargs)}``
+    for every ``sparse_*`` name the port registers (the unary family and
+    ``relu`` on COO and on CSR) and ``nn.functional.sparse_attention``; an
+    argument ``("coo", indices, values, shape)`` or ``("csr", crows, cols,
+    values, shape)`` is built on the device with its values needing a
+    gradient."""
+    f32, i64 = np.float32, np.int64
+
+    def rn(*s):
+        return rng.standard_normal(s).astype(f32)
+
+    def coo(shape=(4, 5), nnz=7, chan=None, pos=False, keys=None):
+        if keys is None:
+            keys = rng.choice(int(np.prod(shape)), nnz, replace=False)
+        idx = np.stack(np.unravel_index(keys, shape)).astype(i64)
+        vs = (len(keys),) if chan is None else (len(keys), chan)
+        vals = rng.uniform(0.05, 0.95, vs).astype(f32) if pos else rn(*vs)
+        return ("coo", idx, vals, list(shape) + ([chan] if chan else []))
+
+    def csr(rows=4, cols=5, nnz=9, pos=False):
+        keys = np.sort(rng.choice(rows * cols, nnz, replace=False))
+        r, c = np.divmod(keys, cols)
+        crows = np.searchsorted(r, np.arange(rows + 1)).astype(i64)
+        vals = rng.uniform(0.05, 0.95, nnz).astype(f32) if pos else rn(nnz)
+        return ("csr", crows, c.astype(i64), vals, [rows, cols])
+
+    voxels = coo((2, 5, 6, 6), 40, chan=3)
+    same = rng.choice(20, 8, replace=False)
+    S = {}
+    for n in C7_UNARY:
+        S[f"sparse_{n}"] = (lambda p, n=n: getattr(p.sparse, n),
+                            [coo(pos=True)], {})
+        S[f"sparse_{n} (csr)"] = (lambda p, n=n: getattr(p.sparse, n),
+                                  [csr(pos=True)], {})
+    S.update({
+        "sparse_relu": (lambda p: p.sparse.relu, [coo()], {}),
+        "sparse_relu (csr)": (lambda p: p.sparse.relu, [csr()], {}),
+        "sparse_relu6": (lambda p: p.sparse.nn.functional.relu6,
+                         [coo(chan=2)], {}),
+        "sparse_leaky_relu": (lambda p: p.sparse.nn.functional.leaky_relu,
+                              [csr()], {"negative_slope": 0.2}),
+        "sparse_pow": (lambda p: p.sparse.pow, [coo(pos=True)],
+                       {"factor": 3.0}),
+        "sparse_cast": (lambda p: p.sparse.cast, [coo()],
+                        {"value_dtype": "float64"}),
+        "sparse_add": (lambda p: p.sparse.add, [coo(), coo()], {}),
+        "sparse_subtract": (lambda p: p.sparse.subtract, [coo(), coo()], {}),
+        "sparse_multiply": (lambda p: p.sparse.multiply, [coo(), coo()], {}),
+        "sparse_divide": (lambda p: p.sparse.divide,
+                          [coo(keys=same), coo(keys=same, pos=True)], {}),
+        "sparse_matmul": (lambda p: p.sparse.matmul, [csr(), rn(5, 3)], {}),
+        "sparse_masked_matmul": (lambda p: p.sparse.masked_matmul,
+                                 [rn(4, 6), rn(6, 5), coo()], {}),
+        "sparse_mv": (lambda p: p.sparse.mv, [coo(), rn(5)], {}),
+        "sparse_addmm": (lambda p: p.sparse.addmm,
+                         [rn(4, 3), coo(), rn(5, 3)],
+                         {"beta": 0.5, "alpha": 2.0}),
+        "sparse_sum": (lambda p: p.sparse.sum, [coo(chan=2)], {}),
+        "sparse_transpose": (lambda p: p.sparse.transpose,
+                             [coo((3, 4, 5), 9)], {"perm": [2, 0, 1]}),
+        "sparse_reshape": (lambda p: p.sparse.reshape, [coo((3, 4, 5), 9)],
+                           {"shape": [6, -1]}),
+        "sparse_coalesce": (lambda p: p.sparse.coalesce,
+                            [coo(keys=np.array([3, 1, 3, 7, 1, 0]))], {}),
+        "sparse_softmax": (lambda p: p.sparse.nn.functional.softmax,
+                           [csr()], {}),
+        "sparse_conv3d": (lambda p: p.sparse.nn.functional.conv3d,
+                          [voxels, rn(3, 3, 3, 3, 4), rn(4)],
+                          {"stride": 2, "padding": 1}),
+        "sparse_subm_conv3d": (lambda p: p.sparse.nn.functional.subm_conv3d,
+                               [voxels, rn(3, 3, 3, 3, 4)], {}),
+        "sparse_max_pool3d": (lambda p: p.sparse.nn.functional.max_pool3d,
+                              [voxels], {"kernel_size": 2}),
+        "sparse_batch_norm": (lambda p: p.sparse.nn.functional.batch_norm,
+                              [voxels, rn(3), np.ones(3, f32), rn(3),
+                               rn(3)], {"training": True}),
+        "sparse_attention": (lambda p: p.sparse.nn.functional.attention,
+                             [rn(2, 2, 8, 4), rn(2, 2, 8, 4), rn(2, 2, 8, 4),
+                              csr(8, 8, 30)], {}),
+    })
+    off = np.broadcast_to(np.array([0, 2, 5, 7, 9, 12, 14, 15, 16]),
+                          (2, 2, 9)).copy()
+    cols = np.broadcast_to(np.array([0, 1, 0, 1, 2, 2, 3, 3, 4, 4, 5, 6, 5,
+                                     6, 7, 7]), (2, 2, 16)).copy()
+    S["nn.functional.sparse_attention"] = (
+        lambda p: p.nn.functional.sparse_attention,
+        [rn(2, 2, 8, 4), rn(2, 2, 8, 4), rn(2, 2, 8, 4), off, cols], {})
+    return S
+
+
+def _c7_own(o):
+    """The tensors one output holds: a COO's indices and values, a CSR's
+    crows, cols and values, or the tensor itself."""
+    if hasattr(o, "crows"):
+        return [o.crows()._value, o.cols()._value, o.values()._value]
+    if hasattr(o, "indices"):
+        return [o.indices()._value, o.values()._value]
+    return [o._value]
+
+
+def _c7_leaves(o):
+    """Comparable host tensors of one output: a COO's indices and values
+    sorted by linear key, else the tensors it holds."""
+    import torch
+    own = [t.detach().cpu() for t in _c7_own(o)]
+    if hasattr(o, "indices") and not hasattr(o, "crows"):
+        idx, vals = own[0].long(), own[1]
+        order = torch.from_numpy(np.lexsort(idx.numpy()[::-1]).copy())
+        return [idx[:, order], vals[order]]
+    return own
+
+
+def _c7_call(paddle, fn, args, kw, dev):
+    """``fn`` on ``args`` built on the current place: (output leaves on the
+    host, the gradients of the float outputs' sum over the float inputs
+    and the sparse values)."""
+    import torch
+    S = paddle.sparse
+    ins, call = [], []
+    for a in args:
+        if isinstance(a, tuple) and a[0] in ("coo", "csr"):
+            v = paddle.to_tensor(a[-2], stop_gradient=False)
+            ins.append(v)
+            call.append(S.sparse_coo_tensor(paddle.to_tensor(a[1]), v, a[3])
+                        if a[0] == "coo" else S.sparse_csr_tensor(
+                            paddle.to_tensor(a[1]), paddle.to_tensor(a[2]), v,
+                            a[4]))
+        elif isinstance(a, np.ndarray):
+            t = paddle.to_tensor(a, stop_gradient=a.dtype.kind != "f")
+            if a.dtype.kind == "f":
+                ins.append(t)
+            call.append(t)
+        else:
+            call.append(a)
+    out = fn(*call, **kw)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    leaves, vals = [], []
+    for o in outs:
+        for t in _c7_own(o):
+            check(t.device.type == torch.device(dev).type,
+                  f"an output on {t.device}")
+        leaves += _c7_leaves(o)
+        vals.append(o.values() if hasattr(o, "values") else o)
+    vals = [v for v in vals if not v.stop_gradient]
+    grads = []
+    if vals and ins:
+        total = vals[0].sum()
+        for v in vals[1:]:
+            total = total + v.sum()
+        gs = paddle.grad([total], ins, allow_unused=True)
+        grads = [torch.zeros(x.shape) if g is None else g._value.cpu()
+                 for g, x in zip(gs, ins)]
+    return leaves, grads
+
+
+def _c7_static_nn(paddle, dev, rng):
+    """``paddle.static.nn``'s four ops, each as a Program replayed with a
+    feed on ``dev`` and on the CPU: the worst error over max|ref|."""
+    import torch
+    from paddle_tpu_torch.static.program import reset_programs
+    f32 = np.float32
+    w_fc, b_fc = rng.standard_normal((4, 3)).astype(f32), \
+        rng.standard_normal(3).astype(f32)
+    bn = [rng.standard_normal(3).astype(f32), rng.uniform(.5, 2, 3).astype(
+        f32), rng.standard_normal(3).astype(f32),
+        rng.standard_normal(3).astype(f32)]
+    w_cv = rng.standard_normal((4, 3, 3, 3)).astype(f32)
+    cases = {
+        "fc": ([3, 4], lambda p, x: p.static.nn.fc(
+            x, 3, weight=p.to_tensor(w_fc), bias=p.to_tensor(b_fc))),
+        "batch_norm": ([2, 3, 4, 4], lambda p, x: p.static.nn.batch_norm(
+            x, *[p.to_tensor(a) for a in bn], training=False)),
+        "conv2d": ([2, 3, 5, 5], lambda p, x: p.static.nn.conv2d(
+            x, p.to_tensor(w_cv), padding=1)),
+        "sequence_pool": ([2, 4, 3], lambda p, x: p.static.nn.sequence_pool(
+            x, "sum", p.to_tensor(np.array([3, 2])))),
+    }
+    worst = 0.0
+    for name, (shape, build) in cases.items():
+        xv = rng.standard_normal(shape).astype(f32)
+        res = []
+        for pl, dv in ((("gpu:0", dev), ("cpu", "cpu")) if dev != "cpu"
+                       else (("cpu", "cpu"),) * 2):
+            paddle.set_device(pl)
+            reset_programs()
+            paddle.enable_static()
+            x = paddle.static.data("x", shape, "float32")
+            out = build(paddle, x)
+            paddle.disable_static()
+            before = read_counts()
+            r = paddle.static.Executor().run(feed={"x": xv},
+                                             fetch_list=[out],
+                                             return_numpy=False)[0]
+            check(read_counts() == before, f"static.nn.{name} launched")
+            check(r._value.device.type == torch.device(dv).type,
+                  f"static.nn.{name}: output off {dv}")
+            res.append(r._value.cpu())
+        reset_programs()
+        err = _lib_close(*res)
+        check(err <= 1e-5, f"static.nn.{name}: {err} x max|ref|")
+        worst = max(worst, err)
+    paddle.set_device("gpu:0" if dev != "cpu" else "cpu")
+    return worst
+
+
+def _c7_layers(paddle, dev, rng):
+    """The sparse layers on a voxel cloud on ``dev`` and on the CPU: the
+    output (``BatchNorm`` in training mode, its running statistics too)
+    within 1e-4 x max|ref|, the gradients of the input values and every
+    parameter within 1e-4 x max(max|g|, 1e-2); the worst error."""
+    f32 = np.float32
+    keys = rng.choice(2 * 5 * 6 * 6, 40, replace=False)
+    idx = np.stack(np.unravel_index(keys, (2, 5, 6, 6))).astype(np.int64)
+    vals = rng.standard_normal((40, 3)).astype(f32)
+    worst = 0.0
+    for name, make in (
+            ("Conv3D", lambda nn: nn.Conv3D(3, 4, 3, stride=2, padding=1,
+                                            seed=1)),
+            ("SubmConv3D", lambda nn: nn.SubmConv3D(3, 4, 3, seed=2)),
+            ("BatchNorm", lambda nn: nn.BatchNorm(3, momentum=0.9)),
+            ("MaxPool3D", lambda nn: nn.MaxPool3D(2)),
+            ("ReLU", lambda nn: nn.ReLU())):
+        res = []
+        for pl in (("gpu:0", "cpu") if dev != "cpu" else ("cpu", "cpu")):
+            paddle.set_device(pl)
+            lay = make(paddle.sparse.nn)
+            v = paddle.to_tensor(vals, stop_gradient=False)
+            before = read_counts()
+            out = lay(paddle.sparse.sparse_coo_tensor(
+                paddle.to_tensor(idx), v, [2, 5, 6, 6, 3]))
+            check(read_counts() == before, f"sparse.nn.{name} launched")
+            o = out.values()
+            # not a function of the outputs' norm alone, which BatchNorm
+            # keeps fixed (its input gradient would be rounding noise)
+            gs = paddle.grad([(o * o * (o + 1.0)).sum()],
+                             [v] + lay.parameters())
+            res.append((_c7_leaves(out) +
+                        [b._value.cpu() for b in lay.buffers()],
+                        [g._value.cpu() for g in gs]))
+        for (a, ga), (b, gb) in [res]:
+            errs = [_lib_close(x, y) for x, y in zip(a, b)] + \
+                [_lib_close(x, y, floor=1e-2) for x, y in zip(ga, gb)]
+            check(max(errs) <= 1e-4, f"sparse.nn.{name}: {max(errs)} x "
+                  f"max|ref|")
+            worst = max([worst] + errs)
+    # Softmax, on a CSR pattern
+    res = []
+    for pl in (("gpu:0", "cpu") if dev != "cpu" else ("cpu", "cpu")):
+        paddle.set_device(pl)
+        x = paddle.sparse.sparse_csr_tensor(
+            paddle.to_tensor(np.array([0, 2, 2, 5])),
+            paddle.to_tensor(np.array([0, 3, 1, 2, 3])),
+            paddle.to_tensor(vals[:5, 0].copy()), [3, 4])
+        res.append(_c7_leaves(paddle.sparse.nn.Softmax()(x)))
+    for a, b in zip(*res):
+        worst = max(worst, _lib_close(a.cpu(), b.cpu()))
+    check(worst <= 1e-4, f"sparse.nn layers: {worst}")
+    paddle.set_device("gpu:0" if dev != "cpu" else "cpu")
+    return worst
+
+
+def c7_ops_phase(dev="cuda"):
+    """Phase 67: every name this slice registers (the 39 ``sparse_*`` ops,
+    the unary family and ``relu`` on COO and CSR),
+    ``nn.functional.sparse_attention``, ``paddle.static.nn``'s four ops
+    through a Program, and the sparse layers, on ``dev`` against the CPU
+    at fp32: outputs within 1e-5 x max|ref|, indices equal, the gradients
+    of the float outputs' sum within 1e-4 x max(max|g|, 1e-2); no call
+    launches a port kernel. Returns (metrics, the launches: none)."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.sparse  # noqa: F401 — registers its ops
+    from paddle_tpu_torch.core.dispatch import OP_REGISTRY as TR
+    t0 = time.time()
+    cuda = dev != "cpu"
+    place = "gpu:0" if cuda else "cpu"
+    cases = _c7_cases(np.random.default_rng(SEED + 67))
+    names = sorted(n for n in TR if n.startswith("sparse_") and
+                   n != "sparse_momentum_update")
+    missing = sorted(set(names) - {k.split(" ")[0] for k in cases})
+    check(not missing and len(names) == 39,
+          f"phase 67: {len(names)} sparse names, no case for {missing}")
+    worst = {"out": 0.0, "grad": 0.0}
+    for label in sorted(cases):
+        fn, args, kw = cases[label]
+        paddle.set_device(place)
+        before = read_counts()
+        got, gg = _c7_call(paddle, fn(paddle), args, kw, dev)
+        check(read_counts() == before, f"{label} launched a port kernel")
+        paddle.set_device("cpu")
+        want, gw = _c7_call(paddle, fn(paddle), args, kw, "cpu")
+        check(len(got) == len(want) and len(gg) == len(gw),
+              f"{label}: {len(got)} outputs, {len(gg)} gradients")
+        for i, (a, b) in enumerate(zip(got, want)):
+            err = _lib_close(a, b)
+            worst["out"] = max(worst["out"], err)
+            check(err <= 1e-5, f"{label} out {i}: {err} x max|ref|")
+        for i, (a, b) in enumerate(zip(gg, gw)):
+            err = _lib_close(a, b, floor=1e-2)
+            worst["grad"] = max(worst["grad"], err)
+            check(err <= 1e-4, f"{label} grad {i}: {err} x max(max|g|, "
+                  f"1e-2)")
+    paddle.set_device(place)
+    rng = np.random.default_rng(SEED + 671)
+    m = {"names": len(names), "cases": len(cases), "worst": worst,
+         "static_nn_worst": _c7_static_nn(paddle, dev, rng),
+         "layers_worst": _c7_layers(paddle, dev, rng),
+         "seconds": time.time() - t0}
+    log(f"  7c ops on {dev} against the CPU: {json.dumps(m)}")
+    return m, read_counts()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -12705,8 +13738,24 @@ def main() -> int:
         "plumbing ops, the update rules, the new layers and nn.utils")
     _, c64 = b7_ops_phase()
     log(f"  nvidia-smi: {card}")
+    log("== phase 65: BERT-base as a paddle.static Program (cell ST): "
+        "static.data [32, 128], Executor.run; bf16 inference against eager "
+        "(12 flash forwards a run), fp32 training through AdamW.minimize "
+        "against 5 eager steps (12 / 12 / 12 a step); MissingFeedError and "
+        "disable_static")
+    _, c65 = static_phase()
+    log("== phase 66: SECOND's sparse voxel encoder on KITTI's grid (cell "
+        "SP): [41, 1600, 1408], B 4 x 16 000 voxels, fp32, Momentum x 5 "
+        "steps; cuDNN and CPU gates, the rulebook's host reads; "
+        "sparse_attention at B 2 x 12 x 1024 x 64")
+    sparse_phase()
+    log("== phase 67: the 7c ops on the card against the CPU at fp32: the 39 "
+        "sparse_* names, nn.functional.sparse_attention, static.nn and the "
+        "sparse layers")
+    c7_ops_phase()
+    log(f"  nvidia-smi: {card}")
     trained = (c8, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c47,
-               c48, c50a, c50b, c51, c52, c56, c62, c63, c64)
+               c48, c50a, c50b, c51, c52, c56, c62, c63, c64, c65)
     normed = (c11, c34, c36, c38, c39, c41, c43, c45, c45d, c46a, c46b, c50a,
               c50b)
 

@@ -25,6 +25,9 @@ never ``jax`` and nothing of ``paddle_tpu``. It holds:
   sets, sequences, CRF and beam decoding, the legacy ops, the rest of
   linalg and quant, the in-place family) and the ``linalg``, ``fft`` and
   ``signal`` namespaces;
+* ``static`` (the Program / Executor workflow over the dispatcher's
+  tape) and ``sparse`` (COO / CSR tensors, their math, the sparse
+  convolutions with a rulebook built on the device, sparse attention);
 * ``jit`` (``to_static`` as a captured CUDA graph, the fused
   ``TrainStep``, dy2static and SOT, ``jit.save`` / ``jit.load`` through
   ``torch.export``), the deployment ``inference.Predictor`` and
@@ -68,7 +71,7 @@ _LAZY_SUBMODULES = (
     "nn", "optimizer", "io", "distributed", "framework", "incubate",
     "kernels", "regularizer", "inference", "models", "testing", "health",
     "amp", "autograd", "metric", "callbacks", "hapi", "jit", "profiler",
-    "vision", "linalg", "fft", "signal",
+    "vision", "linalg", "fft", "signal", "static", "sparse",
 )
 
 
@@ -91,11 +94,15 @@ def __getattr__(name):
         from .hapi import Model as cls
         globals()[name] = cls
         return cls
-    if name == "disable_static":
-        return lambda *a, **k: None
-    if name == "in_dynamic_mode":
-        return lambda: True
+    if name in ("enable_static", "disable_static"):
+        return getattr(importlib.import_module(".static", __name__), name)
     raise AttributeError(f"module 'paddle_tpu_torch' has no attribute {name!r}")
+
+
+def in_dynamic_mode() -> bool:
+    """False while ``paddle.enable_static()`` holds."""
+    from .static import in_static_mode
+    return not in_static_mode()
 
 
 def is_grad_enabled_():

@@ -11,8 +11,13 @@ here. It keeps the reference's ``FLAGS_check_nan_inf`` scan
 ``amp.auto_cast.amp_cast_inputs`` before ``fn`` sees them, on every route
 (in a distributed region, per coordinate).
 
-Left out for now, with its package (ROADMAP §A item 11): the
-static-Program recorder (``static/``).
+While a ``paddle.static`` Program is under construction,
+``_static_recorder`` is that Program (``static/program.py``): every op
+that goes through ``forward_op`` appends itself to the Program's tape
+after its outputs are wrapped, with the op's own ``fn`` (not the AMP
+cast around it, so a replay outside ``auto_cast`` computes what the
+reference's replay computes). A distributed region's route refuses to
+run while a Program records: the reference has no such route to record.
 
 ``OP_REGISTRY`` is the schema registry in the spirit of the reference's
 ``ops.yaml``: the op modules register under the reference's names and
@@ -51,6 +56,11 @@ class _Regions:
     active = None
 
 
+# The Program that records every dispatched op (``static/program.py`` sets
+# it while a static Program is built), or None.
+_static_recorder = None
+
+
 def register_op(name: str, fn: Callable, doc: str = "", n_outputs: int = 1,
                 differentiable: bool = True, category: str = "",
                 public: Optional[Callable] = None) -> OpDef:
@@ -72,9 +82,15 @@ def forward_op(name: str, fn: Callable, args: Sequence[Any],
     returns a Tensor, or a tuple of them mirroring ``fn``'s outputs."""
     from .tensor import Tensor
     kwargs = kwargs or {}
+    op_fn = fn
     if _amp_state().enable:
         fn = _amp_cast(name, fn)
     if _Regions.active is not None:
+        if _static_recorder is not None:
+            raise RuntimeError(
+                f"op {name!r}: a distributed region cannot be recorded into "
+                "a paddle.static Program; build the Program outside "
+                "shard_map")
         return _Regions.active.run(name, fn, args, kwargs, differentiable)
     vals = [a._value if isinstance(a, Tensor) else a for a in args]
     try:
@@ -87,7 +103,11 @@ def forward_op(name: str, fn: Callable, args: Sequence[Any],
         from .enforce import translate_op_error
         raise translate_op_error(e, name, vals) from e
     _maybe_check_nan(name, out)
-    return _wrap_outputs(out)
+    out = _wrap_outputs(out)
+    if _static_recorder is not None:
+        _static_recorder.record(name, op_fn, args, kwargs, out,
+                                differentiable)
+    return out
 
 
 _AMP = []

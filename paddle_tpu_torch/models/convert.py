@@ -30,7 +30,7 @@ from .llama import LlamaConfig
 
 __all__ = ["params_from_jax", "bert_params_from_jax", "config_from_jax",
            "opt_state_from_jax", "to_numpy", "specs_from_jax",
-           "state_dict_from_jax"]
+           "state_dict_from_jax", "sparse_state_dict_from_jax"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
@@ -103,6 +103,29 @@ def state_dict_from_jax(layer_or_state_dict) -> Dict[str, np.ndarray]:
     for k, v in sd.items():
         val = getattr(v, "_value", v)
         out[k] = val if isinstance(val, torch.Tensor) else np.asarray(val)
+    return out
+
+
+# what the reference's sparse layers hold (plain objects, not Layers:
+# ``paddle_tpu/sparse/nn_conv.py``): the convs' weight [kd, kh, kw, Cin,
+# Cout] and bias, BatchNorm's weight, bias and running _mean / _var
+_SPARSE_STATE = ("weight", "bias", "_mean", "_var")
+
+
+def sparse_state_dict_from_jax(layers) -> Dict[str, np.ndarray]:
+    """``{name: array}`` of the reference's sparse layers for the port
+    twins' ``set_state_dict``: one layer's own names, or, for a sequence
+    of layers, each name under the layer's position (``"3.weight"``, as a
+    port ``Sequential`` of the same layers names it). A ``None`` bias is
+    left out."""
+    if isinstance(layers, (list, tuple)):
+        return {f"{i}.{k}": v for i, lay in enumerate(layers)
+                for k, v in sparse_state_dict_from_jax(lay).items()}
+    out = {}
+    for k in _SPARSE_STATE:
+        v = getattr(layers, k, None)
+        if v is not None:
+            out[k] = np.asarray(getattr(v, "_value", v))
     return out
 
 

@@ -1,6 +1,5 @@
 """paddle.nn.functional — counterpart of ``paddle_tpu/nn/functional``:
-every functional of the reference but ``sparse_attention``, which comes
-with ``sparse`` (ROADMAP §A item 7c)."""
+every functional of the reference."""
 
 from .activation import (celu, elu, gelu, glu, gumbel_softmax, hardshrink,
                          hardsigmoid, hardswish, hardtanh, leaky_relu, log_sigmoid,
@@ -18,7 +17,8 @@ from .common import (alpha_dropout, bicubic_interp, bilinear_interp,
                      dropout3d, embedding, interpolate, label_smooth, linear,
                      linear_interp, nearest_interp, normalize, one_hot, pad,
                      pad2d, pad3d, pairwise_distance, pixel_shuffle,
-                     pixel_unshuffle, softmax2d, trilinear_interp, unfold,
+                     pixel_unshuffle, softmax2d, sparse_attention,
+                     trilinear_interp, unfold,
                      upsample, zeropad2d)
 from .loss import (adaptive_log_softmax_with_loss, binary_cross_entropy,
                    binary_cross_entropy_with_logits, bpr_loss, center_loss,

@@ -5,8 +5,8 @@ normalization helpers, label smoothing, resampling (``interpolate`` /
 ``upsample`` and the ``*_interp`` modes) and the pixel and channel
 shuffles. Dropout masks draw from the global generator of the input's
 device (``ops/random.py``). ``unfold`` is here; its adjoint ``fold`` is in
-``vision.py``, as in the reference. ``sparse_attention`` comes with
-``sparse`` (ROADMAP §A item 7c).
+``vision.py``, as in the reference. ``sparse_attention`` is
+``sparse.nn.functional.attention`` under Paddle's name and layout.
 
 ``interpolate`` computes Paddle's contract (``interp_v2`` kernels), which
 the reference's ``jax.image.resize`` departs from in places (ROADMAP §C):
@@ -175,6 +175,29 @@ def pad3d(x, padding, mode="constant", value=0.0, data_format="NCDHW",
           name=None):
     """Legacy 5-D pad (ref: pad3d_op)."""
     return pad(x, padding, mode=mode, value=value, data_format=data_format)
+
+
+def sparse_attention(query, key, value, sparse_csr_offset, sparse_csr_columns,
+                     key_padding_mask=None, attn_mask=None, name=None):
+    """Attention over ``[B, H, S, D]`` restricted to a CSR pattern a head
+    (``paddle.nn.functional.sparse_attention``): Paddle's offsets ``[B, H,
+    S + 1]`` and columns ``[B, H, nnz]``, or one ``[S + 1]`` / ``[nnz]``
+    pattern for every head (the reference's only form). Runs
+    ``sparse.nn.functional.attention``; masks are nonzero where kept."""
+    from ... import sparse as _sp
+    from ...core.tensor import _wrap
+    q = ensure_tensor(query)
+    B, H, S = (int(d) for d in q.shape[:3])
+    off, cols = ensure_tensor(sparse_csr_offset), \
+        ensure_tensor(sparse_csr_columns)
+    ones = _wrap(torch.ones(cols._value.numel(), dtype=torch.float32,
+                            device=cols._value.device))
+    shape = [S, S] if off.ndim == 1 else [B * H, S, S]
+    csr = _sp.sparse_csr_tensor(off.reshape([-1]), cols.reshape([-1]), ones,
+                                shape=shape)
+    return _sp.nn.functional.attention(query, key, value, csr,
+                                       key_padding_mask=key_padding_mask,
+                                       attn_mask=attn_mask)
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):

@@ -213,6 +213,13 @@ class Optimizer:
     clear_gradients = clear_grad
 
     def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        from ..static import in_static_mode
+        if in_static_mode():
+            # the static workflow: the Program's replay ends with backward
+            # and this optimizer's update (the append_backward contract)
+            from ..static.program import default_main_program
+            default_main_program().train_spec = (self, loss)
+            return None, []
         loss.backward()
         self.step()
         return None, [(p, p.grad) for p in self._params()]

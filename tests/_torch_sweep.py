@@ -240,16 +240,20 @@ FAMILIES = {
     "paddle_tpu_torch.distributed.moe_utils": "incubate",
     # the two registered model-parallel ops sweep beside the MoE ones
     "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers": "incubate",
-    "paddle_tpu_torch.optimizer.ops": "optimizer"}
+    "paddle_tpu_torch.optimizer.ops": "optimizer",
+    "paddle_tpu_torch.sparse": "sparse",
+    "paddle_tpu_torch.sparse.nn_conv": "sparse"}
 # by name, where a module's ops are split: the resampling ops of
-# nn.functional.common, and the losses test_torch_ops.py swept before
-# the rest of their module was ported
+# nn.functional.common, the losses test_torch_ops.py swept before the rest
+# of their module was ported, and sparse_attention
 OP_FAMILIES = {
     **{n: "resample" for n in (
         "interpolate", "upsample", "linear_interp", "bilinear_interp",
         "nearest_interp", "bicubic_interp", "trilinear_interp",
         "pixel_shuffle", "pixel_unshuffle", "channel_shuffle")},
-    **{n: None for n in ("cross_entropy", "mse_loss", "ctc_loss")}}
+    **{n: None for n in ("cross_entropy", "mse_loss", "ctc_loss")},
+    # nn.functional's public name for the sparse package's attention
+    "sparse_attention": "sparse"}
 
 
 def family(name):

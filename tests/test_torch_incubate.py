@@ -453,17 +453,20 @@ def test_surface_gaps_closed():
 
 # what the reference has and the port does not, by the slice that ports it
 LATER = {
-    "nn.functional": {"sparse_attention"},               # 7c, with sparse
     # the reference modules' own imports, not API
     "incubate.nn.functional": {"Optional", "Tensor", "jnp"},
     "nn.utils": {"jnp", "np"},
+    "static": {"warnings"},
+    "sparse": {"jnp", "to_tensor"},
+    "sparse.nn_conv": {"Optional", "Sequence", "jax", "jnp", "to_tensor"},
 }
 
 
 @pytest.mark.parametrize("ns", ["nn", "nn.functional", "nn.utils",
                                 "optimizer", "incubate", "incubate.nn",
                                 "incubate.nn.functional", "distributed",
-                                "models"])
+                                "models", "static", "static.program",
+                                "sparse", "sparse.nn_conv"])
 def test_public_names_match_the_reference(ns):
     def names(pkg):
         mod = importlib.import_module(f"{pkg}.{ns}")
@@ -472,18 +475,19 @@ def test_public_names_match_the_reference(ns):
     assert missing == LATER.get(ns, set()), sorted(missing)
 
 
-# the reference's modules that later slices port (ROADMAP §A 7c, 7d)
-LATER_MODULES = ("paddle_tpu.sparse", "paddle_tpu.static", "paddle_tpu.audio",
-                 "paddle_tpu.text", "paddle_tpu.geometric",
-                 "paddle_tpu.distribution", "paddle_tpu.device",
-                 "paddle_tpu.utils", "paddle_tpu.version")
+# the reference's modules that a later slice ports (ROADMAP §A 7d)
+LATER_MODULES = ("paddle_tpu.audio", "paddle_tpu.text",
+                 "paddle_tpu.geometric", "paddle_tpu.distribution",
+                 "paddle_tpu.device", "paddle_tpu.utils",
+                 "paddle_tpu.version")
 
 
 def test_registry_matches_the_reference():
     """Every op the reference has registered in this process is in the
-    port's registry once the port's counterpart of its module is imported,
-    but those of the modules later slices port (``sparse_*`` among them:
-    the reference's sweep specs register ``sparse_coalesce`` too)."""
+    port's registry once the port's counterpart of its module is imported
+    (the ``sparse_*`` names included: ``sparse_coalesce``, whose public
+    the reference's sweep specs set, comes with ``paddle_tpu_torch.
+    sparse``), but those of the modules 7d ports."""
     def module(n):
         d = JR[n]
         return getattr(d.public or d.fn, "__module__", "") or ""
@@ -494,8 +498,7 @@ def test_registry_matches_the_reference():
         except ModuleNotFoundError:
             pass
     missing = sorted(n for n in set(JR) - set(TR)
-                     if not (n.startswith("sparse_") or
-                             module(n).startswith(LATER_MODULES)))
+                     if not module(n).startswith(LATER_MODULES))
     assert missing == [], missing
 
 
